@@ -1,0 +1,18 @@
+"""MichiGAN in PyTorch for NVIDIA Hopper: the port of ``michigan_tpu``.
+
+The module names mirror ``michigan_tpu`` so each module's counterpart is easy
+to find.  Inside, the port uses PyTorch idiom: ``nn.Module``s in NCHW, plain
+functions on tensors, an explicit ``device``, ``torch.Generator``s for any
+randomness.  It shares the jax-free ``michigan_tpu.config`` so the CLI keeps
+the same ``Options`` and flags, and imports nothing else of the JAX package.
+
+Layer map:
+  ops          resize / pools, norms, masks, masked stats (plain torch)
+  ops/cuda     hand-written CUDA kernels (csrc/*.cu), built with nvcc at
+               first use and bound with ctypes, each beside its plain version
+  models       the flagship inference nets: SPADEB generator, encoders, IG
+  data         host prep (numpy / PIL / cv2) for single-image inference
+  model        inference orchestration (IG inpainting -> generator)
+  convert      weight bridge from the JAX package's variable trees
+  inference    the CLI (python -m michigan_tpu_torch.inference ...)
+"""

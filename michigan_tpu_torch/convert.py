@@ -1,0 +1,121 @@
+"""Weight bridge into the port's state_dicts (the inverse of
+michigan_tpu/training/convert.py).
+
+``state_dicts_from_flax(variables, opt)`` turns the JAX package's variable
+trees for netG and netIG (params / spectral / batch_stats, numpy or jax
+arrays) into state_dicts with the reference checkpoints' key names, which the
+port's nets load with ``load_state_dict(strict=True)``:
+
+  kernel (HWIO)                   -> weight (OIHW)
+  kernel of a transposed conv     -> weight (I, O, kh, kw), the equivalent
+                                     conv's spatial pre-flip undone
+  kernel + spectral u / v         -> weight_orig, weight_u, weight_v
+  batch_stats running_mean / var  -> running_mean, running_var
+                                     (+ num_batches_tracked = 0)
+
+``load_reference_state`` loads a released ``.pth`` state_dict.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+# IG module names -> reference nn.Sequential paths
+IG_RENAMES = (
+    (r"^encoder_(\d+)$", r"encoder.\1"),
+    (r"^middle_(\d+)$", r"middle.\1"),
+    (r"^decoder_(\d+)$", r"decoder.\1"),
+    (r"^conv1$", "conv_block.1"),
+    (r"^conv2$", "conv_block.5"),
+)
+G_RENAMES = ((r"^mlp_shared_0$", "mlp_shared.0"),)
+IG_TRANSPOSED = frozenset({("decoder_0",), ("decoder_3",)})
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _torch_prefix(path: Tuple[str, ...], renames) -> str:
+    parts = []
+    for p in path:
+        for pat, rep in renames:
+            if re.match(pat, p):
+                p = re.sub(pat, rep, p)
+                break
+        parts.append(p)
+    return "".join(p + "." for p in parts)
+
+
+def module_state_dict(variables: Mapping, renames=G_RENAMES,
+                      transposed=frozenset()) -> Dict[str, torch.Tensor]:
+    """One Flax module's variables -> its torch state_dict.  `renames` maps
+    Flax module names to torch paths; `transposed` holds the module paths
+    of transposed convs (the empty path for a transposed conv at the root)."""
+    spectral = {path: a for path, a in _leaves(variables.get("spectral", {}))}
+    sd: Dict[str, torch.Tensor] = {}
+    t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
+    for path, a in _leaves(variables["params"]):
+        mod, leaf = path[:-1], path[-1]
+        pre = _torch_prefix(mod, renames)
+        if leaf == "bias":
+            sd[pre + "bias"] = t(a)
+        elif leaf == "kernel":
+            if mod in transposed:  # K[h,w,i,o] = W[i,o,k-1-h,k-1-w]
+                w = np.transpose(a[::-1, ::-1], (2, 3, 0, 1))
+            else:  # HWIO -> OIHW
+                w = np.transpose(a, (3, 2, 0, 1))
+            if mod + ("u",) in spectral:
+                sd[pre + "weight_orig"] = t(w)
+                sd[pre + "weight_u"] = t(spectral[mod + ("u",)])
+                sd[pre + "weight_v"] = t(spectral[mod + ("v",)])
+            else:
+                sd[pre + "weight"] = t(w)
+        else:
+            raise KeyError(f"no torch counterpart for param {'/'.join(path)}")
+    for path, a in _leaves(variables.get("batch_stats", {})):
+        pre = _torch_prefix(path[:-1], renames)
+        sd[pre + path[-1]] = t(a)
+        sd[pre + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd
+
+
+def state_dicts_from_flax(variables: Mapping, opt) -> Dict[str, Dict[str, torch.Tensor]]:
+    """{'netG': tree, 'netIG': tree} -> {'netG': state_dict, 'netIG': ...}."""
+    out = {}
+    if "netG" in variables:
+        out["netG"] = module_state_dict(variables["netG"], G_RENAMES)
+    if opt.use_ig and "netIG" in variables:
+        out["netIG"] = module_state_dict(variables["netIG"], IG_RENAMES, IG_TRANSPOSED)
+    return out
+
+
+# keys of the released checkpoints that the port never runs
+# (BackgroundEncode2.layer4 is built but never applied, encoder.py:284)
+_UNUSED_PREFIXES = ("backgroud_enc.layer4.",)
+
+
+def load_reference_state(net: torch.nn.Module, state: Mapping[str, torch.Tensor]) -> None:
+    """Load a released state_dict: strip DataParallel's 'module.', drop the
+    keys the port never runs, and give convs the reference built without a
+    bias (bias=not use_spectral_norm) a zero bias, as the JAX package's init
+    does; any other missing or unexpected key raises."""
+    state = {re.sub(r"^module\.", "", k): v for k, v in state.items()}
+    state = {k: v for k, v in state.items() if not k.startswith(_UNUSED_PREFIXES)}
+    own = net.state_dict()
+    unexpected = sorted(set(state) - set(own))
+    missing = sorted(set(own) - set(state))
+    bad = [k for k in missing if not k.endswith((".bias", ".num_batches_tracked"))]
+    if unexpected or bad:
+        raise KeyError(f"checkpoint mismatch: unexpected {unexpected}, missing {bad}")
+    for k in missing:
+        state[k] = torch.zeros_like(own[k])
+    net.load_state_dict(state, strict=True)

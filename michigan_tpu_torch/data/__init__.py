@@ -1,0 +1,3 @@
+"""Host prep for single-image inference: numpy / PIL / cv2 copies of the
+jax-free parts of michigan_tpu.data (importing that package pulls in jax),
+plus a numpy-only synthetic batch for runs without the image libraries."""

@@ -1,0 +1,91 @@
+"""SPADEB generator (port of michigan_tpu/models/generator.py), NCHW.
+
+  input_ref, input_tag  (N,label_nc,H,W) one-hot segmentations
+  orient                (N,2,H,W) decoded (sin2t, cos2t)*mask (use_ig), or
+                        (N,1,H,W) raw [0,255] dense orientation
+  image_ref, image_tag  (N,3,H,W) in [-1,1]
+  noise                 (N,3,H,W) noise pyramid in [0,1]
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from michigan_tpu_torch.models.architecture import SPADEResnetBlock
+from michigan_tpu_torch.models.encoders import BackgroundEncode2, ImageEncoder3
+from michigan_tpu_torch.ops.resize import resize_nearest, upsample2x_nearest
+
+
+def orient_to_two_channel(orient255: torch.Tensor, hair_mask: torch.Tensor) -> torch.Tensor:
+    """Raw [0,255] orientation -> (sin 2t, cos 2t) * hair mask."""
+    t = orient255 / 255.0 * math.pi
+    return torch.cat([torch.sin(2 * t), torch.cos(2 * t)], dim=1) * hair_mask
+
+
+class SPADEBGenerator(nn.Module):
+    """Partial-conv encoder seed -> 7 SPADE blocks with 2x nearest upsampling
+    -> per-scale background composite -> conv_img -> tanh."""
+
+    def __init__(self, opt):
+        super().__init__()
+        unported = [f for f in ("use_vae", "orient_random_disturb") if getattr(opt, f)]
+        if not opt.use_encoder or opt.Image_encoder_mode != "partialconv":
+            unported.append("an encoder other than --use_encoder partialconv")
+        if not opt.noise_background:
+            unported.append("BackgroundEncode (no --noise_background)")
+        if opt.num_upsampling_layers not in ("normal", "more"):
+            unported.append(f"--num_upsampling_layers {opt.num_upsampling_layers}")
+        if unported:
+            raise NotImplementedError(f"not ported: {', '.join(unported)}")
+        self.opt = opt
+        nf = opt.ngf
+        sw, sh = opt.latent_size()
+        self.fc = ImageEncoder3(opt, sw, sh)
+        self.head_0 = SPADEResnetBlock(16 * nf, 16 * nf, opt)
+        self.G_middle_0 = SPADEResnetBlock(16 * nf, 16 * nf, opt)
+        self.G_middle_1 = SPADEResnetBlock(16 * nf, 16 * nf, opt)
+        self.up_0 = SPADEResnetBlock(16 * nf, 8 * nf, opt)
+        self.up_1 = SPADEResnetBlock(8 * nf, 4 * nf, opt)
+        self.up_2 = SPADEResnetBlock(4 * nf, 2 * nf, opt)
+        self.up_3 = SPADEResnetBlock(2 * nf, 1 * nf, opt)
+        self.conv_img = nn.Conv2d(nf, 3, 3, padding=1)
+        self.backgroud_enc = BackgroundEncode2(opt)
+
+    def forward(self, input_ref, input_tag, orient, image_ref, image_tag, noise):
+        opt = self.opt
+        seg = input_tag
+        hair_mask = input_tag[:, 1:2]
+        x = self.fc(image_ref, input_ref[:, 1:2], hair_mask)
+
+        if not opt.no_orientation:
+            o = orient if opt.use_ig else orient_to_two_channel(orient, hair_mask)
+            seg = torch.cat([seg, o.to(seg.dtype)], dim=1)
+
+        back_feats, back_masks = self.backgroud_enc(image_tag, input_tag, noise)
+        H, W = hair_mask.shape[2:]
+        hair_masks = [resize_nearest(hair_mask, (H // f, W // f)) for f in (8, 4, 2)]
+        hair_masks.append(hair_mask)
+
+        def composite(xx, i):
+            if opt.bf_direct_add:
+                return back_feats[i] + xx
+            return back_feats[i] * (1 - hair_masks[i]) + xx * (1 - back_masks[i])
+
+        def clip(xx):
+            return torch.where(xx > opt.clip_th, 0.0, xx) if opt.use_clip else xx
+
+        x = self.head_0(x, seg)
+        x = upsample2x_nearest(x)
+        x = self.G_middle_0(x, seg)
+        if opt.num_upsampling_layers == "more":
+            x = upsample2x_nearest(x)
+        x = clip(self.G_middle_1(x, seg))
+        for i, block in enumerate((self.up_0, self.up_1, self.up_2, self.up_3)):
+            x = upsample2x_nearest(x)
+            x = composite(clip(block(x, seg)), i)
+        x = self.conv_img(F.leaky_relu(x, 0.2))
+        return torch.tanh(x)

@@ -1,0 +1,170 @@
+"""Conv primitives with the reference's state_dict layout (port of
+michigan_tpu/models/layers.py), NCHW.
+
+  spectral_norm(nn.Conv2d)          -> SpectralConv2d: weight_orig + weight_u/weight_v
+  spectral_norm(nn.ConvTranspose2d) -> SpectralConvTranspose2d (norm over dim=1)
+  PartialConv2d                     -> PartialConv
+  nn.ReflectionPad2d                -> reflect_pad
+  plain convs                       -> nn.Conv2d
+
+Spectral norm runs as torch's does in eval: sigma = u . (W v) from the stored
+u and v, with no power iteration.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from michigan_tpu_torch.ops.norms import power_iteration, spectral_sigma
+
+
+def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
+    return F.pad(x, (p, p, p, p), mode="reflect")
+
+
+class SpectralConv2d(nn.Module):
+    """spectral_norm(nn.Conv2d(...)) in eval mode; W is flattened OIHW ->
+    (O, I*kh*kw) for sigma, as torch does."""
+
+    transposed = False
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, dilation: int = 1, bias: bool = True):
+        super().__init__()
+        k = kernel_size
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        shape = (in_ch, out_ch, k, k) if self.transposed else (out_ch, in_ch, k, k)
+        self.weight_orig = nn.Parameter(torch.empty(shape))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+        self.register_buffer("weight_u", torch.zeros(out_ch))
+        self.register_buffer("weight_v", torch.zeros(in_ch * k * k))
+
+    def w_mat(self) -> torch.Tensor:
+        w = self.weight_orig.transpose(0, 1) if self.transposed else self.weight_orig
+        return w.reshape(w.shape[0], -1)
+
+    def weight(self) -> torch.Tensor:
+        return self.weight_orig / spectral_sigma(self.w_mat(), self.weight_u, self.weight_v)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight(), self.bias, self.stride, self.padding,
+                        self.dilation)
+
+
+class SpectralConvTranspose2d(SpectralConv2d):
+    """spectral_norm(nn.ConvTranspose2d(...)); the weight is torch's
+    (I, O, kh, kw) and spectral norm uses dim=1 (out-channels first)."""
+
+    transposed = True
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 2,
+                 padding: int = 1, bias: bool = True):
+        super().__init__(in_ch, out_ch, kernel_size, stride, padding, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight(), self.bias, self.stride, self.padding)
+
+
+class PartialConv(nn.Conv2d):
+    """NVIDIA partial convolution with a single-channel mask
+    (partialconv2d.py:15-86): returns (out, updated_mask), where
+    out = (conv(x*m) * winsize / (conv(m) + 1e-8) + b) * clamp(conv(m), 0, 1)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 2,
+                 padding: int = 1, bias: bool = True):
+        super().__init__(in_ch, out_ch, kernel_size, stride, padding, bias=bias)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor):
+        k = self.kernel_size[0]
+        ones = torch.ones(1, 1, k, k, dtype=torch.float32, device=x.device)
+        update_mask = F.conv2d(mask.float(), ones, None, self.stride, self.padding)
+        mask_ratio = float(k * k) / (update_mask + 1e-8)
+        update_mask = update_mask.clamp(0.0, 1.0)
+        mask_ratio = mask_ratio * update_mask
+        raw = F.conv2d(x * mask.to(x.dtype), self.weight, None, self.stride, self.padding)
+        mask_ratio = mask_ratio.to(raw.dtype)
+        if self.bias is not None:
+            out = (raw * mask_ratio + self.bias.view(1, -1, 1, 1)) * update_mask.to(raw.dtype)
+        else:
+            out = raw * mask_ratio
+        return out, update_mask
+
+
+class ConvBlock(nn.Module):
+    """reflect pad -> conv -> relu (MaskGAN_networks.py:114-173 as the
+    background encoder configures it: pad 'reflect', norm 'none')."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int,
+                 padding: int):
+        super().__init__()
+        self.padding = padding
+        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.conv(reflect_pad(x, self.padding)))
+
+
+# ---------------------------------------------------------------------------
+# seeded initialisation (--init_type), as michigan_tpu/models/layers.py:weight_init
+# ---------------------------------------------------------------------------
+
+def _fans(module: nn.Module, w: torch.Tensor):
+    # fans over the equivalent-conv kernel: in = I*kh*kw, out = O*kh*kw
+    if getattr(module, "transposed", False):
+        i, o = w.shape[0], w.shape[1]
+    else:
+        o, i = w.shape[0], w.shape[1]
+    rf = w[0, 0].numel()
+    return i * rf, o * rf
+
+
+def _draw(shape, init_type: str, gain: float, fan_in: int, fan_out: int,
+          gen: torch.Generator) -> torch.Tensor:
+    if init_type == "normal":
+        return torch.randn(shape, generator=gen) * gain
+    if init_type == "xavier":
+        return torch.randn(shape, generator=gen) * (gain * math.sqrt(2.0 / (fan_in + fan_out)))
+    if init_type == "xavier_uniform":
+        a = math.sqrt(6.0 / (fan_in + fan_out))
+        return (torch.rand(shape, generator=gen) * 2 - 1) * a
+    if init_type == "kaiming":
+        return torch.randn(shape, generator=gen) * math.sqrt(2.0 / fan_in)
+    if init_type == "none":
+        # torch's default conv init, kaiming_uniform_(a=sqrt(5))
+        b = 1.0 / math.sqrt(fan_in)
+        return (torch.rand(shape, generator=gen) * 2 - 1) * b
+    raise NotImplementedError(f"initialization method [{init_type}]")
+
+
+POWER_ITERS = 10  # enough for sigma to settle on the random init's spectral norm
+
+
+@torch.no_grad()
+def init_weights(net: nn.Module, gen: torch.Generator, init_type: str = "xavier",
+                 gain: Optional[float] = 0.02) -> None:
+    """Seeded weights on the CPU generator `gen`: conv kernels by --init_type,
+    biases zero, and for spectral convs unit u/v from a few power iterations
+    (so sigma is the weight's spectral norm, as in a trained checkpoint)."""
+    gain = 0.02 if gain is None else gain
+    for m in net.modules():
+        if isinstance(m, SpectralConv2d):
+            w = m.weight_orig
+        elif isinstance(m, nn.Conv2d):
+            w = m.weight
+        else:
+            continue
+        fan_in, fan_out = _fans(m, w)
+        w.copy_(_draw(tuple(w.shape), init_type, gain, fan_in, fan_out, gen))
+        if m.bias is not None:
+            m.bias.zero_()
+        if isinstance(m, SpectralConv2d):
+            w_mat = m.w_mat().detach().cpu()
+            u0 = F.normalize(torch.randn(w_mat.shape[0], generator=gen), dim=0)
+            u, v = power_iteration(w_mat, u0, POWER_ITERS)
+            m.weight_u.copy_(u)
+            m.weight_v.copy_(v)

@@ -1,0 +1,95 @@
+"""SPADE conditional normalisation (port of
+michigan_tpu/models/normalization.py), NCHW.
+
+The param-free norm of netG=spadeb is sync batch norm; in eval it uses the
+running statistics, so every SPADE norm is one `spade_modulate` launch with
+invstd = rsqrt(running_var + 1e-5).  The instance-norm variant is one
+`fused_instance_norm` launch with gamma and beta.
+"""
+
+from __future__ import annotations
+
+import re
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from michigan_tpu_torch.ops.cuda.spade import fused_instance_norm, spade_modulate
+from michigan_tpu_torch.ops.norms import batch_norm_eval, instance_norm
+from michigan_tpu_torch.ops.resize import resize_nearest
+
+
+def parse_spade_config(config_text: str):
+    """'spadesyncbatch3x3' -> ('syncbatch', 3) (normalization.py:74-77)."""
+    m = re.search(r"spade(\D+)(\d)x\d", config_text)
+    return str(m.group(1)), int(m.group(2))
+
+
+class ParamFreeNorm(nn.Module):
+    """Affine-free instance / batch / syncbatch norm.  Batch norms hold the
+    buffers of torch's BatchNorm2d (running_mean, running_var,
+    num_batches_tracked); only eval mode is ported."""
+
+    def __init__(self, norm_type: str, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        if norm_type not in ("instance", "batch", "syncbatch"):
+            raise ValueError(norm_type)
+        self.norm_type, self.eps = norm_type, eps
+        if norm_type != "instance":
+            self.register_buffer("running_mean", torch.zeros(num_features))
+            self.register_buffer("running_var", torch.ones(num_features))
+            self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.norm_type == "instance":
+            return instance_norm(x, self.eps)
+        if self.training:
+            raise NotImplementedError("training-mode batch statistics are not ported")
+        return batch_norm_eval(x, self.running_mean, self.running_var, self.eps)
+
+
+class SPADE(nn.Module):
+    """out = param_free_norm(x) * (1 + gamma(seg)) + beta(seg), fused into
+    one kernel.  gamma and beta run as ONE conv with concatenated output
+    channels, whose two halves the kernel reads in place; the state_dict
+    keeps mlp_gamma and mlp_beta."""
+
+    def __init__(self, config_text: str, norm_nc: int, label_nc: int, nhidden: int = 128):
+        super().__init__()
+        self.norm_type, ks = parse_spade_config(config_text)
+        self.pw = ks // 2
+        self.param_free_norm = ParamFreeNorm(self.norm_type, norm_nc)
+        self.mlp_shared = nn.Sequential(
+            nn.Conv2d(label_nc, nhidden, ks, padding=self.pw), nn.ReLU()
+        )
+        self.mlp_gamma = nn.Conv2d(nhidden, norm_nc, ks, padding=self.pw)
+        self.mlp_beta = nn.Conv2d(nhidden, norm_nc, ks, padding=self.pw)
+        self._gamma_beta_key, self._gamma_beta = None, None
+
+    def gamma_beta_conv(self):
+        """(weight, bias) of mlp_gamma and mlp_beta as one conv.  Without
+        autograd the concatenation is kept until a parameter is written or
+        replaced (load_state_dict, init, a move to another device)."""
+        params = (self.mlp_gamma.weight, self.mlp_beta.weight,
+                  self.mlp_gamma.bias, self.mlp_beta.bias)
+        if torch.is_grad_enabled():
+            return torch.cat(params[:2]), torch.cat(params[2:])
+        key = tuple((p.device, p.data_ptr(), p._version) for p in params)
+        if key != self._gamma_beta_key:
+            self._gamma_beta_key = key
+            self._gamma_beta = (torch.cat(params[:2]), torch.cat(params[2:]))
+        return self._gamma_beta
+
+    def forward(self, x: torch.Tensor, segmap: torch.Tensor) -> torch.Tensor:
+        seg = resize_nearest(segmap, x.shape[2:]).to(x.dtype)
+        actv = self.mlp_shared(seg)
+        weight, bias = self.gamma_beta_conv()
+        gamma, beta = F.conv2d(actv, weight, bias, padding=self.pw).chunk(2, dim=1)
+        if self.norm_type == "instance":
+            return fused_instance_norm(x, gamma.contiguous(), beta.contiguous())
+        if self.training:
+            raise NotImplementedError("training-mode batch statistics are not ported")
+        pfn = self.param_free_norm
+        invstd = torch.rsqrt(pfn.running_var + pfn.eps)
+        return spade_modulate(x, pfn.running_mean, invstd, gamma, beta)
