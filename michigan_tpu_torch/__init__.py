@@ -7,12 +7,18 @@ randomness.  It shares the jax-free ``michigan_tpu.config`` so the CLI keeps
 the same ``Options`` and flags, and imports nothing else of the JAX package.
 
 Layer map:
-  ops          resize / pools, norms, masks, masked stats (plain torch)
+  ops          resize / pools, norms, masks, masked stats, the oriented
+               filter banks and dense orientation (plain torch)
   ops/cuda     hand-written CUDA kernels (csrc/*.cu), built with nvcc at
                first use and bound with ctypes, each beside its plain version
-  models       the flagship inference nets: SPADEB generator, encoders, IG
-  data         host prep (numpy / PIL / cv2) for single-image inference
-  model        inference orchestration (IG inpainting -> generator)
+  models       the inference nets: SPADEB generator, encoders, IG and SIG
+  data         host prep (numpy / PIL / cv2) for single-image inference and
+               demo edits; seeded numpy-only samples
+  model        inference orchestration (IG or SIG inpainting -> generator)
   convert      weight bridge from the JAX package's variable trees
   inference    the CLI (python -m michigan_tpu_torch.inference ...)
+  demo         the headless edit engine and its CLI
+               (python -m michigan_tpu_torch.demo --stroke ...)
+  cal_orientation  the dense-orientation CLI
+               (python -m michigan_tpu_torch.cal_orientation ...)
 """

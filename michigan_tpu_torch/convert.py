@@ -2,8 +2,8 @@
 michigan_tpu/training/convert.py).
 
 ``state_dicts_from_flax(variables, opt)`` turns the JAX package's variable
-trees for netG and netIG (params / spectral / batch_stats, numpy or jax
-arrays) into state_dicts with the reference checkpoints' key names, which the
+trees for netG, netIG and netSIG (params / spectral / batch_stats, numpy or
+jax arrays) into state_dicts with the reference checkpoints' key names, which the
 port's nets load with ``load_state_dict(strict=True)``:
 
   kernel (HWIO)                   -> weight (OIHW)
@@ -24,7 +24,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-# IG module names -> reference nn.Sequential paths
+# IG / SIG module names -> reference nn.Sequential paths
 IG_RENAMES = (
     (r"^encoder_(\d+)$", r"encoder.\1"),
     (r"^middle_(\d+)$", r"middle.\1"),
@@ -89,12 +89,16 @@ def module_state_dict(variables: Mapping, renames=G_RENAMES,
 
 
 def state_dicts_from_flax(variables: Mapping, opt) -> Dict[str, Dict[str, torch.Tensor]]:
-    """{'netG': tree, 'netIG': tree} -> {'netG': state_dict, 'netIG': ...}."""
+    """{'netG': tree, 'netIG': tree, 'netSIG': tree} -> {'netG': state_dict,
+    ...}; netIG with --use_ig, netSIG with --use_stroke (the same network
+    and key names as netIG, with 5 input channels)."""
     out = {}
     if "netG" in variables:
         out["netG"] = module_state_dict(variables["netG"], G_RENAMES)
     if opt.use_ig and "netIG" in variables:
         out["netIG"] = module_state_dict(variables["netIG"], IG_RENAMES, IG_TRANSPOSED)
+    if opt.use_stroke and "netSIG" in variables:
+        out["netSIG"] = module_state_dict(variables["netSIG"], IG_RENAMES, IG_TRANSPOSED)
     return out
 
 

@@ -44,6 +44,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "welford.cuh"
+
 namespace {
 
 constexpr int kModThreads = 256;
@@ -179,45 +181,11 @@ int launch_spade_modulate(const void* x, const void* mean, const void* invstd,
 // instance_norm
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void welford_add(float v, float& mean, float& m2, float& n) {
-  n += 1.f;
-  const float d = v - mean;
-  mean += d / n;
-  m2 += d * (v - mean);
-}
-
-// Chan's rule: merge (mean_b, m2_b, n_b) into (mean, m2, n).
-__device__ __forceinline__ void welford_merge(float& mean, float& m2, float& n,
-                                              float mean_b, float m2_b, float n_b) {
-  const float total = n + n_b;
-  if (n_b == 0.f) return;
-  const float d = mean_b - mean;
-  const float wb = n_b / total;
-  mean += d * wb;
-  m2 += m2_b + d * d * n * wb;
-  n = total;
-}
-
-__device__ __forceinline__ void warp_merge(float& mean, float& m2, float& n) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float mb = __shfl_down_sync(0xffffffffu, mean, off);
-    const float m2b = __shfl_down_sync(0xffffffffu, m2, off);
-    const float nb = __shfl_down_sync(0xffffffffu, n, off);
-    welford_merge(mean, m2, n, mb, m2b, nb);
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kNormThreads)
 instance_norm_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
                      const T* __restrict__ beta, T* __restrict__ out, int64_t hw,
                      float eps, int act, bool vec) {
-  __shared__ float s_mean[kNormThreads / 32];
-  __shared__ float s_m2[kNormThreads / 32];
-  __shared__ float s_n[kNormThreads / 32];
-  __shared__ float s_stats[2];
-
   const int64_t base = (int64_t)blockIdx.x * hw;
   const T* xp = x + base;
 
@@ -235,30 +203,10 @@ instance_norm_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
       welford_add(to_f32(xp[i]), mean, m2, n);
   }
 
-  // merge threads: within each warp, then across warps in the first warp
-  warp_merge(mean, m2, n);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    s_mean[warp] = mean;
-    s_m2[warp] = m2;
-    s_n[warp] = n;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    constexpr int kWarps = kNormThreads / 32;
-    mean = lane < kWarps ? s_mean[lane] : 0.f;
-    m2 = lane < kWarps ? s_m2[lane] : 0.f;
-    n = lane < kWarps ? s_n[lane] : 0.f;
-    warp_merge(mean, m2, n);
-    if (lane == 0) {
-      s_stats[0] = mean;
-      s_stats[1] = rsqrtf(m2 / n + eps);  // biased variance
-    }
-  }
-  __syncthreads();
-  const float mu = s_stats[0];
-  const float rstd = s_stats[1];
+  // merge the threads' states, then the rsqrt of the biased variance
+  const float2 stats = block_mean_rstd<kNormThreads>(mean, m2, n, eps);
+  const float mu = stats.x;
+  const float rstd = stats.y;
 
   // pass 2: normalise, modulate, activate
   T* op = out + base;

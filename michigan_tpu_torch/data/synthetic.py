@@ -1,8 +1,14 @@
-"""A seeded synthetic sample with the keys, shapes and dtypes of
-``single_inference_data``, made with numpy alone (no image files, PIL or
-cv2): a hair ellipse over the upper face, a disk-shaped hole inside it, a
-smooth orientation field and noise around 0.5.  For runs where the image
-libraries are absent, such as the card smoke test."""
+"""Seeded synthetic samples made with numpy alone (no image files, PIL or
+cv2), for runs where the image libraries are absent, such as the card smoke
+test.
+
+synthetic_inference_data  the keys, shapes and dtypes of
+    ``single_inference_data``: a hair ellipse over the upper face, a
+    disk-shaped hole inside it, a smooth orientation field, noise around 0.5.
+synthetic_stroke_data  a stroke edit as ``demo_inference_data`` gives it,
+    less ``orient_stroke``, which the caller makes from ``mask_stroke`` on
+    its device (``michigan_tpu_torch.demo.engine.orient_stroke_plane``).
+"""
 
 from __future__ import annotations
 
@@ -42,4 +48,38 @@ def synthetic_inference_data(opt, seed: int, batch: int = 1) -> Dict[str, np.nda
     samples = [sample() for _ in range(batch)]
     out = {k: np.stack([x[k] for x in samples]).astype(np.float32) for k in samples[0]}
     out["instance"] = np.zeros((1,), np.float32)
+    return out
+
+
+def synthetic_stroke_data(opt, seed: int) -> Dict[str, np.ndarray]:
+    """One stroke edit on the sample of ``synthetic_inference_data``: a
+    stroke 6 px wide (at 512^2) through the hair, as the headless demo draws
+    it; the hole is the stroke dilated by a 50 px disk, within the hair
+    (the demo's dilate_hole, computed here as a distance); the orientation
+    map covers the hair less the hole, so the edit takes the two-stage
+    (IG prefill, then SIG) branch.  Batch 1."""
+    out = synthetic_inference_data(opt, seed)
+    rng = np.random.default_rng(seed + 1)
+    s = opt.crop_size
+    hair = out["label_tag"][0, ..., 0]
+    yy, xx = np.mgrid[0:s, 0:s].astype(np.float32)
+    ys, xs = np.nonzero(hair)
+    centre = np.array([ys.mean(), xs.mean()], np.float32)
+    direction = np.array([1.0, rng.uniform(0.3, 0.7)], np.float32)
+    direction /= np.linalg.norm(direction)
+    half = 60.0 * s / 512
+    a, b = centre - half * direction, centre + half * direction
+    # distance of every pixel to the segment a-b
+    py, px = yy - a[0], xx - a[1]
+    ab = b - a
+    t = np.clip((py * ab[0] + px * ab[1]) / float(ab @ ab), 0.0, 1.0)
+    dist = np.hypot(py - t * ab[0], px - t * ab[1])
+    stroke = hair * (dist < 3.0 * s / 512)
+    hole = hair * (dist < 25.0 * s / 512)
+    orient_mask = hair * (1 - hole)
+    plane = lambda a_: a_[None, ..., None].astype(np.float32)
+    out["hole"] = plane(hole)
+    out["mask_stroke"] = plane(stroke)
+    out["orient_rgb_mask"] = plane(orient_mask)
+    out["orient_rgb"] = (out["orient_rgb"] * orient_mask[None, ..., None]).astype(np.float32)
     return out

@@ -35,15 +35,18 @@ def device_from_gpu_ids(gpu_ids: str) -> torch.device:
 
 
 def load_released(model, opt) -> bool:
-    """Load checkpoints/<name>/<which_epoch>_net_G.pth and the IG's
-    InpaintingModel_gen.pth ['generator'] when present; True if netG came
-    from a file."""
+    """Load checkpoints/<name>/<which_epoch>_net_G.pth, the IG's
+    InpaintingModel_gen.pth ['generator'] (--use_ig) and the SIG's
+    SInpaintingModel_gen.pth ['generator'] (--use_stroke) when present; True
+    if netG came from a file."""
     from michigan_tpu_torch.convert import load_reference_state
 
     base = os.path.join(opt.checkpoints_dir, opt.name)
     paths = {"netG": (os.path.join(base, f"{opt.which_epoch}_net_G.pth"), None)}
     if opt.use_ig:
         paths["netIG"] = (os.path.join(base, opt.ig_model_name), "generator")
+    if opt.use_stroke:
+        paths["netSIG"] = (os.path.join(base, opt.sig_model_name), "generator")
     loaded = {}
     for name, (path, key) in paths.items():
         if os.path.exists(path):

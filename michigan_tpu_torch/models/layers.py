@@ -49,6 +49,9 @@ class SpectralConv2d(nn.Module):
         return w.reshape(w.shape[0], -1)
 
     def weight(self) -> torch.Tensor:
+        """The spectrally normalised weight; with `bias`, what a fused
+        kernel that computes the conv itself takes (conv3x3_in_act), as the
+        JAX package's TorchConv(..., return_kernel=True) hands it out."""
         return self.weight_orig / spectral_sigma(self.w_mat(), self.weight_u, self.weight_v)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

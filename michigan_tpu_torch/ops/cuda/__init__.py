@@ -1,1 +1,21 @@
-"""Hand-written CUDA kernels (``michigan_tpu_torch/csrc``) and their wrappers."""
+"""Hand-written CUDA kernels (``michigan_tpu_torch/csrc``) and their wrappers.
+
+Each wrapper counts its kernel's launches in its ``launches`` attribute;
+``reset_launch_counts`` and ``launch_counts`` read all of them, so a run can
+show which kernels its path went through.
+"""
+
+from michigan_tpu_torch.ops.cuda.epilogue import conv3x3_in_act
+from michigan_tpu_torch.ops.cuda.orient import filterbank_orientation
+from michigan_tpu_torch.ops.cuda.spade import fused_instance_norm, spade_modulate
+
+KERNELS = (spade_modulate, fused_instance_norm, conv3x3_in_act, filterbank_orientation)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}

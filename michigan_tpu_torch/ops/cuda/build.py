@@ -8,9 +8,11 @@ return ``cudaGetLastError()``):
          -Xcompiler -fPIC -o _build/<name>_<hash>.so csrc/<name>.cu
 
 The library lands in ``michigan_tpu_torch/_build/`` (listed in .gitignore),
-named by a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one loads at once.  Nothing is built when this module is
-imported: the CPU tests import every module of the port.
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source rebuilds and an unchanged one loads at once.
+``build_all`` starts one nvcc per missing library, all at once.  Nothing is
+built when this module is imported: the CPU tests import every module of the
+port.
 """
 
 from __future__ import annotations
@@ -48,28 +50,47 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}_{digest}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=None) -> dict:
+    """Compile csrc/<name>.cu for every name (default: every library) whose
+    library does not exist yet, one nvcc each, all started together.
+    Returns {name: path}; raises with nvcc's output if any build fails."""
+    names = list(SIGNATURES) if names is None else list(names)
+    outs = {name: library_path(name) for name in names}
+    todo = {name: out for name, out in outs.items() if not out.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+        procs = {}
+        for name, out in todo.items():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+            procs[name] = (cmd, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        failed = []
+        for name, (cmd, tmp, proc) in procs.items():
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"nvcc failed ({proc.returncode}) building {name}.cu:\n"
+                              f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+            else:
+                # atomic: a concurrent process never loads a partial file
+                os.replace(tmp, todo[name])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless the library for this source exists."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {name}.cu:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
-    return out
+    return build_all([name])[name]
 
 
 _P = ctypes.c_void_p
@@ -86,6 +107,14 @@ SIGNATURES = {
         "instance_norm_bf16": (_P, _P, _P, _P, _I64, _I64, ctypes.c_float,
                                ctypes.c_int, _P),
     },
+    "filterbank": {
+        "filterbank_orientation_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
+    },
+    "conv_in_act": {
+        "conv3x3_in_act_tile_pixels": (),
+        "conv3x3_in_act_f32": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                               _I64, _I64, ctypes.c_float, ctypes.c_int, _P),
+    },
 }
 
 
@@ -98,3 +127,10 @@ def load(name: str) -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def check_launch(kernel: str, err: int) -> None:
+    """Raise if a launcher returned a CUDA error (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")

@@ -1,0 +1,99 @@
+"""Fused 3x3 conv + instance norm + activation (+ residual): CUDA kernel,
+plain version, wrapper.
+
+Source: ``michigan_tpu_torch/csrc/conv_in_act.cu`` (built by ``build.py``).
+
+conv3x3_in_act(x_pad, w, b, dilation, act, eps, residual)
+    Replaces ``michigan_tpu/ops/pallas/epilogue.py:conv3x3_in_act``: a 3x3
+    convolution with dilation d of an input already reflect-padded by d,
+    (N, C, H+2d, W+2d), with the OIHW weight (Co, C, 3, 3) and bias (Co,);
+    then instance norm per (n, co) with the biased variance; then 'relu',
+    'lrelu' (0.2) or nothing; then ``+ residual`` (N, Co, H, W) if given.
+    The inpainters' dilated resblocks run as two calls each under
+    --use_pallas_epilogue (models/inpaint.py).
+
+The kernel is compute-bound (C*9 FMAs per output); the design notes are in
+the CUDA source.  It computes the convolution in its own body, in fp32 FMAs,
+with no cuDNN or cuBLAS call.  A wrapper runs the plain PyTorch version for
+CPU tensors only.  For a CUDA tensor it checks dtype, shape, contiguity and
+device, launches the kernel on the current stream and counts the launch;
+anything the kernel does not take raises.  There is no fallback on CUDA
+tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from michigan_tpu_torch.ops.cuda import build
+from michigan_tpu_torch.ops.cuda.spade import _ACTS, _act
+from michigan_tpu_torch.ops.norms import instance_norm
+
+
+def conv3x3_in_act_plain(x_pad, w, b, dilation=1, act=None, eps=1e-5, residual=None):
+    """The unfused composition the kernel replaces (epilogue.py:_xla_reference)."""
+    y = _act(instance_norm(F.conv2d(x_pad, w, b, dilation=dilation), eps), act)
+    return y if residual is None else residual + y
+
+
+def _check(name: str, t: torch.Tensor, shape, like: torch.Tensor) -> None:
+    if t.device != like.device:
+        raise ValueError(f"{name} is on {t.device}, x_pad on {like.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"kernel takes float32, {name} is {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def conv3x3_in_act(x_pad: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                   dilation: int = 1, act: Optional[str] = None, eps: float = 1e-5,
+                   residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused [3x3 conv of a pre-padded NCHW input -> instance norm -> act
+    (-> + residual)]; see the module docstring."""
+    if act not in _ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    if x_pad.device.type == "cpu":
+        return conv3x3_in_act_plain(x_pad, w, b, dilation, act, eps, residual)
+    if x_pad.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x_pad.device}")
+    if x_pad.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"expected NCHW x_pad and OIHW w, got {tuple(x_pad.shape)}, "
+                         f"{tuple(w.shape)}")
+    n, c, hp, wp = x_pad.shape
+    co = w.shape[0]
+    d = int(dilation)
+    h, wd = hp - 2 * d, wp - 2 * d
+    if d < 1 or h < 1 or wd < 1 or n * c * co == 0:
+        raise ValueError(f"x_pad {tuple(x_pad.shape)} with dilation {dilation} leaves "
+                         "no output")
+    if n > 65535 or co > 65535 * 64:
+        raise ValueError(f"too many samples or channels for one launch: {n}, {co}")
+    _check("x_pad", x_pad, (n, c, hp, wp), x_pad)
+    _check("w", w, (co, c, 3, 3), x_pad)
+    if b is not None:
+        _check("b", b, (co,), x_pad)
+    if residual is not None:
+        _check("residual", residual, (n, co, h, wd), x_pad)
+        if residual.data_ptr() % 16:
+            raise ValueError("residual must be 16-byte aligned")
+    lib = build.load("conv_in_act")
+    tile = lib.conv3x3_in_act_tile_pixels()
+    out = torch.empty((n, co, h, wd), dtype=torch.float32, device=x_pad.device)
+    scratch = torch.empty(n * co * (-(-h * wd // tile)) * 3, dtype=torch.float32,
+                          device=x_pad.device)
+    err = lib.conv3x3_in_act_f32(
+        x_pad.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+        None if residual is None else residual.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), scratch.numel(), n, c, co, h, wd, d, float(eps), _ACTS[act],
+        torch.cuda.current_stream(x_pad.device).cuda_stream)
+    build.check_launch("conv3x3_in_act", err)
+    conv3x3_in_act.launches += 1
+    return out
+
+
+conv3x3_in_act.launches = 0

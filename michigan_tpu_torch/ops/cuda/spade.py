@@ -96,11 +96,6 @@ def _check_x(x: torch.Tensor) -> None:
         raise ValueError("x must be NCHW-contiguous")
 
 
-def _check_err(kernel: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
-
-
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -129,7 +124,7 @@ def spade_modulate(x: torch.Tensor, mean: torch.Tensor, invstd: torch.Tensor,
     err = fn(x.data_ptr(), mean.data_ptr(), invstd.data_ptr(), gamma.data_ptr(),
              beta.data_ptr(), out.data_ptr(), n, c, h * w, gb_stride,
              torch.cuda.current_stream(x.device).cuda_stream)
-    _check_err("spade_modulate", err)
+    build.check_launch("spade_modulate", err)
     spade_modulate.launches += 1
     return out
 
@@ -159,20 +154,9 @@ def fused_instance_norm(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
              beta.data_ptr() if beta is not None else None, out.data_ptr(),
              n * c, h * w, float(eps), _ACTS[act],
              torch.cuda.current_stream(x.device).cuda_stream)
-    _check_err("fused_instance_norm", err)
+    build.check_launch("fused_instance_norm", err)
     fused_instance_norm.launches += 1
     return out
 
 
 fused_instance_norm.launches = 0
-
-KERNELS = (spade_modulate, fused_instance_norm)
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
-
-
-def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}

@@ -6,13 +6,20 @@ is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: float32 atol 1e-4, rtol 1e-5; bfloat16 atol 1e-2, rtol 1.6e-2
-(about two bf16 ulps).
+Tolerances: the fused norms float32 atol 1e-4, rtol 1e-5, bfloat16 atol
+1e-2, rtol 1.6e-2 (about two bf16 ulps); conv3x3_in_act atol 1e-4, rtol
+1e-4 (float32 sums of C*9 products in another order); the filter bank's
+response rtol 1e-4, atol 1e-3, its argmax off on at most 0.1% of pixels and
+then by one orientation (near-ties under another summation order).
 """
 
 import pytest
 import torch
 
+from michigan_tpu_torch.ops import cuda as kernels
+from michigan_tpu_torch.ops import filters
+from michigan_tpu_torch.ops.cuda import epilogue as E
+from michigan_tpu_torch.ops.cuda import orient as O
 from michigan_tpu_torch.ops.cuda import spade as K
 
 pytestmark = pytest.mark.cuda
@@ -27,6 +34,7 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False  # the plain versions' convolutions
     return torch.device("cuda")
 
 
@@ -42,7 +50,7 @@ def test_kernels_match_plain(cuda_device, dtype, hw):
     x, g, b = (rand(gen, shape, cuda_device, dtype) for _ in range(3))
     mean = torch.randn(64, generator=gen).to(cuda_device)
     inv = torch.rand(64, generator=gen).add(0.5).to(cuda_device)
-    K.reset_launch_counts()
+    kernels.reset_launch_counts()
     got = K.spade_modulate(x, mean, inv, g, b)
     torch.testing.assert_close(got.float(), K.spade_modulate_plain(x, mean, inv, g, b).float(),
                                **TOLS[dtype])
@@ -52,7 +60,8 @@ def test_kernels_match_plain(cuda_device, dtype, hw):
             want = K.fused_instance_norm_plain(x, *gb, act=act)
             torch.testing.assert_close(got.float(), want.float(), **TOLS[dtype])
     torch.cuda.synchronize()
-    assert K.launch_counts() == {"spade_modulate": 1, "fused_instance_norm": 6}
+    assert kernels.launch_counts() == {"spade_modulate": 1, "fused_instance_norm": 6,
+                                       "conv3x3_in_act": 0, "filterbank_orientation": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -97,3 +106,79 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         K.spade_modulate(x2, stats, stats, x2.transpose(2, 3), x2)
     with pytest.raises(ValueError, match="sample strides"):
         K.spade_modulate(x2, stats, stats, torch.zeros((2, 8, 8, 8), device=cuda_device)[:, :4], x2)
+
+
+# (n, c, co, h, w, dilation, act, residual): the path's shape, batch 2, a
+# channel count that is not a multiple of the 64-channel tile, a plane whose
+# size is not a multiple of 4 (no float4 stores) nor of the 64-pixel tile
+EPILOGUE_CASES = [(1, 256, 256, 64, 64, 2, "relu", False), (1, 256, 256, 64, 64, 1, None, True),
+                  (2, 128, 128, 16, 16, 1, "lrelu", True), (1, 20, 70, 9, 7, 2, "relu", True),
+                  (1, 3, 5, 5, 5, 1, None, False)]
+
+
+@pytest.mark.parametrize("n,c,co,h,w,d,act,res", EPILOGUE_CASES)
+def test_conv3x3_in_act_matches_plain(cuda_device, n, c, co, h, w, d, act, res):
+    gen = torch.Generator().manual_seed(3)
+    x = rand(gen, (n, c, h + 2 * d, w + 2 * d), cuda_device, torch.float32)
+    wt = rand(gen, (co, c, 3, 3), cuda_device, torch.float32) * 0.05
+    b = rand(gen, (co,), cuda_device, torch.float32)
+    r = rand(gen, (n, co, h, w), cuda_device, torch.float32) if res else None
+    kernels.reset_launch_counts()
+    got = E.conv3x3_in_act(x, wt, b, dilation=d, act=act, residual=r)
+    want = E.conv3x3_in_act_plain(x, wt, b, dilation=d, act=act, residual=r)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert kernels.launch_counts()["conv3x3_in_act"] == 1
+
+
+@pytest.mark.parametrize("mode", ["gabor", "dog"])
+@pytest.mark.parametrize("n,h,w", [(1, 512, 512), (2, 37, 53)])  # whole and ragged tiles
+def test_filterbank_matches_plain(cuda_device, mode, n, h, w):
+    gen = torch.Generator().manual_seed(4)
+    gray = (torch.rand((n, 1, h, w), generator=gen) * 255).to(cuda_device)
+    bank = filters.bank(mode, cuda_device)
+    idx, conf = O.filterbank_orientation(gray, bank)
+    p_idx, p_conf = O.filterbank_orientation_plain(gray, bank)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(conf, p_conf, rtol=1e-4, atol=1e-3)
+    off = (idx - p_idx) % 32
+    assert (off != 0).float().mean().item() <= 1e-3
+    assert bool(((off == 0) | (off == 1) | (off == 31)).all())
+
+
+def test_filterbank_ties_take_the_first_index(cuda_device):
+    """An all-zero plane clamps every response to 0: idx 0, conf 0."""
+    idx, conf = O.filterbank_orientation(torch.zeros((1, 1, 40, 40), device=cuda_device),
+                                         filters.bank("dog", cuda_device))
+    torch.cuda.synchronize()
+    assert idx.dtype == torch.int32 and not idx.any() and not conf.any()
+
+
+def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    bank = filters.bank("dog", cuda_device)
+    gray = torch.zeros((1, 1, 8, 8), device=cuda_device)
+    with pytest.raises(TypeError):
+        O.filterbank_orientation(gray.double(), bank)
+    with pytest.raises(ValueError, match="N, 1, H, W"):
+        O.filterbank_orientation(torch.zeros((1, 2, 8, 8), device=cuda_device), bank)
+    with pytest.raises(ValueError, match="bank must be"):
+        O.filterbank_orientation(gray, bank[:, :, :, :16])
+    with pytest.raises(ValueError, match="contiguous"):
+        O.filterbank_orientation(torch.zeros((1, 1, 8, 8), device=cuda_device).transpose(2, 3)
+                                 [:, :, :, :4], bank)
+    x = torch.zeros((1, 4, 10, 10), device=cuda_device)
+    w = torch.zeros((4, 4, 3, 3), device=cuda_device)
+    with pytest.raises(TypeError):
+        E.conv3x3_in_act(x.double(), w.double(), None)
+    with pytest.raises(ValueError, match="shape"):
+        E.conv3x3_in_act(x, torch.zeros((4, 4, 5, 5), device=cuda_device), None)
+    with pytest.raises(ValueError, match="shape"):
+        E.conv3x3_in_act(x, w, torch.zeros(3, device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        E.conv3x3_in_act(x.transpose(2, 3), w, None)
+    with pytest.raises(ValueError, match="residual"):
+        E.conv3x3_in_act(x, w, None, residual=torch.zeros((1, 4, 10, 10), device=cuda_device))
+    with pytest.raises(ValueError, match="no output"):
+        E.conv3x3_in_act(x, w, None, dilation=5)
+    with pytest.raises(ValueError, match="w is on cpu"):
+        E.conv3x3_in_act(x, w.cpu(), None)

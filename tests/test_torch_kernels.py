@@ -1,10 +1,13 @@
-"""The port's fused-norm kernels: plain versions against the JAX package's
-composition and its Pallas functions (interpret mode on the CPU).
+"""The port's kernels: plain versions against the JAX package's composition
+and its Pallas functions (interpret mode on the CPU).
 
 Inputs are made in NHWC with numpy; the port takes NCHW, so each test
-transposes at the boundary.  Tolerance rtol 1e-5, atol 1e-5 (float32, sums
-taken in another order).  The kernels themselves are held to these plain
-versions on a card by tests/test_torch_cuda.py and chip_smoke.py.
+transposes at the boundary.  Tolerances (float32, sums taken in another
+order): the fused norms rtol 1e-5, atol 1e-5; conv3x3_in_act rtol 1e-4,
+atol 1e-4 and the filter bank's response rtol 1e-4, atol 1e-3 with argmax
+flips on < 0.1% of pixels, as the JAX package's own Pallas tests hold them
+(tests/test_pallas_kernels.py).  The kernels themselves are held to these
+plain versions on a card by tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import numpy as np
@@ -14,8 +17,15 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from michigan_tpu.ops import filters as jax_filters
 from michigan_tpu.ops.norms import instance_norm as jax_instance_norm
+from michigan_tpu.ops.pallas import epilogue as pallas_epilogue
 from michigan_tpu.ops.pallas import spade as pallas
+from michigan_tpu.ops.pallas.filterbank import filterbank_orientation as pallas_filterbank
+from michigan_tpu_torch.ops import filters
+from michigan_tpu_torch.ops import cuda as kernels
+from michigan_tpu_torch.ops.cuda import epilogue as E
+from michigan_tpu_torch.ops.cuda import orient as O
 from michigan_tpu_torch.ops.cuda import spade as K
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -110,12 +120,84 @@ def test_spade_modulate_plain_matches_pallas(rng):
     np.testing.assert_allclose(port_mod(x, mean, inv, g, b), np.asarray(ref), **TOL)
 
 
+EPILOGUE_CASES = [(2, "relu", False), (1, None, True), (1, "lrelu", False)]
+
+
+def epilogue_inputs(rng, d, with_res):
+    """tests/test_pallas_kernels.py's cases: batch 2, C = Co = 128, 16^2."""
+    x = rng.standard_normal((2, 16 + 2 * d, 16 + 2 * d, 128)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 128, 128)) * 0.05).astype(np.float32)
+    b = rng.standard_normal(128).astype(np.float32)
+    res = rng.standard_normal((2, 16, 16, 128)).astype(np.float32) if with_res else None
+    return x, w, b, res
+
+
+def port_epilogue(x, w, b, res, d, act):
+    w_oihw = torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
+    return nhwc(E.conv3x3_in_act(nchw(x), w_oihw, torch.from_numpy(b), dilation=d, act=act,
+                                 residual=None if res is None else nchw(res)))
+
+
+@pytest.mark.parametrize("d,act,with_res", EPILOGUE_CASES)
+def test_conv3x3_in_act_plain_matches_jax_composition(rng, d, act, with_res):
+    x, w, b, res = epilogue_inputs(rng, d, with_res)
+    ref = pallas_epilogue._xla_reference(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), d, act,
+                                         1e-5, None if res is None else jnp.asarray(res))
+    np.testing.assert_allclose(port_epilogue(x, w, b, res, d, act), np.asarray(ref),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d,act,with_res", EPILOGUE_CASES)
+def test_conv3x3_in_act_plain_matches_pallas(rng, d, act, with_res):
+    x, w, b, res = epilogue_inputs(rng, d, with_res)
+    ref = pallas_epilogue.conv3x3_in_act(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                                         dilation=d, act=act,
+                                         residual=None if res is None else jnp.asarray(res))
+    np.testing.assert_allclose(port_epilogue(x, w, b, res, d, act), np.asarray(ref),
+                               rtol=1e-4, atol=1e-4)
+
+
+def assert_orientation_close(idx, conf, j_idx, j_conf):
+    np.testing.assert_allclose(conf.numpy(), np.asarray(j_conf), rtol=1e-4, atol=1e-3)
+    assert (idx.numpy() != np.asarray(j_idx)).mean() < 1e-3
+
+
+@pytest.mark.parametrize("mode", ["gabor", "dog"])
+def test_orientation_response_matches_jax(rng, mode):
+    gray = (rng.standard_normal((1, 40, 48, 1)) * 10).astype(np.float32)
+    idx, conf = filters.orientation_response(torch.from_numpy(gray), mode)
+    assert idx.dtype == torch.int32 and idx.shape == conf.shape == (1, 40, 48)
+    assert_orientation_close(idx, conf, *jax_filters.orientation_response(jnp.asarray(gray), mode))
+
+
+@pytest.mark.parametrize("mode", ["gabor", "dog"])
+def test_filterbank_plain_matches_pallas(rng, mode):
+    gray = (rng.standard_normal((1, 40, 48, 1)) * 10).astype(np.float32)
+    idx, conf = O.filterbank_orientation(nchw(gray), filters.bank(mode, torch.device("cpu")))
+    assert_orientation_close(idx, conf, *pallas_filterbank(jnp.asarray(gray), mode, tile_h=16))
+
+
+def test_banks_equal_the_jax_package():
+    np.testing.assert_array_equal(filters._gabor_bank_np(), jax_filters._gabor_bank_np())
+    np.testing.assert_array_equal(filters._dog_bank_np(), jax_filters._dog_bank_np())
+
+
+def test_filterbank_ties_take_the_first_index():
+    """An all-zero plane: every clamped response is 0, so idx is 0."""
+    idx, conf = filters.orientation_response(torch.zeros(2, 20, 24, 1), "dog")
+    assert not idx.any() and not conf.any()
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_nothing(rng):
-    K.reset_launch_counts()
+    kernels.reset_launch_counts()
     x, mean, inv, g, b = mod_inputs(rng, (1, 4, 4, 8))
     port_mod(x, mean, inv, g, b)
     port_in(x, g, b, "relu")
-    assert K.launch_counts() == {"spade_modulate": 0, "fused_instance_norm": 0}
+    xp, w, bias, res = epilogue_inputs(rng, 1, True)
+    port_epilogue(xp, w, bias, res, 1, None)
+    filters.orientation_response(torch.zeros(1, 20, 24, 1), "gabor")
+    assert kernels.launch_counts() == {"spade_modulate": 0, "fused_instance_norm": 0,
+                                       "conv3x3_in_act": 0, "filterbank_orientation": 0}
 
 
 def test_wrappers_raise_on_devices_without_a_kernel():
@@ -124,5 +206,11 @@ def test_wrappers_raise_on_devices_without_a_kernel():
         K.fused_instance_norm(x)
     with pytest.raises(ValueError, match="no kernel"):
         K.spade_modulate(x, torch.empty(2, device="meta"), torch.empty(2, device="meta"), x, x)
+    with pytest.raises(ValueError, match="no kernel"):
+        E.conv3x3_in_act(x, torch.empty(2, 2, 3, 3, device="meta"), None)
+    with pytest.raises(ValueError, match="no kernel"):
+        O.filterbank_orientation(x[:, :1], torch.empty(O.BANK_SHAPE, device="meta"))
     with pytest.raises(ValueError, match="activation"):
         K.fused_instance_norm(torch.zeros(1, 1, 2, 2), act="gelu")
+    with pytest.raises(ValueError, match="activation"):
+        E.conv3x3_in_act(torch.zeros(1, 1, 4, 4), torch.zeros(1, 1, 3, 3), None, act="gelu")

@@ -20,12 +20,13 @@ from michigan_tpu.models.architecture import SPADEResnetBlock as JBlock
 from michigan_tpu.models.encoders import BackgroundEncode2 as JBack
 from michigan_tpu.models.encoders import ImageEncoder3 as JEnc
 from michigan_tpu.models.inpaint import InpaintGenerator as JIG
+from michigan_tpu.models.inpaint import SInpaintGenerator as JSIG
 from michigan_tpu.training.convert import convert_generator, convert_inpaint
 from michigan_tpu_torch import convert
 from michigan_tpu_torch.models import layers as tl
 from michigan_tpu_torch.models.architecture import SPADEResnetBlock
 from michigan_tpu_torch.models.encoders import BackgroundEncode2, ImageEncoder3
-from michigan_tpu_torch.models.inpaint import InpaintGenerator
+from michigan_tpu_torch.models.inpaint import InpaintGenerator, SInpaintGenerator
 from michigan_tpu_torch.model import MichiGANModel
 
 BLOCK_TOL = 1e-4
@@ -175,6 +176,23 @@ def test_inpaint_generator(ig_pair, rng):
     assert max_err(got, jax.jit(jm.apply)(v, jnp.asarray(x))) <= IG_TOL
 
 
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_sinpaint_generator(rng, epilogue):
+    """SIG with two resblocks on a 32^2 input (as tests/test_pallas_kernels.py
+    :141), with and without --use_pallas_epilogue on both sides: JAX runs its
+    Pallas conv3x3_in_act in interpret mode, the port the kernel's plain
+    version."""
+    opt = opt_small(use_stroke=True, use_pallas_epilogue=epilogue)
+    jm = JSIG(opt=opt, blocks=2)
+    x = rng.uniform(size=(1, 32, 32, 5)).astype(np.float32)
+    v = to_np(jit_init(jm)(jax.random.PRNGKey(9), jnp.asarray(x)))
+    net = SInpaintGenerator(blocks=2, epilogue=epilogue)
+    net.load_state_dict(convert.state_dicts_from_flax({"netSIG": v}, opt)["netSIG"], strict=True)
+    with torch.no_grad():
+        got = nhwc(net.eval()(nchw(x)))
+    assert max_err(got, jax.jit(jm.apply)(v, jnp.asarray(x))) <= IG_TOL
+
+
 def assert_trees_equal(a, b):
     assert jax.tree_util.tree_structure(a) == jax.tree_util.tree_structure(b)
     for x, y in zip(jax.tree_util.tree_leaves(a), jax.tree_util.tree_leaves(b)):
@@ -187,6 +205,19 @@ def test_round_trip_inpaint(ig_pair):
     opt, _, v = ig_pair
     sd = convert.state_dicts_from_flax({"netIG": v}, opt)["netIG"]
     InpaintGenerator().load_state_dict(sd, strict=True)
+    assert_trees_equal(convert_inpaint(sd), v)
+
+
+def test_round_trip_sinpaint(rng):
+    """netSIG's full tree (12 blocks, shapes from tracing its init, values
+    random) survives JAX -> port -> convert_inpaint exactly."""
+    opt = opt_small(use_stroke=True)
+    shapes = jax.eval_shape(JSIG(opt=opt).init, jax.random.PRNGKey(10),
+                            jnp.zeros((1, 32, 32, 5)))
+    v = jax.tree_util.tree_map(
+        lambda a: rng.standard_normal(a.shape).astype(np.float32), shapes)
+    sd = convert.state_dicts_from_flax({"netSIG": v}, opt)["netSIG"]
+    MichiGANModel(opt).netSIG.load_state_dict(sd, strict=True)
     assert_trees_equal(convert_inpaint(sd), v)
 
 
