@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives two paths of the port at full width on seeded random weights and
+Drives three paths of the port at full width on seeded random weights and
 seeded numpy samples, each through its own entry points:
 
 - the flagship inference path (IG orientation inpainting -> partial-conv
@@ -15,7 +15,11 @@ seeded numpy samples, each through its own entry points:
   of the uncovered hair, SIG stroke inpainting, the SPADEB generator, the
   crop and uint8 encode on the card) through the demo engine's
   `orient_stroke_plane` and `render_edit`, and the dense-orientation tool's
-  `compute_orientation_map`.
+  `compute_orientation_map`;
+- one G+D training step of the config of record (bench.py's training flags:
+  multiscale D, every default loss, TTUR Adam, ngf 64, ndf 64, 512^2, batch
+  8, fp32; torch's default conv init) through the trainer's
+  `TrainStep.g_step` and `d_step`.
 
 Phases, each on its own line:
 
@@ -49,10 +53,35 @@ Phases, each on its own line:
      compute_orientation_map per 512^2 and 1024^2 image, and a profiler
      breakdown of one edit
 
-Then a JSON line of per-kernel results for the stroke edit (launches in
-phase 7's run; times summed over one edit's calls) and, last, the device
-line.  Any failure exits non-zero without the device line; so does a machine
-without CUDA, and a directory without the rest of the repository.
+  10. the training step's two new kernels against their plain versions:
+      conv3x3_same_lowch at VGG features_2's (16, 64, 512^2) and a ragged
+      (2, 64, 37, 53) (max abs error within 1e-4 of the output's largest
+      magnitude), filterbank_orientation_backward at (8, 1, 512^2) for Gabor
+      and DoG (within 1e-4 of the gradient's largest magnitude); device
+      times of every kernel of the step at its shapes, kernel and plain
+  11. the training step on the card at batch 8 (smaller only if 8 does not
+      fit): launches per step exactly 29 fused_instance_norm (the frozen
+      IG), 1 conv3x3_same_lowch (features_2 of the no-grad tag+ref VGG
+      tower), 1 filterbank_orientation and 1 filterbank_orientation_backward
+      (the ORIENT/CONFIDENCE loss), no spade_modulate or conv3x3_in_act;
+      losses finite, netG and netD changed, netIG and VGG19 bit-identical;
+      one warm-up then 5 timed steps (ms/step, img/s, peak device memory)
+      and one profiled step
+  12. one G+D step on the card and on the CPU (plain versions) from the same
+      weights, batch 1, crop PARITY_CROP at full width: per-term losses
+      within rtol 1e-4, atol 1e-5; netG after the G step and netD after the
+      D step (both started from the card's post-G state) by the scale-aware
+      rule of tests/test_training.py; netG's running statistics and
+      spectral u / v within rtol 1e-4, atol 1e-5
+
+Then a JSON line of per-kernel results: for the training step's kernels
+(fused_instance_norm, filterbank_orientation and its backward,
+conv3x3_same_lowch) launches in phase 11's counted step and times summed over
+one step's calls; for spade_modulate and conv3x3_in_act, which the step does
+not run, launches in phase 7's stroke edit and times over one edit.  Last,
+the device line.  Any failure exits non-zero without the device line; so
+does a machine without CUDA, and a directory without the rest of the
+repository.
 """
 
 from __future__ import annotations
@@ -95,17 +124,41 @@ EPI_TOL = dict(atol=1e-4, rtol=1e-4)
 FB_TOL = dict(rtol=1e-4, atol=1e-3)
 FB_IDX_FRAC = 1e-3
 FLAGSHIP_LAUNCHES = {"spade_modulate": 18, "fused_instance_norm": 29, "conv3x3_in_act": 0,
-                     "filterbank_orientation": 0}
+                     "filterbank_orientation": 0, "filterbank_orientation_backward": 0,
+                     "conv3x3_same_lowch": 0}
 STROKE_LAUNCHES = {"spade_modulate": 18, "fused_instance_norm": 10, "conv3x3_in_act": 48,
-                   "filterbank_orientation": 1}
+                   "filterbank_orientation": 1, "filterbank_orientation_backward": 0,
+                   "conv3x3_same_lowch": 0}
+STEP_LAUNCHES = {"spade_modulate": 0, "fused_instance_norm": 29, "conv3x3_in_act": 0,
+                 "filterbank_orientation": 1, "filterbank_orientation_backward": 1,
+                 "conv3x3_same_lowch": 1}
 REPLACES = {"spade_modulate": "michigan_tpu/ops/pallas/spade.py:285",
             "fused_instance_norm": "michigan_tpu/ops/pallas/spade.py:207",
             "conv3x3_in_act": "michigan_tpu/ops/pallas/epilogue.py:89",
-            "filterbank_orientation": "michigan_tpu/ops/pallas/filterbank.py:44"}
+            "filterbank_orientation": "michigan_tpu/ops/pallas/filterbank.py:44",
+            # the TPU kernel is forward-only; its gradient is the custom VJP here
+            "filterbank_orientation_backward": "michigan_tpu/ops/filters.py:232",
+            "conv3x3_same_lowch": "michigan_tpu/ops/pallas/conv_lowch.py:99"}
 SOURCES = {"spade_modulate": "michigan_tpu_torch/csrc/spade_norm.cu",
            "fused_instance_norm": "michigan_tpu_torch/csrc/spade_norm.cu",
            "conv3x3_in_act": "michigan_tpu_torch/csrc/conv_in_act.cu",
-           "filterbank_orientation": "michigan_tpu_torch/csrc/filterbank.cu"}
+           "filterbank_orientation": "michigan_tpu_torch/csrc/filterbank.cu",
+           "filterbank_orientation_backward": "michigan_tpu_torch/csrc/filterbank.cu",
+           "conv3x3_same_lowch": "michigan_tpu_torch/csrc/conv_lowch.cu"}
+# the training step: bench.py's training flags (the config of record), with
+# torch's default conv init as the other phases: under the default gain-0.02
+# xavier init the fp32 noise of the 8^2 head layers' gradients (card against
+# card alone moves 0.015% of netG's elements past phase 12's rule) put the
+# card-vs-CPU count at 0.097-0.111%, across the rule's 0.1%; here 0.06-0.07%
+TRAIN_FLAGS = ("--netG spadeb --use_encoder --use_ig --noise_background --expand_mask_be "
+               "--expand_th 5 --random_expand_mask --num_upsampling_layers more "
+               "--init_type none --gpu_ids 0").split()
+TRAIN_BATCHES = (8, 4, 2)  # the slice's batch first; smaller only if it does not fit
+TRAIN_STEPS = 5
+EXTRA_DILATE = 2  # the expected random mask dilation (encoder.py:294)
+PARITY_CROP = 512
+LOWCH_SHAPES = [(16, 64, 512, 512), (2, 64, 37, 53)]  # features_2 at batch 8; a ragged tile
+NEW_KERNEL_REL = 1e-4  # of the reference's largest magnitude
 SEED = 0
 
 
@@ -185,10 +238,19 @@ def profile_once(fn, torch):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=12)
-    # the table's own footer: device time summed over the kernels
-    busy = re.search(r"Self (?:CUDA|device) time total: ([\d.]+)(us|ms|s)\b", table)
-    busy_ms = float(busy.group(1)) * {"us": 1e-3, "ms": 1.0, "s": 1e3}[busy.group(2)]
-    return busy_ms, wall_ms, table
+    # the union of the device activities' intervals; CUPTI's "Command Buffer
+    # Full" rows mark a stalled host, not device work
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name != "Command Buffer Full")
+    busy_us, end = 0.0, -math.inf
+    for s, e in spans:
+        busy_us += max(0.0, e - max(s, end))
+        end = max(end, e)
+    if not spans:  # no device events listed: the table's footer, summed over kernels
+        busy = re.search(r"Self (?:CUDA|device) time total: ([\d.]+)(us|ms|s)\b", table)
+        busy_us = float(busy.group(1)) * {"us": 1.0, "ms": 1e3, "s": 1e6}[busy.group(2)]
+    return busy_us * 1e-3, wall_ms, table
 
 
 def psnr_u8(a, b, np):
@@ -259,6 +321,75 @@ def fb_compare(torch, got, want):
     return ok, (conf - p_conf).abs().max().item(), frac
 
 
+def train_grays(torch):
+    """(8, 1, 512, 512) gray planes of eight strand images: the orientation
+    loss's input at the training step's shape, textured so that the bank's
+    clamped responses have no exact ties."""
+    from michigan_tpu_torch.ops.filters import rgb_to_gray255
+
+    imgs = torch.stack([strand_image(torch, 512, SEED + i) for i in range(8)]) * 2 - 1
+    return rgb_to_gray255(imgs).permute(0, 3, 1, 2).contiguous()
+
+
+def scale_aware(got, want, max_lr):
+    """tests/test_training.py:212-247's rule over {name: tensor} on the CPU:
+    every element within 2.5 max_lr (Adam's first step moves a parameter by
+    about +-lr, so a near-zero gradient of the other sign gives 2 lr), at
+    most 0.1% of the elements (or 8) beyond float noise.  Returns (ok, max
+    diff, elements beyond noise, elements)."""
+    worst, n_bad, n_tot = 0.0, 0, 0
+    for k, w in want.items():
+        d = (got[k].double() - w.double()).abs()
+        worst = max(worst, d.max().item())
+        n_bad += int((d > 1e-4 * w.double().abs() + 1e-5).sum())
+        n_tot += d.numel()
+    return worst <= 2.5 * max_lr and n_bad <= max(1e-3 * n_tot, 8), worst, n_bad, n_tot
+
+
+def step_breakdown(torch, trainer, batch):
+    """Host-clock ms (median of 3, each ending in a synchronize) of the
+    training step's parts, each run alone on the step's batch; nothing is
+    written (parameters, buffers) and nothing is kept."""
+    from michigan_tpu_torch.models.layers import frozen_buffers
+
+    m = trainer.model
+    n = batch["image_tag"].shape[0]
+    with frozen_buffers(m.netG):
+        pre = m.preprocess(batch)
+        orient = m.orient_for_training(pre)
+        with torch.no_grad():
+            fake = m.generate_fake(pre, orient, EXTRA_DILATE).requires_grad_()
+
+        def g_fwd_bwd():
+            m.generate_fake(pre, orient, EXTRA_DILATE).sum().backward()
+
+        def vgg():
+            sum(f.sum() for f in m.vgg(fake)).backward()
+            with torch.no_grad():
+                m.vgg(torch.cat([pre["image_tag"], pre["image_ref"]]))
+
+        def d_fwd_bwd():
+            pf, pr = m.discriminate(pre["input_tag"], fake, pre["image_tag"], orient)
+            sum(t.sum() for s_ in pf + pr for t in s_).backward()
+
+        def recompute():
+            with torch.no_grad():
+                m.generate_fake(pre, orient, EXTRA_DILATE)
+
+        parts = {
+            "frozen IG inpainting (no grad)": lambda: m.orient_for_training(pre),
+            "netG forward + backward": g_fwd_bwd,
+            "VGG19: fake tower + backward, tag+ref tower (no grad)": vgg,
+            f"netD on fake+real ({2 * n}) forward + backward": d_fwd_bwd,
+            "netG forward without grad (the D step's recompute)": recompute,
+        }
+        out = {k: host_ms(f, torch, 3) for k, f in parts.items()}
+    for net in (m.netG, m.netD):
+        for p in net.parameters():
+            p.grad = None
+    return out
+
+
 def run():
     import torch
 
@@ -270,6 +401,7 @@ def run():
         from michigan_tpu_torch.data.synthetic import (
             synthetic_inference_data,
             synthetic_stroke_data,
+            synthetic_train_data,
         )
         from michigan_tpu_torch.demo import engine
         from michigan_tpu_torch.inference import parse_options
@@ -279,8 +411,11 @@ def run():
         from michigan_tpu_torch.ops import filters
         from michigan_tpu_torch.ops.cuda import build
         from michigan_tpu_torch.ops.cuda import epilogue as E
+        from michigan_tpu_torch.ops.cuda import lowch as LC
         from michigan_tpu_torch.ops.cuda import orient as O
         from michigan_tpu_torch.ops.cuda import spade as K
+        from michigan_tpu_torch.train import parse_options as train_options
+        from michigan_tpu_torch.training.train_step import TrainStep
         from michigan_tpu_torch.utils.imaging import tensor2im
     except ImportError as e:
         print(f"FAIL: the port is not importable here: {e}", file=sys.stderr)
@@ -595,7 +730,7 @@ def run():
               f"{tp * 1e3:.1f} us; launched from Python kernel {hk * 1e3:.1f} us, plain "
               f"{hp * 1e3:.1f} us {tag}", flush=True)
     del gray, fk, fp
-    for kind in REPLACES:
+    for kind in (k for k in REPLACES if STROKE_LAUNCHES[k]):
         phase(9, f"{kind} per stroke edit: device kernel {edit_ms[kind]:.3f} ms, plain "
                  f"{edit_plain_ms[kind]:.3f} ms {tag}")
 
@@ -637,10 +772,235 @@ def run():
              f"under the profiler {tag}; top device time:")
     print(table, flush=True)
 
+    del smodel, sbatch, u8, sfake, s_orient, img, hair
+    torch.cuda.empty_cache()
+
+    # 10 --------------------------------------------------------------
+    new_err = {"conv3x3_same_lowch": 0.0, "filterbank_orientation_backward": 0.0}
+    cgen = torch.Generator(device="cuda").manual_seed(SEED)
+    failed = []
+    for shape in LOWCH_SHAPES:
+        # features_2's input is features_0's ReLU output; kaiming-scaled weights
+        x = torch.randn(shape, generator=cgen, device="cuda").relu_()
+        w = torch.randn((64, shape[1], 3, 3), generator=cgen, device="cuda") \
+            * math.sqrt(2 / (9 * shape[1]))
+        got, want = LC.conv3x3_same_lowch(x, w), LC.conv3x3_same_lowch_plain(x, w)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        new_err["conv3x3_same_lowch"] = max(new_err["conv3x3_same_lowch"], err)
+        ok = rel <= NEW_KERNEL_REL
+        print(f"[phase 10] conv3x3_same_lowch {shape} vs F.conv2d: max_abs_err {err:.3e}, "
+              f"{rel:.2e} of the output's largest magnitude {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failed.append(("conv3x3_same_lowch", shape))
+    del x, w, got, want
+    grays = train_grays(torch)
+    for mode in ("gabor", "dog"):
+        bank = filters.bank(mode, grays.device)
+        idx, conf = O.filterbank_orientation(grays, bank)
+        fwd_ok, _, frac = fb_compare(torch, (idx, conf), O.filterbank_orientation_plain(grays, bank))
+        dconf = torch.randn(conf.shape, generator=cgen, device="cuda")
+        got = O.filterbank_orientation_backward(dconf, idx, conf, bank)
+        want = O.filterbank_orientation_backward_plain(dconf, idx, conf, bank)
+        g = grays.clone().requires_grad_()
+        (auto,) = torch.autograd.grad(O.filterbank_orientation_plain(g, bank)[1], g, dconf)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        auto_rel = (auto - want).abs().max().item() / scale
+        new_err["filterbank_orientation_backward"] = max(
+            new_err["filterbank_orientation_backward"], err)
+        ok = err / scale <= NEW_KERNEL_REL and fwd_ok
+        print(f"[phase 10] filterbank_orientation_backward {mode} (8,1,512,512): max_abs_err "
+              f"{err:.3e}, {err / scale:.2e} of the gradient's largest magnitude; the plain "
+              f"version vs autograd through the plain forward {auto_rel:.2e}; forward argmax "
+              f"differs on {frac:.2e} of pixels {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(("filterbank_orientation_backward", mode))
+    if failed:
+        return fail(f"kernel disagrees with its plain version: {failed}")
+    del g, auto, got, want
+    # device time of every kernel of the step at its shapes, summed over one
+    # step's calls (the frozen IG runs at batch 8)
+    step_ms, step_plain_ms = {}, {}
+    x = torch.randn(LOWCH_SHAPES[0], generator=cgen, device="cuda").relu_()
+    w = torch.randn((64, 64, 3, 3), generator=cgen, device="cuda") * math.sqrt(2 / 576)
+    step_ms["conv3x3_same_lowch"] = median_ms(lambda: LC.conv3x3_same_lowch(x, w), torch, True,
+                                              inner=5)
+    step_plain_ms["conv3x3_same_lowch"] = median_ms(
+        lambda: LC.conv3x3_same_lowch_plain(x, w), torch, True, inner=5)
+    del x, w
+    bank = filters.bank("gabor", grays.device)
+    idx, conf = O.filterbank_orientation(grays, bank)
+    for k, fk, fp in (
+            ("filterbank_orientation", lambda: O.filterbank_orientation(grays, bank),
+             lambda: O.filterbank_orientation_plain(grays, bank)),
+            ("filterbank_orientation_backward",
+             lambda: O.filterbank_orientation_backward(dconf, idx, conf, bank),
+             lambda: O.filterbank_orientation_backward_plain(dconf, idx, conf, bank))):
+        step_ms[k], step_plain_ms[k] = (median_ms(f, torch, True, inner=5) for f in (fk, fp))
+    step_ms["fused_instance_norm"] = step_plain_ms["fused_instance_norm"] = 0.0
+    for (c, h, act), calls in IN_SHAPES.items():
+        inp = kernel_inputs(torch, "fused_instance_norm", c, h, torch.float32, gen, n=8)
+        step_ms["fused_instance_norm"] += calls * median_ms(
+            lambda: K.fused_instance_norm(*inp, act=act), torch, True)
+        step_plain_ms["fused_instance_norm"] += calls * median_ms(
+            lambda: K.fused_instance_norm_plain(*inp, act=act), torch, True)
+    del grays, idx, conf, dconf, inp
+    for k in step_ms:
+        phase(10, f"{k} per training step: device kernel {step_ms[k]:.3f} ms, plain "
+                  f"{step_plain_ms[k]:.3f} ms {tag}")
+    torch.cuda.empty_cache()
+
+    # 11 --------------------------------------------------------------
+    def make_trainer(n, crop):
+        o = train_options(TRAIN_FLAGS + ["--batchSize", str(n), "--crop_size", str(crop),
+                                         "--load_size", str(crop), "--seed", str(SEED)])
+        m = MichiGANModel(o, "cuda:0")
+        m.init_weights(SEED)
+        return o, TrainStep(m)
+
+    def snapshot(net):
+        return {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+    for n in TRAIN_BATCHES:
+        try:
+            topt, trainer = make_trainer(n, 512)
+            tbatch = batch_from_numpy(synthetic_train_data(topt, SEED, n), "cuda:0")
+            before = {k: snapshot(net) for k, net in trainer.model.nets().items()}
+            kernels.reset_launch_counts()
+            g_losses, _fake, orient_t = trainer.g_step(tbatch, EXTRA_DILATE)
+            d_losses = trainer.d_step(tbatch, EXTRA_DILATE, orient_t)
+            torch.cuda.synchronize()
+            step_counts = kernels.launch_counts()
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"[phase 11] batch {n} does not fit: {str(e).splitlines()[0]}", flush=True)
+            trainer = tbatch = before = None
+            torch.cuda.empty_cache()
+    else:
+        return fail(f"no training batch of {TRAIN_BATCHES} fits")
+    phase(11, f"training step on the card, batch {n}, {topt.crop_size}^2, ngf {topt.ngf}, "
+              f"ndf {topt.ndf}: launches {step_counts}")
+    if step_counts != STEP_LAUNCHES:
+        return fail(f"expected launches per step {STEP_LAUNCHES}, got {step_counts}")
+    losses = {k: v.item() for k, v in {**g_losses, **d_losses}.items()}
+    phase(11, "losses " + ", ".join(f"{k} {v:.4f}" for k, v in losses.items()))
+    nets = trainer.model.nets()
+    moved = {k: any(not torch.equal(p, before[k][name]) for name, p in nets[k].named_parameters())
+             for k in ("netG", "netD")}
+    frozen = {k: all(torch.equal(t, before[k][name]) for name, t in nets[k].state_dict().items())
+              for k in ("netIG", "vgg")}
+    phase(11, f"parameters changed {moved}; frozen nets bit-identical {frozen}")
+    if not all(math.isfinite(v) for v in losses.values()) or not all(moved.values()) \
+            or not all(frozen.values()):
+        return fail("the training step's losses or parameter updates are wrong")
+    del before
+
+    def train_step():
+        _g, _f, o = trainer.g_step(tbatch, EXTRA_DILATE)
+        trainer.d_step(tbatch, EXTRA_DILATE, o)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        train_step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ms_step = statistics.median(times)
+    phase(11, f"{TRAIN_STEPS} timed steps after the warm-up: {', '.join(f'{t:.1f}' for t in times)} "
+              f"ms; median {ms_step:.1f} ms/step, {n / ms_step * 1e3:.2f} img/s; peak device "
+              f"memory {peak / 2**30:.2f} GiB, of which {live / 2**30:.2f} GiB live before the "
+              f"steps (weights, optimizer state, batch) {tag}")
+    if counts != {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES.items()}:
+        return fail(f"launches over {TRAIN_STEPS} steps: {counts}")
+    g_times, d_times = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _g, _f, o = trainer.g_step(tbatch, EXTRA_DILATE)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.d_step(tbatch, EXTRA_DILATE, o)
+        torch.cuda.synchronize()
+        g_times.append((t1 - t0) * 1e3)
+        d_times.append((time.perf_counter() - t1) * 1e3)
+    phase(11, f"G step {statistics.median(g_times):.1f} ms, D step "
+              f"{statistics.median(d_times):.1f} ms (medians of 3) {tag}")
+    for k, v in step_breakdown(torch, trainer, tbatch).items():
+        phase(11, f"  part, alone: {k}: {v:.1f} ms {tag}")
+    busy_ms, wall_ms, table = profile_once(train_step, torch)
+    phase(11, f"profiled training step: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
+              f"under the profiler {tag}; top device time:")
+    print(table, flush=True)
+    del trainer, tbatch, nets, g_losses, d_losses, orient_t, _fake
+    torch.cuda.empty_cache()
+
+    # 12 --------------------------------------------------------------
+    popt, card = make_trainer(1, PARITY_CROP)
+    cpu_model = MichiGANModel(popt, "cpu")
+    cpu_model.load_state_dicts({k: {n_: t.cpu() for n_, t in net.state_dict().items()}
+                                for k, net in card.model.nets().items()})
+    cpu = TrainStep(cpu_model)
+    data = synthetic_train_data(popt, SEED, 1)
+    b_card, b_cpu = batch_from_numpy(data, "cuda:0"), batch_from_numpy(data, "cpu")
+    g_card, _, o_card = card.g_step(b_card, EXTRA_DILATE)
+    t0 = time.perf_counter()
+    g_cpu, _, o_cpu = cpu.g_step(b_cpu, EXTRA_DILATE)
+    t_g = time.perf_counter() - t0
+    state = lambda net, params: {k: v.detach().cpu() for k, v in (
+        net.named_parameters() if params else net.named_buffers())}
+    g_params = scale_aware(state(cpu_model.netG, True), state(card.model.netG, True),
+                           popt.lr / 2)
+    bufs_card, bufs_cpu = state(card.model.netG, False), state(cpu_model.netG, False)
+    buf_err = max((bufs_cpu[k] - v).abs().max().item() for k, v in bufs_card.items()
+                  if v.is_floating_point())
+    bufs_ok = all(torch.allclose(bufs_cpu[k], v, rtol=1e-4, atol=1e-5)
+                  for k, v in bufs_card.items() if v.is_floating_point())
+    # the D step on both from the card's post-G state: the G step's few
+    # Adam sign flips would otherwise move the recomputed fake
+    cpu_model.netG.load_state_dict({k: v.cpu() for k, v in card.model.netG.state_dict().items()})
+    d_card = card.d_step(b_card, EXTRA_DILATE, o_card)
+    t0 = time.perf_counter()
+    d_cpu = cpu.d_step(b_cpu, EXTRA_DILATE, o_cpu)
+    t_d = time.perf_counter() - t0
+    d_params = scale_aware(state(cpu_model.netD, True), state(card.model.netD, True),
+                           2 * popt.lr)
+    loss_rows, losses_ok = [], True
+    for k in list(g_card) + list(d_card):
+        a = (g_card.get(k) if k in g_card else d_card[k]).item()
+        b = (g_cpu.get(k) if k in g_cpu else d_cpu[k]).item()
+        ok = abs(a - b) <= 1e-5 + 1e-4 * abs(b)
+        losses_ok &= ok
+        loss_rows.append(f"{k} {a:.6f}/{b:.6f}{'' if ok else ' FAIL'}")
+    phase(12, f"one G+D step card/CPU, batch 1, {PARITY_CROP}^2, ngf {popt.ngf}, ndf "
+              f"{popt.ndf}: " + ", ".join(loss_rows))
+    phase(12, f"netG after the G step: max diff {g_params[1]:.2e} (limit {2.5 * popt.lr / 2:.1e}), "
+              f"{g_params[2]} of {g_params[3]} elements beyond float noise; netG buffers max "
+              f"diff {buf_err:.2e}; netD after the D step: max diff {d_params[1]:.2e} (limit "
+              f"{2.5 * 2 * popt.lr:.1e}), {d_params[2]} of {d_params[3]} beyond float noise; "
+              f"CPU G step {t_g:.1f} s, D step {t_d:.1f} s")
+    if not (losses_ok and g_params[0] and d_params[0] and bufs_ok):
+        return fail("the card's and the CPU's training steps disagree")
+    del card, cpu, cpu_model
+
+    train_kernels = ("fused_instance_norm", "filterbank_orientation",
+                     "filterbank_orientation_backward", "conv3x3_same_lowch")
+    rows = {k: (stroke_counts[k], edit_ms[k], edit_plain_ms[k])
+            for k in ("spade_modulate", "conv3x3_in_act")}
+    rows.update({k: (step_counts[k], step_ms[k], step_plain_ms[k]) for k in train_kernels})
+    max_err.update(new_err)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
-         "launches": stroke_counts[k], "max_abs_err": max_err[k], "ms": edit_ms[k],
-         "plain_ms": edit_plain_ms[k]} for k in REPLACES]}))
+         "launches": rows[k][0], "max_abs_err": max_err[k], "ms": rows[k][1],
+         "plain_ms": rows[k][2]} for k in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,9 +2,10 @@
 michigan_tpu/training/convert.py).
 
 ``state_dicts_from_flax(variables, opt)`` turns the JAX package's variable
-trees for netG, netIG and netSIG (params / spectral / batch_stats, numpy or
-jax arrays) into state_dicts with the reference checkpoints' key names, which the
-port's nets load with ``load_state_dict(strict=True)``:
+trees for netG, netIG, netSIG, netD and VGG19 (params / spectral /
+batch_stats, numpy or jax arrays) into state_dicts with the reference
+checkpoints' key names (torchvision's for VGG19), which the port's nets load
+with ``load_state_dict(strict=True)``:
 
   kernel (HWIO)                   -> weight (OIHW)
   kernel of a transposed conv     -> weight (I, O, kh, kw), the equivalent
@@ -33,6 +34,10 @@ IG_RENAMES = (
     (r"^conv2$", "conv_block.5"),
 )
 G_RENAMES = ((r"^mlp_shared_0$", "mlp_shared.0"),)
+# netD: model0_conv -> model0.0, model<n>/conv -> model<n>.0.0 (the conv in
+# the norm layer's Sequential), model<last>_conv -> model<last>.0
+D_RENAMES = ((r"^model(\d+)_conv$", r"model\1.0"), (r"^conv$", "0.0"))
+VGG_RENAMES = ((r"^features_(\d+)$", r"features.\1"),)
 IG_TRANSPOSED = frozenset({("decoder_0",), ("decoder_3",)})
 
 
@@ -89,9 +94,9 @@ def module_state_dict(variables: Mapping, renames=G_RENAMES,
 
 
 def state_dicts_from_flax(variables: Mapping, opt) -> Dict[str, Dict[str, torch.Tensor]]:
-    """{'netG': tree, 'netIG': tree, 'netSIG': tree} -> {'netG': state_dict,
-    ...}; netIG with --use_ig, netSIG with --use_stroke (the same network
-    and key names as netIG, with 5 input channels)."""
+    """{'netG': tree, 'netIG': tree, ...} -> {'netG': state_dict, ...};
+    netIG with --use_ig, netSIG with --use_stroke (the same network and key
+    names as netIG, with 5 input channels), netD and vgg when present."""
     out = {}
     if "netG" in variables:
         out["netG"] = module_state_dict(variables["netG"], G_RENAMES)
@@ -99,6 +104,10 @@ def state_dicts_from_flax(variables: Mapping, opt) -> Dict[str, Dict[str, torch.
         out["netIG"] = module_state_dict(variables["netIG"], IG_RENAMES, IG_TRANSPOSED)
     if opt.use_stroke and "netSIG" in variables:
         out["netSIG"] = module_state_dict(variables["netSIG"], IG_RENAMES, IG_TRANSPOSED)
+    if "netD" in variables:
+        out["netD"] = module_state_dict(variables["netD"], D_RENAMES)
+    if "vgg" in variables:
+        out["vgg"] = module_state_dict(variables["vgg"], VGG_RENAMES)
     return out
 
 

@@ -16,15 +16,10 @@
 // cuDNN or cuBLAS call.
 //
 // What the design does about it:
-// - pass 1 is an implicit GEMM, (Co) x (H*W pixels) x (C*9 taps).  A block
-//   takes a 64-channel x 64-pixel output tile; 256 threads each own a
-//   4 x 4 micro-tile of running sums in registers.  The reduction walks the
-//   (input channel, tap) pairs 16 at a time: a 16 x 64 slice of the weights
-//   and the matching 16 x 64 slice of the im2col matrix, gathered straight
-//   from the padded input, are staged in shared memory; per pair a thread
-//   reads one float4 of each and issues 16 FMAs.  The next slice is loaded
-//   into registers while the current one is used, so the global loads
-//   overlap the FMAs.
+// - pass 1 is an implicit GEMM, (Co) x (H*W pixels) x (C*9 taps): the tile
+//   of conv3x3_tile.cuh (64 channels x 64 pixels per block, 4 x 4 running
+//   sums per thread, the reduction staged 16 pairs at a time through shared
+//   memory), reading the caller's padded input with no bounds checks.
 // - The instance-norm statistics span a whole 64 x 64 plane, which no tile
 //   owns.  On the TPU one grid cell holds the plane in VMEM; here that
 //   would give 4-8 blocks per sample and leave most of the 132 SMs idle.
@@ -44,17 +39,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv3x3_tile.cuh"
 #include "welford.cuh"
 
 namespace {
 
-constexpr int kBM = 64;           // output channels per block
-constexpr int kBN = 64;           // output pixels per block (of the flattened plane)
-constexpr int kBK = 16;           // (input channel, tap) pairs per slice
-constexpr int kThreads = 256;     // 16 x 16 threads
-constexpr int kTM = 4;            // output channels per thread
-constexpr int kTN = 4;            // pixels per thread
-constexpr int kLoads = kBK * kBM / kThreads;  // 4 weights and 4 inputs per thread per slice
+using conv3x3::kBM;
+using conv3x3::kBN;
+using conv3x3::kThreads;
+using conv3x3::kTM;
+using conv3x3::kTN;
 constexpr int kNormThreads = 256;
 
 enum Act { kActNone = 0, kActRelu = 1, kActLrelu = 2 };
@@ -77,9 +71,6 @@ struct ConvArgs {
 
 __global__ void __launch_bounds__(kThreads)
 conv3x3_kernel(const ConvArgs a) {
-  __shared__ __align__(16) float s_w[kBK][kBM];  // weights, [pair][channel]
-  __shared__ __align__(16) float s_x[kBK][kBN];  // im2col, [pair][pixel]
-
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // pixel group
   const int ty = tid / 16;  // channel group
@@ -89,68 +80,10 @@ conv3x3_kernel(const ConvArgs a) {
   const int hw = a.h * a.wd;
   const int wp = a.wd + 2 * a.d;
   const int64_t plane_in = (int64_t)(a.h + 2 * a.d) * wp;
-  const int ktot = a.c * 9;
-  const float* xn = a.x + (int64_t)n * a.c * plane_in;
-
-  // loader roles.  Weights: thread loads 4 consecutive pairs of one output
-  // channel (a row of w is contiguous in (C, 3, 3)).  Inputs: thread loads
-  // one pixel for 4 pairs; neighbouring threads take neighbouring pixels.
-  const int wm = tid / 4;
-  const int wk = (tid % 4) * kLoads;
-  const bool w_row_ok = co0 + wm < a.co;
-  const float* w_row = a.w + (int64_t)(co0 + wm) * ktot;
-  const int xp = tid % kBN;
-  const int xk = tid / kBN;  // 0..3; pairs xk, xk + 4, xk + 8, xk + 12
-  const int pix = p0 + xp;
-  const bool pix_ok = pix < hw;
-  const int py = pix_ok ? pix / a.wd : 0;
-  const int px = pix_ok ? pix % a.wd : 0;
-  const float* x_pix = xn + (int64_t)py * wp + px;
-
-  float rw[kLoads], rx[kLoads];
-  auto load_slice = [&](int k0) {
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      const int kw = k0 + wk + j;
-      rw[j] = (w_row_ok && kw < ktot) ? w_row[kw] : 0.f;
-      const int kx_ = k0 + xk + 4 * j;
-      float v = 0.f;
-      if (pix_ok && kx_ < ktot) {
-        const int ci = kx_ / 9, t = kx_ % 9;
-        v = x_pix[ci * plane_in + (t / 3) * a.d * wp + (t % 3) * a.d];
-      }
-      rx[j] = v;
-    }
-  };
+  const conv3x3::PaddedInput in{a.x + (int64_t)n * a.c * plane_in, plane_in, wp, a.d};
 
   float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-
-  load_slice(0);
-  for (int k0 = 0; k0 < ktot; k0 += kBK) {
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      s_w[wk + j][wm] = rw[j];
-      s_x[xk + 4 * j][xp] = rx[j];
-    }
-    __syncthreads();
-    if (k0 + kBK < ktot) load_slice(k0 + kBK);  // in flight during the FMAs
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 wv = *reinterpret_cast<const float4*>(&s_w[k][ty * kTM]);
-      const float4 xv = *reinterpret_cast<const float4*>(&s_x[k][tx * kTN]);
-      const float wr[kTM] = {wv.x, wv.y, wv.z, wv.w};
-      const float xr[kTN] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(wr[i], xr[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+  conv3x3::conv_tile(in, a.w, a.c, a.co, co0, p0, hw, a.wd, acc);
 
   // epilogue: bias, pre-norm store, and the tile's statistics per channel
   const int pb = p0 + tx * kTN;

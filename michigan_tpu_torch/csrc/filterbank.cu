@@ -29,7 +29,31 @@
 //   ties and an all-zero pixel gets 0) and the max happen in registers:
 //   the (N, 32, H, W) response never reaches device memory, as on the TPU.
 //
-// The launcher returns cudaGetLastError().  Nothing here allocates or
+// filterbank_orientation_backward is the gradient of conf with respect to
+//   gray, which the training step's ORIENT / CONFIDENCE loss needs (the
+//   JAX package differentiates through the bank conv and its max:
+//   michigan_tpu/ops/filters.py:207-250, a transposed bank conv of the
+//   (N, H, W, 32) cotangent).  Only the argmax orientation carries a
+//   gradient, and only where the clamped max is positive:
+//     dgray[p] = sum over q with |p - q|_inf <= 8, q in the image, of
+//                dconf[q] * [conf[q] > 0] * bank[p - q + 8][idx[q]].
+//   The gather form costs 289 FMAs per pixel, where the dense transposed
+//   conv costs 9,248 and builds a 32-channel cotangent.
+//
+// What bounds it: shared-memory reads.  At (8, 1, 512^2) it is 606 M FMAs
+// (18 us at the fp32 peak) against 24 MB of device memory traffic (7 us).
+// What the design does about it:
+// - one block per 32 x 16 output tile stages dconf * [conf > 0] and idx of
+//   the tile with its 8-pixel halo (48 x 32 each) and the whole bank in
+//   shared memory;
+// - each thread owns 4 pixels of one column; per column offset it reads
+//   the 20 (gradient, orientation) pairs its window needs into registers
+//   once and reuses each for up to 4 pixels;
+// - the bank read bank[tap][idx[q]] has the same tap across a warp and at
+//   most 32 distinct orientations, one per shared-memory bank: no
+//   conflicts.
+//
+// The launchers return cudaGetLastError().  Nothing here allocates or
 // synchronises.
 
 #include <cuda_runtime.h>
@@ -122,6 +146,79 @@ filterbank_kernel(const float* __restrict__ gray, const float* __restrict__ bank
   }
 }
 
+// Backward: one block per kTileW x kTileH output tile, the same geometry as
+// the forward.  s_g holds dconf * [conf > 0] and s_k the argmax, both zero
+// outside the image; halo coordinates are (y - y0 + kR, x - x0 + kR).
+__global__ void __launch_bounds__(kThreads)
+filterbank_backward_kernel(const float* __restrict__ dconf, const int32_t* __restrict__ idx,
+                           const float* __restrict__ conf, const float* __restrict__ bank,
+                           float* __restrict__ dgray, int h, int w) {
+  __shared__ __align__(16) float s_bank[kTaps * kNum];  // [tap][orientation]
+  __shared__ float s_g[kInH][kInW];
+  __shared__ uint8_t s_k[kInH][kInW];  // bytes: the three arrays fit 48 KB (44.7 KB)
+
+  const int tid = threadIdx.x;
+  const int y0 = blockIdx.y * kTileH;
+  const int x0 = blockIdx.x * kTileW;
+  const int64_t plane = (int64_t)blockIdx.z * h * w;
+
+  const float4* bank4 = reinterpret_cast<const float4*>(bank);
+  float4* s_bank4 = reinterpret_cast<float4*>(s_bank);
+  for (int i = tid; i < kTaps * kNum / 4; i += kThreads) s_bank4[i] = bank4[i];
+  for (int i = tid; i < kInH * kInW; i += kThreads) {
+    const int r = i / kInW, c = i % kInW;
+    const int y = y0 + r - kR, x = x0 + c - kR;
+    float g = 0.f;
+    uint8_t k = 0;
+    if (y >= 0 && y < h && x >= 0 && x < w) {
+      const int64_t o = plane + (int64_t)y * w + x;
+      if (conf[o] > 0.f) g = dconf[o];
+      k = (uint8_t)idx[o];  // 0..31
+    }
+    s_g[r][c] = g;
+    s_k[r][c] = k;
+  }
+  __syncthreads();
+
+  const int tx = tid % kTileW;         // column in the tile
+  const int ty = tid / kTileW * kRows;  // first of this thread's rows
+  constexpr int kWin = kRows + kK - 1;  // 20 halo rows feed this thread's 4 pixels
+
+  float acc[kRows];
+#pragma unroll
+  for (int p = 0; p < kRows; ++p) acc[p] = 0.f;
+
+  // pixel (ty + p, tx) reads q at halo (ty + p + 2kR - oy, tx + 2kR - ox)
+  // with tap (oy, ox) = p - q + kR
+#pragma unroll 1
+  for (int ox = 0; ox < kK; ++ox) {
+    const int hx = tx + 2 * kR - ox;
+    float g[kWin];
+    int k[kWin];
+#pragma unroll
+    for (int j = 0; j < kWin; ++j) {
+      g[j] = s_g[ty + j][hx];
+      k[j] = s_k[ty + j][hx];
+    }
+#pragma unroll
+    for (int oy = 0; oy < kK; ++oy) {
+      const float* tap = s_bank + (oy * kK + ox) * kNum;
+#pragma unroll
+      for (int p = 0; p < kRows; ++p) {
+        const int j = p + 2 * kR - oy;
+        acc[p] = fmaf(g[j], tap[k[j]], acc[p]);
+      }
+    }
+  }
+
+  const int x = x0 + tx;
+#pragma unroll
+  for (int p = 0; p < kRows; ++p) {
+    const int y = y0 + ty + p;
+    if (y < h && x < w) dgray[plane + (int64_t)y * w + x] = acc[p];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -135,6 +232,20 @@ int filterbank_orientation_f32(const void* gray, const void* bank, void* idx, vo
   filterbank_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(gray), static_cast<const float*>(bank),
       static_cast<int32_t*>(idx), static_cast<float*>(conf), (int)h, (int)w);
+  return (int)cudaGetLastError();
+}
+
+// dconf (n, h, w) f32, idx (n, h, w) int32 and conf (n, h, w) f32 as the
+// forward wrote them; bank as above; dgray (n, h, w) f32 out.
+int filterbank_orientation_backward_f32(const void* dconf, const void* idx, const void* conf,
+                                        const void* bank, void* dgray, int64_t n, int64_t h,
+                                        int64_t w, void* stream) {
+  const dim3 grid((unsigned)((w + kTileW - 1) / kTileW),
+                  (unsigned)((h + kTileH - 1) / kTileH), (unsigned)n);
+  filterbank_backward_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dconf), static_cast<const int32_t*>(idx),
+      static_cast<const float*>(conf), static_cast<const float*>(bank),
+      static_cast<float*>(dgray), (int)h, (int)w);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,119 @@
+"""Training samples from an FFHQ-layout directory and a threaded batch loader
+(the port's copy of michigan_tpu/data/dataset.py, reference
+custom_dataset.py and pix2pix_dataset.py:66-194), NHWC float32 numpy.
+
+The JAX package's loader ships uint8 planes and caches decodes to feed a
+remote TPU; on a local card the loader hands out float32 arrays and keeps no
+cache.  Only the paired stage (--curr_step 1) is ported: the ref planes are
+the tag planes.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, List
+
+import numpy as np
+from PIL import Image
+
+from michigan_tpu_torch.data.noise import generate_noise
+from michigan_tpu_torch.data.preprocess import generate_hole, trans_orient_to_rgb
+from michigan_tpu_torch.data.single import _label_tensor
+from michigan_tpu_torch.data.transforms import get_params, get_transform
+
+IMG_EXTENSIONS = (".jpg", ".JPG", ".jpeg", ".JPEG", ".png", ".PNG", ".ppm", ".PPM",
+                  ".bmp", ".BMP", ".tiff", ".webp")
+
+
+def list_images(directory: str) -> List[str]:
+    return sorted(os.path.join(directory, f) for f in os.listdir(directory)
+                  if f.endswith(IMG_EXTENSIONS))
+
+
+class CustomDataset:
+    """{data_dir}/{clear_}train_labels | _images | _dense_orients, or the
+    directories --label_dir / --image_dir / --orient_dir name."""
+
+    def __init__(self, opt):
+        if opt.dataset_mode != "custom":
+            raise ValueError(f"unknown --dataset_mode {opt.dataset_mode!r} (only 'custom')")
+        self.opt = opt
+        phase = "train" if opt.isTrain else opt.subset
+        pre = os.path.join(opt.data_dir, f"{'clear_' if opt.clear else ''}{phase}")
+        cut = opt.max_dataset_size
+        self.label_paths = list_images(opt.label_dir or pre + "_labels")[:cut]
+        self.image_paths = list_images(opt.image_dir or pre + "_images")[:cut]
+        self.orient_paths = list_images(opt.orient_dir or pre + "_dense_orients")[:cut]
+        if not len(self.label_paths) == len(self.image_paths) == len(self.orient_paths):
+            raise ValueError(f"dataset mismatch under {opt.data_dir}: {len(self.label_paths)} "
+                             f"labels, {len(self.image_paths)} images, "
+                             f"{len(self.orient_paths)} dense orientation maps")
+        if not opt.no_pairing_check:
+            for lp, ip in zip(self.label_paths, self.image_paths):
+                if os.path.splitext(os.path.basename(lp))[0] != \
+                        os.path.splitext(os.path.basename(ip))[0]:
+                    raise ValueError(f"label/image pairing mismatch: {lp} vs {ip}")
+
+    def __len__(self) -> int:
+        return len(self.label_paths)
+
+    def get_sample(self, index: int, rng: random.Random) -> Dict[str, np.ndarray]:
+        """One sample, (H, W, C) float32 arrays with the keys of the train
+        step's batch; `rng` draws the crop, flip, hole and noise."""
+        opt = self.opt
+        label = Image.open(self.label_paths[index])
+        params = get_params(opt, label.size, rng)
+        tl = get_transform(opt, params, method=Image.NEAREST, normalize=False)
+        label_t = _label_tensor(tl, label, opt.label_nc)[0]
+        image_t = get_transform(opt, params)(Image.open(self.image_paths[index]).convert("RGB"))
+        orient_img = Image.open(self.orient_paths[index])
+        orient_t = tl(orient_img) * 255.0
+        rgb = trans_orient_to_rgb(np.array(orient_img), np.array(label))
+        orient_rgb_t = tl(rgb) * label_t
+        other = np.array(Image.open(self.label_paths[rng.randint(0, len(self) - 1)]))
+        hole_t = tl(generate_hole(np.array(label), other, rng)) * 255.0
+        noise = generate_noise(opt.crop_size, opt.crop_size,
+                               np.random.default_rng(rng.getrandbits(32)))
+        return {"label_tag": label_t, "label_ref": label_t, "image_tag": image_t,
+                "image_ref": image_t, "orient": orient_t, "orient_rgb": orient_rgb_t,
+                "hole": hole_t, "noise": noise.astype(np.float32)}
+
+
+class BatchLoader:
+    """Batches of --batchSize samples (the last partial batch dropped), in a
+    shuffled order per epoch unless --serial_batches, assembled by
+    --nThreads threads one batch ahead of the consumer.  Each sample's rng is
+    keyed by (seed, epoch, batch, position), so a run is reproducible."""
+
+    def __init__(self, dataset: CustomDataset, opt):
+        self.dataset, self.opt = dataset, opt
+        self.epoch = 0
+
+    def __len__(self) -> int:
+        return len(self.dataset) // self.opt.batchSize
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = list(range(len(self.dataset)))
+        if not self.opt.serial_batches:
+            random.Random(self.opt.seed + self.epoch).shuffle(order)
+        bs = self.opt.batchSize
+        batches = [order[i:i + bs] for i in range(0, len(self) * bs, bs)]
+        with ThreadPoolExecutor(max(1, self.opt.nThreads)) as pool:
+
+            def submit(bi):
+                if bi >= len(batches):
+                    return None
+                return [pool.submit(self.dataset.get_sample, i,
+                                    random.Random(hash((self.opt.seed, self.epoch, bi, j))))
+                        for j, i in enumerate(batches[bi])]
+
+            try:
+                pending = submit(0)
+                for bi in range(len(batches)):
+                    futures, pending = pending, submit(bi + 1)
+                    samples = [f.result() for f in futures]
+                    yield {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+            finally:
+                self.epoch += 1

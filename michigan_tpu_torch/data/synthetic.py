@@ -5,6 +5,10 @@ test.
 synthetic_inference_data  the keys, shapes and dtypes of
     ``single_inference_data``: a hair ellipse over the upper face, a
     disk-shaped hole inside it, a smooth orientation field, noise around 0.5.
+synthetic_train_data  a training batch with the training loader's keys
+    (``label_ref``, ``label_tag``, ``image_ref``, ``image_tag``, ``orient``,
+    ``hole``, ``orient_rgb``, ``noise``), the same samples: paired, so the
+    ref planes are the tag planes.
 synthetic_stroke_data  a stroke edit as ``demo_inference_data`` gives it,
     less ``orient_stroke``, which the caller makes from ``mask_stroke`` on
     its device (``michigan_tpu_torch.demo.engine.orient_stroke_plane``).
@@ -48,6 +52,12 @@ def synthetic_inference_data(opt, seed: int, batch: int = 1) -> Dict[str, np.nda
     samples = [sample() for _ in range(batch)]
     out = {k: np.stack([x[k] for x in samples]).astype(np.float32) for k in samples[0]}
     out["instance"] = np.zeros((1,), np.float32)
+    return out
+
+
+def synthetic_train_data(opt, seed: int, batch: int) -> Dict[str, np.ndarray]:
+    out = synthetic_inference_data(opt, seed, batch)
+    del out["instance"]
     return out
 
 

@@ -1,0 +1,34 @@
+"""Orientation supervision (port of michigan_tpu/losses/orient.py, reference
+loss.py:274-385): the fake's dense orientation from the filter bank,
+L1-matched to the label inside the hair, plus a confidence term.  The
+gradient reaches the image through the bank's max response only."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from michigan_tpu_torch.ops.filters import cal_orientation_two_channel
+
+
+def orient_loss(fake_image: torch.Tensor, orient_label: torch.Tensor,
+                input_tag: torch.Tensor, opt):
+    """(orient L1, confidence loss).  fake_image (N,3,H,W) in [-1,1];
+    orient_label (N,2,H,W) decoded (--use_ig) or (N,1,H,W) raw [0,255];
+    input_tag the one-hot (N,2,H,W)."""
+    hair = input_tag[:, 1:2].permute(0, 2, 3, 1)  # NHWC, as the filters take it
+    mode = "gabor" if "gabor" in opt.orient_filter else "dog"
+    two, conf = cal_orientation_two_channel(fake_image.permute(0, 2, 3, 1), mode,
+                                            hair if mode == "dog" else None)
+    if opt.use_ig:
+        target = orient_label.permute(0, 2, 3, 1)
+    else:
+        t = orient_label.permute(0, 2, 3, 1) / 255.0 * math.pi
+        target = torch.cat([torch.sin(2 * t), torch.cos(2 * t)], dim=-1)
+    l1 = (two * hair - (target * hair).detach()).abs().mean()
+    if mode == "gabor":
+        conf_loss = -(torch.log(conf.clamp(0.001, 1.0)) * hair).sum() / hair.sum()
+    else:
+        conf_loss = (conf * hair - hair.detach()).abs().sum() / (hair.sum() + 1e-5)
+    return l1, conf_loss

@@ -1,29 +1,51 @@
-"""MichiGAN inference orchestration (port of michigan_tpu/model.py), NCHW.
+"""MichiGAN orchestration (port of michigan_tpu/model.py), NCHW.
 
   preprocess(batch)          one-hot labels
   inpaint_orient(...)        IG orientation inpainting (pix2pix_model.py:407-429)
   inpaint_stroke_orient(...) SIG stroke inpainting (pix2pix_model.py:431-464)
   generate_fake(...)         zeros-pad + netG (pix2pix_model.py:495-541)
   infer(batch, mode)         the 'inference' mode (pix2pix_model.py:80-120)
+  discriminate(...)          fake and real as one D batch, split (:546-594)
+  generator_loss(...)        the paired stage's G losses (:257-365)
+  discriminator_loss(...)    D's hinge on the recomputed fake (:367-398)
 
 A batch is a dict of NCHW float32 tensors on the model's device with the keys
 of ``michigan_tpu.data.single_inference_data`` (or ``demo_inference_data``
-for a stroke edit); ``batch_from_numpy`` turns those functions' NHWC numpy
-arrays into one.  Only the inference paths of the flagship and demo
-configurations are ported; ``check_supported`` names what is not.
+for a stroke edit, or the training loader's); ``batch_from_numpy`` turns
+NHWC numpy arrays into one.  The inference paths of the flagship and demo
+configurations and the paired training stage are ported;
+``check_supported`` names what is not.
+
+With --isTrain netG and netD are in train mode.  Which forward writes
+buffers follows the JAX package: netG's batch-norm running statistics and
+spectral u / v are written by the G step's forward only; the D step's
+recompute of the fake uses train-mode statistics and writes nothing; netD's
+spectral u / v are never written (each step iterates again from the stored
+ones).  netIG and VGG19 are frozen (eval mode, no gradient).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from michigan_tpu_torch.models.generator import SPADEBGenerator
+from michigan_tpu_torch.losses import color as color_losses
+from michigan_tpu_torch.losses.feat import gan_feat_loss
+from michigan_tpu_torch.losses.gan import multiscale_gan_loss
+from michigan_tpu_torch.losses.orient import orient_loss
+from michigan_tpu_torch.losses.perceptual import (
+    style_content_loss_from_features,
+    vgg_loss_from_features,
+)
+from michigan_tpu_torch.models.discriminator import MultiscaleDiscriminator
+from michigan_tpu_torch.models.generator import SPADEBGenerator, orient_to_two_channel
 from michigan_tpu_torch.models.inpaint import InpaintGenerator, SInpaintGenerator
-from michigan_tpu_torch.models.layers import init_weights
+from michigan_tpu_torch.models.layers import frozen_buffers, init_weights
+from michigan_tpu_torch.models.vgg import VGG19, load_vgg19
 from michigan_tpu_torch.ops.masks import one_hot_label
 from michigan_tpu_torch.ops.resize import resize_nearest
 
@@ -43,6 +65,13 @@ def check_supported(opt) -> None:
             (opt.use_stroke and opt.netSIG != "sinpaint"):
         unported.append("a netG other than spadeb, a netIG other than inpaint or a "
                         "netSIG other than sinpaint")
+    if opt.isTrain:
+        unported += [f"--{f}" for f in ("unpairTrain", "remat", "fused_step",
+                                        "reuse_fake_for_d") if getattr(opt, f)]
+        if opt.stats_freq:
+            unported.append("--stats_freq (training diagnostics)")
+        if opt.curr_step != 1:
+            unported.append(f"--curr_step {opt.curr_step}")
     if unported:
         raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
 
@@ -59,27 +88,40 @@ def batch_from_numpy(data: Dict, device) -> Dict[str, torch.Tensor]:
 
 
 class MichiGANModel:
-    """Holds the inference nets of one configuration on one device."""
+    """Holds the nets of one configuration on one device: netG, netIG /
+    netSIG, and with --isTrain netD and the frozen VGG19."""
 
     def __init__(self, opt, device="cpu"):
         check_supported(opt)
         self.opt = opt
         self.device = torch.device(device)
-        self.netG = SPADEBGenerator(opt).eval()
+        self.netG = SPADEBGenerator(opt).train(opt.isTrain)
         epilogue = opt.use_pallas_epilogue
         self.netIG = InpaintGenerator(epilogue=epilogue).eval() if opt.use_ig else None
         self.netSIG = SInpaintGenerator(epilogue=epilogue).eval() if opt.use_stroke else None
+        self.netD = MultiscaleDiscriminator(opt) if opt.isTrain else None
+        self.vgg = VGG19().eval() if opt.isTrain else None
+        for frozen in (self.netIG, self.netSIG, self.vgg):
+            if frozen is not None:
+                frozen.requires_grad_(False)
+        self.ab_count = None
+        if opt.isTrain and opt.balance_Lab and os.path.exists(opt.weight_dir):
+            self.ab_count = color_losses.load_ab_count(opt.weight_dir, self.device)
 
     def nets(self) -> Dict[str, torch.nn.Module]:
         return {k: v for k, v in (("netG", self.netG), ("netIG", self.netIG),
-                                  ("netSIG", self.netSIG)) if v is not None}
+                                  ("netSIG", self.netSIG), ("netD", self.netD),
+                                  ("vgg", self.vgg)) if v is not None}
 
     def init_weights(self, seed: int) -> None:
-        """Seeded weights by --init_type (one CPU torch.Generator), then move
-        the nets to the device."""
+        """Seeded weights by --init_type (one CPU torch.Generator), VGG19's
+        from a file or its fallback, then move the nets to the device."""
         gen = torch.Generator().manual_seed(seed)
-        for net in self.nets().values():
-            init_weights(net, gen, self.opt.init_type, self.opt.init_variance)
+        for name, net in self.nets().items():
+            if name == "vgg":
+                self.vgg_pretrained = load_vgg19(net, gen, self.opt.checkpoints_dir)
+            else:
+                init_weights(net, gen, self.opt.init_type, self.opt.init_variance)
         self.to_device()
 
     def load_state_dicts(self, states: Dict[str, Dict[str, torch.Tensor]]) -> None:
@@ -152,9 +194,106 @@ class MichiGANModel:
             gin = {k: self._zeros_pad(v) for k, v in gin.items()}
         return gin
 
-    def generate_fake(self, pre, orient) -> torch.Tensor:
+    def generate_fake(self, pre, orient, extra_dilate_steps: int = 2) -> torch.Tensor:
         gin = self._padded_gen_inputs(pre, orient)
-        return self.netG(*(gin[k] for k in GEN_KEYS)).float()
+        return self.netG(*(gin[k] for k in GEN_KEYS), extra_dilate_steps).float()
+
+    # ------------------------------------------------------------------
+    # training, the paired stage (pix2pix_model.py:257-398, 546-594)
+    # ------------------------------------------------------------------
+
+    def discriminate(self, input_tag, fake_image, real_image, orient):
+        """Fake and real through netD as one batch (so its instance norms and
+        spectral iteration see both), then split.  netD's spectral u / v are
+        never written."""
+        if not self.opt.use_ig:
+            orient = orient_to_two_channel(orient, input_tag[:, 1:2])
+        both = torch.cat([torch.cat([input_tag, orient, fake_image], dim=1),
+                          torch.cat([input_tag, orient, real_image], dim=1)], dim=0)
+        with frozen_buffers(self.netD):
+            out = self.netD(both)
+        n = fake_image.shape[0]
+        return [[t[:n] for t in scale] for scale in out], [[t[n:] for t in scale] for scale in out]
+
+    @torch.no_grad()
+    def orient_for_training(self, pre) -> torch.Tensor:
+        """The frozen IG's inpainted orientation (pix2pix_model.py:260-265),
+        or the raw orientation without --use_ig."""
+        if not self.opt.use_ig:
+            return pre["orient"]
+        return self.inpaint_orient(pre["hole"], pre["orient_rgb"], pre["noise"],
+                                   pre["input_tag"][:, 1:2])[1]
+
+    def generator_loss(self, batch, extra_dilate_steps: int = 2):
+        """(total, per-term losses by name, fake, orient).  netG's forward
+        writes its buffers; gradients reach netG (and netD's parameters,
+        unless the caller switched them off)."""
+        opt = self.opt
+        pre = self.preprocess(batch)
+        losses: Dict[str, torch.Tensor] = {}
+        orient = self.orient_for_training(pre)
+        fake = self.generate_fake(pre, orient, extra_dilate_steps)
+        pred_fake, pred_real = self.discriminate(pre["input_tag"], fake, pre["image_tag"],
+                                                 orient)
+        label_tag = pre["input_tag"][:, 1:2]
+        label_ref = pre["input_ref"][:, 1:2]
+        if not opt.no_gan_loss:
+            losses["GAN"] = multiscale_gan_loss(pred_fake, True, False, opt, label_tag)
+        # the paired-data gate (pix2pix_model.py:286-291) as a factor, not a
+        # branch: no host sync
+        ref_is_tag = ((label_tag - label_ref).abs().sum() == 0).float()
+        # one VGG forward per distinct image: the fake's with a gradient, the
+        # tag's and ref's as one no-grad forward at twice the batch
+        f_fake = self.vgg(fake)
+        with torch.no_grad():
+            f_tr = self.vgg(torch.cat([pre["image_tag"], pre["image_ref"]], dim=0))
+        n = fake.shape[0]
+        f_tag, f_ref = [t[:n] for t in f_tr], [t[n:] for t in f_tr]
+        if not opt.no_ganFeat_loss:
+            losses["GAN_Feat"] = ref_is_tag * gan_feat_loss(pred_fake, pred_real, opt, label_tag)
+        if not opt.no_vgg_loss:
+            losses["VGG"] = ref_is_tag * (vgg_loss_from_features(f_fake, f_tag, opt, label_tag)
+                                          * opt.lambda_vgg)
+        loss_c, loss_s = style_content_loss_from_features(f_fake, f_ref, f_tag, opt, label_ref,
+                                                          label_tag)
+        if not opt.no_content_loss:
+            losses["content"] = loss_c * opt.lambda_content
+        if not opt.no_style_loss:
+            losses["style"] = loss_s * opt.lambda_style
+        if not opt.no_background_loss:
+            losses["background"] = ref_is_tag * (color_losses.rgb_background_l1_loss(
+                fake, pre["input_tag"], pre["image_tag"]) * opt.lambda_background)
+        if not opt.no_rgb_loss:
+            losses["rgb"] = ref_is_tag * ((fake - pre["image_tag"]).abs().mean()
+                                          * opt.lambda_rgb)
+        if not opt.no_lab_loss:
+            losses["lab"] = ref_is_tag * (color_losses.lab_color_loss(
+                fake, pre["image_tag"], opt, label_tag, self.ab_count) * opt.lambda_lab)
+        if not opt.no_orient_loss:
+            o_l1, conf = orient_loss(fake, orient, pre["input_tag"], opt)
+            losses["ORIENT"] = o_l1 * opt.lambda_orient
+            if not opt.no_confidence_loss:
+                losses["CONFIDENCE"] = conf * opt.lambda_confidence
+        return sum(losses.values()), losses, fake, orient
+
+    def discriminator_loss(self, batch, extra_dilate_steps: int = 2,
+                           orient: Optional[torch.Tensor] = None):
+        """(total, {'D_Fake', 'D_real'}): the fake recomputed with the
+        current netG (train-mode statistics, nothing written, no gradient),
+        and the G step's orientation when given (the IG is frozen, so it is
+        the same)."""
+        opt = self.opt
+        pre = self.preprocess(batch)
+        if orient is None:
+            orient = self.orient_for_training(pre)
+        with torch.no_grad(), frozen_buffers(self.netG):
+            fake = self.generate_fake(pre, orient, extra_dilate_steps)
+        pred_fake, pred_real = self.discriminate(pre["input_tag"], fake, pre["image_tag"],
+                                                 orient.detach())
+        label_tag = pre["input_tag"][:, 1:2]
+        d_fake = multiscale_gan_loss(pred_fake, False, True, opt, label_tag)
+        d_real = multiscale_gan_loss(pred_real, True, True, opt, label_tag)
+        return d_fake + d_real, {"D_Fake": d_fake, "D_real": d_real}
 
     @torch.no_grad()
     def infer(self, batch: Dict[str, torch.Tensor], inpaint_mode: Optional[str] = None):

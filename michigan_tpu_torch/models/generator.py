@@ -55,7 +55,10 @@ class SPADEBGenerator(nn.Module):
         self.conv_img = nn.Conv2d(nf, 3, 3, padding=1)
         self.backgroud_enc = BackgroundEncode2(opt)
 
-    def forward(self, input_ref, input_tag, orient, image_ref, image_tag, noise):
+    def forward(self, input_ref, input_tag, orient, image_ref, image_tag, noise,
+                extra_dilate_steps: int = 2):
+        """`extra_dilate_steps` (training with --random_expand_mask) is the
+        number of 3x3 dilations added to the hair mask's base width."""
         opt = self.opt
         seg = input_tag
         hair_mask = input_tag[:, 1:2]
@@ -65,7 +68,8 @@ class SPADEBGenerator(nn.Module):
             o = orient if opt.use_ig else orient_to_two_channel(orient, hair_mask)
             seg = torch.cat([seg, o.to(seg.dtype)], dim=1)
 
-        back_feats, back_masks = self.backgroud_enc(image_tag, input_tag, noise)
+        back_feats, back_masks = self.backgroud_enc(image_tag, input_tag, noise,
+                                                    extra_dilate_steps)
         H, W = hair_mask.shape[2:]
         hair_masks = [resize_nearest(hair_mask, (H // f, W // f)) for f in (8, 4, 2)]
         hair_masks.append(hair_mask)

@@ -7,14 +7,22 @@ michigan_tpu/models/layers.py), NCHW.
   nn.ReflectionPad2d                -> reflect_pad
   plain convs                       -> nn.Conv2d
 
-Spectral norm runs as torch's does in eval: sigma = u . (W v) from the stored
-u and v, with no power iteration.
+Spectral norm runs as torch's does: in eval, sigma = u . (W v) from the
+stored u and v; in train mode one power iteration from the stored u first
+(no gradient through it), then sigma from the iterated u and v.
+
+Which forward may write buffers (spectral u / v here, batch-norm running
+statistics in normalization.py) is explicit: a module writes them in train
+mode unless ``frozen_buffers`` is around the call, which keeps the
+train-mode arithmetic and writes nothing (the JAX package's
+``mutable=False``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 import torch.nn as nn
@@ -27,11 +35,27 @@ def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
     return F.pad(x, (p, p, p, p), mode="reflect")
 
 
+@contextlib.contextmanager
+def frozen_buffers(*nets: nn.Module) -> Iterator[None]:
+    """Inside, every module of `nets` that writes buffers in train mode
+    (``write_buffers``) computes as in train mode but writes nothing."""
+    mods = [m for net in nets for m in net.modules() if hasattr(m, "write_buffers")]
+    saved = [m.write_buffers for m in mods]
+    for m in mods:
+        m.write_buffers = False
+    try:
+        yield
+    finally:
+        for m, w in zip(mods, saved):
+            m.write_buffers = w
+
+
 class SpectralConv2d(nn.Module):
-    """spectral_norm(nn.Conv2d(...)) in eval mode; W is flattened OIHW ->
-    (O, I*kh*kw) for sigma, as torch does."""
+    """spectral_norm(nn.Conv2d(...)); W is flattened OIHW -> (O, I*kh*kw)
+    for sigma, as torch does."""
 
     transposed = False
+    write_buffers = True
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, dilation: int = 1, bias: bool = True):
@@ -52,7 +76,15 @@ class SpectralConv2d(nn.Module):
         """The spectrally normalised weight; with `bias`, what a fused
         kernel that computes the conv itself takes (conv3x3_in_act), as the
         JAX package's TorchConv(..., return_kernel=True) hands it out."""
-        return self.weight_orig / spectral_sigma(self.w_mat(), self.weight_u, self.weight_v)
+        w_mat = self.w_mat()
+        u, v = self.weight_u, self.weight_v
+        if self.training:
+            with torch.no_grad():
+                u, v = power_iteration(w_mat, u, 1)
+                if self.write_buffers:
+                    self.weight_u.copy_(u)
+                    self.weight_v.copy_(v)
+        return self.weight_orig / spectral_sigma(w_mat, u, v)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv2d(x, self.weight(), self.bias, self.stride, self.padding,

@@ -4,7 +4,13 @@ michigan_tpu/models/normalization.py), NCHW.
 The param-free norm of netG=spadeb is sync batch norm; in eval it uses the
 running statistics, so every SPADE norm is one `spade_modulate` launch with
 invstd = rsqrt(running_var + 1e-5).  The instance-norm variant is one
-`fused_instance_norm` launch with gamma and beta.
+`fused_instance_norm` launch with gamma and beta.  Both kernels are
+forward-only: in train mode SPADE is the plain composition with autograd
+(batch statistics, running statistics written unless under
+``layers.frozen_buffers``), as the JAX package's training path is.
+
+NonSpadeNorm is the discriminator's norm layer: a spectral conv with the
+bias stripped, then the plain instance norm (with autograd).
 """
 
 from __future__ import annotations
@@ -15,8 +21,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from michigan_tpu_torch.models.layers import SpectralConv2d
 from michigan_tpu_torch.ops.cuda.spade import fused_instance_norm, spade_modulate
-from michigan_tpu_torch.ops.norms import batch_norm_eval, instance_norm
+from michigan_tpu_torch.ops.norms import batch_norm_eval, batch_norm_train, instance_norm
 from michigan_tpu_torch.ops.resize import resize_nearest
 
 
@@ -29,7 +36,11 @@ def parse_spade_config(config_text: str):
 class ParamFreeNorm(nn.Module):
     """Affine-free instance / batch / syncbatch norm.  Batch norms hold the
     buffers of torch's BatchNorm2d (running_mean, running_var,
-    num_batches_tracked); only eval mode is ported."""
+    num_batches_tracked); in train mode they normalise with the batch's
+    statistics (one device: sync batch norm is batch norm) and write the
+    running statistics with momentum 0.1 unless their buffers are frozen."""
+
+    write_buffers = True
 
     def __init__(self, norm_type: str, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -45,7 +56,13 @@ class ParamFreeNorm(nn.Module):
         if self.norm_type == "instance":
             return instance_norm(x, self.eps)
         if self.training:
-            raise NotImplementedError("training-mode batch statistics are not ported")
+            y, new_mean, new_var = batch_norm_train(x, self.running_mean, self.running_var,
+                                                    eps=self.eps)
+            if self.write_buffers:
+                self.running_mean.copy_(new_mean)
+                self.running_var.copy_(new_var)
+                self.num_batches_tracked += 1
+            return y
         return batch_norm_eval(x, self.running_mean, self.running_var, self.eps)
 
 
@@ -86,10 +103,28 @@ class SPADE(nn.Module):
         actv = self.mlp_shared(seg)
         weight, bias = self.gamma_beta_conv()
         gamma, beta = F.conv2d(actv, weight, bias, padding=self.pw).chunk(2, dim=1)
+        if self.training:
+            return self.param_free_norm(x) * (1.0 + gamma) + beta
         if self.norm_type == "instance":
             return fused_instance_norm(x, gamma.contiguous(), beta.contiguous())
-        if self.training:
-            raise NotImplementedError("training-mode batch statistics are not ported")
         pfn = self.param_free_norm
         invstd = torch.rsqrt(pfn.running_var + pfn.eps)
         return spade_modulate(x, pfn.running_mean, invstd, gamma, beta)
+
+
+class NonSpadeNorm(nn.Module):
+    """get_nonspade_norm_layer's Sequential(spectral conv, norm)
+    (normalization.py:18-54) for --norm_D spectralinstance: the conv's
+    bias is stripped because a norm follows; the state_dict key of the conv
+    is ``0``, as in the reference."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int, padding: int,
+                 norm_str: str):
+        super().__init__()
+        if norm_str != "spectralinstance":
+            raise NotImplementedError(f"--norm_D {norm_str} is not ported")
+        self.add_module("0", SpectralConv2d(in_ch, out_ch, kernel_size, stride, padding,
+                                            bias=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return instance_norm(self._modules["0"](x))

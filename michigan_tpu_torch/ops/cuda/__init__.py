@@ -6,10 +6,15 @@ show which kernels its path went through.
 """
 
 from michigan_tpu_torch.ops.cuda.epilogue import conv3x3_in_act
-from michigan_tpu_torch.ops.cuda.orient import filterbank_orientation
+from michigan_tpu_torch.ops.cuda.lowch import conv3x3_same_lowch
+from michigan_tpu_torch.ops.cuda.orient import (
+    filterbank_orientation,
+    filterbank_orientation_backward,
+)
 from michigan_tpu_torch.ops.cuda.spade import fused_instance_norm, spade_modulate
 
-KERNELS = (spade_modulate, fused_instance_norm, conv3x3_in_act, filterbank_orientation)
+KERNELS = (spade_modulate, fused_instance_norm, conv3x3_in_act, filterbank_orientation,
+           filterbank_orientation_backward, conv3x3_same_lowch)
 
 
 def reset_launch_counts() -> None:

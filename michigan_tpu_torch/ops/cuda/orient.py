@@ -11,9 +11,21 @@ filterbank_orientation(gray, bank)
     Returns (idx int32 (N, H, W), conf float32 (N, H, W)).  The bank is the
     JAX package's HWIO layout, (17, 17, 1, 32), as
     ``michigan_tpu_torch.ops.filters.bank`` makes it.
+filterbank_orientation_backward(dconf, idx, conf, bank)
+    The gradient of conf with respect to gray, which the JAX package takes
+    by autodiff through the bank conv (``michigan_tpu/ops/filters.py:
+    207-250``): the upstream gradient at each pixel q, where conf[q] > 0,
+    spread back through the 17x17 filter of its argmax orientation.
+    Returns dgray (N, 1, H, W).
+OrientationResponse
+    The ``torch.autograd.Function`` that joins the two: forward
+    ``filterbank_orientation``, backward ``filterbank_orientation_backward``;
+    idx carries no gradient.  The training step's ORIENT / CONFIDENCE loss
+    differentiates through it.
 
-The kernel is compute-bound (9,248 FMAs per pixel); the design notes are in
-the CUDA source.  A wrapper runs the plain PyTorch version for CPU tensors
+The forward kernel is compute-bound (9,248 FMAs per pixel), the backward
+(289 per pixel) bound by shared-memory reads; the design notes are in the
+CUDA source.  A wrapper runs the plain PyTorch version for CPU tensors
 only.  For a CUDA tensor it checks dtype, shape, contiguity and device,
 launches the kernel on the current stream and counts the launch; anything the
 kernel does not take raises.  There is no fallback on CUDA tensors.
@@ -40,6 +52,31 @@ def filterbank_orientation_plain(gray: torch.Tensor, bank: torch.Tensor
     return idx.to(torch.int32), conf
 
 
+def filterbank_orientation_backward_plain(dconf: torch.Tensor, idx: torch.Tensor,
+                                          conf: torch.Tensor, bank: torch.Tensor
+                                          ) -> torch.Tensor:
+    """The transposed bank conv of a cotangent that is dconf at each pixel's
+    argmax orientation where conf > 0, and 0 elsewhere."""
+    g = torch.where(conf > 0, dconf.float(), torch.zeros((), device=dconf.device))
+    cot = torch.zeros((idx.shape[0], bank.shape[3]) + tuple(idx.shape[1:]),
+                      dtype=torch.float32, device=dconf.device)
+    cot.scatter_(1, idx.long().unsqueeze(1), g.unsqueeze(1))
+    return F.conv_transpose2d(cot, bank.permute(3, 2, 0, 1), padding=bank.shape[0] // 2)
+
+
+def _check_bank(bank: torch.Tensor, like: torch.Tensor) -> None:
+    if bank.dtype != torch.float32:
+        raise TypeError(f"kernel takes a float32 bank, got {bank.dtype}")
+    if tuple(bank.shape) != BANK_SHAPE:
+        raise ValueError(f"bank must be {BANK_SHAPE}, got {tuple(bank.shape)}")
+    if bank.device != like.device:
+        raise ValueError(f"bank is on {bank.device}, the planes on {like.device}")
+    if not bank.is_contiguous():
+        raise ValueError("bank must be contiguous")
+    if bank.data_ptr() % 16:
+        raise ValueError("bank must be 16-byte aligned")
+
+
 def filterbank_orientation(gray: torch.Tensor, bank: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(N, 1, H, W) float32 gray, (17, 17, 1, 32) bank -> (first argmax
@@ -49,20 +86,15 @@ def filterbank_orientation(gray: torch.Tensor, bank: torch.Tensor
         return filterbank_orientation_plain(gray, bank)
     if gray.device.type != "cuda":
         raise ValueError(f"no kernel for device {gray.device}")
-    if gray.dtype != torch.float32 or bank.dtype != torch.float32:
-        raise TypeError(f"kernel takes float32, got gray {gray.dtype}, bank {bank.dtype}")
+    if gray.dtype != torch.float32:
+        raise TypeError(f"kernel takes float32, got gray {gray.dtype}")
     if gray.dim() != 4 or gray.shape[1] != 1 or gray.numel() == 0:
         raise ValueError(f"expected a non-empty (N, 1, H, W) gray plane, got {tuple(gray.shape)}")
     if gray.shape[0] > 65535:
         raise ValueError(f"at most 65535 planes per launch, got {gray.shape[0]}")
-    if tuple(bank.shape) != BANK_SHAPE:
-        raise ValueError(f"bank must be {BANK_SHAPE}, got {tuple(bank.shape)}")
-    if bank.device != gray.device:
-        raise ValueError(f"bank is on {bank.device}, gray on {gray.device}")
-    if not gray.is_contiguous() or not bank.is_contiguous():
-        raise ValueError("gray and bank must be contiguous")
-    if bank.data_ptr() % 16:
-        raise ValueError("bank must be 16-byte aligned")
+    if not gray.is_contiguous():
+        raise ValueError("gray must be contiguous")
+    _check_bank(bank, gray)
     n, _, h, w = gray.shape
     idx = torch.empty((n, h, w), dtype=torch.int32, device=gray.device)
     conf = torch.empty((n, h, w), dtype=torch.float32, device=gray.device)
@@ -75,3 +107,56 @@ def filterbank_orientation(gray: torch.Tensor, bank: torch.Tensor
 
 
 filterbank_orientation.launches = 0
+
+
+def filterbank_orientation_backward(dconf: torch.Tensor, idx: torch.Tensor,
+                                    conf: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
+    """dconf (N, H, W) float32 and the forward's idx (int32) and conf
+    (float32, both (N, H, W)) -> dgray (N, 1, H, W) float32."""
+    if dconf.device.type == "cpu":
+        return filterbank_orientation_backward_plain(dconf, idx, conf, bank)
+    if dconf.device.type != "cuda":
+        raise ValueError(f"no kernel for device {dconf.device}")
+    if dconf.dim() != 3 or dconf.numel() == 0:
+        raise ValueError(f"expected a non-empty (N, H, W) dconf, got {tuple(dconf.shape)}")
+    if dconf.shape[0] > 65535:
+        raise ValueError(f"at most 65535 planes per launch, got {dconf.shape[0]}")
+    for name, t, dtype in (("dconf", dconf, torch.float32), ("idx", idx, torch.int32),
+                           ("conf", conf, torch.float32)):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.shape != dconf.shape or t.device != dconf.device:
+            raise ValueError(f"{name} is {tuple(t.shape)} on {t.device}, dconf "
+                             f"{tuple(dconf.shape)} on {dconf.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    _check_bank(bank, dconf)
+    n, h, w = dconf.shape
+    dgray = torch.empty((n, 1, h, w), dtype=torch.float32, device=dconf.device)
+    err = build.load("filterbank").filterbank_orientation_backward_f32(
+        dconf.data_ptr(), idx.data_ptr(), conf.data_ptr(), bank.data_ptr(), dgray.data_ptr(),
+        n, h, w, torch.cuda.current_stream(dconf.device).cuda_stream)
+    build.check_launch("filterbank_orientation_backward", err)
+    filterbank_orientation_backward.launches += 1
+    return dgray
+
+
+filterbank_orientation_backward.launches = 0
+
+
+class OrientationResponse(torch.autograd.Function):
+    """(gray, bank) -> (idx, conf) as ``filterbank_orientation``; the
+    gradient reaches gray through conf by ``filterbank_orientation_backward``
+    (the bank is a constant)."""
+
+    @staticmethod
+    def forward(ctx, gray, bank):
+        idx, conf = filterbank_orientation(gray, bank)
+        ctx.save_for_backward(idx, conf, bank)
+        ctx.mark_non_differentiable(idx)
+        return idx, conf
+
+    @staticmethod
+    def backward(ctx, _didx, dconf):
+        idx, conf, bank = ctx.saved_tensors
+        return filterbank_orientation_backward(dconf.contiguous(), idx, conf, bank), None

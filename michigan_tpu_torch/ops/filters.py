@@ -6,7 +6,9 @@ The banks are the JAX package's, built with numpy the same way
 second; sigma_x=2 sigma_y=3 lambda=4 psi=0 for Gabor, sigma_h=1 sigma_l=2
 sigma_y=2 for DoG) and cached.  ``orientation_response`` goes to the
 ``filterbank_orientation`` wrapper: the CUDA kernel on a card, its plain
-version on the CPU.
+version on the CPU.  ``cal_orientation_two_channel`` (the training loss's
+orientation) differentiates through the max response with
+``OrientationResponse``, whose backward is ``filterbank_orientation_backward``.
 
 Public functions keep the JAX layout: gray is (N, H, W, 1).  Inside, the
 port is NCHW (for one channel the same memory).  The JAX package's
@@ -23,7 +25,7 @@ import math
 import numpy as np
 import torch
 
-from michigan_tpu_torch.ops.cuda.orient import filterbank_orientation
+from michigan_tpu_torch.ops.cuda.orient import OrientationResponse, filterbank_orientation
 
 NUM_KERNELS = 32
 KERNEL_SIZE = 17
@@ -105,3 +107,25 @@ def dense_orientation(gray: torch.Tensor, mode: str = "dog"):
     (N,H,W,1)."""
     idx, raw_conf = orientation_response(gray, mode)
     return idx.float()[..., None], raw_conf[..., None]
+
+
+def cal_orientation_two_channel(image_pm1: torch.Tensor, mode: str = "gabor",
+                                hair_mask: torch.Tensor = None):
+    """loss.py:293-343: ((sin 2t, cos 2t) * confidence (N,H,W,2), confidence
+    (N,H,W,1)) of an NHWC [-1,1] image.  Gabor squashes the max response
+    with (tanh + 1) / 2; DoG masks it by `hair_mask` (N,H,W,1) and divides
+    by its maximum over the batch.  The gradient reaches the image through
+    the max response only, as in torch."""
+    gray = rgb_to_gray255(image_pm1).permute(0, 3, 1, 2).contiguous()
+    idx, raw_conf = OrientationResponse.apply(gray, bank(mode, gray.device))
+    theta = idx.float() * (math.pi / NUM_KERNELS)
+    if mode == "gabor":
+        conf = (torch.tanh(raw_conf) + 1.0) / 2.0
+    else:
+        conf = raw_conf[..., None]
+        if hair_mask is not None:
+            conf = conf * hair_mask
+        conf = conf / conf.max().clamp_min(1e-12)
+        conf = torch.where(conf <= 0, torch.zeros_like(conf), conf)[..., 0]
+    two = torch.stack([torch.sin(2.0 * theta), torch.cos(2.0 * theta)], dim=-1)
+    return two * conf[..., None], conf[..., None]

@@ -41,3 +41,9 @@ def dilate_mask(mask: torch.Tensor, k: int) -> torch.Tensor:
     if y.shape[2:] != mask.shape[2:]:
         y = resize_nearest(y, mask.shape[2:])
     return y
+
+
+def avg_pool_3x3s2(x: torch.Tensor) -> torch.Tensor:
+    """F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=False): the
+    multiscale discriminator's downsample (discriminator.py:46-49)."""
+    return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=False)

@@ -11,3 +11,15 @@ def masked_region_mean(feat: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     num = (feat * mask).sum(dim=(2, 3), keepdim=True)
     den = mask.sum(dim=(2, 3), keepdim=True).clamp_min(1.0)
     return num / den
+
+
+def masked_mean_std(feat: torch.Tensor, mask: torch.Tensor, eps: float = 1e-5):
+    """calc_mean_std_mask (loss.py:634-654): per-(N, C) mean and std over the
+    masked pixels, (N,C,H,W) and (N,1,H,W) -> two (N,C,1,1).  As in the
+    reference the variance is sum(((x*m - mean) * m)^2) / sum(m) + eps."""
+    m = mask.float()
+    f = feat.float() * m
+    msum = m.sum(dim=(2, 3), keepdim=True) + eps
+    mean = f.sum(dim=(2, 3), keepdim=True) / msum
+    var = (((f - mean) * m) ** 2).sum(dim=(2, 3), keepdim=True) / msum + eps
+    return mean, torch.sqrt(var)

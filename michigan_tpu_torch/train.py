@@ -1,0 +1,149 @@
+"""Training CLI of the port (counterpart of train.py, reference train.py).
+
+    python -m michigan_tpu_torch.train --name MichiGAN --gpu_ids 0 \
+        --netG spadeb --use_encoder --use_ig --noise_background \
+        --expand_mask_be --expand_th 5 --random_expand_mask \
+        --num_upsampling_layers more --batchSize 8 --data_dir <dir>
+
+Same flags as the JAX CLI (michigan_tpu.config.train_options).  <dir> holds
+train_images/, train_labels/ and train_dense_orients/ (or point --image_dir,
+--label_dir and --orient_dir at them).  The device comes from --gpu_ids: -1
+is the CPU, N is cuda:N; fp32 with TF32 off.  netIG comes from
+checkpoints/<name>/InpaintingModel_gen.pth when present, VGG19 from
+$MICHIGAN_VGG19 or checkpoints/vgg19*.{pth,npz}; otherwise seeded weights.
+
+The loop follows the JAX trainer: epochs with the linear LR decay,
+--max_steps, the mask dilation width drawn per step from a host RNG seeded
+by --seed, losses printed every --print_freq images (and appended to
+checkpoints/<name>/loss_log.txt), 'latest' saved every --save_latest_freq
+images and at the end of each epoch, each --save_epoch_freq epoch saved
+under its number, --continue_train resuming from --which_epoch and iter.txt.
+Image display (the HTML visualizer) is not ported.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import sys
+import time
+
+
+def parse_options(argv=None):
+    from michigan_tpu.config import train_options
+
+    opt = train_options(argv)
+    if len([s for s in str(opt.gpu_ids).split(",") if s.strip() not in ("", "-1")]) > 1:
+        raise NotImplementedError("multi-GPU training is not ported yet: give one --gpu_ids")
+    return opt
+
+
+def load_released_ig(model, opt) -> None:
+    from michigan_tpu_torch.convert import load_reference_state
+
+    path = os.path.join(opt.checkpoints_dir, opt.name, opt.ig_model_name)
+    if model.netIG is not None and os.path.exists(path):
+        import torch
+
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        load_reference_state(model.netIG, state.get("generator", state))
+        model.to_device()
+        print(f"loaded netIG from {path}")
+
+
+def main(argv=None):
+    import torch
+
+    from michigan_tpu_torch.data.dataset import BatchLoader, CustomDataset
+    from michigan_tpu_torch.inference import device_from_gpu_ids
+    from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
+    from michigan_tpu_torch.training import checkpoint as CK
+    from michigan_tpu_torch.training.state import set_learning_rates
+    from michigan_tpu_torch.training.train_step import TrainStep
+    from michigan_tpu_torch.utils.iter_counter import IterationCounter
+
+    opt = parse_options(argv)
+    print(" ".join(sys.argv))
+    device = device_from_gpu_ids(opt.gpu_ids)
+    if device.type == "cuda":
+        # cuDNN's fp32 convolutions default to TF32; keep full fp32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    opt.save(os.path.join(opt.checkpoints_dir, opt.name, "opt.json"))
+
+    loader = BatchLoader(CustomDataset(opt), opt)
+    if len(loader) == 0:
+        raise ValueError(f"the dataset at {opt.data_dir} yields no full batch of {opt.batchSize}")
+    model = MichiGANModel(opt, device)
+    model.init_weights(opt.seed)
+    load_released_ig(model, opt)
+    trainer = TrainStep(model)
+    iter_counter = IterationCounter(opt, len(loader) * opt.batchSize)
+    if opt.continue_train and CK.load_checkpoint(opt, opt.which_epoch, trainer):
+        print(f"resumed checkpoint '{opt.which_epoch}'")
+    log_path = os.path.join(opt.checkpoints_dir, opt.name, "loss_log.txt")
+    host_rng = random.Random(opt.seed)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def save_latest():
+        CK.save_checkpoint(opt, "latest", trainer)
+        iter_counter.record_current_iter()
+
+    for epoch in iter_counter.training_epochs():
+        iter_counter.record_epoch_start(epoch)
+        t0, steps, stop = None, 0, False
+        for i, data in enumerate(loader):
+            if opt.max_steps and iter_counter.total_steps_so_far // opt.batchSize >= opt.max_steps:
+                stop = True
+                break
+            iter_counter.record_one_iteration()
+            batch = batch_from_numpy(data, device)
+            # the random mask dilation width (encoder.py:294): 0..4 extra 3x3 steps
+            extra = host_rng.randint(0, 4)
+            g_losses, d_losses, orient = {}, {}, None
+            if i % opt.D_steps_per_G == 0:
+                g_losses, _fake, orient = trainer.g_step(batch, extra)
+            if i % opt.G_steps_per_D == 0 and not opt.no_discriminator:
+                d_losses = trainer.d_step(batch, extra, orient)
+            if t0 is None:
+                sync()
+                t0 = time.perf_counter()  # the first step's build and warm-up off the clock
+            else:
+                steps += 1
+            if iter_counter.needs_printing():
+                msg = (f"(epoch: {epoch}, iters: {iter_counter.epoch_iter}, "
+                       f"time: {iter_counter.time_per_iter:.3f}) ")
+                msg += "".join(f"{k}: {v.item():.3f} " for k, v in {**g_losses,
+                                                                   **d_losses}.items())
+                print(msg)
+                with open(log_path, "a") as f:
+                    f.write(msg + "\n")
+            if iter_counter.needs_saving():
+                print(f"saving the latest model (epoch {epoch}, "
+                      f"total_steps {iter_counter.total_steps_so_far})")
+                save_latest()
+        if steps:
+            sync()
+            dt = time.perf_counter() - t0
+            print(f"epoch {epoch} wall throughput: {steps * opt.batchSize / dt:.2f} img/s over "
+                  f"{steps} steps ({dt / steps:.3f} s/step incl. data)")
+        if stop:
+            print(f"stopping at --max_steps {opt.max_steps}")
+            save_latest()
+            break
+        set_learning_rates(trainer.opt_g, trainer.opt_d, opt, epoch + 1)
+        iter_counter.record_epoch_end()
+        if epoch % opt.save_epoch_freq == 0 or epoch == iter_counter.total_epochs:
+            print(f"saving the model at the end of epoch {epoch}, "
+                  f"iters {iter_counter.total_steps_so_far}")
+            CK.save_checkpoint(opt, "latest", trainer)
+            iter_counter.record_current_iter(epoch + 1, 0)
+            CK.save_checkpoint(opt, epoch, trainer)
+    print("Training was successfully finished.")
+
+
+if __name__ == "__main__":
+    main()

@@ -10,8 +10,12 @@ Tolerances: the fused norms float32 atol 1e-4, rtol 1e-5, bfloat16 atol
 1e-2, rtol 1.6e-2 (about two bf16 ulps); conv3x3_in_act atol 1e-4, rtol
 1e-4 (float32 sums of C*9 products in another order); the filter bank's
 response rtol 1e-4, atol 1e-3, its argmax off on at most 0.1% of pixels and
-then by one orientation (near-ties under another summation order).
+then by one orientation (near-ties under another summation order);
+conv3x3_same_lowch and filterbank_orientation_backward within 1e-4 of the
+plain result's largest magnitude (float32 sums in another order).
 """
+
+import math
 
 import pytest
 import torch
@@ -19,6 +23,7 @@ import torch
 from michigan_tpu_torch.ops import cuda as kernels
 from michigan_tpu_torch.ops import filters
 from michigan_tpu_torch.ops.cuda import epilogue as E
+from michigan_tpu_torch.ops.cuda import lowch as L
 from michigan_tpu_torch.ops.cuda import orient as O
 from michigan_tpu_torch.ops.cuda import spade as K
 
@@ -61,7 +66,9 @@ def test_kernels_match_plain(cuda_device, dtype, hw):
             torch.testing.assert_close(got.float(), want.float(), **TOLS[dtype])
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"spade_modulate": 1, "fused_instance_norm": 6,
-                                       "conv3x3_in_act": 0, "filterbank_orientation": 0}
+                                       "conv3x3_in_act": 0, "filterbank_orientation": 0,
+                                       "filterbank_orientation_backward": 0,
+                                       "conv3x3_same_lowch": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -182,3 +189,72 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         E.conv3x3_in_act(x, w, None, dilation=5)
     with pytest.raises(ValueError, match="w is on cpu"):
         E.conv3x3_in_act(x, w.cpu(), None)
+
+
+def assert_rel(got, want, rel=1e-4):
+    assert (got - want).abs().max().item() <= rel * want.abs().max().item()
+
+
+@pytest.mark.parametrize("n,c,co,h,w", [(2, 64, 64, 37, 53), (1, 64, 64, 64, 64),
+                                        (1, 3, 70, 10, 11)])  # ragged tiles; Co over one block
+def test_conv3x3_same_lowch_matches_plain(cuda_device, n, c, co, h, w):
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((n, c, h, w), generator=gen).relu().to(cuda_device)
+    wt = (torch.randn((co, c, 3, 3), generator=gen) * math.sqrt(2 / (9 * c))).to(cuda_device)
+    kernels.reset_launch_counts()
+    got = L.conv3x3_same_lowch(x, wt)
+    torch.cuda.synchronize()
+    assert_rel(got, L.conv3x3_same_lowch_plain(x, wt))
+    assert kernels.launch_counts()["conv3x3_same_lowch"] == 1
+
+
+def strand_gray(gen, n, h, w, device):
+    """Textured planes in [0, 255]: no exact ties among the clamped responses."""
+    yy = torch.arange(h, dtype=torch.float32)[:, None] / h
+    xx = torch.arange(w, dtype=torch.float32)[None, :] / w
+    tex = 127 + 80 * torch.sin(2 * math.pi * 20 * (xx * 0.7 + yy * 0.4 + 0.3 * xx * yy))
+    return (tex + 40 * torch.rand((n, 1, h, w), generator=gen)).to(device)
+
+
+@pytest.mark.parametrize("mode", ["gabor", "dog"])
+@pytest.mark.parametrize("n,h,w", [(2, 37, 53), (1, 128, 128)])  # ragged and whole tiles
+def test_filterbank_backward_matches_plain_and_autograd(cuda_device, mode, n, h, w):
+    gen = torch.Generator().manual_seed(6)
+    gray = strand_gray(gen, n, h, w, cuda_device)
+    bank = filters.bank(mode, cuda_device)
+    dconf = torch.randn((n, h, w), generator=gen).to(cuda_device)
+    kernels.reset_launch_counts()
+    g = gray.clone().requires_grad_()
+    idx, conf = O.OrientationResponse.apply(g, bank)
+    conf.backward(dconf)
+    want = O.filterbank_orientation_backward_plain(dconf, idx, conf, bank)
+    g2 = gray.clone().requires_grad_()
+    (auto,) = torch.autograd.grad(O.filterbank_orientation_plain(g2, bank)[1], g2, dconf)
+    torch.cuda.synchronize()
+    assert_rel(g.grad, want)
+    assert_rel(auto, want)
+    assert kernels.launch_counts()["filterbank_orientation"] == 1
+    assert kernels.launch_counts()["filterbank_orientation_backward"] == 1
+
+
+def test_training_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    x = torch.zeros((1, 4, 8, 8), device=cuda_device)
+    w = torch.zeros((4, 4, 3, 3), device=cuda_device)
+    with pytest.raises(TypeError):
+        L.conv3x3_same_lowch(x.double(), w.double())
+    with pytest.raises(ValueError, match="must be"):
+        L.conv3x3_same_lowch(x, torch.zeros((4, 3, 3, 3), device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        L.conv3x3_same_lowch(x.transpose(2, 3), w)
+    with pytest.raises(ValueError, match="w is on cpu"):
+        L.conv3x3_same_lowch(x, w.cpu())
+    bank = filters.bank("dog", cuda_device)
+    d = torch.zeros((1, 8, 8), device=cuda_device)
+    idx = torch.zeros((1, 8, 8), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError, match="idx"):
+        O.filterbank_orientation_backward(d, idx.long(), d, bank)
+    with pytest.raises(ValueError, match="conf is"):
+        O.filterbank_orientation_backward(d, idx, torch.zeros((1, 8, 9), device=cuda_device),
+                                          bank)
+    with pytest.raises(ValueError, match="bank must be"):
+        O.filterbank_orientation_backward(d, idx, d, bank[:, :, :, :16])

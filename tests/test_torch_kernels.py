@@ -25,6 +25,7 @@ from michigan_tpu.ops.pallas.filterbank import filterbank_orientation as pallas_
 from michigan_tpu_torch.ops import filters
 from michigan_tpu_torch.ops import cuda as kernels
 from michigan_tpu_torch.ops.cuda import epilogue as E
+from michigan_tpu_torch.ops.cuda import lowch as L
 from michigan_tpu_torch.ops.cuda import orient as O
 from michigan_tpu_torch.ops.cuda import spade as K
 
@@ -196,8 +197,14 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing(rng):
     xp, w, bias, res = epilogue_inputs(rng, 1, True)
     port_epilogue(xp, w, bias, res, 1, None)
     filters.orientation_response(torch.zeros(1, 20, 24, 1), "gabor")
+    gray = torch.rand(1, 1, 20, 24, requires_grad=True)
+    _, conf = O.OrientationResponse.apply(gray, filters.bank("gabor", gray.device))
+    conf.sum().backward()
+    L.conv3x3_same_lowch(torch.zeros(1, 4, 6, 6), torch.zeros(4, 4, 3, 3))
     assert kernels.launch_counts() == {"spade_modulate": 0, "fused_instance_norm": 0,
-                                       "conv3x3_in_act": 0, "filterbank_orientation": 0}
+                                       "conv3x3_in_act": 0, "filterbank_orientation": 0,
+                                       "filterbank_orientation_backward": 0,
+                                       "conv3x3_same_lowch": 0}
 
 
 def test_wrappers_raise_on_devices_without_a_kernel():
@@ -210,6 +217,11 @@ def test_wrappers_raise_on_devices_without_a_kernel():
         E.conv3x3_in_act(x, torch.empty(2, 2, 3, 3, device="meta"), None)
     with pytest.raises(ValueError, match="no kernel"):
         O.filterbank_orientation(x[:, :1], torch.empty(O.BANK_SHAPE, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        O.filterbank_orientation_backward(x[:, 0], x[:, 0].int(), x[:, 0],
+                                          torch.empty(O.BANK_SHAPE, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        L.conv3x3_same_lowch(x, torch.empty(2, 2, 3, 3, device="meta"))
     with pytest.raises(ValueError, match="activation"):
         K.fused_instance_norm(torch.zeros(1, 1, 2, 2), act="gelu")
     with pytest.raises(ValueError, match="activation"):
