@@ -205,13 +205,12 @@ class MichiGANModel:
     def discriminate(self, input_tag, fake_image, real_image, orient):
         """Fake and real through netD as one batch (so its instance norms and
         spectral iteration see both), then split.  netD's spectral u / v are
-        never written."""
+        never written (MultiscaleDiscriminator)."""
         if not self.opt.use_ig:
             orient = orient_to_two_channel(orient, input_tag[:, 1:2])
         both = torch.cat([torch.cat([input_tag, orient, fake_image], dim=1),
                           torch.cat([input_tag, orient, real_image], dim=1)], dim=0)
-        with frozen_buffers(self.netD):
-            out = self.netD(both)
+        out = self.netD(both)
         n = fake_image.shape[0]
         return [[t[:n] for t in scale] for scale in out], [[t[n:] for t in scale] for scale in out]
 

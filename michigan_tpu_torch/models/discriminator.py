@@ -51,7 +51,9 @@ class NLayerDiscriminator(nn.Module):
 
 class MultiscaleDiscriminator(nn.Module):
     """num_D NLayerDiscriminators over a 3x3/2 average-pool pyramid; returns a
-    list (one per scale) of lists of features."""
+    list (one per scale) of lists of features.  Its spectral u / v are never
+    written, as in the JAX package: each train-mode forward iterates again
+    from the stored ones."""
 
     def __init__(self, opt):
         super().__init__()
@@ -60,6 +62,9 @@ class MultiscaleDiscriminator(nn.Module):
         self.num_D = opt.num_D
         for i in range(opt.num_D):
             setattr(self, f"discriminator_{i}", NLayerDiscriminator(opt))
+        for m in self.modules():
+            if hasattr(m, "write_buffers"):
+                m.write_buffers = False
 
     def forward(self, x: torch.Tensor) -> List[List[torch.Tensor]]:
         out = []

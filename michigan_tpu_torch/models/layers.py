@@ -13,9 +13,9 @@ stored u and v; in train mode one power iteration from the stored u first
 
 Which forward may write buffers (spectral u / v here, batch-norm running
 statistics in normalization.py) is explicit: a module writes them in train
-mode unless ``frozen_buffers`` is around the call, which keeps the
-train-mode arithmetic and writes nothing (the JAX package's
-``mutable=False``).
+mode while its ``write_buffers`` is true.  ``frozen_buffers`` clears it
+around one call, which keeps the train-mode arithmetic and writes nothing
+(the JAX package's ``mutable=False``); the discriminator clears it for good.
 """
 
 from __future__ import annotations
