@@ -24,8 +24,9 @@ seeded numpy samples, each through its own entry points:
 Phases, each on its own line:
 
   1. card name and power limit (nvidia-smi), torch and CUDA versions; TF32
-     off for cuDNN convolutions and matmuls
-  2. build the three CUDA libraries from michigan_tpu_torch/csrc, one nvcc
+     off for cuDNN convolutions and matmuls; neither jax nor any module of
+     the JAX package (michigan_tpu) was loaded by the port's imports
+  2. build the four CUDA libraries from michigan_tpu_torch/csrc, one nvcc
      each, all started together
   3. each kernel against its plain PyTorch version at every distinct shape
      of both paths: spade_modulate and fused_instance_norm in float32 (atol
@@ -47,8 +48,12 @@ Phases, each on its own line:
   8. the stroke edit on the CPU, same weights and inputs: within 2e-3 max abs
      and PSNR > 50 dB; compute_orientation_map on a seeded 512^2 image and
      mask: at most 1% of pixels differ from the CPU's
-  9. stroke-path timings (median): the two new kernels and their plain
-     versions at the path's shapes, one inpainter forward with and without
+  9. stroke-path timings (median): conv3x3_in_act in turns with the route
+     it replaces (cuDNN conv + fused_instance_norm) and its plain version,
+     filterbank_orientation and its plain version, at the path's shapes;
+     conv3x3_in_act and its plain version in fp32 against the float64
+     composition at batch 2 (the kernel's largest error at most 2x the
+     plain version's); one inpainter forward with and without
      --use_pallas_epilogue, the edit end to end at batch 1, and
      compute_orientation_map per 512^2 and 1024^2 image, and a profiler
      breakdown of one edit
@@ -57,8 +62,13 @@ Phases, each on its own line:
       conv3x3_same_lowch at VGG features_2's (16, 64, 512^2) and a ragged
       (2, 64, 37, 53) (max abs error within 1e-4 of the output's largest
       magnitude), filterbank_orientation_backward at (8, 1, 512^2) for Gabor
-      and DoG (within 1e-4 of the gradient's largest magnitude); device
-      times of every kernel of the step at its shapes, kernel and plain
+      and DoG (within 1e-4 of the gradient's largest magnitude);
+      conv3x3_same_lowch and F.conv2d in fp32 against a float64 conv at
+      (2, 64, 512^2) (the kernel's largest error at most 2x F.conv2d's);
+      device times of every kernel of the step at its shapes, kernel and
+      plain (conv3x3_same_lowch in turns with F.conv2d, its TFLOP/s at 2
+      FLOP per FMA), and F.instance_norm on fused_instance_norm's act=None
+      calls
   11. the training step on the card at batch 8 (out of memory fails the
       phase): launches per step exactly 29 fused_instance_norm (the frozen
       IG), 1 conv3x3_same_lowch (features_2 of the no-grad tag+ref VGG
@@ -78,7 +88,14 @@ Then a JSON line of per-kernel results: for the training step's kernels
 (fused_instance_norm, filterbank_orientation and its backward,
 conv3x3_same_lowch) launches in phase 11's counted step and times summed over
 one step's calls; for spade_modulate and conv3x3_in_act, which the step does
-not run, launches in phase 7's stroke edit and times over one edit.  Last,
+not run, launches in phase 7's stroke edit and times over one edit.  Each
+row's bound_ms is the larger of its bytes (each input read once, each
+output written once) over 3.35 TB/s and its FLOPs over the card's peak for
+them (dense products 495/3 TFLOP/s through 3xTF32, the rest 67 TFLOP/s of
+float32 FMA), from this run's shapes and data; library_ms is one PyTorch
+call that computes the same function where there is one (F.conv2d for
+conv3x3_same_lowch; F.instance_norm for fused_instance_norm's act=None
+calls), else null.  Last,
 the device line.  Any failure exits non-zero without the device line; so
 does a machine without CUDA, and a directory without the rest of the
 repository.
@@ -162,7 +179,28 @@ EXTRA_DILATE = 2  # the expected random mask dilation (encoder.py:294)
 PARITY_CROP = 512
 LOWCH_SHAPES = [(16, 64, 512, 512), (2, 64, 37, 53)]  # features_2 at batch 8; a ragged tile
 NEW_KERNEL_REL = 1e-4  # of the reference's largest magnitude
+F64_RATIO = 2.0  # a conv kernel's error against float64 at most 2x F.conv2d's in fp32
 SEED = 0
+# the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s; float32
+# FMAs outside the tensor cores; float32-accurate products on the tensor
+# cores through the 3xTF32 split, a third of the 495 TFLOP/s TF32 rate
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
+TF32X3_FLOP_S = 495e12 / 3
+
+
+def bound(nbytes, flops, flop_s):
+    """(ms, what sets it): the least time for moving `nbytes` once at the
+    HBM rate and doing `flops` at `flop_s`, the larger of the two."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / flop_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def conv3x3_work(n, c, co, h, w, pad, extra_bytes=0):
+    """(bytes, FLOPs) of one 3x3 convolution of an (n, c, h+2pad, w+2pad)
+    float32 input to (n, co, h, w), 2 FLOPs per FMA."""
+    nbytes = 4 * (n * c * (h + 2 * pad) * (w + 2 * pad) + co * c * 9 + n * co * h * w)
+    return nbytes + extra_bytes, 2 * n * co * h * w * c * 9
 
 
 def phase(n, msg):
@@ -254,6 +292,11 @@ def profile_once(fn, torch):
         busy_us += max(0.0, e - max(s, end))
         end = max(end, e)
     return busy_us * 1e-3, wall_ms, table
+
+
+def rel_err(got, want64):
+    """Largest error against a float64 result, over its largest magnitude."""
+    return ((got.double() - want64).abs().max() / want64.abs().max()).item()
 
 
 def psnr_u8(a, b, np):
@@ -423,6 +466,9 @@ def run():
     except ImportError as e:
         print(f"FAIL: the port is not importable here: {e}", file=sys.stderr)
         return 1
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "michigan_tpu"))
+    if leaked:
+        return fail(f"the port loaded jax or the JAX package: {leaked[:8]}")
     import numpy as np
     import torch.nn.functional as F
 
@@ -689,6 +735,7 @@ def run():
     # 9 ---------------------------------------------------------------
     edit_ms = {k: 0.0 for k in REPLACES}
     edit_plain_ms = {k: 0.0 for k in REPLACES}
+    work = {k: [0, 0] for k in REPLACES}  # bytes and FLOPs per edit or step
     for kind in ("spade_modulate", "fused_instance_norm"):
         for (k, c, h, act), (tk, tp) in shape_ms.items():
             if k != kind:
@@ -697,6 +744,10 @@ def run():
                 else STROKE_IN_SHAPES.get((c, h, act), 0)
             edit_ms[kind] += calls * tk
             edit_plain_ms[kind] += calls * tp
+            if kind == "spade_modulate":  # x, gamma, beta in, y out; ~4 FLOPs each
+                work[kind][0] += calls * 4 * 4 * c * h * h
+                work[kind][1] += calls * 4 * c * h * h
+    epi_route_ms = 0.0
     for case, calls in EPI_SHAPES.items():
         n, c, h, d, act, res = case
         xp, w, bias, r = epilogue_inputs(torch, case, gen)
@@ -707,17 +758,47 @@ def run():
             y = K.fused_instance_norm(F.conv2d(xp, w, bias, dilation=d), act=act)
             return y if r is None else r + y
 
-        tk, tp, tr = (median_ms(f, torch, True) for f in (fk, fp, route))
+        # in turns: route, kernel, kernel, route
+        turns = {route: [], fk: []}
+        for f in (route, fk, fk, route):
+            turns[f].append(median_ms(f, torch, True))
+        tk, tr = statistics.mean(turns[fk]), statistics.mean(turns[route])
+        tp = median_ms(fp, torch, True)
         hk, hp = median_ms(fk, torch, False), median_ms(fp, torch, False)
         edit_ms["conv3x3_in_act"] += calls * tk
         edit_plain_ms["conv3x3_in_act"] += calls * tp
-        gflops = 2 * n * c * c * 9 * h * h / 1e9
+        epi_route_ms += calls * tr
+        nbytes, flops = conv3x3_work(n, c, c, h, h, d, 4 * (c + (n * c * h * h if res else 0)))
+        work["conv3x3_in_act"][0] += calls * nbytes
+        work["conv3x3_in_act"][1] += calls * flops
+        bound_us = bound(nbytes, flops, TF32X3_FLOP_S)[0] * 1e3
         print(f"[phase 9] conv3x3_in_act x_pad ({n},{c},{h + 2 * d},{h + 2 * d}) dilation {d} "
-              f"act={act} residual={res} x{calls}/edit: device kernel {tk * 1e3:.1f} us "
-              f"({gflops / tk:.1f} TFLOP/s), plain (cuDNN conv + torch norm) {tp * 1e3:.1f} us, "
-              f"cuDNN conv + fused_instance_norm {tr * 1e3:.1f} us; launched from Python "
-              f"kernel {hk * 1e3:.1f} us, plain {hp * 1e3:.1f} us {tag}", flush=True)
-    del xp, w, bias, r, fk, fp, route
+              f"act={act} residual={res} x{calls}/edit: device kernel "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in turns[fk])} us "
+              f"({flops / 1e9 / tk:.1f} TFLOP/s; bound {bound_us:.1f} us), cuDNN conv + "
+              f"fused_instance_norm "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in turns[route])} us (in turns: route, kernel, "
+              f"kernel, route), plain (cuDNN conv + torch norm) {tp * 1e3:.1f} us; launched "
+              f"from Python kernel {hk * 1e3:.1f} us, plain {hp * 1e3:.1f} us {tag}", flush=True)
+    # against float64 at batch 2 of the path's shape: the kernel and the plain
+    # version (cuDNN's fp32 conv, TF32 off, and the torch norm)
+    failed = []
+    for d, act, res in ((2, "relu", False), (1, None, True)):
+        xp, w, bias, r = epilogue_inputs(torch, (2, 256, 64, d, act, res), gen)
+        want = E.conv3x3_in_act_plain(xp.double(), w.double(), bias.double(), d, act,
+                                      residual=None if r is None else r.double())
+        k_rel = rel_err(E.conv3x3_in_act(xp, w, bias, dilation=d, act=act, residual=r), want)
+        p_rel = rel_err(E.conv3x3_in_act_plain(xp, w, bias, dilation=d, act=act, residual=r), want)
+        ok = k_rel <= F64_RATIO * p_rel
+        print(f"[phase 9] conv3x3_in_act (2,256,{64 + 2 * d},{64 + 2 * d}) dilation {d} act={act} "
+              f"residual={res} against float64, largest error over the largest magnitude: kernel "
+              f"{k_rel:.3e}, plain version in fp32 {p_rel:.3e} (limit {F64_RATIO:g}x) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(("conv3x3_in_act float64", d))
+    if failed:
+        return fail(f"kernel less accurate than cuDNN's fp32 conv: {failed}")
+    del xp, w, bias, r, fk, fp, route, want
     for mode, size, plane, calls in FB_CASES:
         gray = fb_plane(torch, mode, size, plane, stroke_mask)
         bank = filters.bank(mode, gray.device)
@@ -736,6 +817,8 @@ def run():
     for kind in (k for k in REPLACES if STROKE_LAUNCHES[k]):
         phase(9, f"{kind} per stroke edit: device kernel {edit_ms[kind]:.3f} ms, plain "
                  f"{edit_plain_ms[kind]:.3f} ms {tag}")
+    phase(9, f"the route conv3x3_in_act replaces (cuDNN conv + fused_instance_norm) per stroke "
+             f"edit: {epi_route_ms:.3f} ms {tag}")
 
     # one inpainter forward at 256^2 without the epilogue (cuDNN conv +
     # fused_instance_norm) against the epilogue kernel, same weights; order
@@ -825,16 +908,45 @@ def run():
     if failed:
         return fail(f"kernel disagrees with its plain version: {failed}")
     del g, auto, got, want
-    # device time of every kernel of the step at its shapes, summed over one
-    # step's calls (the frozen IG runs at batch 8)
-    step_ms, step_plain_ms = {}, {}
-    x = torch.randn(LOWCH_SHAPES[0], generator=cgen, device="cuda").relu_()
+    # against float64 at batch 2 of features_2's shape: the kernel and
+    # F.conv2d in fp32 (TF32 off)
+    x = torch.randn((2, 64, 512, 512), generator=cgen, device="cuda").relu_()
     w = torch.randn((64, 64, 3, 3), generator=cgen, device="cuda") * math.sqrt(2 / 576)
-    step_ms["conv3x3_same_lowch"] = median_ms(lambda: LC.conv3x3_same_lowch(x, w), torch, True,
-                                              inner=5)
-    step_plain_ms["conv3x3_same_lowch"] = median_ms(
-        lambda: LC.conv3x3_same_lowch_plain(x, w), torch, True, inner=5)
-    del x, w
+    want = LC.conv3x3_same_lowch_plain(x.double(), w.double())
+    k_rel = rel_err(LC.conv3x3_same_lowch(x, w), want)
+    p_rel = rel_err(LC.conv3x3_same_lowch_plain(x, w), want)
+    ok = k_rel <= F64_RATIO * p_rel
+    print(f"[phase 10] conv3x3_same_lowch (2,64,512,512) against float64, largest error over the "
+          f"largest magnitude: kernel {k_rel:.3e}, F.conv2d in fp32 {p_rel:.3e} (limit "
+          f"{F64_RATIO:g}x) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        return fail("conv3x3_same_lowch is less accurate than cuDNN's fp32 conv")
+    del x, w, want
+    # device time of every kernel of the step at its shapes, summed over one
+    # step's calls (the frozen IG runs at batch 8); bytes and FLOPs for the
+    # bounds; one library call where one computes the same function
+    step_ms, step_plain_ms, library_ms = {}, {}, {}
+    n_, c_, h_, w_ = LOWCH_SHAPES[0]
+    x = torch.randn(LOWCH_SHAPES[0], generator=cgen, device="cuda").relu_()
+    w = torch.randn((64, c_, 3, 3), generator=cgen, device="cuda") * math.sqrt(2 / (9 * c_))
+    fk = lambda: LC.conv3x3_same_lowch(x, w)
+    fp = lambda: LC.conv3x3_same_lowch_plain(x, w)
+    turns = {fk: [], fp: []}
+    for f in (fp, fk, fk, fp):  # in turns
+        turns[f].append(median_ms(f, torch, True, inner=5))
+    step_ms["conv3x3_same_lowch"] = statistics.mean(turns[fk])
+    # the plain version is one library call, F.conv2d(x, w, padding=1)
+    step_plain_ms["conv3x3_same_lowch"] = statistics.mean(turns[fp])
+    library_ms["conv3x3_same_lowch"] = step_plain_ms["conv3x3_same_lowch"]
+    work["conv3x3_same_lowch"] = list(conv3x3_work(n_, c_, 64, h_, w_, 0))
+    lc_bound = bound(*work["conv3x3_same_lowch"], TF32X3_FLOP_S)
+    tflops = work["conv3x3_same_lowch"][1] / 1e9 / step_ms["conv3x3_same_lowch"]
+    print(f"[phase 10] conv3x3_same_lowch {LOWCH_SHAPES[0]} x1/step: device kernel "
+          f"{', '.join(f'{t:.3f}' for t in turns[fk])} ms ({tflops:.1f} TFLOP/s at 2 FLOP per "
+          f"FMA; bound {lc_bound[0]:.3f} ms by {lc_bound[1]}), F.conv2d (the plain version) "
+          f"{', '.join(f'{t:.3f}' for t in turns[fp])} ms (in turns: F.conv2d, kernel, kernel, "
+          f"F.conv2d) {tag}", flush=True)
+    del x, w, fk, fp, turns
     bank = filters.bank("gabor", grays.device)
     idx, conf = O.filterbank_orientation(grays, bank)
     for k, fk, fp in (
@@ -844,17 +956,36 @@ def run():
              lambda: O.filterbank_orientation_backward(dconf, idx, conf, bank),
              lambda: O.filterbank_orientation_backward_plain(dconf, idx, conf, bank))):
         step_ms[k], step_plain_ms[k] = (median_ms(f, torch, True, inner=5) for f in (fk, fp))
+    # the bank forward: 289 taps x 32 orientations per pixel, a dense product;
+    # its backward: 289 taps per pixel whose response is positive (this run's
+    # conf), a gather; 4-byte gray, idx, conf and gradient planes
+    pixels, bank_bytes = grays.numel(), bank.numel() * 4
+    work["filterbank_orientation"] = [12 * pixels + bank_bytes, 2 * pixels * 32 * 289]
+    work["filterbank_orientation_backward"] = [16 * pixels + bank_bytes,
+                                               2 * 289 * int((conf > 0).sum())]
     step_ms["fused_instance_norm"] = step_plain_ms["fused_instance_norm"] = 0.0
+    in_lib = {"kernel": 0.0, "F.instance_norm": 0.0, "calls": 0}
     for (c, h, act), calls in IN_SHAPES.items():
         inp = kernel_inputs(torch, "fused_instance_norm", c, h, torch.float32, gen, n=8)
-        step_ms["fused_instance_norm"] += calls * median_ms(
-            lambda: K.fused_instance_norm(*inp, act=act), torch, True)
+        tk = median_ms(lambda: K.fused_instance_norm(*inp, act=act), torch, True)
+        step_ms["fused_instance_norm"] += calls * tk
         step_plain_ms["fused_instance_norm"] += calls * median_ms(
             lambda: K.fused_instance_norm_plain(*inp, act=act), torch, True)
+        work["fused_instance_norm"][0] += calls * 2 * inp[0].numel() * 4
+        work["fused_instance_norm"][1] += calls * 8 * inp[0].numel()
+        if act is None:  # F.instance_norm computes the same function only without act
+            in_lib["kernel"] += calls * tk
+            in_lib["F.instance_norm"] += calls * median_ms(
+                lambda: F.instance_norm(inp[0], eps=1e-5), torch, True)
+            in_lib["calls"] += calls
+    library_ms["fused_instance_norm"] = in_lib["F.instance_norm"]
     del grays, idx, conf, dconf, inp
     for k in step_ms:
         phase(10, f"{k} per training step: device kernel {step_ms[k]:.3f} ms, plain "
                   f"{step_plain_ms[k]:.3f} ms {tag}")
+    phase(10, f"fused_instance_norm on the step's {in_lib['calls']} act=None calls: device "
+              f"kernel {in_lib['kernel']:.3f} ms, F.instance_norm "
+              f"{in_lib['F.instance_norm']:.3f} ms {tag}")
     torch.cuda.empty_cache()
 
     # 11 --------------------------------------------------------------
@@ -992,10 +1123,18 @@ def run():
             for k in ("spade_modulate", "conv3x3_in_act")}
     rows.update({k: (step_counts[k], step_ms[k], step_plain_ms[k]) for k in train_kernels})
     max_err.update(new_err)
+    # dense products at the 3xTF32 rate; norms and the gather at fp32 FMA's
+    rates = {k: TF32X3_FLOP_S if k in ("conv3x3_in_act", "filterbank_orientation",
+                                       "conv3x3_same_lowch") else FP32_FLOP_S for k in REPLACES}
+    bounds = {k: bound(*work[k], rates[k]) for k in REPLACES}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": rows[k][0], "max_abs_err": max_err[k], "ms": rows[k][1],
-         "plain_ms": rows[k][2]} for k in REPLACES]}))
+         "plain_ms": rows[k][2], "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+         "library_ms": library_ms.get(k), **({"library_covers": (
+             f"the step's {in_lib['calls']} act=None calls, where the kernel takes "
+             f"{in_lib['kernel']} ms")} if k == "fused_instance_norm" else {})}
+        for k in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

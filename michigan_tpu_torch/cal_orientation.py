@@ -12,8 +12,9 @@ Bulk mode processes a whole directory, masks matched to images by basename:
 The DoG bank runs through the filterbank_orientation kernel (its plain
 version on the CPU) and the flow is smoothed on the same device with a plain
 torch Gaussian equal to cv2.GaussianBlur, so the computation needs neither
-cv2 nor the host.  PIL reads and writes the files.  It runs on cuda when
-available, else on the CPU.
+cv2 nor the host.  PIL reads and writes the files.  The device comes from
+--gpu_ids as in the inference CLI: the card by default (an error when CUDA
+is absent), -1 for the CPU.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from michigan_tpu_torch.inference import device_from_gpu_ids
 from michigan_tpu_torch.ops.filters import dense_orientation
 
 
@@ -104,8 +106,10 @@ def main(argv=None):
         "--hairmask_dir", type=str, default=None,
         help="bulk mode: masks matched to images by basename",
     )
+    parser.add_argument("--gpu_ids", type=str, default="0",
+                        help="the card's index; -1 for the CPU")
     args = parser.parse_args(argv)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = device_from_gpu_ids(args.gpu_ids)
     if device.type == "cuda":
         # cuDNN's fp32 convolutions (the Gaussian) default to TF32; keep full fp32
         torch.backends.cudnn.allow_tf32 = False

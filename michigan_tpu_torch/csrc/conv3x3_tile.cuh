@@ -1,20 +1,55 @@
 // The implicit-GEMM 3x3 convolution tile shared by conv_in_act.cu and
-// conv_lowch.cu: float32, NCHW input, OIHW weights, no tensor cores.
+// conv_lowch.cu, for Hopper's tensor cores (sm_90a): float32 NCHW input,
+// OIHW weights, float32-accurate products through the 3xTF32 split.
 //
-// A block of kThreads = 256 threads computes a 64-output-channel x
-// 64-pixel tile of one sample (pixels of the flattened H*W plane); each
-// thread keeps a 4 x 4 micro-tile of running sums in registers.  The
-// reduction walks the (input channel, tap) pairs 16 at a time: a 16 x 64
-// slice of the weights and the matching 16 x 64 slice of the im2col
-// matrix, gathered straight from the input, are staged in shared memory;
-// per pair a thread reads one float4 of each and issues 16 FMAs.  The next
-// slice is loaded into registers while the current one is used, so the
-// global loads overlap the FMAs.
+// GEMM view of one block: M = a patch of kRows x kCols = 4 x 32 = 128 output
+// pixels of one sample's plane, N = kCo = 64 output channels, K = (tap,
+// input channel), walked as steps of kChunk = 8 input channels for each of
+// the 9 taps.  A group of 8 warps covers the block's output, each warp a
+// 32-pixel x 32-channel warp tile (one patch row, half the channels): 2 x 4
+// mma.sync.m16n8k8 tiles per tap and step.  With kGroups = 2 a second group
+// of 8 warps takes every other 8 channels of each stage, and its sums are
+// added to the first group's at the end: twice the warps on an SM where the
+// grid gives one block per SM.
 //
-// Where the taps come from is the Input policy: PaddedInput reads a plane
-// that the caller already padded by the dilation d (no bounds checks),
-// ZeroPaddedInput reads an unpadded plane and gives 0 outside it ('same'
-// zero padding by 1, no padded copy).
+// 3xTF32.  TF32 keeps 10 mantissa bits; one pass would keep about three
+// digits.  Each operand x is split in registers as it leaves shared memory,
+// big = tf32(x) (round to nearest, ties away, as cvt.rna, in integer form:
+// with cvt.rna the kernels take 9-11% longer), small = x - big, read as TF32
+// by the tensor cores, and each product is accumulated as small*big +
+// big*small + big*big in float32: the dropped small*small term is ~2^-22 of
+// the product, the error of a float32 FMA. The tensor cores add with
+// truncation, not rounding: summed in one chain over all of K the error
+// against float64 comes out 7x F.conv2d's in float32 at VGG's (64 -> 64,
+// 512^2) shape (tools/tile_variants.py).  So each 8-channel step (9 taps x 3
+// products) sums into fresh registers that are then added to the running sums
+// with ordinary rounded float32 adds.  Three tensor-core passes at the card's
+// 495 TFLOP/s TF32 rate give 165 TFLOP/s of float32-accurate product, against
+// 67 TFLOP/s for float32 FMAs outside the tensor cores; mma.sync (not wgmma)
+// reaches ~320 TFLOP/s TF32 on the H100 (tools/tile_variants.py), so ~107
+// float32-accurate.
+//
+// Staging.  For each stage of 8 * kGroups input channels, the patch's input
+// halo ((kRows + 2d) x (kCols + 2d) per channel) and the stage's weights (64
+// channels x 8 * kGroups x 9) go by cp.async into a ring of kStages stages in
+// dynamic shared memory, so the next stages are in flight while one is
+// multiplied.  The halo goes in 16- or 8-byte copies where every row of the
+// plane starts on such a boundary (its origin rounded down to 4 or 2 floats),
+// else 4-byte, zero-filled outside the plane; the weights in 16-byte copies
+// where C % 4 == 0, else 4-byte.  (With 4-byte halo copies conv3x3_in_act
+// takes 30% longer at dilation 2, tools/tile_variants.py.)  Each input element
+// leaves device memory once per block, not once per tap; a tap is a fixed
+// (dy*d, dx*d) offset into the halo, so the inner loop has no division and no
+// bounds check.  The halo's channel stride is 8 mod 32 words and a weight row
+// 76 (148) words, which keeps the A- and B-fragment loads free of bank
+// conflicts. (A draft that split each stage once into a buffer of (big, small)
+// pairs, instead of in the inner loop, ran slower: it doubles the shared-
+// memory reads and adds a barrier per stage.)
+//
+// Where the halo comes from is a Plane: the caller's reflect-padded plane
+// (conv_in_act.cu: origin at the patch, no padding) or an unpadded plane
+// with SAME zero padding by 1 (conv_lowch.cu: origin one pixel up and left;
+// the zero-fill of cp.async is the padding).
 
 #pragma once
 
@@ -23,108 +58,320 @@
 
 namespace conv3x3 {
 
-constexpr int kBM = 64;           // output channels per block
-constexpr int kBN = 64;           // output pixels per block (of the flattened plane)
-constexpr int kBK = 16;           // (input channel, tap) pairs per slice
-constexpr int kThreads = 256;     // 16 x 16 threads
-constexpr int kTM = 4;            // output channels per thread
-constexpr int kTN = 4;            // pixels per thread
-constexpr int kLoads = kBK * kBM / kThreads;  // 4 weights and 4 inputs per thread per slice
+constexpr int kRows = 4;                        // output rows per block (patch)
+constexpr int kCols = 32;                       // output columns per block
+constexpr int kCo = 64;                         // output channels per block
+constexpr int kChunk = 8;                       // input channels per K step
+constexpr int kWarpsN = 2;                      // warps across the 64 channels
+constexpr int kThreads = 32 * kRows * kWarpsN;  // 256 per group: a row per warp pair
+constexpr int kMT = 2;                          // m16 tiles per warp (32 pixels)
+constexpr int kNT = 4;                          // n8 tiles per warp (32 channels)
 
-// One sample's (C, H+2d, W+2d) plane, padded by the caller; dilation d.
-struct PaddedInput {
+// One sample's input plane, (C, ph, pw); the halo of the patch at output
+// (y0, x0) starts at plane row y0 - pad, column x0 - pad; reads outside the
+// plane give 0.
+struct Plane {
   const float* x;
-  int64_t plane;  // (H+2d) * (W+2d)
-  int wp, d;
-  const float* pix = nullptr;
-  __device__ void at_pixel(int py, int px) { pix = x + (int64_t)py * wp + px; }
-  __device__ float operator()(int ci, int t) const {
-    return pix[ci * plane + (t / 3) * d * wp + (t % 3) * d];
-  }
+  int ph, pw, pad;
 };
 
-// One sample's unpadded (C, H, W) plane; taps outside it read 0.
-struct ZeroPaddedInput {
-  const float* x;
-  int64_t plane;  // H * W
-  int h, w;
-  int py = 0, px = 0;
-  __device__ void at_pixel(int y, int x_) {
-    py = y;
-    px = x_;
-  }
-  __device__ float operator()(int ci, int t) const {
-    const int y = py + t / 3 - 1, xx = px + t % 3 - 1;
-    return (y >= 0 && y < h && xx >= 0 && xx < w) ? x[ci * plane + (int64_t)y * w + xx] : 0.f;
-  }
+// Floats per halo copy: 4 or 2 where every row of the plane starts on a
+// 16- or 8-byte boundary, else 1.
+inline int halo_vec(const void* x, int64_t pw) {
+  for (int v = 4; v > 1; v /= 2)
+    if (pw % v == 0 && reinterpret_cast<uintptr_t>(x) % (4 * v) == 0) return v;
+  return 1;
+}
+
+// Shared-memory geometry of one ring stage for dilation d, kGroups groups,
+// halo copies of v floats and padding pad (host and device): the halo's
+// rows; its columns, from the plane column x0 - pad - shift on (x0 - pad
+// rounded down to v floats); its channel stride (8 mod 32 words); the
+// channels of a stage; a weight row's floats and stride; floats per stage.
+struct Geometry {
+  int d, v, shift, rows, cols, cs, ch, wrow, ws, stage;
 };
 
-// acc[i][j] = sum over (ci, tap) of w[co0 + ty*4 + i][ci][tap] * input at
-// pixel p0 + tx*4 + j, where tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-// out-of-range channels and pixels give 0.  w is (co, c, 3, 3); wd is the
-// output width, hw = H * W of the output plane.
-template <class Input>
-__device__ __forceinline__ void conv_tile(Input in, const float* __restrict__ w, int c, int co,
-                                          int co0, int p0, int hw, int wd,
-                                          float (&acc)[kTM][kTN]) {
-  __shared__ __align__(16) float s_w[kBK][kBM];  // weights, [pair][channel]
-  __shared__ __align__(16) float s_x[kBK][kBN];  // im2col, [pair][pixel]
+__host__ __device__ inline Geometry geometry(int d, int groups, int v, int pad) {
+  Geometry g;
+  g.d = d;
+  g.v = v;
+  g.shift = (pad + v - 1) / v * v - pad;
+  g.rows = kRows + 2 * d;
+  g.cols = (g.shift + kCols + 2 * d + v - 1) / v * v;
+  g.cs = ((g.rows * g.cols - 8 + 31) / 32) * 32 + 8;  // >= rows * cols, = 8 mod 32
+  g.ch = kChunk * groups;
+  g.wrow = g.ch * 9;
+  g.ws = groups == 1 ? 76 : 148;  // = 12 or 20 mod 32: conflict-free B fragments
+  g.stage = g.ch * g.cs + kCo * g.ws;
+  return g;
+}
 
+inline size_t smem_bytes(const Geometry& g, int stages) { return sizeof(float) * stages * g.stage; }
+
+// Fragment coordinates of a thread of the first group (mma.m16n8k8
+// layouts): accumulator acc[i][j][r] holds patch row frag_row(), column
+// frag_col(i, r) and block channel frag_ch(j, r).
+__device__ __forceinline__ int frag_row() { return ((threadIdx.x >> 5) & 7) / kWarpsN; }
+__device__ __forceinline__ int frag_col(int i, int r) {
+  return i * 16 + ((threadIdx.x & 31) >> 2) + (r >= 2 ? 8 : 0);
+}
+__device__ __forceinline__ int frag_ch(int j, int r) {
+  return ((threadIdx.x >> 5) % kWarpsN) * (kNT * 8) + j * 8 + 2 * (threadIdx.x & 3) + (r & 1);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async8(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 8 : 0));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// (big, small) with x = big + small: big is x rounded to TF32 (to nearest,
+// ties away: the integer form of cvt.rna.tf32.f32, which runs faster than
+// the conversion instruction), small the exact float32 rest, handed to the
+// tensor cores as it is: they read an operand's TF32 bits.  Rounding small
+// to TF32 first (two more integer instructions) measured the same error
+// against float64 and 5-6% more time (tools/tile_variants.py).
+__device__ __forceinline__ uint2 split_tf32(float x) {
+  const unsigned big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  return make_uint2(big, __float_as_uint(x - __uint_as_float(big)));
+}
+
+// d += a * b on one m16n8k8 TF32 tile, float32 accumulation.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a * b on one m16n8k8 TF32 tile: the first product of a fresh chain.
+__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const unsigned (&a)[4],
+                                               const unsigned (&b)[2]) {
+  const float z = 0.f;
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(z));
+}
+
+// acc = the 3x3 correlation (dilation g.d) of the plane with w (co, c, 3, 3)
+// for the patch at output (y0, x0) and channels co0 .. co0 + 63, in the
+// fragment layout above, in the first group's threads (threadIdx.x <
+// kThreads; the other group's acc is spent).  Channels >= co and pixels
+// outside the output give values that the caller must not store.  The block
+// has kThreads * kGroups threads; g = geometry(d, kGroups, v, in.pad) with
+// v = halo_vec(in.x, in.pw); smem: smem_bytes(g, kStages), dynamic.
+template <int kStages, int kGroups>
+__device__ __forceinline__ void conv_tile(const Plane in, const float* __restrict__ w, int c,
+                                          int co, int co0, int y0, int x0, const Geometry g,
+                                          float* smem, float (&acc)[kMT][kNT][4]) {
+  constexpr int kBlock = kThreads * kGroups;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // pixel group
-  const int ty = tid / 16;  // channel group
-  const int ktot = c * 9;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int group = tid / kThreads;
+  const int oy = y0 - in.pad;
+  const int ox = x0 - in.pad - g.shift;  // a multiple of g.v
+  const int64_t plane = (int64_t)in.ph * in.pw;
+  // 16-byte weight copies need every channel's row of 9c floats to start
+  // on a 16-byte boundary
+  const bool w_vec = c % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
 
-  // loader roles.  Weights: thread loads 4 consecutive pairs of one output
-  // channel (a row of w is contiguous in (C, 3, 3)).  Inputs: thread loads
-  // one pixel for 4 pairs; neighbouring threads take neighbouring pixels.
-  const int wm = tid / 4;
-  const int wk = (tid % 4) * kLoads;
-  const bool w_row_ok = co0 + wm < co;
-  const float* w_row = w + (int64_t)(co0 + wm) * ktot;
-  const int xp = tid % kBN;
-  const int xk = tid / kBN;  // 0..3; pairs xk, xk + 4, xk + 8, xk + 12
-  const int pix = p0 + xp;
-  const bool pix_ok = pix < hw;
-  in.at_pixel(pix_ok ? pix / wd : 0, pix_ok ? pix % wd : 0);
-
-  float rw[kLoads], rx[kLoads];
-  auto load_slice = [&](int k0) {
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      const int kw = k0 + wk + j;
-      rw[j] = (w_row_ok && kw < ktot) ? w_row[kw] : 0.f;
-      const int kx_ = k0 + xk + 4 * j;
-      rx[j] = (pix_ok && kx_ < ktot) ? in(kx_ / 9, kx_ % 9) : 0.f;
+  auto load_stage = [&](int s, int slot) {
+    float* s_in = smem + slot * g.stage;  // [g.ch][cs]: rows x cols each
+    float* s_w = s_in + g.ch * g.cs;      // [64][ws]: wrow used
+    const int ci0 = s * g.ch;
+    // the halo, (channel, halo row) by (channel, halo row); a vector lies
+    // wholly inside or outside the plane, whose rows are multiples of v
+    if (g.v > 1) {  // rpi rows per warp step, a lane per vector
+      const int nv = g.cols / g.v;
+      const int rpi = 32 / nv;
+      const int lane_row = lane / nv;
+      const int lane_x = (lane - lane_row * nv) * g.v;
+      for (int r = warp * rpi + lane_row; lane_row < rpi && r < g.ch * g.rows;
+           r += (kBlock / 32) * rpi) {
+        const int ci = r / g.rows;
+        const int hr = r - ci * g.rows;
+        const int yy = oy + hr;
+        const int xx = ox + lane_x;
+        const bool ok = ci0 + ci < c && yy >= 0 && yy < in.ph && xx >= 0 && xx < in.pw;
+        const float* src = ok ? in.x + (ci0 + ci) * plane + (int64_t)yy * in.pw + xx : in.x;
+        float* dst = s_in + ci * g.cs + hr * g.cols + lane_x;
+        if (g.v == 4) {
+          cp_async16(dst, src, ok);
+        } else {
+          cp_async8(dst, src, ok);
+        }
+      }
+    } else {  // one row per warp step, lanes along it
+      for (int r = warp; r < g.ch * g.rows; r += kBlock / 32) {
+        const int ci = r / g.rows;
+        const int hr = r - ci * g.rows;
+        const int yy = oy + hr;
+        const bool row_ok = ci0 + ci < c && yy >= 0 && yy < in.ph;
+        const float* src = in.x + (row_ok ? (ci0 + ci) * plane + (int64_t)yy * in.pw : 0);
+        float* dst = s_in + ci * g.cs + hr * g.cols;
+        for (int col = lane; col < g.cols; col += 32) {
+          const int xx = ox + col;
+          const bool ok = row_ok && xx >= 0 && xx < in.pw;
+          cp_async4(dst + col, ok ? src + xx : in.x, ok);
+        }
+      }
+    }
+    // the weights: channel co0 + m, floats (ci0 * 9) .. (ci0 * 9 + wrow - 1) of its row
+    const int valid = (c - ci0) * 9;  // floats of the row left from ci0 on
+    if (w_vec) {
+      const int per_row = g.wrow / 4;
+      for (int e = tid; e < kCo * per_row; e += kBlock) {
+        const int m = e / per_row;
+        const int q = (e - m * per_row) * 4;
+        const bool ok = co0 + m < co && q < valid;
+        cp_async16(s_w + m * g.ws + q, ok ? w + ((int64_t)(co0 + m) * c + ci0) * 9 + q : w, ok);
+      }
+    } else {
+      for (int e = tid; e < kCo * g.wrow; e += kBlock) {
+        const int m = e / g.wrow;
+        const int q = e - m * g.wrow;
+        const bool ok = co0 + m < co && q < valid;
+        cp_async4(s_w + m * g.ws + q, ok ? w + ((int64_t)(co0 + m) * c + ci0) * 9 + q : w, ok);
+      }
     }
   };
 
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
+  for (int i = 0; i < kMT; ++i)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
 
-  load_slice(0);
-  for (int k0 = 0; k0 < ktot; k0 += kBK) {
+  const int nstages = (c + g.ch - 1) / g.ch;
 #pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      s_w[wk + j][wm] = rw[j];
-      s_x[xk + 4 * j][xp] = rx[j];
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nstages) load_stage(s, s);
+    cp_async_commit();
+  }
+
+  // this thread's fragment origins within a stage: A (pixels x channels) at
+  // halo row frag_row(), column lane/4, channel 8 * group + lane%4; B
+  // (channels x outputs) at output channel lane/4 of the warp's 32, input
+  // channel 8 * group + lane%4
+  const int a_off =
+      (kChunk * group + (lane & 3)) * g.cs + frag_row() * g.cols + g.shift + (lane >> 2);
+  const int b_off = g.ch * g.cs + ((warp % kWarpsN) * (kNT * 8) + (lane >> 2)) * g.ws +
+                    (kChunk * group + (lane & 3)) * 9;
+  const int a_hi = 4 * g.cs;  // channels + 4
+
+  for (int s = 0; s < nstages; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage s is in; every warp is done with stage s - 1
+    const int next = s + kStages - 1;
+    if (next < nstages) load_stage(next, next % kStages);
+    cp_async_commit();
+    const float* sa = smem + (s % kStages) * g.stage + a_off;
+    const float* sb = smem + (s % kStages) * g.stage + b_off;
+
+    float part[kMT][kNT][4];  // this step's chain: written first at tap 0
+
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const float* a = sa + ((tap / 3) * g.cols + (tap % 3)) * g.d;
+      unsigned a_big[kMT][4], a_small[kMT][4];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+        const float v[4] = {a[i * 16], a[i * 16 + 8], a[a_hi + i * 16], a[a_hi + i * 16 + 8]};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint2 p = split_tf32(v[r]);
+          a_big[i][r] = p.x;
+          a_small[i][r] = p.y;
+        }
+      }
+      unsigned b_big[kNT][2], b_small[kNT][2];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const uint2 u0 = split_tf32(sb[j * 8 * g.ws + tap]);
+        const uint2 u1 = split_tf32(sb[j * 8 * g.ws + tap + 36]);  // channel + 4
+        b_big[j][0] = u0.x;
+        b_small[j][0] = u0.y;
+        b_big[j][1] = u1.x;
+        b_small[j][1] = u1.y;
+      }
+      // the three passes in turn over the 8 tiles, so that no mma waits on
+      // the one before it
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          if (tap == 0) {
+            mma_tf32_first(part[i][j], a_small[i], b_big[j]);
+          } else {
+            mma_tf32(part[i][j], a_small[i], b_big[j]);
+          }
+        }
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) mma_tf32(part[i][j], a_big[i], b_small[j]);
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) mma_tf32(part[i][j], a_big[i], b_big[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][j][r] += part[i][j][r];
+  }
+
+  if (kGroups > 1) {
+    // the second group's sums into the first's, through the drained ring:
+    // element-major, so that each store and load is one contiguous row
+    cp_async_wait<0>();
+    __syncthreads();
+    const int t = tid % kThreads;
+    if (group == 1) {
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) smem[((i * kNT + j) * 4 + r) * kThreads + t] = acc[i][j][r];
     }
     __syncthreads();
-    if (k0 + kBK < ktot) load_slice(k0 + kBK);  // in flight during the FMAs
+    if (group == 0) {
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 wv = *reinterpret_cast<const float4*>(&s_w[k][ty * kTM]);
-      const float4 xv = *reinterpret_cast<const float4*>(&s_x[k][tx * kTN]);
-      const float wr[kTM] = {wv.x, wv.y, wv.z, wv.w};
-      const float xr[kTN] = {xv.x, xv.y, xv.z, xv.w};
+      for (int i = 0; i < kMT; ++i)
 #pragma unroll
-      for (int i = 0; i < kTM; ++i)
+        for (int j = 0; j < kNT; ++j)
 #pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(wr[i], xr[j], acc[i][j]);
+          for (int r = 0; r < 4; ++r) acc[i][j][r] += smem[((i * kNT + j) * 4 + r) * kThreads + t];
     }
-    __syncthreads();
   }
 }
 

@@ -10,23 +10,27 @@
 //   C = Co = 256 on 64 x 64 planes, 24 calls per inpainter forward.
 //
 // What bounds it: arithmetic.  One call at that shape is 256 x 4096 x 2304
-// FMAs = 4.83 GFLOP (72 us at the card's 67 TFLOP/s fp32 FMA peak) against
-// 4.7 MB of input and 4 MB of output (3 us at 3.35 TB/s).  No TF32, no
-// tensor cores: the product is computed in fp32 FMAs in this file, with no
-// cuDNN or cuBLAS call.
+// = 2.42 G FMAs, 4.83 GFLOP: 29.3 us at the 165 TFLOP/s that the tensor
+// cores give a float32-accurate product through 3xTF32 (72 us at the 67
+// TFLOP/s of float32 FMAs), against 4.5 MB of input and 4.2 MB of output
+// (3 us at 3.35 TB/s).
 //
 // What the design does about it:
-// - pass 1 is an implicit GEMM, (Co) x (H*W pixels) x (C*9 taps): the tile
-//   of conv3x3_tile.cuh (64 channels x 64 pixels per block, 4 x 4 running
-//   sums per thread, the reduction staged 16 pairs at a time through shared
-//   memory), reading the caller's padded input with no bounds checks.
-// - The instance-norm statistics span a whole 64 x 64 plane, which no tile
+// - pass 1 is the tensor-core implicit GEMM of conv3x3_tile.cuh (a 4 x 32
+//   pixel patch x 64 output channels per block, mma.sync m16n8k8 TF32 with
+//   the 3xTF32 split, a 3-stage cp.async ring of input halo and weights),
+//   reading the caller's padded input with no bounds checks in the inner
+//   loop.  At (1, 256, 64^2) that is 32 patches x 4 channel blocks = 128
+//   blocks on the 132 SMs, each of 16 warps in two groups that split the
+//   input channels.
+// - The instance-norm statistics span a whole 64 x 64 plane, which no block
 //   owns.  On the TPU one grid cell holds the plane in VMEM; here that
-//   would give 4-8 blocks per sample and leave most of the 132 SMs idle.
-//   So pass 1 writes the pre-norm output and, per (n, co, tile), the
-//   tile's count, mean and M2 (merged across the tile's threads by Chan's
-//   rule); at batch 1 that is 256 blocks, about two per SM.
-// - pass 2 takes one block per (n, co) plane: it merges the plane's tile
+//   would give 4-8 blocks per sample and leave most of the SMs idle.  So
+//   pass 1 writes the pre-norm output and, per (n, co, patch), the patch's
+//   count, mean and M2: Welford over the thread's 4 pixels of a channel,
+//   Chan's merge across the 8 lanes that share the channel, then across
+//   the 4 warps (patch rows) through shared memory.
+// - pass 2 takes one block per (n, co) plane: it merges the plane's patch
 //   statistics by Chan's rule, then normalises the plane in place (16 B
 //   loads and stores), applies the activation and adds the residual.  The
 //   plane it reads was written by pass 1 a moment before and is mostly in
@@ -34,7 +38,7 @@
 //
 // The launcher returns cudaGetLastError() after both launches.  Nothing here
 // allocates or synchronises: the caller passes the output and the scratch
-// for the tile statistics.
+// for the patch statistics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,12 +48,24 @@
 
 namespace {
 
-using conv3x3::kBM;
-using conv3x3::kBN;
+using conv3x3::kCo;
+using conv3x3::kCols;
+using conv3x3::kMT;
+using conv3x3::kNT;
+using conv3x3::kRows;
 using conv3x3::kThreads;
-using conv3x3::kTM;
-using conv3x3::kTN;
+using conv3x3::kWarpsN;
 constexpr int kNormThreads = 256;
+// three raw stages: at the path's shape one block runs per SM, so the ring
+// rather than a second block hides the loads
+// two groups of 8 warps, each on every other 8 input channels, and a
+// 3-stage ring (3 x 57 KB at dilation 2; dilation 4 is the most that fits
+// 227 KB): the path's 128 blocks run one per
+// SM, so the second group rather than a second block hides the latencies
+// (one group takes 14% longer at (1, 256, 64^2), tools/tile_variants.py)
+constexpr int kStages = 3;
+constexpr int kGroups = 2;
+constexpr int kBlock = kThreads * kGroups;
 
 enum Act { kActNone = 0, kActRelu = 1, kActLrelu = 2 };
 
@@ -64,70 +80,88 @@ struct ConvArgs {
   const float* w;     // (Co, C, 3, 3)
   const float* bias;  // (Co) or null
   float* y;           // (N, Co, H, W): pre-norm output of pass 1
-  float* part;        // (N, Co, tiles, 3): count, mean, M2 of each tile
-  int c, co, h, wd, d, tiles;
-  bool vec;           // H*W % 4 == 0: float4 stores of y
+  float* part;        // (N, Co, tiles, 3): count, mean, M2 of each patch
+  int c, co, h, wd, d, tiles_x, tiles, v;  // v: floats per halo copy
 };
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBlock, 2 / kGroups)
 conv3x3_kernel(const ConvArgs a) {
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // pixel group
-  const int ty = tid / 16;  // channel group
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float s_stat[kRows][kCo][3];  // per patch row: count, mean, M2
   const int n = blockIdx.z;
-  const int co0 = blockIdx.y * kBM;
-  const int p0 = blockIdx.x * kBN;
-  const int hw = a.h * a.wd;
+  const int co0 = blockIdx.y * kCo;
+  const int y0 = (blockIdx.x / a.tiles_x) * kRows;
+  const int x0 = (blockIdx.x % a.tiles_x) * kCols;
+  const int hp = a.h + 2 * a.d;
   const int wp = a.wd + 2 * a.d;
-  const int64_t plane_in = (int64_t)(a.h + 2 * a.d) * wp;
-  const conv3x3::PaddedInput in{a.x + (int64_t)n * a.c * plane_in, plane_in, wp, a.d};
+  const conv3x3::Plane in{a.x + (int64_t)n * a.c * hp * wp, hp, wp, 0};
 
-  float acc[kTM][kTN];
-  conv3x3::conv_tile(in, a.w, a.c, a.co, co0, p0, hw, a.wd, acc);
+  float acc[kMT][kNT][4];
+  conv3x3::conv_tile<kStages, kGroups>(in, a.w, a.c, a.co, co0, y0, x0,
+                                       conv3x3::geometry(a.d, kGroups, a.v, 0), smem, acc);
 
-  // epilogue: bias, pre-norm store, and the tile's statistics per channel
-  const int pb = p0 + tx * kTN;
+  // epilogue: bias, pre-norm store, and the patch's statistics per channel
+  const int64_t hw = (int64_t)a.h * a.wd;
+  const int row = conv3x3::frag_row();
+  const int yy = y0 + row;
+  const bool row_ok = yy < a.h;
+  // the first group holds the sums (warp-uniform: the shuffles stay whole)
+  if (threadIdx.x < kThreads) {
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int oc = co0 + ty * kTM + i;
-    const bool oc_ok = oc < a.co;
-    const float b = (a.bias != nullptr && oc_ok) ? a.bias[oc] : 0.f;
-    float v[kTN];
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {  // channels 2t and 2t + 1 of the n8 tile
+        const int ch = conv3x3::frag_ch(j, b);
+        const int oc = co0 + ch;
+        const bool oc_ok = oc < a.co;
+        const float bias = (a.bias != nullptr && oc_ok) ? a.bias[oc] : 0.f;
+        float* yo = a.y + ((int64_t)n * a.co + (oc_ok ? oc : 0)) * hw + (int64_t)yy * a.wd;
+        float cnt = 0.f, mean = 0.f, m2 = 0.f;
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int r = b; r < 4; r += 2) {  // pixels lane/4 and lane/4 + 8
+            const int xx = x0 + conv3x3::frag_col(i, r);
+            if (oc_ok && row_ok && xx < a.wd) {
+              const float v = acc[i][j][r] + bias;
+              yo[xx] = v;
+              welford_add(v, mean, m2, cnt);
+            }
+          }
+        // merge over the 8 lanes of this channel (lane bits 2-4; all 32 lanes
+        // take part in every shuffle)
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          const float mb = __shfl_xor_sync(0xffffffffu, mean, off);
+          const float m2b = __shfl_xor_sync(0xffffffffu, m2, off);
+          const float nb = __shfl_xor_sync(0xffffffffu, cnt, off);
+          welford_merge(mean, m2, cnt, mb, m2b, nb);
+        }
+        if ((threadIdx.x & 31) < 4) {
+          s_stat[row][ch][0] = cnt;
+          s_stat[row][ch][1] = mean;
+          s_stat[row][ch][2] = m2;
+        }
+      }
+  }
+  __syncthreads();
+  // merge over the patch rows: one thread per channel
+  if (threadIdx.x < kCo && co0 + (int)threadIdx.x < a.co) {
+    const int ch = threadIdx.x;
     float cnt = 0.f, mean = 0.f, m2 = 0.f;
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      v[j] = acc[i][j] + b;
-      if (oc_ok && pb + j < hw) welford_add(v[j], mean, m2, cnt);
-    }
-    if (oc_ok) {
-      float* yo = a.y + ((int64_t)n * a.co + oc) * hw;
-      if (a.vec && pb < hw) {
-        *reinterpret_cast<float4*>(yo + pb) = make_float4(v[0], v[1], v[2], v[3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kTN; ++j)
-          if (pb + j < hw) yo[pb + j] = v[j];
-      }
-    }
-    // merge over the 16 pixel groups of this channel: lanes tx = 0..15 of
-    // one half-warp (all 32 lanes take part in every shuffle)
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float mb = __shfl_xor_sync(0xffffffffu, mean, off);
-      const float m2b = __shfl_xor_sync(0xffffffffu, m2, off);
-      const float nb = __shfl_xor_sync(0xffffffffu, cnt, off);
-      welford_merge(mean, m2, cnt, mb, m2b, nb);
-    }
-    if (tx == 0 && oc_ok) {
-      float* s = a.part + (((int64_t)n * a.co + oc) * a.tiles + blockIdx.x) * 3;
-      s[0] = cnt;
-      s[1] = mean;
-      s[2] = m2;
-    }
+    for (int r = 0; r < kRows; ++r)
+      welford_merge(mean, m2, cnt, s_stat[r][ch][1], s_stat[r][ch][2], s_stat[r][ch][0]);
+    float* s = a.part + (((int64_t)n * a.co + co0 + ch) * a.tiles + blockIdx.x) * 3;
+    s[0] = cnt;
+    s[1] = mean;
+    s[2] = m2;
   }
+  static_assert(kThreads / 32 == kRows * kWarpsN, "one patch row per warp pair");
+  static_assert(kCo <= kThreads, "one thread per channel merges the rows");
 }
 
-// One block per (n, co) plane: merge the tile statistics, then normalise in
+// One block per (n, co) plane: merge the patch statistics, then normalise in
 // place, activate, add the residual.
 __global__ void __launch_bounds__(kNormThreads)
 norm_act_kernel(float* __restrict__ y, const float* __restrict__ part,
@@ -172,22 +206,30 @@ norm_act_kernel(float* __restrict__ y, const float* __restrict__ part,
 
 extern "C" {
 
-// Pixels per tile of pass 1; the caller sizes the scratch for the tile
-// statistics as n * co * ceil(h * w / tile) * 3 floats.
-int conv3x3_in_act_tile_pixels() { return kBN; }
+// Patches of pass 1 per (h, w) output plane; the caller sizes the scratch
+// for the patch statistics as n * co * tiles * 3 floats.
+int conv3x3_in_act_tiles(int64_t h, int64_t w) {
+  return (int)(((h + kRows - 1) / kRows) * ((w + kCols - 1) / kCols));
+}
 
 // x (n, c, h+2d, w+2d), wt (co, c, 3, 3), bias (co) or null, residual
 // (n, co, h, w) or null, out (n, co, h, w), scratch as above; all f32,
-// contiguous, 16-byte aligned.  act: 0 none, 1 relu, 2 leaky relu (0.2).
+// contiguous; out and residual 16-byte aligned.  act: 0 none, 1 relu, 2
+// leaky relu (0.2).
 int conv3x3_in_act_f32(const void* x, const void* wt, const void* bias,
                        const void* residual, void* out, void* scratch,
                        int64_t scratch_floats, int64_t n, int64_t c, int64_t co,
                        int64_t h, int64_t w, int64_t d, float eps, int act,
                        void* stream) {
   const int64_t hw = h * w;
-  const int64_t tiles = (hw + kBN - 1) / kBN;
+  const int64_t tiles = conv3x3_in_act_tiles(h, w);
   if (scratch_floats < n * co * tiles * 3) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int v = conv3x3::halo_vec(x, w + 2 * d);
+  const size_t smem = conv3x3::smem_bytes(conv3x3::geometry((int)d, kGroups, v, 0), kStages);
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   ConvArgs a;
   a.x = static_cast<const float*>(x);
   a.w = static_cast<const float*>(wt);
@@ -199,11 +241,12 @@ int conv3x3_in_act_f32(const void* x, const void* wt, const void* bias,
   a.h = (int)h;
   a.wd = (int)w;
   a.d = (int)d;
+  a.tiles_x = (int)((w + kCols - 1) / kCols);
   a.tiles = (int)tiles;
-  a.vec = hw % 4 == 0;
-  const dim3 grid((unsigned)tiles, (unsigned)((co + kBM - 1) / kBM), (unsigned)n);
-  conv3x3_kernel<<<grid, kThreads, 0, s>>>(a);
-  const cudaError_t err = cudaGetLastError();
+  a.v = v;
+  const dim3 grid((unsigned)tiles, (unsigned)((co + kCo - 1) / kCo), (unsigned)n);
+  conv3x3_kernel<<<grid, kBlock, smem, s>>>(a);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   norm_act_kernel<<<(unsigned)(n * co), kNormThreads, 0, s>>>(
       static_cast<float*>(out), static_cast<const float*>(scratch),

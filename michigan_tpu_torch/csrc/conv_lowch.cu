@@ -10,21 +10,25 @@
 //   batch 8: the bias and the ReLU stay outside, as on the TPU.
 //
 // What bounds it: arithmetic.  At (16, 64, 512^2) it is 16 x 262144 x 64 x
-// 576 FMAs = 155 GFLOP (2.3 ms at the card's 67 TFLOP/s fp32 FMA peak)
-// against 1.07 GB of input and output (0.32 ms at 3.35 TB/s).  No TF32, no
-// tensor cores: the product is computed in fp32 FMAs, with no cuDNN or
-// cuBLAS call.
+// 576 = 154.6 G FMAs, 309.2 GFLOP: 1.87 ms at the 165 TFLOP/s that the
+// tensor cores give a float32-accurate product through 3xTF32 (4.6 ms at
+// the 67 TFLOP/s of float32 FMAs), against 2.15 GB of input and output
+// (1.07 GB each; 0.64 ms at 3.35 TB/s).
 //
 // What the design does about it:
-// - the tile of conv3x3_tile.cuh, shared with conv_in_act.cu: 64 output
-//   channels x 64 pixels per block, 4 x 4 running sums per thread, the
-//   (channel, tap) reduction staged 16 pairs at a time through shared
-//   memory with the next slice prefetched into registers;
-// - the zero padding happens in the gather (ZeroPaddedInput): no padded
-//   copy of x is written, where the TPU kernel pads in HBM first;
-// - at C = Co = 64 one block covers every output channel, so each input
-//   element is gathered by the 4096 blocks of a plane's 64-pixel tiles
-//   about 9 times (once per tap), mostly from L1 and L2.
+// - the tensor-core tile of conv3x3_tile.cuh, shared with conv_in_act.cu:
+//   a 4 x 32-pixel patch x 64 output channels per block, mma.sync m16n8k8
+//   TF32 with every operand split into big + small TF32 halves (3 products
+//   per pair, float32-accurate), the input halo and the weights of 8 input
+//   channels at a time staged by cp.async through a 3-stage shared-memory
+//   ring; 32,768 blocks at (16, 64, 512^2), two per SM;
+// - the zero padding is the zero-fill of cp.async outside the plane: no
+//   padded copy of x is written, where the TPU kernel pads in HBM first;
+// - each input element leaves device memory once per block, in 16-byte
+//   copies where W % 4 == 0 (the halo's origin is rounded down to 4 floats:
+//   6 rows x 40 columns per channel for a 4 x 32 patch), and the output is
+//   stored from the accumulator fragments: 32-byte runs of one channel's
+//   row.
 //
 // The launcher returns cudaGetLastError().  Nothing here allocates or
 // synchronises.
@@ -36,57 +40,69 @@
 
 namespace {
 
-using conv3x3::kBM;
-using conv3x3::kBN;
+using conv3x3::kCo;
+using conv3x3::kCols;
+using conv3x3::kMT;
+using conv3x3::kNT;
+using conv3x3::kRows;
 using conv3x3::kThreads;
-using conv3x3::kTM;
-using conv3x3::kTN;
+// one group of 8 warps and a 3-stage ring (84 KB): two blocks per SM.  (Two
+// groups per block take 10% longer here, tools/tile_variants.py: 16 warps
+// either way, but one barrier for all of them.)
+constexpr int kStages = 3;
+constexpr int kGroups = 1;
+constexpr int kBlock = kThreads * kGroups;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBlock, 2 / kGroups)
 conv3x3_same_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    float* __restrict__ y, int c, int co, int h, int wd) {
-  const int tx = threadIdx.x % 16;  // pixel group
-  const int ty = threadIdx.x / 16;  // channel group
+                    float* __restrict__ y, int c, int co, int h, int wd, int tiles_x, int v) {
+  extern __shared__ __align__(16) float smem[];
   const int n = blockIdx.z;
-  const int co0 = blockIdx.y * kBM;
-  const int p0 = blockIdx.x * kBN;
-  const int hw = h * wd;
-  const conv3x3::ZeroPaddedInput in{x + (int64_t)n * c * hw, (int64_t)hw, h, wd};
+  const int co0 = blockIdx.y * kCo;
+  const int y0 = (blockIdx.x / tiles_x) * kRows;
+  const int x0 = (blockIdx.x % tiles_x) * kCols;
+  const int64_t hw = (int64_t)h * wd;
+  const conv3x3::Plane in{x + (int64_t)n * c * hw, h, wd, 1};
 
-  float acc[kTM][kTN];
-  conv3x3::conv_tile(in, w, c, co, co0, p0, hw, wd, acc);
+  float acc[kMT][kNT][4];
+  conv3x3::conv_tile<kStages, kGroups>(in, w, c, co, co0, y0, x0,
+                                       conv3x3::geometry(1, kGroups, v, 1), smem, acc);
 
-  const int pb = p0 + tx * kTN;
-  const bool vec = hw % 4 == 0;  // then pb < hw means all four pixels are in
+  const int yy = y0 + conv3x3::frag_row();
+  if (threadIdx.x >= kThreads || yy >= h) return;
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int oc = co0 + ty * kTM + i;
-    if (oc >= co) continue;
-    float* yo = y + ((int64_t)n * co + oc) * hw;
-    if (vec && pb < hw) {
-      *reinterpret_cast<float4*>(yo + pb) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    } else {
+  for (int j = 0; j < kNT; ++j)
 #pragma unroll
-      for (int j = 0; j < kTN; ++j)
-        if (pb + j < hw) yo[pb + j] = acc[i][j];
+    for (int r = 0; r < 4; ++r) {
+      const int oc = co0 + conv3x3::frag_ch(j, r);
+      if (oc >= co) continue;
+      float* yo = y + ((int64_t)n * co + oc) * hw + (int64_t)yy * wd;
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+        const int xx = x0 + conv3x3::frag_col(i, r);
+        if (xx < wd) yo[xx] = acc[i][j][r];
+      }
     }
-  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (n, c, h, w), wt (co, c, 3, 3), out (n, co, h, w); all f32, contiguous,
-// 16-byte aligned.
+// x (n, c, h, w), wt (co, c, 3, 3), out (n, co, h, w); all f32, contiguous.
 int conv3x3_same_f32(const void* x, const void* wt, void* out, int64_t n, int64_t c,
                      int64_t co, int64_t h, int64_t w, void* stream) {
-  const int64_t tiles = (h * w + kBN - 1) / kBN;
-  const dim3 grid((unsigned)tiles, (unsigned)((co + kBM - 1) / kBM), (unsigned)n);
-  conv3x3_same_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int64_t tiles_x = (w + kCols - 1) / kCols;
+  const int64_t tiles = tiles_x * ((h + kRows - 1) / kRows);
+  const int v = conv3x3::halo_vec(x, w);
+  const size_t smem = conv3x3::smem_bytes(conv3x3::geometry(1, kGroups, v, 1), kStages);
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_same_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)tiles, (unsigned)((co + kCo - 1) / kCo), (unsigned)n);
+  conv3x3_same_kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(wt), static_cast<float*>(out),
-      (int)c, (int)co, (int)h, (int)w);
+      (int)c, (int)co, (int)h, (int)w, (int)tiles_x, v);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,7 @@ reference demo.py without the Qt shell).
     python -m michigan_tpu_torch.demo --demo_data_dir ./datasets/FFHQ_demo \
         --tag_name 67172 --ref_name 59144 [--stroke | --erase] [--gpu_ids 0]
 
-The demo's options (michigan_tpu.config.demo_options) and flags; the device
+The demo's options (the port's config.demo_options) and flags; the device
 comes from --gpu_ids as in the inference CLI (-1 is the CPU).  --stroke
 draws a stroke through the hair and inpaints it through SIG; --erase removes
 the top of the hair mask, so the reconstructed tag image supplies the

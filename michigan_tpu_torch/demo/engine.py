@@ -27,8 +27,8 @@ if TYPE_CHECKING:
 
 def parse_options(argv=None):
     """The demo's flags (sys.argv[1:] when `argv` is None) -> Options, by
-    michigan_tpu.config.demo_options (jax-free)."""
-    from michigan_tpu.config import demo_options
+    config.demo_options."""
+    from michigan_tpu_torch.config import demo_options
 
     return demo_options(argv)
 
@@ -122,9 +122,10 @@ class DemoEngine:
     """One configuration's nets on one device, and the noise pyramid, drawn
     once from --seed (host cv2) and kept on the device.  Weights: the
     released files under checkpoints/<name>/ when present, else seeded by
-    --init_type from --seed."""
+    --init_type from --seed.  The device is the card unless the caller
+    asks for the CPU."""
 
-    def __init__(self, opt, device="cpu"):
+    def __init__(self, opt, device="cuda"):
         from michigan_tpu_torch.data.noise import generate_noise
         from michigan_tpu_torch.inference import load_released
         from michigan_tpu_torch.model import MichiGANModel

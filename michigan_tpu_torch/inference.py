@@ -6,7 +6,7 @@
         --noise_background --use_ig --expand_mask_be --expand_th 5 \
         --add_feat_zeros --data_dir ./datasets/FFHQ_single --which_epoch 50
 
-Same flags as the JAX CLI (michigan_tpu.config.test_options).  The device
+Same flags as the JAX CLI (the port's config.test_options).  The device
 comes from --gpu_ids: -1 is the CPU, N is cuda:N (an error when CUDA is
 absent).  The released .pth files under checkpoints/<name>/ are loaded when
 present; otherwise the nets get seeded weights by --init_type from --seed.
@@ -62,8 +62,8 @@ def load_released(model, opt) -> bool:
 
 def parse_options(argv=None):
     """The CLI's flags (sys.argv[1:] when `argv` is None) -> Options, by
-    michigan_tpu.config.test_options; --batch_inference is not ported."""
-    from michigan_tpu.config import test_options
+    config.test_options; --batch_inference is not ported."""
+    from michigan_tpu_torch.config import test_options
 
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--batch_inference", action="store_true")

@@ -89,9 +89,10 @@ def batch_from_numpy(data: Dict, device) -> Dict[str, torch.Tensor]:
 
 class MichiGANModel:
     """Holds the nets of one configuration on one device: netG, netIG /
-    netSIG, and with --isTrain netD and the frozen VGG19."""
+    netSIG, and with --isTrain netD and the frozen VGG19.  The device is the
+    card unless the caller asks for the CPU."""
 
-    def __init__(self, opt, device="cpu"):
+    def __init__(self, opt, device="cuda"):
         check_supported(opt)
         self.opt = opt
         self.device = torch.device(device)

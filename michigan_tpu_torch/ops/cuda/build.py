@@ -112,7 +112,7 @@ SIGNATURES = {
         "filterbank_orientation_backward_f32": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     },
     "conv_in_act": {
-        "conv3x3_in_act_tile_pixels": (),
+        "conv3x3_in_act_tiles": (_I64, _I64),
         "conv3x3_in_act_f32": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                                _I64, _I64, ctypes.c_float, ctypes.c_int, _P),
     },

@@ -13,12 +13,12 @@ conv3x3_in_act(x_pad, w, b, dilation, act, eps, residual)
     --use_pallas_epilogue (models/inpaint.py).
 
 The kernel is compute-bound (C*9 FMAs per output); the design notes are in
-the CUDA source.  It computes the convolution in its own body, in fp32 FMAs,
-with no cuDNN or cuBLAS call.  A wrapper runs the plain PyTorch version for
-CPU tensors only.  For a CUDA tensor it checks dtype, shape, contiguity and
-device, launches the kernel on the current stream and counts the launch;
-anything the kernel does not take raises.  There is no fallback on CUDA
-tensors.
+the CUDA source.  It computes the convolution in its own body on the tensor
+cores, float32-accurate through the 3xTF32 split, with no cuDNN, cuBLAS or
+CUTLASS call.  A wrapper runs the plain PyTorch version for CPU tensors
+only.  For a CUDA tensor it checks dtype, shape, contiguity and device,
+launches the kernel on the current stream and counts the launch; anything
+the kernel does not take raises.  There is no fallback on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -31,6 +31,11 @@ import torch.nn.functional as F
 from michigan_tpu_torch.ops.cuda import build
 from michigan_tpu_torch.ops.cuda.spade import _ACTS, _act
 from michigan_tpu_torch.ops.norms import instance_norm
+
+
+# the kernel's ring of input halos, (4 + 2d) x (32 + 2d) per channel, fits an
+# SM's shared memory up to this dilation (conv_in_act.cu)
+MAX_DILATION = 4
 
 
 def conv3x3_in_act_plain(x_pad, w, b, dilation=1, act=None, eps=1e-5, residual=None):
@@ -71,6 +76,8 @@ def conv3x3_in_act(x_pad: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tenso
     if d < 1 or h < 1 or wd < 1 or n * c * co == 0:
         raise ValueError(f"x_pad {tuple(x_pad.shape)} with dilation {dilation} leaves "
                          "no output")
+    if d > MAX_DILATION:
+        raise ValueError(f"the kernel takes dilation up to {MAX_DILATION}, got {d}")
     if n > 65535 or co > 65535 * 64:
         raise ValueError(f"too many samples or channels for one launch: {n}, {co}")
     _check("x_pad", x_pad, (n, c, hp, wp), x_pad)
@@ -82,9 +89,8 @@ def conv3x3_in_act(x_pad: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tenso
         if residual.data_ptr() % 16:
             raise ValueError("residual must be 16-byte aligned")
     lib = build.load("conv_in_act")
-    tile = lib.conv3x3_in_act_tile_pixels()
     out = torch.empty((n, co, h, wd), dtype=torch.float32, device=x_pad.device)
-    scratch = torch.empty(n * co * (-(-h * wd // tile)) * 3, dtype=torch.float32,
+    scratch = torch.empty(n * co * lib.conv3x3_in_act_tiles(h, wd) * 3, dtype=torch.float32,
                           device=x_pad.device)
     err = lib.conv3x3_in_act_f32(
         x_pad.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),

@@ -12,11 +12,13 @@ conv3x3_same_lowch(x, w)
     ``torch.no_grad()``: VGG19's ``features_2`` (64 -> 64 at 512^2) in the
     training step's tower of the tag and ref images (models/vgg.py).
 
-The kernel is compute-bound (C*9 FMAs per output); the design notes are in
-the CUDA source.  A wrapper runs the plain PyTorch version for CPU tensors
-only.  For a CUDA tensor it checks dtype, shape, contiguity and device,
-launches the kernel on the current stream and counts the launch; anything the
-kernel does not take raises.  There is no fallback on CUDA tensors.
+The kernel is compute-bound (C*9 FMAs per output); it runs on the tensor
+cores, float32-accurate through the 3xTF32 split, with no cuDNN, cuBLAS or
+CUTLASS call; the design notes are in the CUDA source.  A wrapper runs the
+plain PyTorch version for CPU tensors only.  For a CUDA tensor it checks
+dtype, shape, contiguity and device, launches the kernel on the current
+stream and counts the launch; anything the kernel does not take raises.
+There is no fallback on CUDA tensors.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@
         --expand_mask_be --expand_th 5 --random_expand_mask \
         --num_upsampling_layers more --batchSize 8 --data_dir <dir>
 
-Same flags as the JAX CLI (michigan_tpu.config.train_options).  <dir> holds
+Same flags as the JAX CLI (the port's config.train_options).  <dir> holds
 train_images/, train_labels/ and train_dense_orients/ (or point --image_dir,
 --label_dir and --orient_dir at them).  The device comes from --gpu_ids: -1
 is the CPU, N is cuda:N; fp32 with TF32 off.  netIG comes from
@@ -30,7 +30,7 @@ import time
 
 
 def parse_options(argv=None):
-    from michigan_tpu.config import train_options
+    from michigan_tpu_torch.config import train_options
 
     opt = train_options(argv)
     if len([s for s in str(opt.gpu_ids).split(",") if s.strip() not in ("", "-1")]) > 1:

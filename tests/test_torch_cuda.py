@@ -117,10 +117,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
 
 # (n, c, co, h, w, dilation, act, residual): the path's shape, batch 2, a
 # channel count that is not a multiple of the 64-channel tile, a plane whose
-# size is not a multiple of 4 (no float4 stores) nor of the 64-pixel tile
+# size is not a multiple of 4 (no float4 stores) nor of the 4 x 32 patch;
+# then input channels that are not a multiple of the 8-channel chunk (20;
+# 3 and 7 also not of 4: the 4-byte weight copies), output channels 40 and
+# 72 around the 64-channel block, W % 4 != 0 at dilation 2, more samples
 EPILOGUE_CASES = [(1, 256, 256, 64, 64, 2, "relu", False), (1, 256, 256, 64, 64, 1, None, True),
                   (2, 128, 128, 16, 16, 1, "lrelu", True), (1, 20, 70, 9, 7, 2, "relu", True),
-                  (1, 3, 5, 5, 5, 1, None, False)]
+                  (1, 3, 5, 5, 5, 1, None, False), (2, 20, 40, 13, 30, 2, "lrelu", False),
+                  (1, 64, 72, 37, 53, 1, "relu", True), (3, 7, 64, 4, 32, 2, None, True)]
 
 
 @pytest.mark.parametrize("n,c,co,h,w,d,act,res", EPILOGUE_CASES)
@@ -187,6 +191,8 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         E.conv3x3_in_act(x, w, None, residual=torch.zeros((1, 4, 10, 10), device=cuda_device))
     with pytest.raises(ValueError, match="no output"):
         E.conv3x3_in_act(x, w, None, dilation=5)
+    with pytest.raises(ValueError, match="dilation up to"):
+        E.conv3x3_in_act(torch.zeros((1, 4, 20, 20), device=cuda_device), w, None, dilation=5)
     with pytest.raises(ValueError, match="w is on cpu"):
         E.conv3x3_in_act(x, w.cpu(), None)
 
@@ -195,8 +201,12 @@ def assert_rel(got, want, rel=1e-4):
     assert (got - want).abs().max().item() <= rel * want.abs().max().item()
 
 
+# ragged patches; Co over one block; C = 20 (not a multiple of the 8-channel
+# chunk), Co 40, H and W % 4 != 0; Co 72 over two blocks, three samples;
+# C = 7 (4-byte weight copies), one whole patch
 @pytest.mark.parametrize("n,c,co,h,w", [(2, 64, 64, 37, 53), (1, 64, 64, 64, 64),
-                                        (1, 3, 70, 10, 11)])  # ragged tiles; Co over one block
+                                        (1, 3, 70, 10, 11), (1, 20, 40, 33, 30),
+                                        (3, 12, 72, 9, 66), (2, 7, 64, 4, 32)])
 def test_conv3x3_same_lowch_matches_plain(cuda_device, n, c, co, h, w):
     gen = torch.Generator().manual_seed(5)
     x = torch.randn((n, c, h, w), generator=gen).relu().to(cuda_device)
@@ -206,6 +216,40 @@ def test_conv3x3_same_lowch_matches_plain(cuda_device, n, c, co, h, w):
     torch.cuda.synchronize()
     assert_rel(got, L.conv3x3_same_lowch_plain(x, wt))
     assert kernels.launch_counts()["conv3x3_same_lowch"] == 1
+
+
+def rel_err(got, want64):
+    """Largest error against a float64 result, in units of its largest magnitude."""
+    return ((got.double() - want64).abs().max() / want64.abs().max()).item()
+
+
+def test_conv3x3_same_lowch_is_as_accurate_as_cudnn_fp32(cuda_device):
+    """Batch 2 of VGG19's features_2 shape: the kernel's 3xTF32 products
+    against a float64 convolution, beside F.conv2d in float32 (TF32 off)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn((2, 64, 512, 512), generator=gen, device=cuda_device).relu_()
+    wt = torch.randn((64, 64, 3, 3), generator=gen, device=cuda_device) * math.sqrt(2 / 576)
+    want = L.conv3x3_same_lowch_plain(x.double(), wt.double())
+    kernel, cudnn = rel_err(L.conv3x3_same_lowch(x, wt), want), rel_err(
+        L.conv3x3_same_lowch_plain(x, wt), want)
+    assert kernel <= 2 * cudnn, (kernel, cudnn)
+
+
+def test_conv3x3_in_act_is_as_accurate_as_cudnn_fp32(cuda_device):
+    """Batch 2 of the inpainters' resblock shape, both dilations: the fused
+    kernel against the float64 composition, beside the plain version (F.conv2d
+    and the torch norm) in float32."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    for d, act, res in ((2, "relu", False), (1, None, True)):
+        x = torch.randn((2, 256, 64 + 2 * d, 64 + 2 * d), generator=gen, device=cuda_device)
+        wt = torch.randn((256, 256, 3, 3), generator=gen, device=cuda_device) * 0.02
+        b = torch.randn(256, generator=gen, device=cuda_device)
+        r = torch.randn((2, 256, 64, 64), generator=gen, device=cuda_device) if res else None
+        want = E.conv3x3_in_act_plain(x.double(), wt.double(), b.double(), d, act,
+                                      residual=None if r is None else r.double())
+        kernel = rel_err(E.conv3x3_in_act(x, wt, b, d, act, residual=r), want)
+        cudnn = rel_err(E.conv3x3_in_act_plain(x, wt, b, d, act, residual=r), want)
+        assert kernel <= 2 * cudnn, (d, kernel, cudnn)
 
 
 def strand_gray(gen, n, h, w, device):

@@ -226,3 +226,19 @@ def test_wrappers_raise_on_devices_without_a_kernel():
         K.fused_instance_norm(torch.zeros(1, 1, 2, 2), act="gelu")
     with pytest.raises(ValueError, match="activation"):
         E.conv3x3_in_act(torch.zeros(1, 1, 4, 4), torch.zeros(1, 1, 3, 3), None, act="gelu")
+
+
+@pytest.mark.parametrize("variant", ["cvt.rna split", "small rounded", "one chain",
+                                     "4-byte halo copies", "in_act one group",
+                                     "lowch two groups"])
+def test_tile_variants_still_apply_to_the_sources(tmp_path, variant):
+    """tools/tile_variants.py measures the tile's design choices as edits of
+    the built sources: each edit must still find its text exactly once."""
+    from michigan_tpu_torch.ops.cuda import build
+    from michigan_tpu_torch.tools import tile_variants
+
+    edits = tile_variants.VARIANTS[variant]
+    tile_variants.patched_sources(edits, tmp_path, build.CSRC_DIR)
+    for name, old, new in edits:
+        text = (tmp_path / name).read_text()
+        assert new in text and old not in text

@@ -217,7 +217,7 @@ def test_round_trip_sinpaint(rng):
     v = jax.tree_util.tree_map(
         lambda a: rng.standard_normal(a.shape).astype(np.float32), shapes)
     sd = convert.state_dicts_from_flax({"netSIG": v}, opt)["netSIG"]
-    MichiGANModel(opt).netSIG.load_state_dict(sd, strict=True)
+    MichiGANModel(opt, "cpu").netSIG.load_state_dict(sd, strict=True)
     assert_trees_equal(convert_inpaint(sd), v)
 
 
@@ -234,7 +234,7 @@ def test_round_trip_generator(rng):
     v = jax.tree_util.tree_map(
         lambda a: rng.standard_normal(a.shape).astype(np.float32), shapes)
     sd = convert.state_dicts_from_flax({"netG": v}, opt)["netG"]
-    MichiGANModel(opt).netG.load_state_dict(sd, strict=True)
+    MichiGANModel(opt, "cpu").netG.load_state_dict(sd, strict=True)
     assert_trees_equal(convert_generator(sd, opt), v)
 
 

@@ -98,7 +98,7 @@ def stroke_pair():
     """Seeded port weights (netG, netIG, netSIG), carried into JAX by its
     own converters, and the JAX stroke-mode infer, compiled once."""
     opt = small_opt()
-    model = MichiGANModel(opt)
+    model = MichiGANModel(opt, "cpu")
     model.init_weights(0)
     sd = {k: net.state_dict() for k, net in model.nets().items()}
     variables = {"netG": convert_generator(sd["netG"], opt),
@@ -113,7 +113,7 @@ def stroke_pair():
 @pytest.mark.parametrize("prefill,epilogue", [(True, True), (False, False)])
 def test_stroke_slice_matches_jax_infer(stroke_pair, prefill, epilogue):
     opt, sd, variables, j_infer = stroke_pair
-    model = MichiGANModel(dataclasses.replace(opt, use_pallas_epilogue=epilogue))
+    model = MichiGANModel(dataclasses.replace(opt, use_pallas_epilogue=epilogue), "cpu")
     model.load_state_dicts(sd)
     data = jax_demo_data(opt, **edit_args(prefill), noise=None)
     assert (np.max(data["label_tag"] - data["orient_rgb_mask"]) != 0) == prefill
@@ -131,7 +131,7 @@ def test_stroke_slice_matches_jax_infer(stroke_pair, prefill, epilogue):
 
 def test_infer_takes_the_mode_and_leaves_the_options(stroke_pair):
     opt, sd, _, _ = stroke_pair
-    model = MichiGANModel(opt)
+    model = MichiGANModel(opt, "cpu")
     model.load_state_dicts(sd)
     batch = batch_from_numpy(jax_demo_data(opt, **edit_args(True)), "cpu")
     assert opt.inpaint_mode == "ref"
@@ -139,7 +139,7 @@ def test_infer_takes_the_mode_and_leaves_the_options(stroke_pair):
     _, stroke_rgb = model.infer(batch, inpaint_mode="stroke")
     assert opt.inpaint_mode == "ref"
     assert not torch.equal(ref_rgb, stroke_rgb)
-    no_sig = MichiGANModel(dataclasses.replace(opt, use_stroke=False))
+    no_sig = MichiGANModel(dataclasses.replace(opt, use_stroke=False), "cpu")
     with pytest.raises(ValueError, match="use_stroke"):
         no_sig.infer(batch, inpaint_mode="stroke")
 
@@ -149,7 +149,7 @@ def test_render_edit_encodes_on_the_device(stroke_pair):
     from michigan_tpu_torch.utils.imaging import tensor2im
 
     opt, sd, _, _ = stroke_pair
-    model = MichiGANModel(opt)
+    model = MichiGANModel(opt, "cpu")
     model.load_state_dicts(sd)
     batch = batch_from_numpy(jax_demo_data(opt, **edit_args(False)), "cpu")
     out = engine.render_edit(model, batch, "stroke")
@@ -172,7 +172,7 @@ def test_released_sig_checkpoint_loads(stroke_pair, tmp_path):
     os.makedirs(tmp_path / "M")
     torch.save({"generator": {"module." + k: v for k, v in sd["netSIG"].items()}},
                tmp_path / "M" / opt.sig_model_name)
-    model = MichiGANModel(opt)
+    model = MichiGANModel(opt, "cpu")
     model.init_weights(1)
     assert not load_released(model, opt)  # no generator file
     for k, v in model.netSIG.state_dict().items():
@@ -273,13 +273,13 @@ def test_select_tag_image_recon_semantics():
 
 BLOCK_JAX = """
 import runpy, sys
-for name in ("jax", "jaxlib", "flax"):
+for name in ("jax", "jaxlib", "flax", "michigan_tpu"):
     sys.modules[name] = None
 module = sys.argv[1]
 sys.argv = [module] + sys.argv[2:]
 runpy.run_module(module, run_name="__main__")
 leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
-                and m.startswith("michigan_tpu.") and m != "michigan_tpu.config")
+                and (m == "michigan_tpu" or m.startswith("michigan_tpu.")))
 assert not leaked, leaked
 print("ok")
 """
@@ -308,6 +308,6 @@ def test_cal_orientation_cli_runs_without_jax(tmp_path):
         tmp_path, "michigan_tpu_torch.cal_orientation",
         "--image_path", os.path.join(REPO, "datasets/FFHQ_single/val_images/67172.jpg"),
         "--hairmask_path", os.path.join(REPO, "datasets/FFHQ_single/val_labels/67172.png"),
-        "--orientation_root", str(tmp_path / "orient"))
+        "--orientation_root", str(tmp_path / "orient"), "--gpu_ids", "-1")
     img = Image.open(tmp_path / "orient" / "67172.png")
     assert img.size == (512, 512) and img.mode == "L"

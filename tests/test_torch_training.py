@@ -277,12 +277,12 @@ def test_checkpoint_round_trip(tmp_path):
 
 BLOCK_JAX = """
 import runpy, sys
-for name in ("jax", "jaxlib", "flax"):
+for name in ("jax", "jaxlib", "flax", "michigan_tpu"):
     sys.modules[name] = None
 sys.argv = ["train"] + sys.argv[1:]
 runpy.run_module("michigan_tpu_torch.train", run_name="__main__")
 leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
-                and m.startswith("michigan_tpu.") and m != "michigan_tpu.config")
+                and (m == "michigan_tpu" or m.startswith("michigan_tpu.")))
 assert not leaked, leaked
 print("ok")
 """
