@@ -56,13 +56,11 @@ using conv3x3::kRows;
 using conv3x3::kThreads;
 using conv3x3::kWarpsN;
 constexpr int kNormThreads = 256;
-// three raw stages: at the path's shape one block runs per SM, so the ring
-// rather than a second block hides the loads
 // two groups of 8 warps, each on every other 8 input channels, and a
 // 3-stage ring (3 x 57 KB at dilation 2; dilation 4 is the most that fits
-// 227 KB): the path's 128 blocks run one per
-// SM, so the second group rather than a second block hides the latencies
-// (one group takes 14% longer at (1, 256, 64^2), tools/tile_variants.py)
+// 227 KB): the path's 128 blocks run one per SM, so the second group rather
+// than a second block hides the latencies (one group takes 14% longer at
+// (1, 256, 64^2), tools/tile_variants.py)
 constexpr int kStages = 3;
 constexpr int kGroups = 2;
 constexpr int kBlock = kThreads * kGroups;

@@ -120,8 +120,18 @@ def patched_sources(edits, dst: Path, csrc: Path) -> None:
         (dst / name).write_text(text)
 
 
-def build_variants(build) -> dict:
-    """{(variant, lib): ctypes.CDLL}, and {"mma": CDLL} for the peak kernel."""
+def ptxas_report(stderr: str) -> list:
+    """One line per kernel from `-Xptxas -v`: its (mangled) name, registers,
+    barriers, shared memory, stack and spills."""
+    lines = [s.strip().removeprefix("ptxas info    : ") for s in stderr.splitlines()]
+    return [f"{name.removeprefix('Function properties for ')}: {used}; {spill}"
+            for name, spill, used in zip(lines, lines[1:], lines[2:])
+            if name.startswith("Function properties for ") and used.startswith("Used ")]
+
+
+def build_variants(build) -> tuple:
+    """{(variant, lib): ctypes.CDLL}, and {"mma": CDLL} for the peak kernel;
+    {(variant, lib): ptxas report lines}."""
     root = build.BUILD_DIR / "variants"
     procs = []
     nvcc = build.nvcc_path()
@@ -130,7 +140,8 @@ def build_variants(build) -> dict:
         patched_sources(edits, src, build.CSRC_DIR)
         for lib in LIBS:
             out = src / f"{lib}.so"
-            cmd = [nvcc, *build.NVCC_FLAGS, "-o", str(out), str(src / f"{lib}.cu")]
+            cmd = [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
+                   str(src / f"{lib}.cu")]
             procs.append(((name, lib), out, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     (root / "mma_peak.cu").write_text(MMA_PEAK_CU)
@@ -139,7 +150,7 @@ def build_variants(build) -> dict:
            "-fPIC", "-o", str(out), str(root / "mma_peak.cu")]
     procs.append(("mma", out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                stderr=subprocess.PIPE, text=True)))
-    libs = {}
+    libs, ptxas = {}, {}
     for key, path, proc in procs:
         _, err = proc.communicate()
         if proc.returncode != 0:
@@ -153,8 +164,9 @@ def build_variants(build) -> dict:
                 f = getattr(lib, fn)
                 f.argtypes = list(argtypes)
                 f.restype = ctypes.c_int
+            ptxas[key] = ptxas_report(err)
         libs[key] = lib
-    return libs
+    return libs, ptxas
 
 
 def median_ms(fn, torch, inner=20, reps=5):
@@ -193,7 +205,9 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = build_variants(build)
+    libs, ptxas = build_variants(build)
+    for (v, lib), kernels in ptxas.items():
+        print(f"ptxas {v} {lib}: {' | '.join(kernels)}", flush=True)
     for blocks, threads in ((132, 128), (132, 256), (264, 256), (264, 512)):
         print(f"mma.sync m16n8k8 TF32, {blocks} blocks x {threads} threads (8 chains a warp): "
               f"{libs['mma'].mma_tflops(blocks, threads, 20000):.1f} TFLOP/s", flush=True)

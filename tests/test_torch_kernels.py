@@ -242,3 +242,23 @@ def test_tile_variants_still_apply_to_the_sources(tmp_path, variant):
     for name, old, new in edits:
         text = (tmp_path / name).read_text()
         assert new in text and old not in text
+
+
+def test_tile_variants_reads_registers_and_spills_from_ptxas():
+    from michigan_tpu_torch.tools import tile_variants
+
+    stderr = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z4normPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z4normPf\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 32 registers, used 1 barriers, 112 bytes smem\n"
+        "ptxas info    : Compiling entry function '_Z4convPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z4convPf\n"
+        "    16 bytes stack frame, 12 bytes spill stores, 20 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers, 16 bytes cumulative stack size\n")
+    assert tile_variants.ptxas_report(stderr) == [
+        "_Z4normPf: Used 32 registers, used 1 barriers, 112 bytes smem; 0 bytes stack frame, "
+        "0 bytes spill stores, 0 bytes spill loads",
+        "_Z4convPf: Used 128 registers, used 1 barriers, 16 bytes cumulative stack size; 16 "
+        "bytes stack frame, 12 bytes spill stores, 20 bytes spill loads"]
