@@ -27,7 +27,8 @@
 // 495 TFLOP/s TF32 rate give 165 TFLOP/s of float32-accurate product, against
 // 67 TFLOP/s for float32 FMAs outside the tensor cores; mma.sync (not wgmma)
 // reaches ~320 TFLOP/s TF32 on the H100 (tools/tile_variants.py), so ~107
-// float32-accurate.
+// float32-accurate.  The split, the mma and the cp.async helpers are in
+// tf32x3.cuh, shared with filterbank.cu.
 //
 // Staging.  For each stage of 8 * kGroups input channels, the patch's input
 // halo ((kRows + 2d) x (kCols + 2d) per channel) and the stage's weights (64
@@ -56,7 +57,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace conv3x3 {
+
+using namespace tf32x3;
 
 constexpr int kRows = 4;                        // output rows per block (patch)
 constexpr int kCols = 32;                       // output columns per block
@@ -118,63 +123,6 @@ __device__ __forceinline__ int frag_col(int i, int r) {
 }
 __device__ __forceinline__ int frag_ch(int j, int r) {
   return ((threadIdx.x >> 5) % kWarpsN) * (kNT * 8) + j * 8 + 2 * (threadIdx.x & 3) + (r & 1);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async8(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 8 : 0));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// (big, small) with x = big + small: big is x rounded to TF32 (to nearest,
-// ties away: the integer form of cvt.rna.tf32.f32, which runs faster than
-// the conversion instruction), small the exact float32 rest, handed to the
-// tensor cores as it is: they read an operand's TF32 bits.  Rounding small
-// to TF32 first (two more integer instructions) measured the same error
-// against float64 and 5-6% more time (tools/tile_variants.py).
-__device__ __forceinline__ uint2 split_tf32(float x) {
-  const unsigned big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  return make_uint2(big, __float_as_uint(x - __uint_as_float(big)));
-}
-
-// d += a * b on one m16n8k8 TF32 tile, float32 accumulation.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d = a * b on one m16n8k8 TF32 tile: the first product of a fresh chain.
-__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const unsigned (&a)[4],
-                                               const unsigned (&b)[2]) {
-  const float z = 0.f;
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(z));
 }
 
 // acc = the 3x3 correlation (dilation g.d) of the plane with w (co, c, 3, 3)

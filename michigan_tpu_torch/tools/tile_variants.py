@@ -34,12 +34,12 @@ VARIANTS = {
     "as built": [],
     # the conversion instruction instead of its integer form
     "cvt.rna split": [(
-        "conv3x3_tile.cuh",
+        "tf32x3.cuh",
         "  const unsigned big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n",
         '  unsigned big;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(big) : "f"(x));\n')],
     # small rounded to TF32 too, in the same integer form
     "small rounded": [(
-        "conv3x3_tile.cuh",
+        "tf32x3.cuh",
         "  return make_uint2(big, __float_as_uint(x - __uint_as_float(big)));\n",
         "  return make_uint2(big, (__float_as_uint(x - __uint_as_float(big)) + 0x1000u) &"
         " 0xffffe000u);\n")],
