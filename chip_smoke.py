@@ -34,7 +34,12 @@ Phases, each on its own line:
      ulps); conv3x3_in_act in float32 (atol 1e-4, rtol 1e-4: sums of C*9
      products in another order); filterbank_orientation in float32 (the
      response within rtol 1e-4, atol 1e-3; the argmax off on at most 0.1% of
-     pixels, and then by one orientation)
+     pixels, and then by one orientation, or by more where float64's
+     responses of the two orientations tie within that tolerance: the DoG
+     bank's rounding-level ties, printed with their evidence), and against a float64 bank conv
+     at (2, 1, 512^2) on strand planes, Gabor and DoG (its largest response
+     error at most 2x the plain version's in fp32; its argmax mismatch at
+     most the plain version's plus 1e-4 of pixels)
   4. the flagship on the card, counting launches: 18 spade_modulate and 29
      fused_instance_norm per forward, no other kernel
   5. the flagship on the CPU (plain versions), same weights and inputs: tanh
@@ -62,13 +67,16 @@ Phases, each on its own line:
       conv3x3_same_lowch at VGG features_2's (16, 64, 512^2) and a ragged
       (2, 64, 37, 53) (max abs error within 1e-4 of the output's largest
       magnitude), filterbank_orientation_backward at (8, 1, 512^2) for Gabor
-      and DoG (within 1e-4 of the gradient's largest magnitude);
+      and DoG on a dense random dconf and on the same dconf times the hair
+      masks of synthetic_train_data (the step's sparsity: the loss multiplies
+      by the hair), within 1e-4 of the gradient's largest magnitude;
       conv3x3_same_lowch and F.conv2d in fp32 against a float64 conv at
       (2, 64, 512^2) (the kernel's largest error at most 2x F.conv2d's);
       device times of every kernel of the step at its shapes, kernel and
       plain (conv3x3_same_lowch in turns with F.conv2d, its TFLOP/s at 2
-      FLOP per FMA), and F.instance_norm on fused_instance_norm's act=None
-      calls
+      FLOP per FMA; the backward on both dconf inputs, with the share of the
+      kernel's 16 x 32 warp blocks that gradient reaches), and
+      F.instance_norm on fused_instance_norm's act=None calls
   11. the training step on the card at batch 8 (out of memory fails the
       phase): launches per step exactly 29 fused_instance_norm (the frozen
       IG), 1 conv3x3_same_lowch (features_2 of the no-grad tag+ref VGG
@@ -87,12 +95,14 @@ Phases, each on its own line:
 Then a JSON line of per-kernel results: for the training step's kernels
 (fused_instance_norm, filterbank_orientation and its backward,
 conv3x3_same_lowch) launches in phase 11's counted step and times summed over
-one step's calls; for spade_modulate and conv3x3_in_act, which the step does
+one step's calls (the backward on the hair-masked dconf); for spade_modulate
+and conv3x3_in_act, which the step does
 not run, launches in phase 7's stroke edit and times over one edit.  Each
 row's bound_ms is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its FLOPs over the card's peak for
 them (dense products 495/3 TFLOP/s through 3xTF32, the rest 67 TFLOP/s of
-float32 FMA), from this run's shapes and data; library_ms is one PyTorch
+float32 FMA), from this run's shapes and data (the backward: 289 FMAs per
+pixel that carries a gradient, dconf != 0 and conf > 0); library_ms is one PyTorch
 call that computes the same function where there is one (F.conv2d for
 conv3x3_same_lowch; F.instance_norm for fused_instance_norm's act=None
 calls), else null.  Last,
@@ -109,6 +119,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 FLAGS = ("--netG spadeb --use_encoder --noise_background --use_ig --expand_mask_be "
          "--expand_th 5 --add_feat_zeros --init_type none --gpu_ids 0").split()
@@ -139,6 +150,7 @@ TOLS = {"float32": dict(atol=1e-4, rtol=1e-5), "bfloat16": dict(atol=1e-2, rtol=
 EPI_TOL = dict(atol=1e-4, rtol=1e-4)
 FB_TOL = dict(rtol=1e-4, atol=1e-3)
 FB_IDX_FRAC = 1e-3
+FB_F64_IDX = 1e-4  # the argmax's extra mismatch against float64 over the plain version's
 FLAGSHIP_LAUNCHES = {"spade_modulate": 18, "fused_instance_norm": 29, "conv3x3_in_act": 0,
                      "filterbank_orientation": 0, "filterbank_orientation_backward": 0,
                      "conv3x3_same_lowch": 0}
@@ -356,25 +368,69 @@ def fb_plane(torch, mode, size, plane, stroke_mask):
     return rgb_to_gray255(img[None]).permute(0, 3, 1, 2).contiguous()
 
 
-def fb_compare(torch, got, want):
-    """(ok, conf max abs error, share of pixels whose argmax differs)."""
+def fb_compare(torch, got, want, gray, bank):
+    """(ok, conf max abs error, share of pixels whose argmax differs, note).
+    The argmax may differ on at most FB_IDX_FRAC of the pixels, and there by
+    one orientation, or by more where the two orientations' responses tie
+    in float64 within FB_TOL (the symmetric DoG bank's rounding-level ties);
+    the note gives those pixels' float64 evidence."""
     idx, conf = got
     p_idx, p_conf = want
     off = (idx - p_idx) % 32
     frac = (off != 0).float().mean().item()
-    ok = torch.allclose(conf, p_conf, **FB_TOL) and frac <= FB_IDX_FRAC and \
-        bool(((off == 0) | (off == 1) | (off == 31)).all())
-    return ok, (conf - p_conf).abs().max().item(), frac
+    far = (off > 1) & (off < 31)
+    ties_ok, note = True, ""
+    if far.any():
+        res = float64_responses(gray, bank)
+        n_, y_, x_ = far.nonzero(as_tuple=True)
+        rk, rp = (res[n_, i[far].long(), y_, x_] for i in (idx, p_idx))
+        best = res[n_, :, y_, x_].max(dim=1).values
+        gap = (rk - rp).abs()
+        ties_ok = bool((gap <= FB_TOL["atol"] + FB_TOL["rtol"] * best).all())
+        note = (f"; {int(far.sum())} differ by more than one orientation, where float64's "
+                f"responses of the two differ by at most {gap.max().item():.2e} and its max is "
+                f"the kernel's at {int((rk == best).sum())}, the plain version's at "
+                f"{int((rp == best).sum())}")
+        del res
+    ok = torch.allclose(conf, p_conf, **FB_TOL) and frac <= FB_IDX_FRAC and ties_ok
+    return ok, (conf - p_conf).abs().max().item(), frac, note
 
 
-def train_grays(torch):
-    """(8, 1, 512, 512) gray planes of eight strand images: the orientation
-    loss's input at the training step's shape, textured so that the bank's
+def train_grays(torch, n=8):
+    """(n, 1, 512, 512) gray planes of strand images: the orientation loss's
+    input at the training step's shape (n = 8), textured so that the bank's
     clamped responses have no exact ties."""
     from michigan_tpu_torch.ops.filters import rgb_to_gray255
 
-    imgs = torch.stack([strand_image(torch, 512, SEED + i) for i in range(8)]) * 2 - 1
+    imgs = torch.stack([strand_image(torch, 512, SEED + i) for i in range(n)]) * 2 - 1
     return rgb_to_gray255(imgs).permute(0, 3, 1, 2).contiguous()
+
+
+def float64_responses(gray, bank):
+    """The (N, 32, H, W) clamped bank responses, computed in float64."""
+    import torch.nn.functional as F
+
+    res = F.conv2d(gray.double(), bank.double().permute(3, 2, 0, 1), padding=bank.shape[0] // 2)
+    return res.clamp_min(0.0)
+
+
+def train_hair(torch):
+    """(8, 512, 512) hair masks of the training step's batch
+    (synthetic_train_data at batch 8), on the card."""
+    from michigan_tpu_torch.data.synthetic import synthetic_train_data
+
+    data = synthetic_train_data(types.SimpleNamespace(crop_size=512), SEED, TRAIN_BATCH)
+    return torch.from_numpy(data["label_tag"][..., 0]).cuda()
+
+
+def live_share(torch, g, block):
+    """The share of `block` (rows, columns) output blocks that a nonzero g
+    (N, H, W) reaches through the 17 x 17 bank: those the backward kernel
+    does not skip."""
+    import torch.nn.functional as F
+
+    reach = F.max_pool2d((g != 0).float()[:, None], 17, stride=1, padding=8)
+    return F.max_pool2d(reach, block, stride=block, ceil_mode=True).mean().item()
 
 
 def scale_aware(got, want, max_lr):
@@ -555,13 +611,13 @@ def run():
     for mode, size, plane, _calls in FB_CASES:
         gray = fb_plane(torch, mode, size, plane, stroke_mask)
         bank = filters.bank(mode, gray.device)
-        ok, err, frac = fb_compare(torch, O.filterbank_orientation(gray, bank),
-                                   O.filterbank_orientation_plain(gray, bank))
+        ok, err, frac, note = fb_compare(torch, O.filterbank_orientation(gray, bank),
+                                         O.filterbank_orientation_plain(gray, bank), gray, bank)
         torch.cuda.synchronize()
         max_err["filterbank_orientation"] = max(max_err["filterbank_orientation"], err)
         print(f"[phase 3] filterbank_orientation {mode} {plane} {size}^2: conf max_abs_err "
-              f"{err:.3e}, argmax differs on {frac:.2e} of pixels {'ok' if ok else 'FAIL'}",
-              flush=True)
+              f"{err:.3e}, argmax differs on {frac:.2e} of pixels{note} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             failed.append(("filterbank_orientation", mode, size, plane))
     z = torch.zeros((1, 1, 64, 64), device="cuda")
@@ -572,10 +628,28 @@ def run():
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         failed.append("filterbank_orientation ties")
+    # against float64 at (2, 1, 512^2) on strand planes: the kernel and the
+    # plain version (cuDNN's fp32 conv, TF32 off)
+    gray = train_grays(torch, 2)
+    for mode in ("gabor", "dog"):
+        bank = filters.bank(mode, gray.device)
+        c64, i64 = float64_responses(gray, bank).max(dim=1)
+        (k_idx, k_conf), (p_idx, p_conf) = (O.filterbank_orientation(gray, bank),
+                                            O.filterbank_orientation_plain(gray, bank))
+        k_err, p_err = ((c - c64).abs().max().item() for c in (k_conf.double(), p_conf.double()))
+        k_mis, p_mis = ((i != i64).float().mean().item() for i in (k_idx, p_idx))
+        ok = k_err <= F64_RATIO * p_err and k_mis <= p_mis + FB_F64_IDX
+        print(f"[phase 3] filterbank_orientation {mode} (2,1,512,512) against float64: conf "
+              f"max_abs_err kernel {k_err:.3e}, plain version in fp32 {p_err:.3e} (limit "
+              f"{F64_RATIO:g}x); argmax differs on {k_mis:.2e} / {p_mis:.2e} of pixels (limit "
+              f"plain + {FB_F64_IDX:g}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(("filterbank_orientation float64", mode))
     if failed:
         return fail(f"kernel disagrees with its plain version: {failed}")
     # not live when phase 6 reads peak memory
-    del inp, got, want, x, g, b, extra, xp, w, bias, r, gray, z, z_idx, z_conf
+    del inp, got, want, x, g, b, extra, xp, w, bias, r, gray, z, z_idx, z_conf, i64, c64, k_idx, \
+        k_conf, p_idx, p_conf
 
     # 4 ---------------------------------------------------------------
     opt = parse_options(FLAGS + ["--seed", str(SEED)])
@@ -882,29 +956,33 @@ def run():
         if not ok:
             failed.append(("conv3x3_same_lowch", shape))
     del x, w, got, want
-    grays = train_grays(torch)
+    grays, hair = train_grays(torch), train_hair(torch)
     for mode in ("gabor", "dog"):
         bank = filters.bank(mode, grays.device)
         idx, conf = O.filterbank_orientation(grays, bank)
-        fwd_ok, _, frac = fb_compare(torch, (idx, conf), O.filterbank_orientation_plain(grays, bank))
-        dconf = torch.randn(conf.shape, generator=cgen, device="cuda")
-        got = O.filterbank_orientation_backward(dconf, idx, conf, bank)
-        want = O.filterbank_orientation_backward_plain(dconf, idx, conf, bank)
-        g = grays.clone().requires_grad_()
-        (auto,) = torch.autograd.grad(O.filterbank_orientation_plain(g, bank)[1], g, dconf)
-        torch.cuda.synchronize()
-        scale = want.abs().max().item()
-        err = (got - want).abs().max().item()
-        auto_rel = (auto - want).abs().max().item() / scale
-        new_err["filterbank_orientation_backward"] = max(
-            new_err["filterbank_orientation_backward"], err)
-        ok = err / scale <= NEW_KERNEL_REL and fwd_ok
-        print(f"[phase 10] filterbank_orientation_backward {mode} (8,1,512,512): max_abs_err "
-              f"{err:.3e}, {err / scale:.2e} of the gradient's largest magnitude; the plain "
-              f"version vs autograd through the plain forward {auto_rel:.2e}; forward argmax "
-              f"differs on {frac:.2e} of pixels {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            failed.append(("filterbank_orientation_backward", mode))
+        dense = torch.randn(hair.shape, generator=cgen, device="cuda")
+        dconfs = {"dense": dense, "hair-masked": dense * hair}
+        fwd_ok, _, frac, _ = fb_compare(torch, (idx, conf),
+                                        O.filterbank_orientation_plain(grays, bank), grays, bank)
+        for name, dconf in dconfs.items():
+            got = O.filterbank_orientation_backward(dconf, idx, conf, bank)
+            want = O.filterbank_orientation_backward_plain(dconf, idx, conf, bank)
+            g = grays.clone().requires_grad_()
+            (auto,) = torch.autograd.grad(O.filterbank_orientation_plain(g, bank)[1], g, dconf)
+            torch.cuda.synchronize()
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            auto_rel = (auto - want).abs().max().item() / scale
+            new_err["filterbank_orientation_backward"] = max(
+                new_err["filterbank_orientation_backward"], err)
+            ok = err / scale <= NEW_KERNEL_REL and fwd_ok
+            print(f"[phase 10] filterbank_orientation_backward {mode} (8,1,512,512) {name} dconf: "
+                  f"max_abs_err {err:.3e}, {err / scale:.2e} of the gradient's largest magnitude; "
+                  f"the plain version vs autograd through the plain forward {auto_rel:.2e}; "
+                  f"forward argmax differs on {frac:.2e} of pixels {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                failed.append(("filterbank_orientation_backward", mode, name))
     if failed:
         return fail(f"kernel disagrees with its plain version: {failed}")
     del g, auto, got, want
@@ -949,20 +1027,32 @@ def run():
     del x, w, fk, fp, turns
     bank = filters.bank("gabor", grays.device)
     idx, conf = O.filterbank_orientation(grays, bank)
-    for k, fk, fp in (
-            ("filterbank_orientation", lambda: O.filterbank_orientation(grays, bank),
-             lambda: O.filterbank_orientation_plain(grays, bank)),
-            ("filterbank_orientation_backward",
-             lambda: O.filterbank_orientation_backward(dconf, idx, conf, bank),
-             lambda: O.filterbank_orientation_backward_plain(dconf, idx, conf, bank))):
-        step_ms[k], step_plain_ms[k] = (median_ms(f, torch, True, inner=5) for f in (fk, fp))
+    fk = lambda: O.filterbank_orientation(grays, bank)
+    fp = lambda: O.filterbank_orientation_plain(grays, bank)
+    k = "filterbank_orientation"
+    step_ms[k], step_plain_ms[k] = (median_ms(f, torch, True, inner=5) for f in (fk, fp))
     # the bank forward: 289 taps x 32 orientations per pixel, a dense product;
-    # its backward: 289 taps per pixel whose response is positive (this run's
-    # conf), a gather; 4-byte gray, idx, conf and gradient planes
+    # its backward: 289 taps per pixel that carries a gradient (dconf != 0,
+    # conf > 0: this run's data), a gather; 4-byte gray, idx, conf and
+    # gradient planes
     pixels, bank_bytes = grays.numel(), bank.numel() * 4
-    work["filterbank_orientation"] = [12 * pixels + bank_bytes, 2 * pixels * 32 * 289]
-    work["filterbank_orientation_backward"] = [16 * pixels + bank_bytes,
-                                               2 * 289 * int((conf > 0).sum())]
+    work[k] = [12 * pixels + bank_bytes, 2 * pixels * 32 * 289]
+    k = "filterbank_orientation_backward"
+    for name, dconf in dconfs.items():
+        fk = lambda: O.filterbank_orientation_backward(dconf, idx, conf, bank)
+        fp = lambda: O.filterbank_orientation_backward_plain(dconf, idx, conf, bank)
+        tk, tp = (median_ms(f, torch, True, inner=5) for f in (fk, fp))
+        carry = int(((dconf != 0) & (conf > 0)).sum())
+        b_ms, b_by = bound(16 * pixels + bank_bytes, 2 * 289 * carry, FP32_FLOP_S)
+        share = live_share(torch, torch.where(conf > 0, dconf, 0), O.BACKWARD_SKIP_BLOCK)
+        print(f"[phase 10] {k} (8,1,512,512) {name} dconf: device kernel {tk * 1e3:.1f} us, "
+              f"plain {tp * 1e3:.1f} us; {carry / pixels:.3f} of pixels carry a gradient, "
+              f"{share:.3f} of the kernel's {O.BACKWARD_SKIP_BLOCK[0]} x "
+              f"{O.BACKWARD_SKIP_BLOCK[1]} warp blocks are reached by one; bound "
+              f"{b_ms * 1e3:.1f} us by {b_by} {tag}", flush=True)
+        # the step's own input: its loss multiplies by the hair
+        step_ms[k], step_plain_ms[k] = tk, tp
+        work[k] = [16 * pixels + bank_bytes, 2 * 289 * carry]
     step_ms["fused_instance_norm"] = step_plain_ms["fused_instance_norm"] = 0.0
     in_lib = {"kernel": 0.0, "F.instance_norm": 0.0, "calls": 0}
     for (c, h, act), calls in IN_SHAPES.items():
@@ -979,7 +1069,7 @@ def run():
                 lambda: F.instance_norm(inp[0], eps=1e-5), torch, True)
             in_lib["calls"] += calls
     library_ms["fused_instance_norm"] = in_lib["F.instance_norm"]
-    del grays, idx, conf, dconf, inp
+    del grays, hair, dense, dconfs, idx, conf, dconf, inp, fk, fp
     for k in step_ms:
         phase(10, f"{k} per training step: device kernel {step_ms[k]:.3f} ms, plain "
                   f"{step_plain_ms[k]:.3f} ms {tag}")

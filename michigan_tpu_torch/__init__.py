@@ -3,8 +3,9 @@
 The module names mirror ``michigan_tpu`` so each module's counterpart is easy
 to find.  Inside, the port uses PyTorch idiom: ``nn.Module``s in NCHW, plain
 functions on tensors, an explicit ``device``, ``torch.Generator``s for any
-randomness.  It shares the jax-free ``michigan_tpu.config`` so the CLI keeps
-the same ``Options`` and flags, and imports nothing else of the JAX package.
+randomness.  Its own ``config.py`` keeps the JAX package's ``Options`` and
+flags, so the CLI reads the same command lines; it imports nothing of the
+JAX package.
 
 Layer map:
   ops          resize / pools, norms, masks, masked stats, the oriented

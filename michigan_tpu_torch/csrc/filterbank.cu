@@ -28,11 +28,15 @@
 // - each block walks 32 x 8-pixel tiles (one row of 32 pixels, two m16
 //   tiles, per warp); the tile's gray halo (48 x 24) is staged by cp.async
 //   into one of two buffers while the block multiplies the other.  A gray
-//   value feeds up to 289 products of its warp; it is split in registers as
-//   it leaves shared memory;
-// - the tensor cores add with truncation, so each run of kChain steps (24
-//   mma per step and warp) sums into fresh registers that are added to the
-//   running sums with rounded float32 adds;
+//   value feeds up to 289 products of its warp, so the staged halo is split
+//   once into (big, small) planes.  (Splitting each A fragment in registers
+//   instead, as the 3x3 tile does where a value feeds 9 taps, took 5-6%
+//   longer: tools/filterbank_variants.py);
+// - the tensor cores add with truncation, so each run of kChain = 4 steps
+//   (96 mma per warp) sums into fresh registers that are added to the
+//   running sums with rounded float32 adds.  Against a float64 bank conv the
+//   largest response error is 0.4-0.5x cuDNN's in float32; one chain over
+//   all of K erred 1.6-2.3x (tools/filterbank_variants.py);
 // - in the accumulator layout a thread holds 8 of the 32 orientations of 4
 //   pixels; the clamp, the max and the first-index argmax (strict '>' in
 //   increasing orientation, the smaller index on equal values across the
@@ -52,10 +56,13 @@
 //
 // What bounds it: shared-memory reads, 289 bank gathers per pixel (one
 // wavefront per warp each).  What the design does about it:
-// - persistent blocks copy the bank (37 KB) into shared memory once, by
-//   cp.async, and walk 64 x 64-pixel tiles; each stages dconf * [conf > 0]
+// - one block per 64 x 64-pixel tile copies the bank (37 KB) into shared
+//   memory by cp.async, once per 4,096 pixels, and stages dconf * [conf > 0]
 //   and idx of the tile with its 8-pixel halo as (gradient, orientation)
-//   pairs, so one 8-byte load brings both;
+//   pairs, so one 8-byte load brings both.  The blocks are not persistent:
+//   the card's block scheduler then balances tiles with and without
+//   gradient (a persistent grid, two tiles a block, took 0.116 ms on the
+//   step's hair-masked dconf against 0.086: tools/filterbank_variants.py);
 // - a warp takes 32 columns x 16 rows, one column per thread: per column
 //   offset it loads the 32 pairs its window needs once and reuses each for
 //   up to 16 pixels;
@@ -91,12 +98,13 @@ constexpr int kTileW = 32;                  // two m16 tiles per warp
 constexpr int kTileH = kThreads / 32;       // 8
 constexpr int kSteps = 37;                  // K = 296 in steps of 8
 constexpr int kRowSteps = 2 * kK;           // steps 0-33: filter row s / 2
-constexpr int kChain = 2;                   // steps per fresh tensor-core chain
+constexpr int kChain = 4;                   // steps per fresh tensor-core chain
 constexpr int kInW = kTileW + 2 * kR;       // 48 halo columns
 constexpr int kStageH = kTileH + 2 * kR;    // 24 halo rows
 constexpr int kInH = kStageH + 7;           // and 7 zero rows for the pad taps
 constexpr int kRS = 56;                     // row stride, 24 mod 32: conflict-free A loads
-constexpr int kHalo = kInH * kRS;           // floats per halo buffer
+constexpr int kPlane = kInH * kRS;          // floats per halo plane
+constexpr int kHalo = 2 * kPlane;           // a buffer: the big plane, then the small
 constexpr int kBankWords = kSteps * 4 * 32 * 4;  // per step: 4 x 16 bytes per lane
 constexpr size_t kSmem = sizeof(float) * (kBankWords + 2 * kHalo);
 
@@ -125,7 +133,7 @@ filterbank_kernel(const float* __restrict__ gray, const float* __restrict__ bank
                   int32_t* __restrict__ idx, float* __restrict__ conf, int n, int h, int w) {
   extern __shared__ __align__(16) float smem[];
   unsigned* s_b = reinterpret_cast<unsigned*>(smem);  // [step][4][lane][4]
-  float* s_halo = smem + kBankWords;                   // two [kInH][kRS] buffers
+  float* s_halo = smem + kBankWords;                   // two buffers of two [kInH][kRS] planes
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -166,14 +174,21 @@ filterbank_kernel(const float* __restrict__ gray, const float* __restrict__ bank
   }
 
   const uint4* b_frag = reinterpret_cast<const uint4*>(s_b) + lane;
-  const int a_row = warp * kRS + gid + tig;             // steps 0-33
+  const int a_row = warp * kRS + gid + tig;                 // steps 0-33
   const int a_col = warp * kRS + gid + tig * kRS + kK - 1;  // steps 34-36
 
   for (int it = 0; t < ntiles; t += gridDim.x, ++it) {
-    const float* cur = s_halo + (it & 1) * kHalo;
+    float* cur = s_halo + (it & 1) * kHalo;
     if (t + gridDim.x < ntiles) stage(t + gridDim.x, s_halo + ((it + 1) & 1) * kHalo);
     cp_async_commit();
     cp_async_wait<1>();
+    __syncthreads();
+    // split the staged halo once: big in place, small into the second plane
+    for (int i = tid; i < kPlane; i += kThreads) {
+      const uint2 p = split_tf32(cur[i]);
+      cur[i] = __uint_as_float(p.x);
+      cur[kPlane + i] = __uint_as_float(p.y);
+    }
     __syncthreads();
 
     float acc[2][4][4], part[2][4][4];
@@ -186,19 +201,19 @@ filterbank_kernel(const float* __restrict__ gray, const float* __restrict__ bank
 
 #pragma unroll
     for (int s = 0; s < kSteps; ++s) {
-      // A: rows gid, gid + 8 of m tile i; K columns tig, tig + 4
+      // A: rows gid, gid + 8 of m tile i; K columns tig, tig + 4 (tap
+      // columns in a row step, tap rows in a column step)
       const float* a = cur + (s < kRowSteps ? a_row + (s >> 1) * kRS + 8 * (s & 1)
                                             : a_col + 8 * (s - kRowSteps) * kRS);
       const int k4 = s < kRowSteps ? 4 : 4 * kRS;
       unsigned a_big[2][4], a_small[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const float v[4] = {a[16 * i], a[16 * i + 8], a[16 * i + k4], a[16 * i + k4 + 8]};
+        const int off[4] = {16 * i, 16 * i + 8, 16 * i + k4, 16 * i + k4 + 8};
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          const uint2 p = split_tf32(v[r]);
-          a_big[i][r] = p.x;
-          a_small[i][r] = p.y;
+          a_big[i][r] = __float_as_uint(a[off[r]]);
+          a_small[i][r] = __float_as_uint(a[kPlane + off[r]]);
         }
       }
       const uint4 q0 = b_frag[(4 * s + 0) * 32], q1 = b_frag[(4 * s + 1) * 32];
@@ -289,21 +304,23 @@ constexpr int kChunkW = 16;                         // columns per gradient flag
 constexpr int kChunks = kBInW / kChunkW;            // 5
 constexpr int kWin = kBRows + kK - 1;               // 32 halo rows feed a thread's pixels
 constexpr int kFlags = kChunks * kBInH;
+constexpr int kBPer = kBInH * kBInW / kThreads;     // 25 halo elements per thread
+static_assert(kBInH * kBInW % kThreads == 0, "the halo divides among the threads");
 constexpr size_t kBSmem = sizeof(float) * kTaps * kNum + sizeof(float2) * kBInH * kBInW +
-                          sizeof(int) * 2 * kFlags;
+                          sizeof(int) * kFlags;
 
-// s_gk holds (dconf * [conf > 0], idx as int bits) of the tile with its
-// halo, zero outside the image; halo coordinates are (y - y0 + kR, x - x0 + kR).
-// s_flags[c][r] (two sets, by the parity of the block's tile) is 1 where halo
-// row r, columns 16 c .. 16 c + 15, hold a nonzero gradient.
+// One block per tile.  s_gk holds (dconf * [conf > 0], idx as int bits) of
+// the tile with its halo, zero outside the image; halo coordinates are
+// (y - y0 + kR, x - x0 + kR).  s_flags[c][r] is 1 where halo row r, columns
+// 16 c .. 16 c + 15, hold a nonzero gradient.
 __global__ void __launch_bounds__(kThreads, 2)
 filterbank_backward_kernel(const float* __restrict__ dconf, const int32_t* __restrict__ idx,
                            const float* __restrict__ conf, const float* __restrict__ bank,
-                           float* __restrict__ dgray, int n, int h, int w) {
+                           float* __restrict__ dgray, int h, int w) {
   extern __shared__ __align__(16) float smem[];
   float* s_bank = smem;                                            // [tap][orientation]
   float2* s_gk = reinterpret_cast<float2*>(s_bank + kTaps * kNum);  // [kBInH][kBInW]
-  int* s_flags = reinterpret_cast<int*>(s_gk + kBInH * kBInW);     // [2][kChunks][kBInH]
+  int* s_flags = reinterpret_cast<int*>(s_gk + kBInH * kBInW);     // [kChunks][kBInH]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -311,87 +328,85 @@ filterbank_backward_kernel(const float* __restrict__ dconf, const int32_t* __res
   const int tx = (warp % kBWarpsX) * 32 + lane;  // this thread's column in the tile
   const int ty = (warp / kBWarpsX) * kBRows;     // its first row
   const int tiles_x = (w + kBTileW - 1) / kBTileW;
-  const int per_plane = tiles_x * ((h + kBTileH - 1) / kBTileH);
-  const int64_t ntiles = (int64_t)n * per_plane;
+  const Tile tl = tile_at(blockIdx.x, tiles_x, tiles_x * ((h + kBTileH - 1) / kBTileH), h, w,
+                          kBTileW, kBTileH);
 
   for (int i = tid; i < kTaps * kNum / 4; i += kThreads) cp_async16(s_bank + 4 * i, bank + 4 * i, true);
   cp_async_commit();
   for (int i = tid; i < kFlags; i += kThreads) s_flags[i] = 0;
-
-  int64_t t = blockIdx.x;
-  for (int it = 0; t < ntiles; t += gridDim.x, ++it) {
-    const Tile tl = tile_at(t, tiles_x, per_plane, h, w, kBTileW, kBTileH);
-    int* flags = s_flags + (it & 1) * kFlags;
-    __syncthreads();  // every warp is done with the last tile; `flags` is clear
-    for (int i = tid; i < kBInH * kBInW; i += kThreads) {
-      const int r = i / kBInW, c = i - r * kBInW;
-      const int y = tl.y0 - kR + r, x = tl.x0 - kR + c;
-      float g = 0.f;
-      int k = 0;
-      if (y >= 0 && y < h && x >= 0 && x < w) {
-        const int64_t o = tl.plane + (int64_t)y * w + x;
-        if (conf[o] > 0.f) g = dconf[o];
-        k = idx[o] & (kNum - 1);
-      }
-      s_gk[i] = make_float2(g, __int_as_float(k));
-      if (g != 0.f) flags[(c / kChunkW) * kBInH + r] = 1;
-    }
-    // the next tile's set: every warp read it before this tile's barrier
-    for (int i = tid; i < kFlags; i += kThreads) s_flags[((it + 1) & 1) * kFlags + i] = 0;
-    cp_async_wait<0>();
-    __syncthreads();
-
-    // the warp's window: halo rows ty .. ty + kWin - 1, chunks 2 wx .. 2 wx + 2
-    const int* f = flags + (tx - lane) / kChunkW * kBInH + ty + lane;
-    const bool live = __any_sync(0xffffffffu, lane < kWin && (f[0] | f[kBInH] | f[2 * kBInH]));
-    float acc[kBRows];
+  // the halo of the three planes, every load of a thread in flight at once
+  float cf[kBPer], dc[kBPer];
+  int id[kBPer];
 #pragma unroll
-    for (int p = 0; p < kBRows; ++p) acc[p] = 0.f;
-    if (live) {
-      // pixel (ty + p, tx) reads q at halo (ty + p + 2kR - oy, tx + 2kR - ox)
-      // with tap (oy, ox) = p - q + kR
-#pragma unroll 1
-      for (int ox = 0; ox < kK; ++ox) {
-        const float2* col = s_gk + ty * kBInW + tx + 2 * kR - ox;
-        float g[kWin];
-        int tap[kWin];  // s_bank index of q's orientation at tap (0, ox)
+  for (int u = 0; u < kBPer; ++u) {
+    const int i = tid + u * kThreads;
+    const int r = i / kBInW, c = i - r * kBInW;
+    const int y = tl.y0 - kR + r, x = tl.x0 - kR + c;
+    const bool ok = y >= 0 && y < h && x >= 0 && x < w;
+    const int64_t o = ok ? tl.plane + (int64_t)y * w + x : 0;
+    cf[u] = ok ? conf[o] : 0.f;
+    dc[u] = ok ? dconf[o] : 0.f;
+    id[u] = ok ? idx[o] : 0;
+  }
+  __syncthreads();  // the flags are clear
 #pragma unroll
-        for (int j = 0; j < kWin; ++j) {
-          const float2 gk = col[j * kBInW];
-          g[j] = gk.x;
-          tap[j] = ox * kNum + __float_as_int(gk.y);
-        }
-#pragma unroll
-        for (int oy = 0; oy < kK; ++oy)
-#pragma unroll
-          for (int p = 0; p < kBRows; ++p) {
-            const int j = p + 2 * kR - oy;
-            acc[p] = fmaf(g[j], s_bank[tap[j] + oy * kK * kNum], acc[p]);
-          }
-      }
-    }
-    const int x = tl.x0 + tx;
-#pragma unroll
-    for (int p = 0; p < kBRows; ++p) {
-      const int y = tl.y0 + ty + p;
-      if (y < h && x < w) dgray[tl.plane + (int64_t)y * w + x] = acc[p];
-    }
+  for (int u = 0; u < kBPer; ++u) {
+    const int i = tid + u * kThreads;
+    const float g = cf[u] > 0.f ? dc[u] : 0.f;
+    s_gk[i] = make_float2(g, __int_as_float(id[u] & (kNum - 1)));
+    if (g != 0.f) s_flags[(i % kBInW) / kChunkW * kBInH + i / kBInW] = 1;
   }
   cp_async_wait<0>();
+  __syncthreads();
+
+  // the warp's window: halo rows ty .. ty + kWin - 1, chunks 2 wx .. 2 wx + 2
+  const int* f = s_flags + (tx - lane) / kChunkW * kBInH + ty + lane;
+  const bool live = __any_sync(0xffffffffu, lane < kWin && (f[0] | f[kBInH] | f[2 * kBInH]));
+  float acc[kBRows];
+#pragma unroll
+  for (int p = 0; p < kBRows; ++p) acc[p] = 0.f;
+  if (live) {
+    // pixel (ty + p, tx) reads q at halo (ty + p + 2kR - oy, tx + 2kR - ox)
+    // with tap (oy, ox) = p - q + kR
+#pragma unroll 1
+    for (int ox = 0; ox < kK; ++ox) {
+      const float2* col = s_gk + ty * kBInW + tx + 2 * kR - ox;
+      float g[kWin];
+      int tap[kWin];  // s_bank index of q's orientation at tap (0, ox)
+#pragma unroll
+      for (int j = 0; j < kWin; ++j) {
+        const float2 gk = col[j * kBInW];
+        g[j] = gk.x;
+        tap[j] = ox * kNum + __float_as_int(gk.y);
+      }
+#pragma unroll
+      for (int oy = 0; oy < kK; ++oy)
+#pragma unroll
+        for (int p = 0; p < kBRows; ++p) {
+          const int j = p + 2 * kR - oy;
+          acc[p] = fmaf(g[j], s_bank[tap[j] + oy * kK * kNum], acc[p]);
+        }
+    }
+  }
+  const int x = tl.x0 + tx;
+#pragma unroll
+  for (int p = 0; p < kBRows; ++p) {
+    const int y = tl.y0 + ty + p;
+    if (y < h && x < w) dgray[tl.plane + (int64_t)y * w + x] = acc[p];
+  }
 }
 
-// Persistent grid: as many blocks of `kernel` as fit on the card at once,
+// The forward's persistent grid: as many blocks as fit on the card at once,
 // at most `tiles`.  0 blocks and an error code where the card refuses.
-template <typename K>
-cudaError_t persistent_grid(K kernel, size_t smem, int64_t tiles, int* blocks) {
+cudaError_t persistent_grid(int64_t tiles, int* blocks) {
   *blocks = 0;
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+  cudaError_t e = cudaFuncSetAttribute(filterbank_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, filterbank_kernel, kThreads, kSmem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int64_t most = (int64_t)per_sm * sms;
@@ -409,7 +424,7 @@ int filterbank_orientation_f32(const void* gray, const void* bank, void* idx, vo
                                int64_t n, int64_t h, int64_t w, void* stream) {
   const int64_t tiles = n * ((w + kTileW - 1) / kTileW) * ((h + kTileH - 1) / kTileH);
   int blocks;
-  cudaError_t e = persistent_grid(filterbank_kernel, kSmem, tiles, &blocks);
+  cudaError_t e = persistent_grid(tiles, &blocks);
   if (e != cudaSuccess) return (int)e;
   filterbank_kernel<<<blocks, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(gray), static_cast<const float*>(bank),
@@ -423,13 +438,14 @@ int filterbank_orientation_backward_f32(const void* dconf, const void* idx, cons
                                         const void* bank, void* dgray, int64_t n, int64_t h,
                                         int64_t w, void* stream) {
   const int64_t tiles = n * ((w + kBTileW - 1) / kBTileW) * ((h + kBTileH - 1) / kBTileH);
-  int blocks;
-  cudaError_t e = persistent_grid(filterbank_backward_kernel, kBSmem, tiles, &blocks);
+  const cudaError_t e = cudaFuncSetAttribute(
+      filterbank_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBSmem);
   if (e != cudaSuccess) return (int)e;
-  filterbank_backward_kernel<<<blocks, kThreads, kBSmem, static_cast<cudaStream_t>(stream)>>>(
+  filterbank_backward_kernel<<<(unsigned)tiles, kThreads, kBSmem,
+                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(dconf), static_cast<const int32_t*>(idx),
       static_cast<const float*>(conf), static_cast<const float*>(bank),
-      static_cast<float*>(dgray), (int)n, (int)h, (int)w);
+      static_cast<float*>(dgray), (int)h, (int)w);
   return (int)cudaGetLastError();
 }
 

@@ -119,9 +119,9 @@ def load_vgg19(vgg: VGG19, gen: torch.Generator, checkpoints_dir: str) -> bool:
         f"VGG19 weights not found (searched $MICHIGAN_VGG19, "
         f"{checkpoints_dir}/vgg19.npz, vgg19-dcbb9e9d.pth): training will "
         "run on a RANDOM VGG backbone — perceptual/style/content losses and "
-        "FID are NOT comparable to the reference. Convert weights with "
-        "`python -m michigan_tpu.training.convert --vgg <torch.pth> --out "
-        "checkpoints/vgg19.npz`.",
+        "FID are NOT comparable to the reference. Put torchvision's "
+        f"vgg19-dcbb9e9d.pth at $MICHIGAN_VGG19 or in {checkpoints_dir}; it "
+        "loads as it is, with no conversion.",
         stacklevel=2,
     )
     # kaiming fan_in keeps the activations' variance through conv + ReLU, so

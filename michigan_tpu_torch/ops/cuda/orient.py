@@ -23,9 +23,11 @@ OrientationResponse
     idx carries no gradient.  The training step's ORIENT / CONFIDENCE loss
     differentiates through it.
 
-The forward kernel is compute-bound (9,248 FMAs per pixel), the backward
-(289 per pixel) bound by shared-memory reads; the design notes are in the
-CUDA source.  A wrapper runs the plain PyTorch version for CPU tensors
+The forward kernel is a dense product (9,248 FMAs per pixel) on the tensor
+cores, float32-accurate through the 3xTF32 split; the backward a gather (289
+FMAs per pixel) bound by shared-memory reads, which skips the output blocks
+that no gradient reaches; the design notes are in the CUDA source.  A
+wrapper runs the plain PyTorch version for CPU tensors
 only.  For a CUDA tensor it checks dtype, shape, contiguity and device,
 launches the kernel on the current stream and counts the launch; anything the
 kernel does not take raises.  There is no fallback on CUDA tensors.
@@ -41,6 +43,9 @@ import torch.nn.functional as F
 from michigan_tpu_torch.ops.cuda import build
 
 BANK_SHAPE = (17, 17, 1, 32)
+# (rows, columns) of output that one warp of the backward kernel computes, or
+# skips with zeros where no nonzero dconf * [conf > 0] lies within 8 pixels
+BACKWARD_SKIP_BLOCK = (16, 32)
 
 
 def filterbank_orientation_plain(gray: torch.Tensor, bank: torch.Tensor

@@ -36,66 +36,80 @@ import types
 from michigan_tpu_torch.tools.tile_variants import median_ms, patched_sources, ptxas_report
 
 SRC = "filterbank.cu"
+# the forward's A-fragment loads as built: from the two split planes
+A_LOADS = (
+    "        const int off[4] = {16 * i, 16 * i + 8, 16 * i + k4, 16 * i + k4 + 8};\n"
+    "#pragma unroll\n"
+    "        for (int r = 0; r < 4; ++r) {\n"
+    "          a_big[i][r] = __float_as_uint(a[off[r]]);\n"
+    "          a_small[i][r] = __float_as_uint(a[kPlane + off[r]]);\n"
+    "        }\n")
 VARIANTS = {
     "as built": [],
-    # the length of a fresh tensor-core chain, in steps of 8 taps
-    "chain 1": [(SRC, "constexpr int kChain = 2;", "constexpr int kChain = 1;")],
-    "chain 4": [(SRC, "constexpr int kChain = 2;", "constexpr int kChain = 4;")],
-    "one chain": [(SRC, "constexpr int kChain = 2;", "constexpr int kChain = kSteps;")],
-    # the halo split once into (big, small) planes after it arrives, instead
-    # of in registers as each fragment leaves shared memory
-    "halo pre-split": [
-        (SRC, "constexpr int kHalo = kInH * kRS;", "constexpr int kHalo = 2 * kInH * kRS;"),
-        (SRC, "    const float* cur = s_halo + (it & 1) * kHalo;\n",
-         "    float* cur = s_halo + (it & 1) * kHalo;\n"),
-        (SRC, "    cp_async_wait<1>();\n    __syncthreads();\n",
-         "    cp_async_wait<1>();\n    __syncthreads();\n"
-         "    for (int i = tid; i < kInH * kRS; i += kThreads) {\n"
-         "      const uint2 p = split_tf32(cur[i]);\n"
-         "      cur[i] = __uint_as_float(p.x);\n"
-         "      cur[kInH * kRS + i] = __uint_as_float(p.y);\n"
-         "    }\n    __syncthreads();\n"),
-        (SRC, "        const float v[4] = {a[16 * i], a[16 * i + 8], a[16 * i + k4], "
-              "a[16 * i + k4 + 8]};\n"
-              "#pragma unroll\n"
-              "        for (int r = 0; r < 4; ++r) {\n"
-              "          const uint2 p = split_tf32(v[r]);\n"
-              "          a_big[i][r] = p.x;\n"
-              "          a_small[i][r] = p.y;\n"
-              "        }\n",
-         "        const int off[4] = {16 * i, 16 * i + 8, 16 * i + k4, 16 * i + k4 + 8};\n"
+    # the halo split in registers as each A fragment leaves shared memory,
+    # instead of once into (big, small) planes when it is staged
+    "split in registers": [
+        (SRC, "constexpr int kHalo = 2 * kPlane;", "constexpr int kHalo = kPlane;"),
+        (SRC, "    // split the staged halo once: big in place, small into the second plane\n"
+              "    for (int i = tid; i < kPlane; i += kThreads) {\n"
+              "      const uint2 p = split_tf32(cur[i]);\n"
+              "      cur[i] = __uint_as_float(p.x);\n"
+              "      cur[kPlane + i] = __uint_as_float(p.y);\n"
+              "    }\n    __syncthreads();\n", ""),
+        (SRC, A_LOADS,
+         "        const float v[4] = {a[16 * i], a[16 * i + 8], a[16 * i + k4], "
+         "a[16 * i + k4 + 8]};\n"
+         "#pragma unroll\n"
+         "        for (int r = 0; r < 4; ++r) {\n"
+         "          const uint2 p = split_tf32(v[r]);\n"
+         "          a_big[i][r] = p.x;\n"
+         "          a_small[i][r] = p.y;\n"
+         "        }\n")],
+    # a row step's K column t as tap column 2 (t % 4) + t / 4 and m16 row m as
+    # pixel 2 (m % 8) + m / 8: a thread's four A values are then three
+    # neighbouring floats, one 8-byte and one 4-byte load (column steps keep
+    # four loads)
+    "paired A loads": [
+        (SRC, "  if (s < kRowSteps) return (s >> 1) * kK + 8 * (s & 1) + t;\n",
+         "  if (s < kRowSteps) return (s >> 1) * kK + 8 * (s & 1) + 2 * (t & 3) + (t >> 2);\n"),
+        (SRC, "  const int a_row = warp * kRS + gid + tig;                 // steps 0-33\n"
+              "  const int a_col = warp * kRS + gid + tig * kRS + kK - 1;  // steps 34-36\n",
+         "  const int a_row = warp * kRS + 2 * (gid + tig);\n"
+         "  const int a_col = warp * kRS + 2 * gid + tig * kRS + kK - 1;\n"),
+        (SRC, A_LOADS,
+         "        if (s < kRowSteps) {\n"
+         "#pragma unroll\n"
+         "          for (int pl = 0; pl < 2; ++pl) {\n"
+         "            unsigned(&frag)[4] = pl == 0 ? a_big[i] : a_small[i];\n"
+         "            const float2 v = *reinterpret_cast<const float2*>(a + pl * kPlane + 16 * i);\n"
+         "            frag[0] = __float_as_uint(v.x);\n"
+         "            frag[1] = frag[2] = __float_as_uint(v.y);\n"
+         "            frag[3] = __float_as_uint(a[pl * kPlane + 16 * i + 2]);\n"
+         "          }\n"
+         "          continue;\n"
+         "        }\n"
+         "        const int off[4] = {16 * i, 16 * i + 1, 16 * i + k4, 16 * i + k4 + 1};\n"
          "#pragma unroll\n"
          "        for (int r = 0; r < 4; ++r) {\n"
          "          a_big[i][r] = __float_as_uint(a[off[r]]);\n"
-         "          a_small[i][r] = __float_as_uint(a[kInH * kRS + off[r]]);\n"
-         "        }\n")],
+         "          a_small[i][r] = __float_as_uint(a[kPlane + off[r]]);\n"
+         "        }\n"),
+        (SRC, "    const int y = tl.y0 + warp, x = tl.x0 + 8 * tig + gid;\n",
+         "    const int y = tl.y0 + warp, x = tl.x0 + 16 * (tig >> 1) + 2 * gid + (tig & 1);\n")],
     # at most 255 registers a thread, one block (8 warps) per SM
     "one block per SM": [(SRC, "__launch_bounds__(kThreads, 2)\nfilterbank_kernel(",
                           "__launch_bounds__(kThreads, 1)\nfilterbank_kernel(")],
     # backward: 8 pixels per thread (64 x 32 tiles), and no skipping
     "backward 8 rows": [(SRC, "constexpr int kBRows = 16;", "constexpr int kBRows = 8;")],
-    "backward no skip": [(SRC, "    if (live) {\n", "    if (true) {\n")],
-    # backward: one block per tile, not persistent
-    "backward block per tile": [(SRC, "  filterbank_backward_kernel<<<blocks,",
-                                 "  blocks = (int)tiles;\n  filterbank_backward_kernel<<<blocks,")],
+    "backward no skip": [(SRC, "  if (live) {\n", "  if (true) {\n")],
 }
-VARIANTS["chain 8"] = [(SRC, "constexpr int kChain = 2;", "constexpr int kChain = 8;")]
-VARIANTS["pre-split chain 4"] = VARIANTS["halo pre-split"] + VARIANTS["chain 4"]
-VARIANTS["pre-split chain 8"] = VARIANTS["halo pre-split"] + VARIANTS["chain 8"]
-VARIANTS["backward 8 rows, block per tile"] = (VARIANTS["backward 8 rows"]
-                                               + VARIANTS["backward block per tile"])
-FWD_VARIANTS = ("as built", "chain 4", "chain 8", "halo pre-split", "pre-split chain 4",
-                "pre-split chain 8")
-BWD_VARIANTS = ("as built", "backward 8 rows", "backward block per tile",
-                "backward 8 rows, block per tile")
-SIGNATURES = {
-    "filterbank_orientation_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3
-    + [ctypes.c_void_p],
-    "filterbank_orientation_backward_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3
-    + [ctypes.c_void_p],
-}
-
-
+# the length of a fresh tensor-core chain, in steps of 8 taps (as built: 4)
+for steps in ("1", "2", "8", "kSteps"):
+    VARIANTS[f"chain {steps}"] = [(SRC, "constexpr int kChain = 4;",
+                                   f"constexpr int kChain = {steps};")]
+FWD_VARIANTS = ("as built", "split in registers", "paired A loads", "chain 1", "chain 2",
+                "chain 8", "chain kSteps", "one block per SM")
+BWD_VARIANTS = ("as built", "backward 8 rows", "backward no skip")
 def build_variants(build) -> tuple:
     """{variant: ctypes.CDLL}, {variant: ptxas report lines}."""
     root = build.BUILD_DIR / "fb_variants"
@@ -114,8 +128,8 @@ def build_variants(build) -> tuple:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{err}")
         lib = ctypes.CDLL(str(out))
-        for fn, argtypes in SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
+        for fn, argtypes in build.SIGNATURES["filterbank"].items():
+            getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int
         libs[name], ptxas[name] = lib, ptxas_report(err)
     return libs, ptxas

@@ -12,7 +12,10 @@ Tolerances: the fused norms float32 atol 1e-4, rtol 1e-5, bfloat16 atol
 response rtol 1e-4, atol 1e-3, its argmax off on at most 0.1% of pixels and
 then by one orientation (near-ties under another summation order);
 conv3x3_same_lowch and filterbank_orientation_backward within 1e-4 of the
-plain result's largest magnitude (float32 sums in another order).
+plain result's largest magnitude (float32 sums in another order); the 3xTF32
+kernels against float64 at most 2x the error of their plain version in
+float32, and the filter bank's argmax off float64's on at most 1e-4 of the
+pixels more than the plain version's.
 """
 
 import math
@@ -142,8 +145,10 @@ def test_conv3x3_in_act_matches_plain(cuda_device, n, c, co, h, w, d, act, res):
     assert kernels.launch_counts()["conv3x3_in_act"] == 1
 
 
+# whole and ragged tiles, a plane smaller than one tile, and more tiles than
+# one wave of the kernel's persistent blocks
 @pytest.mark.parametrize("mode", ["gabor", "dog"])
-@pytest.mark.parametrize("n,h,w", [(1, 512, 512), (2, 37, 53)])  # whole and ragged tiles
+@pytest.mark.parametrize("n,h,w", [(1, 512, 512), (2, 37, 53), (1, 8, 8), (300, 16, 16)])
 def test_filterbank_matches_plain(cuda_device, mode, n, h, w):
     gen = torch.Generator().manual_seed(4)
     gray = (torch.rand((n, 1, h, w), generator=gen) * 255).to(cuda_device)
@@ -155,6 +160,24 @@ def test_filterbank_matches_plain(cuda_device, mode, n, h, w):
     off = (idx - p_idx) % 32
     assert (off != 0).float().mean().item() <= 1e-3
     assert bool(((off == 0) | (off == 1) | (off == 31)).all())
+
+
+@pytest.mark.parametrize("mode", ["gabor", "dog"])
+def test_filterbank_is_as_accurate_as_cudnn_fp32(cuda_device, mode):
+    """(2, 1, 512^2) strand planes: the kernel's 3xTF32 products against a
+    float64 bank conv, beside the plain version in float32 (cuDNN, TF32
+    off): at most 2x its largest response error, and at most 1e-4 of the
+    pixels more whose argmax differs from float64's."""
+    gray = strand_gray(torch.Generator().manual_seed(9), 2, 512, 512, cuda_device)
+    bank = filters.bank(mode, cuda_device)
+    res = torch.nn.functional.conv2d(gray.double(), bank.double().permute(3, 2, 0, 1), padding=8)
+    conf64, idx64 = res.clamp_min(0.0).max(dim=1)
+    (idx, conf), (p_idx, p_conf) = (O.filterbank_orientation(gray, bank),
+                                    O.filterbank_orientation_plain(gray, bank))
+    kernel, plain = ((c.double() - conf64).abs().max().item() for c in (conf, p_conf))
+    assert kernel <= 2 * plain, (kernel, plain)
+    k_mis, p_mis = ((i != idx64).float().mean().item() for i in (idx, p_idx))
+    assert k_mis <= p_mis + 1e-4, (k_mis, p_mis)
 
 
 def test_filterbank_ties_take_the_first_index(cuda_device):
@@ -302,3 +325,32 @@ def test_training_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
                                           bank)
     with pytest.raises(ValueError, match="bank must be"):
         O.filterbank_orientation_backward(d, idx, d, bank[:, :, :, :16])
+
+
+@pytest.mark.parametrize("mode", ["gabor", "dog"])
+def test_filterbank_backward_on_a_masked_gradient(cuda_device, mode):
+    """dconf inside an ellipse only, as the training loss passes it back
+    (it multiplies by the hair): the ellipse's edge cuts through the
+    kernel's tiles and warp blocks, and the blocks it does not reach are
+    skipped.  Against the plain version and autograd."""
+    gen = torch.Generator().manual_seed(10)
+    n, h, w = 2, 200, 300
+    gray = strand_gray(gen, n, h, w, cuda_device)
+    bank = filters.bank(mode, cuda_device)
+    yy = torch.arange(h, dtype=torch.float32)[:, None] / h
+    xx = torch.arange(w, dtype=torch.float32)[None, :] / w
+    ellipse = (((yy - 0.45) / 0.3) ** 2 + ((xx - 0.4) / 0.25) ** 2 < 1).float()
+    dconf = (torch.randn((n, h, w), generator=gen) * ellipse).to(cuda_device)
+    g = gray.clone().requires_grad_()
+    idx, conf = O.OrientationResponse.apply(g, bank)
+    conf.backward(dconf)
+    want = O.filterbank_orientation_backward_plain(dconf, idx, conf, bank)
+    # autograd through the plain forward takes the plain forward's argmax,
+    # which may differ from the kernel's at a near-tie
+    g2 = gray.clone().requires_grad_()
+    p_idx, p_conf = O.filterbank_orientation_plain(g2, bank)
+    (auto,) = torch.autograd.grad(p_conf, g2, dconf)
+    torch.cuda.synchronize()
+    assert_rel(g.grad, want)
+    assert_rel(auto, O.filterbank_orientation_backward_plain(dconf, p_idx, p_conf.detach(), bank))
+    assert not g.grad[:, :, :, -20:].any()  # more than 8 pixels right of the ellipse

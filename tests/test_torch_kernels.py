@@ -189,6 +189,25 @@ def test_filterbank_ties_take_the_first_index():
     assert not idx.any() and not conf.any()
 
 
+@pytest.mark.parametrize("mode", ["gabor", "dog"])
+def test_plain_backward_is_zero_beyond_the_bank_from_any_gradient(rng, mode):
+    """dgray is exactly 0 at every pixel farther than 8 (the bank's radius)
+    from a nonzero dconf * [conf > 0]: the backward kernel skips those
+    pixels' warp blocks and writes zeros."""
+    gray = torch.from_numpy((rng.standard_normal((2, 1, 60, 70)) * 40 + 128).astype(np.float32))
+    bank = filters.bank(mode, torch.device("cpu"))
+    idx, conf = O.filterbank_orientation(gray, bank)
+    dconf = torch.zeros(2, 60, 70)
+    dconf[0, 20:30, 25:33] = torch.from_numpy(rng.standard_normal((10, 8)).astype(np.float32))
+    dconf[1, 50:55, 3:6] = 1.0
+    dgray = O.filterbank_orientation_backward(dconf, idx, conf, bank)
+    carries = (dconf != 0) & (conf > 0)
+    reach = torch.nn.functional.max_pool2d(carries.float()[:, None], 17, stride=1, padding=8) > 0
+    assert reach.any() and not reach.all()
+    assert not dgray[~reach].any()
+    assert dgray[reach].abs().max() > 0
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_nothing(rng):
     kernels.reset_launch_counts()
     x, mean, inv, g, b = mod_inputs(rng, (1, 4, 4, 8))
@@ -262,3 +281,20 @@ def test_tile_variants_reads_registers_and_spills_from_ptxas():
         "0 bytes spill stores, 0 bytes spill loads",
         "_Z4convPf: Used 128 registers, used 1 barriers, 16 bytes cumulative stack size; 16 "
         "bytes stack frame, 12 bytes spill stores, 20 bytes spill loads"]
+
+
+@pytest.mark.parametrize("variant", ["split in registers", "paired A loads", "one block per SM",
+                                     "backward 8 rows",
+                                     "backward no skip", "chain 1", "chain 2", "chain 8",
+                                     "chain kSteps"])
+def test_filterbank_variants_still_apply_to_the_source(tmp_path, variant):
+    """tools/filterbank_variants.py measures the filter bank's design choices
+    as edits of the built source: each edit must still find its text once."""
+    from michigan_tpu_torch.ops.cuda import build
+    from michigan_tpu_torch.tools import filterbank_variants
+
+    edits = filterbank_variants.VARIANTS[variant]
+    filterbank_variants.patched_sources(edits, tmp_path, build.CSRC_DIR)
+    text = (tmp_path / "filterbank.cu").read_text()
+    for _name, _old, new in edits:
+        assert new in text
