@@ -199,7 +199,7 @@ filterbank_kernel(const float* __restrict__ gray, const float* __restrict__ bank
 #pragma unroll
         for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
 
-#pragma unroll
+#pragma unroll 4  // fully unrolled, the 37 steps spill 20 B and run 2% slower
     for (int s = 0; s < kSteps; ++s) {
       // A: rows gid, gid + 8 of m tile i; K columns tig, tig + 4 (tap
       // columns in a row step, tap rows in a column step)

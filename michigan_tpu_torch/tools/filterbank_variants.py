@@ -96,6 +96,9 @@ VARIANTS = {
          "        }\n"),
         (SRC, "    const int y = tl.y0 + warp, x = tl.x0 + 8 * tig + gid;\n",
          "    const int y = tl.y0 + warp, x = tl.x0 + 16 * (tig >> 1) + 2 * gid + (tig & 1);\n")],
+    # the 37 steps unrolled fully, or not at all, instead of by 4
+    "steps fully unrolled": [(SRC, "#pragma unroll 4  //", "#pragma unroll  //")],
+    "steps not unrolled": [(SRC, "#pragma unroll 4  //", "#pragma unroll 1  //")],
     # at most 255 registers a thread, one block (8 warps) per SM
     "one block per SM": [(SRC, "__launch_bounds__(kThreads, 2)\nfilterbank_kernel(",
                           "__launch_bounds__(kThreads, 1)\nfilterbank_kernel(")],
@@ -108,7 +111,8 @@ for steps in ("1", "2", "8", "kSteps"):
     VARIANTS[f"chain {steps}"] = [(SRC, "constexpr int kChain = 4;",
                                    f"constexpr int kChain = {steps};")]
 FWD_VARIANTS = ("as built", "split in registers", "paired A loads", "chain 1", "chain 2",
-                "chain 8", "chain kSteps", "one block per SM")
+                "chain 8", "chain kSteps", "one block per SM", "steps fully unrolled",
+                "steps not unrolled")
 BWD_VARIANTS = ("as built", "backward 8 rows", "backward no skip")
 def build_variants(build) -> tuple:
     """{variant: ctypes.CDLL}, {variant: ptxas report lines}."""

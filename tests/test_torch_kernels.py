@@ -286,7 +286,8 @@ def test_tile_variants_reads_registers_and_spills_from_ptxas():
 @pytest.mark.parametrize("variant", ["split in registers", "paired A loads", "one block per SM",
                                      "backward 8 rows",
                                      "backward no skip", "chain 1", "chain 2", "chain 8",
-                                     "chain kSteps"])
+                                     "chain kSteps", "steps fully unrolled",
+                                     "steps not unrolled"])
 def test_filterbank_variants_still_apply_to_the_source(tmp_path, variant):
     """tools/filterbank_variants.py measures the filter bank's design choices
     as edits of the built source: each edit must still find its text once."""
