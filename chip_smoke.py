@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives three paths of the port at full width on seeded random weights and
-seeded numpy samples, each through its own entry points:
+seeded numpy samples, each through its own entry points, and the two serving
+paths again under the bf16 compute policy (--dtype bfloat16):
 
 - the flagship inference path (IG orientation inpainting -> partial-conv
   appearance encoder -> noise background encoder -> SPADEB generator with
@@ -39,7 +40,13 @@ Phases, each on its own line:
      bank's rounding-level ties, printed with their evidence), and against a float64 bank conv
      at (2, 1, 512^2) on strand planes, Gabor and DoG (its largest response
      error at most 2x the plain version's in fp32; its argmax mismatch at
-     most the plain version's plus 1e-4 of pixels)
+     most the plain version's plus 1e-4 of pixels); conv3x3_in_act in
+     bfloat16 (bf16 x_pad and residual, the float32 spectral weight, the
+     bf16 stored bias) at the edit's shapes against its plain version (atol
+     1e-2, rtol 1.6e-2), and it and the route it replaces under the policy
+     (cuDNN's bf16 conv + fused_instance_norm) against a float64
+     composition at batch 2 (the kernel's largest error at most 2x the
+     route's)
   4. the flagship on the card, counting launches: 18 spade_modulate and 29
      fused_instance_norm per forward, no other kernel
   5. the flagship on the CPU (plain versions), same weights and inputs: tanh
@@ -91,6 +98,20 @@ Phases, each on its own line:
       D step (both started from the card's post-G state) by the scale-aware
       rule of tests/test_training.py; netG's running statistics and
       spectral u / v within rtol 1e-4, atol 1e-5
+  13. the flagship at --dtype bfloat16 on the card: launches per forward
+      exactly 18 spade_modulate and 29 fused_instance_norm, all bfloat16,
+      no other kernel; the output finite; against the same weights and
+      inputs at bfloat16 on the CPU (plain versions), max abs within
+      BF16_CAL x the CPU's own bf16-vs-fp32 difference (both printed, with
+      the uint8 PSNR); ms/image at batch 1 and 8 and peak memory beside
+      phase 6's fp32 numbers; each bf16 kernel and its plain version at the
+      path's shapes; a profiler breakdown with cuDNN's share of device time
+  14. the stroke edit at --dtype bfloat16 --use_pallas_epilogue: launches
+      per edit exactly 48 conv3x3_in_act, 10 fused_instance_norm and 18
+      spade_modulate in bfloat16 and 1 filterbank_orientation in float32;
+      the same CPU comparison; ms/edit beside phase 9's; conv3x3_in_act in
+      bfloat16 in turns with cuDNN's bf16 conv + fused_instance_norm and
+      beside its plain version; a profiler breakdown
 
 Then a JSON line of per-kernel results: for the training step's kernels
 (fused_instance_norm, filterbank_orientation and its backward,
@@ -105,8 +126,12 @@ float32 FMA), from this run's shapes and data (the backward: 289 FMAs per
 pixel that carries a gradient, dconf != 0 and conf > 0); library_ms is one PyTorch
 call that computes the same function where there is one (F.conv2d for
 conv3x3_same_lowch; F.instance_norm for fused_instance_norm's act=None
-calls), else null.  Last,
-the device line.  Any failure exits non-zero without the device line; so
+calls), else null.  The bf16 rows (phases 13-14: spade_modulate and
+conv3x3_in_act over one bf16 edit, fused_instance_norm over one bf16
+flagship forward) count 2-byte elements and bf16 products at 989 TFLOP/s,
+and the two conv3x3_in_act rows carry the replaced route's time
+(replaced_route_ms: cuDNN conv + fused_instance_norm, in the row's dtype).
+Last, the device line.  Any failure exits non-zero without the device line; so
 does a machine without CUDA, and a directory without the rest of the
 repository.
 """
@@ -147,6 +172,7 @@ EPI_SHAPES = {(1, 256, 64, 2, "relu", False): 24, (1, 256, 64, 1, None, True): 2
 FB_CASES = [("dog", 512, "stroke mask", 1), ("dog", 512, "gray", 0),
             ("dog", 1024, "gray", 0), ("gabor", 512, "gray", 0)]
 TOLS = {"float32": dict(atol=1e-4, rtol=1e-5), "bfloat16": dict(atol=1e-2, rtol=1.6e-2)}
+BF16_CAL = 2.0  # card-bf16 vs CPU-bf16 at most 2x the CPU's own bf16 vs fp32
 EPI_TOL = dict(atol=1e-4, rtol=1e-4)
 FB_TOL = dict(rtol=1e-4, atol=1e-3)
 FB_IDX_FRAC = 1e-3
@@ -160,6 +186,17 @@ STROKE_LAUNCHES = {"spade_modulate": 18, "fused_instance_norm": 10, "conv3x3_in_
 STEP_LAUNCHES = {"spade_modulate": 0, "fused_instance_norm": 29, "conv3x3_in_act": 0,
                  "filterbank_orientation": 1, "filterbank_orientation_backward": 1,
                  "conv3x3_same_lowch": 1}
+# under --dtype bfloat16, by dtype
+NO_LAUNCHES = {k: {} for k in FLAGSHIP_LAUNCHES}
+FLAGSHIP_BF16_LAUNCHES = {**NO_LAUNCHES, "spade_modulate": {"bfloat16": 18},
+                          "fused_instance_norm": {"bfloat16": 29}}
+STROKE_BF16_LAUNCHES = {**NO_LAUNCHES, "spade_modulate": {"bfloat16": 18},
+                        "fused_instance_norm": {"bfloat16": 10},
+                        "conv3x3_in_act": {"bfloat16": 48},
+                        "filterbank_orientation": {"float32": 1}}
+# the kernels line's bf16 rows: (kernel, the bf16 run it is read from)
+BF16_ROWS = {"spade_modulate": "edit", "fused_instance_norm": "flagship",
+             "conv3x3_in_act": "edit"}
 REPLACES = {"spade_modulate": "michigan_tpu/ops/pallas/spade.py:285",
             "fused_instance_norm": "michigan_tpu/ops/pallas/spade.py:207",
             "conv3x3_in_act": "michigan_tpu/ops/pallas/epilogue.py:89",
@@ -199,6 +236,7 @@ SEED = 0
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 TF32X3_FLOP_S = 495e12 / 3
+BF16_FLOP_S = 989e12  # dense bf16 products on the tensor cores
 
 
 def bound(nbytes, flops, flop_s):
@@ -208,10 +246,11 @@ def bound(nbytes, flops, flop_s):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def conv3x3_work(n, c, co, h, w, pad, extra_bytes=0):
+def conv3x3_work(n, c, co, h, w, pad, extra_bytes=0, elem=4):
     """(bytes, FLOPs) of one 3x3 convolution of an (n, c, h+2pad, w+2pad)
-    float32 input to (n, co, h, w), 2 FLOPs per FMA."""
-    nbytes = 4 * (n * c * (h + 2 * pad) * (w + 2 * pad) + co * c * 9 + n * co * h * w)
+    input to (n, co, h, w) of `elem`-byte elements, with a float32 weight,
+    2 FLOPs per FMA."""
+    nbytes = elem * (n * c * (h + 2 * pad) * (w + 2 * pad) + n * co * h * w) + 4 * co * c * 9
     return nbytes + extra_bytes, 2 * n * co * h * w * c * 9
 
 
@@ -281,9 +320,13 @@ def host_ms(fn, torch, reps):
     return statistics.median(times) * 1e3
 
 
+CONV_OPS = ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose")
+
+
 def profile_once(fn, torch):
-    """(device busy ms, wall ms, table) of one call under torch.profiler;
-    raises when the profiler lists no device activity."""
+    """(device busy ms, wall ms, table, device ms of cuDNN's convolutions)
+    of one call under torch.profiler; raises when the profiler lists no
+    device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -291,7 +334,9 @@ def profile_once(fn, torch):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=12)
+    averages = prof.key_averages()
+    table = averages.table(sort_by="self_device_time_total", row_limit=12)
+    conv_ms = sum(e.device_time_total for e in averages if e.key in CONV_OPS) * 1e-3
     # the union of the device activities' intervals; CUPTI's "Command Buffer
     # Full" rows mark a stalled host, not device work
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
@@ -303,7 +348,7 @@ def profile_once(fn, torch):
     for s, e in spans:
         busy_us += max(0.0, e - max(s, end))
         end = max(end, e)
-    return busy_us * 1e-3, wall_ms, table
+    return busy_us * 1e-3, wall_ms, table, conv_ms
 
 
 def rel_err(got, want64):
@@ -328,15 +373,26 @@ def kernel_inputs(torch, kind, c, h, dtype, gen, n=1):
     return (x,)
 
 
-def epilogue_inputs(torch, case, gen):
+def epilogue_inputs(torch, case, gen, dtype=None):
     """(x_pad, w, b, residual) at one conv3x3_in_act shape of the path, the
-    weight at the scale of a spectrally normalised 256-channel conv."""
+    weight at the scale of a spectrally normalised 256-channel conv.  In
+    bfloat16 as the bf16 policy hands them over: x_pad and the residual
+    bf16, the spectral weight float32, the frozen inpainter's bias bf16."""
+    dtype = dtype or torch.float32
     n, c, h, d, _act, res = case
-    x = torch.randn((n, c, h + 2 * d, h + 2 * d), generator=gen).cuda()
+    x = torch.randn((n, c, h + 2 * d, h + 2 * d), generator=gen).to("cuda", dtype)
     w = (torch.randn((c, c, 3, 3), generator=gen) * 0.02).cuda()
-    b = torch.randn(c, generator=gen).cuda()
-    r = torch.randn((n, c, h, h), generator=gen).cuda() if res else None
+    b = torch.randn(c, generator=gen).to("cuda", dtype)
+    r = torch.randn((n, c, h, h), generator=gen).to("cuda", dtype) if res else None
     return x, w, b, r
+
+
+def epilogue_route(torch, F, K, xp, w, b, d, act, r):
+    """The resblock without the epilogue: cuDNN's conv, in x_pad's dtype
+    (weight and bias cast to it, as layers.py's cast rule does), then
+    fused_instance_norm, then the residual add."""
+    y = K.fused_instance_norm(F.conv2d(xp, w.to(xp.dtype), b.to(xp.dtype), dilation=d), act=act)
+    return y if r is None else r + y
 
 
 def strand_image(torch, size, seed):
@@ -556,6 +612,7 @@ def run():
     cases = [("spade_modulate", c, h, None) for c, h in SPADE_SHAPES]
     cases += [("fused_instance_norm", c, h, act) for c, h, act in IN_SHAPES]
     max_err = {k: 0.0 for k in REPLACES}
+    max_err_bf16 = {}
     gen = torch.Generator().manual_seed(SEED)
     failed = []
     for dname, tol in TOLS.items():
@@ -568,8 +625,8 @@ def run():
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             ok = torch.allclose(got.float(), want.float(), **tol)
-            if dname == "float32":
-                max_err[kind] = max(max_err[kind], err)
+            errs = max_err if dname == "float32" else max_err_bf16
+            errs[kind] = max(errs.get(kind, 0.0), err)
             print(f"[phase 3] {kind} {dname} (1,{c},{h},{h}) act={act}: "
                   f"max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
@@ -604,6 +661,38 @@ def run():
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             failed.append(("conv3x3_in_act", case))
+    max_err_bf16["conv3x3_in_act"] = 0.0
+    for case in EPI_SHAPES:
+        n, c, h, d, act, res = case
+        xp, w, bias, r = epilogue_inputs(torch, case, gen, torch.bfloat16)
+        got = E.conv3x3_in_act(xp, w, bias, dilation=d, act=act, residual=r)
+        want = E.conv3x3_in_act_plain(xp, w, bias, dilation=d, act=act, residual=r)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = got.dtype == torch.bfloat16 and torch.allclose(got.float(), want.float(),
+                                                            **TOLS["bfloat16"])
+        max_err_bf16["conv3x3_in_act"] = max(max_err_bf16["conv3x3_in_act"], err)
+        print(f"[phase 3] conv3x3_in_act bfloat16 x_pad ({n},{c},{h + 2 * d},{h + 2 * d}) "
+              f"dilation {d} act={act} residual={res}: max_abs_err {err:.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(("conv3x3_in_act bfloat16", case))
+    # against float64 at batch 2 of the edit's shapes: the bf16 kernel and
+    # the route it replaces under the policy, both from the same bf16 inputs
+    # (the float64 composition takes the weight rounded to bf16)
+    for d, act, res in ((2, "relu", False), (1, None, True)):
+        xp, w, bias, r = epilogue_inputs(torch, (2, 256, 64, d, act, res), gen, torch.bfloat16)
+        want = E.conv3x3_in_act_plain(xp.double(), w.bfloat16().double(), bias.double(), d, act,
+                                      residual=None if r is None else r.double())
+        k_rel = rel_err(E.conv3x3_in_act(xp, w, bias, dilation=d, act=act, residual=r), want)
+        r_rel = rel_err(epilogue_route(torch, F, K, xp, w, bias, d, act, r), want)
+        ok = k_rel <= F64_RATIO * r_rel
+        print(f"[phase 3] conv3x3_in_act bfloat16 (2,256,{64 + 2 * d},{64 + 2 * d}) dilation {d} "
+              f"act={act} residual={res} against float64, largest error over the largest "
+              f"magnitude: kernel {k_rel:.3e}, cuDNN bf16 conv + fused_instance_norm {r_rel:.3e} "
+              f"(limit {F64_RATIO:g}x) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(("conv3x3_in_act bfloat16 float64", d))
     stroke_opt = engine.parse_options(STROKE_FLAGS + ["--seed", str(SEED)])
     stroke_data = synthetic_stroke_data(stroke_opt, SEED)
     stroke_mask = torch.from_numpy(stroke_data["mask_stroke"]).permute(0, 3, 1, 2) \
@@ -694,7 +783,8 @@ def run():
              f"(limit 50); CPU forward {cpu_s:.1f} s")
     if not diff <= 2e-3 or not psnr > 50:
         return fail("card and CPU outputs disagree")
-    del cpu, fake_cpu
+    fake_cpu32 = fake_cpu  # phase 13 calibrates the bf16 comparison on it
+    del cpu
 
     # 6 ---------------------------------------------------------------
     # per forward, summed over the path's calls: device time (CUDA graph
@@ -725,25 +815,28 @@ def run():
                  f"{plain_ms[kind]:.3f} ms; launched from Python kernel "
                  f"{kernel_host_ms[kind]:.3f} ms, plain {plain_host_ms[kind]:.3f} ms {tag}")
 
-    def e2e(n, reps):
-        b = batch_from_numpy(synthetic_inference_data(opt, SEED, batch=n), "cuda:0")
-        model.infer(b)
+    def e2e(m, o, n, reps):
+        b = batch_from_numpy(synthetic_inference_data(o, SEED, batch=n), "cuda:0")
+        m.infer(b)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         live = torch.cuda.memory_allocated()
-        ms = host_ms(lambda: model.infer(b), torch, reps)
+        ms = host_ms(lambda: m.infer(b), torch, reps)
         return ms / n, torch.cuda.max_memory_allocated(), live
 
+    flag_e2e = {}  # batch: (ms/image, peak bytes), for phase 13
     for n, reps in ((1, 10), (8, 5)):
-        ms, mem, live = e2e(n, reps)
+        ms, mem, live = flag_e2e[n] = e2e(model, opt, n, reps)
         phase(6, f"end to end batch {n}: {ms:.2f} ms/image, peak device memory "
                  f"{mem / 2**30:.2f} GiB, of which {live / 2**30:.2f} GiB live before the "
                  f"forward (weights, inputs, this script's tensors) {tag}")
 
-    busy_ms, wall_ms, table = profile_once(lambda: model.infer(batch), torch)
+    busy_ms, wall_ms, table, conv_ms = profile_once(lambda: model.infer(batch), torch)
     phase(6, f"profiled batch-1 forward: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms "
-             f"wall under the profiler {tag}; top device time:")
+             f"wall under the profiler, cuDNN convolutions {conv_ms:.2f} ms "
+             f"({conv_ms / busy_ms:.0%} of busy) {tag}; top device time:")
     print(table, flush=True)
+    flag_conv32 = (conv_ms, busy_ms)
     del model, batch, fake, orient_rgb
 
     # 7 ---------------------------------------------------------------
@@ -751,13 +844,17 @@ def run():
     smodel.init_weights(SEED)
     sbatch = batch_from_numpy(stroke_data, "cuda:0")
 
-    def stroke_edit():
-        """One edit as the demo engine runs it on the card: the stroke's
-        orientation through the DoG bank, the forward, the display encode,
-        and the one copy back."""
-        b = dict(sbatch)
-        b["orient_stroke"] = engine.orient_stroke_plane(b["mask_stroke"], b["label_tag"])
-        return engine.render_edit(smodel, b, "stroke").cpu()
+    def edit_of(m, batch_):
+        def stroke_edit():
+            """One edit as the demo engine runs it on the card: the stroke's
+            orientation through the DoG bank, the forward, the display
+            encode, and the one copy back."""
+            b = dict(batch_)
+            b["orient_stroke"] = engine.orient_stroke_plane(b["mask_stroke"], b["label_tag"])
+            return engine.render_edit(m, b, "stroke").cpu()
+        return stroke_edit
+
+    stroke_edit = edit_of(smodel, sbatch)
 
     kernels.reset_launch_counts()
     u8 = stroke_edit()
@@ -796,7 +893,8 @@ def run():
              f"{cpu_s:.1f} s")
     if not diff <= 2e-3 or not psnr > 50:
         return fail("card and CPU stroke edits disagree")
-    del scpu, cbatch, sfake_cpu, s_orient_cpu
+    sfake_cpu32 = sfake_cpu  # phase 14 calibrates the bf16 comparison on it
+    del scpu, s_orient_cpu
     img, hair = strand_image(torch, 512, SEED), ellipse_mask(torch, 512)
     map_card = cal_orientation.compute_orientation_map(img, hair).cpu()
     map_cpu = cal_orientation.compute_orientation_map(img.cpu(), hair.cpu())
@@ -829,8 +927,7 @@ def run():
         fp = lambda: E.conv3x3_in_act_plain(xp, w, bias, dilation=d, act=act, residual=r)
 
         def route():  # the resblock without the epilogue: cuDNN conv, fused_instance_norm
-            y = K.fused_instance_norm(F.conv2d(xp, w, bias, dilation=d), act=act)
-            return y if r is None else r + y
+            return epilogue_route(torch, F, K, xp, w, bias, d, act, r)
 
         # in turns: route, kernel, kernel, route
         turns = {route: [], fk: []}
@@ -927,10 +1024,12 @@ def run():
         img, hair = strand_image(torch, size, SEED), ellipse_mask(torch, size)
         ms = host_ms(lambda: cal_orientation.compute_orientation_map(img, hair), torch, reps)
         phase(9, f"compute_orientation_map {size}^2: {ms:.3f} ms/image {tag}")
-    busy_ms, wall_ms, table = profile_once(stroke_edit, torch)
+    busy_ms, wall_ms, table, conv_ms = profile_once(stroke_edit, torch)
     phase(9, f"profiled stroke edit: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
-             f"under the profiler {tag}; top device time:")
+             f"under the profiler, cuDNN convolutions {conv_ms:.2f} ms "
+             f"({conv_ms / busy_ms:.0%} of busy) {tag}; top device time:")
     print(table, flush=True)
+    edit_ms32, edit_conv32 = edit, (conv_ms, busy_ms)
 
     del smodel, sbatch, u8, sfake, s_orient, img, hair
     torch.cuda.empty_cache()
@@ -1152,7 +1251,7 @@ def run():
               f"{statistics.median(d_times):.1f} ms (medians of 3) {tag}")
     for k, v in step_breakdown(torch, trainer, tbatch).items():
         phase(11, f"  part, alone: {k}: {v:.1f} ms {tag}")
-    busy_ms, wall_ms, table = profile_once(train_step, torch)
+    busy_ms, wall_ms, table, _conv_ms = profile_once(train_step, torch)
     phase(11, f"profiled training step: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
               f"under the profiler {tag}; top device time:")
     print(table, flush=True)
@@ -1205,7 +1304,163 @@ def run():
               f"CPU G step {t_g:.1f} s, D step {t_d:.1f} s")
     if not (losses_ok and g_params[0] and d_params[0] and bufs_ok):
         return fail("the card's and the CPU's training steps disagree")
-    del card, cpu, cpu_model
+    del card, cpu, cpu_model, b_card, b_cpu
+    torch.cuda.empty_cache()
+
+    # 13 --------------------------------------------------------------
+    # the serving paths under the bf16 compute policy: bf16 device time of
+    # each kernel at the path's shapes, summed over one forward or edit
+    bf16_ms, bf16_plain_ms = {k: 0.0 for k in BF16_ROWS}, {k: 0.0 for k in BF16_ROWS}
+    bf16_work = {k: [0, 0] for k in BF16_ROWS}
+    bf16_in_lib = {"kernel": 0.0, "F.instance_norm": 0.0, "calls": 0}
+    for kind, c, h, act in cases:
+        calls = SPADE_SHAPES[(c, h)] if kind == "spade_modulate" else IN_SHAPES[(c, h, act)]
+        inp = kernel_inputs(torch, kind, c, h, torch.bfloat16, gen)
+        kw = {} if kind == "spade_modulate" else {"act": act}
+        tk = median_ms(lambda: kern[kind](*inp, **kw), torch, True)
+        tp = median_ms(lambda: plain[kind](*inp, **kw), torch, True)
+        bf16_ms[kind] += calls * tk
+        bf16_plain_ms[kind] += calls * tp
+        if kind == "spade_modulate":  # x, gamma, beta in, y out, 2 bytes each; mean, invstd
+            bf16_work[kind][0] += calls * (4 * 2 * c * h * h + 8 * c)
+            bf16_work[kind][1] += calls * 4 * c * h * h
+        else:  # x in, y out
+            bf16_work[kind][0] += calls * 2 * 2 * c * h * h
+            bf16_work[kind][1] += calls * 8 * c * h * h
+            if act is None:
+                bf16_in_lib["kernel"] += calls * tk
+                bf16_in_lib["F.instance_norm"] += calls * median_ms(
+                    lambda: F.instance_norm(inp[0], eps=1e-5), torch, True)
+                bf16_in_lib["calls"] += calls
+        print(f"[phase 13] {kind} bfloat16 (1,{c},{h},{h}) act={act} x{calls}/forward: device "
+              f"kernel {tk * 1e3:.1f} us, plain {tp * 1e3:.1f} us {tag}", flush=True)
+    del inp
+    opt16 = parse_options(FLAGS + ["--seed", str(SEED), "--dtype", "bfloat16"])
+    model16 = MichiGANModel(opt16, "cuda:0")
+    model16.init_weights(SEED)
+    fdata = synthetic_inference_data(opt16, SEED)
+    batch = batch_from_numpy(fdata, "cuda:0")
+    kernels.reset_launch_counts()
+    fake16, _ = model16.infer(batch)
+    torch.cuda.synchronize()
+    counts16 = kernels.launch_counts(by_dtype=True)
+    phase(13, f"flagship at --dtype bfloat16 on the card: fake {tuple(fake16.shape)} "
+              f"{fake16.dtype}, launches {counts16}")
+    if counts16 != FLAGSHIP_BF16_LAUNCHES:
+        return fail(f"expected launches {FLAGSHIP_BF16_LAUNCHES}, got {counts16}")
+    size = opt16.generator_input_size()
+    if fake16.shape != (1, 3, size, size) or fake16.dtype != torch.float32 \
+            or not torch.isfinite(fake16).all() or fake16.abs().max() > 1 or fake16.std() < 1e-3:
+        return fail(f"bf16 generator output is wrong: {tuple(fake16.shape)} {fake16.dtype}, "
+                    f"finite {bool(torch.isfinite(fake16).all())}, std {fake16.std().item()}")
+    cpu16 = to_cpu_model(model16, opt16)
+    t0 = time.perf_counter()
+    fake16_cpu, _ = cpu16.infer(batch_from_numpy(fdata, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    diff = (fake16.cpu() - fake16_cpu).abs().max().item()
+    cal = (fake16_cpu - fake_cpu32).abs().max().item()
+    psnr = psnr_u8(crop_u8(fake16, opt16), crop_u8(fake16_cpu, opt16), np)
+    phase(13, f"bf16 card vs bf16 CPU: max_abs {diff:.3e} (limit {BF16_CAL:g} x the CPU's own "
+              f"bf16 vs fp32 {cal:.3e}), uint8 PSNR {psnr:.2f} dB; CPU bf16 forward "
+              f"{cpu_s:.1f} s")
+    if not diff <= BF16_CAL * cal:
+        return fail("card and CPU bf16 outputs disagree")
+    del cpu16, fake16_cpu, fake_cpu32
+    for n, reps in ((1, 10), (8, 5)):
+        ms, mem, live = e2e(model16, opt16, n, reps)
+        phase(13, f"bf16 end to end batch {n}: {ms:.2f} ms/image (fp32 {flag_e2e[n][0]:.2f}), "
+                  f"peak device memory {mem / 2**30:.2f} GiB (fp32 "
+                  f"{flag_e2e[n][1] / 2**30:.2f}), of which {live / 2**30:.2f} GiB live before "
+                  f"the forward (fp32 {flag_e2e[n][2] / 2**30:.2f}) {tag}")
+    busy_ms, wall_ms, table, conv_ms = profile_once(lambda: model16.infer(batch), torch)
+    phase(13, f"profiled bf16 batch-1 forward: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms "
+              f"wall, cuDNN convolutions {conv_ms:.2f} ms ({conv_ms / busy_ms:.0%} of busy; fp32 "
+              f"{flag_conv32[0]:.2f} of {flag_conv32[1]:.2f} ms) {tag}; top device time:")
+    print(table, flush=True)
+    del model16, batch, fake16
+    torch.cuda.empty_cache()
+
+    # 14 --------------------------------------------------------------
+    sopt16 = engine.parse_options(STROKE_FLAGS + ["--seed", str(SEED), "--dtype", "bfloat16"])
+    smodel16 = MichiGANModel(sopt16, "cuda:0")
+    smodel16.init_weights(SEED)
+    sbatch = batch_from_numpy(stroke_data, "cuda:0")
+    stroke_edit16 = edit_of(smodel16, sbatch)
+    kernels.reset_launch_counts()
+    u8 = stroke_edit16()
+    torch.cuda.synchronize()
+    scounts16 = kernels.launch_counts(by_dtype=True)
+    phase(14, f"stroke edit at --dtype bfloat16 on the card: result and orientation "
+              f"{tuple(u8.shape)} {u8.dtype}, launches {scounts16}")
+    if scounts16 != STROKE_BF16_LAUNCHES:
+        return fail(f"expected launches {STROKE_BF16_LAUNCHES}, got {scounts16}")
+    sbatch["orient_stroke"] = engine.orient_stroke_plane(sbatch["mask_stroke"],
+                                                         sbatch["label_tag"])
+    sfake16, _ = smodel16.infer(sbatch, "stroke")
+    torch.cuda.synchronize()
+    if u8.shape != (2, crop, crop, 3) or not torch.isfinite(sfake16).all() \
+            or sfake16.abs().max() > 1 or sfake16.std() < 1e-3:
+        return fail(f"bf16 stroke edit output is wrong: std {sfake16.std().item()}")
+    scpu16 = to_cpu_model(smodel16, sopt16)
+    t0 = time.perf_counter()
+    sfake16_cpu, _ = scpu16.infer(cbatch, "stroke")
+    cpu_s = time.perf_counter() - t0
+    diff = (sfake16.cpu() - sfake16_cpu).abs().max().item()
+    cal = (sfake16_cpu - sfake_cpu32).abs().max().item()
+    psnr = psnr_u8(crop_u8(sfake16, sopt16), crop_u8(sfake16_cpu, sopt16), np)
+    phase(14, f"bf16 stroke edit card vs bf16 CPU: max_abs {diff:.3e} (limit {BF16_CAL:g} x the "
+              f"CPU's own bf16 vs fp32 {cal:.3e}), uint8 PSNR {psnr:.2f} dB; CPU bf16 forward "
+              f"{cpu_s:.1f} s")
+    if not diff <= BF16_CAL * cal:
+        return fail("card and CPU bf16 stroke edits disagree")
+    del scpu16, sfake16_cpu, sfake_cpu32, cbatch
+    # conv3x3_in_act in bf16 at the edit's shapes: in turns with the route it
+    # replaces (cuDNN bf16 conv + fused_instance_norm), and its plain version
+    epi_route16_ms = 0.0
+    for case, calls in EPI_SHAPES.items():
+        n, c, h, d, act, res = case
+        xp, w, bias, r = epilogue_inputs(torch, case, gen, torch.bfloat16)
+        w16 = w.bfloat16()  # the route's weight, cast once outside the timing
+        fk = lambda: E.conv3x3_in_act(xp, w, bias, dilation=d, act=act, residual=r)
+        fp = lambda: E.conv3x3_in_act_plain(xp, w, bias, dilation=d, act=act, residual=r)
+        route = lambda: epilogue_route(torch, F, K, xp, w16, bias, d, act, r)
+        turns = {route: [], fk: []}
+        for f in (route, fk, fk, route):
+            turns[f].append(median_ms(f, torch, True))
+        tk, tr = statistics.mean(turns[fk]), statistics.mean(turns[route])
+        tp = median_ms(fp, torch, True)
+        bf16_ms["conv3x3_in_act"] += calls * tk
+        bf16_plain_ms["conv3x3_in_act"] += calls * tp
+        epi_route16_ms += calls * tr
+        nbytes, flops = conv3x3_work(n, c, c, h, h, d, 4 * c + (2 * n * c * h * h if res else 0),
+                                     elem=2)
+        bf16_work["conv3x3_in_act"][0] += calls * nbytes
+        bf16_work["conv3x3_in_act"][1] += calls * flops
+        bound_us = bound(nbytes, flops, BF16_FLOP_S)[0] * 1e3
+        print(f"[phase 14] conv3x3_in_act bfloat16 x_pad ({n},{c},{h + 2 * d},{h + 2 * d}) "
+              f"dilation {d} act={act} residual={res} x{calls}/edit: device kernel "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in turns[fk])} us ({flops / 1e9 / tk:.1f} "
+              f"TFLOP/s; bound {bound_us:.1f} us), cuDNN bf16 conv + fused_instance_norm "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in turns[route])} us (in turns: route, kernel, "
+              f"kernel, route), plain {tp * 1e3:.1f} us {tag}", flush=True)
+    del xp, w, w16, bias, r, fk, fp, route
+    for kind, path in BF16_ROWS.items():
+        per = "stroke edit" if path == "edit" else "flagship forward"
+        phase(14, f"{kind} bfloat16 per {per}: device kernel {bf16_ms[kind]:.3f} ms, plain "
+                  f"{bf16_plain_ms[kind]:.3f} ms {tag}")
+    phase(14, f"the route conv3x3_in_act replaces in bf16 (cuDNN bf16 conv + fused_instance_norm) "
+              f"per stroke edit: {epi_route16_ms:.3f} ms (fp32: kernel "
+              f"{edit_ms['conv3x3_in_act']:.3f}, route {epi_route_ms:.3f} ms) {tag}")
+    torch.cuda.reset_peak_memory_stats()
+    edit16 = host_ms(stroke_edit16, torch, 10)
+    phase(14, f"bf16 stroke edit end to end, batch 1: {edit16:.2f} ms/edit (fp32 {edit_ms32:.2f}), "
+              f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}")
+    busy_ms, wall_ms, table, conv_ms = profile_once(stroke_edit16, torch)
+    phase(14, f"profiled bf16 stroke edit: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall, "
+              f"cuDNN convolutions {conv_ms:.2f} ms ({conv_ms / busy_ms:.0%} of busy; fp32 "
+              f"{edit_conv32[0]:.2f} of {edit_conv32[1]:.2f} ms) {tag}; top device time:")
+    print(table, flush=True)
+    del smodel16, sbatch, u8, sfake16
 
     train_kernels = ("fused_instance_norm", "filterbank_orientation",
                      "filterbank_orientation_backward", "conv3x3_same_lowch")
@@ -1217,14 +1472,29 @@ def run():
     rates = {k: TF32X3_FLOP_S if k in ("conv3x3_in_act", "filterbank_orientation",
                                        "conv3x3_same_lowch") else FP32_FLOP_S for k in REPLACES}
     bounds = {k: bound(*work[k], rates[k]) for k in REPLACES}
-    print(json.dumps({"kernels": [
+    kernel_rows = [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": rows[k][0], "max_abs_err": max_err[k], "ms": rows[k][1],
          "plain_ms": rows[k][2], "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
          "library_ms": library_ms.get(k), **({"library_covers": (
              f"the step's {in_lib['calls']} act=None calls, where the kernel takes "
-             f"{in_lib['kernel']} ms")} if k == "fused_instance_norm" else {})}
-        for k in REPLACES]}))
+             f"{in_lib['kernel']} ms")} if k == "fused_instance_norm" else {}),
+         **({"replaced_route_ms": epi_route_ms} if k == "conv3x3_in_act" else {})}
+        for k in REPLACES]
+    # the bf16 forms on the bf16 serving paths: launches from phases 13-14
+    bf16_launches = {"flagship": counts16, "edit": scounts16}
+    for k, path in BF16_ROWS.items():
+        b_ms, b_by = bound(*bf16_work[k], BF16_FLOP_S if k == "conv3x3_in_act" else FP32_FLOP_S)
+        kernel_rows.append({
+            "name": f"{k}_bf16", "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
+            "launches": bf16_launches[path][k]["bfloat16"], "max_abs_err": max_err_bf16[k],
+            "ms": bf16_ms[k], "plain_ms": bf16_plain_ms[k], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": bf16_in_lib["F.instance_norm"] if k == "fused_instance_norm" else None,
+            **({"library_covers": (
+                f"the flagship's {bf16_in_lib['calls']} act=None calls, where the kernel takes "
+                f"{bf16_in_lib['kernel']} ms")} if k == "fused_instance_norm" else {}),
+            **({"replaced_route_ms": epi_route16_ms} if k == "conv3x3_in_act" else {})})
+    print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,6 +16,15 @@ NHWC numpy arrays into one.  The inference paths of the flagship and demo
 configurations and the paired training stage are ported;
 ``check_supported`` names what is not.
 
+The compute policy (--dtype, the JAX package's ``compute_dtype``): under
+bfloat16 the generator's six inputs are cast to bfloat16 after the zeros
+pad and the fake comes back float32; the IG / SIG input is cast to bfloat16
+and their output back to float32, while orientation decoding and
+compositing stay float32; the frozen inpainters store every floating
+parameter and buffer in bfloat16 (``compact_frozen_nets``), netG keeps
+float32 parameters, which each conv casts to its input's dtype
+(models/layers.py).  The bf16 policy is ported for inference only.
+
 With --isTrain netG and netD are in train mode.  Which forward writes
 buffers follows the JAX package: netG's batch-norm running statistics and
 spectral u / v are written by the G step's forward only; the D step's
@@ -50,6 +59,7 @@ from michigan_tpu_torch.ops.masks import one_hot_label
 from michigan_tpu_torch.ops.resize import resize_nearest
 
 GEN_KEYS = ("input_ref", "input_tag", "orient", "image_ref", "image_tag", "noise")
+FROZEN_NETS = ("netIG", "netSIG", "vgg")
 
 
 def check_supported(opt) -> None:
@@ -59,8 +69,11 @@ def check_supported(opt) -> None:
                 if getattr(opt, f)]
     if not opt.no_instance:
         unported.append("instance maps (--no_instance False)")
-    if opt.dtype != "float32":
+    if opt.dtype not in ("float32", "bfloat16"):
         unported.append(f"--dtype {opt.dtype}")
+    elif opt.dtype == "bfloat16" and opt.isTrain:
+        unported.append("--dtype bfloat16 with --isTrain (the bf16 training step is the "
+                        "next slice of the port)")
     if opt.netG != "spadeb" or (opt.use_ig and opt.netIG != "inpaint") or \
             (opt.use_stroke and opt.netSIG != "sinpaint"):
         unported.append("a netG other than spadeb, a netIG other than inpaint or a "
@@ -96,6 +109,7 @@ class MichiGANModel:
         check_supported(opt)
         self.opt = opt
         self.device = torch.device(device)
+        self.compute_dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
         self.netG = SPADEBGenerator(opt).train(opt.isTrain)
         epilogue = opt.use_pallas_epilogue
         self.netIG = InpaintGenerator(epilogue=epilogue).eval() if opt.use_ig else None
@@ -134,6 +148,20 @@ class MichiGANModel:
     def to_device(self) -> None:
         for net in self.nets().values():
             net.to(self.device)
+        self.compact_frozen_nets()
+
+    def compact_frozen_nets(self) -> None:
+        """Under the bf16 policy, round every floating parameter and buffer
+        of the frozen towers (IG, SIG, VGG19; spectral u and v included) to
+        bfloat16 once, as the JAX package's compact_frozen_variables does;
+        their sigma is still computed in float32 from the rounded values.
+        Under float32 nothing changes."""
+        if self.compute_dtype != torch.bfloat16:
+            return
+        for name in FROZEN_NETS:
+            net = getattr(self, name)
+            if net is not None:
+                net.to(torch.bfloat16)
 
     # ------------------------------------------------------------------
 
@@ -145,11 +173,12 @@ class MichiGANModel:
         return out
 
     def _run_ig(self, net: torch.nn.Module, inp: torch.Tensor) -> torch.Tensor:
-        # the IG and SIG always run at 256^2 (nearest resize in and out)
+        # the IG and SIG always run at 256^2 (nearest resize in and out), in
+        # the compute dtype; what they return is float32
         size = self.opt.crop_size
         if size != 256 or inp.shape[2] != 256:
             inp = resize_nearest(inp, (256, 256))
-        out = net(inp)
+        out = net(inp.to(self.compute_dtype)).float()
         if out.shape[2] != size:
             out = resize_nearest(out, (size, size))
         return out
@@ -193,7 +222,7 @@ class MichiGANModel:
         gin["orient"] = orient
         if self.opt.add_feat_zeros:
             gin = {k: self._zeros_pad(v) for k, v in gin.items()}
-        return gin
+        return {k: v.to(self.compute_dtype) for k, v in gin.items()}
 
     def generate_fake(self, pre, orient, extra_dilate_steps: int = 2) -> torch.Tensor:
         gin = self._padded_gen_inputs(pre, orient)

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from michigan_tpu_torch.models.architecture import SPADEResnetBlock
 from michigan_tpu_torch.models.encoders import BackgroundEncode2, ImageEncoder3
+from michigan_tpu_torch.models.layers import Conv2d
 from michigan_tpu_torch.ops.resize import resize_nearest, upsample2x_nearest
 
 
@@ -52,7 +53,7 @@ class SPADEBGenerator(nn.Module):
         self.up_1 = SPADEResnetBlock(8 * nf, 4 * nf, opt)
         self.up_2 = SPADEResnetBlock(4 * nf, 2 * nf, opt)
         self.up_3 = SPADEResnetBlock(2 * nf, 1 * nf, opt)
-        self.conv_img = nn.Conv2d(nf, 3, 3, padding=1)
+        self.conv_img = Conv2d(nf, 3, 3, padding=1)
         self.backgroud_enc = BackgroundEncode2(opt)
 
     def forward(self, input_ref, input_tag, orient, image_ref, image_tag, noise,

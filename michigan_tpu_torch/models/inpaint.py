@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from michigan_tpu_torch.models.layers import (
+    Conv2d,
     SpectralConv2d,
     SpectralConvTranspose2d,
     reflect_pad,
@@ -30,8 +31,8 @@ class DilatedResnetBlock(nn.Module):
     """reflect2 -> spectral 3x3 dil2 -> IN+ReLU -> reflect1 -> spectral 3x3
     -> IN; residual add (generator.py:450-464).  With `epilogue`, each conv
     and the norm after it are one `conv3x3_in_act` call on the spectrally
-    normalised weight, as the JAX package's block does under
-    --use_pallas_epilogue."""
+    normalised float32 weight (the kernel casts it to x's dtype), as the JAX
+    package's block does under --use_pallas_epilogue."""
 
     def __init__(self, dim: int, epilogue: bool = False):
         super().__init__()
@@ -57,9 +58,9 @@ class SelfAttention(nn.Module):
 
     def __init__(self, dim: int, downsample: int = 4):
         super().__init__()
-        self.query_conv = nn.Conv2d(dim, dim // downsample, 1)
-        self.key_conv = nn.Conv2d(dim, dim // downsample, 1)
-        self.value_conv = nn.Conv2d(dim, dim, 1)
+        self.query_conv = Conv2d(dim, dim // downsample, 1)
+        self.key_conv = Conv2d(dim, dim // downsample, 1)
+        self.value_conv = Conv2d(dim, dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, c, h, w = x.shape
@@ -90,7 +91,7 @@ class InpaintGenerator(nn.Module):
         self.decoder = nn.ModuleDict({
             "0": SpectralConvTranspose2d(512, 128, 4, 2, 1),
             "3": SpectralConvTranspose2d(128, 64, 4, 2, 1),
-            "7": nn.Conv2d(64, 3, 7),
+            "7": Conv2d(64, 3, 7),
         })
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

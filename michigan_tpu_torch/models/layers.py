@@ -5,11 +5,19 @@ michigan_tpu/models/layers.py), NCHW.
   spectral_norm(nn.ConvTranspose2d) -> SpectralConvTranspose2d (norm over dim=1)
   PartialConv2d                     -> PartialConv
   nn.ReflectionPad2d                -> reflect_pad
-  plain convs                       -> nn.Conv2d
+  plain convs                       -> Conv2d (nn.Conv2d under the cast rule)
 
 Spectral norm runs as torch's does: in eval, sigma = u . (W v) from the
 stored u and v; in train mode one power iteration from the stored u first
-(no gradient through it), then sigma from the iterated u and v.
+(no gradient through it), then sigma from the iterated u and v.  Sigma and
+the normalised weight are float32 whatever the stored dtype (the frozen
+inpainters store bfloat16 under the bf16 policy).
+
+One cast rule for every conv (the JAX package's ``_conv``): the weight and
+the bias are cast to the input's dtype at the call, so netG's float32
+parameters run bfloat16 convolutions on bfloat16 activations and float32
+ones unchanged.  Casts are explicit, not ``torch.autocast``, which picks its
+own dtype per op.
 
 Which forward may write buffers (spectral u / v here, batch-norm running
 statistics in normalization.py) is explicit: a module writes them in train
@@ -33,6 +41,18 @@ from michigan_tpu_torch.ops.norms import power_iteration, spectral_sigma
 
 def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
     return F.pad(x, (p, p, p, p), mode="reflect")
+
+
+def cast_params(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]):
+    """(w, b) in x's dtype: the per-conv cast rule (a no-op in float32)."""
+    return w.to(x.dtype), None if b is None else b.to(x.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d under the cast rule: weight and bias in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, *cast_params(x, self.weight, self.bias))
 
 
 @contextlib.contextmanager
@@ -73,22 +93,22 @@ class SpectralConv2d(nn.Module):
         return w.reshape(w.shape[0], -1)
 
     def weight(self) -> torch.Tensor:
-        """The spectrally normalised weight; with `bias`, what a fused
-        kernel that computes the conv itself takes (conv3x3_in_act), as the
-        JAX package's TorchConv(..., return_kernel=True) hands it out."""
-        w_mat = self.w_mat()
-        u, v = self.weight_u, self.weight_v
+        """The spectrally normalised weight, float32; with `bias`, what a
+        fused kernel that computes the conv itself takes (conv3x3_in_act), as
+        the JAX package's TorchConv(..., return_kernel=True) hands it out."""
+        w_mat = self.w_mat().float()
+        u, v = self.weight_u.float(), self.weight_v.float()
         if self.training:
             with torch.no_grad():
                 u, v = power_iteration(w_mat, u, 1)
                 if self.write_buffers:
                     self.weight_u.copy_(u)
                     self.weight_v.copy_(v)
-        return self.weight_orig / spectral_sigma(w_mat, u, v)
+        return self.weight_orig.float() / spectral_sigma(w_mat, u, v)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight(), self.bias, self.stride, self.padding,
-                        self.dilation)
+        return F.conv2d(x, *cast_params(x, self.weight(), self.bias), self.stride,
+                        self.padding, self.dilation)
 
 
 class SpectralConvTranspose2d(SpectralConv2d):
@@ -102,13 +122,16 @@ class SpectralConvTranspose2d(SpectralConv2d):
         super().__init__(in_ch, out_ch, kernel_size, stride, padding, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.weight(), self.bias, self.stride, self.padding)
+        return F.conv_transpose2d(x, *cast_params(x, self.weight(), self.bias), self.stride,
+                                  self.padding)
 
 
 class PartialConv(nn.Conv2d):
     """NVIDIA partial convolution with a single-channel mask
     (partialconv2d.py:15-86): returns (out, updated_mask), where
-    out = (conv(x*m) * winsize / (conv(m) + 1e-8) + b) * clamp(conv(m), 0, 1)."""
+    out = (conv(x*m) * winsize / (conv(m) + 1e-8) + b) * clamp(conv(m), 0, 1).
+    The mask ratio is computed in float32 and cast to x's dtype; the updated
+    mask stays float32."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 2,
                  padding: int = 1, bias: bool = True):
@@ -121,10 +144,11 @@ class PartialConv(nn.Conv2d):
         mask_ratio = float(k * k) / (update_mask + 1e-8)
         update_mask = update_mask.clamp(0.0, 1.0)
         mask_ratio = mask_ratio * update_mask
-        raw = F.conv2d(x * mask.to(x.dtype), self.weight, None, self.stride, self.padding)
+        w, b = cast_params(x, self.weight, self.bias)
+        raw = F.conv2d(x * mask.to(x.dtype), w, None, self.stride, self.padding)
         mask_ratio = mask_ratio.to(raw.dtype)
-        if self.bias is not None:
-            out = (raw * mask_ratio + self.bias.view(1, -1, 1, 1)) * update_mask.to(raw.dtype)
+        if b is not None:
+            out = (raw * mask_ratio + b.view(1, -1, 1, 1)) * update_mask.to(raw.dtype)
         else:
             out = raw * mask_ratio
         return out, update_mask
@@ -138,7 +162,7 @@ class ConvBlock(nn.Module):
                  padding: int):
         super().__init__()
         self.padding = padding
-        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride)
+        self.conv = Conv2d(in_ch, out_ch, kernel_size, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.conv(reflect_pad(x, self.padding)))

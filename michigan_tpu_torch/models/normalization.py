@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from michigan_tpu_torch.models.layers import SpectralConv2d
+from michigan_tpu_torch.models.layers import Conv2d, SpectralConv2d
 from michigan_tpu_torch.ops.cuda.spade import fused_instance_norm, spade_modulate
 from michigan_tpu_torch.ops.norms import batch_norm_eval, batch_norm_train, instance_norm
 from michigan_tpu_torch.ops.resize import resize_nearest
@@ -78,30 +78,33 @@ class SPADE(nn.Module):
         self.pw = ks // 2
         self.param_free_norm = ParamFreeNorm(self.norm_type, norm_nc)
         self.mlp_shared = nn.Sequential(
-            nn.Conv2d(label_nc, nhidden, ks, padding=self.pw), nn.ReLU()
+            Conv2d(label_nc, nhidden, ks, padding=self.pw), nn.ReLU()
         )
         self.mlp_gamma = nn.Conv2d(nhidden, norm_nc, ks, padding=self.pw)
         self.mlp_beta = nn.Conv2d(nhidden, norm_nc, ks, padding=self.pw)
         self._gamma_beta_key, self._gamma_beta = None, None
 
-    def gamma_beta_conv(self):
-        """(weight, bias) of mlp_gamma and mlp_beta as one conv.  Without
-        autograd the concatenation is kept until a parameter is written or
-        replaced (load_state_dict, init, a move to another device)."""
+    def gamma_beta_conv(self, dtype: torch.dtype = torch.float32):
+        """(weight, bias) of mlp_gamma and mlp_beta as one conv, in `dtype`
+        (the cast rule of layers.py).  Without autograd the concatenation is
+        kept until a parameter is written or replaced (load_state_dict, init,
+        a move to another device) or another dtype is asked for."""
         params = (self.mlp_gamma.weight, self.mlp_beta.weight,
                   self.mlp_gamma.bias, self.mlp_beta.bias)
         if torch.is_grad_enabled():
-            return torch.cat(params[:2]), torch.cat(params[2:])
-        key = tuple((p.device, p.data_ptr(), p._version) for p in params)
+            return torch.cat(params[:2]).to(dtype), torch.cat(params[2:]).to(dtype)
+        key = (dtype,) + tuple((p.device, p.data_ptr(), p._version) for p in params)
         if key != self._gamma_beta_key:
             self._gamma_beta_key = key
-            self._gamma_beta = (torch.cat(params[:2]), torch.cat(params[2:]))
+            self._gamma_beta = (torch.cat(params[:2]).to(dtype), torch.cat(params[2:]).to(dtype))
         return self._gamma_beta
 
     def forward(self, x: torch.Tensor, segmap: torch.Tensor) -> torch.Tensor:
+        """x and the conditioning in x's dtype; gamma and beta come out in
+        it, while the running statistics (mean, invstd) stay float32."""
         seg = resize_nearest(segmap, x.shape[2:]).to(x.dtype)
         actv = self.mlp_shared(seg)
-        weight, bias = self.gamma_beta_conv()
+        weight, bias = self.gamma_beta_conv(actv.dtype)
         gamma, beta = F.conv2d(actv, weight, bias, padding=self.pw).chunk(2, dim=1)
         if self.training:
             return self.param_free_norm(x) * (1.0 + gamma) + beta

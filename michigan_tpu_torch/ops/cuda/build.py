@@ -25,6 +25,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -115,11 +117,18 @@ SIGNATURES = {
         "conv3x3_in_act_tiles": (_I64, _I64),
         "conv3x3_in_act_f32": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                                _I64, _I64, ctypes.c_float, ctypes.c_int, _P),
+        "conv3x3_in_act_bf16_scratch": (_I64, _I64, _I64, _I64, _I64, _I64),
+        "conv3x3_in_act_bf16": (_P, _P, ctypes.c_int, _P, ctypes.c_int, _P, _P, _P, _I64, _I64,
+                                _I64, _I64, _I64, _I64, _I64, ctypes.c_float, ctypes.c_int, _P),
     },
     "conv_lowch": {
         "conv3x3_same_f32": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P),
     },
 }
+
+
+# launchers return a cudaError_t as int; these return a size
+RESTYPES = {"conv3x3_in_act_bf16_scratch": _I64}
 
 
 @functools.lru_cache(maxsize=None)
@@ -129,8 +138,16 @@ def load(name: str) -> ctypes.CDLL:
     for fn_name, argtypes in SIGNATURES[name].items():
         fn = getattr(lib, fn_name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(fn_name, ctypes.c_int)
     return lib
+
+
+def count_launch(wrapper, dtype: torch.dtype) -> None:
+    """One launch of `wrapper`'s kernel on `dtype` tensors: its total
+    (``launches``) and its count by dtype (``launches_by_dtype``)."""
+    wrapper.launches += 1
+    name = str(dtype).removeprefix("torch.")
+    wrapper.launches_by_dtype[name] = wrapper.launches_by_dtype.get(name, 0) + 1
 
 
 def check_launch(kernel: str, err: int) -> None:

@@ -12,13 +12,20 @@ conv3x3_in_act(x_pad, w, b, dilation, act, eps, residual)
     The inpainters' dilated resblocks run as two calls each under
     --use_pallas_epilogue (models/inpaint.py).
 
+x_pad (and the residual) is float32 or bfloat16, and the output has its
+dtype.  In bfloat16, as the TPU kernel under the bf16 policy, the weight is
+cast to bfloat16 and the bias kept float32, the convolution sums in float32,
+and the norm, the activation and the residual add run on that float32 sum;
+the result is rounded to bfloat16 once.
+
 The kernel is compute-bound (C*9 FMAs per output); the design notes are in
 the CUDA source.  It computes the convolution in its own body on the tensor
-cores, float32-accurate through the 3xTF32 split, with no cuDNN, cuBLAS or
-CUTLASS call.  A wrapper runs the plain PyTorch version for CPU tensors
-only.  For a CUDA tensor it checks dtype, shape, contiguity and device,
-launches the kernel on the current stream and counts the launch; anything
-the kernel does not take raises.  There is no fallback on CUDA tensors.
+cores (float32-accurate through the 3xTF32 split; bf16 products in one
+mma), with no cuDNN, cuBLAS or CUTLASS call.  A wrapper runs the plain
+PyTorch version for CPU tensors only.  For a CUDA tensor it checks dtype,
+shape, contiguity and device, launches the kernel on the current stream and
+counts the launch; anything the kernel does not take raises.  There is no
+fallback on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -39,20 +46,34 @@ MAX_DILATION = 4
 
 
 def conv3x3_in_act_plain(x_pad, w, b, dilation=1, act=None, eps=1e-5, residual=None):
-    """The unfused composition the kernel replaces (epilogue.py:_xla_reference)."""
-    y = _act(instance_norm(F.conv2d(x_pad, w, b, dilation=dilation), eps), act)
-    return y if residual is None else residual + y
+    """The unfused composition the kernel replaces (epilogue.py:_xla_reference);
+    in bfloat16 the kernel's (epilogue.py:_kernel): the weight rounded to
+    bfloat16, then conv, norm, act and residual in float32, one rounding."""
+    if x_pad.dtype != torch.bfloat16:
+        y = _act(instance_norm(F.conv2d(x_pad, w, b, dilation=dilation), eps), act)
+        return y if residual is None else residual + y
+    y = F.conv2d(x_pad.float(), w.to(x_pad.dtype).float(), None if b is None else b.float(),
+                 dilation=dilation)
+    y = _act(instance_norm(y, eps), act)
+    if residual is not None:
+        y = y + residual.float()
+    return y.to(x_pad.dtype)
 
 
-def _check(name: str, t: torch.Tensor, shape, like: torch.Tensor) -> None:
+def _check(name: str, t: torch.Tensor, shape, like: torch.Tensor, dtypes) -> None:
     if t.device != like.device:
         raise ValueError(f"{name} is on {t.device}, x_pad on {like.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"kernel takes float32, {name} is {t.dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} is {t.dtype}; the kernel takes {', '.join(map(str, dtypes))} "
+                        f"with x_pad {like.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+_F32 = (torch.float32,)
+_X_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def conv3x3_in_act(x_pad: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
@@ -80,26 +101,44 @@ def conv3x3_in_act(x_pad: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tenso
         raise ValueError(f"the kernel takes dilation up to {MAX_DILATION}, got {d}")
     if n > 65535 or co > 65535 * 64:
         raise ValueError(f"too many samples or channels for one launch: {n}, {co}")
-    _check("x_pad", x_pad, (n, c, hp, wp), x_pad)
-    _check("w", w, (co, c, 3, 3), x_pad)
+    if x_pad.dtype == torch.bfloat16 and x_pad.numel() + co * c * 9 >= 2**31 - 2**20:
+        raise ValueError("the bf16 kernel indexes x_pad and w in 32 bits: "
+                         f"{x_pad.numel()} and {co * c * 9} elements are too many")
+    _check("x_pad", x_pad, (n, c, hp, wp), x_pad, _X_DTYPES)
+    bf16 = x_pad.dtype == torch.bfloat16
+    # float32: everything float32.  bfloat16: the weight float32 or bfloat16
+    # (rounded to bfloat16 in the kernel), the bias float32 or bfloat16 (the
+    # kernel widens it exactly), the residual bfloat16
+    _check("w", w, (co, c, 3, 3), x_pad, _X_DTYPES if bf16 else _F32)
     if b is not None:
-        _check("b", b, (co,), x_pad)
+        _check("b", b, (co,), x_pad, _X_DTYPES if bf16 else _F32)
     if residual is not None:
-        _check("residual", residual, (n, co, h, wd), x_pad)
+        _check("residual", residual, (n, co, h, wd), x_pad, (x_pad.dtype,))
         if residual.data_ptr() % 16:
             raise ValueError("residual must be 16-byte aligned")
     lib = build.load("conv_in_act")
-    out = torch.empty((n, co, h, wd), dtype=torch.float32, device=x_pad.device)
-    scratch = torch.empty(n * co * lib.conv3x3_in_act_tiles(h, wd) * 3, dtype=torch.float32,
-                          device=x_pad.device)
-    err = lib.conv3x3_in_act_f32(
-        x_pad.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-        None if residual is None else residual.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), scratch.numel(), n, c, co, h, wd, d, float(eps), _ACTS[act],
-        torch.cuda.current_stream(x_pad.device).cuda_stream)
+    out = torch.empty((n, co, h, wd), dtype=x_pad.dtype, device=x_pad.device)
+    stream = torch.cuda.current_stream(x_pad.device).cuda_stream
+    b_ptr = None if b is None else b.data_ptr()
+    r_ptr = None if residual is None else residual.data_ptr()
+    if bf16:
+        scratch = torch.empty(lib.conv3x3_in_act_bf16_scratch(n, c, co, h, wd, d),
+                              dtype=torch.uint8, device=x_pad.device)
+        err = lib.conv3x3_in_act_bf16(
+            x_pad.data_ptr(), w.data_ptr(), int(w.dtype == torch.float32), b_ptr,
+            int(b is not None and b.dtype == torch.bfloat16), r_ptr, out.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), n, c, co, h, wd, d, float(eps), _ACTS[act],
+            stream)
+    else:
+        scratch = torch.empty(n * co * lib.conv3x3_in_act_tiles(h, wd) * 3,
+                              dtype=torch.float32, device=x_pad.device)
+        err = lib.conv3x3_in_act_f32(
+            x_pad.data_ptr(), w.data_ptr(), b_ptr, r_ptr, out.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), n, c, co, h, wd, d, float(eps), _ACTS[act], stream)
     build.check_launch("conv3x3_in_act", err)
-    conv3x3_in_act.launches += 1
+    build.count_launch(conv3x3_in_act, x_pad.dtype)
     return out
 
 
 conv3x3_in_act.launches = 0
+conv3x3_in_act.launches_by_dtype = {}

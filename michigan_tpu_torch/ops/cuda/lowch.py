@@ -59,8 +59,9 @@ def conv3x3_same_lowch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         x.data_ptr(), w.data_ptr(), out.data_ptr(), n, c, co, h, wd,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch("conv3x3_same_lowch", err)
-    conv3x3_same_lowch.launches += 1
+    build.count_launch(conv3x3_same_lowch, x.dtype)
     return out
 
 
 conv3x3_same_lowch.launches = 0
+conv3x3_same_lowch.launches_by_dtype = {}

@@ -107,11 +107,12 @@ def filterbank_orientation(gray: torch.Tensor, bank: torch.Tensor
         gray.data_ptr(), bank.data_ptr(), idx.data_ptr(), conf.data_ptr(), n, h, w,
         torch.cuda.current_stream(gray.device).cuda_stream)
     build.check_launch("filterbank_orientation", err)
-    filterbank_orientation.launches += 1
+    build.count_launch(filterbank_orientation, gray.dtype)
     return idx, conf
 
 
 filterbank_orientation.launches = 0
+filterbank_orientation.launches_by_dtype = {}
 
 
 def filterbank_orientation_backward(dconf: torch.Tensor, idx: torch.Tensor,
@@ -142,11 +143,12 @@ def filterbank_orientation_backward(dconf: torch.Tensor, idx: torch.Tensor,
         dconf.data_ptr(), idx.data_ptr(), conf.data_ptr(), bank.data_ptr(), dgray.data_ptr(),
         n, h, w, torch.cuda.current_stream(dconf.device).cuda_stream)
     build.check_launch("filterbank_orientation_backward", err)
-    filterbank_orientation_backward.launches += 1
+    build.count_launch(filterbank_orientation_backward, dconf.dtype)
     return dgray
 
 
 filterbank_orientation_backward.launches = 0
+filterbank_orientation_backward.launches_by_dtype = {}
 
 
 class OrientationResponse(torch.autograd.Function):

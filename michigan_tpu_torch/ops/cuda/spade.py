@@ -125,11 +125,12 @@ def spade_modulate(x: torch.Tensor, mean: torch.Tensor, invstd: torch.Tensor,
              beta.data_ptr(), out.data_ptr(), n, c, h * w, gb_stride,
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch("spade_modulate", err)
-    spade_modulate.launches += 1
+    build.count_launch(spade_modulate, x.dtype)
     return out
 
 
 spade_modulate.launches = 0
+spade_modulate.launches_by_dtype = {}
 
 
 def fused_instance_norm(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
@@ -155,8 +156,9 @@ def fused_instance_norm(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
              n * c, h * w, float(eps), _ACTS[act],
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch("fused_instance_norm", err)
-    fused_instance_norm.launches += 1
+    build.count_launch(fused_instance_norm, x.dtype)
     return out
 
 
 fused_instance_norm.launches = 0
+fused_instance_norm.launches_by_dtype = {}

@@ -10,15 +10,21 @@ together), loaded with ctypes and run at the paths' shapes:
 
 - conv3x3_same_lowch at VGG19 features_2's (16, 64, 512^2);
 - conv3x3_in_act at the inpainters' (1, 256, 64^2), dilation 2 with relu and
-  dilation 1 with a residual.
+  dilation 1 with a residual, in float32 and in bfloat16 (the bf16 policy's
+  form: bf16 x_pad and residual, the float32 weight rounded in the kernel).
 
 For each variant: the largest error against a float64 convolution at batch 2
 of those shapes, over the largest magnitude (beside F.conv2d's in float32,
-TF32 off), and the device time (20 calls replayed in a CUDA graph, median of
-5), the variants timed in turns (forward, then backward through the list).
-It also measures the card's mma.sync m16n8k8 TF32 rate, which caps the tile:
-three products per float32-accurate one.  Prints the card's name and power
-limit first.  Needs a CUDA card and nvcc; exits 1 without them.
+TF32 off, and, for the bf16 form, cuDNN's bf16 conv + the torch norm on the
+same bf16 inputs), and the device time (20 calls replayed in a CUDA graph,
+median of 5), the variants timed in turns (forward, then backward through
+the list).  The bf16 tile's variants change its halo layout (the 8 mod 32
+pair stride), its copy width (16-byte copies from rows padded to 16 bytes;
+8- and 4-byte copies) and its chain length (16-channel steps per fresh
+accumulator chain).  It also measures the card's mma.sync rates, m16n8k8
+TF32 (three products per float32-accurate one) and m16n8k16 bf16, which cap
+the tile.  Prints the card's name and power limit first.  Needs a CUDA card
+and nvcc; exits 1 without them.
 """
 
 from __future__ import annotations
@@ -61,10 +67,29 @@ VARIANTS = {
         "conv_in_act.cu", "constexpr int kGroups = 2;\n", "constexpr int kGroups = 1;\n")],
     "lowch two groups": [(
         "conv_lowch.cu", "constexpr int kGroups = 1;\n", "constexpr int kGroups = 2;\n")],
+    # the halo's channel (bf16: pair) stride left at rows x cols words, 0 mod
+    # 32 at dilation 2: the A-fragment loads of the 4 pairs collide
+    "unpadded pair stride": [(
+        "conv3x3_tile.cuh", "  g.cs = ((g.rows * g.cols - 8 + 31) / 32) * 32 + 8;",
+        "  g.cs = g.rows * g.cols;")],
+    "8-byte halo copies": [(
+        "conv3x3_tile.cuh", "  for (int v = 4; v > 1; v /= 2)\n",
+        "  for (int v = 2; v > 1; v /= 2)\n")],
+    # bf16 pair rows not padded to 16 bytes: 8-byte copies at dilation 1
+    "bf16 unpadded rows": [(
+        "conv_in_act.cu", "constexpr int kRowWords = 4;\n", "constexpr int kRowWords = 1;\n")],
+    "bf16 2-step chains": [(
+        "conv3x3_tile.cuh", "constexpr int kBf16ChainSteps = 1;\n",
+        "constexpr int kBf16ChainSteps = 2;\n")],
+    "bf16 one chain": [(
+        "conv3x3_tile.cuh", "constexpr int kBf16ChainSteps = 1;\n",
+        "constexpr int kBf16ChainSteps = 1 << 20;\n")],
 }
 
 MMA_PEAK_CU = r"""
 #include <cuda_runtime.h>
+// kBf16: m16n8k16 bf16 (K = 16), else m16n8k8 TF32 (K = 8)
+template <bool kBf16>
 __global__ void mma_loop(float* out, int iters) {
   unsigned a[4], b[2];
   for (int i = 0; i < 4; ++i) a[i] = __float_as_uint(1.0f + threadIdx.x * 1e-3f + i);
@@ -72,33 +97,49 @@ __global__ void mma_loop(float* out, int iters) {
   float d[8][4] = {};
   for (int it = 0; it < iters; ++it) {
 #pragma unroll
-    for (int t = 0; t < 8; ++t)
-      asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-                   "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-                   : "+f"(d[t][0]), "+f"(d[t][1]), "+f"(d[t][2]), "+f"(d[t][3])
-                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+    for (int t = 0; t < 8; ++t) {
+      if (kBf16) {
+        asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+                     "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+                     : "+f"(d[t][0]), "+f"(d[t][1]), "+f"(d[t][2]), "+f"(d[t][3])
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      } else {
+        asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+                     "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+                     : "+f"(d[t][0]), "+f"(d[t][1]), "+f"(d[t][2]), "+f"(d[t][3])
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      }
+    }
   }
   float s = 0.f;
   for (int t = 0; t < 8; ++t) s += d[t][0] + d[t][1] + d[t][2] + d[t][3];
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
 // TFLOP/s of `blocks` x `threads` threads, each warp 8 independent chains
-extern "C" float mma_tflops(int blocks, int threads, int iters) {
+template <bool kBf16>
+float tflops(int blocks, int threads, int iters) {
   float* out;
   if (cudaMalloc(&out, sizeof(float) * blocks * threads) != cudaSuccess) return -1.f;
-  mma_loop<<<blocks, threads>>>(out, 16);
+  mma_loop<kBf16><<<blocks, threads>>>(out, 16);
   cudaEvent_t a, b;
   cudaEventCreate(&a);
   cudaEventCreate(&b);
   cudaEventRecord(a);
-  mma_loop<<<blocks, threads>>>(out, iters);
+  mma_loop<kBf16><<<blocks, threads>>>(out, iters);
   cudaEventRecord(b);
   cudaEventSynchronize(b);
   float ms = 0.f;
   cudaEventElapsedTime(&ms, a, b);
   cudaFree(out);
   if (cudaGetLastError() != cudaSuccess) return -1.f;
-  return (float)(2.0 * 16 * 8 * 8 * 8 * (double)iters * (blocks * threads / 32) / (ms * 1e9));
+  const double k = kBf16 ? 16 : 8;
+  return (float)(2.0 * 16 * 8 * k * 8 * (double)iters * (blocks * threads / 32) / (ms * 1e9));
+}
+extern "C" float mma_tflops(int blocks, int threads, int iters) {
+  return tflops<false>(blocks, threads, iters);
+}
+extern "C" float mma_tflops_bf16(int blocks, int threads, int iters) {
+  return tflops<true>(blocks, threads, iters);
 }
 """
 
@@ -157,8 +198,9 @@ def build_variants(build) -> tuple:
             raise RuntimeError(f"nvcc failed for {key}:\n{err}")
         lib = ctypes.CDLL(str(path))
         if key == "mma":
-            lib.mma_tflops.restype = ctypes.c_float
-            lib.mma_tflops.argtypes = [ctypes.c_int] * 3
+            for fn in (lib.mma_tflops, lib.mma_tflops_bf16):
+                fn.restype = ctypes.c_float
+                fn.argtypes = [ctypes.c_int] * 3
         else:
             for fn, argtypes in build.SIGNATURES[key[1]].items():
                 f = getattr(lib, fn)
@@ -199,6 +241,8 @@ def main() -> int:
         return 1
     from michigan_tpu_torch.ops.cuda import build
     from michigan_tpu_torch.ops.cuda import epilogue as E
+    from michigan_tpu_torch.ops.cuda.spade import _act
+    from michigan_tpu_torch.ops.norms import instance_norm
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -210,7 +254,9 @@ def main() -> int:
         print(f"ptxas {v} {lib}: {' | '.join(kernels)}", flush=True)
     for blocks, threads in ((132, 128), (132, 256), (264, 256), (264, 512)):
         print(f"mma.sync m16n8k8 TF32, {blocks} blocks x {threads} threads (8 chains a warp): "
-              f"{libs['mma'].mma_tflops(blocks, threads, 20000):.1f} TFLOP/s", flush=True)
+              f"{libs['mma'].mma_tflops(blocks, threads, 20000):.1f} TFLOP/s; m16n8k16 bf16: "
+              f"{libs['mma'].mma_tflops_bf16(blocks, threads, 20000):.1f} TFLOP/s [{card}]",
+              flush=True)
     stream = lambda: torch.cuda.current_stream().cuda_stream
 
     def lowch(v, x, w, out):
@@ -225,6 +271,18 @@ def main() -> int:
             x.data_ptr(), w.data_ptr(), b.data_ptr(), None if r is None else r.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), scratch.numel(), n, c, w.shape[0], hp - 2 * d,
             wp - 2 * d, d, 1e-5, {None: 0, "relu": 1}[act], stream())
+        build.check_launch(v, err)
+
+    def in_act16(v, x, w, b, d, act, r, out):
+        n, c, hp, wp = x.shape
+        lib = libs[(v, "conv_in_act")]
+        h, wd = hp - 2 * d, wp - 2 * d
+        scratch = torch.empty(lib.conv3x3_in_act_bf16_scratch(n, c, w.shape[0], h, wd, d),
+                              dtype=torch.uint8, device="cuda")
+        err = lib.conv3x3_in_act_bf16(
+            x.data_ptr(), w.data_ptr(), 1, b.data_ptr(), 0, None if r is None else r.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), scratch.numel(), n, c, w.shape[0], h, wd, d,
+            1e-5, {None: 0, "relu": 1}[act], stream())
         build.check_launch(v, err)
 
     def rel(got, want64):
@@ -270,16 +328,36 @@ def main() -> int:
         for v in turns:
             rows[v].setdefault(f"{key} us", []).append(1e3 * median_ms(
                 lambda: in_act(v, x1, w, b, d, act, r1, o1, scratch), torch))
+        # the bf16 form on the same values rounded to bf16; float64 of them,
+        # beside cuDNN's bf16 conv + the torch norm (the route it replaces)
+        key = f"in_act16 d{d}"
+        x, r = x.bfloat16(), None if r is None else r.bfloat16()
+        want = E.conv3x3_in_act_plain(x.double(), w.bfloat16().double(), b.double(), d, act,
+                                      residual=None if r is None else r.double())
+        y = _act(instance_norm(F.conv2d(x, w.bfloat16(), b.bfloat16(), dilation=d)), act)
+        ref[f"{key} err"] = rel(y if r is None else r + y, want)
+        out = torch.empty((2, 256, 64, 64), device="cuda", dtype=torch.bfloat16)
+        for v in VARIANTS:
+            in_act16(v, x, w, b, d, act, r, out)
+            rows[v][f"{key} err"] = rel(out, want)
+        x1, o1 = x[:1].contiguous(), out[:1].contiguous()
+        r1 = None if r is None else r[:1].contiguous()
+        for v in turns:
+            rows[v].setdefault(f"{key} us", []).append(1e3 * median_ms(
+                lambda: in_act16(v, x1, w, b, d, act, r1, o1), torch))
     print(f"float64 error over the largest magnitude, plain versions in fp32: F.conv2d "
           f"{ref['lowch']:.3e} (lowch), cuDNN conv + torch norm {ref['in_act d2 err']:.3e} / "
-          f"{ref['in_act d1 err']:.3e} (in_act d2 / d1); F.conv2d at (16, 64, 512^2) "
-          f"{ref['lowch ms']:.3f} ms [{card}]", flush=True)
+          f"{ref['in_act d1 err']:.3e} (in_act d2 / d1); in bf16, cuDNN bf16 conv + torch norm "
+          f"{ref['in_act16 d2 err']:.3e} / {ref['in_act16 d1 err']:.3e}; F.conv2d at (16, 64, "
+          f"512^2) {ref['lowch ms']:.3f} ms [{card}]", flush=True)
     for v, row in rows.items():
         times = lambda k, f: ", ".join(f.format(t) for t in row[k])
-        print(f"{v:>18}: lowch {times('lowch ms', '{:.3f}')} ms, error {row['lowch err']:.3e}; "
+        print(f"{v:>20}: lowch {times('lowch ms', '{:.3f}')} ms, error {row['lowch err']:.3e}; "
               f"in_act d2 {times('in_act d2 us', '{:.1f}')} us, error {row['in_act d2 err']:.3e}; "
-              f"in_act d1 {times('in_act d1 us', '{:.1f}')} us, error {row['in_act d1 err']:.3e} "
-              f"[{card}]", flush=True)
+              f"in_act d1 {times('in_act d1 us', '{:.1f}')} us, error {row['in_act d1 err']:.3e}; "
+              f"bf16 d2 {times('in_act16 d2 us', '{:.1f}')} us, error "
+              f"{row['in_act16 d2 err']:.3e}; bf16 d1 {times('in_act16 d1 us', '{:.1f}')} us, "
+              f"error {row['in_act16 d1 err']:.3e} [{card}]", flush=True)
     return 0
 
 

@@ -18,11 +18,16 @@ by --seed, losses printed every --print_freq images (and appended to
 checkpoints/<name>/loss_log.txt), 'latest' saved every --save_latest_freq
 images and at the end of each epoch, each --save_epoch_freq epoch saved
 under its number, --continue_train resuming from --which_epoch and iter.txt.
-Image display (the HTML visualizer) is not ported.
+--debug_nans checks every loss of every step for a finite value (a host
+sync per step); --profile_dir writes a torch.profiler trace of the step at
+3 * --batchSize samples there (trace.json, for chrome://tracing or
+Perfetto).  Image display (the HTML visualizer) is not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 import os
 import random
 import sys
@@ -36,6 +41,33 @@ def parse_options(argv=None):
     if len([s for s in str(opt.gpu_ids).split(",") if s.strip() not in ("", "-1")]) > 1:
         raise NotImplementedError("multi-GPU training is not ported yet: give one --gpu_ids")
     return opt
+
+
+@contextlib.contextmanager
+def profiled_step(profile_dir: str, device):
+    """One step under torch.profiler (host and, on a card, device
+    activity); its trace goes to <profile_dir>/trace.json."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace written to {path}")
+
+
+def check_finite(losses: dict, step: int) -> None:
+    """--debug_nans: raise naming the first non-finite loss and the step
+    (samples seen so far), as the JAX trainer's assertion does."""
+    for k, v in losses.items():
+        val = float(v)
+        if not math.isfinite(val):
+            raise FloatingPointError(f"non-finite loss {k}={val} at step {step}")
 
 
 def load_released_ig(model, opt) -> None:
@@ -104,10 +136,16 @@ def main(argv=None):
             # the random mask dilation width (encoder.py:294): 0..4 extra 3x3 steps
             extra = host_rng.randint(0, 4)
             g_losses, d_losses, orient = {}, {}, None
-            if i % opt.D_steps_per_G == 0:
-                g_losses, _fake, orient = trainer.g_step(batch, extra)
-            if i % opt.G_steps_per_D == 0 and not opt.no_discriminator:
-                d_losses = trainer.d_step(batch, extra, orient)
+            # the step at 3 * batchSize samples, past the first steps' warm-up
+            profiling = bool(opt.profile_dir) and \
+                iter_counter.total_steps_so_far == 3 * opt.batchSize
+            with profiled_step(opt.profile_dir, device) if profiling else contextlib.nullcontext():
+                if i % opt.D_steps_per_G == 0:
+                    g_losses, _fake, orient = trainer.g_step(batch, extra)
+                if i % opt.G_steps_per_D == 0 and not opt.no_discriminator:
+                    d_losses = trainer.d_step(batch, extra, orient)
+            if opt.debug_nans:
+                check_finite({**g_losses, **d_losses}, iter_counter.total_steps_so_far)
             if t0 is None:
                 sync()
                 t0 = time.perf_counter()  # the first step's build and warm-up off the clock

@@ -8,7 +8,8 @@ is installed:
 
 Tolerances: the fused norms float32 atol 1e-4, rtol 1e-5, bfloat16 atol
 1e-2, rtol 1.6e-2 (about two bf16 ulps); conv3x3_in_act atol 1e-4, rtol
-1e-4 (float32 sums of C*9 products in another order); the filter bank's
+1e-4 (float32 sums of C*9 products in another order), in bfloat16 atol
+1e-2, rtol 1.6e-2 (the one rounding of the output); the filter bank's
 response rtol 1e-4, atol 1e-3, its argmax off on at most 0.1% of pixels and
 then by one orientation (near-ties under another summation order);
 conv3x3_same_lowch and filterbank_orientation_backward within 1e-4 of the
@@ -143,6 +144,38 @@ def test_conv3x3_in_act_matches_plain(cuda_device, n, c, co, h, w, d, act, res):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     assert kernels.launch_counts()["conv3x3_in_act"] == 1
+
+
+# the bf16 form on the same cases (odd C: the last channel pair is half
+# zero); the weight and bias as the model hands them: float32 (the spectral
+# weight of netG's policy) or bfloat16 (the frozen inpainters' stored ones)
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,co,h,w,d,act,res", EPILOGUE_CASES)
+def test_conv3x3_in_act_bf16_matches_plain(cuda_device, n, c, co, h, w, d, act, res,
+                                           param_dtype):
+    gen = torch.Generator().manual_seed(5)
+    x = rand(gen, (n, c, h + 2 * d, w + 2 * d), cuda_device, torch.bfloat16)
+    wt = (torch.randn((co, c, 3, 3), generator=gen) * 0.05).to(cuda_device, param_dtype)
+    b = rand(gen, (co,), cuda_device, param_dtype)
+    r = rand(gen, (n, co, h, w), cuda_device, torch.bfloat16) if res else None
+    kernels.reset_launch_counts()
+    got = E.conv3x3_in_act(x, wt, b, dilation=d, act=act, residual=r)
+    want = E.conv3x3_in_act_plain(x, wt, b, dilation=d, act=act, residual=r)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **TOLS[torch.bfloat16])
+    assert kernels.launch_counts(by_dtype=True)["conv3x3_in_act"] == {"bfloat16": 1}
+
+
+def test_conv3x3_in_act_raises_on_mixed_dtypes(cuda_device):
+    x = torch.zeros((1, 8, 10, 10), device=cuda_device, dtype=torch.bfloat16)
+    w = torch.zeros((8, 8, 3, 3), device=cuda_device)
+    with pytest.raises(TypeError, match="residual"):
+        E.conv3x3_in_act(x, w, None, residual=torch.zeros((1, 8, 8, 8), device=cuda_device))
+    with pytest.raises(TypeError, match="w is torch.bfloat16"):
+        E.conv3x3_in_act(x.float(), w.bfloat16(), None)
+    with pytest.raises(TypeError, match="x_pad"):
+        E.conv3x3_in_act(x.half(), w, None)
 
 
 # whole and ragged tiles, a plane smaller than one tile, and more tiles than

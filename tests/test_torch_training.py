@@ -339,3 +339,28 @@ def test_trainer_cli_trains_saves_resumes_and_feeds_inference(tmp_path):
         want = trained.generate_fake(pre, trained.orient_for_training(pre))
     assert got.shape == (1, 3, 64, 64) and torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def test_debug_nans_names_the_loss_and_the_step():
+    from michigan_tpu_torch.train import check_finite
+
+    check_finite({"GAN": torch.tensor(1.0), "D_real": torch.tensor(-2.0)}, 3)
+    with pytest.raises(FloatingPointError, match="non-finite loss VGG=nan at step 7"):
+        check_finite({"GAN": torch.tensor(1.0), "VGG": torch.tensor(float("nan"))}, 7)
+    with pytest.raises(FloatingPointError, match="D_Fake=inf"):
+        check_finite({"D_Fake": torch.tensor(float("inf"))}, 1)
+
+
+def test_trainer_cli_checks_losses_and_profiles_one_step(tmp_path):
+    """--debug_nans on finite losses runs through; --profile_dir writes one
+    trace, of the step at 3 * batchSize samples."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    prof = tmp_path / "profile"
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCK_JAX, *TRAIN_FLAGS, "--checkpoints_dir",
+         str(tmp_path / "checkpoints"), "--niter", "3", "--debug_nans", "--profile_dir",
+         str(prof)], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.count("profiler trace written") == 1
+    trace = (prof / "trace.json").read_text()
+    assert "ProfilerStep" in trace or "traceEvents" in trace
