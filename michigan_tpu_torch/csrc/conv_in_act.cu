@@ -45,7 +45,8 @@
 //   word per pixel, rows padded to 16 bytes, and the weights as (co, pair,
 //   tap) words rounded to bf16: the layout the bf16 tile's mma.sync
 //   m16n8k16 fragments load as they are (conv3x3_tile.cuh), in 16-byte
-//   cp.async copies at either dilation.  ~2.4 MB each way, about 2 us.
+//   cp.async copies at either dilation.  ~2.4 MB each way, one thread a
+//   word in 32-bit indices.
 // - pass 1 is the same tile with one bf16 product per step of 16 channels,
 //   a fresh accumulator chain per step; it writes the pre-norm sum in
 //   float32 to scratch, not to the bf16 output (a bf16 pre-norm would round
@@ -143,17 +144,42 @@ conv3x3_kernel(const ConvArgs a) {
                              : static_cast<const float*>(a.bias)[oc];
         float* yo = a.y + ((int64_t)n * a.co + (oc_ok ? oc : 0)) * hw + (int64_t)yy * a.wd;
         float cnt = 0.f, mean = 0.f, m2 = 0.f;
+        if (oc_ok && row_ok && x0 + kCols <= a.wd) {
+          // all four pixels: welford_add's steps with their divisors known,
+          // so 1, 2 and 4 become exact products (the same results)
+          float v[4];
 #pragma unroll
-        for (int i = 0; i < kMT; ++i)
+          for (int i = 0; i < kMT; ++i)
 #pragma unroll
-          for (int r = b; r < 4; r += 2) {  // pixels lane/4 and lane/4 + 8
-            const int xx = x0 + conv3x3::frag_col(i, r);
-            if (oc_ok && row_ok && xx < a.wd) {
-              const float v = acc[i][j][r] + bias;
-              yo[xx] = v;
-              welford_add(v, mean, m2, cnt);
+            for (int r = b; r < 4; r += 2) {
+              v[i * 2 + r / 2] = acc[i][j][r] + bias;
+              yo[x0 + conv3x3::frag_col(i, r)] = v[i * 2 + r / 2];
             }
-          }
+          mean = 0.f + v[0];
+          m2 = 0.f + v[0] * (v[0] - mean);
+          float d = v[1] - mean;
+          mean += d * 0.5f;
+          m2 += d * (v[1] - mean);
+          d = v[2] - mean;
+          mean += d / 3.f;
+          m2 += d * (v[2] - mean);
+          d = v[3] - mean;
+          mean += d * 0.25f;
+          m2 += d * (v[3] - mean);
+          cnt = 4.f;
+        } else {
+#pragma unroll
+          for (int i = 0; i < kMT; ++i)
+#pragma unroll
+            for (int r = b; r < 4; r += 2) {  // pixels lane/4 and lane/4 + 8
+              const int xx = x0 + conv3x3::frag_col(i, r);
+              if (oc_ok && row_ok && xx < a.wd) {
+                const float v = acc[i][j][r] + bias;
+                yo[xx] = v;
+                welford_add(v, mean, m2, cnt);
+              }
+            }
+        }
         // merge over the 8 lanes of this channel (lane bits 2-4; all 32 lanes
         // take part in every shuffle)
 #pragma unroll

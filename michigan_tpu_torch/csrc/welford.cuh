@@ -14,13 +14,15 @@ __device__ __forceinline__ void welford_add(float v, float& mean, float& m2, flo
   m2 += d * (v - mean);
 }
 
-// Chan's rule: merge (mean_b, m2_b, n_b) into (mean, m2, n).
+// Chan's rule: merge (mean_b, m2_b, n_b) into (mean, m2, n).  Equal counts,
+// the common case of the tree merges, take wb = 0.5 without the division,
+// which gives exactly that.
 __device__ __forceinline__ void welford_merge(float& mean, float& m2, float& n,
                                               float mean_b, float m2_b, float n_b) {
   const float total = n + n_b;
   if (n_b == 0.f) return;
   const float d = mean_b - mean;
-  const float wb = n_b / total;
+  const float wb = n_b == n ? 0.5f : n_b / total;
   mean += d * wb;
   m2 += m2_b + d * d * n * wb;
   n = total;

@@ -6,7 +6,9 @@ An edit (demo.py:310-413): the user's mask or stroke -> hole dilation
 the filterbank_orientation kernel on a card) -> the demo's inference
 forward, ref- or stroke-mode inpainting -> the cropped uint8 result.  The
 crop and the uint8 encode run on the device, and result and orientation
-come back to the host in one copy.
+come back to the host in one copy.  Under --dtype bfloat16 the forward
+runs the bf16 compute policy (model.py) and the encode reads its float32
+fake.
 """
 
 from __future__ import annotations

@@ -59,7 +59,7 @@ from michigan_tpu_torch.ops.masks import one_hot_label
 from michigan_tpu_torch.ops.resize import resize_nearest
 
 GEN_KEYS = ("input_ref", "input_tag", "orient", "image_ref", "image_tag", "noise")
-FROZEN_NETS = ("netIG", "netSIG", "vgg")
+FROZEN_NETS = ("netIG", "netSIG")
 
 
 def check_supported(opt) -> None:
@@ -152,10 +152,11 @@ class MichiGANModel:
 
     def compact_frozen_nets(self) -> None:
         """Under the bf16 policy, round every floating parameter and buffer
-        of the frozen towers (IG, SIG, VGG19; spectral u and v included) to
-        bfloat16 once, as the JAX package's compact_frozen_variables does;
-        their sigma is still computed in float32 from the rounded values.
-        Under float32 nothing changes."""
+        of the frozen inpainters (IG, SIG; spectral u and v included) to
+        bfloat16 once, as the JAX package's compact_frozen_variables does
+        (it also rounds VGG19, which only the bf16 training step, not ported
+        yet, runs); their sigma is still computed in float32 from the
+        rounded values.  Under float32 nothing changes."""
         if self.compute_dtype != torch.bfloat16:
             return
         for name in FROZEN_NETS:

@@ -101,9 +101,11 @@ def conv3x3_in_act(x_pad: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tenso
         raise ValueError(f"the kernel takes dilation up to {MAX_DILATION}, got {d}")
     if n > 65535 or co > 65535 * 64:
         raise ValueError(f"too many samples or channels for one launch: {n}, {co}")
-    if x_pad.dtype == torch.bfloat16 and x_pad.numel() + co * c * 9 >= 2**31 - 2**20:
-        raise ValueError("the bf16 kernel indexes x_pad and w in 32 bits: "
-                         f"{x_pad.numel()} and {co * c * 9} elements are too many")
+    if x_pad.dtype == torch.bfloat16 and (x_pad.numel() + co * c * 9 >= 2**31 - 2**24
+                                          or n * ((c + 1) // 2) > 65535):
+        raise ValueError("the bf16 kernel indexes x_pad and w in 32 bits and takes at most "
+                         f"65535 samples x channel pairs: x_pad {tuple(x_pad.shape)}, w "
+                         f"{tuple(w.shape)}")
     _check("x_pad", x_pad, (n, c, hp, wp), x_pad, _X_DTYPES)
     bf16 = x_pad.dtype == torch.bfloat16
     # float32: everything float32.  bfloat16: the weight float32 or bfloat16

@@ -21,7 +21,10 @@ median of 5), the variants timed in turns (forward, then backward through
 the list).  The bf16 tile's variants change its halo layout (the 8 mod 32
 pair stride), its copy width (16-byte copies from rows padded to 16 bytes;
 8- and 4-byte copies) and its chain length (16-channel steps per fresh
-accumulator chain).  It also measures the card's mma.sync rates, m16n8k8
+accumulator chain); the "diag:" variants remove one part of the work each
+(their results are wrong) to show where the time goes, and the tool prints
+each pass's device time (torch.profiler) of the package's own build.  It
+also measures the card's mma.sync rates, m16n8k8
 TF32 (three products per float32-accurate one) and m16n8k16 bf16, which cap
 the tile.  Prints the card's name and power limit first.  Needs a CUDA card
 and nvcc; exits 1 without them.
@@ -84,6 +87,44 @@ VARIANTS = {
     "bf16 one chain": [(
         "conv3x3_tile.cuh", "constexpr int kBf16ChainSteps = 1;\n",
         "constexpr int kBf16ChainSteps = 1 << 20;\n")],
+    # diagnostics, not designs (their results are wrong): each removes one
+    # part of the work to show what it costs; "bf16 no mma" keeps the
+    # fragment loads live through a float add, "no global reads" zero-fills
+    # every copy
+    "diag: bf16 no mma": [
+        ("conv3x3_tile.cuh", "              mma_bf16_first(chain[i][j], af[i], bf[j]);\n",
+         "              chain[i][j][0] = __uint_as_float(af[i][0] ^ bf[j][1]);\n"),
+        ("conv3x3_tile.cuh", "              mma_bf16(chain[i][j], af[i], bf[j]);\n",
+         "              chain[i][j][0] += __uint_as_float(af[i][0] ^ af[i][3] ^ bf[j][0]);\n")],
+    "diag: no global reads": [
+        ("conv3x3_tile.cuh", "          cp_async16(dst, src, ok);\n",
+         "          cp_async16(dst, in.x, false);\n"),
+        ("conv3x3_tile.cuh",
+         "cp_async16(s_w + m * g.ws + q, ok ? w + ((int64_t)(co0 + m) * c + ci0) * 9 + q : w, ok);",
+         "cp_async16(s_w + m * g.ws + q, w, false);")],
+    "in_act one group, 6 stages": [
+        ("conv_in_act.cu", "constexpr int kGroups = 2;\n", "constexpr int kGroups = 1;\n"),
+        ("conv_in_act.cu", "constexpr int kStages = 3;\n", "constexpr int kStages = 6;\n")],
+    "diag: empty conv pass": [(
+        "conv_in_act.cu", "  extern __shared__ __align__(16) float smem[];\n",
+        "  extern __shared__ __align__(16) float smem[];\n  if (a.c > 0) return;\n")],
+    "diag: no conv epilogue": [(
+        "conv_in_act.cu",
+        "  // epilogue: bias, pre-norm store, and the patch's statistics per channel\n",
+        "  if (a.c > 0) {\n    if (acc[0][0][0] == 1234.5f) a.y[0] = 1.f;\n    return;\n  }\n")],
+    "diag: no main loop": [(
+        "conv3x3_tile.cuh", "  for (int s = 0; s < nstages; ++s) {\n",
+        "  for (int s = 0; s < 0; ++s) {\n")],
+    "diag: no loads in the loop": [(
+        "conv3x3_tile.cuh", "    if (next < nstages) load_stage(next, next % kStages);\n", "")],
+    "diag: bf16 no fragment loads": [
+        ("conv3x3_tile.cuh", "          af[i][0] = a[i * 16];\n", "          af[i][0] = tap + i;\n"),
+        ("conv3x3_tile.cuh", "          af[i][1] = a[i * 16 + 8];\n", "          af[i][1] = s;\n"),
+        ("conv3x3_tile.cuh", "          af[i][2] = a[a_hi + i * 16];\n", "          af[i][2] = i;\n"),
+        ("conv3x3_tile.cuh", "          af[i][3] = a[a_hi + i * 16 + 8];\n", "          af[i][3] = tap;\n"),
+        ("conv3x3_tile.cuh", "          bf[j][0] = sb[j * 8 * g.ws + tap];\n", "          bf[j][0] = j + s;\n"),
+        ("conv3x3_tile.cuh", "          bf[j][1] = sb[j * 8 * g.ws + tap + 36];  // pair + 4\n",
+         "          bf[j][1] = j * tap;\n")],
 }
 
 MMA_PEAK_CU = r"""
@@ -345,6 +386,29 @@ def main() -> int:
         for v in turns:
             rows[v].setdefault(f"{key} us", []).append(1e3 * median_ms(
                 lambda: in_act16(v, x1, w, b, d, act, r1, o1), torch))
+    # device time of each pass of the package's own build (torch.profiler):
+    # pair, conv and norm passes in bf16, conv and norm passes in float32
+    from torch.profiler import ProfilerActivity, profile
+
+    for d, act, res in EPI_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((1, 256, 64 + 2 * d, 64 + 2 * d), generator=gen, device="cuda")
+            w = torch.randn((256, 256, 3, 3), generator=gen, device="cuda") * 0.02
+            b = torch.randn(256, generator=gen, device="cuda")
+            r = torch.randn((1, 256, 64, 64), generator=gen, device="cuda") if res else None
+            x, r = x.to(dtype), None if r is None else r.to(dtype)
+            for _ in range(3):
+                E.conv3x3_in_act(x, w, b, dilation=d, act=act, residual=r)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    E.conv3x3_in_act(x, w, b, dilation=d, act=act, residual=r)
+                torch.cuda.synchronize()
+            name = lambda key: key.split("::", 1)[-1].split("<")[0].split("(")[0]
+            passes = [f"{name(e.key)} {e.device_time_total / e.count:.2f}"
+                      for e in prof.key_averages() if e.device_time_total > 0 and "kernel" in e.key]
+            print(f"passes, {str(dtype).removeprefix('torch.')} (1,256,64^2) dilation {d}: "
+                  f"{'; '.join(passes)} us a call [{card}]", flush=True)
     print(f"float64 error over the largest magnitude, plain versions in fp32: F.conv2d "
           f"{ref['lowch']:.3e} (lowch), cuDNN conv + torch norm {ref['in_act d2 err']:.3e} / "
           f"{ref['in_act d1 err']:.3e} (in_act d2 / d1); in bf16, cuDNN bf16 conv + torch norm "

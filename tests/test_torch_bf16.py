@@ -13,7 +13,7 @@ against the JAX package's, on the CPU.
   both compute the same function.  Gate: port-bf16 vs JAX-bf16 max abs at
   most 2x JAX-bf16 vs JAX-fp32; and the port's bf16 output differs from its
   fp32 one (a policy that silently ran float32 would fail).  Measured on
-  this repository's CPU: flagship port-bf16 vs JAX-bf16 0.0270 against
+  the CPU: flagship port-bf16 vs JAX-bf16 0.0270 against
   JAX-bf16 vs JAX-fp32 0.0274, port bf16 vs fp32 0.0309; stroke 0.0277
   against 0.0340, port bf16 vs fp32 0.0233 (each test prints its own);
 - the frozen towers' rounding equals ``compact_frozen_variables`` leaf by
