@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Drives three paths of the port at full width on seeded random weights and
-seeded numpy samples, each through its own entry points, and the two serving
-paths again under the bf16 compute policy (--dtype bfloat16):
+seeded numpy samples, each through its own entry points, and all three again
+under the bf16 compute policy (--dtype bfloat16):
 
 - the flagship inference path (IG orientation inpainting -> partial-conv
   appearance encoder -> noise background encoder -> SPADEB generator with
@@ -93,7 +93,8 @@ Phases, each on its own line:
       one warm-up then 5 timed steps (ms/step, img/s, peak device memory)
       and one profiled step
   12. one G+D step on the card and on the CPU (plain versions) from the same
-      weights, batch 1, crop PARITY_CROP at full width: per-term losses
+      weights, batch 1, crop PARITY_CROP at full width, at torch's default
+      conv init and at the config's own (xavier, gain 0.02): per-term losses
       within rtol 1e-4, atol 1e-5; netG after the G step and netD after the
       D step (both started from the card's post-G state) by the scale-aware
       rule of tests/test_training.py; netG's running statistics and
@@ -112,6 +113,26 @@ Phases, each on its own line:
       the same CPU comparison; ms/edit beside phase 9's; conv3x3_in_act in
       bfloat16 in turns with cuDNN's bf16 conv + fused_instance_norm and
       beside its plain version; a profiler breakdown
+  15. the training step at --dtype bfloat16: conv3x3_same_lowch in bf16
+      against its plain version at (16, 64, 512^2) and (2, 64, 37, 53)
+      (atol 1e-2, rtol 1.6e-2) and, with F.conv2d in bf16, against a
+      float64 conv of the same bf16 values at batch 2 (at most 2x
+      F.conv2d's error); the bank's bf16-operand form against its plain
+      version at (8, 1, 512^2), Gabor and DoG (conf within one bf16 ulp, the
+      argmax off on at most 1% of the pixels and only at bf16 near-ties) and
+      against float64 sums of the bf16 operands; both timed at the step's
+      shapes (lowch in turns with F.conv2d in bf16); then the step at batch
+      8, 512^2, full width: launches per step exactly 29 fused_instance_norm,
+      1 conv3x3_same_lowch and 1 bank forward in bfloat16 and 1 bank
+      backward in float32; losses finite, netG and netD changed (float32),
+      netIG and VGG19 bit-identical in bf16; ms/step, img/s, G and D step,
+      peak memory and a profiled step with cuDNN's share, beside phase 11's
+      float32 numbers; then one bf16 G+D step card vs CPU at batch 1,
+      PARITY16's crop and width: per loss within BF16_CAL x the CPU's own
+      bf16-vs-fp32 difference of that loss or, where larger, the step's
+      median relative one (plus the fp32 agreement, rtol 1e-4, atol 1e-5),
+      netG's and netD's elements beyond float noise within BF16_CAL x the
+      CPU's own count (plus 0.1%)
 
 Then a JSON line of per-kernel results: for the training step's kernels
 (fused_instance_norm, filterbank_orientation and its backward,
@@ -131,9 +152,13 @@ conv3x3_in_act over one bf16 edit, fused_instance_norm over one bf16
 flagship forward) count 2-byte elements and bf16 products at 989 TFLOP/s,
 and the two conv3x3_in_act rows carry the replaced route's time
 (replaced_route_ms: cuDNN conv + fused_instance_norm, in the row's dtype).
-Last, the device line.  Any failure exits non-zero without the device line; so
-does a machine without CUDA, and a directory without the rest of the
-repository.
+The bf16 training step's rows (phase 15: conv3x3_same_lowch_bf16 with
+F.conv2d in bf16 as library_ms, bound at 989 TFLOP/s of bf16 products;
+filterbank_orientation_bf16, the bank's bf16-operand form, bound at the 495
+TFLOP/s of one TF32 product) take their launches from phase 15's counted
+step.  Last, the device line.  Any failure exits non-zero without the device
+line; so does a machine without CUDA, and a directory without the rest of
+the repository.
 """
 
 from __future__ import annotations
@@ -194,9 +219,19 @@ STROKE_BF16_LAUNCHES = {**NO_LAUNCHES, "spade_modulate": {"bfloat16": 18},
                         "fused_instance_norm": {"bfloat16": 10},
                         "conv3x3_in_act": {"bfloat16": 48},
                         "filterbank_orientation": {"float32": 1}}
+# the bf16 training step: the frozen IG's norms and VGG's features_2 in bf16,
+# the bank's forward on bf16 operands (counted as bfloat16), its gradient fp32
+STEP_BF16_LAUNCHES = {**NO_LAUNCHES, "fused_instance_norm": {"bfloat16": 29},
+                      "filterbank_orientation": {"bfloat16": 1},
+                      "filterbank_orientation_backward": {"float32": 1},
+                      "conv3x3_same_lowch": {"bfloat16": 1}}
 # the kernels line's bf16 rows: (kernel, the bf16 run it is read from)
 BF16_ROWS = {"spade_modulate": "edit", "fused_instance_norm": "flagship",
              "conv3x3_in_act": "edit"}
+# the bf16 step's two new forms: the kernels line's rows, and what each replaces
+STEP_BF16_ROWS = {"conv3x3_same_lowch": "michigan_tpu/ops/pallas/conv_lowch.py:99",
+                  # the JAX package's bf16 forward (_fb_s2d_core with fwd_bf16)
+                  "filterbank_orientation": "michigan_tpu/ops/filters.py:207"}
 REPLACES = {"spade_modulate": "michigan_tpu/ops/pallas/spade.py:285",
             "fused_instance_norm": "michigan_tpu/ops/pallas/spade.py:207",
             "conv3x3_in_act": "michigan_tpu/ops/pallas/epilogue.py:89",
@@ -211,14 +246,12 @@ SOURCES = {"spade_modulate": "michigan_tpu_torch/csrc/spade_norm.cu",
            "filterbank_orientation_backward": "michigan_tpu_torch/csrc/filterbank.cu",
            "conv3x3_same_lowch": "michigan_tpu_torch/csrc/conv_lowch.cu"}
 # the training step: bench.py's training flags (the config of record), with
-# torch's default conv init as the other phases.  Under the default gain-0.02
-# xavier init phase 12 reads 0.10-0.11% of netG's elements past its rule's
-# 0.1%: held against a float64 step on the CPU, the card's step is 0.09% off
-# and the CPU's fp32 step 0.03%.  The card's extra error comes from cuDNN's
-# fp32 convolutions (the implicit-GEMM forward and the Winograd weight
-# gradient err ~10x more than the CPU's conv at these shapes) and gathers in
-# head_0's gradients; with cuDNN off the card's step is 0.02% off.  Under
-# this init card vs CPU reads 0.06-0.07%
+# torch's default conv init as the other phases; phase 12 also runs the
+# config's own xavier init (gain 0.02), under which every conv on cuDNN put
+# 0.101% of netG's elements past its rule's 0.1% (cuDNN's float32
+# implicit-GEMM forward errs 3-5x PyTorch's own conv at the generator's
+# high-channel blocks, which now take cuDNN off in train mode:
+# models/generator.py CUDNN_OFF; tools/conv_algorithms.py)
 TRAIN_FLAGS = ("--netG spadeb --use_encoder --use_ig --noise_background --expand_mask_be "
                "--expand_th 5 --random_expand_mask --num_upsampling_layers more "
                "--init_type none --gpu_ids 0").split()
@@ -226,6 +259,11 @@ TRAIN_BATCH = 8  # the slice's batch: an out-of-memory error fails phase 11
 TRAIN_STEPS = 5
 EXTRA_DILATE = 2  # the expected random mask dilation (encoder.py:294)
 PARITY_CROP = 512
+# phase 15's card-bf16 vs CPU-bf16 step: batch 1 at this crop and width, so
+# that the CPU's two steps (bf16 and fp32) fit the script's time
+PARITY16 = dict(crop=256, ngf=32, ndf=32)
+FB16_TOL = dict(rtol=1e-2, atol=1e-3)  # one bf16 ulp of the response
+FB16_IDX_FRAC = 1e-2
 LOWCH_SHAPES = [(16, 64, 512, 512), (2, 64, 37, 53)]  # features_2 at batch 8; a ragged tile
 NEW_KERNEL_REL = 1e-4  # of the reference's largest magnitude
 F64_RATIO = 2.0  # a conv kernel's error against float64 at most 2x F.conv2d's in fp32
@@ -235,7 +273,8 @@ SEED = 0
 # cores through the 3xTF32 split, a third of the 495 TFLOP/s TF32 rate
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
-TF32X3_FLOP_S = 495e12 / 3
+TF32_FLOP_S = 495e12  # one TF32 product: the bank's bf16-operand form
+TF32X3_FLOP_S = TF32_FLOP_S / 3
 BF16_FLOP_S = 989e12  # dense bf16 products on the tensor cores
 
 
@@ -320,13 +359,16 @@ def host_ms(fn, torch, reps):
     return statistics.median(times) * 1e3
 
 
-CONV_OPS = ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose")
+# cuDNN's forward convolutions, and every convolution's backward (the
+# training steps'; the inference paths have none)
+CONV_OPS = ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose",
+            "aten::convolution_backward")
 
 
 def profile_once(fn, torch):
-    """(device busy ms, wall ms, table, device ms of cuDNN's convolutions)
-    of one call under torch.profiler; raises when the profiler lists no
-    device activity."""
+    """(device busy ms, wall ms, table, device ms of CONV_OPS) of one call
+    under torch.profiler; raises when the profiler lists no device
+    activity."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -452,6 +494,30 @@ def fb_compare(torch, got, want, gray, bank):
     return ok, (conf - p_conf).abs().max().item(), frac, note
 
 
+def fb16_compare(torch, got, want, gray, bank):
+    """(ok, conf max abs error, share of pixels whose argmax differs) of the
+    bank's bf16-operand form against its plain version: conf within one bf16
+    ulp (FB16_TOL: the float32 sums, taken in another order, may round to
+    the neighbouring bf16 value), the argmax off on at most FB16_IDX_FRAC of
+    the pixels, and there only where the two orientations' bf16 responses
+    (float64 sums of the bf16 operands, rounded to bf16) tie within FB16_TOL."""
+    idx, conf = got
+    p_idx, p_conf = want
+    differ = idx != p_idx
+    frac = differ.float().mean().item()
+    ties_ok = True
+    if differ.any():
+        res = float64_responses(gray.bfloat16().double(), bank.bfloat16().double())
+        res = res.bfloat16().double()
+        n_, y_, x_ = differ.nonzero(as_tuple=True)
+        a, b = (res[n_, i[differ].long(), y_, x_] for i in (idx, p_idx))
+        ties_ok = bool(((a - b).abs() <= FB16_TOL["atol"] + FB16_TOL["rtol"] * b.abs()).all())
+        del res
+    ok = torch.allclose(conf, p_conf, **FB16_TOL) and frac <= FB16_IDX_FRAC and ties_ok \
+        and torch.equal(conf.bfloat16().float(), conf)
+    return ok, (conf - p_conf).abs().max().item(), frac
+
+
 def train_grays(torch, n=8):
     """(n, 1, 512, 512) gray planes of strand images: the orientation loss's
     input at the training step's shape (n = 8), textured so that the bank's
@@ -504,6 +570,36 @@ def scale_aware(got, want, max_lr):
     return worst <= 2.5 * max_lr and n_bad <= max(1e-3 * n_tot, 8), worst, n_bad, n_tot
 
 
+def loss_and_param_gate(torch, card, cpu16, cpu32, lrs):
+    """Phase 15's calibrated comparison of three one-step runs ({'losses':
+    {name: float}, 'params': {net: {name: tensor}}}): card-bf16 vs CPU-bf16
+    per loss within BF16_CAL x the CPU's own bf16 vs fp32 difference of that
+    loss, or of the step (the median over the losses of that difference over
+    the loss), whichever is larger, plus the float32 agreement (rtol 1e-4,
+    atol 1e-5): a loss whose own bf16 effect happens to cancel is held to
+    the step's; per net, the elements beyond float noise of the scale-aware
+    rule within BF16_CAL x the CPU's own count (plus its 0.1% allowance),
+    every element within 2.5 lr.  Returns (ok, printable rows)."""
+    ok, rows = True, []
+    step_rel = statistics.median(abs(v - cpu32["losses"][k]) / max(abs(v), 1e-12)
+                                 for k, v in cpu16["losses"].items())
+    for k, want in cpu16["losses"].items():
+        gap = abs(card["losses"][k] - want)
+        cal = max(abs(want - cpu32["losses"][k]), step_rel * abs(want))
+        good = gap <= BF16_CAL * cal + 1e-5 + 1e-4 * abs(want)
+        ok &= good
+        rows.append(f"{k} {gap:.2e}/{cal:.2e}{'' if good else ' FAIL'}")
+    for net, lr in lrs.items():
+        got, want, ref = (r["params"][net] for r in (card, cpu16, cpu32))
+        _, worst, bad, tot = scale_aware(got, want, lr)
+        _, _, cal_bad, _ = scale_aware(ref, want, lr)
+        good = worst <= 2.5 * lr and bad <= BF16_CAL * cal_bad + max(1e-3 * tot, 8)
+        ok &= good
+        rows.append(f"{net}: {bad} of {tot} beyond float noise (CPU bf16 vs fp32 {cal_bad}), "
+                    f"max diff {worst:.2e} (limit {2.5 * lr:.1e}){'' if good else ' FAIL'}")
+    return ok, rows
+
+
 def step_breakdown(torch, trainer, batch):
     """Host-clock ms (median of 3, each ending in a synchronize) of the
     training step's parts, each run alone on the step's batch; nothing is
@@ -521,10 +617,10 @@ def step_breakdown(torch, trainer, batch):
         def g_fwd_bwd():
             m.generate_fake(pre, orient, EXTRA_DILATE).sum().backward()
 
-        def vgg():
-            sum(f.sum() for f in m.vgg(fake)).backward()
+        def vgg():  # in the compute dtype, as generator_loss runs the towers
+            sum(f.float().sum() for f in m.vgg(fake.to(m.compute_dtype))).backward()
             with torch.no_grad():
-                m.vgg(torch.cat([pre["image_tag"], pre["image_ref"]]))
+                m.vgg(torch.cat([pre["image_tag"], pre["image_ref"]]).to(m.compute_dtype))
 
         def d_fwd_bwd():
             pf, pr = m.discriminate(pre["input_tag"], fake, pre["image_tag"], orient)
@@ -1178,9 +1274,10 @@ def run():
     torch.cuda.empty_cache()
 
     # 11 --------------------------------------------------------------
-    def make_trainer(n, crop):
+    def make_trainer(n, crop, extra=()):
         o = train_options(TRAIN_FLAGS + ["--batchSize", str(n), "--crop_size", str(crop),
-                                         "--load_size", str(crop), "--seed", str(SEED)])
+                                         "--load_size", str(crop), "--seed", str(SEED),
+                                         *extra])
         m = MichiGANModel(o, "cuda:0")
         m.init_weights(SEED)
         return o, TrainStep(m)
@@ -1251,61 +1348,79 @@ def run():
               f"{statistics.median(d_times):.1f} ms (medians of 3) {tag}")
     for k, v in step_breakdown(torch, trainer, tbatch).items():
         phase(11, f"  part, alone: {k}: {v:.1f} ms {tag}")
-    busy_ms, wall_ms, table, _conv_ms = profile_once(train_step, torch)
+    busy_ms, wall_ms, table, conv_ms = profile_once(train_step, torch)
     phase(11, f"profiled training step: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
-              f"under the profiler {tag}; top device time:")
+              f"under the profiler, convolutions (cuDNN's forward ops and every convolution's "
+              f"backward) {conv_ms:.2f} ms ({conv_ms / busy_ms:.0%} of busy) {tag}; top device "
+              f"time:")
     print(table, flush=True)
+    # phase 15 sets the bf16 step beside these
+    step32 = dict(ms=ms_step, peak=peak, g=statistics.median(g_times),
+                  d=statistics.median(d_times), busy=busy_ms, wall=wall_ms, conv=conv_ms)
     del trainer, tbatch, nets, g_losses, d_losses, orient_t, _fake
     torch.cuda.empty_cache()
 
     # 12 --------------------------------------------------------------
-    popt, card = make_trainer(1, PARITY_CROP)
-    cpu_model = MichiGANModel(popt, "cpu")
-    cpu_model.load_state_dicts({k: {n_: t.cpu() for n_, t in net.state_dict().items()}
-                                for k, net in card.model.nets().items()})
-    cpu = TrainStep(cpu_model)
-    data = synthetic_train_data(popt, SEED, 1)
-    b_card, b_cpu = batch_from_numpy(data, "cuda:0"), batch_from_numpy(data, "cpu")
-    g_card, _, o_card = card.g_step(b_card, EXTRA_DILATE)
-    t0 = time.perf_counter()
-    g_cpu, _, o_cpu = cpu.g_step(b_cpu, EXTRA_DILATE)
-    t_g = time.perf_counter() - t0
-    state = lambda net, params: {k: v.detach().cpu() for k, v in (
-        net.named_parameters() if params else net.named_buffers())}
-    g_params = scale_aware(state(cpu_model.netG, True), state(card.model.netG, True),
-                           popt.lr / 2)
-    bufs_card, bufs_cpu = state(card.model.netG, False), state(cpu_model.netG, False)
-    buf_err = max((bufs_cpu[k] - v).abs().max().item() for k, v in bufs_card.items()
-                  if v.is_floating_point())
-    bufs_ok = all(torch.allclose(bufs_cpu[k], v, rtol=1e-4, atol=1e-5)
-                  for k, v in bufs_card.items() if v.is_floating_point())
-    # the D step on both from the card's post-G state: the G step's few
-    # Adam sign flips would otherwise move the recomputed fake
-    cpu_model.netG.load_state_dict({k: v.cpu() for k, v in card.model.netG.state_dict().items()})
-    d_card = card.d_step(b_card, EXTRA_DILATE, o_card)
-    t0 = time.perf_counter()
-    d_cpu = cpu.d_step(b_cpu, EXTRA_DILATE, o_cpu)
-    t_d = time.perf_counter() - t0
-    d_params = scale_aware(state(cpu_model.netD, True), state(card.model.netD, True),
-                           2 * popt.lr)
-    loss_rows, losses_ok = [], True
-    for k in list(g_card) + list(d_card):
-        a = (g_card.get(k) if k in g_card else d_card[k]).item()
-        b = (g_cpu.get(k) if k in g_cpu else d_cpu[k]).item()
-        ok = abs(a - b) <= 1e-5 + 1e-4 * abs(b)
-        losses_ok &= ok
-        loss_rows.append(f"{k} {a:.6f}/{b:.6f}{'' if ok else ' FAIL'}")
-    phase(12, f"one G+D step card/CPU, batch 1, {PARITY_CROP}^2, ngf {popt.ngf}, ndf "
-              f"{popt.ndf}: " + ", ".join(loss_rows))
-    phase(12, f"netG after the G step: max diff {g_params[1]:.2e} (limit {2.5 * popt.lr / 2:.1e}), "
-              f"{g_params[2]} of {g_params[3]} elements beyond float noise; netG buffers max "
-              f"diff {buf_err:.2e}; netD after the D step: max diff {d_params[1]:.2e} (limit "
-              f"{2.5 * 2 * popt.lr:.1e}), {d_params[2]} of {d_params[3]} beyond float noise; "
-              f"CPU G step {t_g:.1f} s, D step {t_d:.1f} s")
-    if not (losses_ok and g_params[0] and d_params[0] and bufs_ok):
-        return fail("the card's and the CPU's training steps disagree")
-    del card, cpu, cpu_model, b_card, b_cpu
-    torch.cuda.empty_cache()
+    def step_parity(init):
+        """One G+D step card vs CPU at `init` (--init_type); returns the
+        failure message or None."""
+        popt, card = make_trainer(1, PARITY_CROP, ["--init_type", init])
+        cpu_model = MichiGANModel(popt, "cpu")
+        cpu_model.load_state_dicts({k: {n_: t.cpu() for n_, t in net.state_dict().items()}
+                                    for k, net in card.model.nets().items()})
+        cpu = TrainStep(cpu_model)
+        data = synthetic_train_data(popt, SEED, 1)
+        b_card, b_cpu = batch_from_numpy(data, "cuda:0"), batch_from_numpy(data, "cpu")
+        g_card, _, o_card = card.g_step(b_card, EXTRA_DILATE)
+        t0 = time.perf_counter()
+        g_cpu, _, o_cpu = cpu.g_step(b_cpu, EXTRA_DILATE)
+        t_g = time.perf_counter() - t0
+        state = lambda net, params: {k: v.detach().cpu() for k, v in (
+            net.named_parameters() if params else net.named_buffers())}
+        g_params = scale_aware(state(cpu_model.netG, True), state(card.model.netG, True),
+                               popt.lr / 2)
+        bufs_card, bufs_cpu = state(card.model.netG, False), state(cpu_model.netG, False)
+        buf_err = max((bufs_cpu[k] - v).abs().max().item() for k, v in bufs_card.items()
+                      if v.is_floating_point())
+        bufs_ok = all(torch.allclose(bufs_cpu[k], v, rtol=1e-4, atol=1e-5)
+                      for k, v in bufs_card.items() if v.is_floating_point())
+        # the D step on both from the card's post-G state: the G step's few
+        # Adam sign flips would otherwise move the recomputed fake
+        cpu_model.netG.load_state_dict({k: v.cpu() for k, v in
+                                        card.model.netG.state_dict().items()})
+        d_card = card.d_step(b_card, EXTRA_DILATE, o_card)
+        t0 = time.perf_counter()
+        d_cpu = cpu.d_step(b_cpu, EXTRA_DILATE, o_cpu)
+        t_d = time.perf_counter() - t0
+        d_params = scale_aware(state(cpu_model.netD, True), state(card.model.netD, True),
+                               2 * popt.lr)
+        loss_rows, losses_ok = [], True
+        for k in list(g_card) + list(d_card):
+            a = (g_card.get(k) if k in g_card else d_card[k]).item()
+            b = (g_cpu.get(k) if k in g_cpu else d_cpu[k]).item()
+            ok = abs(a - b) <= 1e-5 + 1e-4 * abs(b)
+            losses_ok &= ok
+            loss_rows.append(f"{k} {a:.6f}/{b:.6f}{'' if ok else ' FAIL'}")
+        phase(12, f"one G+D step card/CPU at --init_type {init}, batch 1, {PARITY_CROP}^2, ngf "
+                  f"{popt.ngf}, ndf {popt.ndf}: " + ", ".join(loss_rows))
+        phase(12, f"--init_type {init}: netG after the G step: max diff {g_params[1]:.2e} (limit "
+                  f"{2.5 * popt.lr / 2:.1e}), {g_params[2]} of {g_params[3]} elements beyond "
+                  f"float noise (limit {max(1e-3 * g_params[3], 8):.0f}); netG buffers max diff "
+                  f"{buf_err:.2e}; netD after the D step: max diff {d_params[1]:.2e} (limit "
+                  f"{2.5 * 2 * popt.lr:.1e}), {d_params[2]} of {d_params[3]} beyond float noise; "
+                  f"CPU G step {t_g:.1f} s, D step {t_d:.1f} s")
+        if not (losses_ok and g_params[0] and d_params[0] and bufs_ok):
+            return f"the card's and the CPU's training steps disagree at --init_type {init}"
+        return None
+
+    # torch's default conv init as the other phases, and the config's own
+    # (xavier, gain 0.02), for which the generator's CUDNN_OFF blocks take
+    # cuDNN off (models/generator.py)
+    for init in ("none", "xavier"):
+        msg = step_parity(init)
+        torch.cuda.empty_cache()
+        if msg:
+            return fail(msg)
 
     # 13 --------------------------------------------------------------
     # the serving paths under the bf16 compute policy: bf16 device time of
@@ -1462,6 +1577,231 @@ def run():
     print(table, flush=True)
     del smodel16, sbatch, u8, sfake16
 
+    # 15 --------------------------------------------------------------
+    # the bf16 training step (--dtype bfloat16): its two new kernel forms,
+    # conv3x3_same_lowch in bf16 (A) and the bank's bf16-operand forward
+    # (B), against their plain versions and float64, then the step
+    torch.cuda.empty_cache()
+    cgen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    failed, step16_ms, step16_plain_ms, step16_work = [], {}, {}, {}
+    k = "conv3x3_same_lowch"
+    max_err_bf16[k] = 0.0
+    for shape in LOWCH_SHAPES:
+        # features_2 as the bf16 tower runs it: bf16 ReLU output, bf16 weight
+        x = torch.randn(shape, generator=cgen, device="cuda").relu_().bfloat16()
+        w = (torch.randn((64, shape[1], 3, 3), generator=cgen, device="cuda")
+             * math.sqrt(2 / (9 * shape[1]))).bfloat16()
+        got, want = LC.conv3x3_same_lowch(x, w), LC.conv3x3_same_lowch_plain(x, w)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = got.dtype == torch.bfloat16 and torch.allclose(got.float(), want.float(),
+                                                            **TOLS["bfloat16"])
+        max_err_bf16[k] = max(max_err_bf16[k], err)
+        print(f"[phase 15] {k} bfloat16 {shape} vs its plain version: max_abs_err {err:.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append((k, shape))
+    del x, w, got, want
+    k = "filterbank_orientation"
+    grays = train_grays(torch)
+    for mode in ("gabor", "dog"):
+        bank = filters.bank(mode, grays.device)
+        ok, err, frac = fb16_compare(torch, O.filterbank_orientation(grays, bank, True),
+                                     O.filterbank_orientation_plain(grays, bank, True), grays,
+                                     bank)
+        torch.cuda.synchronize()
+        max_err_bf16[k] = max(max_err_bf16.get(k, 0.0), err)
+        print(f"[phase 15] {k} bf16 operands {mode} (8,1,512,512) vs its plain version: conf "
+              f"max_abs_err {err:.3e}, argmax differs on {frac:.2e} of pixels (limit "
+              f"{FB16_IDX_FRAC:g}, near-ties only) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append((k, mode))
+    if failed:
+        return fail(f"a bf16 form disagrees with its plain version: {failed}")
+    # against float64 at batch 2: A and F.conv2d in bf16 from the same bf16
+    # values; B and its plain version against float64 sums of the bf16
+    # operands (both round each response to bf16)
+    x = torch.randn((2, 64, 512, 512), generator=cgen, device="cuda").relu_().bfloat16()
+    w = (torch.randn((64, 64, 3, 3), generator=cgen, device="cuda") * math.sqrt(2 / 576)).bfloat16()
+    want = LC.conv3x3_same_lowch_plain(x.double(), w.double())
+    k_rel = rel_err(LC.conv3x3_same_lowch(x, w), want)
+    l_rel = rel_err(F.conv2d(x, w, padding=1), want)
+    ok = k_rel <= F64_RATIO * l_rel
+    print(f"[phase 15] conv3x3_same_lowch bfloat16 (2,64,512,512) against float64, largest error "
+          f"over the largest magnitude: kernel {k_rel:.3e}, F.conv2d in bf16 {l_rel:.3e} (limit "
+          f"{F64_RATIO:g}x) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        return fail("conv3x3_same_lowch in bf16 is less accurate than cuDNN's bf16 conv")
+    del x, w, want
+    g2 = grays[:2]
+    for mode in ("gabor", "dog"):
+        bank = filters.bank(mode, g2.device)
+        c64 = float64_responses(g2.bfloat16().double(), bank.bfloat16().double()).amax(dim=1)
+        k_conf = O.filterbank_orientation(g2, bank, True)[1]
+        p_conf = O.filterbank_orientation_plain(g2, bank, True)[1]
+        k_err, p_err = ((c.double() - c64).abs().max().item() for c in (k_conf, p_conf))
+        ok = k_err <= F64_RATIO * p_err
+        print(f"[phase 15] filterbank_orientation bf16 operands {mode} (2,1,512,512) against "
+              f"float64 sums of the bf16 operands: conf max_abs_err kernel {k_err:.3e}, plain "
+              f"version {p_err:.3e} (limit {F64_RATIO:g}x; both round to bf16) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            return fail("the bank's bf16-operand form is less accurate than its plain version")
+    del c64, g2, k_conf, p_conf
+    # device times at the step's shapes: A in turns with F.conv2d in bf16
+    n_, c_, h_, w_ = LOWCH_SHAPES[0]
+    x = torch.randn(LOWCH_SHAPES[0], generator=cgen, device="cuda").relu_().bfloat16()
+    w = (torch.randn((64, c_, 3, 3), generator=cgen, device="cuda") * math.sqrt(2 / (9 * c_))).bfloat16()
+    fk = lambda: LC.conv3x3_same_lowch(x, w)
+    fl = lambda: F.conv2d(x, w, padding=1)
+    turns = {fk: [], fl: []}
+    for f in (fl, fk, fk, fl):
+        turns[f].append(median_ms(f, torch, True, inner=5))
+    k = "conv3x3_same_lowch"
+    step16_ms[k], lib16_lowch = statistics.mean(turns[fk]), statistics.mean(turns[fl])
+    step16_plain_ms[k] = median_ms(lambda: LC.conv3x3_same_lowch_plain(x, w), torch, True, inner=5)
+    # bf16 x, w and output; 2 FLOP per FMA at the dense bf16 rate
+    step16_work[k] = [2 * (n_ * c_ * h_ * w_ + n_ * 64 * h_ * w_ + 64 * c_ * 9),
+                      2 * n_ * 64 * h_ * w_ * c_ * 9]
+    a_bound = bound(*step16_work[k], BF16_FLOP_S)
+    print(f"[phase 15] {k} bfloat16 {LOWCH_SHAPES[0]} x1/step: device kernel "
+          f"{', '.join(f'{t:.3f}' for t in turns[fk])} ms "
+          f"({step16_work[k][1] / 1e9 / step16_ms[k]:.1f} TFLOP/s; bound {a_bound[0]:.3f} ms by "
+          f"{a_bound[1]}), F.conv2d in bf16 {', '.join(f'{t:.3f}' for t in turns[fl])} ms (in "
+          f"turns: F.conv2d, kernel, kernel, F.conv2d), plain version {step16_plain_ms[k]:.3f} ms "
+          f"{tag}", flush=True)
+    del x, w, fk, fl, turns
+    k = "filterbank_orientation"
+    bank = filters.bank("gabor", grays.device)  # the loss's bank
+    step16_ms[k] = median_ms(lambda: O.filterbank_orientation(grays, bank, True), torch, True,
+                             inner=5)
+    step16_plain_ms[k] = median_ms(lambda: O.filterbank_orientation_plain(grays, bank, True),
+                                   torch, True, inner=5)
+    # 4-byte gray in, idx and conf out; 289 x 32 products per pixel, one
+    # TF32 product each
+    step16_work[k] = [12 * grays.numel() + bank.numel() * 4, 2 * grays.numel() * 32 * 289]
+    b_bound = bound(*step16_work[k], TF32_FLOP_S)
+    print(f"[phase 15] {k} bf16 operands (8,1,512,512) x1/step: device kernel "
+          f"{step16_ms[k] * 1e3:.1f} us (the 3xTF32 form {step_ms[k] * 1e3:.1f} us in phase 10; "
+          f"bound {b_bound[0] * 1e3:.1f} us by {b_bound[1]}), plain version "
+          f"{step16_plain_ms[k] * 1e3:.1f} us {tag}", flush=True)
+    del grays, bank
+    torch.cuda.empty_cache()
+
+    # the step at batch 8, 512^2, full width
+    n = TRAIN_BATCH
+    topt16, trainer16 = make_trainer(n, 512, ["--dtype", "bfloat16"])
+    tbatch = batch_from_numpy(synthetic_train_data(topt16, SEED, n), "cuda:0")
+    before = {k: snapshot(net) for k, net in trainer16.model.nets().items()}
+    kernels.reset_launch_counts()
+    g_losses, _fake, orient_t = trainer16.g_step(tbatch, EXTRA_DILATE)
+    d_losses = trainer16.d_step(tbatch, EXTRA_DILATE, orient_t)
+    torch.cuda.synchronize()
+    step16_counts = kernels.launch_counts(by_dtype=True)
+    phase(15, f"bf16 training step on the card, batch {n}, {topt16.crop_size}^2, ngf "
+              f"{topt16.ngf}, ndf {topt16.ndf}: launches {step16_counts}")
+    if step16_counts != STEP_BF16_LAUNCHES:
+        return fail(f"expected launches per bf16 step {STEP_BF16_LAUNCHES}, got {step16_counts}")
+    losses = {k: v.item() for k, v in {**g_losses, **d_losses}.items()}
+    phase(15, "losses " + ", ".join(f"{k} {v:.4f}" for k, v in losses.items()))
+    nets = trainer16.model.nets()
+    moved = {k: any(not torch.equal(p, before[k][name]) for name, p in nets[k].named_parameters())
+             for k in ("netG", "netD")}
+    frozen = {k: all(t.dtype == before[k][name].dtype and torch.equal(t, before[k][name])
+                     for name, t in nets[k].state_dict().items()) for k in ("netIG", "vgg")}
+    stored = {k: sorted({str(t.dtype) for t in nets[k].state_dict().values()
+                         if t.is_floating_point()}) for k in nets}
+    phase(15, f"parameters changed {moved}; frozen nets bit-identical {frozen}; floating "
+              f"dtypes stored {stored}")
+    if not all(math.isfinite(v) for v in losses.values()) or not all(moved.values()) \
+            or not all(frozen.values()) or stored["vgg"] != ["torch.bfloat16"] \
+            or stored["netG"] != ["torch.float32"]:
+        return fail("the bf16 training step's losses, updates or stored dtypes are wrong")
+    del before
+
+    def train_step16():
+        _g, _f, o = trainer16.g_step(tbatch, EXTRA_DILATE)
+        trainer16.d_step(tbatch, EXTRA_DILATE, o)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        train_step16()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak16 = torch.cuda.max_memory_allocated()
+    ms16 = statistics.median(times)
+    phase(15, f"{TRAIN_STEPS} timed bf16 steps after the warm-up: "
+              f"{', '.join(f'{t:.1f}' for t in times)} ms; median {ms16:.1f} ms/step, "
+              f"{n / ms16 * 1e3:.2f} img/s (fp32 {step32['ms']:.1f} ms, "
+              f"{n / step32['ms'] * 1e3:.2f} img/s); peak device memory {peak16 / 2**30:.2f} GiB "
+              f"(fp32 {step32['peak'] / 2**30:.2f}), of which {live / 2**30:.2f} GiB live before "
+              f"the steps {tag}")
+    g_times, d_times = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _g, _f, o = trainer16.g_step(tbatch, EXTRA_DILATE)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer16.d_step(tbatch, EXTRA_DILATE, o)
+        torch.cuda.synchronize()
+        g_times.append((t1 - t0) * 1e3)
+        d_times.append((time.perf_counter() - t1) * 1e3)
+    phase(15, f"bf16 G step {statistics.median(g_times):.1f} ms, D step "
+              f"{statistics.median(d_times):.1f} ms (medians of 3; fp32 {step32['g']:.1f} / "
+              f"{step32['d']:.1f}) {tag}")
+    for k, v in step_breakdown(torch, trainer16, tbatch).items():
+        phase(15, f"  part, alone: {k}: {v:.1f} ms {tag}")
+    busy_ms, wall_ms, table, conv_ms = profile_once(train_step16, torch)
+    phase(15, f"profiled bf16 training step: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms "
+              f"wall, convolutions (cuDNN's forward ops and every convolution's backward) "
+              f"{conv_ms:.2f} ms ({conv_ms / busy_ms:.0%} of busy; fp32 {step32['conv']:.2f} of "
+              f"{step32['busy']:.2f} ms) {tag}; top device time:")
+    print(table, flush=True)
+    del trainer16, tbatch, nets, g_losses, d_losses, orient_t, _fake
+    torch.cuda.empty_cache()
+
+    # one bf16 G+D step, card vs CPU, calibrated on the CPU's bf16 vs fp32
+    extra16 = ["--ngf", str(PARITY16["ngf"]), "--ndf", str(PARITY16["ndf"])]
+    popt16, card16 = make_trainer(1, PARITY16["crop"], extra16 + ["--dtype", "bfloat16"])
+    popt32 = train_options(TRAIN_FLAGS + ["--batchSize", "1", "--crop_size",
+                                          str(PARITY16["crop"]), "--load_size",
+                                          str(PARITY16["crop"]), "--seed", str(SEED), *extra16])
+    init16 = {k: {n_: t.detach().cpu().clone() for n_, t in net.state_dict().items()}
+              for k, net in card16.model.nets().items()}
+
+    def cpu_trainer(o):
+        m = MichiGANModel(o, "cpu")
+        m.load_state_dicts(init16)  # float32 modules take the bf16 frozen leaves as they are
+        return TrainStep(m)
+
+    data = synthetic_train_data(popt16, SEED, 1)
+    runs16, t_run = {}, {}
+    for name, tr, dev in (("card", card16, "cuda:0"), ("cpu16", cpu_trainer(popt16), "cpu"),
+                          ("cpu32", cpu_trainer(popt32), "cpu")):
+        b = batch_from_numpy(data, dev)
+        t0 = time.perf_counter()
+        g, _f, o_ = tr.g_step(b, EXTRA_DILATE)
+        d = tr.d_step(b, EXTRA_DILATE, o_)
+        t_run[name] = time.perf_counter() - t0
+        runs16[name] = {"losses": {k: v.item() for k, v in {**g, **d}.items()},
+                        "params": {net: {k: v.detach().cpu() for k, v in
+                                         getattr(tr.model, net).named_parameters()}
+                                   for net in ("netG", "netD")}}
+    ok, rows = loss_and_param_gate(torch, runs16["card"], runs16["cpu16"], runs16["cpu32"],
+                                   {"netG": popt16.lr / 2, "netD": 2 * popt16.lr})
+    phase(15, f"one bf16 G+D step card/CPU, batch 1, {PARITY16['crop']}^2, ngf "
+              f"{PARITY16['ngf']}, ndf {PARITY16['ndf']}, per loss card-vs-CPU bf16 / CPU bf16 "
+              f"vs fp32: " + ", ".join(rows) + f"; CPU steps {t_run['cpu16']:.1f} s (bf16), "
+              f"{t_run['cpu32']:.1f} s (fp32)")
+    if not ok:
+        return fail("the card's and the CPU's bf16 training steps disagree")
+    del card16, runs16, init16
+    torch.cuda.empty_cache()
+
     train_kernels = ("fused_instance_norm", "filterbank_orientation",
                      "filterbank_orientation_backward", "conv3x3_same_lowch")
     rows = {k: (stroke_counts[k], edit_ms[k], edit_plain_ms[k])
@@ -1494,6 +1834,16 @@ def run():
                 f"the flagship's {bf16_in_lib['calls']} act=None calls, where the kernel takes "
                 f"{bf16_in_lib['kernel']} ms")} if k == "fused_instance_norm" else {}),
             **({"replaced_route_ms": epi_route16_ms} if k == "conv3x3_in_act" else {})})
+    # the bf16 training step's two forms: launches from phase 15's counted step
+    for k, replaces in STEP_BF16_ROWS.items():
+        lowch = k == "conv3x3_same_lowch"
+        b_ms, b_by = bound(*step16_work[k], BF16_FLOP_S if lowch else TF32_FLOP_S)
+        kernel_rows.append({
+            "name": f"{k}_bf16", "route": "cuda", "source": SOURCES[k], "replaces": replaces,
+            "launches": step16_counts[k]["bfloat16"], "max_abs_err": max_err_bf16[k],
+            "ms": step16_ms[k], "plain_ms": step16_plain_ms[k], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib16_lowch if lowch else None,
+            **({} if lowch else {"operands": "bf16, sums float32"})})
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

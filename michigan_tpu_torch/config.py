@@ -229,8 +229,10 @@ class Options:
 
     # ---- the JAX package's extensions (no reference analog) ----
     # Same names and defaults as michigan_tpu/config.py.  The port reads
-    # dtype (float32, or bfloat16 for inference: the bf16 compute policy),
-    # seed, use_pallas_epilogue (the resblocks' fused conv3x3_in_act kernel),
+    # dtype (float32, or bfloat16: the bf16 compute policy, for inference
+    # and training), orient_bank_fp32 (the orientation loss's bank in
+    # float32 under bfloat16), seed, use_pallas_epilogue (the resblocks'
+    # fused conv3x3_in_act kernel),
     # reuse_orient_for_d, max_steps, debug_nans and profile_dir (the
     # trainer's finite-loss check and one profiled step), and refuses remat,
     # fused_step and reuse_fake_for_d (check_supported in model.py); the rest

@@ -41,12 +41,12 @@
 // float32), as the TPU kernel under the bf16 policy: the convolution sums in
 // float32 and the statistics, normalisation, activation and residual add
 // run on that float32 sum; the output is rounded to bf16 once.
-// - pass 0 (pair_kernel) rewrites x_pad as bf16 channel pairs, one 32-bit
-//   word per pixel, rows padded to 16 bytes, and the weights as (co, pair,
-//   tap) words rounded to bf16: the layout the bf16 tile's mma.sync
-//   m16n8k16 fragments load as they are (conv3x3_tile.cuh), in 16-byte
-//   cp.async copies at either dilation.  ~2.4 MB each way, one thread a
-//   word in 32-bit indices.
+// - pass 0 (pair_kernel, bf16_pairs.cuh) rewrites x_pad as bf16 channel
+//   pairs, one 32-bit word per pixel, rows padded to 16 bytes, and the
+//   weights as (co, pair, tap) words rounded to bf16: the layout the bf16
+//   tile's mma.sync m16n8k16 fragments load as they are (conv3x3_tile.cuh),
+//   in 16-byte cp.async copies at either dilation.  ~2.4 MB each way, one
+//   thread a word in 32-bit indices.
 // - pass 1 is the same tile with one bf16 product per step of 16 channels,
 //   a fresh accumulator chain per step; it writes the pre-norm sum in
 //   float32 to scratch, not to the bf16 output (a bf16 pre-norm would round
@@ -62,6 +62,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_pairs.cuh"
 #include "conv3x3_tile.cuh"
 #include "welford.cuh"
 
@@ -74,6 +75,7 @@ using conv3x3::kNT;
 using conv3x3::kRows;
 using conv3x3::kThreads;
 using conv3x3::kWarpsN;
+using bf16_pairs::bf16_bits;
 constexpr int kNormThreads = 256;
 // two groups of 8 warps, each on every other 8 input channels, and a
 // 3-stage ring (3 x 57 KB at dilation 2; dilation 4 is the most that fits
@@ -86,7 +88,6 @@ constexpr int kBlock = kThreads * kGroups;
 // the bf16 pair planes' rows are padded to a multiple of this many words
 // (16 bytes), so that every halo copy is a 16-byte cp.async
 constexpr int kRowWords = 4;
-constexpr int kPairThreads = 256;
 
 enum Act { kActNone = 0, kActRelu = 1, kActLrelu = 2 };
 
@@ -221,9 +222,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
                      __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
-__device__ __forceinline__ unsigned bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
 __device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
 __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = make_uint2(bf16_bits(v.x) | (bf16_bits(v.y) << 16),
@@ -275,47 +273,6 @@ norm_act_kernel(const float* y, T* out, const T* __restrict__ residual,
       if (rp) v += load1(rp + i);
       store1(op + i, v);
     }
-  }
-}
-
-__device__ __forceinline__ unsigned pair_bits(uint16_t v) { return v; }
-__device__ __forceinline__ unsigned pair_bits(float v) { return bf16_bits(v); }
-
-// Pass 0 of the bf16 form: x (n, c, hp, wp) bf16 -> xi (n, p, hp, wq) words
-// and w (co, c, 9) float32 or bf16 -> wi (co, p, 9) words rounded to bf16
-// (to nearest even, as torch's cast); p = ceil(c / 2), the even channel in
-// the low half; zero past channel c and past column wp.  One thread a word,
-// over xi's words and then wi's, in 32-bit indices (the launcher refuses
-// more than 2^31 words in all): 64-bit division is a long software routine.
-template <typename WT>
-__global__ void __launch_bounds__(kPairThreads)
-pair_kernel(const uint16_t* __restrict__ x, uint32_t* __restrict__ xi, unsigned nx, unsigned c,
-            unsigned p, unsigned hp, unsigned wp, unsigned wq, const WT* __restrict__ w,
-            uint32_t* __restrict__ wi, unsigned nw) {
-  const unsigned i = blockIdx.x * kPairThreads + threadIdx.x;
-  if (i < nx) {
-    const unsigned col = i % wq;
-    unsigned r = i / wq;
-    const unsigned row = r % hp;
-    r /= hp;
-    const unsigned pp = r % p;
-    const unsigned nn = r / p;
-    unsigned lo = 0, hi = 0;
-    if (col < wp) {
-      const unsigned src = ((nn * c + 2 * pp) * hp + row) * wp + col;
-      lo = x[src];
-      if (2 * pp + 1 < c) hi = x[src + hp * wp];
-    }
-    xi[i] = lo | (hi << 16);
-  } else if (i - nx < nw) {
-    const unsigned j = i - nx;
-    const unsigned tap = j % 9;
-    const unsigned r = j / 9;
-    const unsigned pp = r % p;
-    const unsigned src = ((r / p) * c + 2 * pp) * 9 + tap;
-    const unsigned lo = pair_bits(w[src]);
-    const unsigned hi = 2 * pp + 1 < c ? pair_bits(w[src + 9]) : 0u;
-    wi[j] = lo | (hi << 16);
   }
 }
 
@@ -425,21 +382,13 @@ int conv3x3_in_act_bf16(const void* x, const void* wt, int w_f32, const void* bi
   const int64_t wq = (wp + kRowWords - 1) / kRowWords * kRowWords;
   const int64_t nx = n * p * hp * wq, nw = co * p * 9;
   // every element index of x, w and their pair buffers within 32 bits
-  if (nx + nw + kPairThreads >= (int64_t(1) << 31) || n * c * hp * wp >= (int64_t(1) << 31) ||
-      co * c * 9 >= (int64_t(1) << 31))
-    return (int)cudaErrorInvalidValue;
-  const unsigned pair_blocks = (unsigned)((nx + nw + kPairThreads - 1) / kPairThreads);
+  if (!bf16_pairs::pairs_fit(nx, nw, n, c, hp, wp, co)) return (int)cudaErrorInvalidValue;
   const uint16_t* xb = static_cast<const uint16_t*>(x);
-  if (w_f32) {
-    pair_kernel<float><<<pair_blocks, kPairThreads, 0, s>>>(
-        xb, xi, (unsigned)nx, (unsigned)c, (unsigned)p, (unsigned)hp, (unsigned)wp,
-        (unsigned)wq, static_cast<const float*>(wt), wi, (unsigned)nw);
-  } else {
-    pair_kernel<uint16_t><<<pair_blocks, kPairThreads, 0, s>>>(
-        xb, xi, (unsigned)nx, (unsigned)c, (unsigned)p, (unsigned)hp, (unsigned)wp,
-        (unsigned)wq, static_cast<const uint16_t*>(wt), wi, (unsigned)nw);
-  }
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      w_f32 ? bf16_pairs::launch_pairs(xb, xi, nx, c, p, hp, wp, wq,
+                                       static_cast<const float*>(wt), wi, nw, s)
+            : bf16_pairs::launch_pairs(xb, xi, nx, c, p, hp, wp, wq,
+                                       static_cast<const uint16_t*>(wt), wi, nw, s);
   if (err != cudaSuccess) return (int)err;
   const int v = conv3x3::halo_vec(xi, wq);
   const size_t smem = conv3x3::smem_bytes(conv3x3::geometry((int)d, kGroups, v, 0), kStages);

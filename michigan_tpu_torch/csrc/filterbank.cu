@@ -1,5 +1,5 @@
 // Dense orientation by a bank of 32 oriented 17x17 filters, for Hopper
-// (sm_90a), float32.
+// (sm_90a), float32, or bf16-rounded operands.
 //
 // filterbank_orientation replaces michigan_tpu/ops/pallas/filterbank.py:
 //   filterbank_orientation (its inner `kernel`), which computes exactly
@@ -43,6 +43,19 @@
 //   quad; an all-zero pixel gets 0) are a quad-shuffle reduction.  Nothing
 //   of the (N, 32, H, W) response reaches device memory.
 //
+// The bf16-operand form (filterbank_orientation_bf16ops) is the JAX
+//   package's forward under --dtype bfloat16 without --orient_bank_fp32
+//   (michigan_tpu/ops/filters.py:207-225, fwd_bf16): gray and bank rounded
+//   to bf16, the products summed in float32, each response rounded to bf16
+//   (the dtype of XLA's bf16 conv) before the clamp and the argmax, so that
+//   responses equal in bf16 tie to the first index there too.  It is the
+//   same kernel with one template flag: the staged halo and the bank are
+//   rounded to bf16 (to nearest even) before the split, so every small half
+//   is zero and one TF32 mma (big x big) per step replaces three.  A bf16
+//   value is exact in TF32 and the product of two is exact in float32, so
+//   the one product is exact.  Its bound: 9,248 FMAs per pixel at the 495
+//   TFLOP/s of TF32, a third of the 3xTF32 form's.
+//
 // filterbank_orientation_backward is the gradient of conf with respect to
 //   gray, which the training step's ORIENT / CONFIDENCE loss needs (the
 //   JAX package differentiates through the bank conv and its max:
@@ -78,6 +91,7 @@
 // The launchers return the first CUDA error.  Nothing here allocates or
 // synchronises.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -115,6 +129,11 @@ __device__ __forceinline__ int tap_of(int s, int t) {
   return dy < kK ? dy * kK + kK - 1 : -1;
 }
 
+// v rounded to bf16 (to nearest even), as a float.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 struct Tile {
   int64_t plane;  // offset of the sample's plane
   int y0, x0;     // output origin
@@ -128,6 +147,8 @@ __device__ __forceinline__ Tile tile_at(int64_t t, int tiles_x, int per_plane, i
   return {b * h * w, ty * tile_h, (rem - ty * tiles_x) * tile_w};
 }
 
+// kBf16Ops: the bf16-operand form (above).
+template <bool kBf16Ops>
 __global__ void __launch_bounds__(kThreads, 2)
 filterbank_kernel(const float* __restrict__ gray, const float* __restrict__ bank,
                   int32_t* __restrict__ idx, float* __restrict__ conf, int n, int h, int w) {
@@ -165,7 +186,8 @@ filterbank_kernel(const float* __restrict__ gray, const float* __restrict__ bank
     const int s = e >> 9, q = (e >> 7) & 3, l = (e >> 2) & 31, el = e & 3;
     const int tap = tap_of(s, (l & 3) + 4 * (el & 1));
     const int o = 8 * (2 * (q & 1) + (el >> 1)) + (l >> 2);
-    const uint2 p = split_tf32(tap < 0 ? 0.f : bank[tap * kNum + o]);
+    const float b = tap < 0 ? 0.f : bank[tap * kNum + o];
+    const uint2 p = split_tf32(kBf16Ops ? round_bf16(b) : b);
     s_b[e] = q < 2 ? p.x : p.y;
   }
   for (int i = tid; i < 2 * (kInH - kStageH) * kRS; i += kThreads) {
@@ -183,6 +205,9 @@ filterbank_kernel(const float* __restrict__ gray, const float* __restrict__ bank
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
+    if (kBf16Ops) {  // the same thread splits element i below: no barrier
+      for (int i = tid; i < kPlane; i += kThreads) cur[i] = round_bf16(cur[i]);
+    }
     // split the staged halo once: big in place, small into the second plane
     for (int i = tid; i < kPlane; i += kThreads) {
       const uint2 p = split_tf32(cur[i]);
@@ -222,24 +247,37 @@ filterbank_kernel(const float* __restrict__ gray, const float* __restrict__ bank
       const unsigned b_small[4][2] = {{q2.x, q2.y}, {q2.z, q2.w}, {q3.x, q3.y}, {q3.z, q3.w}};
       // the three passes in turn over the 8 tiles, so that no mma waits on
       // the one before it
+      if constexpr (kBf16Ops) {  // the small halves are zero: big x big only
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (s % kChain == 0) {
-            mma_tf32_first(part[i][j], a_small[i], b_big[j]);
-          } else {
-            mma_tf32(part[i][j], a_small[i], b_big[j]);
+          for (int j = 0; j < 4; ++j) {
+            if (s % kChain == 0) {
+              mma_tf32_first(part[i][j], a_big[i], b_big[j]);
+            } else {
+              mma_tf32(part[i][j], a_big[i], b_big[j]);
+            }
           }
-        }
+      } else {
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma_tf32(part[i][j], a_big[i], b_small[j]);
+          for (int j = 0; j < 4; ++j) {
+            if (s % kChain == 0) {
+              mma_tf32_first(part[i][j], a_small[i], b_big[j]);
+            } else {
+              mma_tf32(part[i][j], a_small[i], b_big[j]);
+            }
+          }
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma_tf32(part[i][j], a_big[i], b_big[j]);
+          for (int j = 0; j < 4; ++j) mma_tf32(part[i][j], a_big[i], b_small[j]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_tf32(part[i][j], a_big[i], b_big[j]);
+      }
       if (s % kChain == kChain - 1 || s == kSteps - 1) {
 #pragma unroll
         for (int i = 0; i < 2; ++i)
@@ -250,6 +288,14 @@ filterbank_kernel(const float* __restrict__ gray, const float* __restrict__ bank
       }
     }
 
+    if (kBf16Ops) {  // the responses in bf16, as XLA's bf16 conv returns them
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[i][j][r] = round_bf16(acc[i][j][r]);
+    }
     // acc[i][j][2 hf + c]: pixel 16 i + 8 hf + gid of the warp's row,
     // orientation 8 j + 2 tig + c.  Per pixel the first index of the largest
     // clamped response, in this thread's 8 orientations, then across the quad
@@ -398,20 +444,35 @@ filterbank_backward_kernel(const float* __restrict__ dconf, const int32_t* __res
 
 // The forward's persistent grid: as many blocks as fit on the card at once,
 // at most `tiles`.  0 blocks and an error code where the card refuses.
+template <bool kBf16Ops>
 cudaError_t persistent_grid(int64_t tiles, int* blocks) {
   *blocks = 0;
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaFuncSetAttribute(filterbank_kernel,
+  cudaError_t e = cudaFuncSetAttribute(filterbank_kernel<kBf16Ops>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, filterbank_kernel, kThreads, kSmem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, filterbank_kernel<kBf16Ops>,
+                                                      kThreads, kSmem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int64_t most = (int64_t)per_sm * sms;
   *blocks = (int)(tiles < most ? tiles : most);
   return cudaSuccess;
+}
+
+template <bool kBf16Ops>
+int launch_forward(const void* gray, const void* bank, void* idx, void* conf, int64_t n,
+                   int64_t h, int64_t w, void* stream) {
+  const int64_t tiles = n * ((w + kTileW - 1) / kTileW) * ((h + kTileH - 1) / kTileH);
+  int blocks;
+  cudaError_t e = persistent_grid<kBf16Ops>(tiles, &blocks);
+  if (e != cudaSuccess) return (int)e;
+  filterbank_kernel<kBf16Ops><<<blocks, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(gray), static_cast<const float*>(bank),
+      static_cast<int32_t*>(idx), static_cast<float*>(conf), (int)n, (int)h, (int)w);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -422,14 +483,14 @@ extern "C" {
 // aligned; idx (n, h, w) int32 and conf (n, h, w) f32 out.
 int filterbank_orientation_f32(const void* gray, const void* bank, void* idx, void* conf,
                                int64_t n, int64_t h, int64_t w, void* stream) {
-  const int64_t tiles = n * ((w + kTileW - 1) / kTileW) * ((h + kTileH - 1) / kTileH);
-  int blocks;
-  cudaError_t e = persistent_grid(tiles, &blocks);
-  if (e != cudaSuccess) return (int)e;
-  filterbank_kernel<<<blocks, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(gray), static_cast<const float*>(bank),
-      static_cast<int32_t*>(idx), static_cast<float*>(conf), (int)n, (int)h, (int)w);
-  return (int)cudaGetLastError();
+  return launch_forward<false>(gray, bank, idx, conf, n, h, w, stream);
+}
+
+// The bf16-operand form, on the same float32 arguments: gray and bank are
+// rounded to bf16 in the kernel, conf holds bf16 values.
+int filterbank_orientation_bf16ops(const void* gray, const void* bank, void* idx, void* conf,
+                                   int64_t n, int64_t h, int64_t w, void* stream) {
+  return launch_forward<true>(gray, bank, idx, conf, n, h, w, stream);
 }
 
 // dconf (n, h, w) f32, idx (n, h, w) int32 and conf (n, h, w) f32 as the

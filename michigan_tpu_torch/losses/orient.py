@@ -1,7 +1,9 @@
 """Orientation supervision (port of michigan_tpu/losses/orient.py, reference
 loss.py:274-385): the fake's dense orientation from the filter bank,
 L1-matched to the label inside the hair, plus a confidence term.  The
-gradient reaches the image through the bank's max response only."""
+gradient reaches the image through the bank's max response only.  Under
+--dtype bfloat16 the bank's forward takes bf16 operands, as the JAX
+package's does without --orient_bank_fp32; its gradient stays float32."""
 
 from __future__ import annotations
 
@@ -19,8 +21,11 @@ def orient_loss(fake_image: torch.Tensor, orient_label: torch.Tensor,
     input_tag the one-hot (N,2,H,W)."""
     hair = input_tag[:, 1:2].permute(0, 2, 3, 1)  # NHWC, as the filters take it
     mode = "gabor" if "gabor" in opt.orient_filter else "dog"
+    # under the bf16 policy the bank's bf16-operand forward, unless
+    # --orient_bank_fp32 asks for the float32 one (the JAX package's fwd_bf16)
+    bf16_operands = opt.dtype == "bfloat16" and not opt.orient_bank_fp32
     two, conf = cal_orientation_two_channel(fake_image.permute(0, 2, 3, 1), mode,
-                                            hair if mode == "dog" else None)
+                                            hair if mode == "dog" else None, bf16_operands)
     if opt.use_ig:
         target = orient_label.permute(0, 2, 3, 1)
     else:

@@ -23,7 +23,12 @@ and their output back to float32, while orientation decoding and
 compositing stay float32; the frozen inpainters store every floating
 parameter and buffer in bfloat16 (``compact_frozen_nets``), netG keeps
 float32 parameters, which each conv casts to its input's dtype
-(models/layers.py).  The bf16 policy is ported for inference only.
+(models/layers.py).  In training, netD keeps float32 parameters too and
+takes the fake-and-real batch in bfloat16; VGG19 is stored in bfloat16 and
+takes the fake's and the tag / ref batch in bfloat16; the losses upcast
+inside their reductions; Adam updates the float32 parameters from float32
+gradients; the bank of the orientation loss takes bf16 operands unless
+--orient_bank_fp32 (losses/orient.py).
 
 With --isTrain netG and netD are in train mode.  Which forward writes
 buffers follows the JAX package: netG's batch-norm running statistics and
@@ -59,7 +64,7 @@ from michigan_tpu_torch.ops.masks import one_hot_label
 from michigan_tpu_torch.ops.resize import resize_nearest
 
 GEN_KEYS = ("input_ref", "input_tag", "orient", "image_ref", "image_tag", "noise")
-FROZEN_NETS = ("netIG", "netSIG")
+FROZEN_NETS = ("netIG", "netSIG", "vgg")
 
 
 def check_supported(opt) -> None:
@@ -71,9 +76,6 @@ def check_supported(opt) -> None:
         unported.append("instance maps (--no_instance False)")
     if opt.dtype not in ("float32", "bfloat16"):
         unported.append(f"--dtype {opt.dtype}")
-    elif opt.dtype == "bfloat16" and opt.isTrain:
-        unported.append("--dtype bfloat16 with --isTrain (the bf16 training step is the "
-                        "next slice of the port)")
     if opt.netG != "spadeb" or (opt.use_ig and opt.netIG != "inpaint") or \
             (opt.use_stroke and opt.netSIG != "sinpaint"):
         unported.append("a netG other than spadeb, a netIG other than inpaint or a "
@@ -152,11 +154,10 @@ class MichiGANModel:
 
     def compact_frozen_nets(self) -> None:
         """Under the bf16 policy, round every floating parameter and buffer
-        of the frozen inpainters (IG, SIG; spectral u and v included) to
-        bfloat16 once, as the JAX package's compact_frozen_variables does
-        (it also rounds VGG19, which only the bf16 training step, not ported
-        yet, runs); their sigma is still computed in float32 from the
-        rounded values.  Under float32 nothing changes."""
+        of the frozen nets (IG, SIG, VGG19; spectral u and v included) to
+        bfloat16 once, as the JAX package's compact_frozen_variables does;
+        the inpainters' sigma is still computed in float32 from the rounded
+        values.  Under float32 nothing changes."""
         if self.compute_dtype != torch.bfloat16:
             return
         for name in FROZEN_NETS:
@@ -235,13 +236,14 @@ class MichiGANModel:
 
     def discriminate(self, input_tag, fake_image, real_image, orient):
         """Fake and real through netD as one batch (so its instance norms and
-        spectral iteration see both), then split.  netD's spectral u / v are
+        spectral iteration see both), in the compute dtype, then split; the
+        features stay in it (the losses upcast).  netD's spectral u / v are
         never written (MultiscaleDiscriminator)."""
         if not self.opt.use_ig:
             orient = orient_to_two_channel(orient, input_tag[:, 1:2])
         both = torch.cat([torch.cat([input_tag, orient, fake_image], dim=1),
                           torch.cat([input_tag, orient, real_image], dim=1)], dim=0)
-        out = self.netD(both)
+        out = self.netD(both.to(self.compute_dtype))
         n = fake_image.shape[0]
         return [[t[:n] for t in scale] for scale in out], [[t[n:] for t in scale] for scale in out]
 
@@ -272,11 +274,13 @@ class MichiGANModel:
         # the paired-data gate (pix2pix_model.py:286-291) as a factor, not a
         # branch: no host sync
         ref_is_tag = ((label_tag - label_ref).abs().sum() == 0).float()
-        # one VGG forward per distinct image: the fake's with a gradient, the
-        # tag's and ref's as one no-grad forward at twice the batch
-        f_fake = self.vgg(fake)
+        # one VGG forward per distinct image, in the compute dtype: the
+        # fake's with a gradient, the tag's and ref's as one no-grad forward
+        # at twice the batch
+        cdt = self.compute_dtype
+        f_fake = self.vgg(fake.to(cdt))
         with torch.no_grad():
-            f_tr = self.vgg(torch.cat([pre["image_tag"], pre["image_ref"]], dim=0))
+            f_tr = self.vgg(torch.cat([pre["image_tag"], pre["image_ref"]], dim=0).to(cdt))
         n = fake.shape[0]
         f_tag, f_ref = [t[:n] for t in f_tr], [t[n:] for t in f_tr]
         if not opt.no_ganFeat_loss:

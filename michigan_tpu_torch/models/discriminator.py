@@ -6,6 +6,8 @@ State_dict keys follow the reference (discriminator.py:14-120):
 ``discriminator_{i}.model{n}.0.0`` (spectral conv inside the norm layer's
 Sequential, then instance norm and leaky ReLU) and
 ``discriminator_{i}.model{n_layers_D}.0`` (the plain 1-channel conv).
+Every conv casts its float32 parameters to the input's dtype
+(models/layers.py), so under the bf16 policy netD runs in bfloat16.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from michigan_tpu_torch.models.layers import Conv2d
 from michigan_tpu_torch.models.normalization import NonSpadeNorm
 from michigan_tpu_torch.ops.resize import avg_pool_3x3s2
 
@@ -31,13 +34,13 @@ class NLayerDiscriminator(nn.Module):
         nf = opt.ndf
         self.no_ganFeat_loss = opt.no_ganFeat_loss
         self.n_layers = opt.n_layers_D
-        self.model0 = nn.Sequential(nn.Conv2d(opt.d_input_nc(), nf, kw, 2, padw))
+        self.model0 = nn.Sequential(Conv2d(opt.d_input_nc(), nf, kw, 2, padw))
         for n in range(1, opt.n_layers_D):
             nf_prev, nf = nf, min(nf * 2, 512)
             stride = 1 if n == opt.n_layers_D - 1 else 2
             setattr(self, f"model{n}",
                     nn.Sequential(NonSpadeNorm(nf_prev, nf, kw, stride, padw, opt.norm_D)))
-        setattr(self, f"model{opt.n_layers_D}", nn.Sequential(nn.Conv2d(nf, 1, kw, 1, padw)))
+        setattr(self, f"model{opt.n_layers_D}", nn.Sequential(Conv2d(nf, 1, kw, 1, padw)))
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         results = []

@@ -27,6 +27,16 @@ def orient_to_two_channel(orient255: torch.Tensor, hair_mask: torch.Tensor) -> t
     return torch.cat([torch.sin(2 * t), torch.cos(2 * t)], dim=1) * hair_mask
 
 
+# Blocks whose float32 convolutions run with cuDNN off in train mode on a
+# card (models/layers.py: conv): at their channel counts (256 to 1024 in, on
+# planes of 64^2 and less) cuDNN's float32 implicit-GEMM forward errs 3-5x
+# PyTorch's own im2col + GEMM against float64, and under the config's own
+# init (xavier, gain 0.02) those errors carried through the step put the
+# card's G step past the scale-aware rule against the CPU's
+# (tools/conv_algorithms.py; chip_smoke.py phase 12).
+CUDNN_OFF = ("fc", "backgroud_enc", "head_0", "G_middle_0", "G_middle_1", "up_0")
+
+
 class SPADEBGenerator(nn.Module):
     """Partial-conv encoder seed -> 7 SPADE blocks with 2x nearest upsampling
     -> per-scale background composite -> conv_img -> tanh."""
@@ -55,6 +65,9 @@ class SPADEBGenerator(nn.Module):
         self.up_3 = SPADEResnetBlock(2 * nf, 1 * nf, opt)
         self.conv_img = Conv2d(nf, 3, 3, padding=1)
         self.backgroud_enc = BackgroundEncode2(opt)
+        for name, m in self.named_modules():
+            if hasattr(m, "cudnn_off") and name.split(".")[0] in CUDNN_OFF:
+                m.cudnn_off = True
 
     def forward(self, input_ref, input_tag, orient, image_ref, image_tag, noise,
                 extra_dilate_steps: int = 2):

@@ -19,6 +19,13 @@ parameters run bfloat16 convolutions on bfloat16 activations and float32
 ones unchanged.  Casts are explicit, not ``torch.autocast``, which picks its
 own dtype per op.
 
+A conv module whose ``cudnn_off`` is set runs its float32 convolutions on
+a card in train mode with cuDNN off (``NativeConv``: PyTorch's own im2col +
+GEMM, forward and both gradients): the generator sets it on its
+high-channel, low-resolution blocks, where cuDNN's float32 algorithms are
+the least accurate (models/generator.py).  Eval mode, bfloat16 and the CPU
+are unaffected.
+
 Which forward may write buffers (spectral u / v here, batch-norm running
 statistics in normalization.py) is explicit: a module writes them in train
 mode while its ``write_buffers`` is true.  ``frozen_buffers`` clears it
@@ -48,11 +55,56 @@ def cast_params(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]):
     return w.to(x.dtype), None if b is None else b.to(x.dtype)
 
 
+class NativeConv(torch.autograd.Function):
+    """func(x, w, b, *rest) for func F.conv2d or F.conv_transpose2d, with
+    rest its positional arguments after the bias, and its gradients, with
+    cuDNN off: PyTorch's own im2col + GEMM (cuBLAS, float32 throughout with
+    TF32 off)."""
+
+    @staticmethod
+    def forward(ctx, func, x, w, b, *rest):
+        with torch.backends.cudnn.flags(enabled=False):
+            y = func(x, w, b, *rest)
+        ctx.save_for_backward(x, w)
+        ctx.func, ctx.rest, ctx.has_b = func, rest, b is not None
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        transposed = ctx.func is F.conv_transpose2d
+        names = ("stride", "padding", "output_padding", "groups", "dilation") if transposed \
+            else ("stride", "padding", "dilation", "groups")
+        a = dict(stride=1, padding=0, dilation=1, groups=1, output_padding=0)
+        a.update(zip(names, ctx.rest))
+        pair = lambda v: list(v) if isinstance(v, (tuple, list)) else [v, v]
+        n_out = w.shape[1] * a["groups"] if transposed else w.shape[0]
+        with torch.backends.cudnn.flags(enabled=False):
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                g, x, w, [n_out] if ctx.has_b else None, pair(a["stride"]), pair(a["padding"]),
+                pair(a["dilation"]), transposed, pair(a["output_padding"]), a["groups"],
+                [ctx.needs_input_grad[1], ctx.needs_input_grad[2],
+                 ctx.has_b and ctx.needs_input_grad[3]])
+        return (None, dx, dw, db, *([None] * len(ctx.rest)))
+
+
+def conv(module: nn.Module, func, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+         *rest):
+    """func(x, w, b, *rest); through NativeConv where `module.cudnn_off` is
+    set, the module is in train mode and x is a float32 tensor on a card."""
+    if module.cudnn_off and module.training and x.is_cuda and x.dtype == torch.float32:
+        return NativeConv.apply(func, x, w, b, *rest)
+    return func(x, w, b, *rest)
+
+
 class Conv2d(nn.Conv2d):
     """nn.Conv2d under the cast rule: weight and bias in the input's dtype."""
 
+    cudnn_off = False
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, *cast_params(x, self.weight, self.bias))
+        return conv(self, F.conv2d, x, *cast_params(x, self.weight, self.bias), self.stride,
+                    self.padding, self.dilation, self.groups)
 
 
 @contextlib.contextmanager
@@ -76,6 +128,7 @@ class SpectralConv2d(nn.Module):
 
     transposed = False
     write_buffers = True
+    cudnn_off = False
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, dilation: int = 1, bias: bool = True):
@@ -107,8 +160,8 @@ class SpectralConv2d(nn.Module):
         return self.weight_orig.float() / spectral_sigma(w_mat, u, v)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, *cast_params(x, self.weight(), self.bias), self.stride,
-                        self.padding, self.dilation)
+        return conv(self, F.conv2d, x, *cast_params(x, self.weight(), self.bias), self.stride,
+                    self.padding, self.dilation)
 
 
 class SpectralConvTranspose2d(SpectralConv2d):
@@ -122,8 +175,8 @@ class SpectralConvTranspose2d(SpectralConv2d):
         super().__init__(in_ch, out_ch, kernel_size, stride, padding, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, *cast_params(x, self.weight(), self.bias), self.stride,
-                                  self.padding)
+        return conv(self, F.conv_transpose2d, x, *cast_params(x, self.weight(), self.bias),
+                    self.stride, self.padding)
 
 
 class PartialConv(nn.Conv2d):
@@ -132,6 +185,8 @@ class PartialConv(nn.Conv2d):
     out = (conv(x*m) * winsize / (conv(m) + 1e-8) + b) * clamp(conv(m), 0, 1).
     The mask ratio is computed in float32 and cast to x's dtype; the updated
     mask stays float32."""
+
+    cudnn_off = False
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 2,
                  padding: int = 1, bias: bool = True):
@@ -145,7 +200,7 @@ class PartialConv(nn.Conv2d):
         update_mask = update_mask.clamp(0.0, 1.0)
         mask_ratio = mask_ratio * update_mask
         w, b = cast_params(x, self.weight, self.bias)
-        raw = F.conv2d(x * mask.to(x.dtype), w, None, self.stride, self.padding)
+        raw = conv(self, F.conv2d, x * mask.to(x.dtype), w, None, self.stride, self.padding)
         mask_ratio = mask_ratio.to(raw.dtype)
         if b is not None:
             out = (raw * mask_ratio + b.view(1, -1, 1, 1)) * update_mask.to(raw.dtype)

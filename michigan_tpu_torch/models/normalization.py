@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from michigan_tpu_torch.models.layers import Conv2d, SpectralConv2d
+from michigan_tpu_torch.models.layers import Conv2d, SpectralConv2d, conv
 from michigan_tpu_torch.ops.cuda.spade import fused_instance_norm, spade_modulate
 from michigan_tpu_torch.ops.norms import batch_norm_eval, batch_norm_train, instance_norm
 from michigan_tpu_torch.ops.resize import resize_nearest
@@ -72,6 +72,8 @@ class SPADE(nn.Module):
     channels, whose two halves the kernel reads in place; the state_dict
     keeps mlp_gamma and mlp_beta."""
 
+    cudnn_off = False  # the gamma / beta conv (layers.conv)
+
     def __init__(self, config_text: str, norm_nc: int, label_nc: int, nhidden: int = 128):
         super().__init__()
         self.norm_type, ks = parse_spade_config(config_text)
@@ -105,7 +107,7 @@ class SPADE(nn.Module):
         seg = resize_nearest(segmap, x.shape[2:]).to(x.dtype)
         actv = self.mlp_shared(seg)
         weight, bias = self.gamma_beta_conv(actv.dtype)
-        gamma, beta = F.conv2d(actv, weight, bias, padding=self.pw).chunk(2, dim=1)
+        gamma, beta = conv(self, F.conv2d, actv, weight, bias, 1, self.pw).chunk(2, dim=1)
         if self.training:
             return self.param_free_norm(x) * (1.0 + gamma) + beta
         if self.norm_type == "instance":

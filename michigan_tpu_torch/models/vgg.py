@@ -12,7 +12,9 @@ feature-preserving fallback (kaiming fan_in), and the same warning.
 when autograd records nothing: the kernel has no backward, so it serves the
 training step's no-grad tower of the tag and ref images, and the
 differentiated tower of the fake keeps cuDNN.  The bias and the ReLU stay
-outside the kernel, as on the TPU.
+outside the kernel, in x's dtype, as on the TPU.  Under the bf16 policy the
+tower is stored in bfloat16 (``MichiGANModel.compact_frozen_nets``) and
+runs on bfloat16 input, the kernel in its bfloat16 form.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from michigan_tpu_torch.models.layers import Conv2d
 from michigan_tpu_torch.ops.cuda.lowch import conv3x3_same_lowch
 from michigan_tpu_torch.ops.resize import max_pool_same
 
@@ -57,7 +60,7 @@ class VGG19(nn.Module):
         convs, cin = {}, 3
         for step in PLAN:
             if step[0] == "conv":
-                convs[str(step[1])] = nn.Conv2d(cin, step[2], 3, padding=1)
+                convs[str(step[1])] = Conv2d(cin, step[2], 3, padding=1)
                 cin = step[2]
         self.features = nn.ModuleDict(convs)
 

@@ -111,6 +111,7 @@ SIGNATURES = {
     },
     "filterbank": {
         "filterbank_orientation_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
+        "filterbank_orientation_bf16ops": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
         "filterbank_orientation_backward_f32": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     },
     "conv_in_act": {
@@ -123,12 +124,15 @@ SIGNATURES = {
     },
     "conv_lowch": {
         "conv3x3_same_f32": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P),
+        "conv3x3_same_bf16_scratch": (_I64, _I64, _I64, _I64, _I64),
+        "conv3x3_same_bf16": (_P, _P, ctypes.c_int, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+                              _P),
     },
 }
 
 
 # launchers return a cudaError_t as int; these return a size
-RESTYPES = {"conv3x3_in_act_bf16_scratch": _I64}
+RESTYPES = {"conv3x3_in_act_bf16_scratch": _I64, "conv3x3_same_bf16_scratch": _I64}
 
 
 @functools.lru_cache(maxsize=None)

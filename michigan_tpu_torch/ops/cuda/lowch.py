@@ -12,9 +12,16 @@ conv3x3_same_lowch(x, w)
     ``torch.no_grad()``: VGG19's ``features_2`` (64 -> 64 at 512^2) in the
     training step's tower of the tag and ref images (models/vgg.py).
 
-The kernel is compute-bound (C*9 FMAs per output); it runs on the tensor
-cores, float32-accurate through the 3xTF32 split, with no cuDNN, cuBLAS or
-CUTLASS call; the design notes are in the CUDA source.  A wrapper runs the
+x is float32 or bfloat16 and the output has its dtype.  In bfloat16, as the
+TPU kernel under the bf16 policy (VGG19 stored in bf16), the weight is cast
+to bfloat16, the products are summed in float32 and the output is rounded to
+bfloat16 once.
+
+The kernel is compute-bound in float32 (C*9 FMAs per output) and about even
+between bytes and products in bfloat16; it runs on the tensor cores,
+float32-accurate through the 3xTF32 split, or one bf16 mma.sync per 16
+channels after a pass that packs x into channel pairs, with no cuDNN,
+cuBLAS or CUTLASS call; the design notes are in the CUDA source.  A wrapper runs the
 plain PyTorch version for CPU tensors only.  For a CUDA tensor it checks
 dtype, shape, contiguity and device, launches the kernel on the current
 stream and counts the launch; anything the kernel does not take raises.
@@ -30,18 +37,27 @@ from michigan_tpu_torch.ops.cuda import build
 
 
 def conv3x3_same_lowch_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return F.conv2d(x, w, padding=1)
+    """F.conv2d; in bfloat16 the TPU kernel's arithmetic: a float32 conv of
+    x and of w rounded to bfloat16, whose products are exact, rounded to
+    bfloat16 once (the kernel's fp32 sums cast to x's dtype)."""
+    if x.dtype != torch.bfloat16:
+        return F.conv2d(x, w, padding=1)
+    return F.conv2d(x.float(), w.to(x.dtype).float(), padding=1).to(x.dtype)
 
 
 def conv3x3_same_lowch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(N, C, H, W) float32 x, (Co, C, 3, 3) float32 w -> the SAME 3x3
-    convolution (N, Co, H, W), without a bias."""
+    """(N, C, H, W) x, (Co, C, 3, 3) w -> the SAME 3x3 convolution (N, Co,
+    H, W) in x's dtype, without a bias: x and w float32, or x bfloat16 and
+    w bfloat16 or float32 (rounded to bfloat16)."""
     if x.device.type == "cpu":
         return conv3x3_same_lowch_plain(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError(f"kernel takes float32, got x {x.dtype}, w {w.dtype}")
+    bf16 = x.dtype == torch.bfloat16
+    if x.dtype not in (torch.float32, torch.bfloat16) or \
+            w.dtype not in ((torch.float32, torch.bfloat16) if bf16 else (torch.float32,)):
+        raise TypeError(f"kernel takes float32, or bfloat16 x with a bfloat16 or float32 w; "
+                        f"got x {x.dtype}, w {w.dtype}")
     if x.dim() != 4 or x.numel() == 0:
         raise ValueError(f"expected a non-empty NCHW x, got {tuple(x.shape)}")
     n, c, h, wd = x.shape
@@ -54,10 +70,21 @@ def conv3x3_same_lowch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     co = w.shape[0]
     if n > 65535 or co > 65535 * 64:
         raise ValueError(f"too many samples or channels for one launch: {n}, {co}")
-    out = torch.empty((n, co, h, wd), dtype=torch.float32, device=x.device)
-    err = build.load("conv_lowch").conv3x3_same_f32(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), n, c, co, h, wd,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    if bf16 and x.numel() + co * c * 9 >= 2**31 - 2**24:
+        raise ValueError(f"the bf16 kernel indexes x and w in 32 bits: x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}")
+    lib = build.load("conv_lowch")
+    out = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if bf16:
+        scratch = torch.empty(lib.conv3x3_same_bf16_scratch(n, c, co, h, wd), dtype=torch.uint8,
+                              device=x.device)
+        err = lib.conv3x3_same_bf16(x.data_ptr(), w.data_ptr(), int(w.dtype == torch.float32),
+                                    out.data_ptr(), scratch.data_ptr(), scratch.numel(), n, c,
+                                    co, h, wd, stream)
+    else:
+        err = lib.conv3x3_same_f32(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, c, co, h, wd,
+                                   stream)
     build.check_launch("conv3x3_same_lowch", err)
     build.count_launch(conv3x3_same_lowch, x.dtype)
     return out

@@ -10,7 +10,13 @@ filterbank_orientation(gray, bank)
     per pixel the first index of the largest response and that response.
     Returns (idx int32 (N, H, W), conf float32 (N, H, W)).  The bank is the
     JAX package's HWIO layout, (17, 17, 1, 32), as
-    ``michigan_tpu_torch.ops.filters.bank`` makes it.
+    ``michigan_tpu_torch.ops.filters.bank`` makes it.  With
+    ``bf16_operands`` it is the JAX package's forward under --dtype
+    bfloat16 (``michigan_tpu/ops/filters.py:207-225``, ``fwd_bf16``): gray
+    and bank rounded to bfloat16, the products summed in float32, and each
+    response rounded to bfloat16 (XLA's bf16 conv returns bf16) before the
+    clamp and the argmax; idx and conf stay int32 and float32.  Its launches
+    count under "bfloat16" in ``launches_by_dtype``, the operands' dtype.
 filterbank_orientation_backward(dconf, idx, conf, bank)
     The gradient of conf with respect to gray, which the JAX package takes
     by autodiff through the bank conv (``michigan_tpu/ops/filters.py:
@@ -24,7 +30,8 @@ OrientationResponse
     differentiates through it.
 
 The forward kernel is a dense product (9,248 FMAs per pixel) on the tensor
-cores, float32-accurate through the 3xTF32 split; the backward a gather (289
+cores, float32-accurate through the 3xTF32 split (with bf16 operands one
+TF32 product per step, which is exact for them); the backward a gather (289
 FMAs per pixel) bound by shared-memory reads, which skips the output blocks
 that no gradient reaches; the design notes are in the CUDA source.  A
 wrapper runs the plain PyTorch version for CPU tensors
@@ -48,11 +55,19 @@ BANK_SHAPE = (17, 17, 1, 32)
 BACKWARD_SKIP_BLOCK = (16, 32)
 
 
-def filterbank_orientation_plain(gray: torch.Tensor, bank: torch.Tensor
+def filterbank_orientation_plain(gray: torch.Tensor, bank: torch.Tensor,
+                                 bf16_operands: bool = False
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One conv with the whole bank, clamp, then max over the orientations
-    (torch.max returns the first index of equal maxima)."""
-    res = F.conv2d(gray.float(), bank.permute(3, 2, 0, 1), padding=bank.shape[0] // 2)
+    (torch.max returns the first index of equal maxima).  With
+    `bf16_operands`, a float32 conv of gray and bank rounded to bfloat16
+    (exact products) whose responses are rounded to bfloat16."""
+    gray = gray.float()
+    if bf16_operands:
+        gray, bank = (t.to(torch.bfloat16).float() for t in (gray, bank))
+    res = F.conv2d(gray, bank.permute(3, 2, 0, 1), padding=bank.shape[0] // 2)
+    if bf16_operands:
+        res = res.to(torch.bfloat16).float()
     conf, idx = res.clamp_min(0.0).max(dim=1)
     return idx.to(torch.int32), conf
 
@@ -82,13 +97,13 @@ def _check_bank(bank: torch.Tensor, like: torch.Tensor) -> None:
         raise ValueError("bank must be 16-byte aligned")
 
 
-def filterbank_orientation(gray: torch.Tensor, bank: torch.Tensor
+def filterbank_orientation(gray: torch.Tensor, bank: torch.Tensor, bf16_operands: bool = False
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(N, 1, H, W) float32 gray, (17, 17, 1, 32) bank -> (first argmax
     int32 (N, H, W), max response float32 (N, H, W)) over the clamped
-    responses."""
+    responses; with `bf16_operands` the bf16-operand form (above)."""
     if gray.device.type == "cpu":
-        return filterbank_orientation_plain(gray, bank)
+        return filterbank_orientation_plain(gray, bank, bf16_operands)
     if gray.device.type != "cuda":
         raise ValueError(f"no kernel for device {gray.device}")
     if gray.dtype != torch.float32:
@@ -103,11 +118,13 @@ def filterbank_orientation(gray: torch.Tensor, bank: torch.Tensor
     n, _, h, w = gray.shape
     idx = torch.empty((n, h, w), dtype=torch.int32, device=gray.device)
     conf = torch.empty((n, h, w), dtype=torch.float32, device=gray.device)
-    err = build.load("filterbank").filterbank_orientation_f32(
-        gray.data_ptr(), bank.data_ptr(), idx.data_ptr(), conf.data_ptr(), n, h, w,
-        torch.cuda.current_stream(gray.device).cuda_stream)
+    lib = build.load("filterbank")
+    launch = lib.filterbank_orientation_bf16ops if bf16_operands else \
+        lib.filterbank_orientation_f32
+    err = launch(gray.data_ptr(), bank.data_ptr(), idx.data_ptr(), conf.data_ptr(), n, h, w,
+                 torch.cuda.current_stream(gray.device).cuda_stream)
     build.check_launch("filterbank_orientation", err)
-    build.count_launch(filterbank_orientation, gray.dtype)
+    build.count_launch(filterbank_orientation, torch.bfloat16 if bf16_operands else gray.dtype)
     return idx, conf
 
 
@@ -152,13 +169,15 @@ filterbank_orientation_backward.launches_by_dtype = {}
 
 
 class OrientationResponse(torch.autograd.Function):
-    """(gray, bank) -> (idx, conf) as ``filterbank_orientation``; the
-    gradient reaches gray through conf by ``filterbank_orientation_backward``
-    (the bank is a constant)."""
+    """(gray, bank, bf16_operands) -> (idx, conf) as
+    ``filterbank_orientation``; the gradient reaches gray through conf by
+    ``filterbank_orientation_backward`` in float32 (the bank is a constant;
+    the bf16 rounding of the bf16-operand form passes the gradient through
+    unchanged, as a cast does)."""
 
     @staticmethod
-    def forward(ctx, gray, bank):
-        idx, conf = filterbank_orientation(gray, bank)
+    def forward(ctx, gray, bank, bf16_operands=False):
+        idx, conf = filterbank_orientation(gray, bank, bf16_operands)
         ctx.save_for_backward(idx, conf, bank)
         ctx.mark_non_differentiable(idx)
         return idx, conf
@@ -166,4 +185,4 @@ class OrientationResponse(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _didx, dconf):
         idx, conf, bank = ctx.saved_tensors
-        return filterbank_orientation_backward(dconf.contiguous(), idx, conf, bank), None
+        return filterbank_orientation_backward(dconf.contiguous(), idx, conf, bank), None, None

@@ -6,7 +6,8 @@ The banks are the JAX package's, built with numpy the same way
 second; sigma_x=2 sigma_y=3 lambda=4 psi=0 for Gabor, sigma_h=1 sigma_l=2
 sigma_y=2 for DoG) and cached.  ``orientation_response`` goes to the
 ``filterbank_orientation`` wrapper: the CUDA kernel on a card, its plain
-version on the CPU.  ``cal_orientation_two_channel`` (the training loss's
+version on the CPU; ``bf16_operands`` picks its bf16-operand form, the JAX
+package's ``fwd_bf16`` forward.  ``cal_orientation_two_channel`` (the training loss's
 orientation) differentiates through the max response with
 ``OrientationResponse``, whose backward is ``filterbank_orientation_backward``.
 
@@ -110,14 +111,15 @@ def dense_orientation(gray: torch.Tensor, mode: str = "dog"):
 
 
 def cal_orientation_two_channel(image_pm1: torch.Tensor, mode: str = "gabor",
-                                hair_mask: torch.Tensor = None):
+                                hair_mask: torch.Tensor = None, bf16_operands: bool = False):
     """loss.py:293-343: ((sin 2t, cos 2t) * confidence (N,H,W,2), confidence
     (N,H,W,1)) of an NHWC [-1,1] image.  Gabor squashes the max response
     with (tanh + 1) / 2; DoG masks it by `hair_mask` (N,H,W,1) and divides
     by its maximum over the batch.  The gradient reaches the image through
-    the max response only, as in torch."""
+    the max response only, as in torch.  `bf16_operands`: the bank's
+    bf16-operand forward (the JAX package's fwd_bf16)."""
     gray = rgb_to_gray255(image_pm1).permute(0, 3, 1, 2).contiguous()
-    idx, raw_conf = OrientationResponse.apply(gray, bank(mode, gray.device))
+    idx, raw_conf = OrientationResponse.apply(gray, bank(mode, gray.device), bf16_operands)
     theta = idx.float() * (math.pi / NUM_KERNELS)
     if mode == "gabor":
         conf = (torch.tanh(raw_conf) + 1.0) / 2.0

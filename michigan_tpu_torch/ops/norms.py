@@ -1,4 +1,13 @@
-"""Normalisation primitives (port of michigan_tpu/ops/norms.py), NCHW."""
+"""Normalisation primitives (port of michigan_tpu/ops/norms.py), NCHW.
+
+bfloat16 inputs of ``instance_norm`` and ``batch_norm_train`` take the JAX
+package's bf16 custom VJPs (``_instance_norm_b16``, ``_bn_train_b16``) as
+``torch.autograd.Function``s: the forward is (x - mean) * inv in bfloat16
+with float32 sums (sum x, sum x^2: var = E[x^2] - mean^2); autograd keeps
+the bfloat16 x and per-channel float32 statistics, no full-size float32
+tensor; the backward is inv * (g - mean(g) - x_hat * mean(g * x_hat)) in
+bfloat16 with float32 reductions.  float32 inputs keep the float32 code.
+"""
 
 from __future__ import annotations
 
@@ -6,9 +15,69 @@ import torch
 import torch.nn.functional as F
 
 
+class InstanceNormB16(torch.autograd.Function):
+    """instance_norm of a bfloat16 x (_in_fwd_impl / _in_bwd)."""
+
+    @staticmethod
+    def forward(ctx, x, eps):
+        xf = x.float()
+        mean = xf.mean(dim=(2, 3), keepdim=True)
+        var = (xf * xf).mean(dim=(2, 3), keepdim=True) - mean * mean
+        del xf
+        inv = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, mean, inv)
+        return (x - mean.to(x.dtype)) * inv.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, inv = ctx.saved_tensors
+        xhat = (x - mean.to(x.dtype)) * inv.to(x.dtype)
+        gf = g.float()
+        mg = gf.mean(dim=(2, 3), keepdim=True)
+        mgx = (gf * xhat.float()).mean(dim=(2, 3), keepdim=True)
+        del gf
+        return inv.to(x.dtype) * (g - mg.to(x.dtype) - xhat * mgx.to(x.dtype)), None
+
+
+class BatchNormTrainB16(torch.autograd.Function):
+    """batch_norm_train's normalisation of a bfloat16 x (_bn_fwd_impl /
+    _bn_b16_bwd): returns (y, mean, biased var); the statistics carry no
+    gradient (the running statistics are buffers)."""
+
+    @staticmethod
+    def forward(ctx, x, eps):
+        count = x.numel() // x.shape[1]
+        xf = x.float()
+        s = xf.sum(dim=(0, 2, 3))
+        ss = (xf * xf).sum(dim=(0, 2, 3))
+        del xf
+        mean = s / count
+        var_b = ss / count - mean * mean
+        inv = torch.rsqrt(var_b + eps)
+        ctx.save_for_backward(x, mean, inv)
+        ctx.count = count
+        ctx.mark_non_differentiable(mean, var_b)
+        return (x - mean.view(1, -1, 1, 1).to(x.dtype)) * inv.view(1, -1, 1, 1).to(x.dtype), \
+            mean, var_b
+
+    @staticmethod
+    def backward(ctx, g, _dmean, _dvar):
+        x, mean, inv = ctx.saved_tensors
+        mean, inv = mean.view(1, -1, 1, 1).to(x.dtype), inv.view(1, -1, 1, 1).to(x.dtype)
+        xhat = (x - mean) * inv
+        gf = g.float()
+        mg = (gf.sum(dim=(0, 2, 3)) / ctx.count).view(1, -1, 1, 1).to(x.dtype)
+        mgx = ((gf * xhat.float()).sum(dim=(0, 2, 3)) / ctx.count).view(1, -1, 1, 1).to(x.dtype)
+        del gf
+        return inv * (g - mg - xhat * mgx), None
+
+
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """nn.InstanceNorm2d(affine=False): per-(N,C) over H,W with the biased
-    variance and eps inside the sqrt; statistics in float32."""
+    variance and eps inside the sqrt; statistics in float32 (bfloat16:
+    InstanceNormB16)."""
+    if x.dtype == torch.bfloat16:
+        return InstanceNormB16.apply(x, float(eps))
     xf = x.float()
     mean = xf.mean(dim=(2, 3), keepdim=True)
     var = ((xf - mean) ** 2).mean(dim=(2, 3), keepdim=True)
@@ -21,11 +90,15 @@ def batch_norm_train(x: torch.Tensor, running_mean: torch.Tensor,
     per-channel mean and biased variance (statistics in float32, gradients
     through them), and return the running statistics updated with the
     unbiased variance, as sync batch norm does.  Returns (y, new_mean,
-    new_var); the caller decides whether to write them."""
-    xf = x.float()
-    var_b, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
-    inv = torch.rsqrt(var_b + eps)
-    y = ((xf - mean.view(1, -1, 1, 1)) * inv.view(1, -1, 1, 1)).to(x.dtype)
+    new_var); the caller decides whether to write them.  bfloat16:
+    BatchNormTrainB16."""
+    if x.dtype == torch.bfloat16:
+        y, mean, var_b = BatchNormTrainB16.apply(x, float(eps))
+    else:
+        xf = x.float()
+        var_b, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+        inv = torch.rsqrt(var_b + eps)
+        y = ((xf - mean.view(1, -1, 1, 1)) * inv.view(1, -1, 1, 1)).to(x.dtype)
     with torch.no_grad():
         count = x.numel() // x.shape[1]
         var_u = var_b * (count / max(count - 1, 1))

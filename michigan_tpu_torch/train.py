@@ -8,7 +8,10 @@
 Same flags as the JAX CLI (the port's config.train_options).  <dir> holds
 train_images/, train_labels/ and train_dense_orients/ (or point --image_dir,
 --label_dir and --orient_dir at them).  The device comes from --gpu_ids: -1
-is the CPU, N is cuda:N; fp32 with TF32 off.  netIG comes from
+is the CPU, N is cuda:N; fp32 with TF32 off, or --dtype bfloat16 (the bf16
+compute policy: bf16 convolutions on float32 parameters, the frozen IG and
+VGG19 stored in bf16; checkpoints hold float32 netG, netD and Adam state
+either way, so a run resumes under either dtype).  netIG comes from
 checkpoints/<name>/InpaintingModel_gen.pth when present, VGG19 from
 $MICHIGAN_VGG19 or checkpoints/vgg19*.{pth,npz}; otherwise seeded weights.
 

@@ -16,9 +16,9 @@ against the JAX package's, on the CPU.
   the CPU: flagship port-bf16 vs JAX-bf16 0.0270 against
   JAX-bf16 vs JAX-fp32 0.0274, port bf16 vs fp32 0.0309; stroke 0.0277
   against 0.0340, port bf16 vs fp32 0.0233 (each test prints its own);
-- the frozen towers' rounding equals ``compact_frozen_variables`` leaf by
-  leaf, and the weight bridge carries those compacted leaves into the port
-  exactly;
+- the frozen towers' rounding (IG, SIG and, in training, VGG19) equals
+  ``compact_frozen_variables`` leaf by leaf, and the weight bridge carries
+  those compacted leaves into the port exactly;
 - float32 is unchanged: with the code this policy replaced patched back in
   (the layers' forwards, SPADE's gamma / beta conv, the model's casts and
   frozen-tower rounding, the plain conv3x3_in_act), float32 outputs are
@@ -26,8 +26,11 @@ against the JAX package's, on the CPU.
 - --batch_inference: 3 names at --batchSize 2 write the images the JAX
   CLI's batch_inference writes for the same weights (float32), within 2
   uint8 levels after JPEG decoding; a missing list raises;
-- the CLIs run the bf16 path with jax unimportable; --dtype bfloat16 with
-  --isTrain is refused.
+- the CLIs run the bf16 path with jax unimportable, the trainer included
+  (two steps, a save, a resume, and the saved generator feeding
+  inference); --dtype bfloat16 with --isTrain builds a training model,
+  while other dtypes and the unported training flags are refused.
+  (tests/test_torch_bf16_training.py holds the bf16 step to JAX's.)
 """
 
 import dataclasses
@@ -51,7 +54,7 @@ from michigan_tpu.data.single import single_inference_data as jax_data
 from michigan_tpu.model import MichiGANModel as JModel
 from michigan_tpu.ops.pallas import epilogue as pallas_epilogue
 from michigan_tpu.ops.pallas import spade as pallas
-from michigan_tpu.training.convert import convert_generator, convert_inpaint
+from michigan_tpu.training.convert import convert_generator, convert_inpaint, convert_vgg19
 from michigan_tpu_torch import model as port_model
 from michigan_tpu_torch.convert import state_dicts_from_flax
 from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
@@ -72,6 +75,9 @@ SMALL = ["--crop_size", "128", "--load_size", "128", "--ngf", "8", "--init_type"
          "--gpu_ids", "-1"]
 BF16_TOL = dict(atol=1e-2, rtol=1.6e-2)
 SLICE_RATIO = 2.0
+TRAIN_SMALL = ["--netG", "spadeb", "--use_encoder", "--use_ig", "--noise_background",
+               "--crop_size", "64", "--load_size", "64", "--ngf", "8", "--ndf", "8",
+               "--gpu_ids", "-1"]
 
 
 def flagship_opt(*argv):
@@ -230,19 +236,27 @@ def test_stroke_slice_bf16_matches_jax():
 # frozen-tower rounding and the weight bridge
 # ---------------------------------------------------------------------------
 
-def test_frozen_tower_rounding_equals_compact_frozen_variables():
-    opt = stroke_opt()
+@pytest.mark.parametrize("train", [False, True])
+def test_frozen_tower_rounding_equals_compact_frozen_variables(train):
+    """The stroke configuration (IG, SIG), and the training one (IG,
+    VGG19; netD keeps float32 like netG)."""
+    opt = config.train_options(TRAIN_SMALL) if train else stroke_opt()
     sd, variables = port_weights(opt)
+    frozen = ("netIG", "vgg") if train else ("netIG", "netSIG")
+    if train:
+        variables["vgg"] = convert_vgg19({k.removeprefix("features."): v
+                                          for k, v in sd["vgg"].items()})
     compact = JModel(as_bf16(opt)).compact_frozen_variables(variables)
     bridged = state_dicts_from_flax(compact, opt)
     model = MichiGANModel(as_bf16(opt), "cpu")
     model.load_state_dicts(sd)
-    # the generator keeps float32; every floating leaf of the frozen towers
+    # the trained nets keep float32; every floating leaf of the frozen towers
     # is bfloat16, equal to the JAX package's rounding, and the bridge from
     # the compacted variables loads into the port exactly
-    assert all(v.dtype == torch.float32 for v in model.netG.state_dict().values()
-               if v.is_floating_point())
-    for name in ("netIG", "netSIG"):
+    for net in ("netG", "netD") if train else ("netG",):
+        assert all(v.dtype == torch.float32 for v in model.nets()[net].state_dict().values()
+                   if v.is_floating_point())
+    for name in frozen:
         state = model.nets()[name].state_dict()
         assert state.keys() == bridged[name].keys()
         for k, v in state.items():
@@ -457,9 +471,57 @@ def test_clis_run_bf16_without_jax(tmp_path):
 
 
 def test_bf16_is_refused_with_is_train():
-    opt = config.train_options(["--dtype", "bfloat16"])
-    with pytest.raises(NotImplementedError, match="bfloat16 with --isTrain"):
-        MichiGANModel(opt, "cpu")
+    """(Since the bf16 training step was ported:) --dtype bfloat16 with
+    --isTrain builds a training model; another dtype is still refused in
+    training and inference, and so are bf16 with an unported training
+    flag."""
+    opt = config.train_options(["--dtype", "bfloat16"] + TRAIN_SMALL)
+    model = MichiGANModel(opt, "cpu")
+    assert model.compute_dtype == torch.bfloat16 and model.netD is not None
+    assert model.vgg is not None and model.netG.training
     port_model.check_supported(as_bf16(flagship_opt()))  # inference takes it
-    with pytest.raises(NotImplementedError, match="float16"):
-        port_model.check_supported(dataclasses.replace(flagship_opt(), dtype="float16"))
+    for o in (flagship_opt(), opt):
+        with pytest.raises(NotImplementedError, match="float16"):
+            port_model.check_supported(dataclasses.replace(o, dtype="float16"))
+    with pytest.raises(NotImplementedError, match="unpairTrain"):
+        MichiGANModel(dataclasses.replace(opt, unpairTrain=True), "cpu")
+
+
+def test_trainer_cli_trains_bf16_saves_resumes_and_feeds_inference(tmp_path):
+    """python -m michigan_tpu_torch.train --dtype bfloat16 with jax
+    unimportable: two epochs of the one sample, a resume from 'latest' for
+    a third; the checkpoints hold float32 netG and netD, and the saved
+    generator restores into a bf16 inference model, which renders."""
+    from tests.test_torch_training import TRAIN_FLAGS
+
+    ck = str(tmp_path / "checkpoints")
+    first = run_without_jax(tmp_path, "michigan_tpu_torch.train", *TRAIN_FLAGS, "--dtype",
+                            "bfloat16", "--checkpoints_dir", ck, "--niter", "2",
+                            "--debug_nans")
+    assert first.count("(epoch: ") == 2
+    saved = {w: torch.load(tmp_path / "checkpoints" / "t" / f"latest_net_{w}.pth",
+                           weights_only=True) for w in ("G", "D")}
+    assert all(v.dtype == torch.float32 for sd in saved.values() for v in sd.values()
+               if v.is_floating_point())
+    second = run_without_jax(tmp_path, "michigan_tpu_torch.train", *TRAIN_FLAGS, "--dtype",
+                             "bfloat16", "--checkpoints_dir", ck, "--niter", "3",
+                             "--continue_train")
+    assert "resumed checkpoint 'latest'" in second and "(epoch: 3, iters: 1" in second
+
+    from michigan_tpu_torch.inference import load_released
+
+    inf = config.test_options(["--netG", "spadeb", "--use_encoder", "--noise_background",
+                               "--use_ig", "--ngf", "8", "--crop_size", "64", "--load_size",
+                               "64", "--checkpoints_dir", ck, "--name", "t", "--which_epoch",
+                               "latest", "--dtype", "bfloat16"])
+    model = MichiGANModel(inf, "cpu")
+    model.init_weights(0)
+    assert load_released(model, inf)
+    latest = torch.load(tmp_path / "checkpoints" / "t" / "latest_net_G.pth", weights_only=True)
+    for k, v in model.netG.state_dict().items():
+        assert torch.equal(v, latest[k]), k
+    from tests.test_torch_training import tiny_batch
+
+    fake, _ = model.infer(batch_from_numpy(tiny_batch(inf), "cpu"))
+    assert fake.shape == (1, 3, 64, 64) and fake.dtype == torch.float32
+    assert torch.isfinite(fake).all() and fake.std() > 1e-3

@@ -16,7 +16,13 @@ conv3x3_same_lowch and filterbank_orientation_backward within 1e-4 of the
 plain result's largest magnitude (float32 sums in another order); the 3xTF32
 kernels against float64 at most 2x the error of their plain version in
 float32, and the filter bank's argmax off float64's on at most 1e-4 of the
-pixels more than the plain version's.
+pixels more than the plain version's.  The bf16 forms: conv3x3_same_lowch
+atol 1e-2, rtol 1.6e-2 (the one rounding of the output) and against
+float64 at most 2x F.conv2d in bfloat16; the bank's bf16-operand form's
+conf within one bf16 ulp (rtol 1e-2, atol 1e-3: a float32 sum in another
+order may round to the neighbouring bf16 value), its argmax off on at most
+1% of the pixels and there only where the plain version's two responses
+lie within that tolerance.
 """
 
 import math
@@ -274,6 +280,62 @@ def test_conv3x3_same_lowch_matches_plain(cuda_device, n, c, co, h, w):
     assert kernels.launch_counts()["conv3x3_same_lowch"] == 1
 
 
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,co,h,w", [(2, 64, 64, 37, 53), (1, 64, 64, 64, 64),
+                                        (1, 3, 70, 10, 11), (1, 20, 40, 33, 30),
+                                        (3, 12, 72, 9, 66), (2, 7, 64, 4, 32)])
+def test_conv3x3_same_lowch_bf16_matches_plain(cuda_device, n, c, co, h, w, w_dtype):
+    """The bf16 form (the pair pass, then the tile's mma.sync bf16 form) on
+    the fp32 list's shapes: odd C (a zero half pair), W % 4 != 0 (padded
+    pair rows), Co over one block."""
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((n, c, h, w), generator=gen).relu().to(cuda_device, torch.bfloat16)
+    wt = (torch.randn((co, c, 3, 3), generator=gen) * math.sqrt(2 / (9 * c))).to(
+        cuda_device, w_dtype)
+    kernels.reset_launch_counts()
+    got = L.conv3x3_same_lowch(x, wt)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (n, co, h, w)
+    torch.testing.assert_close(got, L.conv3x3_same_lowch_plain(x, wt), **TOLS[torch.bfloat16])
+    assert kernels.launch_counts(by_dtype=True)["conv3x3_same_lowch"] == {"bfloat16": 1}
+
+
+def test_conv3x3_same_lowch_bf16_is_as_accurate_as_cudnn_bf16(cuda_device):
+    """Batch 2 of features_2's shape in bf16: the kernel and F.conv2d in
+    bf16 against a float64 conv of the same bf16 values."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn((2, 64, 512, 512), generator=gen, device=cuda_device).relu_().bfloat16()
+    wt = (torch.randn((64, 64, 3, 3), generator=gen, device=cuda_device)
+          * math.sqrt(2 / 576)).bfloat16()
+    want = L.conv3x3_same_lowch_plain(x.double(), wt.double())
+    kernel = rel_err(L.conv3x3_same_lowch(x, wt), want)
+    cudnn = rel_err(torch.nn.functional.conv2d(x, wt, padding=1), want)
+    assert kernel <= 2 * cudnn, (kernel, cudnn)
+
+
+@pytest.mark.parametrize("mode", ["gabor", "dog"])
+@pytest.mark.parametrize("n,h,w", [(1, 512, 512), (2, 37, 53), (300, 16, 16)])
+def test_filterbank_bf16_operands_matches_plain(cuda_device, mode, n, h, w):
+    gray = strand_gray(torch.Generator().manual_seed(4), n, h, w, cuda_device)
+    bank = filters.bank(mode, cuda_device)
+    kernels.reset_launch_counts()
+    idx, conf = O.filterbank_orientation(gray, bank, bf16_operands=True)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts(by_dtype=True)["filterbank_orientation"] == {"bfloat16": 1}
+    p_idx, p_conf = O.filterbank_orientation_plain(gray, bank, bf16_operands=True)
+    assert torch.equal(conf.bfloat16().float(), conf)  # bf16 values
+    torch.testing.assert_close(conf, p_conf, rtol=1e-2, atol=1e-3)
+    differ = idx != p_idx
+    assert differ.float().mean().item() <= 1e-2
+    if differ.any():
+        g16, b16 = gray.bfloat16().double(), bank.bfloat16().double()
+        res = torch.nn.functional.conv2d(g16, b16.permute(3, 2, 0, 1), padding=8)
+        res = res.bfloat16().double().clamp_min(0.0)
+        n_, y_, x_ = differ.nonzero(as_tuple=True)
+        a, b = (res[n_, i[differ].long(), y_, x_] for i in (idx, p_idx))
+        assert bool(((a - b).abs() <= 1e-3 + 1e-2 * b.abs()).all())
+
+
 def rel_err(got, want64):
     """Largest error against a float64 result, in units of its largest magnitude."""
     return ((got.double() - want64).abs().max() / want64.abs().max()).item()
@@ -342,6 +404,10 @@ def test_training_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     w = torch.zeros((4, 4, 3, 3), device=cuda_device)
     with pytest.raises(TypeError):
         L.conv3x3_same_lowch(x.double(), w.double())
+    with pytest.raises(TypeError):  # a bf16 weight takes a bf16 x
+        L.conv3x3_same_lowch(x, w.bfloat16())
+    with pytest.raises(TypeError):
+        L.conv3x3_same_lowch(x.bfloat16(), w.half())
     with pytest.raises(ValueError, match="must be"):
         L.conv3x3_same_lowch(x, torch.zeros((4, 3, 3, 3), device=cuda_device))
     with pytest.raises(ValueError, match="contiguous"):
@@ -387,3 +453,29 @@ def test_filterbank_backward_on_a_masked_gradient(cuda_device, mode):
     assert_rel(g.grad, want)
     assert_rel(auto, O.filterbank_orientation_backward_plain(dconf, p_idx, p_conf.detach(), bank))
     assert not g.grad[:, :, :, -20:].any()  # more than 8 pixels right of the ellipse
+
+
+def test_native_conv_route_matches_float64_on_the_card(cuda_device):
+    """layers.NativeConv (cuDNN off) at a generator block's shape, forward
+    and both gradients, against float64: within float32 rounding of the
+    sums, and no further from float64 than cuDNN's float32 conv."""
+    from michigan_tpu_torch.models.layers import NativeConv
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn((2, 1024, 16, 16), generator=gen, device=cuda_device)
+    w = torch.randn((1024, 1024, 3, 3), generator=gen, device=cuda_device) * 0.01
+    b = torch.randn(1024, generator=gen, device=cuda_device)
+    g = torch.randn((2, 1024, 16, 16), generator=gen, device=cuda_device)
+
+    def run(fn, dtype):
+        ins = [t.to(dtype).requires_grad_() for t in (x, w, b)]
+        y = fn(*ins)
+        return (y, *torch.autograd.grad(y, ins, g.to(dtype)))
+
+    want = run(lambda *t: F.conv2d(*t, 1, 1), torch.float64)
+    native = run(lambda *t: NativeConv.apply(F.conv2d, *t, 1, 1), torch.float32)
+    cudnn = run(lambda *t: F.conv2d(*t, 1, 1), torch.float32)
+    for got, ref, base in zip(native, want, cudnn):
+        assert rel_err(got, ref) <= max(2 * rel_err(base, ref), 1e-6), (
+            rel_err(got, ref), rel_err(base, ref))

@@ -303,3 +303,59 @@ def test_spade_gamma_beta_conv_follows_weight_changes(rng):
         torch.testing.assert_close(m(x, seg), reference(), atol=1e-5, rtol=1e-5)
     m(x, seg).sum().backward()
     assert m.mlp_gamma.weight.grad is not None and m.mlp_beta.bias.grad is not None
+
+
+# ---------------------------------------------------------------------------
+# the float32 conv route off cuDNN (layers.NativeConv) and where it applies
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("func,bias,rest", [
+    (torch.nn.functional.conv2d, True, (1, 1, 1, 1)),
+    (torch.nn.functional.conv2d, False, (2, 1, 2, 1)),
+    (torch.nn.functional.conv_transpose2d, True, (2, 1)),
+])
+def test_native_conv_matches_the_conv_and_its_gradients(func, bias, rest):
+    """NativeConv computes the conv and its three gradients exactly as the
+    conv does (in float64 here, where only the summation order could
+    differ)."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 6, 9, 9), generator=g, dtype=torch.float64, requires_grad=True)
+    shape = (6, 5, 3, 3) if func is torch.nn.functional.conv_transpose2d else (5, 6, 3, 3)
+    w = torch.randn(shape, generator=g, dtype=torch.float64, requires_grad=True)
+    b = torch.randn(5, generator=g, dtype=torch.float64, requires_grad=True) if bias else None
+    ins = [t for t in (x, w, b) if t is not None]
+    want = func(x, w, b, *rest)
+    cot = torch.randn(want.shape, generator=g, dtype=torch.float64)
+    got = tl.NativeConv.apply(func, x, w, b, *rest)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    for a, e in zip(torch.autograd.grad(got, ins, cot), torch.autograd.grad(want, ins, cot)):
+        torch.testing.assert_close(a, e, rtol=1e-12, atol=1e-12)
+
+
+def test_generator_pins_its_high_channel_blocks_off_cudnn(monkeypatch):
+    """The generator's CUDNN_OFF blocks carry cudnn_off, the others do not;
+    layers.conv takes NativeConv only for a float32 card tensor in train
+    mode, so the CPU, eval mode and bf16 keep the plain conv."""
+    from michigan_tpu_torch.models.generator import CUDNN_OFF, SPADEBGenerator
+
+    net = SPADEBGenerator(opt_small())
+    flagged = {n.split(".")[0] for n, m in net.named_modules() if getattr(m, "cudnn_off", False)}
+    assert flagged == set(CUDNN_OFF)
+    assert not net.up_3.conv_0.cudnn_off and net.head_0.conv_0.cudnn_off
+    calls = []
+    monkeypatch.setattr(tl.NativeConv, "apply", lambda *a: calls.append(a) or "native")
+    conv = net.head_0.conv_0
+    x = torch.zeros((1, conv.weight_orig.shape[1], 4, 4))
+    conv.train()
+    assert isinstance(tl.conv(conv, torch.nn.functional.conv2d, x, conv.weight_orig, None,
+                              1, 1), torch.Tensor)  # the CPU
+    cuda_like = type("CudaLike", (), {"is_cuda": True, "dtype": torch.float32})()
+    assert tl.conv(conv, None, cuda_like, None, None) == "native"
+    conv.eval()
+    with pytest.raises(TypeError):  # eval mode: the plain conv (here not callable)
+        tl.conv(conv, None, cuda_like, None, None)
+    conv.train()
+    cuda_like.dtype = torch.bfloat16
+    with pytest.raises(TypeError):
+        tl.conv(conv, None, cuda_like, None, None)
+    assert len(calls) == 1
