@@ -126,13 +126,15 @@ Phases, each on its own line:
       1 conv3x3_same_lowch and 1 bank forward in bfloat16 and 1 bank
       backward in float32; losses finite, netG and netD changed (float32),
       netIG and VGG19 bit-identical in bf16; ms/step, img/s, G and D step,
-      peak memory and a profiled step with cuDNN's share, beside phase 11's
-      float32 numbers; then one bf16 G+D step card vs CPU at batch 1,
-      PARITY16's crop and width: per loss within BF16_CAL x the CPU's own
-      bf16-vs-fp32 difference of that loss or, where larger, the step's
-      median relative one (plus the fp32 agreement, rtol 1e-4, atol 1e-5),
-      netG's and netD's elements beyond float noise within BF16_CAL x the
-      CPU's own count (plus 0.1%)
+      peak memory and a profiled step with the convolutions' share, beside
+      phase 11's float32 numbers; then one bf16 G+D step card vs CPU at
+      PARITY16's batch, crop and width, the CPU's D steps from the card's
+      post-G netG: per loss within BF16_CAL x the CPU's own bf16-vs-fp32
+      difference of that loss (plus the fp32 agreement, rtol 1e-4, atol
+      1e-5), netG's and netD's elements beyond float noise within BF16_CAL x
+      the CPU's own count (plus 0.1%), every element within 2.5 lr; and a
+      control that must fail that gate: the card's bf16 step on the first
+      half of the batch
 
 Then a JSON line of per-kernel results: for the training step's kernels
 (fused_instance_norm, filterbank_orientation and its backward,
@@ -154,11 +156,11 @@ and the two conv3x3_in_act rows carry the replaced route's time
 (replaced_route_ms: cuDNN conv + fused_instance_norm, in the row's dtype).
 The bf16 training step's rows (phase 15: conv3x3_same_lowch_bf16 with
 F.conv2d in bf16 as library_ms, bound at 989 TFLOP/s of bf16 products;
-filterbank_orientation_bf16, the bank's bf16-operand form, bound at the 495
-TFLOP/s of one TF32 product) take their launches from phase 15's counted
-step.  Last, the device line.  Any failure exits non-zero without the device
-line; so does a machine without CUDA, and a directory without the rest of
-the repository.
+filterbank_orientation_bf16, the bank's bf16-operand form, bound at the
+same 989 TFLOP/s of bf16 products although it runs TF32 mma) take their
+launches from phase 15's counted step.  Last, the device line.  Any
+failure exits non-zero without the device line; so does a machine without
+CUDA, and a directory without the rest of the repository.
 """
 
 from __future__ import annotations
@@ -259,9 +261,9 @@ TRAIN_BATCH = 8  # the slice's batch: an out-of-memory error fails phase 11
 TRAIN_STEPS = 5
 EXTRA_DILATE = 2  # the expected random mask dilation (encoder.py:294)
 PARITY_CROP = 512
-# phase 15's card-bf16 vs CPU-bf16 step: batch 1 at this crop and width, so
+# phase 15's card-bf16 vs CPU-bf16 step at this batch, crop and width, so
 # that the CPU's two steps (bf16 and fp32) fit the script's time
-PARITY16 = dict(crop=256, ngf=32, ndf=32)
+PARITY16 = dict(crop=256, ngf=32, ndf=32, batch=2)
 FB16_TOL = dict(rtol=1e-2, atol=1e-3)  # one bf16 ulp of the response
 FB16_IDX_FRAC = 1e-2
 LOWCH_SHAPES = [(16, 64, 512, 512), (2, 64, 37, 53)]  # features_2 at batch 8; a ragged tile
@@ -273,9 +275,11 @@ SEED = 0
 # cores through the 3xTF32 split, a third of the 495 TFLOP/s TF32 rate
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
-TF32_FLOP_S = 495e12  # one TF32 product: the bank's bf16-operand form
+TF32_FLOP_S = 495e12
 TF32X3_FLOP_S = TF32_FLOP_S / 3
-BF16_FLOP_S = 989e12  # dense bf16 products on the tensor cores
+# dense bf16 products on the tensor cores: the rate for bf16 operands,
+# whatever mma the kernel runs (the bank's bf16-operand form runs TF32)
+BF16_FLOP_S = 989e12
 
 
 def bound(nbytes, flops, flop_s):
@@ -359,16 +363,21 @@ def host_ms(fn, torch, reps):
     return statistics.median(times) * 1e3
 
 
-# cuDNN's forward convolutions, and every convolution's backward (the
-# training steps'; the inference paths have none)
+# every convolution: cuDNN's forwards, PyTorch's own forwards (the fp32
+# generator's blocks off cuDNN in train mode) and every backward (the
+# training steps'; the inference paths have neither of the last two)
 CONV_OPS = ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose",
-            "aten::convolution_backward")
+            "aten::_slow_conv2d_forward", "aten::convolution_backward")
 
 
 def profile_once(fn, torch):
-    """(device busy ms, wall ms, table, device ms of CONV_OPS) of one call
-    under torch.profiler; raises when the profiler lists no device
-    activity."""
+    """(device busy ms, wall ms, table, convolutions' device ms, device ms
+    of every op) of one call under torch.profiler; raises when the profiler
+    lists no device activity.  The last two sum the kernel durations the
+    profiler attaches to the ops (CONV_OPS, each counted where it is the
+    outermost; all ops), one accounting for both, so their ratio is the
+    convolutions' share; device busy is the union of the device activities'
+    intervals, which may overlap and are not all attached."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -376,21 +385,31 @@ def profile_once(fn, torch):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    averages = prof.key_averages()
-    table = averages.table(sort_by="self_device_time_total", row_limit=12)
-    conv_ms = sum(e.device_time_total for e in averages if e.key in CONV_OPS) * 1e-3
-    # the union of the device activities' intervals; CUPTI's "Command Buffer
-    # Full" rows mark a stalled host, not device work
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=12)
+    CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+
+    def attached_us(e):
+        return sum(k.duration for k in e.kernels) + sum(attached_us(c) for c in e.cpu_children)
+
+    def outermost(e):
+        p = e.cpu_parent
+        while p is not None and p.name not in CONV_OPS:
+            p = p.cpu_parent
+        return p is None
+
+    ops = [e for e in prof.events() if e.device_type == CPU]
+    conv_ms = sum(attached_us(e) for e in ops if e.name in CONV_OPS and outermost(e)) * 1e-3
+    total_ms = sum(attached_us(e) for e in ops if e.cpu_parent is None) * 1e-3
+    # CUPTI's "Command Buffer Full" rows mark a stalled host, not device work
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.name != "Command Buffer Full")
+                   if e.device_type == CUDA and e.name != "Command Buffer Full")
     if not spans:
         raise RuntimeError("the profiler listed no device activity")
     busy_us, end = 0.0, -math.inf
     for s, e in spans:
         busy_us += max(0.0, e - max(s, end))
         end = max(end, e)
-    return busy_us * 1e-3, wall_ms, table, conv_ms
+    return busy_us * 1e-3, wall_ms, table, conv_ms, total_ms
 
 
 def rel_err(got, want64):
@@ -570,32 +589,27 @@ def scale_aware(got, want, max_lr):
     return worst <= 2.5 * max_lr and n_bad <= max(1e-3 * n_tot, 8), worst, n_bad, n_tot
 
 
-def loss_and_param_gate(torch, card, cpu16, cpu32, lrs):
+def step_gate(card, cpu16, cpu32, lrs):
     """Phase 15's calibrated comparison of three one-step runs ({'losses':
     {name: float}, 'params': {net: {name: tensor}}}): card-bf16 vs CPU-bf16
     per loss within BF16_CAL x the CPU's own bf16 vs fp32 difference of that
-    loss, or of the step (the median over the losses of that difference over
-    the loss), whichever is larger, plus the float32 agreement (rtol 1e-4,
-    atol 1e-5): a loss whose own bf16 effect happens to cancel is held to
-    the step's; per net, the elements beyond float noise of the scale-aware
-    rule within BF16_CAL x the CPU's own count (plus its 0.1% allowance),
-    every element within 2.5 lr.  Returns (ok, printable rows)."""
+    loss, plus the float32 agreement (rtol 1e-4, atol 1e-5); per net, the
+    elements beyond float noise of the scale-aware rule within BF16_CAL x
+    the CPU's own count (plus its 0.1% allowance), every element within 2.5
+    lr.  Returns (ok, printable rows)."""
     ok, rows = True, []
-    step_rel = statistics.median(abs(v - cpu32["losses"][k]) / max(abs(v), 1e-12)
-                                 for k, v in cpu16["losses"].items())
     for k, want in cpu16["losses"].items():
-        gap = abs(card["losses"][k] - want)
-        cal = max(abs(want - cpu32["losses"][k]), step_rel * abs(want))
-        good = gap <= BF16_CAL * cal + 1e-5 + 1e-4 * abs(want)
+        gap, own = abs(card["losses"][k] - want), abs(want - cpu32["losses"][k])
+        good = gap <= BF16_CAL * own + 1e-5 + 1e-4 * abs(want)
         ok &= good
-        rows.append(f"{k} {gap:.2e}/{cal:.2e}{'' if good else ' FAIL'}")
+        rows.append(f"{k} {gap:.2e}/{own:.2e}{'' if good else ' FAIL'}")
     for net, lr in lrs.items():
         got, want, ref = (r["params"][net] for r in (card, cpu16, cpu32))
         _, worst, bad, tot = scale_aware(got, want, lr)
-        _, _, cal_bad, _ = scale_aware(ref, want, lr)
-        good = worst <= 2.5 * lr and bad <= BF16_CAL * cal_bad + max(1e-3 * tot, 8)
+        _, _, own_bad, _ = scale_aware(ref, want, lr)
+        good = worst <= 2.5 * lr and bad <= BF16_CAL * own_bad + max(1e-3 * tot, 8)
         ok &= good
-        rows.append(f"{net}: {bad} of {tot} beyond float noise (CPU bf16 vs fp32 {cal_bad}), "
+        rows.append(f"{net}: {bad} of {tot} beyond float noise (CPU bf16 vs fp32 {own_bad}), "
                     f"max diff {worst:.2e} (limit {2.5 * lr:.1e}){'' if good else ' FAIL'}")
     return ok, rows
 
@@ -927,12 +941,12 @@ def run():
                  f"{mem / 2**30:.2f} GiB, of which {live / 2**30:.2f} GiB live before the "
                  f"forward (weights, inputs, this script's tensors) {tag}")
 
-    busy_ms, wall_ms, table, conv_ms = profile_once(lambda: model.infer(batch), torch)
+    busy_ms, wall_ms, table, conv_ms, dev_ms = profile_once(lambda: model.infer(batch), torch)
     phase(6, f"profiled batch-1 forward: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms "
-             f"wall under the profiler, cuDNN convolutions {conv_ms:.2f} ms "
-             f"({conv_ms / busy_ms:.0%} of busy) {tag}; top device time:")
+             f"wall under the profiler, cuDNN convolutions {conv_ms:.2f} of {dev_ms:.2f} ms "
+             f"device time ({conv_ms / dev_ms:.0%}) {tag}; top device time:")
     print(table, flush=True)
-    flag_conv32 = (conv_ms, busy_ms)
+    flag_conv32 = (conv_ms, dev_ms)
     del model, batch, fake, orient_rgb
 
     # 7 ---------------------------------------------------------------
@@ -1120,12 +1134,12 @@ def run():
         img, hair = strand_image(torch, size, SEED), ellipse_mask(torch, size)
         ms = host_ms(lambda: cal_orientation.compute_orientation_map(img, hair), torch, reps)
         phase(9, f"compute_orientation_map {size}^2: {ms:.3f} ms/image {tag}")
-    busy_ms, wall_ms, table, conv_ms = profile_once(stroke_edit, torch)
+    busy_ms, wall_ms, table, conv_ms, dev_ms = profile_once(stroke_edit, torch)
     phase(9, f"profiled stroke edit: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
-             f"under the profiler, cuDNN convolutions {conv_ms:.2f} ms "
-             f"({conv_ms / busy_ms:.0%} of busy) {tag}; top device time:")
+             f"under the profiler, cuDNN convolutions {conv_ms:.2f} of {dev_ms:.2f} ms device "
+             f"time ({conv_ms / dev_ms:.0%}) {tag}; top device time:")
     print(table, flush=True)
-    edit_ms32, edit_conv32 = edit, (conv_ms, busy_ms)
+    edit_ms32, edit_conv32 = edit, (conv_ms, dev_ms)
 
     del smodel, sbatch, u8, sfake, s_orient, img, hair
     torch.cuda.empty_cache()
@@ -1348,15 +1362,15 @@ def run():
               f"{statistics.median(d_times):.1f} ms (medians of 3) {tag}")
     for k, v in step_breakdown(torch, trainer, tbatch).items():
         phase(11, f"  part, alone: {k}: {v:.1f} ms {tag}")
-    busy_ms, wall_ms, table, conv_ms = profile_once(train_step, torch)
+    busy_ms, wall_ms, table, conv_ms, dev_ms = profile_once(train_step, torch)
     phase(11, f"profiled training step: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
-              f"under the profiler, convolutions (cuDNN's forward ops and every convolution's "
-              f"backward) {conv_ms:.2f} ms ({conv_ms / busy_ms:.0%} of busy) {tag}; top device "
-              f"time:")
+              f"under the profiler, convolutions (forward and backward, on cuDNN and off it) "
+              f"{conv_ms:.2f} of {dev_ms:.2f} ms device time ({conv_ms / dev_ms:.0%}) {tag}; "
+              f"top device time:")
     print(table, flush=True)
     # phase 15 sets the bf16 step beside these
     step32 = dict(ms=ms_step, peak=peak, g=statistics.median(g_times),
-                  d=statistics.median(d_times), busy=busy_ms, wall=wall_ms, conv=conv_ms)
+                  d=statistics.median(d_times), conv=conv_ms, dev=dev_ms)
     del trainer, tbatch, nets, g_losses, d_losses, orient_t, _fake
     torch.cuda.empty_cache()
 
@@ -1487,10 +1501,11 @@ def run():
                   f"peak device memory {mem / 2**30:.2f} GiB (fp32 "
                   f"{flag_e2e[n][1] / 2**30:.2f}), of which {live / 2**30:.2f} GiB live before "
                   f"the forward (fp32 {flag_e2e[n][2] / 2**30:.2f}) {tag}")
-    busy_ms, wall_ms, table, conv_ms = profile_once(lambda: model16.infer(batch), torch)
+    busy_ms, wall_ms, table, conv_ms, dev_ms = profile_once(lambda: model16.infer(batch), torch)
     phase(13, f"profiled bf16 batch-1 forward: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms "
-              f"wall, cuDNN convolutions {conv_ms:.2f} ms ({conv_ms / busy_ms:.0%} of busy; fp32 "
-              f"{flag_conv32[0]:.2f} of {flag_conv32[1]:.2f} ms) {tag}; top device time:")
+              f"wall, cuDNN convolutions {conv_ms:.2f} of {dev_ms:.2f} ms device time "
+              f"({conv_ms / dev_ms:.0%}; fp32 {flag_conv32[0]:.2f} of {flag_conv32[1]:.2f} ms) "
+              f"{tag}; top device time:")
     print(table, flush=True)
     del model16, batch, fake16
     torch.cuda.empty_cache()
@@ -1570,10 +1585,11 @@ def run():
     edit16 = host_ms(stroke_edit16, torch, 10)
     phase(14, f"bf16 stroke edit end to end, batch 1: {edit16:.2f} ms/edit (fp32 {edit_ms32:.2f}), "
               f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}")
-    busy_ms, wall_ms, table, conv_ms = profile_once(stroke_edit16, torch)
+    busy_ms, wall_ms, table, conv_ms, dev_ms = profile_once(stroke_edit16, torch)
     phase(14, f"profiled bf16 stroke edit: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall, "
-              f"cuDNN convolutions {conv_ms:.2f} ms ({conv_ms / busy_ms:.0%} of busy; fp32 "
-              f"{edit_conv32[0]:.2f} of {edit_conv32[1]:.2f} ms) {tag}; top device time:")
+              f"cuDNN convolutions {conv_ms:.2f} of {dev_ms:.2f} ms device time "
+              f"({conv_ms / dev_ms:.0%}; fp32 {edit_conv32[0]:.2f} of {edit_conv32[1]:.2f} ms) "
+              f"{tag}; top device time:")
     print(table, flush=True)
     del smodel16, sbatch, u8, sfake16
 
@@ -1677,10 +1693,10 @@ def run():
                              inner=5)
     step16_plain_ms[k] = median_ms(lambda: O.filterbank_orientation_plain(grays, bank, True),
                                    torch, True, inner=5)
-    # 4-byte gray in, idx and conf out; 289 x 32 products per pixel, one
-    # TF32 product each
+    # 4-byte gray in, idx and conf out; 289 x 32 products per pixel of bf16
+    # operands, at the bf16 rate (the kernel runs one TF32 mma for each)
     step16_work[k] = [12 * grays.numel() + bank.numel() * 4, 2 * grays.numel() * 32 * 289]
-    b_bound = bound(*step16_work[k], TF32_FLOP_S)
+    b_bound = bound(*step16_work[k], BF16_FLOP_S)
     print(f"[phase 15] {k} bf16 operands (8,1,512,512) x1/step: device kernel "
           f"{step16_ms[k] * 1e3:.1f} us (the 3xTF32 form {step_ms[k] * 1e3:.1f} us in phase 10; "
           f"bound {b_bound[0] * 1e3:.1f} us by {b_bound[1]}), plain version "
@@ -1755,50 +1771,75 @@ def run():
               f"{step32['d']:.1f}) {tag}")
     for k, v in step_breakdown(torch, trainer16, tbatch).items():
         phase(15, f"  part, alone: {k}: {v:.1f} ms {tag}")
-    busy_ms, wall_ms, table, conv_ms = profile_once(train_step16, torch)
+    busy_ms, wall_ms, table, conv_ms, dev_ms = profile_once(train_step16, torch)
     phase(15, f"profiled bf16 training step: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms "
-              f"wall, convolutions (cuDNN's forward ops and every convolution's backward) "
-              f"{conv_ms:.2f} ms ({conv_ms / busy_ms:.0%} of busy; fp32 {step32['conv']:.2f} of "
-              f"{step32['busy']:.2f} ms) {tag}; top device time:")
+              f"wall, convolutions (forward and backward) {conv_ms:.2f} of {dev_ms:.2f} ms "
+              f"device time ({conv_ms / dev_ms:.0%}; fp32 {step32['conv']:.2f} of "
+              f"{step32['dev']:.2f} ms) {tag}; top device time:")
     print(table, flush=True)
     del trainer16, tbatch, nets, g_losses, d_losses, orient_t, _fake
     torch.cuda.empty_cache()
 
-    # one bf16 G+D step, card vs CPU, calibrated on the CPU's bf16 vs fp32
+    # one bf16 G+D step, card vs CPU, calibrated on the CPU's bf16 vs fp32;
+    # and a control that must fail the gate: the card's step on the first
+    # half of the batch
     extra16 = ["--ngf", str(PARITY16["ngf"]), "--ndf", str(PARITY16["ndf"])]
-    popt16, card16 = make_trainer(1, PARITY16["crop"], extra16 + ["--dtype", "bfloat16"])
-    popt32 = train_options(TRAIN_FLAGS + ["--batchSize", "1", "--crop_size",
+    n = PARITY16["batch"]
+    popt16, card16 = make_trainer(n, PARITY16["crop"], extra16 + ["--dtype", "bfloat16"])
+    popt32 = train_options(TRAIN_FLAGS + ["--batchSize", str(n), "--crop_size",
                                           str(PARITY16["crop"]), "--load_size",
                                           str(PARITY16["crop"]), "--seed", str(SEED), *extra16])
     init16 = {k: {n_: t.detach().cpu().clone() for n_, t in net.state_dict().items()}
               for k, net in card16.model.nets().items()}
 
-    def cpu_trainer(o):
-        m = MichiGANModel(o, "cpu")
+    def trainer_from_init(o, dev):
+        m = MichiGANModel(o, dev)
         m.load_state_dicts(init16)  # float32 modules take the bf16 frozen leaves as they are
         return TrainStep(m)
 
-    data = synthetic_train_data(popt16, SEED, 1)
-    runs16, t_run = {}, {}
-    for name, tr, dev in (("card", card16, "cuda:0"), ("cpu16", cpu_trainer(popt16), "cpu"),
-                          ("cpu32", cpu_trainer(popt32), "cpu")):
-        b = batch_from_numpy(data, dev)
+    data = synthetic_train_data(popt16, SEED, n)
+    half = {k: v[:n // 2] for k, v in data.items()}
+    trainers = {"card": (card16, "cuda:0", data),
+                "cpu16": (trainer_from_init(popt16, "cpu"), "cpu", data),
+                "cpu32": (trainer_from_init(popt32, "cpu"), "cpu", data),
+                "control": (trainer_from_init(popt16, "cuda:0"), "cuda:0", half)}
+    params_of = lambda net: {k: v.detach().cpu().clone() for k, v in net.named_parameters()}
+    runs16, t_run, batches, orients = {}, {}, {}, {}
+    for name, (tr, dev, d_) in trainers.items():
+        batches[name] = batch_from_numpy(d_, dev)
         t0 = time.perf_counter()
-        g, _f, o_ = tr.g_step(b, EXTRA_DILATE)
-        d = tr.d_step(b, EXTRA_DILATE, o_)
+        g, _f, orients[name] = tr.g_step(batches[name], EXTRA_DILATE)
         t_run[name] = time.perf_counter() - t0
-        runs16[name] = {"losses": {k: v.item() for k, v in {**g, **d}.items()},
-                        "params": {net: {k: v.detach().cpu() for k, v in
-                                         getattr(tr.model, net).named_parameters()}
-                                   for net in ("netG", "netD")}}
-    ok, rows = loss_and_param_gate(torch, runs16["card"], runs16["cpu16"], runs16["cpu32"],
-                                   {"netG": popt16.lr / 2, "netD": 2 * popt16.lr})
-    phase(15, f"one bf16 G+D step card/CPU, batch 1, {PARITY16['crop']}^2, ngf "
+        runs16[name] = {"losses": {k: v.item() for k, v in g.items()},
+                        "params": {"netG": params_of(tr.model.netG)}}
+    # the two CPU D steps from the card's post-G netG, as phase 12's: under
+    # bf16 the G step's Adam flips the sign of a large share of netG's
+    # elements, which would move the recomputed fake, and so D's losses, by
+    # more than bf16 moves them
+    post_g = {k: v.cpu() for k, v in card16.model.netG.state_dict().items()}
+    for name, (tr, dev, d_) in trainers.items():
+        if name in ("cpu16", "cpu32"):
+            tr.model.netG.load_state_dict(post_g)
+        t0 = time.perf_counter()
+        d = tr.d_step(batches[name], EXTRA_DILATE, orients[name])
+        t_run[name] += time.perf_counter() - t0
+        runs16[name]["losses"].update({k: v.item() for k, v in d.items()})
+        runs16[name]["params"]["netD"] = params_of(tr.model.netD)
+    del trainers, batches, orients, post_g
+    lrs = {"netG": popt16.lr / 2, "netD": 2 * popt16.lr}
+    ok, rows = step_gate(runs16["card"], runs16["cpu16"], runs16["cpu32"], lrs)
+    control_ok, control_rows = step_gate(runs16["control"], runs16["cpu16"], runs16["cpu32"], lrs)
+    phase(15, f"one bf16 G+D step card/CPU, batch {n}, {PARITY16['crop']}^2, ngf "
               f"{PARITY16['ngf']}, ndf {PARITY16['ndf']}, per loss card-vs-CPU bf16 / CPU bf16 "
               f"vs fp32: " + ", ".join(rows) + f"; CPU steps {t_run['cpu16']:.1f} s (bf16), "
               f"{t_run['cpu32']:.1f} s (fp32)")
+    phase(15, f"control, the card's step on the first {n // 2} of the {n} samples against the "
+              f"same CPU steps: " + ", ".join(control_rows)
+              + (": passes, FAIL" if control_ok else ": fails the gate, as it must"))
     if not ok:
         return fail("the card's and the CPU's bf16 training steps disagree")
+    if control_ok:
+        return fail("phase 15's gate passes a step that dropped half its batch")
     del card16, runs16, init16
     torch.cuda.empty_cache()
 
@@ -1837,7 +1878,7 @@ def run():
     # the bf16 training step's two forms: launches from phase 15's counted step
     for k, replaces in STEP_BF16_ROWS.items():
         lowch = k == "conv3x3_same_lowch"
-        b_ms, b_by = bound(*step16_work[k], BF16_FLOP_S if lowch else TF32_FLOP_S)
+        b_ms, b_by = bound(*step16_work[k], BF16_FLOP_S)
         kernel_rows.append({
             "name": f"{k}_bf16", "route": "cuda", "source": SOURCES[k], "replaces": replaces,
             "launches": step16_counts[k]["bfloat16"], "max_abs_err": max_err_bf16[k],
@@ -1852,4 +1893,9 @@ def run():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--conv_algorithms"]:  # a diagnostic: see its module
+        from michigan_tpu_torch.tools import conv_algorithms
+
+        sys.exit(conv_algorithms.main(sys.argv[2:], TRAIN_FLAGS, SEED, EXTRA_DILATE,
+                                      scale_aware, card_info))
     sys.exit(run())

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from michigan_tpu_torch.models.architecture import SPADEResnetBlock
 from michigan_tpu_torch.models.encoders import BackgroundEncode2, ImageEncoder3
-from michigan_tpu_torch.models.layers import Conv2d
+from michigan_tpu_torch.models.layers import Conv2d, cudnn_off
 from michigan_tpu_torch.ops.resize import resize_nearest, upsample2x_nearest
 
 
@@ -28,12 +28,14 @@ def orient_to_two_channel(orient255: torch.Tensor, hair_mask: torch.Tensor) -> t
 
 
 # Blocks whose float32 convolutions run with cuDNN off in train mode on a
-# card (models/layers.py: conv): at their channel counts (256 to 1024 in, on
-# planes of 64^2 and less) cuDNN's float32 implicit-GEMM forward errs 3-5x
-# PyTorch's own im2col + GEMM against float64, and under the config's own
-# init (xavier, gain 0.02) those errors carried through the step put the
+# card (models/layers.py: cudnn_off): at their channel counts (256 to 1024
+# in, on planes of 64^2 and less) cuDNN's float32 implicit-GEMM forward errs
+# 3-5x PyTorch's own im2col + GEMM against float64, and under the config's
+# own init (xavier, gain 0.02) those errors carried through the step put the
 # card's G step past the scale-aware rule against the CPU's
-# (tools/conv_algorithms.py; chip_smoke.py phase 12).
+# (tools/conv_algorithms.py; chip_smoke.py phase 12).  head_0, G_middle and
+# up_0 alone bring it under the rule with a thin margin; the two encoders
+# widen it.
 CUDNN_OFF = ("fc", "backgroud_enc", "head_0", "G_middle_0", "G_middle_1", "up_0")
 
 
@@ -65,9 +67,13 @@ class SPADEBGenerator(nn.Module):
         self.up_3 = SPADEResnetBlock(2 * nf, 1 * nf, opt)
         self.conv_img = Conv2d(nf, 3, 3, padding=1)
         self.backgroud_enc = BackgroundEncode2(opt)
-        for name, m in self.named_modules():
-            if hasattr(m, "cudnn_off") and name.split(".")[0] in CUDNN_OFF:
-                m.cudnn_off = True
+        self.cudnn_off_blocks = CUDNN_OFF
+
+    def block(self, name: str, *args, **kwargs):
+        """self.<name>(*args, **kwargs), with cuDNN off in train mode for
+        the blocks in ``cudnn_off_blocks``."""
+        with cudnn_off(self.training and name in self.cudnn_off_blocks):
+            return getattr(self, name)(*args, **kwargs)
 
     def forward(self, input_ref, input_tag, orient, image_ref, image_tag, noise,
                 extra_dilate_steps: int = 2):
@@ -76,14 +82,14 @@ class SPADEBGenerator(nn.Module):
         opt = self.opt
         seg = input_tag
         hair_mask = input_tag[:, 1:2]
-        x = self.fc(image_ref, input_ref[:, 1:2], hair_mask)
+        x = self.block("fc", image_ref, input_ref[:, 1:2], hair_mask)
 
         if not opt.no_orientation:
             o = orient if opt.use_ig else orient_to_two_channel(orient, hair_mask)
             seg = torch.cat([seg, o.to(seg.dtype)], dim=1)
 
-        back_feats, back_masks = self.backgroud_enc(image_tag, input_tag, noise,
-                                                    extra_dilate_steps)
+        back_feats, back_masks = self.block("backgroud_enc", image_tag, input_tag, noise,
+                                            extra_dilate_steps)
         H, W = hair_mask.shape[2:]
         hair_masks = [resize_nearest(hair_mask, (H // f, W // f)) for f in (8, 4, 2)]
         hair_masks.append(hair_mask)
@@ -96,14 +102,14 @@ class SPADEBGenerator(nn.Module):
         def clip(xx):
             return torch.where(xx > opt.clip_th, 0.0, xx) if opt.use_clip else xx
 
-        x = self.head_0(x, seg)
+        x = self.block("head_0", x, seg)
         x = upsample2x_nearest(x)
-        x = self.G_middle_0(x, seg)
+        x = self.block("G_middle_0", x, seg)
         if opt.num_upsampling_layers == "more":
             x = upsample2x_nearest(x)
-        x = clip(self.G_middle_1(x, seg))
-        for i, block in enumerate((self.up_0, self.up_1, self.up_2, self.up_3)):
+        x = clip(self.block("G_middle_1", x, seg))
+        for i, name in enumerate(("up_0", "up_1", "up_2", "up_3")):
             x = upsample2x_nearest(x)
-            x = composite(clip(block(x, seg)), i)
+            x = composite(clip(self.block(name, x, seg)), i)
         x = self.conv_img(F.leaky_relu(x, 0.2))
         return torch.tanh(x)

@@ -19,12 +19,12 @@ parameters run bfloat16 convolutions on bfloat16 activations and float32
 ones unchanged.  Casts are explicit, not ``torch.autocast``, which picks its
 own dtype per op.
 
-A conv module whose ``cudnn_off`` is set runs its float32 convolutions on
-a card in train mode with cuDNN off (``NativeConv``: PyTorch's own im2col +
-GEMM, forward and both gradients): the generator sets it on its
-high-channel, low-resolution blocks, where cuDNN's float32 algorithms are
-the least accurate (models/generator.py).  Eval mode, bfloat16 and the CPU
-are unaffected.
+Inside ``cudnn_off()``, every conv of this module runs its float32
+convolutions on a card with cuDNN off (``NativeConv``: PyTorch's own
+im2col + GEMM, forward and both gradients): the generator opens it around
+its high-channel, low-resolution blocks in train mode, where cuDNN's
+float32 algorithms are the least accurate (models/generator.py).  bfloat16
+and the CPU are unaffected.
 
 Which forward may write buffers (spectral u / v here, batch-norm running
 statistics in normalization.py) is explicit: a module writes them in train
@@ -88,11 +88,24 @@ class NativeConv(torch.autograd.Function):
         return (None, dx, dw, db, *([None] * len(ctx.rest)))
 
 
-def conv(module: nn.Module, func, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-         *rest):
-    """func(x, w, b, *rest); through NativeConv where `module.cudnn_off` is
-    set, the module is in train mode and x is a float32 tensor on a card."""
-    if module.cudnn_off and module.training and x.is_cuda and x.dtype == torch.float32:
+_CUDNN_OFF = False
+
+
+@contextlib.contextmanager
+def cudnn_off(on: bool = True) -> Iterator[None]:
+    """Inside (with `on`), conv() takes NativeConv for float32 card tensors."""
+    global _CUDNN_OFF
+    saved, _CUDNN_OFF = _CUDNN_OFF, on
+    try:
+        yield
+    finally:
+        _CUDNN_OFF = saved
+
+
+def conv(func, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *rest):
+    """func(x, w, b, *rest); through NativeConv inside cudnn_off() where x is
+    a float32 tensor on a card."""
+    if _CUDNN_OFF and x.is_cuda and x.dtype == torch.float32:
         return NativeConv.apply(func, x, w, b, *rest)
     return func(x, w, b, *rest)
 
@@ -100,10 +113,9 @@ def conv(module: nn.Module, func, x: torch.Tensor, w: torch.Tensor, b: Optional[
 class Conv2d(nn.Conv2d):
     """nn.Conv2d under the cast rule: weight and bias in the input's dtype."""
 
-    cudnn_off = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv(self, F.conv2d, x, *cast_params(x, self.weight, self.bias), self.stride,
+        return conv(F.conv2d, x, *cast_params(x, self.weight, self.bias), self.stride,
                     self.padding, self.dilation, self.groups)
 
 
@@ -128,7 +140,6 @@ class SpectralConv2d(nn.Module):
 
     transposed = False
     write_buffers = True
-    cudnn_off = False
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, dilation: int = 1, bias: bool = True):
@@ -160,7 +171,7 @@ class SpectralConv2d(nn.Module):
         return self.weight_orig.float() / spectral_sigma(w_mat, u, v)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv(self, F.conv2d, x, *cast_params(x, self.weight(), self.bias), self.stride,
+        return conv(F.conv2d, x, *cast_params(x, self.weight(), self.bias), self.stride,
                     self.padding, self.dilation)
 
 
@@ -175,7 +186,7 @@ class SpectralConvTranspose2d(SpectralConv2d):
         super().__init__(in_ch, out_ch, kernel_size, stride, padding, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv(self, F.conv_transpose2d, x, *cast_params(x, self.weight(), self.bias),
+        return conv(F.conv_transpose2d, x, *cast_params(x, self.weight(), self.bias),
                     self.stride, self.padding)
 
 
@@ -186,7 +197,6 @@ class PartialConv(nn.Conv2d):
     The mask ratio is computed in float32 and cast to x's dtype; the updated
     mask stays float32."""
 
-    cudnn_off = False
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 2,
                  padding: int = 1, bias: bool = True):
@@ -200,7 +210,7 @@ class PartialConv(nn.Conv2d):
         update_mask = update_mask.clamp(0.0, 1.0)
         mask_ratio = mask_ratio * update_mask
         w, b = cast_params(x, self.weight, self.bias)
-        raw = conv(self, F.conv2d, x * mask.to(x.dtype), w, None, self.stride, self.padding)
+        raw = conv(F.conv2d, x * mask.to(x.dtype), w, None, self.stride, self.padding)
         mask_ratio = mask_ratio.to(raw.dtype)
         if b is not None:
             out = (raw * mask_ratio + b.view(1, -1, 1, 1)) * update_mask.to(raw.dtype)

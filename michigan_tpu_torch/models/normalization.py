@@ -72,8 +72,6 @@ class SPADE(nn.Module):
     channels, whose two halves the kernel reads in place; the state_dict
     keeps mlp_gamma and mlp_beta."""
 
-    cudnn_off = False  # the gamma / beta conv (layers.conv)
-
     def __init__(self, config_text: str, norm_nc: int, label_nc: int, nhidden: int = 128):
         super().__init__()
         self.norm_type, ks = parse_spade_config(config_text)
@@ -107,7 +105,7 @@ class SPADE(nn.Module):
         seg = resize_nearest(segmap, x.shape[2:]).to(x.dtype)
         actv = self.mlp_shared(seg)
         weight, bias = self.gamma_beta_conv(actv.dtype)
-        gamma, beta = conv(self, F.conv2d, actv, weight, bias, 1, self.pw).chunk(2, dim=1)
+        gamma, beta = conv(F.conv2d, actv, weight, bias, 1, self.pw).chunk(2, dim=1)
         if self.training:
             return self.param_free_norm(x) * (1.0 + gamma) + beta
         if self.norm_type == "instance":

@@ -1,10 +1,12 @@
 """Which cuDNN algorithms the convolutions of netG's float32 training step
 take on the card, and how far each lands from float64.
 
-    env PYTHONPATH=. python -m michigan_tpu_torch.tools.conv_algorithms \
+    python3 chip_smoke.py --conv_algorithms \
         [--init_type xavier] [--crop 512] [--no_table] [--native PREFIX[,PREFIX...] ...]
 
-One G step of chip_smoke.py's training config (bench.py's flags, full
+``main`` takes the training config, the seed, the mask dilation and the
+scale-aware rule from its caller (chip_smoke.py, which holds them for its
+phases 11 and 12).  One G step of that config (bench.py's flags, full
 width, batch 1, ``--init_type`` as given; default: the config's own xavier)
 records every convolution that reaches netG's parameters: its input, the
 weight it was given, and the gradient of its output in the step's backward.
@@ -23,9 +25,9 @@ rule (netG's parameters: at most 0.1% of the elements beyond float noise),
 as the port runs it (the generator's ``CUDNN_OFF`` blocks off cuDNN), with
 every convolution on cuDNN (under its default, its deterministic and its
 benchmarked choice of algorithms), and, for each --native group
-(comma-separated prefixes; "" names every module), with cuDNN off for
-every convolution whose module name starts with one of the group's
-prefixes and on for the rest (``cudnn_off``).
+(comma-separated prefixes; "" names every block), with cuDNN off for the
+generator's blocks whose names start with one of the group's prefixes and
+on for the rest (the generator's ``cudnn_off_blocks``).
 Needs a card; nothing here runs on the CPU alone.
 """
 
@@ -76,19 +78,16 @@ def name_stack(net):
 
 
 @contextlib.contextmanager
-def cudnn_off(net, prefixes, off=True):
-    """Inside, every conv module of `net` whose name starts with one of
-    `prefixes` has its ``cudnn_off`` (models/layers.py) set to `off`."""
-    mods = [m for name, m in net.named_modules()
-            if hasattr(m, "cudnn_off") and name.startswith(tuple(prefixes))]
-    saved = [m.cudnn_off for m in mods]
-    for m in mods:
-        m.cudnn_off = off
+def cudnn_off_blocks(net, prefixes):
+    """Inside, the generator `net` runs with cuDNN off the blocks whose
+    names start with one of `prefixes` (none for no prefix)."""
+    saved = net.cudnn_off_blocks
+    net.cudnn_off_blocks = tuple(n for n, _ in net.named_children()
+                                 if prefixes and n.startswith(tuple(prefixes)))
     try:
         yield
     finally:
-        for m, v in zip(mods, saved):
-            m.cudnn_off = v
+        net.cudnn_off_blocks = saved
 
 
 def replay(rec, dtype, cudnn, backward=True):
@@ -137,17 +136,11 @@ def step_params(model, batch, extra):
     return {k: v.detach().cpu() for k, v in model.netG.named_parameters()}
 
 
-def beyond_noise(got, want):
-    n_bad = n_tot = 0
-    for k, w in want.items():
-        d = (got[k].double() - w.double()).abs()
-        n_bad += int((d > 1e-4 * w.double().abs() + 1e-5).sum())
-        n_tot += d.numel()
-    return n_bad, n_tot
-
-
-def main(argv=None):
-    import chip_smoke
+def main(argv, train_flags, seed, extra, scale_aware, card_info):
+    """`train_flags`: the training config's flags; `extra`: the mask's
+    extra dilation steps; `scale_aware(got, want, max_lr)` -> (ok, max
+    diff, elements beyond float noise, elements); `card_info()`: the card's
+    name and power limit."""
     from michigan_tpu_torch.data.synthetic import synthetic_train_data
     from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
     from michigan_tpu_torch.models.layers import frozen_buffers
@@ -165,17 +158,16 @@ def main(argv=None):
         raise SystemExit("needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = chip_smoke.card_info() if dev.type == "cuda" else "the CPU"
+    card = card_info() if dev.type == "cuda" else "the CPU"
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    flags = [f for f in chip_smoke.TRAIN_FLAGS if f not in ("none",)]
+    flags = [f for f in train_flags if f not in ("none",)]
     flags = [f for f in flags if f != "--init_type"] + ["--init_type", args.init_type]
     opt = parse_options(flags + ["--batchSize", "1", "--crop_size", str(args.crop),
-                                 "--load_size", str(args.crop), "--seed", str(chip_smoke.SEED)])
+                                 "--load_size", str(args.crop), "--seed", str(seed)])
     model = MichiGANModel(opt, dev)
-    model.init_weights(chip_smoke.SEED)
-    data = synthetic_train_data(opt, chip_smoke.SEED, 1)
+    model.init_weights(seed)
+    data = synthetic_train_data(opt, seed, 1)
     batch = batch_from_numpy(data, dev)
-    extra = chip_smoke.EXTRA_DILATE
     print(f"card: {card}; torch {torch.__version__}; init {args.init_type}, batch 1, "
           f"{args.crop}^2, ngf {opt.ngf}", flush=True)
 
@@ -183,7 +175,7 @@ def main(argv=None):
     # cuDNN, so that each reaches F.conv2d with autograd recording)
     stack, handles = name_stack(model.netG)
     rec = RecordConvs(stack)
-    with frozen_buffers(model.netG), cudnn_off(model.netG, [""], False), rec:
+    with frozen_buffers(model.netG), cudnn_off_blocks(model.netG, []), rec:
         total, _losses, _fake, _orient = model.generator_loss(batch, extra)
     for h in handles:
         h.remove()
@@ -231,7 +223,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     want = step_params(cpu_model, batch_from_numpy(data, "cpu"), extra)
     print(f"CPU G step {time.perf_counter() - t0:.1f} s", flush=True)
-    every = lambda: cudnn_off(model.netG, [""], False)
+    every = lambda: cudnn_off_blocks(model.netG, [])
 
     @contextlib.contextmanager
     def flags(**kw):
@@ -245,14 +237,10 @@ def main(argv=None):
               "every conv on cuDNN, benchmark": lambda: flags(benchmark=True,
                                                               deterministic=False)}
 
-    @contextlib.contextmanager
-    def only(prefixes):
-        with every(), cudnn_off(model.netG, prefixes):
-            yield
-
     for group in args.native:
         prefixes = group.split(",")
-        routes[f"cuDNN off for {prefixes} only"] = lambda prefixes=prefixes: only(prefixes)
+        routes[f"cuDNN off for {prefixes} only"] = \
+            lambda prefixes=prefixes: cudnn_off_blocks(model.netG, prefixes)
     for label, ctx in routes.items():
         model.load_state_dicts(state)
         t0 = time.perf_counter()
@@ -260,11 +248,9 @@ def main(argv=None):
             got = step_params(model, batch, extra)
         sync()
         dt = time.perf_counter() - t0
-        bad, tot = beyond_noise(got, want)
+        ok, worst, bad, tot = scale_aware(got, want, opt.lr / 2)
         print(f"G step card vs CPU, {label}: {bad} of {tot} elements beyond float noise "
-              f"({bad / tot:.4%}; phase 12's limit {max(1e-3 * tot, 8):.0f}); {dt:.2f} s, the "
-              f"first step of this route [{card}]", flush=True)
-
-
-if __name__ == "__main__":
-    main()
+              f"({bad / tot:.4%}; phase 12's limit {max(1e-3 * tot, 8):.0f}), max diff "
+              f"{worst:.2e}: {'within' if ok else 'past'} the rule; {dt:.2f} s, the first step of "
+              f"this route [{card}]", flush=True)
+    return 0

@@ -23,6 +23,22 @@ tests/test_torch_training.py (ngf 8, ndf 8, crop 64, batch 2).
   other places in the two frameworks (XLA may keep a fused chain of bf16
   ops in float32), so equality is not expected; the factor 2 leaves the
   port at most twice as far from JAX's bf16 step as bf16 itself moves it.
+  Readings (port-bf16 vs JAX-bf16 / JAX-bf16 vs float32; torch 2.13 and
+  jax on an x86 CPU): GAN 7.2e-7/7.6e-6, GAN_Feat 6.5e-4/3.3e-4, ORIENT
+  1.0e-2/9.6e-2, VGG 1.2e-4/3.9e-4, background 2.2e-6/9.5e-7 (inside the
+  float32 floor), content 6.3e-4/1.3e-3, lab 7.3e-5/1.8e-4, rgb
+  9.2e-7/3.5e-6, style 1.0e-3/2.6e-3, CONFIDENCE 0/0 (zero at this size),
+  D_Fake 5.8e-6/6.6e-6, D_real 7.0e-6/8.1e-6; beyond float noise netG
+  545256 of 4426267 (float32: 617314), netD 2677 of 89874 (3053); netG's
+  buffers 2.8e-3 (3.1e-3).  The parameter counts hardly tell bf16 from
+  float32: bf16's rounding alone flips the sign of Adam's first step on
+  ~14% of netG's elements, so the losses are what the gate can see.
+- Controls: the bf16 G step on the first of the two samples fails the loss
+  gate (GAN_Feat 3.4e-3, background 2.5e-3, lab 6.1e-2, rgb 1.6e-3, style
+  1.7e-2 past it).  The float32 bank passes it (ORIENT 8.8e-2 within 2 x
+  9.6e-2: the bank is most of the policy's own effect on that loss), so
+  the bank is held on its own: the float32 bank's ORIENT sits 8.8x further
+  from JAX's than the bf16-operand bank's.
 - The bf16 norm Functions against ``jax.vjp`` of ``_instance_norm_b16`` and
   ``_bn_train_b16`` on the same bf16 inputs (atol 1e-2, rtol 1.6e-2, about
   two bf16 ulps), and what they keep for the backward (bf16 x and
@@ -112,7 +128,28 @@ def runs():
         d = TrainStep(m).d_step(tbatch, EXTRA)
         out[name] = dict(g={k: float(v) for k, v in g.items()},
                          d={k: float(v) for k, v in d.items()}, s1=s1, s2=port_state(m))
+    # controls: the bf16 G step on the first half of the batch, and on the
+    # float32 bank (the port before it had the bf16-operand form)
+    half = batch_from_numpy({k: v[:1] for k, v in batch.items()}, "cpu")
+    for name, opt, b in (("half", opt16, half),
+                         ("bank_fp32", tiny_opt(dtype="bfloat16", orient_bank_fp32=True), tbatch)):
+        m = MichiGANModel(opt, "cpu")
+        m.load_state_dicts(sd)
+        g, _, _ = TrainStep(m).g_step(b, EXTRA)
+        out[name] = dict(g={k: float(v) for k, v in g.items()})
     return out
+
+
+def loss_gate(got: dict, want: dict, ref: dict):
+    """({name: "gap/policy"}, [names past the gate]) of one step's losses:
+    got within CAL x |want - ref| of want, plus the float32 floor."""
+    rows, past = {}, []
+    for k, w in want.items():
+        gap, policy = abs(got[k] - w), abs(w - ref[k])
+        rows[k] = f"{gap:.2e}/{policy:.2e}"
+        if not gap <= CAL * policy + LOSS_TOL["atol"] + LOSS_TOL["rtol"] * abs(w):
+            past.append(k)
+    return rows, past
 
 
 def beyond_noise(got: dict, want: dict, max_lr: float):
@@ -134,18 +171,33 @@ def params(state: dict, net: torch.nn.Module) -> dict:
 def test_bf16_step_losses_match_jax(runs):
     jax16, port16, port32 = runs["jax"], runs["bfloat16"], runs["float32"]
     assert tuple(port16["g"]) == G_TERMS and tuple(port16["d"]) == ("D_Fake", "D_real")
-    rows = []
     for part in ("g", "d"):
-        for k, want in jax16[part].items():
-            got, ref = port16[part][k], port32[part][k]
-            gap, policy = abs(got - want), abs(want - ref)
-            floor = LOSS_TOL["atol"] + LOSS_TOL["rtol"] * abs(want)
-            rows.append(f"{k} {gap:.2e}/{policy:.2e}")
-            assert np.isfinite(got), k
-            assert gap <= CAL * policy + floor, (k, got, want, ref)
-    print("port-bf16 vs JAX-bf16 / JAX-bf16 vs fp32 per loss: " + ", ".join(rows))
+        assert all(np.isfinite(v) for v in port16[part].values())
+        rows, past = loss_gate(port16[part], jax16[part], port32[part])
+        print("port-bf16 vs JAX-bf16 / JAX-bf16 vs fp32 per loss: "
+              + ", ".join(f"{k} {v}" for k, v in rows.items()))
+        assert not past, (past, rows)
     # a step that silently ran float32 would match the float32 losses
     assert any(port16["g"][k] != port32["g"][k] for k in G_TERMS)
+
+
+def test_bf16_loss_gate_fails_half_the_batch(runs):
+    """The loss gate is not vacuous: the bf16 G step on the first of the two
+    samples fails it."""
+    rows, past = loss_gate(runs["half"]["g"], runs["jax"]["g"], runs["float32"]["g"])
+    print("half the batch, port-bf16 vs JAX-bf16 / JAX-bf16 vs fp32 per loss: "
+          + ", ".join(f"{k} {v}" for k, v in rows.items()))
+    assert past, rows
+
+
+def test_bf16_orient_loss_needs_the_bf16_operand_bank(runs):
+    """JAX's bf16 ORIENT loss is the bf16-operand bank's: the float32 bank
+    lands several times further from it.  (Both pass the calibrated gate:
+    the bank is most of the policy's own effect on this loss.)"""
+    want = runs["jax"]["g"]["ORIENT"]
+    gap16, gap32 = (abs(runs[k]["g"]["ORIENT"] - want) for k in ("bfloat16", "bank_fp32"))
+    print(f"ORIENT vs JAX-bf16: bf16-operand bank {gap16:.2e}, float32 bank {gap32:.2e}")
+    assert gap16 * 4 <= gap32
 
 
 @pytest.mark.parametrize("net,stage,lr_scale", [("netG", "s1", 0.5), ("netD", "s2", 2.0)])

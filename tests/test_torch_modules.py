@@ -333,29 +333,44 @@ def test_native_conv_matches_the_conv_and_its_gradients(func, bias, rest):
 
 
 def test_generator_pins_its_high_channel_blocks_off_cudnn(monkeypatch):
-    """The generator's CUDNN_OFF blocks carry cudnn_off, the others do not;
-    layers.conv takes NativeConv only for a float32 card tensor in train
-    mode, so the CPU, eval mode and bf16 keep the plain conv."""
+    """In train mode the generator runs its CUDNN_OFF blocks, and only those,
+    inside layers.cudnn_off, and in eval mode none; layers.conv takes
+    NativeConv there only for a float32 card tensor, so the CPU and bf16
+    keep the plain conv."""
     from michigan_tpu_torch.models.generator import CUDNN_OFF, SPADEBGenerator
 
-    net = SPADEBGenerator(opt_small())
-    flagged = {n.split(".")[0] for n, m in net.named_modules() if getattr(m, "cudnn_off", False)}
-    assert flagged == set(CUDNN_OFF)
-    assert not net.up_3.conv_0.cudnn_off and net.head_0.conv_0.cudnn_off
+    opt = opt_small()
+    net = SPADEBGenerator(opt)
+    seen = {}
+    for name, m in net.named_modules():
+        if name:
+            m.register_forward_pre_hook(
+                lambda *_, b=name.split(".")[0]: seen.setdefault(b, set()).add(tl._CUDNN_OFF))
+    s = opt.generator_input_size()
+    g = torch.Generator().manual_seed(0)
+    seg = torch.zeros((1, 2, s, s))
+    seg[:, 1, s // 4:3 * s // 4, s // 4:3 * s // 4] = 1
+    seg[:, 0] = 1 - seg[:, 1]
+    args = (seg, seg, torch.rand((1, 2, s, s), generator=g), torch.rand((1, 3, s, s), generator=g),
+            torch.rand((1, 3, s, s), generator=g), torch.rand((1, 3, s, s), generator=g))
+    for train in (True, False):
+        seen.clear()
+        with torch.no_grad():
+            net.train(train)(*args)
+        assert set(CUDNN_OFF) < set(seen), seen
+        assert seen == {b: {train and b in CUDNN_OFF} for b in seen}, (train, seen)
     calls = []
     monkeypatch.setattr(tl.NativeConv, "apply", lambda *a: calls.append(a) or "native")
-    conv = net.head_0.conv_0
-    x = torch.zeros((1, conv.weight_orig.shape[1], 4, 4))
-    conv.train()
-    assert isinstance(tl.conv(conv, torch.nn.functional.conv2d, x, conv.weight_orig, None,
-                              1, 1), torch.Tensor)  # the CPU
+    x = torch.zeros((1, 2, 4, 4))
+    w = torch.zeros((3, 2, 3, 3))
     cuda_like = type("CudaLike", (), {"is_cuda": True, "dtype": torch.float32})()
-    assert tl.conv(conv, None, cuda_like, None, None) == "native"
-    conv.eval()
-    with pytest.raises(TypeError):  # eval mode: the plain conv (here not callable)
-        tl.conv(conv, None, cuda_like, None, None)
-    conv.train()
-    cuda_like.dtype = torch.bfloat16
-    with pytest.raises(TypeError):
-        tl.conv(conv, None, cuda_like, None, None)
+    with tl.cudnn_off():
+        assert tl.conv(torch.nn.functional.conv2d, x, w, None, 1, 1).shape == (1, 3, 4, 4)
+        assert tl.conv(None, cuda_like, None, None) == "native"
+        cuda_like.dtype = torch.bfloat16
+        with pytest.raises(TypeError):  # bf16: the plain conv (here not callable)
+            tl.conv(None, cuda_like, None, None)
+    cuda_like.dtype = torch.float32
+    with pytest.raises(TypeError):  # outside cudnn_off: the plain conv
+        tl.conv(None, cuda_like, None, None)
     assert len(calls) == 1
