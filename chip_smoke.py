@@ -43,10 +43,11 @@ Phases, each on its own line:
      most the plain version's plus 1e-4 of pixels); conv3x3_in_act in
      bfloat16 (bf16 x_pad and residual, the float32 spectral weight, the
      bf16 stored bias) at the edit's shapes against its plain version (atol
-     1e-2, rtol 1.6e-2), and it and the route it replaces under the policy
-     (cuDNN's bf16 conv + fused_instance_norm) against a float64
-     composition at batch 2 (the kernel's largest error at most 2x the
-     route's)
+     1e-2, rtol 1.6e-2); and the bf16 tile's edges against their plain
+     versions, with float32 and bf16 weights: conv3x3_in_act at odd C, W %
+     8 != 0, dilation 4 and both of its forms (one cluster per plane, and
+     the pre-norm plane past 16 tiles), conv3x3_same_lowch at odd C and W,
+     C too large for resident weights and fewer tiles than SMs
   4. the flagship on the card, counting launches: 18 spade_modulate and 29
      fused_instance_norm per forward, no other kernel
   5. the flagship on the CPU (plain versions), same weights and inputs: tanh
@@ -112,13 +113,18 @@ Phases, each on its own line:
       spade_modulate in bfloat16 and 1 filterbank_orientation in float32;
       the same CPU comparison; ms/edit beside phase 9's; conv3x3_in_act in
       bfloat16 in turns with cuDNN's bf16 conv + fused_instance_norm and
-      beside its plain version; a profiler breakdown
+      beside its plain version; it and that route against a float64
+      composition at batch 2 (the kernel's largest error at most F64_RATIO
+      x the route's) and its device kernels per call under the profiler, in
+      a process of its own (tools/kernel_launches.py; exactly one); a
+      profiler breakdown
   15. the training step at --dtype bfloat16: conv3x3_same_lowch in bf16
       against its plain version at (16, 64, 512^2) and (2, 64, 37, 53)
       (atol 1e-2, rtol 1.6e-2) and, with F.conv2d in bf16, against a
       float64 conv of the same bf16 values at batch 2 (at most 2x
-      F.conv2d's error); the bank's bf16-operand form against its plain
-      version at (8, 1, 512^2), Gabor and DoG (conf within one bf16 ulp, the
+      F.conv2d's error) and, under the profiler in a process of its own,
+      exactly one device kernel per call; the bank's bf16-operand form
+      against its plain version at (8, 1, 512^2), Gabor and DoG (conf within one bf16 ulp, the
       argmax off on at most 1% of the pixels and only at bf16 near-ties) and
       against float64 sums of the bf16 operands; both timed at the step's
       shapes (lowch in turns with F.conv2d in bf16); then the step at batch
@@ -267,6 +273,18 @@ PARITY16 = dict(crop=256, ngf=32, ndf=32, batch=2)
 FB16_TOL = dict(rtol=1e-2, atol=1e-3)  # one bf16 ulp of the response
 FB16_IDX_FRAC = 1e-2
 LOWCH_SHAPES = [(16, 64, 512, 512), (2, 64, 37, 53)]  # features_2 at batch 8; a ragged tile
+# the bf16 tile's own edges in phase 3, each against its plain version:
+# conv3x3_same_lowch (n, c, co, h, w): odd C and W, C too large for the
+# resident weights (streamed), fewer tiles than SMs; conv3x3_in_act (n, c,
+# co, h, w, dilation, act, residual): odd C, W % 8 != 0, dilation 4, and
+# planes of more than one cluster's 16 tiles (the pre-norm form), batch 2
+LOWCH_BF16_EDGES = [(1, 3, 70, 10, 11), (1, 160, 64, 20, 70), (1, 64, 64, 8, 64)]
+EPI_BF16_EDGES = [(1, 7, 64, 9, 13, 2, "relu", True), (2, 20, 40, 13, 30, 1, "lrelu", False),
+                  (1, 32, 32, 16, 16, 4, None, False), (2, 16, 24, 80, 80, 1, "relu", True),
+                  (1, 256, 256, 96, 96, 2, "relu", False)]
+# device kernels per call of the bf16 forms (torch.profiler): one each
+BF16_KERNELS = {"conv3x3_in_act": "conv3x3_in_act_bf16_kernel",
+                "conv3x3_same_lowch": "conv3x3_same_bf16_kernel"}
 NEW_KERNEL_REL = 1e-4  # of the reference's largest magnitude
 F64_RATIO = 2.0  # a conv kernel's error against float64 at most 2x F.conv2d's in fp32
 SEED = 0
@@ -410,6 +428,19 @@ def profile_once(fn, torch):
         busy_us += max(0.0, e - max(s, end))
         end = max(end, e)
     return busy_us * 1e-3, wall_ms, table, conv_ms, total_ms
+
+
+def kernels_per_call(cases):
+    """{device kernel: launches per call} over `cases` of
+    tools/kernel_launches.py (one call each, under torch.profiler, in a
+    process of its own)."""
+    from michigan_tpu_torch.tools import kernel_launches
+
+    counts = {}
+    for key, n in kernel_launches.run(cases).items():
+        name = key.split("::", 1)[-1].split("<")[0].split("(")[0]
+        counts[name] = counts.get(name, 0) + n
+    return {k: v / len(cases) for k, v in counts.items()}
 
 
 def rel_err(got, want64):
@@ -787,22 +818,45 @@ def run():
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             failed.append(("conv3x3_in_act bfloat16", case))
-    # against float64 at batch 2 of the edit's shapes: the bf16 kernel and
-    # the route it replaces under the policy, both from the same bf16 inputs
-    # (the float64 composition takes the weight rounded to bf16)
-    for d, act, res in ((2, "relu", False), (1, None, True)):
-        xp, w, bias, r = epilogue_inputs(torch, (2, 256, 64, d, act, res), gen, torch.bfloat16)
-        want = E.conv3x3_in_act_plain(xp.double(), w.bfloat16().double(), bias.double(), d, act,
-                                      residual=None if r is None else r.double())
-        k_rel = rel_err(E.conv3x3_in_act(xp, w, bias, dilation=d, act=act, residual=r), want)
-        r_rel = rel_err(epilogue_route(torch, F, K, xp, w, bias, d, act, r), want)
-        ok = k_rel <= F64_RATIO * r_rel
-        print(f"[phase 3] conv3x3_in_act bfloat16 (2,256,{64 + 2 * d},{64 + 2 * d}) dilation {d} "
-              f"act={act} residual={res} against float64, largest error over the largest "
-              f"magnitude: kernel {k_rel:.3e}, cuDNN bf16 conv + fused_instance_norm {r_rel:.3e} "
-              f"(limit {F64_RATIO:g}x) {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            failed.append(("conv3x3_in_act bfloat16 float64", d))
+    # the bf16 tile's edges: conv3x3_in_act with the float32 and the bf16
+    # weight and bias (the two forms the policy hands it), both of its forms
+    # (one cluster per plane, and the pre-norm plane past 16 tiles), and
+    # conv3x3_same_lowch (its features_2 shapes run in phase 15)
+    for n, c, co, h, w_, d, act, res in EPI_BF16_EDGES:
+        for p_dtype in (torch.float32, torch.bfloat16):
+            xp = torch.randn((n, c, h + 2 * d, w_ + 2 * d), generator=gen).to("cuda",
+                                                                             torch.bfloat16)
+            w = (torch.randn((co, c, 3, 3), generator=gen) * 0.05).to("cuda", p_dtype)
+            bias = torch.randn(co, generator=gen).to("cuda", p_dtype)
+            r = torch.randn((n, co, h, w_), generator=gen).to("cuda", torch.bfloat16) \
+                if res else None
+            got = E.conv3x3_in_act(xp, w, bias, dilation=d, act=act, residual=r)
+            want = E.conv3x3_in_act_plain(xp, w, bias, dilation=d, act=act, residual=r)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ok = torch.allclose(got.float(), want.float(), **TOLS["bfloat16"])
+            form = "pre-norm plane" if (h + 3) // 4 * ((w_ + 63) // 64) > 16 else "one cluster"
+            print(f"[phase 3] conv3x3_in_act bfloat16 x_pad ({n},{c},{h + 2 * d},{w_ + 2 * d}) "
+                  f"Co {co} dilation {d} act={act} residual={res}, {str(p_dtype)[6:]} weight "
+                  f"and bias ({form}): max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                failed.append(("conv3x3_in_act bfloat16", (n, c, co, h, w_, d), str(p_dtype)))
+    for n, c, co, h, w_ in LOWCH_BF16_EDGES:
+        for w_dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((n, c, h, w_), generator=gen).relu().to("cuda", torch.bfloat16)
+            w = (torch.randn((co, c, 3, 3), generator=gen) * math.sqrt(2 / (9 * c))).to(
+                "cuda", w_dtype)
+            got, want = LC.conv3x3_same_lowch(x, w), LC.conv3x3_same_lowch_plain(x, w)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ok = got.dtype == torch.bfloat16 and torch.allclose(got.float(), want.float(),
+                                                                **TOLS["bfloat16"])
+            print(f"[phase 3] conv3x3_same_lowch bfloat16 ({n},{c},{h},{w_}) Co {co}, "
+                  f"{str(w_dtype)[6:]} weight: max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                failed.append(("conv3x3_same_lowch bfloat16", (n, c, co, h, w_), str(w_dtype)))
     stroke_opt = engine.parse_options(STROKE_FLAGS + ["--seed", str(SEED)])
     stroke_data = synthetic_stroke_data(stroke_opt, SEED)
     stroke_mask = torch.from_numpy(stroke_data["mask_stroke"]).permute(0, 3, 1, 2) \
@@ -1574,6 +1628,30 @@ def run():
               f"{', '.join(f'{t * 1e3:.1f}' for t in turns[route])} us (in turns: route, kernel, "
               f"kernel, route), plain {tp * 1e3:.1f} us {tag}", flush=True)
     del xp, w, w16, bias, r, fk, fp, route
+    # against float64 at batch 2 of the edit's shapes: the bf16 kernel and
+    # the route it replaces under the policy, both from the same bf16 inputs
+    # (the float64 composition takes the weight rounded to bf16); and the
+    # device kernels of one call at batch 1 (torch.profiler)
+    edit_cases = ((2, "relu", False), (1, None, True))
+    per_call = kernels_per_call([["in_act", [1, 256, 256, 64, 64, d, act, res]]
+                                 for d, act, res in edit_cases])
+    for d, act, res in edit_cases:
+        xp, w, bias, r = epilogue_inputs(torch, (2, 256, 64, d, act, res), gen, torch.bfloat16)
+        want = E.conv3x3_in_act_plain(xp.double(), w.bfloat16().double(), bias.double(), d, act,
+                                      residual=None if r is None else r.double())
+        k_rel = rel_err(E.conv3x3_in_act(xp, w, bias, dilation=d, act=act, residual=r), want)
+        r_rel = rel_err(epilogue_route(torch, F, K, xp, w, bias, d, act, r), want)
+        ok = k_rel <= F64_RATIO * r_rel and per_call == {BF16_KERNELS["conv3x3_in_act"]: 1.0}
+        print(f"[phase 14] conv3x3_in_act bfloat16 (2,256,{64 + 2 * d},{64 + 2 * d}) dilation "
+              f"{d} act={act} residual={res} against float64, largest error over the largest "
+              f"magnitude: kernel {k_rel:.3e}, cuDNN bf16 conv + fused_instance_norm {r_rel:.3e} "
+              f"(limit {F64_RATIO:g}x); device kernels per call at batch 1, both edit shapes, "
+              f"{per_call} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            return fail("conv3x3_in_act in bf16 is less accurate than cuDNN's bf16 route, or "
+                        "runs other than one device kernel per call")
+    del xp, w, bias, r, want
     for kind, path in BF16_ROWS.items():
         per = "stroke edit" if path == "edit" else "flagship forward"
         phase(14, f"{kind} bfloat16 per {per}: device kernel {bf16_ms[kind]:.3f} ms, plain "
@@ -1686,6 +1764,11 @@ def run():
           f"{a_bound[1]}), F.conv2d in bf16 {', '.join(f'{t:.3f}' for t in turns[fl])} ms (in "
           f"turns: F.conv2d, kernel, kernel, F.conv2d), plain version {step16_plain_ms[k]:.3f} ms "
           f"{tag}", flush=True)
+    per_call = kernels_per_call([["lowch", [n_, c_, 64, h_, w_]]])
+    print(f"[phase 15] {k} bfloat16 {LOWCH_SHAPES[0]}: device kernels per call {per_call}",
+          flush=True)
+    if per_call != {BF16_KERNELS[k]: 1.0}:
+        return fail("conv3x3_same_lowch in bf16 runs other than one device kernel per call")
     del x, w, fk, fl, turns
     k = "filterbank_orientation"
     bank = filters.bank("gabor", grays.device)  # the loss's bank

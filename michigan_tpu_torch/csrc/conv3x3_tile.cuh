@@ -50,25 +50,9 @@
 // Where the halo comes from is a Plane: the caller's reflect-padded plane
 // (conv_in_act.cu: origin at the patch, no padding) or an unpadded plane
 // with SAME zero padding by 1 (conv_lowch.cu: origin one pixel up and left;
-// the zero-fill of cp.async is the padding).
+// the zero-fill of cp.async is the padding).  The bf16 forms of both
+// convolutions have a tile of their own, conv3x3_bf16.cuh.
 //
-// bf16 operands (conv_tile<..., true>).  mma.sync.m16n8k16 takes bf16 and
-// sums in float32; bf16 products are exact in float32, so one product
-// replaces the three of 3xTF32 and a step covers 16 input channels, not 8.
-// Its A fragment holds two K-adjacent values in one 32-bit register: here
-// two adjacent input channels of one pixel.  So the caller hands the tile an
-// input plane of channel pairs, one 32-bit word (bf16 x2, the even channel in
-// the low half) per pixel and pair, and weights as (co, pair, tap) words
-// (conv_in_act.cu builds both in a first pass).  Then everything above holds
-// word for word with "channel" read as "channel pair": the staging, the ring,
-// the 8 mod 32 pair stride and the 76 / 148-word weight rows, and the
-// fragment loads are the m16n8k8 TF32 loads (m16n8k16 places pair t where
-// m16n8k8 places channel t, pair t + 4 where it places channel t + 4; the
-// accumulator layout is the same).  The tensor cores still add with
-// truncation: a chain of kBf16ChainSteps 16-channel steps (9 taps, one mma
-// each) sums into fresh registers, then goes into the running sums with a
-// rounded float32 add.
-
 #pragma once
 
 #include <cuda_runtime.h>
@@ -80,29 +64,6 @@ namespace conv3x3 {
 
 using namespace tf32x3;
 
-// 16-channel steps per fresh accumulator chain in the bf16 tile
-// (tools/tile_variants.py times 1, 2 and all of K against float64)
-constexpr int kBf16ChainSteps = 1;
-
-// d += a * b on one m16n8k16 tile: bf16 operands, float32 accumulation.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d = a * b on one m16n8k16 bf16 tile: the first product of a fresh chain.
-__device__ __forceinline__ void mma_bf16_first(float (&d)[4], const unsigned (&a)[4],
-                                               const unsigned (&b)[2]) {
-  const float z = 0.f;
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(z));
-}
-
 constexpr int kRows = 4;                        // output rows per block (patch)
 constexpr int kCols = 32;                       // output columns per block
 constexpr int kCo = 64;                         // output channels per block
@@ -112,9 +73,9 @@ constexpr int kThreads = 32 * kRows * kWarpsN;  // 256 per group: a row per warp
 constexpr int kMT = 2;                          // m16 tiles per warp (32 pixels)
 constexpr int kNT = 4;                          // n8 tiles per warp (32 channels)
 
-// One sample's input plane, (C, ph, pw) 32-bit words (floats, or bf16
-// channel pairs); the halo of the patch at output (y0, x0) starts at plane
-// row y0 - pad, column x0 - pad; reads outside the plane give 0.
+// One sample's input plane, (C, ph, pw) floats; the halo of the patch at
+// output (y0, x0) starts at plane row y0 - pad, column x0 - pad; reads
+// outside the plane give 0.
 struct Plane {
   const float* x;
   int ph, pw, pad;
@@ -171,9 +132,8 @@ __device__ __forceinline__ int frag_ch(int j, int r) {
 // kThreads; the other group's acc is spent).  Channels >= co and pixels
 // outside the output give values that the caller must not store.  The block
 // has kThreads * kGroups threads; g = geometry(d, kGroups, v, in.pad) with
-// v = halo_vec(in.x, in.pw); smem: smem_bytes(g, kStages), dynamic.  With
-// kBf16, in and w hold bf16 channel pairs (above) and c counts the pairs.
-template <int kStages, int kGroups, bool kBf16 = false>
+// v = halo_vec(in.x, in.pw); smem: smem_bytes(g, kStages), dynamic.
+template <int kStages, int kGroups>
 __device__ __forceinline__ void conv_tile(const Plane in, const float* __restrict__ w, int c,
                                           int co, int co0, int y0, int x0, const Geometry g,
                                           float* smem, float (&acc)[kMT][kNT][4]) {
@@ -272,8 +232,7 @@ __device__ __forceinline__ void conv_tile(const Plane in, const float* __restric
       (kChunk * group + (lane & 3)) * g.cs + frag_row() * g.cols + g.shift + (lane >> 2);
   const int b_off = g.ch * g.cs + ((warp % kWarpsN) * (kNT * 8) + (lane >> 2)) * g.ws +
                     (kChunk * group + (lane & 3)) * 9;
-  const int a_hi = 4 * g.cs;  // channels (bf16: pairs) + 4
-  float chain[kMT][kNT][4];   // the bf16 tile's chain, over kBf16ChainSteps stages
+  const int a_hi = 4 * g.cs;  // channels + 4
 
   for (int s = 0; s < nstages; ++s) {
     cp_async_wait<kStages - 2>();
@@ -281,48 +240,6 @@ __device__ __forceinline__ void conv_tile(const Plane in, const float* __restric
     const int next = s + kStages - 1;
     if (next < nstages) load_stage(next, next % kStages);
     cp_async_commit();
-    if constexpr (kBf16) {
-      const unsigned* sa = reinterpret_cast<const unsigned*>(smem + (s % kStages) * g.stage) + a_off;
-      const unsigned* sb = reinterpret_cast<const unsigned*>(smem + (s % kStages) * g.stage) + b_off;
-      const bool fresh = s % kBf16ChainSteps == 0;
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const unsigned* a = sa + ((tap / 3) * g.cols + (tap % 3)) * g.d;
-        unsigned af[kMT][4];
-#pragma unroll
-        for (int i = 0; i < kMT; ++i) {
-          af[i][0] = a[i * 16];
-          af[i][1] = a[i * 16 + 8];
-          af[i][2] = a[a_hi + i * 16];
-          af[i][3] = a[a_hi + i * 16 + 8];
-        }
-        unsigned bf[kNT][2];
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          bf[j][0] = sb[j * 8 * g.ws + tap];
-          bf[j][1] = sb[j * 8 * g.ws + tap + 36];  // pair + 4
-        }
-#pragma unroll
-        for (int i = 0; i < kMT; ++i)
-#pragma unroll
-          for (int j = 0; j < kNT; ++j) {
-            if (tap == 0 && fresh) {
-              mma_bf16_first(chain[i][j], af[i], bf[j]);
-            } else {
-              mma_bf16(chain[i][j], af[i], bf[j]);
-            }
-          }
-      }
-      if (s % kBf16ChainSteps == kBf16ChainSteps - 1 || s == nstages - 1) {
-#pragma unroll
-        for (int i = 0; i < kMT; ++i)
-#pragma unroll
-          for (int j = 0; j < kNT; ++j)
-#pragma unroll
-            for (int r = 0; r < 4; ++r) acc[i][j][r] += chain[i][j][r];
-      }
-      continue;
-    }
     const float* sa = smem + (s % kStages) * g.stage + a_off;
     const float* sb = smem + (s % kStages) * g.stage + b_off;
 

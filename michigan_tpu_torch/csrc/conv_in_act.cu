@@ -16,7 +16,7 @@
 // (3 us at 3.35 TB/s).  In bf16 (the --dtype bfloat16 policy) the same call
 // is 4.9 us at 989 TFLOP/s of dense bf16 product, against ~2 us of bytes.
 //
-// What the design does about it:
+// What the float32 design does about it:
 // - pass 1 is the tensor-core implicit GEMM of conv3x3_tile.cuh (a 4 x 32
 //   pixel patch x 64 output channels per block, mma.sync m16n8k8 TF32 with
 //   the 3xTF32 split, a 3-stage cp.async ring of input halo and weights),
@@ -38,31 +38,42 @@
 //   L2.
 //
 // bf16 (x_pad, residual and output bf16, weights rounded to bf16, bias
-// float32), as the TPU kernel under the bf16 policy: the convolution sums in
-// float32 and the statistics, normalisation, activation and residual add
-// run on that float32 sum; the output is rounded to bf16 once.
-// - pass 0 (pair_kernel, bf16_pairs.cuh) rewrites x_pad as bf16 channel
-//   pairs, one 32-bit word per pixel, rows padded to 16 bytes, and the
-//   weights as (co, pair, tap) words rounded to bf16: the layout the bf16
-//   tile's mma.sync m16n8k16 fragments load as they are (conv3x3_tile.cuh),
-//   in 16-byte cp.async copies at either dilation.  ~2.4 MB each way, one
-//   thread a word in 32-bit indices.
-// - pass 1 is the same tile with one bf16 product per step of 16 channels,
-//   a fresh accumulator chain per step; it writes the pre-norm sum in
-//   float32 to scratch, not to the bf16 output (a bf16 pre-norm would round
-//   before the norm).
-// - pass 2 reads that float32 plane and the bf16 residual and writes bf16.
+// float32 or bf16), as the TPU kernel under the bf16 policy: the
+// convolution sums in float32 and the statistics, normalisation,
+// activation and residual add run on that float32 sum; the output is
+// rounded to bf16 once.  One launch, the statistics kept on chip:
+// - the tile of conv3x3_bf16.cuh (wgmma m64n32k16 on a 4 x 64-pixel tile
+//   x 32 output channels by one consumer warpgroup; one producer
+//   warpgroup stages x_pad straight from its NCHW rows, a bulk copy per
+//   channel of the tile's whole padded rows, and the weights, 16 channels
+//   per stage);
+// - a thread-block cluster per (n, 32-channel block) plane: at 64^2 its 16
+//   tiles are 16 blocks (8 channel blocks: 128 blocks at batch 1, two per
+//   SM).  Each block adds the bias to its float32 sums, takes its tile's
+//   (count, mean, M2) per channel (Welford over a thread's 4 pixels, Chan's
+//   merge across lanes and warps), and after a cluster barrier every block
+//   merges all the cluster's partial statistics in rank order from their
+//   shared memory (the same result in every block), normalises its own
+//   registers, applies the act, stages the tile in shared memory, adds the
+//   residual and writes bf16 in 16-byte stores: no float32 plane, no
+//   second launch;
+// - a plane of more than 16 tiles: the same kernel with a cluster of 16
+//   whose blocks walk several tiles each; every tile but a block's last
+//   goes to a float32 pre-norm plane that the caller provides, and is read
+//   back and normalised after the merge.  The form is chosen by shape
+//   (conv3x3_in_act_bf16_prenorm), never on a failure.
 //
 // The launchers return cudaGetLastError() after their launches.  Nothing
 // here allocates or synchronises: the caller passes the output and the
-// scratch (the patch statistics; in bf16 also the pair planes and the
-// float32 pre-norm output).
+// scratch (float32: the patch statistics; bf16, planes of more than 16
+// tiles: the pre-norm plane).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bf16_pairs.cuh"
+#include "conv3x3_bf16.cuh"
 #include "conv3x3_tile.cuh"
 #include "welford.cuh"
 
@@ -75,7 +86,6 @@ using conv3x3::kNT;
 using conv3x3::kRows;
 using conv3x3::kThreads;
 using conv3x3::kWarpsN;
-using bf16_pairs::bf16_bits;
 constexpr int kNormThreads = 256;
 // two groups of 8 warps, each on every other 8 input channels, and a
 // 3-stage ring (3 x 57 KB at dilation 2; dilation 4 is the most that fits
@@ -85,9 +95,6 @@ constexpr int kNormThreads = 256;
 constexpr int kStages = 3;
 constexpr int kGroups = 2;
 constexpr int kBlock = kThreads * kGroups;
-// the bf16 pair planes' rows are padded to a multiple of this many words
-// (16 bytes), so that every halo copy is a 16-byte cp.async
-constexpr int kRowWords = 4;
 
 enum Act { kActNone = 0, kActRelu = 1, kActLrelu = 2 };
 
@@ -98,16 +105,14 @@ __device__ __forceinline__ float apply_act(float y, int act) {
 }
 
 struct ConvArgs {
-  const float* x;     // (N, C, Hp, pw) words, padded by d (bf16: pairs, C = pairs)
-  const float* w;     // (Co, C, 3, 3) words (bf16: (Co, pairs, 9))
-  const void* bias;   // (Co) float32, or bf16 with bias_bf16; or null
+  const float* x;     // (N, C, Hp, pw), padded by d
+  const float* w;     // (Co, C, 3, 3)
+  const float* bias;  // (Co) or null
   float* y;           // (N, Co, H, W): pre-norm output of pass 1
   float* part;        // (N, Co, tiles, 3): count, mean, M2 of each patch
-  int c, co, h, wd, d, tiles_x, tiles, v, pw;  // v: words per halo copy; pw: row words
-  int bias_bf16;
+  int c, co, h, wd, d, tiles_x, tiles, v, pw;  // v: floats per halo copy; pw: row floats
 };
 
-template <bool kBf16>
 __global__ void __launch_bounds__(kBlock, 2 / kGroups)
 conv3x3_kernel(const ConvArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -120,9 +125,8 @@ conv3x3_kernel(const ConvArgs a) {
   const conv3x3::Plane in{a.x + (int64_t)n * a.c * hp * a.pw, hp, a.pw, 0};
 
   float acc[kMT][kNT][4];
-  conv3x3::conv_tile<kStages, kGroups, kBf16>(in, a.w, a.c, a.co, co0, y0, x0,
-                                              conv3x3::geometry(a.d, kGroups, a.v, 0), smem,
-                                              acc);
+  conv3x3::conv_tile<kStages, kGroups>(in, a.w, a.c, a.co, co0, y0, x0,
+                                       conv3x3::geometry(a.d, kGroups, a.v, 0), smem, acc);
 
   // epilogue: bias, pre-norm store, and the patch's statistics per channel
   const int64_t hw = (int64_t)a.h * a.wd;
@@ -139,10 +143,7 @@ conv3x3_kernel(const ConvArgs a) {
         const int oc = co0 + ch;
         const bool oc_ok = oc < a.co;
         float bias = 0.f;
-        if (a.bias != nullptr && oc_ok)
-          bias = a.bias_bf16 ? __uint_as_float(
-                                   (unsigned)static_cast<const uint16_t*>(a.bias)[oc] << 16)
-                             : static_cast<const float*>(a.bias)[oc];
+        if (a.bias != nullptr && oc_ok) bias = a.bias[oc];
         float* yo = a.y + ((int64_t)n * a.co + (oc_ok ? oc : 0)) * hw + (int64_t)yy * a.wd;
         float cnt = 0.f, mean = 0.f, m2 = 0.f;
         if (oc_ok && row_ok && x0 + kCols <= a.wd) {
@@ -214,30 +215,11 @@ conv3x3_kernel(const ConvArgs a) {
   static_assert(kCo <= kThreads, "one thread per channel merges the rows");
 }
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-}
-__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(bf16_bits(v.x) | (bf16_bits(v.y) << 16),
-                                            bf16_bits(v.z) | (bf16_bits(v.w) << 16));
-}
-__device__ __forceinline__ float load1(const float* p) { return *p; }
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
 // One block per (n, co) plane: merge the patch statistics, then normalise the
-// float32 pre-norm plane y, activate, add the residual and write T.  In
-// float32 y is the output itself (in place); vec: hw % 4 == 0.
-template <typename T>
+// pre-norm plane y, activate, add the residual and write out (y itself:
+// in place); vec: hw % 4 == 0.
 __global__ void __launch_bounds__(kNormThreads)
-norm_act_kernel(const float* y, T* out, const T* __restrict__ residual,
+norm_act_kernel(const float* y, float* out, const float* __restrict__ residual,
                 const float* __restrict__ part, int tiles, int64_t hw, float eps, int act,
                 bool vec) {
   const int64_t plane = blockIdx.x;
@@ -249,52 +231,314 @@ norm_act_kernel(const float* y, T* out, const T* __restrict__ residual,
   const float2 stats = block_mean_rstd<kNormThreads>(mean, m2, n, eps);
 
   const float* yp = y + plane * hw;
-  T* op = out + plane * hw;
-  const T* rp = residual ? residual + plane * hw : nullptr;
+  float* op = out + plane * hw;
+  const float* rp = residual ? residual + plane * hw : nullptr;
   if (vec) {
     for (int64_t i = (int64_t)threadIdx.x * 4; i < hw; i += kNormThreads * 4) {
-      float4 v = load4(yp + i);
+      float4 v = *reinterpret_cast<const float4*>(yp + i);
       v.x = apply_act((v.x - stats.x) * stats.y, act);
       v.y = apply_act((v.y - stats.x) * stats.y, act);
       v.z = apply_act((v.z - stats.x) * stats.y, act);
       v.w = apply_act((v.w - stats.x) * stats.y, act);
       if (rp) {
-        const float4 r = load4(rp + i);
+        const float4 r = *reinterpret_cast<const float4*>(rp + i);
         v.x += r.x;
         v.y += r.y;
         v.z += r.z;
         v.w += r.w;
       }
-      store4(op + i, v);
+      *reinterpret_cast<float4*>(op + i) = v;
     }
   } else {
     for (int64_t i = threadIdx.x; i < hw; i += kNormThreads) {
       float v = apply_act((yp[i] - stats.x) * stats.y, act);
-      if (rp) v += load1(rp + i);
-      store1(op + i, v);
+      if (rp) v += rp[i];
+      op[i] = v;
     }
   }
 }
 
-// Byte offsets of the bf16 form's scratch, each part 256-byte aligned.
-struct Bf16Scratch {
-  int64_t xi, wi, y, part, total;
+// ------------------------------------------------------------- bf16 ---
+
+namespace cb = conv_bf16;
+namespace cg = cooperative_groups;
+
+constexpr int kN16 = 32;         // output channels per block
+constexpr int kLook = 2;         // halo stages requested ahead
+constexpr int kMaxCluster = 16;  // blocks per plane (a non-portable cluster size)
+constexpr int kProd = 128;       // producer threads (one warpgroup): two blocks an SM
+constexpr int kBlock16 = cb::kConsumers + kProd;
+constexpr int kWarps = cb::kConsumers / 32;
+// the output staging, float32, over the halo and operand slots once the
+// products are done: per channel the tile's 4 x 64 values, +16 bytes so
+// that the accumulator stores of 4 channels fall in different banks
+constexpr int kStgCo = cb::kTileRows * cb::kTileCols + 4;  // floats
+constexpr int kStgBytes = kN16 * kStgCo * 4;
+
+struct Bf16Args {
+  const __nv_bfloat16* x;      // (N, C, H+2d, W+2d)
+  const void* w;               // (Co, C, 3, 3) float32 (w_f32) or bf16
+  const void* bias;            // (Co) float32, or bf16 (bias_bf16), or null
+  const uint16_t* residual;    // (N, Co, H, W) bf16 or null
+  uint16_t* out;               // (N, Co, H, W) bf16
+  float* prenorm;              // (N, Co, H, W) float32: planes of more than kMaxCluster tiles
+  int w_f32, bias_bf16, co, act, vec;  // vec: 16-byte output rows (W % 8 == 0, aligned)
+  float eps;
+  cb::Geo g;
 };
 
-inline int64_t align256(int64_t b) { return (b + 255) / 256 * 256; }
+struct InActEpi {
+  const Bf16Args& a;
+  int co0;
+  char* stg;
+  float (*s_w)[kN16][3];  // per warp and channel: count, mean, M2
+  float (*s_run)[3];      // per channel: the block's tiles so far
+  float2* s_stat;         // per channel: mean, rstd of the plane
 
+  __device__ __forceinline__ float bias(int oc) const {
+    if (a.bias == nullptr || oc >= a.co) return 0.f;
+    return a.bias_bf16
+               ? __uint_as_float((unsigned)static_cast<const uint16_t*>(a.bias)[oc] << 16)
+               : static_cast<const float*>(a.bias)[oc];
+  }
 
-inline Bf16Scratch bf16_scratch(int64_t n, int64_t c, int64_t co, int64_t h, int64_t w,
-                                int64_t d, int64_t tiles) {
-  const int64_t p = (c + 1) / 2;
-  const int64_t wq = (w + 2 * d + kRowWords - 1) / kRowWords * kRowWords;
-  Bf16Scratch s;
-  s.xi = 0;
-  s.wi = s.xi + align256(4 * n * p * (h + 2 * d) * wq);
-  s.y = s.wi + align256(4 * co * p * 9);
-  s.part = s.y + align256(4 * n * co * h * w);
-  s.total = s.part + align256(4 * n * co * tiles * 3);
-  return s;
+  __device__ __forceinline__ float finish(float v, int m, float res) const {
+    return apply_act((v - s_stat[m].x) * s_stat[m].y, a.act) + res;
+  }
+
+  // the producer warpgroup, done: its part in the epilogue's two cluster
+  // barriers
+  __device__ __forceinline__ void idle() {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    cluster.sync();
+  }
+
+  // in the consumer warpgroup
+  __device__ __forceinline__ void operator()(float (&acc)[cb::kRowsPerWg][kN16 / 2], int li,
+                                             const cb::Item& it, bool last) {
+    cb::consumer_sync();  // every consumer is done with the last tile's s_w
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const cb::Geo& g = a.g;
+    // the bias, and the tile's statistics per channel: a thread's 4 pixels
+    // of each of its 8 channels, then its 8 lanes, then the 8 warps
+#pragma unroll
+    for (int j = 0; j < kN16 / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float b = bias(co0 + cb::frag_co(j, e));
+        // the thread's (up to) 8 values: their mean, then the squares about
+        // it
+        float cnt = 0.f, sum = 0.f;
+        bool in[cb::kRowsPerWg][2];
+#pragma unroll
+        for (int i = 0; i < cb::kRowsPerWg; ++i)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            float& v = acc[i][4 * j + 2 * hh + e];
+            v += b;
+            in[i][hh] = it.y0 + cb::frag_row(i) < g.h && it.x0 + cb::frag_px(hh) < g.w;
+            if (in[i][hh]) {
+              sum += v;
+              cnt += 1.f;
+            }
+          }
+        const float mean_ = cnt == 8.f ? sum * 0.125f : cnt > 0.f ? sum / cnt : 0.f;
+        float m2 = 0.f;
+#pragma unroll
+        for (int i = 0; i < cb::kRowsPerWg; ++i)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float dv = acc[i][4 * j + 2 * hh + e] - mean_;
+            if (in[i][hh]) m2 += dv * dv;
+          }
+        float mean = cnt > 0.f ? mean_ : 0.f;
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          const float mb = __shfl_xor_sync(0xffffffffu, mean, off);
+          const float m2b = __shfl_xor_sync(0xffffffffu, m2, off);
+          const float nb = __shfl_xor_sync(0xffffffffu, cnt, off);
+          welford_merge(mean, m2, cnt, mb, m2b, nb);
+        }
+        if (lane < 4) {
+          float* s = s_w[tid >> 5][cb::frag_co(j, e)];
+          s[0] = cnt;
+          s[1] = mean;
+          s[2] = m2;
+        }
+      }
+    cb::consumer_sync();
+    if (tid < kN16) {
+      float cnt = 0.f, mean = 0.f, m2 = 0.f;
+      if (li > 0) {
+        cnt = s_run[tid][0];
+        mean = s_run[tid][1];
+        m2 = s_run[tid][2];
+      }
+#pragma unroll
+      for (int k = 0; k < kWarps; ++k)
+        welford_merge(mean, m2, cnt, s_w[k][tid][1], s_w[k][tid][2], s_w[k][tid][0]);
+      s_run[tid][0] = cnt;
+      s_run[tid][1] = mean;
+      s_run[tid][2] = m2;
+    }
+    if (!last) {  // a tile before the block's last: its pre-norm sums out
+#pragma unroll
+      for (int i = 0; i < cb::kRowsPerWg; ++i)
+#pragma unroll
+        for (int r = 0; r < kN16 / 2; ++r) {
+          const int oc = co0 + cb::frag_co(r / 4, r & 1);
+          const int yy = it.y0 + cb::frag_row(i), xx = it.x0 + cb::frag_px((r >> 1) & 1);
+          if (oc < a.co && yy < g.h && xx < g.w)
+            a.prenorm[(((int64_t)it.n * a.co + oc) * g.h + yy) * g.w + xx] = acc[i][r];
+        }
+      return;
+    }
+
+    // the plane's statistics: every block of the cluster merges all the
+    // blocks' partial ones in rank order
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    if (tid < kN16) {
+      // all the remote loads first, then the merges in rank order
+      float part[kMaxCluster][3];
+      const unsigned blocks = cluster.num_blocks();
+#pragma unroll
+      for (unsigned r = 0; r < kMaxCluster; ++r)
+        if (r < blocks) {
+          const float* s = cluster.map_shared_rank(&s_run[tid][0], r);
+          part[r][0] = s[0];
+          part[r][1] = s[1];
+          part[r][2] = s[2];
+        }
+      float cnt = 0.f, mean = 0.f, m2 = 0.f;
+#pragma unroll
+      for (unsigned r = 0; r < kMaxCluster; ++r)
+        if (r < blocks) welford_merge(mean, m2, cnt, part[r][1], part[r][2], part[r][0]);
+      s_stat[tid] = make_float2(mean, rsqrtf(m2 / cnt + a.eps));
+    }
+    cluster.sync();  // no block leaves while another reads its statistics
+
+    // this tile: normalised and activated in registers, staged, then the
+    // residual added and bf16 written in runs of 8 columns
+    float* st = reinterpret_cast<float*>(stg);
+#pragma unroll
+    for (int i = 0; i < cb::kRowsPerWg; ++i)
+#pragma unroll
+      for (int r = 0; r < kN16 / 2; ++r) {
+        const int m = cb::frag_co(r / 4, r & 1);
+        st[m * kStgCo + cb::frag_row(i) * cb::kTileCols + cb::frag_px((r >> 1) & 1)] =
+            finish(acc[i][r], m, 0.f);
+      }
+    cb::consumer_sync();
+    for (int t = tid; t < kN16 * cb::kTileRows * 8; t += cb::kConsumers) {
+      const int v = t & 7;
+      const int rr = t >> 3;
+      const int r = rr % cb::kTileRows;
+      const int m = rr / cb::kTileRows;
+      const int oc = co0 + m, yy = it.y0 + r, xx = it.x0 + 8 * v;
+      if (oc >= a.co || yy >= g.h || xx >= g.w) continue;
+      const float* src = st + m * kStgCo + r * cb::kTileCols + 8 * v;
+      const int64_t at = (((int64_t)it.n * a.co + oc) * g.h + yy) * g.w + xx;
+      if (a.vec) {
+        const float4 lo = *reinterpret_cast<const float4*>(src);
+        const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+        float o[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        if (a.residual != nullptr) {
+          const uint4 rv = *reinterpret_cast<const uint4*>(a.residual + at);
+          const unsigned rw[4] = {rv.x, rv.y, rv.z, rv.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            o[2 * e] += __uint_as_float(rw[e] << 16);
+            o[2 * e + 1] += __uint_as_float(rw[e] & 0xffff0000u);
+          }
+        }
+        unsigned ow[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ow[e] = cb::bf16_bits(o[2 * e]) | (cb::bf16_bits(o[2 * e + 1]) << 16);
+        *reinterpret_cast<uint4*>(a.out + at) = make_uint4(ow[0], ow[1], ow[2], ow[3]);
+      } else {
+        for (int e = 0; e < 8 && xx + e < g.w; ++e) {
+          float o = src[e];
+          if (a.residual != nullptr) o += __uint_as_float((unsigned)a.residual[at + e] << 16);
+          a.out[at + e] = (uint16_t)cb::bf16_bits(o);
+        }
+      }
+    }
+    // the block's earlier tiles, from the pre-norm plane
+    for (int l = 0; l < li; ++l) {
+      const cb::Item e = cb::item_at(g, blockIdx.z, blockIdx.x + l * gridDim.x);
+      for (int t = tid; t < kN16 * cb::kTileRows * cb::kTileCols; t += cb::kConsumers) {
+        const int x = t % cb::kTileCols;
+        const int rr = t / cb::kTileCols;
+        const int r = rr % cb::kTileRows;
+        const int m = rr / cb::kTileRows;
+        const int oc = co0 + m, yy = e.y0 + r, xx = e.x0 + x;
+        if (oc >= a.co || yy >= g.h || xx >= g.w) continue;
+        const int64_t at = (((int64_t)e.n * a.co + oc) * g.h + yy) * g.w + xx;
+        const float res =
+            a.residual != nullptr ? __uint_as_float((unsigned)a.residual[at] << 16) : 0.f;
+        a.out[at] = (uint16_t)cb::bf16_bits(finish(a.prenorm[at], m, res));
+      }
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kBlock16, 2)
+conv3x3_in_act_bf16_kernel(const __grid_constant__ Bf16Args a) {
+  extern __shared__ __align__(128) char dsmem[];
+  __shared__ float s_w[kWarps][kN16][3];
+  __shared__ float s_run[kN16][3];
+  __shared__ float2 s_stat[kN16];
+  const int co0 = blockIdx.y * kN16;
+  InActEpi epi{a, co0, dsmem, s_w, s_run, s_stat};
+  // the cluster spans blockIdx.x: one (n, channel block) plane, its tiles
+  // dealt out in rank order
+  cb::conv_tiles<kN16, kLook, kProd, 0, 0>(a.x, nullptr, a.w, a.w_f32, a.co, co0, a.g,
+                                           blockIdx.x, gridDim.x, a.g.tiles, blockIdx.z, dsmem,
+                                           epi);
+}
+
+// the launch of the bf16 form for these shapes: its arguments' geometry,
+// the config (grid, cluster, shared memory) and whether it needs the
+// pre-norm plane
+struct Bf16Launch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[2];
+  cb::Geo g;
+};
+
+inline cudaError_t bf16_launch(Bf16Launch& l, const void* x, const void* wt, int w_f32,
+                               int64_t n, int64_t c, int64_t co, int64_t h, int64_t w, int64_t d,
+                               cudaStream_t s) {
+  l.g = cb::make_geo<kN16, kLook>((int)c, (int)(h + 2 * d), (int)(w + 2 * d), 0, (int)d, (int)h,
+                                  (int)w, x, wt, w_f32 != 0, 0, false);
+  // the output staging lies over the halo and operand slots
+  if (l.g.b_off < kStgBytes || l.g.smem > cb::kSmemMax) return cudaErrorInvalidValue;
+  const int cluster = l.g.tiles < kMaxCluster ? l.g.tiles : kMaxCluster;
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_in_act_bf16_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, l.g.smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(conv3x3_in_act_bf16_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  l.cfg = cudaLaunchConfig_t{};
+  l.cfg.gridDim = dim3((unsigned)cluster, (unsigned)((co + kN16 - 1) / kN16), (unsigned)n);
+  l.cfg.blockDim = dim3(kBlock16);
+  l.cfg.dynamicSmemBytes = l.g.smem;
+  l.cfg.stream = s;
+  l.attr[0].id = cudaLaunchAttributeClusterDimension;
+  l.attr[0].val.clusterDim.x = (unsigned)cluster;
+  l.attr[0].val.clusterDim.y = 1;
+  l.attr[0].val.clusterDim.z = 1;
+  // a cluster's blocks spread over its GPC's SMs, not two to an SM
+  l.attr[1].id = cudaLaunchAttributeClusterSchedulingPolicyPreference;
+  l.attr[1].val.clusterSchedulingPolicyPreference = cudaClusterSchedulingPolicySpread;
+  l.cfg.attrs = l.attr;
+  l.cfg.numAttrs = 2;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -322,14 +566,13 @@ int conv3x3_in_act_f32(const void* x, const void* wt, const void* bias,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int v = conv3x3::halo_vec(x, w + 2 * d);
   const size_t smem = conv3x3::smem_bytes(conv3x3::geometry((int)d, kGroups, v, 0), kStages);
-  cudaError_t err = cudaFuncSetAttribute(conv3x3_kernel<false>,
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   ConvArgs a;
   a.x = static_cast<const float*>(x);
   a.w = static_cast<const float*>(wt);
-  a.bias = bias;
-  a.bias_bf16 = 0;
+  a.bias = static_cast<const float*>(bias);
   a.y = static_cast<float*>(out);
   a.part = static_cast<float*>(scratch);
   a.c = (int)c;
@@ -342,82 +585,69 @@ int conv3x3_in_act_f32(const void* x, const void* wt, const void* bias,
   a.v = v;
   a.pw = (int)(w + 2 * d);
   const dim3 grid((unsigned)tiles, (unsigned)((co + kCo - 1) / kCo), (unsigned)n);
-  conv3x3_kernel<false><<<grid, kBlock, smem, s>>>(a);
+  conv3x3_kernel<<<grid, kBlock, smem, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  norm_act_kernel<float><<<(unsigned)(n * co), kNormThreads, 0, s>>>(
+  norm_act_kernel<<<(unsigned)(n * co), kNormThreads, 0, s>>>(
       static_cast<float*>(out), static_cast<float*>(out), static_cast<const float*>(residual),
       static_cast<const float*>(scratch), (int)tiles, hw, eps, act, hw % 4 == 0);
   return (int)cudaGetLastError();
 }
 
-// Bytes of scratch the bf16 form needs for these shapes.
-int64_t conv3x3_in_act_bf16_scratch(int64_t n, int64_t c, int64_t co, int64_t h, int64_t w,
-                                    int64_t d) {
-  return bf16_scratch(n, c, co, h, w, d, conv3x3_in_act_tiles(h, w)).total;
+// Whether the bf16 form needs a float32 pre-norm plane (n, co, h, w) for
+// these output planes: more tiles than one cluster holds.
+int conv3x3_in_act_bf16_prenorm(int64_t h, int64_t w) {
+  return ((h + cb::kTileRows - 1) / cb::kTileRows) * ((w + cb::kTileCols - 1) / cb::kTileCols) >
+         kMaxCluster;
+}
+
+// The clusters of the bf16 form's launch for these shapes that the card
+// can hold at once (cudaOccupancyMaxActiveClusters), or -cudaError.
+int conv3x3_in_act_bf16_clusters(int64_t n, int64_t c, int64_t co, int64_t h, int64_t w,
+                                 int64_t d) {
+  Bf16Launch l;
+  cudaError_t err = bf16_launch(l, nullptr, nullptr, 1, n, c, co, h, w, d, 0);
+  int clusters = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&clusters, conv3x3_in_act_bf16_kernel, &l.cfg);
+  return err == cudaSuccess ? clusters : -(int)err;
 }
 
 // The bf16 form: x (n, c, h+2d, w+2d) bf16, wt (co, c, 3, 3) float32
 // (w_f32 != 0) or bf16, rounded to bf16; bias (co) float32, or bf16 (b_bf16
 // != 0, widened exactly), or null; residual (n, co, h, w) bf16 or null; out
-// (n, co, h, w) bf16; scratch of conv3x3_in_act_bf16_scratch bytes, 256-byte
-// aligned; all contiguous, out and residual 16-byte aligned.
+// (n, co, h, w) bf16; prenorm (n, co, h, w) float32 where
+// conv3x3_in_act_bf16_prenorm(h, w), else null; all contiguous.
 int conv3x3_in_act_bf16(const void* x, const void* wt, int w_f32, const void* bias, int b_bf16,
-                        const void* residual, void* out, void* scratch, int64_t scratch_bytes,
-                        int64_t n, int64_t c, int64_t co, int64_t h, int64_t w, int64_t d,
-                        float eps, int act, void* stream) {
-  const int64_t hw = h * w;
-  const int64_t tiles = conv3x3_in_act_tiles(h, w);
-  const Bf16Scratch sc = bf16_scratch(n, c, co, h, w, d, tiles);
-  if (scratch_bytes < sc.total || reinterpret_cast<uintptr_t>(scratch) % 256)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  char* base = static_cast<char*>(scratch);
-  uint32_t* xi = reinterpret_cast<uint32_t*>(base + sc.xi);
-  uint32_t* wi = reinterpret_cast<uint32_t*>(base + sc.wi);
-  float* y = reinterpret_cast<float*>(base + sc.y);
-  float* part = reinterpret_cast<float*>(base + sc.part);
-  const int64_t p = (c + 1) / 2;
-  const int64_t hp = h + 2 * d, wp = w + 2 * d;
-  const int64_t wq = (wp + kRowWords - 1) / kRowWords * kRowWords;
-  const int64_t nx = n * p * hp * wq, nw = co * p * 9;
-  // every element index of x, w and their pair buffers within 32 bits
-  if (!bf16_pairs::pairs_fit(nx, nw, n, c, hp, wp, co)) return (int)cudaErrorInvalidValue;
-  const uint16_t* xb = static_cast<const uint16_t*>(x);
+                        const void* residual, void* out, void* prenorm, int64_t n, int64_t c,
+                        int64_t co, int64_t h, int64_t w, int64_t d, float eps, int act,
+                        void* stream) {
+  if (conv3x3_in_act_bf16_prenorm(h, w) && prenorm == nullptr) return (int)cudaErrorInvalidValue;
+  Bf16Launch l;
   cudaError_t err =
-      w_f32 ? bf16_pairs::launch_pairs(xb, xi, nx, c, p, hp, wp, wq,
-                                       static_cast<const float*>(wt), wi, nw, s)
-            : bf16_pairs::launch_pairs(xb, xi, nx, c, p, hp, wp, wq,
-                                       static_cast<const uint16_t*>(wt), wi, nw, s);
+      bf16_launch(l, x, wt, w_f32, n, c, co, h, w, d, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
-  const int v = conv3x3::halo_vec(xi, wq);
-  const size_t smem = conv3x3::smem_bytes(conv3x3::geometry((int)d, kGroups, v, 0), kStages);
-  err = cudaFuncSetAttribute(conv3x3_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, conv3x3_in_act_bf16_kernel, &l.cfg);
   if (err != cudaSuccess) return (int)err;
-  ConvArgs a;
-  a.x = reinterpret_cast<const float*>(xi);
-  a.w = reinterpret_cast<const float*>(wi);
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;  // the cluster does not fit
+  Bf16Args a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.w = wt;
   a.bias = bias;
+  a.residual = static_cast<const uint16_t*>(residual);
+  a.out = static_cast<uint16_t*>(out);
+  a.prenorm = static_cast<float*>(prenorm);
+  a.w_f32 = w_f32;
   a.bias_bf16 = b_bf16;
-  a.y = y;
-  a.part = part;
-  a.c = (int)p;
   a.co = (int)co;
-  a.h = (int)h;
-  a.wd = (int)w;
-  a.d = (int)d;
-  a.tiles_x = (int)((w + kCols - 1) / kCols);
-  a.tiles = (int)tiles;
-  a.v = v;
-  a.pw = (int)wq;
-  const dim3 grid((unsigned)tiles, (unsigned)((co + kCo - 1) / kCo), (unsigned)n);
-  conv3x3_kernel<true><<<grid, kBlock, smem, s>>>(a);
-  err = cudaGetLastError();
+  a.act = act;
+  a.vec = w % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(residual) % 16 == 0;
+  a.eps = eps;
+  a.g = l.g;
+  err = cudaLaunchKernelEx(&l.cfg, conv3x3_in_act_bf16_kernel, a);
   if (err != cudaSuccess) return (int)err;
-  norm_act_kernel<__nv_bfloat16><<<(unsigned)(n * co), kNormThreads, 0, s>>>(
-      y, static_cast<__nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(residual), part,
-      (int)tiles, hw, eps, act, hw % 4 == 0);
   return (int)cudaGetLastError();
 }
 

@@ -36,26 +36,30 @@
 // it casts w to x's dtype, sums in float32 and writes x's dtype.  At (16,
 // 64, 512^2) the products are 309.2 GFLOP, 0.31 ms at the 989 TFLOP/s of
 // dense bf16, against 1.07 GB of bf16 input and output, 0.32 ms at 3.35
-// TB/s: about even, bytes first.
-// - pass 0 (pair_kernel, bf16_pairs.cuh) packs x as bf16 channel pairs, one
-//   32-bit word per pixel and pair, rows padded to 16 bytes, and the
-//   weights as (co, pair, tap) words rounded to bf16, the layout of the
-//   tile's bf16 form; the plane stays unpadded, and the SAME zero border is
-//   again cp.async's zero-fill (with the pair pass's zero columns past W);
-// - pass 1 is the same tile with one mma.sync m16n8k16 bf16 product per 16
-//   input channels and tap (fp32 sums, a fresh chain per step), and the
-//   output is rounded to bf16 once from the fp32 sums.  The pair pass moves
-//   x once more each way (1.07 GB in all at that shape), which the bound
-//   above does not count.
+// TB/s: about even, bytes first.  One launch, no scratch:
+// - the tile of conv3x3_bf16.cuh (wgmma m64n64k16 on a 4 x 64-pixel tile,
+//   one consumer warpgroup; two producer warpgroups stage x straight from
+//   its NCHW rows and turn it into the operand layout in shared memory);
+// - each stage's halo, 16 channels x 6 rows x 80 columns, is one TMA box
+//   of a 4-d tensor map over x (w, h, c, n) whose zero fill outside the
+//   tensor is the SAME border (where W % 8 == 0; else a bulk copy per row);
+// - a persistent grid of one block per SM (per 64-channel block of Co):
+//   each block rounds and stores its 64 x C x 9 weights in shared memory
+//   once (73.7 KB at C = 64; streamed per stage where C is too large to
+//   stay) and then walks tiles n-major, a 3-stage halo ring running across
+//   tile boundaries;
+// - the output is rounded to bf16 once, staged as the tile's 64 channel
+//   rows in shared memory and written in 16-byte stores (2-byte stores
+//   where W % 8 != 0).
 //
 // The launchers return cudaGetLastError().  Nothing here allocates or
-// synchronises: the bf16 form's pair planes are the caller's scratch.
+// synchronises.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bf16_pairs.cuh"
+#include "conv3x3_bf16.cuh"
 #include "conv3x3_tile.cuh"
 
 namespace {
@@ -72,31 +76,22 @@ using conv3x3::kThreads;
 constexpr int kStages = 3;
 constexpr int kGroups = 1;
 constexpr int kBlock = kThreads * kGroups;
-// the bf16 pair planes' rows are padded to a multiple of this many words
-// (16 bytes), so that every halo copy is a 16-byte cp.async
-constexpr int kRowWords = 4;
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-// x: (N, C, H, pw) words (floats, or with kBf16 bf16 channel pairs and C
-// the pairs); y (N, Co, H, W) floats or bf16.
-template <bool kBf16, typename T>
+// x (N, C, H, W) floats; y (N, Co, H, W) floats.
 __global__ void __launch_bounds__(kBlock, 2 / kGroups)
 conv3x3_same_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    T* __restrict__ y, int c, int co, int h, int wd, int pw, int tiles_x, int v) {
+                    float* __restrict__ y, int c, int co, int h, int wd, int tiles_x, int v) {
   extern __shared__ __align__(16) float smem[];
   const int n = blockIdx.z;
   const int co0 = blockIdx.y * kCo;
   const int y0 = (blockIdx.x / tiles_x) * kRows;
   const int x0 = (blockIdx.x % tiles_x) * kCols;
   const int64_t hw = (int64_t)h * wd;
-  if (!kBf16) pw = wd;  // float32 rows are not padded
-  const conv3x3::Plane in{x + (int64_t)n * c * h * pw, h, pw, 1};
+  const conv3x3::Plane in{x + (int64_t)n * c * h * wd, h, wd, 1};
 
   float acc[kMT][kNT][4];
-  conv3x3::conv_tile<kStages, kGroups, kBf16>(in, w, c, co, co0, y0, x0,
-                                              conv3x3::geometry(1, kGroups, v, 1), smem, acc);
+  conv3x3::conv_tile<kStages, kGroups>(in, w, c, co, co0, y0, x0,
+                                       conv3x3::geometry(1, kGroups, v, 1), smem, acc);
 
   const int yy = y0 + conv3x3::frag_row();
   if (threadIdx.x >= kThreads || yy >= h) return;
@@ -106,29 +101,120 @@ conv3x3_same_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int r = 0; r < 4; ++r) {
       const int oc = co0 + conv3x3::frag_ch(j, r);
       if (oc >= co) continue;
-      T* yo = y + ((int64_t)n * co + oc) * hw + (int64_t)yy * wd;
+      float* yo = y + ((int64_t)n * co + oc) * hw + (int64_t)yy * wd;
 #pragma unroll
       for (int i = 0; i < kMT; ++i) {
         const int xx = x0 + conv3x3::frag_col(i, r);
-        if (xx < wd) store(yo + xx, acc[i][j][r]);
+        if (xx < wd) yo[xx] = acc[i][j][r];
       }
     }
 }
 
-// Byte offsets of the bf16 form's scratch: the pair planes of x, then of
-// the weights, 256-byte aligned.
-struct Bf16Scratch {
-  int64_t p, wq, xi, wi, total;
+// ------------------------------------------------------------- bf16 ---
+
+namespace cb = conv_bf16;
+
+constexpr int kN16 = 64;   // output channels per block
+constexpr int kProd = 256;  // producer threads (two warpgroups)
+constexpr int kBlock16 = cb::kConsumers + kProd;
+constexpr int kLook = 3;   // halo stages requested ahead
+// the output staging: per channel the tile's 4 x 64 bf16, +16 bytes so that
+// the accumulator stores of 4 channels fall in different banks
+constexpr int kStgCo = cb::kTileRows * cb::kTileCols * 2 + 16;
+constexpr int kStgBytes = kN16 * kStgCo;
+
+struct LowchEpi {
+  uint16_t* y;
+  int co, co0, h, w, vec;
+  char* stg;
+
+  __device__ __forceinline__ void idle() {}
+
+  // in the consumer warpgroup
+  __device__ __forceinline__ void operator()(float (&acc)[cb::kRowsPerWg][kN16 / 2], int,
+                                             const cb::Item& it, bool) {
+    cb::consumer_sync();  // every consumer is done with the last tile's staging
+    // an add before the first read of each sum: without it ptxas serialises
+    // every wgmma of the kernel (its warning C7514; tools/tile_variants.py's
+    // "lowch epilogue without the add"); it changes no value but -0 to +0
+#pragma unroll
+    for (int i = 0; i < cb::kRowsPerWg; ++i)
+#pragma unroll
+      for (int r = 0; r < kN16 / 2; ++r) acc[i][r] += 0.f;
+#pragma unroll
+    for (int i = 0; i < cb::kRowsPerWg; ++i)
+#pragma unroll
+      for (int j = 0; j < kN16 / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            *reinterpret_cast<uint16_t*>(
+                stg + cb::frag_co(j, e) * kStgCo +
+                (cb::frag_row(i) * cb::kTileCols + cb::frag_px(hh)) * 2) =
+                cb::bf16_bits(acc[i][4 * j + 2 * hh + e]);
+    cb::consumer_sync();
+    // 16-byte runs of a channel's row: (channel, row, 8 columns)
+    for (int t = threadIdx.x; t < kN16 * cb::kTileRows * 8; t += cb::kConsumers) {
+      const int v = t & 7;
+      const int rr = t >> 3;
+      const int r = rr % cb::kTileRows;
+      const int m = rr / cb::kTileRows;
+      const int oc = co0 + m, yy = it.y0 + r, xx = it.x0 + 8 * v;
+      if (oc >= co || yy >= h || xx >= w) continue;
+      const char* src = stg + m * kStgCo + (r * cb::kTileCols + 8 * v) * 2;
+      uint16_t* dst = y + (((int64_t)it.n * co + oc) * h + yy) * w + xx;
+      if (vec) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int e = 0; e < 8 && xx + e < w; ++e)
+          dst[e] = reinterpret_cast<const uint16_t*>(src)[e];
+      }
+    }
+  }
 };
 
-inline Bf16Scratch bf16_scratch(int64_t n, int64_t c, int64_t co, int64_t h, int64_t w) {
-  Bf16Scratch s;
-  s.p = (c + 1) / 2;
-  s.wq = (w + kRowWords - 1) / kRowWords * kRowWords;
-  s.xi = 0;
-  s.wi = (4 * n * s.p * h * s.wq + 255) / 256 * 256;
-  s.total = s.wi + 4 * co * s.p * 9;
-  return s;
+__global__ void __launch_bounds__(kBlock16, 1)
+conv3x3_same_bf16_kernel(const __nv_bfloat16* __restrict__ x, const void* __restrict__ w,
+                         int w_f32, uint16_t* __restrict__ y, int co, int n,
+                         const __grid_constant__ cb::Geo g, int vec,
+                         const __grid_constant__ CUtensorMap map, int use_map) {
+  extern __shared__ __align__(128) char dsmem[];
+  const int co0 = blockIdx.y * kN16;
+  LowchEpi epi{y, co, co0, g.h, g.w, vec, dsmem + g.epi_off};
+  cb::conv_tiles<kN16, kLook, kProd, 0, 0>(x, use_map ? &map : nullptr, w, w_f32, co, co0, g,
+                                           blockIdx.x, gridDim.x, n * g.tiles, 0, dsmem, epi);
+}
+
+// x as a tensor map of boxes (cols, rows, 16, 1) over (w, h, c, n), zero
+// outside: where its rows are 16-byte multiples (w % 8 == 0) and the CUDA driver
+// gives the encoder; else false and the kernel copies row by row
+bool encode_map(CUtensorMap* map, const void* x, int64_t n, int64_t c, int64_t h, int64_t w,
+                const cb::Geo& g) {
+  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                             const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                             const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return false;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  if (w % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)c, (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)w * 2, (cuuint64_t)(h * w * 2),
+                                 (cuuint64_t)(c * h * w * 2)};
+  const cuuint32_t box[4] = {(cuuint32_t)g.cols, (cuuint32_t)g.rows, cb::kStageCh, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -142,56 +228,41 @@ int conv3x3_same_f32(const void* x, const void* wt, void* out, int64_t n, int64_
   const int64_t tiles = tiles_x * ((h + kRows - 1) / kRows);
   const int v = conv3x3::halo_vec(x, w);
   const size_t smem = conv3x3::smem_bytes(conv3x3::geometry(1, kGroups, v, 1), kStages);
-  auto kernel = conv3x3_same_kernel<false, float>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_same_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)tiles, (unsigned)((co + kCo - 1) / kCo), (unsigned)n);
-  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
+  conv3x3_same_kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(wt), static_cast<float*>(out),
-      (int)c, (int)co, (int)h, (int)w, (int)w, (int)tiles_x, v);
+      (int)c, (int)co, (int)h, (int)w, (int)tiles_x, v);
   return (int)cudaGetLastError();
 }
 
-// Bytes of scratch the bf16 form needs for these shapes.
-int64_t conv3x3_same_bf16_scratch(int64_t n, int64_t c, int64_t co, int64_t h, int64_t w) {
-  return bf16_scratch(n, c, co, h, w).total;
-}
-
 // x (n, c, h, w) bf16, wt (co, c, 3, 3) float32 (w_f32 != 0) or bf16,
-// rounded to bf16; out (n, co, h, w) bf16; scratch of
-// conv3x3_same_bf16_scratch bytes, 256-byte aligned; all contiguous.
-int conv3x3_same_bf16(const void* x, const void* wt, int w_f32, void* out, void* scratch,
-                      int64_t scratch_bytes, int64_t n, int64_t c, int64_t co, int64_t h,
-                      int64_t w, void* stream) {
-  const Bf16Scratch sc = bf16_scratch(n, c, co, h, w);
-  if (scratch_bytes < sc.total || reinterpret_cast<uintptr_t>(scratch) % 256)
-    return (int)cudaErrorInvalidValue;
-  const int64_t nx = n * sc.p * h * sc.wq, nw = co * sc.p * 9;
-  if (!bf16_pairs::pairs_fit(nx, nw, n, c, h, w, co)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  char* base = static_cast<char*>(scratch);
-  uint32_t* xi = reinterpret_cast<uint32_t*>(base + sc.xi);
-  uint32_t* wi = reinterpret_cast<uint32_t*>(base + sc.wi);
-  const uint16_t* xb = static_cast<const uint16_t*>(x);
-  cudaError_t err =
-      w_f32 ? bf16_pairs::launch_pairs(xb, xi, nx, c, sc.p, h, w, sc.wq,
-                                       static_cast<const float*>(wt), wi, nw, s)
-            : bf16_pairs::launch_pairs(xb, xi, nx, c, sc.p, h, w, sc.wq,
-                                       static_cast<const uint16_t*>(wt), wi, nw, s);
+// rounded to bf16; out (n, co, h, w) bf16; all contiguous.
+int conv3x3_same_bf16(const void* x, const void* wt, int w_f32, void* out, int64_t n, int64_t c,
+                      int64_t co, int64_t h, int64_t w, void* stream) {
+  const cb::Geo g = cb::make_geo<kN16, kLook>((int)c, (int)h, (int)w, 1, 1, (int)h, (int)w, x,
+                                              wt, w_f32 != 0, kStgBytes, true);
+  if (g.smem > cb::kSmemMax) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_same_bf16_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
   if (err != cudaSuccess) return (int)err;
-  const int64_t tiles_x = (w + kCols - 1) / kCols;
-  const int64_t tiles = tiles_x * ((h + kRows - 1) / kRows);
-  const int v = conv3x3::halo_vec(xi, sc.wq);
-  const size_t smem = conv3x3::smem_bytes(conv3x3::geometry(1, kGroups, v, 1), kStages);
-  auto kernel = conv3x3_same_kernel<true, __nv_bfloat16>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)tiles, (unsigned)((co + kCo - 1) / kCo), (unsigned)n);
-  kernel<<<grid, kBlock, smem, s>>>(reinterpret_cast<const float*>(xi),
-                                    reinterpret_cast<const float*>(wi),
-                                    static_cast<__nv_bfloat16*>(out), (int)sc.p, (int)co, (int)h,
-                                    (int)w, (int)sc.wq, (int)tiles_x, v);
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const int64_t co_blocks = (co + kN16 - 1) / kN16;
+  const int64_t items = n * g.tiles;
+  int64_t per = sms / co_blocks;
+  if (per < 1) per = 1;
+  const dim3 grid((unsigned)(items < per ? items : per), (unsigned)co_blocks);
+  const int vec = w % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  CUtensorMap map;
+  const int use_map = encode_map(&map, x, n, c, h, w, g);
+  conv3x3_same_bf16_kernel<<<grid, kBlock16, g.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), wt, w_f32, static_cast<uint16_t*>(out), (int)co,
+      (int)n, g, vec, map, use_map);
   return (int)cudaGetLastError();
 }
 

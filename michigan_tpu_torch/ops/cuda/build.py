@@ -118,21 +118,16 @@ SIGNATURES = {
         "conv3x3_in_act_tiles": (_I64, _I64),
         "conv3x3_in_act_f32": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                                _I64, _I64, ctypes.c_float, ctypes.c_int, _P),
-        "conv3x3_in_act_bf16_scratch": (_I64, _I64, _I64, _I64, _I64, _I64),
+        "conv3x3_in_act_bf16_prenorm": (_I64, _I64),
+        "conv3x3_in_act_bf16_clusters": (_I64, _I64, _I64, _I64, _I64, _I64),
         "conv3x3_in_act_bf16": (_P, _P, ctypes.c_int, _P, ctypes.c_int, _P, _P, _P, _I64, _I64,
-                                _I64, _I64, _I64, _I64, _I64, ctypes.c_float, ctypes.c_int, _P),
+                                _I64, _I64, _I64, _I64, ctypes.c_float, ctypes.c_int, _P),
     },
     "conv_lowch": {
         "conv3x3_same_f32": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P),
-        "conv3x3_same_bf16_scratch": (_I64, _I64, _I64, _I64, _I64),
-        "conv3x3_same_bf16": (_P, _P, ctypes.c_int, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
-                              _P),
+        "conv3x3_same_bf16": (_P, _P, ctypes.c_int, _P, _I64, _I64, _I64, _I64, _I64, _P),
     },
 }
-
-
-# launchers return a cudaError_t as int; these return a size
-RESTYPES = {"conv3x3_in_act_bf16_scratch": _I64, "conv3x3_same_bf16_scratch": _I64}
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,7 +137,7 @@ def load(name: str) -> ctypes.CDLL:
     for fn_name, argtypes in SIGNATURES[name].items():
         fn = getattr(lib, fn_name)
         fn.argtypes = list(argtypes)
-        fn.restype = RESTYPES.get(fn_name, ctypes.c_int)
+        fn.restype = ctypes.c_int  # a cudaError_t, or a shape query's int
     return lib
 
 

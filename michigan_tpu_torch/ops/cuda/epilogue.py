@@ -20,9 +20,10 @@ the result is rounded to bfloat16 once.
 
 The kernel is compute-bound (C*9 FMAs per output); the design notes are in
 the CUDA source.  It computes the convolution in its own body on the tensor
-cores (float32-accurate through the 3xTF32 split; bf16 products in one
-mma), with no cuDNN, cuBLAS or CUTLASS call.  A wrapper runs the plain
-PyTorch version for CPU tensors only.  For a CUDA tensor it checks dtype,
+cores (float32-accurate through the 3xTF32 split; in bfloat16 wgmma
+products, the instance norm's statistics merged across a thread-block
+cluster, one launch), with no cuDNN, cuBLAS or CUTLASS call.  A wrapper
+runs the plain PyTorch version for CPU tensors only.  For a CUDA tensor it checks dtype,
 shape, contiguity and device, launches the kernel on the current stream and
 counts the launch; anything the kernel does not take raises.  There is no
 fallback on CUDA tensors.
@@ -40,8 +41,8 @@ from michigan_tpu_torch.ops.cuda.spade import _ACTS, _act
 from michigan_tpu_torch.ops.norms import instance_norm
 
 
-# the kernel's ring of input halos, (4 + 2d) x (32 + 2d) per channel, fits an
-# SM's shared memory up to this dilation (conv_in_act.cu)
+# the kernels' rings of input halos, (4 + 2d) rows per channel, fit an SM's
+# shared memory up to this dilation (conv_in_act.cu)
 MAX_DILATION = 4
 
 
@@ -99,13 +100,8 @@ def conv3x3_in_act(x_pad: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tenso
                          "no output")
     if d > MAX_DILATION:
         raise ValueError(f"the kernel takes dilation up to {MAX_DILATION}, got {d}")
-    if n > 65535 or co > 65535 * 64:
+    if n > 65535 or co > 65535 * (32 if x_pad.dtype == torch.bfloat16 else 64):
         raise ValueError(f"too many samples or channels for one launch: {n}, {co}")
-    if x_pad.dtype == torch.bfloat16 and (x_pad.numel() + co * c * 9 >= 2**31 - 2**24
-                                          or n * ((c + 1) // 2) > 65535):
-        raise ValueError("the bf16 kernel indexes x_pad and w in 32 bits and takes at most "
-                         f"65535 samples x channel pairs: x_pad {tuple(x_pad.shape)}, w "
-                         f"{tuple(w.shape)}")
     _check("x_pad", x_pad, (n, c, hp, wp), x_pad, _X_DTYPES)
     bf16 = x_pad.dtype == torch.bfloat16
     # float32: everything float32.  bfloat16: the weight float32 or bfloat16
@@ -124,13 +120,15 @@ def conv3x3_in_act(x_pad: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tenso
     b_ptr = None if b is None else b.data_ptr()
     r_ptr = None if residual is None else residual.data_ptr()
     if bf16:
-        scratch = torch.empty(lib.conv3x3_in_act_bf16_scratch(n, c, co, h, wd, d),
-                              dtype=torch.uint8, device=x_pad.device)
+        # planes of more than one cluster's tiles keep their pre-norm sums in
+        # a float32 plane until the statistics are merged (by shape)
+        prenorm = torch.empty((n, co, h, wd), dtype=torch.float32, device=x_pad.device) \
+            if lib.conv3x3_in_act_bf16_prenorm(h, wd) else None
         err = lib.conv3x3_in_act_bf16(
             x_pad.data_ptr(), w.data_ptr(), int(w.dtype == torch.float32), b_ptr,
             int(b is not None and b.dtype == torch.bfloat16), r_ptr, out.data_ptr(),
-            scratch.data_ptr(), scratch.numel(), n, c, co, h, wd, d, float(eps), _ACTS[act],
-            stream)
+            None if prenorm is None else prenorm.data_ptr(), n, c, co, h, wd, d, float(eps),
+            _ACTS[act], stream)
     else:
         scratch = torch.empty(n * co * lib.conv3x3_in_act_tiles(h, wd) * 3,
                               dtype=torch.float32, device=x_pad.device)

@@ -2,7 +2,8 @@
 plain version, wrapper.
 
 Source: ``michigan_tpu_torch/csrc/conv_lowch.cu`` (built by ``build.py``),
-whose tile it shares with ``conv_in_act.cu`` through ``conv3x3_tile.cuh``.
+whose tiles it shares with ``conv_in_act.cu``: ``conv3x3_tile.cuh`` in
+float32, ``conv3x3_bf16.cuh`` in bfloat16.
 
 conv3x3_same_lowch(x, w)
     Replaces ``michigan_tpu/ops/pallas/conv_lowch.py:conv3x3_same_lowch``:
@@ -19,9 +20,10 @@ bfloat16 once.
 
 The kernel is compute-bound in float32 (C*9 FMAs per output) and about even
 between bytes and products in bfloat16; it runs on the tensor cores,
-float32-accurate through the 3xTF32 split, or one bf16 mma.sync per 16
-channels after a pass that packs x into channel pairs, with no cuDNN,
-cuBLAS or CUTLASS call; the design notes are in the CUDA source.  A wrapper runs the
+float32-accurate through the 3xTF32 split, or in bfloat16 as one launch of
+wgmma products on x as given (a persistent grid, the weights resident in
+shared memory), with no cuDNN, cuBLAS or CUTLASS call; the design notes are
+in the CUDA source.  A wrapper runs the
 plain PyTorch version for CPU tensors only.  For a CUDA tensor it checks
 dtype, shape, contiguity and device, launches the kernel on the current
 stream and counts the launch; anything the kernel does not take raises.
@@ -70,18 +72,12 @@ def conv3x3_same_lowch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     co = w.shape[0]
     if n > 65535 or co > 65535 * 64:
         raise ValueError(f"too many samples or channels for one launch: {n}, {co}")
-    if bf16 and x.numel() + co * c * 9 >= 2**31 - 2**24:
-        raise ValueError(f"the bf16 kernel indexes x and w in 32 bits: x {tuple(x.shape)}, "
-                         f"w {tuple(w.shape)}")
     lib = build.load("conv_lowch")
     out = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if bf16:
-        scratch = torch.empty(lib.conv3x3_same_bf16_scratch(n, c, co, h, wd), dtype=torch.uint8,
-                              device=x.device)
         err = lib.conv3x3_same_bf16(x.data_ptr(), w.data_ptr(), int(w.dtype == torch.float32),
-                                    out.data_ptr(), scratch.data_ptr(), scratch.numel(), n, c,
-                                    co, h, wd, stream)
+                                    out.data_ptr(), n, c, co, h, wd, stream)
     else:
         err = lib.conv3x3_same_f32(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, c, co, h, wd,
                                    stream)

@@ -1,33 +1,39 @@
-"""Build variants of the shared 3x3 tensor-core tile and measure them on a card.
+"""Build variants of the 3x3 convolution tiles and measure them on a card.
 
-    python -m michigan_tpu_torch.tools.tile_variants
+    python -m michigan_tpu_torch.tools.tile_variants [--only A,B] [--check]
 
-The design choices of ``csrc/conv3x3_tile.cuh`` are each one textual change
-away from the built sources: VARIANTS lists them as (file, text, replacement)
-edits.  Every variant is compiled with the port's nvcc flags into
+The design choices of ``csrc/conv3x3_tile.cuh`` (the float32 tile) and
+``csrc/conv3x3_bf16.cuh`` (the bf16 tile) and of the two kernels around them
+are each one textual change away from the built sources: VARIANTS lists them
+as (file, text, replacement) edits; BF16_VARIANTS names those measured on
+the bf16 kernels.  Every variant is
+compiled with the port's nvcc flags and ``-Xptxas -v`` into
 ``michigan_tpu_torch/_build/variants/v<i>/`` (all nvcc processes started
 together), loaded with ctypes and run at the paths' shapes:
 
-- conv3x3_same_lowch at VGG19 features_2's (16, 64, 512^2);
+- conv3x3_same_lowch at VGG19 features_2's (16, 64, 512^2), float32 and bf16;
 - conv3x3_in_act at the inpainters' (1, 256, 64^2), dilation 2 with relu and
   dilation 1 with a residual, in float32 and in bfloat16 (the bf16 policy's
   form: bf16 x_pad and residual, the float32 weight rounded in the kernel).
 
-For each variant: the largest error against a float64 convolution at batch 2
-of those shapes, over the largest magnitude (beside F.conv2d's in float32,
-TF32 off, and, for the bf16 form, cuDNN's bf16 conv + the torch norm on the
-same bf16 inputs), and the device time (20 calls replayed in a CUDA graph,
-median of 5), the variants timed in turns (forward, then backward through
-the list).  The bf16 tile's variants change its halo layout (the 8 mod 32
-pair stride), its copy width (16-byte copies from rows padded to 16 bytes;
-8- and 4-byte copies) and its chain length (16-channel steps per fresh
-accumulator chain); the "diag:" variants remove one part of the work each
-(their results are wrong) to show where the time goes, and the tool prints
-each pass's device time (torch.profiler) of the package's own build.  It
-also measures the card's mma.sync rates, m16n8k8
-TF32 (three products per float32-accurate one) and m16n8k16 bf16, which cap
-the tile.  Prints the card's name and power limit first.  Needs a CUDA card
-and nvcc; exits 1 without them.
+For each bf16 variant first: the kernels against their plain versions at
+their edges (LOWCH_EDGES, IN_ACT_EDGES; atol 1e-2, rtol 1.6e-2), then, for
+every variant, the largest error against a float64 convolution at batch 2 of
+those shapes over the largest magnitude, beside F.conv2d's (float32, TF32
+off; bf16) and cuDNN's bf16 conv + the torch norm, and for bf16 the share of
+outputs that are not float64's value rounded to bf16; and how many of
+in_act's clusters the card holds at once.  ``--check`` stops there.  Then the
+card's mma.sync rates (m16n8k8 TF32, m16n8k16 bf16), and device times (20
+calls replayed in a CUDA graph, median of 5), the variants timed in turns
+(forward, then backward through the list), float32 variants on the float32
+kernels and bf16 ones on the bf16 kernels, the library routes before and
+after them; last the device time of each kernel of the package's own build
+per call (torch.profiler).  The bf16 variants: wgmma against mma.sync, ring
+depths, a tile per block against the persistent grid, streamed against
+resident weights, the cluster size; the "diag:" variants each remove one
+part of the work (their results are wrong) to show where the time goes.
+Prints the card's name and power limit first.  Needs a CUDA card and nvcc;
+exits 1 without them.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+# name: its edits, each a (file, text, replacement)
 VARIANTS = {
     "as built": [],
     # the conversion instruction instead of its integer form
@@ -66,45 +73,76 @@ VARIANTS = {
     "4-byte halo copies": [(
         "conv3x3_tile.cuh", "  for (int v = 4; v > 1; v /= 2)\n",
         "  for (int v = 1; v > 1; v /= 2)\n")],
-    "in_act one group": [(
-        "conv_in_act.cu", "constexpr int kGroups = 2;\n", "constexpr int kGroups = 1;\n")],
-    "lowch two groups": [(
-        "conv_lowch.cu", "constexpr int kGroups = 1;\n", "constexpr int kGroups = 2;\n")],
-    # the halo's channel (bf16: pair) stride left at rows x cols words, 0 mod
-    # 32 at dilation 2: the A-fragment loads of the 4 pairs collide
-    "unpadded pair stride": [(
-        "conv3x3_tile.cuh", "  g.cs = ((g.rows * g.cols - 8 + 31) / 32) * 32 + 8;",
-        "  g.cs = g.rows * g.cols;")],
     "8-byte halo copies": [(
         "conv3x3_tile.cuh", "  for (int v = 4; v > 1; v /= 2)\n",
         "  for (int v = 2; v > 1; v /= 2)\n")],
-    # bf16 pair rows not padded to 16 bytes: 8-byte copies at dilation 1
-    "bf16 unpadded rows": [(
-        "conv_in_act.cu", "constexpr int kRowWords = 4;\n", "constexpr int kRowWords = 1;\n")],
-    "bf16 2-step chains": [(
-        "conv3x3_tile.cuh", "constexpr int kBf16ChainSteps = 1;\n",
-        "constexpr int kBf16ChainSteps = 2;\n")],
-    "bf16 one chain": [(
-        "conv3x3_tile.cuh", "constexpr int kBf16ChainSteps = 1;\n",
-        "constexpr int kBf16ChainSteps = 1 << 20;\n")],
+    "in_act one group": [(
+        "conv_in_act.cu", "constexpr int kGroups = 2;\n", "constexpr int kGroups = 1;\n")],
+    "in_act one group, 6 stages": [
+        ("conv_in_act.cu", "constexpr int kGroups = 2;\n", "constexpr int kGroups = 1;\n"),
+        ("conv_in_act.cu", "constexpr int kStages = 3;\n", "constexpr int kStages = 6;\n")],
+    "lowch two groups": [(
+        "conv_lowch.cu", "constexpr int kGroups = 1;\n", "constexpr int kGroups = 2;\n")],
+    # the halo's channel stride left at rows x cols words, 0 mod 32 at
+    # dilation 2: the A-fragment loads of the 4 channels collide
+    "unpadded channel stride": [(
+        "conv3x3_tile.cuh", "  g.cs = ((g.rows * g.cols - 8 + 31) / 32) * 32 + 8;",
+        "  g.cs = g.rows * g.cols;")],
+    # the bf16 tile (conv3x3_bf16.cuh): the product, ring depths, the
+    # persistent grid, resident weights, the cluster
+    "mma.sync": [(
+        "conv3x3_bf16.cuh", "constexpr bool kWgmma = true;", "constexpr bool kWgmma = false;")],
+    "lowch ring 2": [(
+        "conv_lowch.cu", "constexpr int kLook = 3;", "constexpr int kLook = 2;")],
+    "lowch ring 4": [(
+        "conv_lowch.cu", "constexpr int kLook = 3;", "constexpr int kLook = 4;")],
+    "lowch a tile per block": [(
+        "conv_lowch.cu", "  int64_t per = sms / co_blocks;\n", "  int64_t per = items;\n")],
+    "lowch streamed weights": [(
+        "conv_lowch.cu", "kStgBytes, true);", "kStgBytes, false);")],
+    # the mbarrier waits sleep 64 ns between tries instead of spinning
+    "waits sleep between tries": [(
+        "conv3x3_bf16.cuh", '"@!done bra LAB_WAIT;\\n}\\n"',
+        '"@done bra LAB_DONE;\\nnanosleep.u32 64;\\nbra LAB_WAIT;\\nLAB_DONE:\\n}\\n"')],
+    # one producer warpgroup for lowch, two for in_act (there: 85 registers)
+    "lowch one producer warpgroup": [(
+        "conv_lowch.cu", "constexpr int kProd = 256;", "constexpr int kProd = 128;")],
+    "in_act two producer warpgroups": [(
+        "conv_in_act.cu", "constexpr int kProd = 128;", "constexpr int kProd = 256;")],
+    # the same, the consumers' registers raised by setmaxnreg (80 a thread at
+    # launch: producers 56, consumers 128)
+    "in_act two producer warpgroups and setmaxnreg": [
+        ("conv_in_act.cu", "constexpr int kProd = 128;", "constexpr int kProd = 256;"),
+        ("conv_in_act.cu", "cb::conv_tiles<kN16, kLook, kProd, 0, 0>",
+         "cb::conv_tiles<kN16, kLook, kProd, 56, 128>")],
+    # lowch's halo row by row (bulk copies) instead of one tensor-map box
+    "lowch rows copied": [(
+        "conv_lowch.cu", "  const int use_map = encode_map(",
+        "  const int use_map = 0 && encode_map(")],
+    "lowch 32 channels a block": [(
+        "conv_lowch.cu", "constexpr int kN16 = 64;", "constexpr int kN16 = 32;")],
+    # one block per SM at dilation 2 (111 KB of shared memory)
+    "in_act ring 3": [(
+        "conv_in_act.cu", "constexpr int kLook = 2;", "constexpr int kLook = 3;")],
+    # the cluster's blocks placed by the scheduler's default policy
+    "in_act cluster default policy": [(
+        "conv_in_act.cu", "  l.cfg.numAttrs = 2;", "  l.cfg.numAttrs = 1;")],
+    # two tiles per block, the first through the pre-norm plane
+    "in_act cluster 8": [(
+        "conv_in_act.cu", "constexpr int kMaxCluster = 16;", "constexpr int kMaxCluster = 8;")],
     # diagnostics, not designs (their results are wrong): each removes one
-    # part of the work to show what it costs; "bf16 no mma" keeps the
-    # fragment loads live through a float add, "no global reads" zero-fills
-    # every copy
-    "diag: bf16 no mma": [
-        ("conv3x3_tile.cuh", "              mma_bf16_first(chain[i][j], af[i], bf[j]);\n",
-         "              chain[i][j][0] = __uint_as_float(af[i][0] ^ bf[j][1]);\n"),
-        ("conv3x3_tile.cuh", "              mma_bf16(chain[i][j], af[i], bf[j]);\n",
-         "              chain[i][j][0] += __uint_as_float(af[i][0] ^ af[i][3] ^ bf[j][0]);\n")],
+    # part of the work to show what it costs
+    "diag: no main loop": [(
+        "conv3x3_tile.cuh", "  for (int s = 0; s < nstages; ++s) {\n",
+        "  for (int s = 0; s < 0; ++s) {\n")],
+    "diag: no loads in the loop": [(
+        "conv3x3_tile.cuh", "    if (next < nstages) load_stage(next, next % kStages);\n", "")],
     "diag: no global reads": [
         ("conv3x3_tile.cuh", "          cp_async16(dst, src, ok);\n",
          "          cp_async16(dst, in.x, false);\n"),
         ("conv3x3_tile.cuh",
          "cp_async16(s_w + m * g.ws + q, ok ? w + ((int64_t)(co0 + m) * c + ci0) * 9 + q : w, ok);",
          "cp_async16(s_w + m * g.ws + q, w, false);")],
-    "in_act one group, 6 stages": [
-        ("conv_in_act.cu", "constexpr int kGroups = 2;\n", "constexpr int kGroups = 1;\n"),
-        ("conv_in_act.cu", "constexpr int kStages = 3;\n", "constexpr int kStages = 6;\n")],
     "diag: empty conv pass": [(
         "conv_in_act.cu", "  extern __shared__ __align__(16) float smem[];\n",
         "  extern __shared__ __align__(16) float smem[];\n  if (a.c > 0) return;\n")],
@@ -112,19 +150,58 @@ VARIANTS = {
         "conv_in_act.cu",
         "  // epilogue: bias, pre-norm store, and the patch's statistics per channel\n",
         "  if (a.c > 0) {\n    if (acc[0][0][0] == 1234.5f) a.y[0] = 1.f;\n    return;\n  }\n")],
-    "diag: no main loop": [(
-        "conv3x3_tile.cuh", "  for (int s = 0; s < nstages; ++s) {\n",
-        "  for (int s = 0; s < 0; ++s) {\n")],
-    "diag: no loads in the loop": [(
-        "conv3x3_tile.cuh", "    if (next < nstages) load_stage(next, next % kStages);\n", "")],
-    "diag: bf16 no fragment loads": [
-        ("conv3x3_tile.cuh", "          af[i][0] = a[i * 16];\n", "          af[i][0] = tap + i;\n"),
-        ("conv3x3_tile.cuh", "          af[i][1] = a[i * 16 + 8];\n", "          af[i][1] = s;\n"),
-        ("conv3x3_tile.cuh", "          af[i][2] = a[a_hi + i * 16];\n", "          af[i][2] = i;\n"),
-        ("conv3x3_tile.cuh", "          af[i][3] = a[a_hi + i * 16 + 8];\n", "          af[i][3] = tap;\n"),
-        ("conv3x3_tile.cuh", "          bf[j][0] = sb[j * 8 * g.ws + tap];\n", "          bf[j][0] = j + s;\n"),
-        ("conv3x3_tile.cuh", "          bf[j][1] = sb[j * 8 * g.ws + tap + 36];  // pair + 4\n",
-         "          bf[j][1] = j * tap;\n")],
+    # the bf16 tile without its products (the descriptors kept live), its
+    # halo reads (zero-filled copies), its weight reads, its transposes, and
+    # the kernels' output stores (the staging still read)
+    "diag: bf16 no products": [
+        ("conv3x3_bf16.cuh", "wgmma<kN>(acc[i], da, db, k == 0 && tap == 0 ? 0 : 1);",
+         "if (da == db) acc[i][0] += 1.f;")],
+    "diag: bf16 no halo reads": [
+        ("conv3x3_bf16.cuh",
+         "        bytes[j] = (unsigned)(((reinterpret_cast<uintptr_t>(last) + 15) & "
+         "~uintptr_t(15)) - a16);",
+         "        bytes[j] = 0;"),
+        ("conv3x3_bf16.cuh", "pt == 0 ? kStageCh * g.rows * g.cols * 2 : 0", "0"),
+        ("conv3x3_bf16.cuh",
+         "        if (pt == 0) tma_load_4d(base, map, ox, oy, k * kStageCh, it.n, "
+         "&raw_bar[slot]);\n",
+         "")],
+    "diag: bf16 no weight reads": [
+        ("conv3x3_bf16.cuh", "reg[j] = ok ? __ldg(src) : make_uint4(0, 0, 0, 0);",
+         "reg[j] = make_uint4(0, 0, 0, 0);")],
+    "diag: bf16 no transposes": [
+        ("conv3x3_bf16.cuh", "      for (int t = pt; t < n_tasks; t += kProducers) {",
+         "      for (int t = pt; t < 0; t += kProducers) {")],
+    # conv_lowch's epilogue reads no sum (a test of what makes ptxas
+    # serialise its wgmmas)
+    "diag: lowch epilogue reads no sums": [
+        ("conv_lowch.cu", "cb::bf16_bits(acc[i][4 * j + 2 * hh + e]);", "0u;")],
+    # conv_lowch's epilogue without its add of 0 before the first read of
+    # each sum: ptxas then serialises the kernel's wgmmas
+    "lowch epilogue without the add": [
+        ("conv_lowch.cu", "      for (int r = 0; r < kN16 / 2; ++r) acc[i][r] += 0.f;\n",
+         "      for (int r = 0; r < kN16 / 2; ++r) {}\n")],
+    "diag: bf16 no stores": [
+        ("conv_lowch.cu",
+         "        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);\n",
+         "        if (src[0] == 1 && src[15] == 2) *dst = 0;\n"),
+        ("conv_in_act.cu",
+         "        *reinterpret_cast<uint4*>(a.out + at) = "
+         "make_uint4(ow[0], ow[1], ow[2], ow[3]);\n",
+         "        if (ow[0] == 0x12345u && ow[3] == 7u) a.out[at] = 0;\n")],
+}
+
+# the variants measured on the bf16 kernels (the others on the float32 ones;
+# "as built" on both)
+BF16_VARIANTS = {
+    "as built", "diag: bf16 no halo reads", "diag: bf16 no products", "diag: bf16 no stores",
+    "diag: bf16 no transposes", "diag: bf16 no weight reads",
+    "diag: lowch epilogue reads no sums", "in_act cluster 8", "in_act cluster default policy",
+    "in_act ring 3", "in_act two producer warpgroups",
+    "in_act two producer warpgroups and setmaxnreg", "lowch 32 channels a block",
+    "lowch a tile per block", "lowch epilogue without the add", "lowch one producer warpgroup",
+    "lowch ring 2", "lowch ring 4", "lowch rows copied", "lowch streamed weights", "mma.sync",
+    "waits sleep between tries",
 }
 
 MMA_PEAK_CU = r"""
@@ -204,22 +281,25 @@ def patched_sources(edits, dst: Path, csrc: Path) -> None:
 
 def ptxas_report(stderr: str) -> list:
     """One line per kernel from `-Xptxas -v`: its (mangled) name, registers,
-    barriers, shared memory, stack and spills."""
+    barriers, shared memory, stack and spills; and every line that speaks of
+    wgmma (ptxas says when it serialises them)."""
     lines = [s.strip().removeprefix("ptxas info    : ") for s in stderr.splitlines()]
     return [f"{name.removeprefix('Function properties for ')}: {used}; {spill}"
             for name, spill, used in zip(lines, lines[1:], lines[2:])
-            if name.startswith("Function properties for ") and used.startswith("Used ")]
+            if name.startswith("Function properties for ") and used.startswith("Used ")] + \
+        [s for s in lines if "wgmma" in s]
 
 
-def build_variants(build) -> tuple:
+def build_variants(build, names) -> tuple:
     """{(variant, lib): ctypes.CDLL}, and {"mma": CDLL} for the peak kernel;
-    {(variant, lib): ptxas report lines}."""
+    {(variant, lib): ptxas report lines}; {variant: nvcc's error} for the
+    variants that do not build."""
     root = build.BUILD_DIR / "variants"
     procs = []
     nvcc = build.nvcc_path()
-    for i, (name, edits) in enumerate(VARIANTS.items()):
+    for i, name in enumerate(names):
         src = root / f"v{i}"
-        patched_sources(edits, src, build.CSRC_DIR)
+        patched_sources(VARIANTS[name], src, build.CSRC_DIR)
         for lib in LIBS:
             out = src / f"{lib}.so"
             cmd = [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
@@ -232,11 +312,14 @@ def build_variants(build) -> tuple:
            "-fPIC", "-o", str(out), str(root / "mma_peak.cu")]
     procs.append(("mma", out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                stderr=subprocess.PIPE, text=True)))
-    libs, ptxas = {}, {}
+    libs, ptxas, failed = {}, {}, {}
     for key, path, proc in procs:
         _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {key}:\n{err}")
+            if key == "mma" or key[0] == "as built":
+                raise RuntimeError(f"nvcc failed for {key}:\n{err}")
+            failed[key[0]] = err[-3000:]
+            continue
         lib = ctypes.CDLL(str(path))
         if key == "mma":
             for fn in (lib.mma_tflops, lib.mma_tflops_bf16):
@@ -249,7 +332,7 @@ def build_variants(build) -> tuple:
                 f.restype = ctypes.c_int
             ptxas[key] = ptxas_report(err)
         libs[key] = lib
-    return libs, ptxas
+    return libs, ptxas, failed
 
 
 def median_ms(fn, torch, inner=20, reps=5):
@@ -273,15 +356,43 @@ def median_ms(fn, torch, inner=20, reps=5):
     return statistics.median(times)
 
 
-def main() -> int:
+# the bf16 kernels' edges, each against its plain version (--check and
+# every run): lowch (n, c, co, h, w): ragged tiles, odd C and W, Co over one
+# block, C too large for resident weights, fewer tiles than SMs; in_act (n,
+# c, co, h, w, d, act, residual): ragged planes, odd C, dilation 1, 2 and 4,
+# a plane of more tiles than one cluster (the pre-norm form), batch > 1
+LOWCH_EDGES = [(2, 64, 64, 37, 53), (1, 3, 70, 10, 11), (3, 12, 72, 9, 66),
+               (1, 160, 64, 20, 70), (1, 64, 64, 8, 64)]
+IN_ACT_EDGES = [(1, 20, 70, 9, 7, 2, "relu", True), (2, 20, 40, 13, 30, 2, "lrelu", False),
+                (1, 64, 72, 37, 53, 1, "relu", True), (3, 7, 64, 4, 32, 2, None, True),
+                (2, 16, 24, 80, 80, 1, "relu", True), (1, 32, 32, 16, 16, 4, None, False)]
+ACT_CODES = {None: 0, "relu": 1, "lrelu": 2}
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
     import torch.nn.functional as F
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default="", help="comma-separated variants to build beside "
+                    "'as built' (default: all)")
+    ap.add_argument("--check", action="store_true", help="build, print ptxas's report and "
+                    "hold the bf16 kernels against their plain versions and float64; no timing")
+    args = ap.parse_args(argv)
+    names = ["as built"] + [v for v in (args.only.split(",") if args.only else VARIANTS)
+                            if v and v != "as built"]
+    unknown = [v for v in names if v not in VARIANTS]
+    if unknown:
+        print(f"FAIL: no variant {unknown}", file=sys.stderr)
+        return 1
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
     from michigan_tpu_torch.ops.cuda import build
     from michigan_tpu_torch.ops.cuda import epilogue as E
+    from michigan_tpu_torch.ops.cuda import lowch as L
     from michigan_tpu_torch.ops.cuda.spade import _act
     from michigan_tpu_torch.ops.norms import instance_norm
 
@@ -290,138 +401,243 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs, ptxas = build_variants(build)
+    libs, ptxas, failed = build_variants(build, names)
+    for v, err in failed.items():
+        print(f"nvcc failed for {v}:\n{err}", flush=True)
+    names = [v for v in names if v not in failed]
     for (v, lib), kernels in ptxas.items():
         print(f"ptxas {v} {lib}: {' | '.join(kernels)}", flush=True)
-    for blocks, threads in ((132, 128), (132, 256), (264, 256), (264, 512)):
-        print(f"mma.sync m16n8k8 TF32, {blocks} blocks x {threads} threads (8 chains a warp): "
-              f"{libs['mma'].mma_tflops(blocks, threads, 20000):.1f} TFLOP/s; m16n8k16 bf16: "
-              f"{libs['mma'].mma_tflops_bf16(blocks, threads, 20000):.1f} TFLOP/s [{card}]",
-              flush=True)
+    fp32 = [v for v in names if v == "as built" or v not in BF16_VARIANTS]
+    bf16 = [v for v in names if v in BF16_VARIANTS]
     stream = lambda: torch.cuda.current_stream().cuda_stream
 
     def lowch(v, x, w, out):
         n, c, h, wd = x.shape
-        err = libs[(v, "conv_lowch")].conv3x3_same_f32(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), n, c, w.shape[0], h, wd, stream())
+        lib = libs[(v, "conv_lowch")]
+        if x.dtype == torch.bfloat16:
+            err = lib.conv3x3_same_bf16(x.data_ptr(), w.data_ptr(), int(w.dtype == torch.float32),
+                                        out.data_ptr(), n, c, w.shape[0], h, wd, stream())
+        else:
+            err = lib.conv3x3_same_f32(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, c,
+                                       w.shape[0], h, wd, stream())
         build.check_launch(v, err)
 
-    def in_act(v, x, w, b, d, act, r, out, scratch):
+    def in_act(v, x, w, b, d, act, r, out, scratch=None):
         n, c, hp, wp = x.shape
-        err = libs[(v, "conv_in_act")].conv3x3_in_act_f32(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), None if r is None else r.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), scratch.numel(), n, c, w.shape[0], hp - 2 * d,
-            wp - 2 * d, d, 1e-5, {None: 0, "relu": 1}[act], stream())
-        build.check_launch(v, err)
-
-    def in_act16(v, x, w, b, d, act, r, out):
-        n, c, hp, wp = x.shape
+        h, wd, co = hp - 2 * d, wp - 2 * d, w.shape[0]
         lib = libs[(v, "conv_in_act")]
-        h, wd = hp - 2 * d, wp - 2 * d
-        scratch = torch.empty(lib.conv3x3_in_act_bf16_scratch(n, c, w.shape[0], h, wd, d),
-                              dtype=torch.uint8, device="cuda")
-        err = lib.conv3x3_in_act_bf16(
-            x.data_ptr(), w.data_ptr(), 1, b.data_ptr(), 0, None if r is None else r.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), scratch.numel(), n, c, w.shape[0], h, wd, d,
-            1e-5, {None: 0, "relu": 1}[act], stream())
+        r_ptr = None if r is None else r.data_ptr()
+        if x.dtype == torch.bfloat16:
+            pre = torch.empty((n, co, h, wd), device="cuda") \
+                if lib.conv3x3_in_act_bf16_prenorm(h, wd) else None
+            err = lib.conv3x3_in_act_bf16(
+                x.data_ptr(), w.data_ptr(), int(w.dtype == torch.float32), b.data_ptr(),
+                int(b.dtype == torch.bfloat16), r_ptr, out.data_ptr(),
+                None if pre is None else pre.data_ptr(), n, c, co, h, wd, d, 1e-5,
+                ACT_CODES[act], stream())
+        else:
+            err = lib.conv3x3_in_act_f32(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), r_ptr, out.data_ptr(),
+                scratch.data_ptr(), scratch.numel(), n, c, co, h, wd, d, 1e-5, ACT_CODES[act],
+                stream())
         build.check_launch(v, err)
 
     def rel(got, want64):
         return ((got.double() - want64).abs().max() / want64.abs().max()).item()
 
+    def off_rounding(got, want64):
+        """The share of bf16 outputs that are not float64's value rounded to bf16."""
+        return (got.float() != want64.to(torch.bfloat16).float()).float().mean().item()
+
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = {v: {} for v in VARIANTS}
-    turns = list(VARIANTS) + list(VARIANTS)[::-1]
-    # conv3x3_same_lowch
+    rows = {v: {} for v in names}
+
+    # the bf16 kernels at their edges, against their plain versions
+    tol = dict(atol=1e-2, rtol=1.6e-2)
+    for v in bf16:
+        bad = []
+        for n, c, co, h, wd in LOWCH_EDGES:
+            x = torch.randn((n, c, h, wd), generator=gen, device="cuda").relu_().bfloat16()
+            for w_dtype in (torch.float32, torch.bfloat16):
+                w = (torch.randn((co, c, 3, 3), generator=gen, device="cuda")
+                     * math.sqrt(2 / (9 * c))).to(w_dtype)
+                out = torch.full((n, co, h, wd), float("nan"), device="cuda",
+                                 dtype=torch.bfloat16)
+                lowch(v, x, w, out)
+                if not torch.allclose(out.float(), L.conv3x3_same_lowch_plain(x, w).float(),
+                                      **tol):
+                    bad.append(("lowch", (n, c, co, h, wd), str(w_dtype)))
+        for n, c, co, h, wd, d, act, res in IN_ACT_EDGES:
+            x = torch.randn((n, c, h + 2 * d, wd + 2 * d), generator=gen,
+                            device="cuda").bfloat16()
+            r = torch.randn((n, co, h, wd), generator=gen, device="cuda").bfloat16() \
+                if res else None
+            for p_dtype in (torch.float32, torch.bfloat16):
+                w = (torch.randn((co, c, 3, 3), generator=gen, device="cuda") * 0.05).to(p_dtype)
+                b = torch.randn(co, generator=gen, device="cuda").to(p_dtype)
+                out = torch.full((n, co, h, wd), float("nan"), device="cuda",
+                                 dtype=torch.bfloat16)
+                in_act(v, x, w, b, d, act, r, out)
+                want = E.conv3x3_in_act_plain(x, w, b, d, act, residual=r)
+                if not torch.allclose(out.float(), want.float(), **tol):
+                    err = (out.float() - want.float()).abs().max().item()
+                    bad.append(("in_act", (n, c, co, h, wd, d, act, res), str(p_dtype), err))
+        torch.cuda.synchronize()
+        rows[v]["edges"] = "all match their plain versions" if not bad else f"FAIL {bad}"
+        print(f"{v:>24}: bf16 edges {rows[v]['edges']} [{card}]", flush=True)
+
+    # float64 errors at batch 2 of the paths' shapes
     w = torch.randn((64, 64, 3, 3), generator=gen, device="cuda") * math.sqrt(2 / 576)
     x = torch.randn((2, 64, 512, 512), generator=gen, device="cuda").relu_()
     want = F.conv2d(x.double(), w.double(), padding=1)
-    out = torch.empty_like(x)
     ref = {"lowch": rel(F.conv2d(x, w, padding=1), want)}
-    for v in VARIANTS:
+    out = torch.empty_like(x)
+    for v in fp32:
         lowch(v, x, w, out)
         rows[v]["lowch err"] = rel(out, want)
-    del want
-    x = torch.randn((16, 64, 512, 512), generator=gen, device="cuda").relu_()
+    x, w = x.bfloat16(), w.bfloat16()
+    want = F.conv2d(x.double(), w.double(), padding=1)
+    y = F.conv2d(x, w, padding=1)
+    ref["lowch16"], ref["lowch16 off"] = rel(y, want), off_rounding(y, want)
     out = torch.empty_like(x)
-    ref["lowch ms"] = median_ms(lambda: F.conv2d(x, w, padding=1), torch, inner=5)
-    for v in turns:
-        rows[v].setdefault("lowch ms", []).append(
-            median_ms(lambda: lowch(v, x, w, out), torch, inner=5))
-    del x, out
-    # conv3x3_in_act
+    for v in bf16:
+        lowch(v, x, w, out)
+        rows[v]["lowch16 err"], rows[v]["lowch16 off"] = rel(out, want), off_rounding(out, want)
+    del x, y, want, out
+    inputs = {}
     for d, act, res in EPI_CASES:
-        key = f"in_act d{d}"
         x = torch.randn((2, 256, 64 + 2 * d, 64 + 2 * d), generator=gen, device="cuda")
         w = torch.randn((256, 256, 3, 3), generator=gen, device="cuda") * 0.02
         b = torch.randn(256, generator=gen, device="cuda")
         r = torch.randn((2, 256, 64, 64), generator=gen, device="cuda") if res else None
+        inputs[d] = (x, w, b, r)
         want = E.conv3x3_in_act_plain(x.double(), w.double(), b.double(), d, act,
                                       residual=None if r is None else r.double())
-        ref[f"{key} err"] = rel(E.conv3x3_in_act_plain(x, w, b, d, act, residual=r), want)
+        ref[f"in_act d{d}"] = rel(E.conv3x3_in_act_plain(x, w, b, d, act, residual=r), want)
         out = torch.empty((2, 256, 64, 64), device="cuda")
         scratch = torch.empty(2 * 256 * 32 * 3, device="cuda")  # 32 patches of 64^2
-        for v in VARIANTS:
+        for v in fp32:
             in_act(v, x, w, b, d, act, r, out, scratch)
-            rows[v][f"{key} err"] = rel(out, want)
-        x1, o1 = x[:1].contiguous(), out[:1].contiguous()
-        r1 = None if r is None else r[:1].contiguous()
-        for v in turns:
-            rows[v].setdefault(f"{key} us", []).append(1e3 * median_ms(
-                lambda: in_act(v, x1, w, b, d, act, r1, o1, scratch), torch))
+            rows[v][f"in_act d{d} err"] = rel(out, want)
         # the bf16 form on the same values rounded to bf16; float64 of them,
         # beside cuDNN's bf16 conv + the torch norm (the route it replaces)
-        key = f"in_act16 d{d}"
         x, r = x.bfloat16(), None if r is None else r.bfloat16()
         want = E.conv3x3_in_act_plain(x.double(), w.bfloat16().double(), b.double(), d, act,
                                       residual=None if r is None else r.double())
         y = _act(instance_norm(F.conv2d(x, w.bfloat16(), b.bfloat16(), dilation=d)), act)
-        ref[f"{key} err"] = rel(y if r is None else r + y, want)
+        y = y if r is None else r + y
+        ref[f"in_act16 d{d}"], ref[f"in_act16 d{d} off"] = rel(y, want), off_rounding(y, want)
         out = torch.empty((2, 256, 64, 64), device="cuda", dtype=torch.bfloat16)
-        for v in VARIANTS:
-            in_act16(v, x, w, b, d, act, r, out)
-            rows[v][f"{key} err"] = rel(out, want)
-        x1, o1 = x[:1].contiguous(), out[:1].contiguous()
-        r1 = None if r is None else r[:1].contiguous()
-        for v in turns:
-            rows[v].setdefault(f"{key} us", []).append(1e3 * median_ms(
-                lambda: in_act16(v, x1, w, b, d, act, r1, o1), torch))
-    # device time of each pass of the package's own build (torch.profiler):
-    # pair, conv and norm passes in bf16, conv and norm passes in float32
+        for v in bf16:
+            in_act(v, x, w, b, d, act, r, out)
+            rows[v][f"in_act16 d{d} err"] = rel(out, want)
+            rows[v][f"in_act16 d{d} off"] = off_rounding(out, want)
+    print(f"float64 error over the largest magnitude (share of bf16 outputs off float64's "
+          f"rounding): F.conv2d fp32 {ref['lowch']:.3e}, bf16 {ref['lowch16']:.3e} "
+          f"({ref['lowch16 off']:.2e}) (lowch); cuDNN conv + torch norm fp32 "
+          f"{ref['in_act d2']:.3e} / {ref['in_act d1']:.3e}, bf16 {ref['in_act16 d2']:.3e} "
+          f"({ref['in_act16 d2 off']:.2e}) / {ref['in_act16 d1']:.3e} "
+          f"({ref['in_act16 d1 off']:.2e}) (in_act d2 / d1) [{card}]", flush=True)
+    for v in bf16:
+        row = rows[v]
+        clusters = [libs[(v, "conv_in_act")].conv3x3_in_act_bf16_clusters(1, 256, 256, 64, 64, d)
+                    for d, _, _ in EPI_CASES]
+        print(f"{v:>24}: bf16 errors lowch {row['lowch16 err']:.3e} ({row['lowch16 off']:.2e}), "
+              f"in_act d2 {row['in_act16 d2 err']:.3e} ({row['in_act16 d2 off']:.2e}), d1 "
+              f"{row['in_act16 d1 err']:.3e} ({row['in_act16 d1 off']:.2e}); in_act clusters "
+              f"resident at once (1,256,64^2) d2, d1: {clusters} [{card}]", flush=True)
+    if args.check:
+        return 0 if all(rows[v]["edges"].startswith("all") for v in bf16) else 1
+
+    for blocks, threads in ((132, 128), (132, 256), (264, 256), (264, 512)):
+        print(f"mma.sync m16n8k8 TF32, {blocks} blocks x {threads} threads (8 chains a warp): "
+              f"{libs['mma'].mma_tflops(blocks, threads, 20000):.1f} TFLOP/s; m16n8k16 bf16: "
+              f"{libs['mma'].mma_tflops_bf16(blocks, threads, 20000):.1f} TFLOP/s [{card}]",
+              flush=True)
+    # device times at the paths' shapes, the variants in turns (forward, then
+    # backward through the list); the library routes beside them
+    w = torch.randn((64, 64, 3, 3), generator=gen, device="cuda") * math.sqrt(2 / 576)
+    x = torch.randn((16, 64, 512, 512), generator=gen, device="cuda").relu_()
+    out = torch.empty_like(x)
+    ref["lowch ms"] = median_ms(lambda: F.conv2d(x, w, padding=1), torch, inner=5)
+    for v in fp32 + fp32[::-1]:
+        rows[v].setdefault("lowch ms", []).append(
+            median_ms(lambda: lowch(v, x, w, out), torch, inner=5))
+    x, w = x.bfloat16(), w.bfloat16()
+    out = torch.empty_like(x)
+    ref["lowch16 ms"] = [median_ms(lambda: F.conv2d(x, w, padding=1), torch, inner=5)]
+    for v in bf16 + bf16[::-1]:
+        rows[v].setdefault("lowch16 ms", []).append(
+            median_ms(lambda: lowch(v, x, w, out), torch, inner=5))
+    ref["lowch16 ms"].append(median_ms(lambda: F.conv2d(x, w, padding=1), torch, inner=5))
+    del x, out
+    for d, act, res in EPI_CASES:
+        x, w, b, r = inputs[d]
+        x, r = x[:1].contiguous(), None if r is None else r[:1].contiguous()
+        out = torch.empty((1, 256, 64, 64), device="cuda")
+        scratch = torch.empty(256 * 32 * 3, device="cuda")
+        for v in fp32 + fp32[::-1]:
+            rows[v].setdefault(f"in_act d{d} us", []).append(1e3 * median_ms(
+                lambda: in_act(v, x, w, b, d, act, r, out, scratch), torch))
+        x, r = x.bfloat16(), None if r is None else r.bfloat16()
+        out = out.bfloat16()
+        w16, b16 = w.bfloat16(), b.bfloat16()
+        route = lambda: _act(instance_norm(F.conv2d(x, w16, b16, dilation=d)), act)
+        ref[f"in_act16 d{d} us"] = [1e3 * median_ms(route, torch)]
+        for v in bf16 + bf16[::-1]:
+            rows[v].setdefault(f"in_act16 d{d} us", []).append(1e3 * median_ms(
+                lambda: in_act(v, x, w, b, d, act, r, out), torch))
+        ref[f"in_act16 d{d} us"].append(1e3 * median_ms(route, torch))
+    # device time of each kernel of the package's own build per call
+    # (torch.profiler): one kernel per bf16 call, two passes per float32
+    # in_act call
     from torch.profiler import ProfilerActivity, profile
 
+    name = lambda key: key.split("::", 1)[-1].split("<")[0].split("(")[0]
+
+    def passes(fn, calls):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return "; ".join(f"{name(e.key)} {e.device_time_total / calls:.2f}"
+                         for e in prof.key_averages() if e.device_time_total > 0
+                         and "kernel" in e.key)
+
+    x = torch.randn((16, 64, 512, 512), generator=gen, device="cuda").relu_().bfloat16()
+    w = (torch.randn((64, 64, 3, 3), generator=gen, device="cuda") * math.sqrt(2 / 576)).bfloat16()
+    print(f"passes, bfloat16 lowch (16,64,512^2): "
+          f"{passes(lambda: L.conv3x3_same_lowch(x, w), 5)} us a call [{card}]", flush=True)
+    del x, w
     for d, act, res in EPI_CASES:
         for dtype in (torch.bfloat16, torch.float32):
-            x = torch.randn((1, 256, 64 + 2 * d, 64 + 2 * d), generator=gen, device="cuda")
-            w = torch.randn((256, 256, 3, 3), generator=gen, device="cuda") * 0.02
-            b = torch.randn(256, generator=gen, device="cuda")
-            r = torch.randn((1, 256, 64, 64), generator=gen, device="cuda") if res else None
-            x, r = x.to(dtype), None if r is None else r.to(dtype)
-            for _ in range(3):
-                E.conv3x3_in_act(x, w, b, dilation=d, act=act, residual=r)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(20):
-                    E.conv3x3_in_act(x, w, b, dilation=d, act=act, residual=r)
-                torch.cuda.synchronize()
-            name = lambda key: key.split("::", 1)[-1].split("<")[0].split("(")[0]
-            passes = [f"{name(e.key)} {e.device_time_total / e.count:.2f}"
-                      for e in prof.key_averages() if e.device_time_total > 0 and "kernel" in e.key]
+            x, w, b, r = inputs[d]
+            x, r = x[:1].to(dtype), None if r is None else r[:1].to(dtype)
+            per_call = passes(lambda: E.conv3x3_in_act(x, w, b, dilation=d, act=act, residual=r),
+                              20)
             print(f"passes, {str(dtype).removeprefix('torch.')} (1,256,64^2) dilation {d}: "
-                  f"{'; '.join(passes)} us a call [{card}]", flush=True)
-    print(f"float64 error over the largest magnitude, plain versions in fp32: F.conv2d "
-          f"{ref['lowch']:.3e} (lowch), cuDNN conv + torch norm {ref['in_act d2 err']:.3e} / "
-          f"{ref['in_act d1 err']:.3e} (in_act d2 / d1); in bf16, cuDNN bf16 conv + torch norm "
-          f"{ref['in_act16 d2 err']:.3e} / {ref['in_act16 d1 err']:.3e}; F.conv2d at (16, 64, "
-          f"512^2) {ref['lowch ms']:.3f} ms [{card}]", flush=True)
-    for v, row in rows.items():
-        times = lambda k, f: ", ".join(f.format(t) for t in row[k])
-        print(f"{v:>20}: lowch {times('lowch ms', '{:.3f}')} ms, error {row['lowch err']:.3e}; "
-              f"in_act d2 {times('in_act d2 us', '{:.1f}')} us, error {row['in_act d2 err']:.3e}; "
-              f"in_act d1 {times('in_act d1 us', '{:.1f}')} us, error {row['in_act d1 err']:.3e}; "
-              f"bf16 d2 {times('in_act16 d2 us', '{:.1f}')} us, error "
-              f"{row['in_act16 d2 err']:.3e}; bf16 d1 {times('in_act16 d1 us', '{:.1f}')} us, "
-              f"error {row['in_act16 d1 err']:.3e} [{card}]", flush=True)
+                  f"{per_call} us a call [{card}]", flush=True)
+    times = lambda ts, f: ", ".join(f.format(t) for t in ts)
+    print(f"library routes, in turns before and after the variants: F.conv2d fp32 "
+          f"{ref['lowch ms']:.3f} ms, bf16 {times(ref['lowch16 ms'], '{:.3f}')} ms (16, 64, "
+          f"512^2); cuDNN bf16 conv + torch norm (1, 256, 64^2) d2 "
+          f"{times(ref['in_act16 d2 us'], '{:.1f}')} us, d1 "
+          f"{times(ref['in_act16 d1 us'], '{:.1f}')}"
+          f" us [{card}]", flush=True)
+    for v in fp32:
+        row = rows[v]
+        print(f"{v:>24}: fp32 lowch {times(row['lowch ms'], '{:.3f}')} ms, error "
+              f"{row['lowch err']:.3e}; in_act d2 {times(row['in_act d2 us'], '{:.1f}')} us, error "
+              f"{row['in_act d2 err']:.3e}; in_act d1 {times(row['in_act d1 us'], '{:.1f}')} us, "
+              f"error {row['in_act d1 err']:.3e} [{card}]", flush=True)
+    for v in bf16:
+        row = rows[v]
+        print(f"{v:>24}: bf16 lowch {times(row['lowch16 ms'], '{:.3f}')} ms; in_act d2 "
+              f"{times(row['in_act16 d2 us'], '{:.1f}')} us; in_act d1 "
+              f"{times(row['in_act16 d1 us'], '{:.1f}')} us [{card}]", flush=True)
     return 0
 
 

@@ -111,18 +111,44 @@ def bf16_np(rng, shape, scale=1.0):
 # kernels: plain versions in bf16 against the Pallas functions in bf16
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("d,act,with_res", [(2, "relu", False), (1, None, True),
-                                            (1, "lrelu", False)])
-def test_conv3x3_in_act_plain_bf16_matches_pallas(rng, d, act, with_res):
-    """C = Co = 128 at 16^2, batch 2: the resident, lane-aligned Pallas path
-    (epilogue.py:114-122), bf16 x_pad and residual, float32 w and b."""
-    x = bf16_np(rng, (2, 16 + 2 * d, 16 + 2 * d, 128))
-    w = (rng.standard_normal((3, 3, 128, 128)) * 0.05).astype(np.float32)
-    b = rng.standard_normal(128).astype(np.float32)
-    res = bf16_np(rng, (2, 16, 16, 128)) if with_res else None
-    ref = pallas_epilogue.conv3x3_in_act(
-        jnp.asarray(x, jnp.bfloat16), jnp.asarray(w), jnp.asarray(b), dilation=d, act=act,
-        residual=None if res is None else jnp.asarray(res, jnp.bfloat16))
+# (dilation, act, residual, (n, c, co, h, w)): C = Co = 128 at 16^2, batch
+# 2, the resident, lane-aligned Pallas path (epilogue.py:114-122); W = 13,
+# not a multiple of 8 (the CUDA kernel's narrower halo copies), at both
+# dilations on that path; odd C = 7 and Co = 9 at W = 11 and 13, which the
+# Pallas kernel refuses (epilogue.py:129-132)
+IN_ACT_CASES = [
+    pytest.param(2, "relu", False, (2, 128, 128, 16, 16), id="2-relu-False"),
+    pytest.param(1, None, True, (2, 128, 128, 16, 16), id="1-None-True"),
+    pytest.param(1, "lrelu", False, (2, 128, 128, 16, 16), id="1-lrelu-False"),
+    pytest.param(2, "lrelu", True, (1, 128, 128, 9, 13), id="2-lrelu-True-w13"),
+    pytest.param(1, "relu", True, (1, 128, 128, 9, 13), id="1-relu-True-w13"),
+    pytest.param(2, None, True, (2, 7, 9, 10, 11), id="2-None-True-c7-w11"),
+    pytest.param(1, "relu", False, (1, 7, 9, 8, 13), id="1-relu-False-c7-w13"),
+]
+
+
+@pytest.mark.parametrize("d,act,with_res,shape", IN_ACT_CASES)
+def test_conv3x3_in_act_plain_bf16_matches_pallas(rng, d, act, with_res, shape):
+    """The plain version in bf16 against the Pallas kernel in bf16
+    (interpret mode): bf16 x_pad and residual, float32 w and b, within
+    BF16_TOL.  Where the kernel refuses the shape, its _xla_reference in
+    float32 on the same bf16 operands (w rounded to bf16), rounded to bf16
+    once: the kernel's arithmetic (the bf16 call of _xla_reference would
+    round the conv, the bias add, the norm and the act each)."""
+    n, c, co, h, wd = shape
+    x = bf16_np(rng, (n, h + 2 * d, wd + 2 * d, c))
+    w = (rng.standard_normal((3, 3, c, co)) * 0.05).astype(np.float32)
+    b = rng.standard_normal(co).astype(np.float32)
+    res = bf16_np(rng, (n, h, wd, co)) if with_res else None
+    if c % 128 == 0 and co % 128 == 0:
+        ref = pallas_epilogue.conv3x3_in_act(
+            jnp.asarray(x, jnp.bfloat16), jnp.asarray(w), jnp.asarray(b), dilation=d, act=act,
+            residual=None if res is None else jnp.asarray(res, jnp.bfloat16))
+    else:
+        w16 = jnp.asarray(w, jnp.bfloat16).astype(jnp.float32)
+        ref = pallas_epilogue._xla_reference(
+            jnp.asarray(x), w16, jnp.asarray(b), d, act, 1e-5,
+            None if res is None else jnp.asarray(res)).astype(jnp.bfloat16)
     assert ref.dtype == jnp.bfloat16
     got = E.conv3x3_in_act(nchw(x, torch.bfloat16),
                            torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1))),

@@ -322,14 +322,26 @@ def test_float32_step_reaches_no_bf16_function(monkeypatch):
 # the two kernels' bf16 plain versions against the JAX package
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("im2col", [True, False])
-def test_lowch_plain_bf16_matches_pallas(rng, im2col):
-    """(2, 64, 16^2) bf16, the float32 weight at VGG's kaiming scale: the
-    Pallas kernel casts w to bf16, sums in float32 and rounds once, as the
-    plain version does."""
-    x, xj = bf16_pair(rng, (2, 64, 16, 16))
+# (im2col, (n, c, co, h, w)): features_2's channels at 16^2; odd C = 7 with
+# W = 13 and C = 33 with W = 11 (neither a multiple of 8: the CUDA kernel's
+# zero-filled channels and narrower halo copies)
+LOWCH_CASES = [
+    pytest.param(True, (2, 64, 64, 16, 16), id="True"),
+    pytest.param(False, (2, 64, 64, 16, 16), id="False"),
+    pytest.param(True, (1, 7, 64, 8, 13), id="True-c7-w13"),
+    pytest.param(False, (2, 33, 40, 16, 11), id="False-c33-w11"),
+]
+
+
+@pytest.mark.parametrize("im2col,shape", LOWCH_CASES)
+def test_lowch_plain_bf16_matches_pallas(rng, im2col, shape):
+    """bf16 x, the float32 weight at VGG's kaiming scale: the Pallas kernel
+    (interpret mode, tile_rows 8) casts w to bf16, sums in float32 and rounds
+    once, as the plain version does; within BF16_TOL."""
+    n, c, co, h, wd = shape
+    x, xj = bf16_pair(rng, (n, c, h, wd))
     x, xj = x.relu(), jnp.maximum(xj, 0)
-    w = (rng.standard_normal((64, 64, 3, 3)) * np.sqrt(2 / 576)).astype(np.float32)
+    w = (rng.standard_normal((co, c, 3, 3)) * np.sqrt(2 / (9 * c))).astype(np.float32)
     ref = pallas_lowch(xj, jnp.asarray(w.transpose(2, 3, 1, 0)), tile_rows=8, im2col=im2col)
     got = L.conv3x3_same_lowch(x, torch.from_numpy(w))
     assert ref.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16

@@ -135,6 +135,14 @@ EPILOGUE_CASES = [(1, 256, 256, 64, 64, 2, "relu", False), (1, 256, 256, 64, 64,
                   (2, 128, 128, 16, 16, 1, "lrelu", True), (1, 20, 70, 9, 7, 2, "relu", True),
                   (1, 3, 5, 5, 5, 1, None, False), (2, 20, 40, 13, 30, 2, "lrelu", False),
                   (1, 64, 72, 37, 53, 1, "relu", True), (3, 7, 64, 4, 32, 2, None, True)]
+# the bf16 form's own edges beside those: planes of more than one cluster's
+# 16 tiles of 4 x 64 (the pre-norm form; batch 2, and 3 with a 2-tile
+# remainder), dilation 4, one tile per plane at the edit's channel count
+EPILOGUE_BF16_CASES = EPILOGUE_CASES + [
+    (2, 16, 24, 80, 80, 1, "relu", True), (3, 20, 36, 70, 130, 2, "lrelu", False),
+    (1, 32, 32, 16, 16, 4, None, False), (2, 24, 40, 30, 66, 4, "relu", True),
+    (1, 256, 256, 4, 64, 1, None, True)]
+
 
 
 @pytest.mark.parametrize("n,c,co,h,w,d,act,res", EPILOGUE_CASES)
@@ -152,11 +160,13 @@ def test_conv3x3_in_act_matches_plain(cuda_device, n, c, co, h, w, d, act, res):
     assert kernels.launch_counts()["conv3x3_in_act"] == 1
 
 
-# the bf16 form on the same cases (odd C: the last channel pair is half
-# zero); the weight and bias as the model hands them: float32 (the spectral
-# weight of netG's policy) or bfloat16 (the frozen inpainters' stored ones)
+# the bf16 form on the same cases and its own (odd C, W % 8 != 0, a partial
+# 32-channel block); the weight and bias as the model hands them: float32
+# (the spectral weight of netG's policy) or bfloat16 (the frozen
+# inpainters' stored ones); one launch counted per call (the device's own
+# count: test_bf16_convs_launch_one_device_kernel_per_call)
 @pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,c,co,h,w,d,act,res", EPILOGUE_CASES)
+@pytest.mark.parametrize("n,c,co,h,w,d,act,res", EPILOGUE_BF16_CASES)
 def test_conv3x3_in_act_bf16_matches_plain(cuda_device, n, c, co, h, w, d, act, res,
                                            param_dtype):
     gen = torch.Generator().manual_seed(5)
@@ -280,14 +290,19 @@ def test_conv3x3_same_lowch_matches_plain(cuda_device, n, c, co, h, w):
     assert kernels.launch_counts()["conv3x3_same_lowch"] == 1
 
 
+LOWCH_BF16_CASES = [(2, 64, 64, 37, 53), (1, 64, 64, 64, 64), (1, 3, 70, 10, 11),
+                    (1, 20, 40, 33, 30), (3, 12, 72, 9, 66), (2, 7, 64, 4, 32),
+                    (1, 64, 64, 8, 64), (1, 160, 64, 20, 70), (4, 64, 64, 128, 136)]
+
+
 @pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,c,co,h,w", [(2, 64, 64, 37, 53), (1, 64, 64, 64, 64),
-                                        (1, 3, 70, 10, 11), (1, 20, 40, 33, 30),
-                                        (3, 12, 72, 9, 66), (2, 7, 64, 4, 32)])
+@pytest.mark.parametrize("n,c,co,h,w", LOWCH_BF16_CASES)
 def test_conv3x3_same_lowch_bf16_matches_plain(cuda_device, n, c, co, h, w, w_dtype):
-    """The bf16 form (the pair pass, then the tile's mma.sync bf16 form) on
-    the fp32 list's shapes: odd C (a zero half pair), W % 4 != 0 (padded
-    pair rows), Co over one block."""
+    """The bf16 form on the fp32 list's shapes (odd C, odd W and W % 8 !=
+    0, Co over one block) and its own: fewer tiles than SMs (the persistent
+    grid), C = 160 (too many channels for resident weights: streamed), more
+    tiles than SMs with a ragged last column of tiles.  One device kernel per
+    call."""
     gen = torch.Generator().manual_seed(5)
     x = torch.randn((n, c, h, w), generator=gen).relu().to(cuda_device, torch.bfloat16)
     wt = (torch.randn((co, c, 3, 3), generator=gen) * math.sqrt(2 / (9 * c))).to(
@@ -298,6 +313,21 @@ def test_conv3x3_same_lowch_bf16_matches_plain(cuda_device, n, c, co, h, w, w_dt
     assert got.dtype == torch.bfloat16 and got.shape == (n, co, h, w)
     torch.testing.assert_close(got, L.conv3x3_same_lowch_plain(x, wt), **TOLS[torch.bfloat16])
     assert kernels.launch_counts(by_dtype=True)["conv3x3_same_lowch"] == {"bfloat16": 1}
+
+
+def test_bf16_convs_launch_one_device_kernel_per_call(cuda_device):
+    """Every bf16 case above, one call each under torch.profiler in a
+    process of its own (tools/kernel_launches.py): one device kernel per
+    call, the bf16 form's own, and no other kernel (no pair pass, no norm
+    pass)."""
+    from michigan_tpu_torch.tools import kernel_launches
+
+    cases = [["in_act", list(c)] for c in EPILOGUE_BF16_CASES] + \
+        [["lowch", list(c)] for c in LOWCH_BF16_CASES]
+    launches = kernel_launches.run(cases)
+    short = {k.split("::", 1)[-1].split("(")[0]: n for k, n in launches.items()}
+    assert short == {"conv3x3_in_act_bf16_kernel": len(EPILOGUE_BF16_CASES),
+                     "conv3x3_same_bf16_kernel": len(LOWCH_BF16_CASES)}, launches
 
 
 def test_conv3x3_same_lowch_bf16_is_as_accurate_as_cudnn_bf16(cuda_device):
@@ -311,6 +341,27 @@ def test_conv3x3_same_lowch_bf16_is_as_accurate_as_cudnn_bf16(cuda_device):
     kernel = rel_err(L.conv3x3_same_lowch(x, wt), want)
     cudnn = rel_err(torch.nn.functional.conv2d(x, wt, padding=1), want)
     assert kernel <= 2 * cudnn, (kernel, cudnn)
+
+
+def test_conv3x3_in_act_bf16_is_as_accurate_as_cudnn_bf16(cuda_device):
+    """Batch 2 of the resblock shape, both dilations, in bf16: the kernel's
+    one wgmma chain over all 2304 products, and cuDNN's bf16 conv + the
+    torch norm, against the float64 composition of the same bf16 values."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    for d, act, res in ((2, "relu", False), (1, None, True)):
+        x = torch.randn((2, 256, 64 + 2 * d, 64 + 2 * d), generator=gen,
+                        device=cuda_device).bfloat16()
+        wt = torch.randn((256, 256, 3, 3), generator=gen, device=cuda_device) * 0.02
+        b = torch.randn(256, generator=gen, device=cuda_device)
+        r = torch.randn((2, 256, 64, 64), generator=gen, device=cuda_device).bfloat16() \
+            if res else None
+        want = E.conv3x3_in_act_plain(x.double(), wt.bfloat16().double(), b.double(), d, act,
+                                      residual=None if r is None else r.double())
+        kernel = rel_err(E.conv3x3_in_act(x, wt, b, d, act, residual=r), want)
+        y = K._act(K.instance_norm(F.conv2d(x, wt.bfloat16(), b.bfloat16(), dilation=d)), act)
+        cudnn = rel_err(y if r is None else r + y, want)
+        assert kernel <= 2 * cudnn, (d, kernel, cudnn)
 
 
 @pytest.mark.parametrize("mode", ["gabor", "dog"])
