@@ -45,8 +45,9 @@ Phases, each on its own line:
      bf16 stored bias) at the edit's shapes against its plain version (atol
      1e-2, rtol 1.6e-2); and the bf16 tile's edges against their plain
      versions, with float32 and bf16 weights: conv3x3_in_act at odd C, W %
-     8 != 0, dilation 4 and both of its forms (one cluster per plane, and
-     the pre-norm plane past 16 tiles), conv3x3_same_lowch at odd C and W,
+     8 != 0, dilation 4 and its forms (a tile per block; the pre-norm
+     plane past 16 tiles; one block per plane where the card holds fewer
+     blocks than planes), conv3x3_same_lowch at odd C and W,
      C too large for resident weights and fewer tiles than SMs
   4. the flagship on the card, counting launches: 18 spade_modulate and 29
      fused_instance_norm per forward, no other kernel
@@ -116,8 +117,8 @@ Phases, each on its own line:
       beside its plain version; it and that route against a float64
       composition at batch 2 (the kernel's largest error at most F64_RATIO
       x the route's) and its device kernels per call under the profiler, in
-      a process of its own (tools/kernel_launches.py; exactly one); a
-      profiler breakdown
+      a process of its own (tools/kernel_launches.py; exactly its layout
+      pass and its convolution, one each); a profiler breakdown
   15. the training step at --dtype bfloat16: conv3x3_same_lowch in bf16
       against its plain version at (16, 64, 512^2) and (2, 64, 37, 53)
       (atol 1e-2, rtol 1.6e-2) and, with F.conv2d in bf16, against a
@@ -277,14 +278,17 @@ LOWCH_SHAPES = [(16, 64, 512, 512), (2, 64, 37, 53)]  # features_2 at batch 8; a
 # conv3x3_same_lowch (n, c, co, h, w): odd C and W, C too large for the
 # resident weights (streamed), fewer tiles than SMs; conv3x3_in_act (n, c,
 # co, h, w, dilation, act, residual): odd C, W % 8 != 0, dilation 4, and
-# planes of more than one cluster's 16 tiles (the pre-norm form), batch 2
+# planes of more than 16 tiles (the pre-norm form), batch 2, and more
+# planes than the card holds blocks for (one block walks each plane)
 LOWCH_BF16_EDGES = [(1, 3, 70, 10, 11), (1, 160, 64, 20, 70), (1, 64, 64, 8, 64)]
 EPI_BF16_EDGES = [(1, 7, 64, 9, 13, 2, "relu", True), (2, 20, 40, 13, 30, 1, "lrelu", False),
                   (1, 32, 32, 16, 16, 4, None, False), (2, 16, 24, 80, 80, 1, "relu", True),
-                  (1, 256, 256, 96, 96, 2, "relu", False)]
-# device kernels per call of the bf16 forms (torch.profiler): one each
-BF16_KERNELS = {"conv3x3_in_act": "conv3x3_in_act_bf16_kernel",
-                "conv3x3_same_lowch": "conv3x3_same_bf16_kernel"}
+                  (1, 256, 256, 96, 96, 2, "relu", False), (140, 8, 64, 8, 72, 1, "relu", True)]
+# device kernels per call of the bf16 forms (torch.profiler): lowch one,
+# in_act its layout pass and its convolution
+BF16_KERNELS = {
+    "conv3x3_in_act": {"in_act_layout_kernel": 1.0, "conv3x3_in_act_bf16_kernel": 1.0},
+    "conv3x3_same_lowch": {"conv3x3_same_bf16_kernel": 1.0}}
 NEW_KERNEL_REL = 1e-4  # of the reference's largest magnitude
 F64_RATIO = 2.0  # a conv kernel's error against float64 at most 2x F.conv2d's in fp32
 SEED = 0
@@ -819,8 +823,8 @@ def run():
         if not ok:
             failed.append(("conv3x3_in_act bfloat16", case))
     # the bf16 tile's edges: conv3x3_in_act with the float32 and the bf16
-    # weight and bias (the two forms the policy hands it), both of its forms
-    # (one cluster per plane, and the pre-norm plane past 16 tiles), and
+    # weight and bias (the two forms the policy hands it), its forms (a tile
+    # per block, the pre-norm plane, one block per plane), and
     # conv3x3_same_lowch (its features_2 shapes run in phase 15)
     for n, c, co, h, w_, d, act, res in EPI_BF16_EDGES:
         for p_dtype in (torch.float32, torch.bfloat16):
@@ -835,7 +839,9 @@ def run():
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             ok = torch.allclose(got.float(), want.float(), **TOLS["bfloat16"])
-            form = "pre-norm plane" if (h + 3) // 4 * ((w_ + 63) // 64) > 16 else "one cluster"
+            blocks = build.load("conv_in_act").conv3x3_in_act_bf16_blocks(n, c, co, h, w_, d)
+            form = f"{blocks} blocks a plane" + (
+                ", pre-norm plane" if E.bf16_prenorm(n, c, co, h, w_, d, 0) else "")
             print(f"[phase 3] conv3x3_in_act bfloat16 x_pad ({n},{c},{h + 2 * d},{w_ + 2 * d}) "
                   f"Co {co} dilation {d} act={act} residual={res}, {str(p_dtype)[6:]} weight "
                   f"and bias ({form}): max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}",
@@ -1641,7 +1647,7 @@ def run():
                                       residual=None if r is None else r.double())
         k_rel = rel_err(E.conv3x3_in_act(xp, w, bias, dilation=d, act=act, residual=r), want)
         r_rel = rel_err(epilogue_route(torch, F, K, xp, w, bias, d, act, r), want)
-        ok = k_rel <= F64_RATIO * r_rel and per_call == {BF16_KERNELS["conv3x3_in_act"]: 1.0}
+        ok = k_rel <= F64_RATIO * r_rel and per_call == BF16_KERNELS["conv3x3_in_act"]
         print(f"[phase 14] conv3x3_in_act bfloat16 (2,256,{64 + 2 * d},{64 + 2 * d}) dilation "
               f"{d} act={act} residual={res} against float64, largest error over the largest "
               f"magnitude: kernel {k_rel:.3e}, cuDNN bf16 conv + fused_instance_norm {r_rel:.3e} "
@@ -1650,7 +1656,7 @@ def run():
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             return fail("conv3x3_in_act in bf16 is less accurate than cuDNN's bf16 route, or "
-                        "runs other than one device kernel per call")
+                        "runs other device kernels than its layout pass and its convolution")
     del xp, w, bias, r, want
     for kind, path in BF16_ROWS.items():
         per = "stroke edit" if path == "edit" else "flagship forward"
@@ -1767,7 +1773,7 @@ def run():
     per_call = kernels_per_call([["lowch", [n_, c_, 64, h_, w_]]])
     print(f"[phase 15] {k} bfloat16 {LOWCH_SHAPES[0]}: device kernels per call {per_call}",
           flush=True)
-    if per_call != {BF16_KERNELS[k]: 1.0}:
+    if per_call != BF16_KERNELS[k]:
         return fail("conv3x3_same_lowch in bf16 runs other than one device kernel per call")
     del x, w, fk, fl, turns
     k = "filterbank_orientation"

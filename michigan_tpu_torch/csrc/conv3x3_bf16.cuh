@@ -1,37 +1,37 @@
-// The bf16 3x3 convolution tile for Hopper (sm_90a), shared by the bf16
-// forms of conv_lowch.cu (SAME padding of an unpadded NCHW input) and
-// conv_in_act.cu (a reflect-padded NCHW input, dilation 1-4): bf16 x as
-// given, the weight bf16 or float32 rounded to bf16 here, float32 sums.
+// The bf16 3x3 convolution tile for Hopper (sm_90a) of conv_lowch.cu
+// (SAME padding of an unpadded NCHW input): bf16 x as given, the weight
+// bf16 or float32 rounded to bf16 here, float32 sums.  Its PTX helpers
+// (mbarriers, bulk copies, wgmma and its shared-memory descriptors, the
+// accumulator layout) also serve conv_in_act.cu's bf16 form.
 //
 // GEMM view.  M = output pixels: a tile of kTileRows x kTileCols = 4 x 64
 // pixels of one sample's plane, one m64 per output row; N = kN output
-// channels of the block (64 for lowch, 32 for in_act); K = (tap, input
-// channel), walked in stages of kStageCh = 16 input channels, one k16
-// product per tap and stage.  The consumer warpgroup takes all four rows,
-// wgmma.mma_async m64nNk16 bf16 -> f32 with both operands in shared
-// memory; producer warpgroups (two for lowch, one for in_act's two blocks
-// an SM) stage the operands.
+// channels of the block; K = (tap, input channel), walked in stages of
+// kStageCh = 16 input channels, one k16 product per tap and stage.  The
+// consumer warpgroup takes all four rows, wgmma.mma_async m64nNk16 bf16 ->
+// f32 with both operands in shared memory; producer warpgroups stage the
+// operands.
 //
 // Staging, per stage (no pass before the kernel, no scratch):
 // - the input halo of the stage's 16 channels, (4 + 2d) rows x `cols`
-//   columns from an origin rounded down to 8 elements: each (channel, row)
-//   by one bulk copy of the copy engine (cp.async.bulk, completion counted
-//   in bytes on the slot's mbarrier), widened to 16-byte boundaries so that
-//   rows of any width and alignment go whole (x_pad's 66- and 68-wide rows
-//   too, which TMA's tensor maps refuse), or one copy per channel where
-//   the halo spans whole plane rows (in_act's 64-wide planes);
+//   columns from an origin rounded down to 8 elements: one TMA box of a
+//   tensor map where x's rows allow one, else each (channel, row) by one
+//   bulk copy of the copy engine (cp.async.bulk, completion counted in
+//   bytes on the slot's mbarrier), widened to 16-byte boundaries so that
+//   rows of any width and alignment go whole; a row whose widened copy
+//   would leave x's own bytes goes by plain loads instead;
 // - a transposer turns each slot into [8-channel chunk][halo row][column]
 //   [8 channels], the canonical K-major layout of a wgmma operand without
 //   swizzle (core matrices of 8 rows x 16 bytes), writing zeros outside the
-//   plane (lowch's SAME padding) and past channel C.  A tap's shift (dy,
-//   dx) * d moves the A descriptor's start by whole 16-byte rows, so every
-//   tap reads the same transposed halo through its own descriptor;
+//   plane (the SAME padding) and past channel C.  A tap's shift (dy, dx) *
+//   d moves the A descriptor's start by whole 16-byte rows, so every tap
+//   reads the same transposed halo through its own descriptor;
 // - the weights go in the B-operand layout [tap][chunk][co][8 channels],
-//   rounded to bf16 as they are stored, loaded in 16-byte vectors a stage
-//   ahead of need: lowch keeps its block's whole weight (64 x 64 x 9 bf16 =
-//   73.7 KB) resident, loaded once by a persistent block that then walks
-//   many tiles; where that does not fit (in_act's 256 channels) each
-//   stage's slice is stored beside its halo.
+//   rounded to bf16 as they are stored, loaded in 16-byte vectors: the
+//   block's whole weight (64 x 64 x 9 bf16 = 73.7 KB at C = 64) stays
+//   resident, loaded once by a persistent block that then walks many
+//   tiles; where that does not fit each stage's slice is stored beside its
+//   halo.
 //
 // Pipeline: the producers run up to two stages ahead of the products, on
 // mbarriers (the halo ring's, and full / empty ones for the two operand
@@ -40,14 +40,10 @@
 // both, staging and products ran one after the other, by clock64 probes.)
 //
 // Accumulation.  The tensor cores add with truncation; each output sums
-// C * 9 products in one wgmma chain (576 for lowch, 2304 for in_act), held
-// against float64 beside cuDNN's bf16 convolution in chip_smoke.py and
+// C * 9 products in one wgmma chain (576 at C = 64), held against float64
+// beside cuDNN's bf16 convolution in chip_smoke.py and
 // tools/tile_variants.py: at most F64_RATIO x cuDNN's error, which the one
 // bf16 rounding of the output dominates.
-//
-// kWgmma = false gives the mma.sync m16n8k16 form of the same staging
-// (ldmatrix fragments from the same shared memory), kept for
-// tools/tile_variants.py to measure against.
 
 #pragma once
 
@@ -58,7 +54,6 @@
 
 namespace conv_bf16 {
 
-constexpr bool kWgmma = true;   // wgmma (true) or mma.sync (false)
 constexpr int kConsumers = 128;  // warpgroup 0: the products and the epilogue
 constexpr int kTileRows = 4;    // output rows per tile
 constexpr int kTileCols = 64;   // output columns per tile: one m64 per row
@@ -70,13 +65,6 @@ constexpr int kSmemMax = 232448;  // an H100 block's shared memory
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
 }
 
 // mbarriers: one per halo ring slot; every thread arrives once per use,
@@ -191,16 +179,6 @@ __device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t da, uint64_t 
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d += a * b on one m16n8k16 tile (the mma.sync form)
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // the bits of v rounded to bf16 (to nearest even, as torch's cast)
 __device__ __forceinline__ unsigned bf16_bits(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
@@ -218,6 +196,7 @@ struct Geo {
   int rows, cols, shift;     // halo rows, columns (a multiple of 8), x0 - pad - origin
   int nk;                    // K stages of kStageCh channels
   int pitch, raw_cs;         // bytes: a raw halo row (2 cols + 16), a channel of them
+  int64_t x_bytes;           // x's own bytes (the launcher sets them)
   int tab_off, raw_stage;    // bytes: the slot's table of row offsets, the slot
   int pairs;                 // rows' column offsets are even: two-pixel reads
   int tr_chunk, tr_stage;    // bytes: an 8-channel chunk of the transposed halo, a slot
@@ -250,10 +229,8 @@ inline Geo make_geo(int c, int ph, int pw, int pad, int d, int h, int w, const v
   // a slice of 16 channels x 9 taps starts at element (co * c + 16 k) * 9
   g.wvec = c % (w_f32 ? 4 : 8) == 0 && reinterpret_cast<uintptr_t>(wt) % 16 == 0;
   g.pitch = 2 * g.cols + 16;  // a row's copy with its lead to the 16-byte boundary
-  // a channel: rows of pitch bytes, or, where a halo can span whole plane
-  // rows (pw <= cols), rows x pw + the lead to the 16-byte boundary
-  const int whole_row = pw <= g.cols && 2 * pw > g.pitch ? 2 * pw : g.pitch;
-  g.raw_cs = (g.rows * whole_row + 32 + 15) / 16 * 16;
+  g.raw_cs = g.rows * g.pitch;
+  g.x_bytes = 0;
   g.pairs = pw % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
   g.tab_off = kStageCh * g.raw_cs;
   g.raw_stage = (g.tab_off + kStageCh * g.rows * 4 + 127) / 128 * 128;
@@ -271,8 +248,8 @@ inline Geo make_geo(int c, int ph, int pw, int pad, int d, int h, int w, const v
   return g;
 }
 
-// Accumulator coordinates of a thread (the wgmma m64nN D layout, which the
-// mma.sync form shares): acc[i][4 * j + 2 * h + e] holds tile row
+// Accumulator coordinates of a thread (the wgmma m64nN D layout):
+// acc[i][4 * j + 2 * h + e] holds tile row
 // frag_row(i), tile column frag_px(h), block channel frag_co(j, e).
 __device__ __forceinline__ int frag_row(int i) { return i; }
 
@@ -289,11 +266,13 @@ __device__ __forceinline__ int frag_px(int h) {
 }
 __device__ __forceinline__ int frag_co(int j, int e) { return 8 * j + 2 * (threadIdx.x & 3) + e; }
 
-// Where item i of a block's walk lies: sample, tile origin.
+// Where item i of a block's walk lies: sample, tile origin (G: a geometry
+// with tiles and tiles_x).
 struct Item {
   int n, y0, x0;
 };
-__device__ __forceinline__ Item item_at(const Geo& g, int base_n, int i) {
+template <typename G>
+__device__ __forceinline__ Item item_at(const G& g, int base_n, int i) {
   const int t = i % g.tiles;
   Item it;
   it.n = base_n + i / g.tiles;
@@ -413,8 +392,7 @@ struct WeightLoader {
 // the weight w (co, c, 3, 3) (float32 if w_f32, else bf16) for the block's
 // channels co0 .. co0 + kN - 1 (zero past co), and, in the consumer
 // warpgroup, epi(acc, li, item, last) after each item's last stage (li: the
-// item's place in the block's walk); the producer warpgroup calls
-// epi.idle() once it has staged every stage.  x: (N, c, ph, pw) bf16.
+// item's place in the block's walk).  x: (N, c, ph, pw) bf16.
 // Called by all kConsumers + kProducers threads; smem: g.smem bytes of dynamic shared
 // memory, 128-byte aligned.
 //
@@ -426,10 +404,9 @@ struct WeightLoader {
 // weight stores overlap the tensor cores' work instead of queueing behind
 // it in the same warps.
 //
-// kProducers: the producer threads (a multiple of 128); kProducerRegs and
-// kConsumerRegs, if not 0: the warpgroups' registers after setmaxnreg.
-// map: x as a tensor map with boxes of (cols, rows, 16, 1), or null.
-template <int kN, int kLook, int kProducers, int kProducerRegs, int kConsumerRegs, typename Epi>
+// kProducers: the producer threads (a multiple of 128).  map: x as a
+// tensor map with boxes of (cols, rows, 16, 1), or null.
+template <int kN, int kLook, int kProducers, typename Epi>
 __device__ __forceinline__ void conv_tiles(const __nv_bfloat16* __restrict__ x,
                                            const CUtensorMap* map, const void* __restrict__ w,
                                            int w_f32, int co, int co0, const Geo& g, int first,
@@ -455,21 +432,21 @@ __device__ __forceinline__ void conv_tiles(const __nv_bfloat16* __restrict__ x,
 
   if (tid >= kConsumers) {
     // ------------------------------------------------------- producers ---
-    if constexpr (kProducerRegs > 0)
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     const int pt = tid - kConsumers;
     const uint16_t* xs = reinterpret_cast<const uint16_t*>(x);
 
-    // The halo of a stage: each of the 16 x rows (channel, halo row) goes
-    // by one bulk copy of the copy engine, the row's in-plane columns
-    // widened to 16-byte boundaries (x rows need no alignment; the widening
-    // reads at most 15 bytes past the tensor's end, inside its 512-byte
-    // allocation granule), into its slot row of `pitch` bytes; where the
-    // halo spans whole plane rows (in_act's 64-wide planes) one copy per
-    // channel.  The slot's table gets each row's offset of column ox; the
-    // slot's mbarrier counts one arrival per warp, with its bytes, before
-    // the warp's copies.  The transposer masks what lies outside the plane
-    // or past channel c.
+    // The halo of a stage: one tensor-map box where there is a map, else
+    // each of the 16 x rows (channel, halo row) by one bulk copy of the copy
+    // engine, the row's in-plane columns widened to 16-byte boundaries (x
+    // rows need no alignment), into its slot row of `pitch` bytes; a row
+    // whose widened copy would read outside x's own bytes (x's first or
+    // last bytes, off a 16-byte boundary) goes by plain loads instead.  The
+    // slot's table gets each row's offset of column ox; the slot's mbarrier
+    // counts one arrival per warp, with its bytes, after the warp's plain
+    // stores and before its copies.  The transposer masks what lies outside
+    // the plane or past channel c.
+    const uintptr_t x_lo = reinterpret_cast<uintptr_t>(x);
+    const uintptr_t x_hi = x_lo + (uintptr_t)g.x_bytes;
     auto load_raw = [&](int slot, const Item& it, int k) {
       char* base = smem + g.raw_off + slot * g.raw_stage;
       int* tab = reinterpret_cast<int*>(base + g.tab_off);
@@ -484,9 +461,9 @@ __device__ __forceinline__ void conv_tiles(const __nv_bfloat16* __restrict__ x,
         return;
       }
       const int c_left = g.c - k * kStageCh;
-      const bool whole = ox <= 0 && ox + g.cols >= g.pw && oy >= 0 && oy + g.rows <= g.ph;
-      const int n_copies = whole ? kStageCh : kStageCh * g.rows;
       const uint16_t* plane0 = xs + ((int64_t)it.n * g.c + k * kStageCh) * g.ph * g.pw;
+      const int xa = ox > 0 ? ox : 0;
+      const int xb = ox + g.cols < g.pw ? ox + g.cols : g.pw;
       // this thread's copies (at most 2: 16 x 12 rows at dilation 4)
       const void* src[2] = {nullptr, nullptr};
       char* dst[2] = {nullptr, nullptr};
@@ -496,32 +473,31 @@ __device__ __forceinline__ void conv_tiles(const __nv_bfloat16* __restrict__ x,
         // copies dealt out across the warps first (each issues its lanes'
         // copies one after another)
         const int r = (pt & 31) * (kProducers / 32) + (pt >> 5) + j * kProducers;
-        if (r >= n_copies) continue;
-        const int ch = whole ? r : r / g.rows;
-        const int hr = whole ? 0 : r - ch * g.rows;
-        if (ch >= c_left) continue;
+        if (r >= kStageCh * g.rows) continue;
+        const int ch = r / g.rows;
+        const int hr = r - ch * g.rows;
+        const int y = oy + hr;
+        if (ch >= c_left || y < 0 || y >= g.ph || xa >= xb) continue;
         const char* row =
-            reinterpret_cast<const char*>(plane0 + ((int64_t)ch * g.ph + oy + hr) * g.pw);
-        int xa = 0, xb = g.pw;  // whole rows: the copy starts at column 0
-        if (!whole) {
-          const int y = oy + hr;
-          xa = ox > 0 ? ox : 0;
-          xb = ox + g.cols < g.pw ? ox + g.cols : g.pw;
-          if (y < 0 || y >= g.ph || xa >= xb) continue;
-        }
-        const uintptr_t a16 = reinterpret_cast<uintptr_t>(row + 2 * xa) & ~uintptr_t(15);
-        const char* last = whole ? row + 2 * g.rows * g.pw : row + 2 * xb;
-        bytes[j] = (unsigned)(((reinterpret_cast<uintptr_t>(last) + 15) & ~uintptr_t(15)) - a16);
-        src[j] = reinterpret_cast<const void*>(a16);
+            reinterpret_cast<const char*>(plane0 + ((int64_t)ch * g.ph + y) * g.pw);
+        const uintptr_t p0 = reinterpret_cast<uintptr_t>(row + 2 * xa);
+        const uintptr_t p1 = reinterpret_cast<uintptr_t>(row + 2 * xb);
+        const uintptr_t a16 = p0 & ~uintptr_t(15);
+        const uintptr_t e16 = (p1 + 15) & ~uintptr_t(15);
         dst[j] = base + ch * g.raw_cs + hr * g.pitch;
-        const int lead = (int)(reinterpret_cast<intptr_t>(row + 2 * ox) - (intptr_t)a16);
-        if (whole) {
-          for (int h = 0; h < g.rows; ++h)
-            tab[ch * g.rows + h] = ch * g.raw_cs + lead + h * g.pw * 2;
+        tab[ch * g.rows + hr] =
+            ch * g.raw_cs + hr * g.pitch + (int)(reinterpret_cast<intptr_t>(row + 2 * ox) -
+                                                 (intptr_t)a16);
+        if (a16 < x_lo || e16 > x_hi) {
+          for (uintptr_t q = p0; q < p1; q += 2)
+            *reinterpret_cast<uint16_t*>(dst[j] + (q - a16)) =
+                *reinterpret_cast<const uint16_t*>(q);
         } else {
-          tab[ch * g.rows + hr] = ch * g.raw_cs + hr * g.pitch + lead;
+          bytes[j] = (unsigned)(e16 - a16);
+          src[j] = reinterpret_cast<const void*>(a16);
         }
       }
+      __syncwarp();  // the warp's plain stores, before its arrival
       const unsigned warp_bytes = __reduce_add_sync(0xffffffffu, bytes[0] + bytes[1]);
       if (lane == 0) mbar_arrive_tx(&raw_bar[slot], warp_bytes);
       __syncwarp();
@@ -586,10 +562,6 @@ __device__ __forceinline__ void conv_tiles(const __nv_bfloat16* __restrict__ x,
     WeightLoader<kN, kProducers> wl{{}, w, w_f32, co, co0, g.c, pt, g.wvec};
     if (g.resident && n_stages > 0)
       for (int k = 0; k < g.nk; ++k) wl.load(k, smem + g.b_off + k * g.b_step);
-    // streamed weights: the next stage's wait in registers where they are
-    // in_act's 32 channels; lowch's 64 would take twice the registers
-    const bool wfetch = !g.resident && g.wvec;
-    constexpr bool kPrefetchW = kN == 32;
     if (map != nullptr && pt == 0)
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
     // the load cursor runs kLook stages ahead of the transpose cursor
@@ -605,7 +577,6 @@ __device__ __forceinline__ void conv_tiles(const __nv_bfloat16* __restrict__ x,
     };
 #pragma unroll 1
     for (int s = 0; s < kLook; ++s) load_next(s);
-    if (kPrefetchW && wfetch && n_stages > 0) wl.fetch(0);
     Item it = item_at(g, base_n, first);
     int k = 0, li = 0;
 #pragma unroll 1
@@ -613,16 +584,7 @@ __device__ __forceinline__ void conv_tiles(const __nv_bfloat16* __restrict__ x,
       mbar_wait(&raw_bar[s % kLook], s / kLook & 1);
       if (s >= 2) mbar_wait(&empty_bar[s & 1], (s - 2) >> 1 & 1);
       transpose(s % kLook, s & 1, it, k);
-      if (!g.resident) {
-        char* dst = smem + g.b_off + (s & 1) * g.b_step;
-        if (wfetch) {
-          if (!kPrefetchW) wl.fetch(k);
-          wl.store(dst);
-          if (kPrefetchW && s + 1 < n_stages) wl.fetch(k + 1 == g.nk ? 0 : k + 1);
-        } else {
-          wl.scalar(k, dst);
-        }
-      }
+      if (!g.resident) wl.load(k, smem + g.b_off + (s & 1) * g.b_step);
       fence_proxy_async();
       mbar_arrive(&full_bar[s & 1]);
       producer_sync<kProducers>();  // every producer is done with raw slot s % kLook
@@ -632,14 +594,10 @@ __device__ __forceinline__ void conv_tiles(const __nv_bfloat16* __restrict__ x,
         if (++li < n_items) it = item_at(g, base_n, first + li * stride);
       }
     }
-    epi.idle();
     return;
   }
 
   // --------------------------------------------------------- consumers ---
-  if constexpr (kConsumerRegs > 0)
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-  const int warp = tid >> 5;
   float acc[kRowsPerWg][kN / 2];
 #pragma unroll
   for (int i = 0; i < kRowsPerWg; ++i)
@@ -653,58 +611,24 @@ __device__ __forceinline__ void conv_tiles(const __nv_bfloat16* __restrict__ x,
       mbar_wait(&full_bar[s & 1], s >> 1 & 1);
       const char* a_base = smem + g.tr_off + (s & 1) * g.tr_stage;
       const char* b_base = smem + g.b_off + (g.resident ? k : (s & 1)) * g.b_step;
-      if constexpr (kWgmma) {
-        wgmma_fence();
+      wgmma_fence();
 #pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-          const int dy = tap / 3, dx = tap % 3;
-          const uint64_t db = make_desc(smem_u32(b_base + tap * 2 * kN * 16), kN * 16, 128);
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dy = tap / 3, dx = tap % 3;
+        const uint64_t db = make_desc(smem_u32(b_base + tap * 2 * kN * 16), kN * 16, 128);
 #pragma unroll
-          for (int i = 0; i < kRowsPerWg; ++i) {
-            const int hr = i + dy * g.d;
-            const uint64_t da = make_desc(
-                smem_u32(a_base + (hr * g.cols + g.shift + dx * g.d) * 16), g.tr_chunk, 128);
-            wgmma<kN>(acc[i], da, db, k == 0 && tap == 0 ? 0 : 1);
-          }
+        for (int i = 0; i < kRowsPerWg; ++i) {
+          const int hr = i + dy * g.d;
+          const uint64_t da = make_desc(
+              smem_u32(a_base + (hr * g.cols + g.shift + dx * g.d) * 16), g.tr_chunk, 128);
+          wgmma<kN>(acc[i], da, db, k == 0 && tap == 0 ? 0 : 1);
         }
-        wgmma_commit();
-        wgmma_wait<1>();  // stage s - 1's products are done
-        if (k > 0) mbar_arrive(&empty_bar[(s - 1) & 1]);
-      } else {
-        if (k == 0) {
-#pragma unroll
-          for (int i = 0; i < kRowsPerWg; ++i)
-#pragma unroll
-            for (int r = 0; r < kN / 2; ++r) acc[i][r] = 0.f;
-        }
-        const int wq = warp & 3;
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-          const int dy = tap / 3, dx = tap % 3;
-          unsigned bf[kN / 16][4];  // n8 tiles 2jj, 2jj + 1: {b0, b1} each
-#pragma unroll
-          for (int jj = 0; jj < kN / 16; ++jj)
-            ldmatrix_x4(bf[jj], smem_u32(b_base + ((tap * 2 + ((lane >> 3) & 1)) * kN +
-                                                   16 * jj + 8 * (lane >> 4) + (lane & 7)) *
-                                                      16));
-#pragma unroll
-          for (int i = 0; i < kRowsPerWg; ++i) {
-            const int hr = i + dy * g.d;
-            const int px = g.shift + dx * g.d + 16 * wq + (lane & 7) + 8 * ((lane >> 3) & 1);
-            unsigned af[4];
-            ldmatrix_x4(af, smem_u32(a_base + (lane >> 4) * g.tr_chunk +
-                                     (hr * g.cols + px) * 16));
-#pragma unroll
-            for (int jj = 0; jj < kN / 16; ++jj) {
-              mma_bf16(&acc[i][8 * jj], af, bf[jj][0], bf[jj][1]);
-              mma_bf16(&acc[i][8 * jj + 4], af, bf[jj][2], bf[jj][3]);
-            }
-          }
-        }
-        if (k > 0) mbar_arrive(&empty_bar[(s - 1) & 1]);
       }
+      wgmma_commit();
+      wgmma_wait<1>();  // stage s - 1's products are done
+      if (k > 0) mbar_arrive(&empty_bar[(s - 1) & 1]);
     }
-    if constexpr (kWgmma) wgmma_wait<0>();
+    wgmma_wait<0>();
     mbar_arrive(&empty_bar[(s - 1) & 1]);  // the item's last stage
 #pragma unroll
     for (int i = 0; i < kRowsPerWg; ++i) reg_fence<kN / 2>(acc[i]);

@@ -41,34 +41,48 @@
 // float32 or bf16), as the TPU kernel under the bf16 policy: the
 // convolution sums in float32 and the statistics, normalisation,
 // activation and residual add run on that float32 sum; the output is
-// rounded to bf16 once.  One launch, the statistics kept on chip:
-// - the tile of conv3x3_bf16.cuh (wgmma m64n32k16 on a 4 x 64-pixel tile
-//   x 32 output channels by one consumer warpgroup; one producer
-//   warpgroup stages x_pad straight from its NCHW rows, a bulk copy per
-//   channel of the tile's whole padded rows, and the weights, 16 channels
-//   per stage);
-// - a thread-block cluster per (n, 32-channel block) plane: at 64^2 its 16
-//   tiles are 16 blocks (8 channel blocks: 128 blocks at batch 1, two per
-//   SM).  Each block adds the bias to its float32 sums, takes its tile's
+// rounded to bf16 once.  Two launches, the statistics kept on chip:
+// - a layout pass writes x_pad as 8-channel chunks of each pixel, (n,
+//   2 ceil(C/16), H+2d, W+2d, 8), and the weight, rounded to bf16, in the B-operand
+//   layout, per 32-channel block and 16-channel K stage (tap, chunk, co, 8)
+//   (2.4 + 1.2 MB at the edit's shape, once per call, not once per block);
+// - the convolution: wgmma m64n32k16 on a 4 x 64-pixel tile x 32 output
+//   channels by one consumer warpgroup, both operands from shared memory; a
+//   producer warp only issues bulk copies of the copy engine (per K stage
+//   one per (chunk, halo row) and one for the weights, straight into the
+//   operand layout), up to 3-6 stages ahead in a ring on full / empty
+//   mbarriers, so neither the copies' latency nor the hand-offs stand
+//   between the products.  (The one-launch form of the same tile, a
+//   producer warpgroup transposing NCHW rows and storing weights per stage
+//   through a 2-stage ring, took 100 us a call: its floor with no staging
+//   at all was 31-34 us of hand-offs; tools/tile_variants.py.)
+// - up to 16 blocks per (n, 32-channel block) plane, one 4 x 64 tile each
+//   (at 64^2: 8 channel blocks x 16 = 128 blocks at batch 1, one per SM).
+//   Each block adds the bias to its float32 sums and takes its tile's
 //   (count, mean, M2) per channel (Welford over a thread's 4 pixels, Chan's
-//   merge across lanes and warps), and after a cluster barrier every block
-//   merges all the cluster's partial statistics in rank order from their
-//   shared memory (the same result in every block), normalises its own
-//   registers, applies the act, stages the tile in shared memory, adds the
-//   residual and writes bf16 in 16-byte stores: no float32 plane, no
-//   second launch;
-// - a plane of more than 16 tiles: the same kernel with a cluster of 16
-//   whose blocks walk several tiles each; every tile but a block's last
-//   goes to a float32 pre-norm plane that the caller provides, and is read
-//   back and normalised after the merge.  The form is chosen by shape
-//   (conv3x3_in_act_bf16_prenorm), never on a failure.
+//   merge across lanes and warps), writes them to a small exchange buffer
+//   and counts its arrival on the plane's counter; once the plane's blocks
+//   have all arrived, every block merges their parts in rank order (the
+//   same result in every block), normalises its own registers, applies the
+//   act, stages the tile in shared memory, adds the residual and writes
+//   bf16 in 16-byte stores: no float32 plane, no norm pass.  The grid is
+//   sized so that the card holds all of it at once (else one block per
+//   plane, which waits for none).  (A 16-block thread-block cluster per
+//   plane, merging through distributed shared memory, fits on only 7 of
+//   this card's GPCs: at batch 1 one of the 8 clusters shared 16 SMs with
+//   another, or waited for a second wave; tools/tile_variants.py's probe.)
+// - a plane of more tiles than blocks: the same kernels, the blocks walking
+//   several tiles each; every tile but a block's last goes to a float32
+//   pre-norm plane that the caller provides, and is read back and
+//   normalised after the merge.  The form is chosen by shape and the card's
+//   capacity (conv3x3_in_act_bf16_prenorm), never on a failure.
 //
 // The launchers return cudaGetLastError() after their launches.  Nothing
 // here allocates or synchronises: the caller passes the output and the
-// scratch (float32: the patch statistics; bf16, planes of more than 16
-// tiles: the pre-norm plane).
+// scratch (float32: the patch statistics; bf16: the layout pass's x_pad
+// and weight, the statistics' exchange and, for planes of more tiles than
+// blocks, the pre-norm plane).
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -261,57 +275,162 @@ norm_act_kernel(const float* y, float* out, const float* __restrict__ residual,
 // ------------------------------------------------------------- bf16 ---
 
 namespace cb = conv_bf16;
-namespace cg = cooperative_groups;
 
-constexpr int kN16 = 32;         // output channels per block
-constexpr int kLook = 2;         // halo stages requested ahead
-constexpr int kMaxCluster = 16;  // blocks per plane (a non-portable cluster size)
-constexpr int kProd = 128;       // producer threads (one warpgroup): two blocks an SM
+constexpr int kN16 = 32;        // output channels per block
+constexpr int kMaxBlocks = 16;  // blocks per (sample, co block) plane at most
+constexpr int kProd = 32;        // the producer warp: it only issues copies
 constexpr int kBlock16 = cb::kConsumers + kProd;
 constexpr int kWarps = cb::kConsumers / 32;
-// the output staging, float32, over the halo and operand slots once the
-// products are done: per channel the tile's 4 x 64 values, +16 bytes so
-// that the accumulator stores of 4 channels fall in different banks
+constexpr int kRingMax = 6;         // operand stages in flight at most
+constexpr int kRingBytes = 110592;  // the ring's shared memory: two blocks an SM
+constexpr int kBStage = 9 * 2 * kN16 * 16;  // a stage's weights: [tap][chunk][co][8] bf16
+constexpr int kLayoutThreads = 256;
+// the output staging, float32, over the ring once the products are done:
+// per channel the tile's 4 x 64 values, +16 bytes so that the accumulator
+// stores of 4 channels fall in different banks
 constexpr int kStgCo = cb::kTileRows * cb::kTileCols + 4;  // floats
 constexpr int kStgBytes = kN16 * kStgCo * 4;
 
+// One launch's shapes and shared-memory plan (host and device).  The layout
+// pass writes x_pad as xt (n, 2 nk, ph, pw, 8) bf16, 8-channel chunks with
+// zeros past c, and the weight as wl (co blocks, nk, 9, 2, 32, 8) bf16, zero
+// past co and c: one K stage's operands are then whole 16-byte units, the
+// A operand's [chunk][halo row][column][8 channels] a copy per (chunk, halo
+// row) and the B operand's [tap][chunk][co][8 channels] one copy.
+struct Geo16 {
+  int c, ph, pw, d, h, w;       // input channels and plane, dilation, output plane
+  int tiles_x, tiles;           // tiles per plane
+  int rows, cols, nk;           // a tile's halo rows and columns; K stages
+  int a_chunk, a_stage, stage;  // bytes: an A chunk, a stage's A operand, a ring stage
+  int ring, smem;               // ring stages; dynamic shared memory
+};
+
+inline Geo16 make_geo16(int c, int h, int w, int d) {
+  Geo16 g;
+  g.c = c;
+  g.d = d;
+  g.h = h;
+  g.w = w;
+  g.ph = h + 2 * d;
+  g.pw = w + 2 * d;
+  g.tiles_x = (w + cb::kTileCols - 1) / cb::kTileCols;
+  g.tiles = g.tiles_x * ((h + cb::kTileRows - 1) / cb::kTileRows);
+  g.rows = cb::kTileRows + 2 * d;
+  g.cols = cb::kTileCols + 2 * d;
+  g.nk = (c + cb::kStageCh - 1) / cb::kStageCh;
+  g.a_chunk = g.rows * g.cols * 16;
+  g.a_stage = 2 * g.a_chunk;
+  g.stage = (g.a_stage + kBStage + 127) / 128 * 128;
+  g.ring = kRingBytes / g.stage < kRingMax ? kRingBytes / g.stage : kRingMax;
+  g.smem = g.ring * g.stage > kStgBytes ? g.ring * g.stage : kStgBytes;
+  return g;
+}
+
+// The layout pass (see Geo16): for blockIdx.y < planes (= n * 2 nk) the
+// (sample, chunk) plane blockIdx.y of xt, two 16-byte units (8 channels of
+// two pixels) per thread, reads coalesced along the pixels (4-byte reads
+// where hw is even and x 4-byte aligned: pairs); above, with
+// blockIdx.x = 0, the weights of one (co block, K stage), rounded to bf16:
+// its 32 x 16 x 9 values read in rows through shared memory, written as
+// 576 consecutive units.  Block (0, 0) also zeroes the convolution's
+// arrival counters.
+__global__ void __launch_bounds__(kLayoutThreads)
+in_act_layout_kernel(const uint16_t* __restrict__ x, const void* __restrict__ w, int w_f32,
+                     uint4* __restrict__ xt, uint4* __restrict__ wl, unsigned* __restrict__ count,
+                     int counters, int c, int co, int planes, int hw, int nk, int pairs) {
+  __shared__ uint16_t s_wt[kN16][cb::kStageCh * 9];
+  const int tid = threadIdx.x;
+  unsigned v[8];
+  if ((int)blockIdx.y < planes) {
+    if (blockIdx.x == 0 && blockIdx.y == 0)
+      for (int i = tid; i < counters; i += kLayoutThreads) count[i] = 0u;
+    const int u = 2 * (blockIdx.x * kLayoutThreads + tid);
+    if (u >= hw) return;
+    const int n = blockIdx.y / (2 * nk), q = blockIdx.y - n * 2 * nk;
+    const uint16_t* src = x + ((int64_t)n * c + q * 8) * hw + u;
+    uint4* dst = xt + (int64_t)blockIdx.y * hw + u;
+    if (pairs) {  // v[e]: channel e of pixels u (low half) and u + 1
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = q * 8 + e < c ? *reinterpret_cast<const unsigned*>(src + (int64_t)e * hw) : 0u;
+      dst[0] = make_uint4(__byte_perm(v[0], v[1], 0x5410), __byte_perm(v[2], v[3], 0x5410),
+                          __byte_perm(v[4], v[5], 0x5410), __byte_perm(v[6], v[7], 0x5410));
+      dst[1] = make_uint4(__byte_perm(v[0], v[1], 0x7632), __byte_perm(v[2], v[3], 0x7632),
+                          __byte_perm(v[4], v[5], 0x7632), __byte_perm(v[6], v[7], 0x7632));
+      return;
+    }
+    for (int p = 0; p < 2 && u + p < hw; ++p) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = q * 8 + e < c ? src[(int64_t)e * hw + p] : 0u;
+      dst[p] = make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16, v[4] | v[5] << 16,
+                          v[6] | v[7] << 16);
+    }
+    return;
+  }
+  if (blockIdx.x != 0) return;
+  const int cob = (blockIdx.y - planes) / nk, k = (blockIdx.y - planes) % nk;
+  constexpr int kRow = cb::kStageCh * 9;  // a co's 16 channels x 9 taps, contiguous in w
+  const int valid = (c - k * cb::kStageCh < cb::kStageCh ? c - k * cb::kStageCh : cb::kStageCh) * 9;
+  for (int t = tid; t < kN16 * kRow; t += kLayoutThreads) {
+    const int m = t / kRow, r = t - m * kRow;
+    const int oc = cob * kN16 + m;
+    unsigned b = 0u;
+    if (oc < co && r < valid) {
+      const int64_t at = ((int64_t)oc * c + k * cb::kStageCh) * 9 + r;
+      b = w_f32 ? cb::bf16_bits(static_cast<const float*>(w)[at])
+                : static_cast<const uint16_t*>(w)[at];
+    }
+    s_wt[m][r] = (uint16_t)b;
+  }
+  __syncthreads();
+  uint4* dst = wl + ((int64_t)cob * nk + k) * (kBStage / 16);
+  for (int u = tid; u < kBStage / 16; u += kLayoutThreads) {  // ((tap * 2 + q) * 32 + m)
+    const int m = u % kN16, tq = u / kN16;
+    const int q = tq & 1, tap = tq >> 1;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = s_wt[m][(q * 8 + e) * 9 + tap];
+    dst[u] = make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16, v[4] | v[5] << 16,
+                        v[6] | v[7] << 16);
+  }
+}
+
 struct Bf16Args {
-  const __nv_bfloat16* x;      // (N, C, H+2d, W+2d)
-  const void* w;               // (Co, C, 3, 3) float32 (w_f32) or bf16
+  const uint4* xt;             // the layout pass's x_pad (Geo16)
+  const uint4* wl;             // the layout pass's weight (Geo16)
   const void* bias;            // (Co) float32, or bf16 (bias_bf16), or null
   const uint16_t* residual;    // (N, Co, H, W) bf16 or null
   uint16_t* out;               // (N, Co, H, W) bf16
-  float* prenorm;              // (N, Co, H, W) float32: planes of more than kMaxCluster tiles
-  int w_f32, bias_bf16, co, act, vec;  // vec: 16-byte output rows (W % 8 == 0, aligned)
+  float* prenorm;              // (N, Co, H, W) float32: planes of more tiles than blocks
+  float* xchg;                 // per plane, block and channel: count, mean, M2
+  unsigned* count;             // per plane: the blocks that wrote their part to xchg
+  int bias_bf16, co, act, vec;  // vec: 16-byte output rows (W % 8 == 0, aligned)
   float eps;
-  cb::Geo g;
+  Geo16 g;
 };
 
 struct InActEpi {
   const Bf16Args& a;
   int co0;
   char* stg;
-  float (*s_w)[kN16][3];  // per warp and channel: count, mean, M2
-  float (*s_run)[3];      // per channel: the block's tiles so far
-  float2* s_stat;         // per channel: mean, rstd of the plane
+  float (*s_w)[kN16][3];    // per warp and channel: count, mean, M2
+  float (*s_run)[3];        // per channel: the block's tiles so far
+  float2* s_stat;           // per channel: mean, rstd of the plane
+  const float* s_bias;      // per channel: the bias, 0 past co
 
-  __device__ __forceinline__ float bias(int oc) const {
-    if (a.bias == nullptr || oc >= a.co) return 0.f;
-    return a.bias_bf16
-               ? __uint_as_float((unsigned)static_cast<const uint16_t*>(a.bias)[oc] << 16)
-               : static_cast<const float*>(a.bias)[oc];
+  // before the products: the block's bias into shared memory (by the first
+  // kN16 consumer threads)
+  __device__ __forceinline__ void load_bias(float* dst) const {
+    const int oc = co0 + threadIdx.x;
+    float b = 0.f;
+    if (a.bias != nullptr && oc < a.co)
+      b = a.bias_bf16
+              ? __uint_as_float((unsigned)static_cast<const uint16_t*>(a.bias)[oc] << 16)
+              : static_cast<const float*>(a.bias)[oc];
+    dst[threadIdx.x] = b;
   }
 
   __device__ __forceinline__ float finish(float v, int m, float res) const {
     return apply_act((v - s_stat[m].x) * s_stat[m].y, a.act) + res;
-  }
-
-  // the producer warpgroup, done: its part in the epilogue's two cluster
-  // barriers
-  __device__ __forceinline__ void idle() {
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();
-    cluster.sync();
   }
 
   // in the consumer warpgroup
@@ -320,14 +439,14 @@ struct InActEpi {
     cb::consumer_sync();  // every consumer is done with the last tile's s_w
     const int tid = threadIdx.x;
     const int lane = tid & 31;
-    const cb::Geo& g = a.g;
+    const Geo16& g = a.g;
     // the bias, and the tile's statistics per channel: a thread's 4 pixels
     // of each of its 8 channels, then its 8 lanes, then the 8 warps
 #pragma unroll
     for (int j = 0; j < kN16 / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float b = bias(co0 + cb::frag_co(j, e));
+        const float b = s_bias[cb::frag_co(j, e)];
         // the thread's (up to) 8 values: their mean, then the squares about
         // it
         float cnt = 0.f, sum = 0.f;
@@ -396,29 +515,53 @@ struct InActEpi {
       return;
     }
 
-    // the plane's statistics: every block of the cluster merges all the
-    // blocks' partial ones in rank order
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();
+    // the plane's statistics: every block writes its partial ones to
+    // xchg, fences them and counts its arrival on the plane's counter; once
+    // all gridDim.x blocks of the plane have arrived (the launch holds them
+    // all at once, or has one block per plane), every block merges the
+    // parts in rank order (the same result in every block)
+    const int plane = blockIdx.z * gridDim.y + blockIdx.y;
+    const float* part = a.xchg + (int64_t)plane * kMaxBlocks * kN16 * 3;
     if (tid < kN16) {
-      // all the remote loads first, then the merges in rank order
-      float part[kMaxCluster][3];
-      const unsigned blocks = cluster.num_blocks();
-#pragma unroll
-      for (unsigned r = 0; r < kMaxCluster; ++r)
-        if (r < blocks) {
-          const float* s = cluster.map_shared_rank(&s_run[tid][0], r);
-          part[r][0] = s[0];
-          part[r][1] = s[1];
-          part[r][2] = s[2];
-        }
+      float* p = a.xchg + (((int64_t)plane * kMaxBlocks + blockIdx.x) * kN16 + tid) * 3;
+      p[0] = s_run[tid][0];
+      p[1] = s_run[tid][1];
+      p[2] = s_run[tid][2];
+      __threadfence();
+    }
+    cb::consumer_sync();
+    if (tid == 0) {
+      atomicAdd(&a.count[plane], 1u);
+      unsigned arrived = 0;
+      // a wait of seconds means the plane's blocks cannot all arrive: an
+      // error, not a hung card
+      for (unsigned tries = 0;; ++tries) {
+        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                     : "=r"(arrived)
+                     : "l"(&a.count[plane])
+                     : "memory");
+        if (arrived >= gridDim.x) break;
+        if (tries > (1u << 26)) __trap();
+        __nanosleep(32);
+      }
+    }
+    cb::consumer_sync();
+    // the parts into shared memory (over the staging, free until below),
+    // all the loads in flight at once, then the merges
+    float* s_part = reinterpret_cast<float*>(stg);
+    __threadfence();
+    for (unsigned t = tid; t < gridDim.x * kN16 * 3; t += cb::kConsumers)
+      s_part[t] = __ldcg(part + t);
+    cb::consumer_sync();
+    if (tid < kN16) {
       float cnt = 0.f, mean = 0.f, m2 = 0.f;
-#pragma unroll
-      for (unsigned r = 0; r < kMaxCluster; ++r)
-        if (r < blocks) welford_merge(mean, m2, cnt, part[r][1], part[r][2], part[r][0]);
+      for (unsigned r = 0; r < gridDim.x; ++r) {
+        const float* q = s_part + (r * kN16 + tid) * 3;
+        welford_merge(mean, m2, cnt, q[1], q[2], q[0]);
+      }
       s_stat[tid] = make_float2(mean, rsqrtf(m2 / cnt + a.eps));
     }
-    cluster.sync();  // no block leaves while another reads its statistics
+    cb::consumer_sync();  // s_stat complete
 
     // this tile: normalised and activated in registers, staged, then the
     // residual added and bf16 written in runs of 8 columns
@@ -432,6 +575,7 @@ struct InActEpi {
             finish(acc[i][r], m, 0.f);
       }
     cb::consumer_sync();
+#pragma unroll
     for (int t = tid; t < kN16 * cb::kTileRows * 8; t += cb::kConsumers) {
       const int v = t & 7;
       const int rr = t >> 3;
@@ -486,58 +630,148 @@ struct InActEpi {
   }
 };
 
+// The tiles blockIdx.x, blockIdx.x + gridDim.x, ... of plane (blockIdx.z,
+// co block blockIdx.y): a producer warp bulk-copies each K stage's operands
+// from xt and wl into a ring of g.ring stages (completion counted in bytes
+// on the stage's full mbarrier; it waits on the stage's empty one before
+// reusing it), one consumer warpgroup runs the stage's 36 wgmma m64n32k16
+// (4 output rows x 9 taps), both operands read through shared-memory
+// descriptors (a tap's shift moves A's start by whole 16-byte units), and
+// releases the stage once wgmma.wait_group has retired it; then the
+// epilogue.
 __global__ void __launch_bounds__(kBlock16, 2)
 conv3x3_in_act_bf16_kernel(const __grid_constant__ Bf16Args a) {
   extern __shared__ __align__(128) char dsmem[];
   __shared__ float s_w[kWarps][kN16][3];
   __shared__ float s_run[kN16][3];
   __shared__ float2 s_stat[kN16];
+  __shared__ float s_bias[kN16];
+  __shared__ __align__(8) uint64_t full_bar[kRingMax];
+  __shared__ __align__(8) uint64_t empty_bar[kRingMax];
+  const Geo16& g = a.g;
+  const int tid = threadIdx.x;
   const int co0 = blockIdx.y * kN16;
-  InActEpi epi{a, co0, dsmem, s_w, s_run, s_stat};
-  // the cluster spans blockIdx.x: one (n, channel block) plane, its tiles
-  // dealt out in rank order
-  cb::conv_tiles<kN16, kLook, kProd, 0, 0>(a.x, nullptr, a.w, a.w_f32, a.co, co0, a.g,
-                                           blockIdx.x, gridDim.x, a.g.tiles, blockIdx.z, dsmem,
-                                           epi);
+  // blockIdx.x: the block's rank in its (n, channel block) plane, whose
+  // tiles are dealt out in rank order
+  const int first = blockIdx.x, stride = gridDim.x;
+  const int n_items = first < g.tiles ? (g.tiles - first + stride - 1) / stride : 0;
+  InActEpi epi{a, co0, dsmem, s_w, s_run, s_stat, s_bias};
+  if (tid == 0)
+    for (int i = 0; i < g.ring; ++i) {
+      cb::mbar_init(&full_bar[i], 1);
+      cb::mbar_init(&empty_bar[i], cb::kConsumers);
+    }
+  if (tid < kN16) epi.load_bias(s_bias);
+  __syncthreads();
+
+  if (tid >= cb::kConsumers) {
+    // ------------------------------------------------------ producer ---
+    // lane < 2 rows: the A rows (chunk, halo row), clipped to the plane;
+    // lane 2 rows: the stage's weights
+    const int lane = tid & 31;
+    const int q = lane / g.rows, hr = lane - q * g.rows;
+    int k = 0, li = 0;
+    cb::Item it = cb::item_at(g, blockIdx.z, first);
+#pragma unroll 1
+    for (int s = 0; s < n_items * g.nk; ++s) {
+      const int slot = s % g.ring;
+      if (s >= g.ring) cb::mbar_wait(&empty_bar[slot], (s / g.ring - 1) & 1);
+      char* base = dsmem + slot * g.stage;
+      const void* src = nullptr;
+      char* dst = nullptr;
+      unsigned bytes = 0;
+      if (q < 2) {
+        const int cols = g.pw - it.x0 < g.cols ? g.pw - it.x0 : g.cols;
+        if (it.y0 + hr < g.ph) {
+          src = a.xt + (((int64_t)it.n * 2 * g.nk + 2 * k + q) * g.ph + it.y0 + hr) * g.pw +
+                it.x0;
+          dst = base + q * g.a_chunk + hr * g.cols * 16;
+          bytes = cols * 16;
+        }
+      } else if (lane == 2 * g.rows) {
+        src = a.wl + ((int64_t)blockIdx.y * g.nk + k) * (kBStage / 16);
+        dst = base + g.a_stage;
+        bytes = kBStage;
+      }
+      const unsigned total = __reduce_add_sync(0xffffffffu, bytes);
+      if (lane == 0) cb::mbar_arrive_tx(&full_bar[slot], total);
+      __syncwarp();
+      if (bytes) cb::bulk_copy(dst, src, bytes, &full_bar[slot]);
+      if (++k == g.nk) {
+        k = 0;
+        if (++li < n_items) it = cb::item_at(g, blockIdx.z, first + li * stride);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------- consumers ---
+  float acc[cb::kRowsPerWg][kN16 / 2];
+  int s = 0;
+#pragma unroll 1
+  for (int li = 0; li < n_items; ++li) {
+#pragma unroll 1
+    for (int k = 0; k < g.nk; ++k, ++s) {
+      const int slot = s % g.ring;
+      cb::mbar_wait(&full_bar[slot], (s / g.ring) & 1);
+      const char* a_base = dsmem + slot * g.stage;
+      const char* b_base = a_base + g.a_stage;
+      cb::wgmma_fence();
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dy = tap / 3, dx = tap % 3;
+        const uint64_t db =
+            cb::make_desc(cb::smem_u32(b_base + tap * 2 * kN16 * 16), kN16 * 16, 128);
+#pragma unroll
+        for (int i = 0; i < cb::kRowsPerWg; ++i) {
+          const uint64_t da = cb::make_desc(
+              cb::smem_u32(a_base + ((i + dy * g.d) * g.cols + dx * g.d) * 16), g.a_chunk, 128);
+          cb::wgmma<kN16>(acc[i], da, db, k == 0 && tap == 0 ? 0 : 1);
+        }
+      }
+      cb::wgmma_commit();
+      cb::wgmma_wait<1>();  // stage s - 1's products are done
+      if (k > 0) cb::mbar_arrive(&empty_bar[(s - 1) % g.ring]);
+    }
+    cb::wgmma_wait<0>();
+    cb::mbar_arrive(&empty_bar[(s - 1) % g.ring]);  // the item's last stage
+#pragma unroll
+    for (int i = 0; i < cb::kRowsPerWg; ++i) cb::reg_fence<kN16 / 2>(acc[i]);
+    epi(acc, li, cb::item_at(g, blockIdx.z, first + li * stride), li == n_items - 1);
+  }
 }
 
-// the launch of the bf16 form for these shapes: its arguments' geometry,
-// the config (grid, cluster, shared memory) and whether it needs the
-// pre-norm plane
+// The launch of the bf16 form's convolution for these shapes: its geometry,
+// grid and shared memory.  Blocks per plane (gridDim.x): the plane's tiles,
+// at most kMaxBlocks, and no more than lets the card hold the whole grid at
+// once (each block waits for its plane's others), else one, which waits
+// for none; by shape and the card's capacity, never on a failure.
 struct Bf16Launch {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[2];
-  cb::Geo g;
+  Geo16 g;
+  dim3 grid;
 };
 
-inline cudaError_t bf16_launch(Bf16Launch& l, const void* x, const void* wt, int w_f32,
-                               int64_t n, int64_t c, int64_t co, int64_t h, int64_t w, int64_t d,
-                               cudaStream_t s) {
-  l.g = cb::make_geo<kN16, kLook>((int)c, (int)(h + 2 * d), (int)(w + 2 * d), 0, (int)d, (int)h,
-                                  (int)w, x, wt, w_f32 != 0, 0, false);
-  // the output staging lies over the halo and operand slots
-  if (l.g.b_off < kStgBytes || l.g.smem > cb::kSmemMax) return cudaErrorInvalidValue;
-  const int cluster = l.g.tiles < kMaxCluster ? l.g.tiles : kMaxCluster;
+inline cudaError_t bf16_launch(Bf16Launch& l, int64_t n, int64_t c, int64_t co, int64_t h,
+                               int64_t w, int64_t d) {
+  l.g = make_geo16((int)c, (int)h, (int)w, (int)d);
+  if (l.g.ring < 2 || l.g.rows * 2 >= 32) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(conv3x3_in_act_bf16_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, l.g.smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(conv3x3_in_act_bf16_kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
-  l.cfg = cudaLaunchConfig_t{};
-  l.cfg.gridDim = dim3((unsigned)cluster, (unsigned)((co + kN16 - 1) / kN16), (unsigned)n);
-  l.cfg.blockDim = dim3(kBlock16);
-  l.cfg.dynamicSmemBytes = l.g.smem;
-  l.cfg.stream = s;
-  l.attr[0].id = cudaLaunchAttributeClusterDimension;
-  l.attr[0].val.clusterDim.x = (unsigned)cluster;
-  l.attr[0].val.clusterDim.y = 1;
-  l.attr[0].val.clusterDim.z = 1;
-  // a cluster's blocks spread over its GPC's SMs, not two to an SM
-  l.attr[1].id = cudaLaunchAttributeClusterSchedulingPolicyPreference;
-  l.attr[1].val.clusterSchedulingPolicyPreference = cudaClusterSchedulingPolicySpread;
-  l.cfg.attrs = l.attr;
-  l.cfg.numAttrs = 2;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv3x3_in_act_bf16_kernel,
+                                                           kBlock16, l.g.smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t planes = n * ((co + kN16 - 1) / kN16);
+  int64_t blocks = (int64_t)per_sm * sms / planes;
+  if (blocks > l.g.tiles) blocks = l.g.tiles;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (blocks < 1) blocks = 1;
+  l.grid = dim3((unsigned)blocks, (unsigned)((co + kN16 - 1) / kN16), (unsigned)n);
   return cudaSuccess;
 }
 
@@ -594,51 +828,66 @@ int conv3x3_in_act_f32(const void* x, const void* wt, const void* bias,
   return (int)cudaGetLastError();
 }
 
-// Whether the bf16 form needs a float32 pre-norm plane (n, co, h, w) for
-// these output planes: more tiles than one cluster holds.
-int conv3x3_in_act_bf16_prenorm(int64_t h, int64_t w) {
-  return ((h + cb::kTileRows - 1) / cb::kTileRows) * ((w + cb::kTileCols - 1) / cb::kTileCols) >
-         kMaxCluster;
+// The bf16 form's blocks per (sample, co block) plane for these shapes on
+// this card, or -cudaError.
+int conv3x3_in_act_bf16_blocks(int64_t n, int64_t c, int64_t co, int64_t h, int64_t w,
+                               int64_t d) {
+  Bf16Launch l;
+  const cudaError_t err = bf16_launch(l, n, c, co, h, w, d);
+  return err == cudaSuccess ? (int)l.grid.x : -(int)err;
 }
 
-// The clusters of the bf16 form's launch for these shapes that the card
-// can hold at once (cudaOccupancyMaxActiveClusters), or -cudaError.
-int conv3x3_in_act_bf16_clusters(int64_t n, int64_t c, int64_t co, int64_t h, int64_t w,
-                                 int64_t d) {
+// Whether the bf16 form needs a float32 pre-norm plane (n, co, h, w) for
+// these shapes: more tiles per plane than blocks (1 or 0), or -cudaError.
+int conv3x3_in_act_bf16_prenorm(int64_t n, int64_t c, int64_t co, int64_t h, int64_t w,
+                                int64_t d) {
   Bf16Launch l;
-  cudaError_t err = bf16_launch(l, nullptr, nullptr, 1, n, c, co, h, w, d, 0);
-  int clusters = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&clusters, conv3x3_in_act_bf16_kernel, &l.cfg);
-  return err == cudaSuccess ? clusters : -(int)err;
+  const cudaError_t err = bf16_launch(l, n, c, co, h, w, d);
+  return err == cudaSuccess ? (l.g.tiles > (int)l.grid.x ? 1 : 0) : -(int)err;
 }
 
 // The bf16 form: x (n, c, h+2d, w+2d) bf16, wt (co, c, 3, 3) float32
 // (w_f32 != 0) or bf16, rounded to bf16; bias (co) float32, or bf16 (b_bf16
 // != 0, widened exactly), or null; residual (n, co, h, w) bf16 or null; out
 // (n, co, h, w) bf16; prenorm (n, co, h, w) float32 where
-// conv3x3_in_act_bf16_prenorm(h, w), else null; all contiguous.
+// conv3x3_in_act_bf16_prenorm, else null; for the layout pass xt (n, 2 nk,
+// h+2d, w+2d, 8) and wl (ceil(co / 32), nk, 9, 2, 32, 8) bf16 (nk =
+// ceil(c / 16)), 16-byte aligned; xchg: n ceil(co / 32) (16 x 32 x 3 + 1)
+// floats for the statistics' exchange; all contiguous.  Two launches: the
+// layout pass, then the convolution with its epilogue.
 int conv3x3_in_act_bf16(const void* x, const void* wt, int w_f32, const void* bias, int b_bf16,
-                        const void* residual, void* out, void* prenorm, int64_t n, int64_t c,
-                        int64_t co, int64_t h, int64_t w, int64_t d, float eps, int act,
-                        void* stream) {
-  if (conv3x3_in_act_bf16_prenorm(h, w) && prenorm == nullptr) return (int)cudaErrorInvalidValue;
+                        const void* residual, void* out, void* prenorm, void* xt, void* wl,
+                        void* xchg, int64_t n, int64_t c, int64_t co, int64_t h, int64_t w,
+                        int64_t d, float eps, int act, void* stream) {
+  if (reinterpret_cast<uintptr_t>(xt) % 16 != 0 || reinterpret_cast<uintptr_t>(wl) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
   Bf16Launch l;
-  cudaError_t err =
-      bf16_launch(l, x, wt, w_f32, n, c, co, h, w, d, static_cast<cudaStream_t>(stream));
+  cudaError_t err = bf16_launch(l, n, c, co, h, w, d);
   if (err != cudaSuccess) return (int)err;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, conv3x3_in_act_bf16_kernel, &l.cfg);
+  if (l.g.tiles > (int)l.grid.x && prenorm == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int planes = (int)(n * 2 * l.g.nk);
+  const int counters = (int)(n * l.grid.y);
+  const int hw = l.g.ph * l.g.pw;
+  const int pairs = hw % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
+  const dim3 lgrid((unsigned)((hw + 2 * kLayoutThreads - 1) / (2 * kLayoutThreads)),
+                   (unsigned)(planes + l.grid.y * l.g.nk));
+  float* xf = static_cast<float*>(xchg);
+  unsigned* count = reinterpret_cast<unsigned*>(xf + (int64_t)counters * kMaxBlocks * kN16 * 3);
+  in_act_layout_kernel<<<lgrid, kLayoutThreads, 0, s>>>(
+      static_cast<const uint16_t*>(x), wt, w_f32, static_cast<uint4*>(xt),
+      static_cast<uint4*>(wl), count, counters, (int)c, (int)co, planes, hw, l.g.nk, pairs);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;  // the cluster does not fit
   Bf16Args a;
-  a.x = static_cast<const __nv_bfloat16*>(x);
-  a.w = wt;
+  a.xt = static_cast<const uint4*>(xt);
+  a.wl = static_cast<const uint4*>(wl);
   a.bias = bias;
   a.residual = static_cast<const uint16_t*>(residual);
   a.out = static_cast<uint16_t*>(out);
   a.prenorm = static_cast<float*>(prenorm);
-  a.w_f32 = w_f32;
+  a.xchg = xf;
+  a.count = count;
   a.bias_bf16 = b_bf16;
   a.co = (int)co;
   a.act = act;
@@ -646,8 +895,7 @@ int conv3x3_in_act_bf16(const void* x, const void* wt, int w_f32, const void* bi
           reinterpret_cast<uintptr_t>(residual) % 16 == 0;
   a.eps = eps;
   a.g = l.g;
-  err = cudaLaunchKernelEx(&l.cfg, conv3x3_in_act_bf16_kernel, a);
-  if (err != cudaSuccess) return (int)err;
+  conv3x3_in_act_bf16_kernel<<<l.grid, kBlock16, l.g.smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 

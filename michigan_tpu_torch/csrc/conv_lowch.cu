@@ -42,7 +42,9 @@
 //   its NCHW rows and turn it into the operand layout in shared memory);
 // - each stage's halo, 16 channels x 6 rows x 80 columns, is one TMA box
 //   of a 4-d tensor map over x (w, h, c, n) whose zero fill outside the
-//   tensor is the SAME border (where W % 8 == 0; else a bulk copy per row);
+//   tensor is the SAME border, where W % 8 == 0 and x is 16-byte aligned
+//   (chosen by shape; a map the driver refuses is an error); else a bulk
+//   copy per row;
 // - a persistent grid of one block per SM (per 64-channel block of Co):
 //   each block rounds and stores its 64 x C x 9 weights in shared memory
 //   once (73.7 KB at C = 64; streamed per stage where C is too large to
@@ -128,8 +130,6 @@ struct LowchEpi {
   int co, co0, h, w, vec;
   char* stg;
 
-  __device__ __forceinline__ void idle() {}
-
   // in the consumer warpgroup
   __device__ __forceinline__ void operator()(float (&acc)[cb::kRowsPerWg][kN16 / 2], int,
                                              const cb::Item& it, bool) {
@@ -182,15 +182,22 @@ conv3x3_same_bf16_kernel(const __nv_bfloat16* __restrict__ x, const void* __rest
   extern __shared__ __align__(128) char dsmem[];
   const int co0 = blockIdx.y * kN16;
   LowchEpi epi{y, co, co0, g.h, g.w, vec, dsmem + g.epi_off};
-  cb::conv_tiles<kN16, kLook, kProd, 0, 0>(x, use_map ? &map : nullptr, w, w_f32, co, co0, g,
+  cb::conv_tiles<kN16, kLook, kProd>(x, use_map ? &map : nullptr, w, w_f32, co, co0, g,
                                            blockIdx.x, gridDim.x, n * g.tiles, 0, dsmem, epi);
 }
 
+// Whether the bf16 form stages x through a tensor map (one TMA box a
+// stage): where its rows are 16-byte multiples and its base 16-byte aligned,
+// as the map requires; by shape alone, never because something failed.
+bool uses_map(const void* x, int64_t w) {
+  return w % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+}
+
 // x as a tensor map of boxes (cols, rows, 16, 1) over (w, h, c, n), zero
-// outside: where its rows are 16-byte multiples (w % 8 == 0) and the CUDA driver
-// gives the encoder; else false and the kernel copies row by row
-bool encode_map(CUtensorMap* map, const void* x, int64_t n, int64_t c, int64_t h, int64_t w,
-                const cb::Geo& g) {
+// outside the tensor; an error if the driver's encoder is missing or
+// refuses the map
+cudaError_t encode_map(CUtensorMap* map, const void* x, int64_t n, int64_t c, int64_t h,
+                       int64_t w, const cb::Geo& g) {
   typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -199,13 +206,12 @@ bool encode_map(CUtensorMap* map, const void* x, int64_t n, int64_t c, int64_t h
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return false;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess) return cudaErrorSymbolNotFound;
     encode = reinterpret_cast<Encode>(fn);
   }
-  if (w % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)c, (cuuint64_t)n};
   const cuuint64_t strides[3] = {(cuuint64_t)w * 2, (cuuint64_t)(h * w * 2),
                                  (cuuint64_t)(c * h * w * 2)};
@@ -214,7 +220,9 @@ bool encode_map(CUtensorMap* map, const void* x, int64_t n, int64_t c, int64_t h
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -238,12 +246,17 @@ int conv3x3_same_f32(const void* x, const void* wt, void* out, int64_t n, int64_
   return (int)cudaGetLastError();
 }
 
+// Whether the bf16 form takes x's halo through a tensor map (else by a
+// bulk copy per row): 1 or 0.
+int conv3x3_same_bf16_uses_map(const void* x, int64_t w) { return uses_map(x, w) ? 1 : 0; }
+
 // x (n, c, h, w) bf16, wt (co, c, 3, 3) float32 (w_f32 != 0) or bf16,
 // rounded to bf16; out (n, co, h, w) bf16; all contiguous.
 int conv3x3_same_bf16(const void* x, const void* wt, int w_f32, void* out, int64_t n, int64_t c,
                       int64_t co, int64_t h, int64_t w, void* stream) {
-  const cb::Geo g = cb::make_geo<kN16, kLook>((int)c, (int)h, (int)w, 1, 1, (int)h, (int)w, x,
-                                              wt, w_f32 != 0, kStgBytes, true);
+  cb::Geo g = cb::make_geo<kN16, kLook>((int)c, (int)h, (int)w, 1, 1, (int)h, (int)w, x, wt,
+                                        w_f32 != 0, kStgBytes, true);
+  g.x_bytes = n * c * h * w * 2;
   if (g.smem > cb::kSmemMax) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(conv3x3_same_bf16_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
@@ -259,7 +272,8 @@ int conv3x3_same_bf16(const void* x, const void* wt, int w_f32, void* out, int64
   const dim3 grid((unsigned)(items < per ? items : per), (unsigned)co_blocks);
   const int vec = w % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   CUtensorMap map;
-  const int use_map = encode_map(&map, x, n, c, h, w, g);
+  const int use_map = uses_map(x, w);
+  if (use_map && (err = encode_map(&map, x, n, c, h, w, g)) != cudaSuccess) return (int)err;
   conv3x3_same_bf16_kernel<<<grid, kBlock16, g.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), wt, w_f32, static_cast<uint16_t*>(out), (int)co,
       (int)n, g, vec, map, use_map);

@@ -118,13 +118,15 @@ SIGNATURES = {
         "conv3x3_in_act_tiles": (_I64, _I64),
         "conv3x3_in_act_f32": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                                _I64, _I64, ctypes.c_float, ctypes.c_int, _P),
-        "conv3x3_in_act_bf16_prenorm": (_I64, _I64),
-        "conv3x3_in_act_bf16_clusters": (_I64, _I64, _I64, _I64, _I64, _I64),
-        "conv3x3_in_act_bf16": (_P, _P, ctypes.c_int, _P, ctypes.c_int, _P, _P, _P, _I64, _I64,
-                                _I64, _I64, _I64, _I64, ctypes.c_float, ctypes.c_int, _P),
+        "conv3x3_in_act_bf16_blocks": (_I64, _I64, _I64, _I64, _I64, _I64),
+        "conv3x3_in_act_bf16_prenorm": (_I64, _I64, _I64, _I64, _I64, _I64),
+        "conv3x3_in_act_bf16": (_P, _P, ctypes.c_int, _P, ctypes.c_int, _P, _P, _P, _P, _P, _P,
+                                _I64, _I64, _I64, _I64, _I64, _I64, ctypes.c_float, ctypes.c_int,
+                                _P),
     },
     "conv_lowch": {
         "conv3x3_same_f32": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P),
+        "conv3x3_same_bf16_uses_map": (_P, _I64),
         "conv3x3_same_bf16": (_P, _P, ctypes.c_int, _P, _I64, _I64, _I64, _I64, _I64, _P),
     },
 }

@@ -20,9 +20,9 @@ the result is rounded to bfloat16 once.
 
 The kernel is compute-bound (C*9 FMAs per output); the design notes are in
 the CUDA source.  It computes the convolution in its own body on the tensor
-cores (float32-accurate through the 3xTF32 split; in bfloat16 wgmma
-products, the instance norm's statistics merged across a thread-block
-cluster, one launch), with no cuDNN, cuBLAS or CUTLASS call.  A wrapper
+cores (float32-accurate through the 3xTF32 split; in bfloat16 a layout pass,
+then wgmma products with the instance norm's statistics exchanged between
+the blocks of a plane), with no cuDNN, cuBLAS or CUTLASS call.  A wrapper
 runs the plain PyTorch version for CPU tensors only.  For a CUDA tensor it checks dtype,
 shape, contiguity and device, launches the kernel on the current stream and
 counts the launch; anything the kernel does not take raises.  There is no
@@ -31,6 +31,7 @@ fallback on CUDA tensors.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -77,6 +78,28 @@ _F32 = (torch.float32,)
 _X_DTYPES = (torch.float32, torch.bfloat16)
 
 
+def bf16_scratch(n: int, c: int, co: int, hp: int, wp: int, device) -> tuple:
+    """The bf16 form's scratch (conv_in_act.cu): the layout pass's x_pad as
+    8-channel chunks of each pixel, (n, 2 ceil(C/16), H+2d, W+2d, 8), and
+    weight, (ceil(Co/32), ceil(C/16), 9, 2, 32, 8), both bfloat16; and the
+    statistics' exchange, float32 parts and the planes' counters."""
+    nk, planes = (c + 15) // 16, n * ((co + 31) // 32)
+    return (torch.empty((n, 2 * nk, hp, wp, 8), dtype=torch.bfloat16, device=device),
+            torch.empty(((co + 31) // 32, nk, 9, 2, 32, 8), dtype=torch.bfloat16, device=device),
+            torch.empty(planes * (16 * 32 * 3 + 1), dtype=torch.float32, device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_prenorm(n: int, c: int, co: int, h: int, w: int, d: int, device_index: int) -> bool:
+    """Whether the bf16 form needs a float32 pre-norm plane at these shapes
+    on this card: more tiles per plane than the card holds blocks for
+    (conv3x3_in_act_bf16_prenorm)."""
+    with torch.cuda.device(device_index):
+        got = build.load("conv_in_act").conv3x3_in_act_bf16_prenorm(n, c, co, h, w, d)
+    build.check_launch("conv3x3_in_act_bf16_prenorm", max(0, -got))
+    return got == 1
+
+
 def conv3x3_in_act(x_pad: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                    dilation: int = 1, act: Optional[str] = None, eps: float = 1e-5,
                    residual: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -102,6 +125,10 @@ def conv3x3_in_act(x_pad: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tenso
         raise ValueError(f"the kernel takes dilation up to {MAX_DILATION}, got {d}")
     if n > 65535 or co > 65535 * (32 if x_pad.dtype == torch.bfloat16 else 64):
         raise ValueError(f"too many samples or channels for one launch: {n}, {co}")
+    if x_pad.dtype == torch.bfloat16 and (
+            (n * 2 + (co + 31) // 32) * ((c + 15) // 16) > 65535 or hp * wp >= 2**31):
+        raise ValueError(f"the bf16 layout pass takes at most 65535 planes of 8 channels and "
+                         f"weight blocks: x_pad {tuple(x_pad.shape)}, w {tuple(w.shape)}")
     _check("x_pad", x_pad, (n, c, hp, wp), x_pad, _X_DTYPES)
     bf16 = x_pad.dtype == torch.bfloat16
     # float32: everything float32.  bfloat16: the weight float32 or bfloat16
@@ -120,15 +147,16 @@ def conv3x3_in_act(x_pad: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tenso
     b_ptr = None if b is None else b.data_ptr()
     r_ptr = None if residual is None else residual.data_ptr()
     if bf16:
-        # planes of more than one cluster's tiles keep their pre-norm sums in
+        # planes of more tiles than the card holds blocks for keep their sums in
         # a float32 plane until the statistics are merged (by shape)
         prenorm = torch.empty((n, co, h, wd), dtype=torch.float32, device=x_pad.device) \
-            if lib.conv3x3_in_act_bf16_prenorm(h, wd) else None
+            if bf16_prenorm(n, c, co, h, wd, d, x_pad.device.index) else None
+        xt, wl, xchg = bf16_scratch(n, c, co, hp, wp, x_pad.device)
         err = lib.conv3x3_in_act_bf16(
             x_pad.data_ptr(), w.data_ptr(), int(w.dtype == torch.float32), b_ptr,
             int(b is not None and b.dtype == torch.bfloat16), r_ptr, out.data_ptr(),
-            None if prenorm is None else prenorm.data_ptr(), n, c, co, h, wd, d, float(eps),
-            _ACTS[act], stream)
+            None if prenorm is None else prenorm.data_ptr(), xt.data_ptr(), wl.data_ptr(),
+            xchg.data_ptr(), n, c, co, h, wd, d, float(eps), _ACTS[act], stream)
     else:
         scratch = torch.empty(n * co * lib.conv3x3_in_act_tiles(h, wd) * 3,
                               dtype=torch.float32, device=x_pad.device)

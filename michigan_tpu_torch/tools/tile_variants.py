@@ -1,12 +1,13 @@
-"""Build variants of the 3x3 convolution tiles and measure them on a card.
+"""Build variants of the 3x3 convolution kernels and measure them on a card.
 
     python -m michigan_tpu_torch.tools.tile_variants [--only A,B] [--check]
 
-The design choices of ``csrc/conv3x3_tile.cuh`` (the float32 tile) and
-``csrc/conv3x3_bf16.cuh`` (the bf16 tile) and of the two kernels around them
-are each one textual change away from the built sources: VARIANTS lists them
-as (file, text, replacement) edits; BF16_VARIANTS names those measured on
-the bf16 kernels.  Every variant is
+The design choices of ``csrc/conv3x3_tile.cuh`` (the float32 tile of both
+convolutions), ``csrc/conv3x3_bf16.cuh`` (conv_lowch's bf16 tile) and of the
+kernels around them (``conv_lowch.cu``, ``conv_in_act.cu``: its bf16 form has
+a tile of its own) are each one textual change away from the built sources:
+VARIANTS lists them as (file, text, replacement) edits; BF16_VARIANTS names
+those measured on the bf16 kernels.  Every variant is
 compiled with the port's nvcc flags and ``-Xptxas -v`` into
 ``michigan_tpu_torch/_build/variants/v<i>/`` (all nvcc processes started
 together), loaded with ctypes and run at the paths' shapes:
@@ -21,17 +22,18 @@ their edges (LOWCH_EDGES, IN_ACT_EDGES; atol 1e-2, rtol 1.6e-2), then, for
 every variant, the largest error against a float64 convolution at batch 2 of
 those shapes over the largest magnitude, beside F.conv2d's (float32, TF32
 off; bf16) and cuDNN's bf16 conv + the torch norm, and for bf16 the share of
-outputs that are not float64's value rounded to bf16; and how many of
-in_act's clusters the card holds at once.  ``--check`` stops there.  Then the
+outputs that are not float64's value rounded to bf16; and in_act's blocks
+per plane at the edit's shape.  ``--check`` stops there.  Then the
 card's mma.sync rates (m16n8k8 TF32, m16n8k16 bf16), and device times (20
 calls replayed in a CUDA graph, median of 5), the variants timed in turns
 (forward, then backward through the list), float32 variants on the float32
 kernels and bf16 ones on the bf16 kernels, the library routes before and
 after them; last the device time of each kernel of the package's own build
-per call (torch.profiler).  The bf16 variants: wgmma against mma.sync, ring
-depths, a tile per block against the persistent grid, streamed against
-resident weights, the cluster size; the "diag:" variants each remove one
-part of the work (their results are wrong) to show where the time goes.
+per call (torch.profiler).  The bf16 variants: lowch's wgmma against an
+mma.sync form of the same staging, ring depths, a tile per block against the
+persistent grid, streamed against resident weights; in_act's ring depth and
+blocks per plane; a time-stamp probe of in_act's phases; the "diag:" variants each remove one part of the work (their
+results are wrong) to show where the time goes.
 Prints the card's name and power limit first.  Needs a CUDA card and nvcc;
 exits 1 without them.
 """
@@ -44,6 +46,118 @@ import statistics
 import subprocess
 import sys
 from pathlib import Path
+
+# the mma.sync m16n8k16 form of conv3x3_bf16.cuh's products: ldmatrix
+# fragments from the same shared memory (the tool's "lowch mma.sync")
+MMA_SYNC_HELPERS = r"""
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+"""
+WGMMA_STAGE = """      wgmma_fence();
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dy = tap / 3, dx = tap % 3;
+        const uint64_t db = make_desc(smem_u32(b_base + tap * 2 * kN * 16), kN * 16, 128);
+#pragma unroll
+        for (int i = 0; i < kRowsPerWg; ++i) {
+          const int hr = i + dy * g.d;
+          const uint64_t da = make_desc(
+              smem_u32(a_base + (hr * g.cols + g.shift + dx * g.d) * 16), g.tr_chunk, 128);
+          wgmma<kN>(acc[i], da, db, k == 0 && tap == 0 ? 0 : 1);
+        }
+      }
+"""
+MMA_SYNC_STAGE = """      if (k == 0) {
+#pragma unroll
+        for (int i = 0; i < kRowsPerWg; ++i)
+#pragma unroll
+          for (int r = 0; r < kN / 2; ++r) acc[i][r] = 0.f;
+      }
+      const int wq = (tid >> 5) & 3;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dy = tap / 3, dx = tap % 3;
+        unsigned bf[kN / 16][4];  // n8 tiles 2jj, 2jj + 1: {b0, b1} each
+#pragma unroll
+        for (int jj = 0; jj < kN / 16; ++jj)
+          ldmatrix_x4(bf[jj], smem_u32(b_base + ((tap * 2 + ((lane >> 3) & 1)) * kN +
+                                                 16 * jj + 8 * (lane >> 4) + (lane & 7)) * 16));
+#pragma unroll
+        for (int i = 0; i < kRowsPerWg; ++i) {
+          const int hr = i + dy * g.d;
+          const int px = g.shift + dx * g.d + 16 * wq + (lane & 7) + 8 * ((lane >> 3) & 1);
+          unsigned af[4];
+          ldmatrix_x4(af, smem_u32(a_base + (lane >> 4) * g.tr_chunk + (hr * g.cols + px) * 16));
+#pragma unroll
+          for (int jj = 0; jj < kN / 16; ++jj) {
+            mma_bf16(&acc[i][8 * jj], af, bf[jj][0], bf[jj][1]);
+            mma_bf16(&acc[i][8 * jj + 4], af, bf[jj][2], bf[jj][3]);
+          }
+        }
+      }
+"""
+# conv_lowch's halo copies and TMA boxes of no bytes (their barriers kept)
+LOWCH_NO_HALO = [
+    ("conv3x3_bf16.cuh", "          bytes[j] = (unsigned)(e16 - a16);", "          bytes[j] = 0;"),
+    ("conv3x3_bf16.cuh", "pt == 0 ? kStageCh * g.rows * g.cols * 2 : 0", "0"),
+    ("conv3x3_bf16.cuh",
+     "        if (pt == 0) tma_load_4d(base, map, ox, oy, k * kStageCh, it.n, &raw_bar[slot]);\n",
+     "")]
+IN_ACT_NO_PRODUCTS = ("conv_in_act.cu",
+                      "cb::wgmma<kN16>(acc[i], da, db, k == 0 && tap == 0 ? 0 : 1);",
+                      "if (da == db) acc[i][0] += 1.f;")
+# conv_in_act's bf16 copies not issued, their stage barriers expecting no bytes
+IN_ACT_NO_COPIES = [
+    ("conv_in_act.cu", "      if (lane == 0) cb::mbar_arrive_tx(&full_bar[slot], total);",
+     "      if (lane == 0) cb::mbar_arrive_tx(&full_bar[slot], 0 * total);"),
+    ("conv_in_act.cu", "      if (bytes) cb::bulk_copy(dst, src, bytes, &full_bar[slot]);\n", "")]
+
+# conv_in_act's bf16 form with time stamps: thread 0 of every block writes
+# %globaltimer at its start (0), after its products (1), before the
+# statistics' exchange (2), once its plane's blocks have all arrived (3), once
+# the plane's statistics are merged (4) and after its stores (5), and its
+# %smid (7), into a device array that in_act_probe copies out
+IN_ACT_PROBE = [
+    ("conv_in_act.cu", "namespace cb = conv_bf16;\n",
+     "namespace cb = conv_bf16;\n"
+     "__device__ unsigned long long g_probe[4096][8];\n"
+     "__device__ __forceinline__ void probe(int p) {\n"
+     "  if (threadIdx.x != 0) return;\n"
+     "  unsigned long long t;\n"
+     "  unsigned sm;\n"
+     "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+     "  asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(sm));\n"
+     "  const unsigned b = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;\n"
+     "  if (b < 4096) { g_probe[b][p] = t; g_probe[b][7] = sm; }\n"
+     "}\n"),
+    ("conv_in_act.cu", "  if (tid < kN16) epi.load_bias(s_bias);\n  __syncthreads();\n",
+     "  if (tid < kN16) epi.load_bias(s_bias);\n  __syncthreads();\n  probe(0);\n"),
+    ("conv_in_act.cu", "    cb::mbar_arrive(&empty_bar[(s - 1) % g.ring]);  // the item's last stage\n",
+     "    cb::mbar_arrive(&empty_bar[(s - 1) % g.ring]);  // the item's last stage\n    probe(1);\n"),
+    ("conv_in_act.cu", "    const int plane = blockIdx.z * gridDim.y + blockIdx.y;\n",
+     "    probe(2);\n    const int plane = blockIdx.z * gridDim.y + blockIdx.y;\n"),
+    ("conv_in_act.cu", "    cb::consumer_sync();\n    // the parts into shared memory",
+     "    cb::consumer_sync();\n    probe(3);\n    // the parts into shared memory"),
+    ("conv_in_act.cu", "    cb::consumer_sync();  // s_stat complete\n",
+     "    cb::consumer_sync();  // s_stat complete\n    probe(4);\n"),
+    ("conv_in_act.cu", "    // the block's earlier tiles, from the pre-norm plane\n",
+     "    probe(5);\n    // the block's earlier tiles, from the pre-norm plane\n"),
+    ("conv_in_act.cu", "}  // extern \"C\"\n",
+     "int in_act_probe(void* dst) {\n"
+     "  return (int)cudaMemcpyFromSymbol(dst, g_probe, sizeof(g_probe));\n}\n\n}  // extern \"C\"\n")]
 
 # name: its edits, each a (file, text, replacement)
 VARIANTS = {
@@ -88,10 +202,14 @@ VARIANTS = {
     "unpadded channel stride": [(
         "conv3x3_tile.cuh", "  g.cs = ((g.rows * g.cols - 8 + 31) / 32) * 32 + 8;",
         "  g.cs = g.rows * g.cols;")],
-    # the bf16 tile (conv3x3_bf16.cuh): the product, ring depths, the
-    # persistent grid, resident weights, the cluster
-    "mma.sync": [(
-        "conv3x3_bf16.cuh", "constexpr bool kWgmma = true;", "constexpr bool kWgmma = false;")],
+    # the bf16 tile of conv_lowch (conv3x3_bf16.cuh): the product, ring
+    # depths, the persistent grid, resident weights; conv_in_act's bf16
+    # form: its ring, its blocks per plane
+    "lowch mma.sync": [
+        ("conv3x3_bf16.cuh",
+         "// ----------------------------------------------------------- geometry ---\n",
+         MMA_SYNC_HELPERS + "// ----------------------------------------------------------- geometry ---\n"),
+        ("conv3x3_bf16.cuh", WGMMA_STAGE, MMA_SYNC_STAGE)],
     "lowch ring 2": [(
         "conv_lowch.cu", "constexpr int kLook = 3;", "constexpr int kLook = 2;")],
     "lowch ring 4": [(
@@ -104,32 +222,26 @@ VARIANTS = {
     "waits sleep between tries": [(
         "conv3x3_bf16.cuh", '"@!done bra LAB_WAIT;\\n}\\n"',
         '"@done bra LAB_DONE;\\nnanosleep.u32 64;\\nbra LAB_WAIT;\\nLAB_DONE:\\n}\\n"')],
-    # one producer warpgroup for lowch, two for in_act (there: 85 registers)
     "lowch one producer warpgroup": [(
         "conv_lowch.cu", "constexpr int kProd = 256;", "constexpr int kProd = 128;")],
-    "in_act two producer warpgroups": [(
-        "conv_in_act.cu", "constexpr int kProd = 128;", "constexpr int kProd = 256;")],
-    # the same, the consumers' registers raised by setmaxnreg (80 a thread at
-    # launch: producers 56, consumers 128)
-    "in_act two producer warpgroups and setmaxnreg": [
-        ("conv_in_act.cu", "constexpr int kProd = 128;", "constexpr int kProd = 256;"),
-        ("conv_in_act.cu", "cb::conv_tiles<kN16, kLook, kProd, 0, 0>",
-         "cb::conv_tiles<kN16, kLook, kProd, 56, 128>")],
     # lowch's halo row by row (bulk copies) instead of one tensor-map box
     "lowch rows copied": [(
-        "conv_lowch.cu", "  const int use_map = encode_map(",
-        "  const int use_map = 0 && encode_map(")],
+        "conv_lowch.cu", "  const int use_map = uses_map(x, w);", "  const int use_map = 0;")],
     "lowch 32 channels a block": [(
         "conv_lowch.cu", "constexpr int kN16 = 64;", "constexpr int kN16 = 32;")],
-    # one block per SM at dilation 2 (111 KB of shared memory)
+    # in_act's ring of operand stages (as built: as many as 108 KB hold, at
+    # most 6: 4 at dilation 2, 5 at dilation 1); one block an SM (a ring of
+    # 6 stages); 8 blocks a plane (two tiles each, the first through the
+    # pre-norm plane)
+    "in_act ring 2": [(
+        "conv_in_act.cu", "constexpr int kRingMax = 6;", "constexpr int kRingMax = 2;")],
     "in_act ring 3": [(
-        "conv_in_act.cu", "constexpr int kLook = 2;", "constexpr int kLook = 3;")],
-    # the cluster's blocks placed by the scheduler's default policy
-    "in_act cluster default policy": [(
-        "conv_in_act.cu", "  l.cfg.numAttrs = 2;", "  l.cfg.numAttrs = 1;")],
-    # two tiles per block, the first through the pre-norm plane
-    "in_act cluster 8": [(
-        "conv_in_act.cu", "constexpr int kMaxCluster = 16;", "constexpr int kMaxCluster = 8;")],
+        "conv_in_act.cu", "constexpr int kRingMax = 6;", "constexpr int kRingMax = 3;")],
+    "in_act one block an SM": [(
+        "conv_in_act.cu", "constexpr int kRingBytes = 110592;", "constexpr int kRingBytes = 180000;")],
+    "in_act 8 blocks a plane": [(
+        "conv_in_act.cu", "constexpr int kMaxBlocks = 16;", "constexpr int kMaxBlocks = 8;")],
+    "probe: in_act time stamps": IN_ACT_PROBE,
     # diagnostics, not designs (their results are wrong): each removes one
     # part of the work to show what it costs
     "diag: no main loop": [(
@@ -150,28 +262,52 @@ VARIANTS = {
         "conv_in_act.cu",
         "  // epilogue: bias, pre-norm store, and the patch's statistics per channel\n",
         "  if (a.c > 0) {\n    if (acc[0][0][0] == 1234.5f) a.y[0] = 1.f;\n    return;\n  }\n")],
-    # the bf16 tile without its products (the descriptors kept live), its
-    # halo reads (zero-filled copies), its weight reads, its transposes, and
-    # the kernels' output stores (the staging still read)
-    "diag: bf16 no products": [
+    # conv_lowch's bf16 tile without its products (the descriptors kept
+    # live), its halo reads (zero-filled copies), its weight reads, its
+    # transposes; with no staging at all (the mbarrier hand-offs kept), and
+    # that without products too
+    "diag: lowch no products": [
         ("conv3x3_bf16.cuh", "wgmma<kN>(acc[i], da, db, k == 0 && tap == 0 ? 0 : 1);",
          "if (da == db) acc[i][0] += 1.f;")],
-    "diag: bf16 no halo reads": [
-        ("conv3x3_bf16.cuh",
-         "        bytes[j] = (unsigned)(((reinterpret_cast<uintptr_t>(last) + 15) & "
-         "~uintptr_t(15)) - a16);",
-         "        bytes[j] = 0;"),
-        ("conv3x3_bf16.cuh", "pt == 0 ? kStageCh * g.rows * g.cols * 2 : 0", "0"),
-        ("conv3x3_bf16.cuh",
-         "        if (pt == 0) tma_load_4d(base, map, ox, oy, k * kStageCh, it.n, "
-         "&raw_bar[slot]);\n",
-         "")],
-    "diag: bf16 no weight reads": [
+    "diag: lowch no halo reads": LOWCH_NO_HALO,
+    "diag: lowch no weight reads": [
         ("conv3x3_bf16.cuh", "reg[j] = ok ? __ldg(src) : make_uint4(0, 0, 0, 0);",
          "reg[j] = make_uint4(0, 0, 0, 0);")],
-    "diag: bf16 no transposes": [
+    "diag: lowch no transposes": [
         ("conv3x3_bf16.cuh", "      for (int t = pt; t < n_tasks; t += kProducers) {",
          "      for (int t = pt; t < 0; t += kProducers) {")],
+    "diag: lowch no producer work": LOWCH_NO_HALO + [
+        ("conv3x3_bf16.cuh",
+         "      transpose(s % kLook, s & 1, it, k);\n      if (!g.resident) wl.load(",
+         "      if (false) wl.load(")],
+    "diag: lowch barriers and epilogue only": LOWCH_NO_HALO + [
+        ("conv3x3_bf16.cuh",
+         "      transpose(s % kLook, s & 1, it, k);\n      if (!g.resident) wl.load(",
+         "      if (false) wl.load("),
+        ("conv3x3_bf16.cuh", "wgmma<kN>(acc[i], da, db, k == 0 && tap == 0 ? 0 : 1);",
+         "if (da == db) acc[i][0] += 1.f;")],
+    # conv_in_act's bf16 form without its layout pass (the buffers left as
+    # they are, the counters still zeroed), its products, its copies (the
+    # stage barriers still arrived on), or both
+    "diag: in_act no layout pass": [
+        ("conv_in_act.cu",
+         "    const int u = 2 * (blockIdx.x * kLayoutThreads + tid);\n    if (u >= hw) return;",
+         "    return;"),
+        ("conv_in_act.cu", "  if (blockIdx.x != 0) return;\n  const int cob", "  return;\n  const int cob")],
+    "diag: in_act no products": [IN_ACT_NO_PRODUCTS],
+    "diag: in_act no copies": IN_ACT_NO_COPIES,
+    # ... its convolution kernel returning at once (the launch), without its
+    # epilogue, and without waiting for the plane's other blocks
+    "diag: in_act empty kernel": [
+        ("conv_in_act.cu", "  const Geo16& g = a.g;\n  const int tid = threadIdx.x;\n",
+         "  if (a.co > 0) return;\n  const Geo16& g = a.g;\n  const int tid = threadIdx.x;\n")],
+    "diag: in_act no epilogue": [
+        ("conv_in_act.cu",
+         "    epi(acc, li, cb::item_at(g, blockIdx.z, first + li * stride), li == n_items - 1);",
+         "    if (acc[0][0] == 1234.5f) a.out[0] = 1;")],
+    "diag: in_act barriers and epilogue only": IN_ACT_NO_COPIES + [IN_ACT_NO_PRODUCTS],
+    "diag: in_act no wait for the plane": [
+        ("conv_in_act.cu", "        if (arrived >= gridDim.x) break;", "        break;")],
     # conv_lowch's epilogue reads no sum (a test of what makes ptxas
     # serialise its wgmmas)
     "diag: lowch epilogue reads no sums": [
@@ -194,14 +330,16 @@ VARIANTS = {
 # the variants measured on the bf16 kernels (the others on the float32 ones;
 # "as built" on both)
 BF16_VARIANTS = {
-    "as built", "diag: bf16 no halo reads", "diag: bf16 no products", "diag: bf16 no stores",
-    "diag: bf16 no transposes", "diag: bf16 no weight reads",
-    "diag: lowch epilogue reads no sums", "in_act cluster 8", "in_act cluster default policy",
-    "in_act ring 3", "in_act two producer warpgroups",
-    "in_act two producer warpgroups and setmaxnreg", "lowch 32 channels a block",
-    "lowch a tile per block", "lowch epilogue without the add", "lowch one producer warpgroup",
-    "lowch ring 2", "lowch ring 4", "lowch rows copied", "lowch streamed weights", "mma.sync",
-    "waits sleep between tries",
+    "as built", "diag: bf16 no stores", "diag: in_act barriers and epilogue only",
+    "diag: in_act empty kernel", "diag: in_act no copies", "diag: in_act no epilogue",
+    "diag: in_act no layout pass", "diag: in_act no products", "diag: in_act no wait for the plane",
+    "diag: lowch barriers and epilogue only", "diag: lowch epilogue reads no sums",
+    "diag: lowch no halo reads", "diag: lowch no producer work", "diag: lowch no products",
+    "diag: lowch no transposes", "diag: lowch no weight reads", "in_act 8 blocks a plane",
+    "in_act one block an SM", "in_act ring 2", "in_act ring 3", "lowch 32 channels a block",
+    "lowch a tile per block", "lowch epilogue without the add", "lowch mma.sync",
+    "lowch one producer warpgroup", "lowch ring 2", "lowch ring 4", "lowch rows copied",
+    "lowch streamed weights", "probe: in_act time stamps", "waits sleep between tries",
 }
 
 MMA_PEAK_CU = r"""
@@ -360,13 +498,50 @@ def median_ms(fn, torch, inner=20, reps=5):
 # every run): lowch (n, c, co, h, w): ragged tiles, odd C and W, Co over one
 # block, C too large for resident weights, fewer tiles than SMs; in_act (n,
 # c, co, h, w, d, act, residual): ragged planes, odd C, dilation 1, 2 and 4,
-# a plane of more tiles than one cluster (the pre-norm form), batch > 1
+# a plane of more tiles than blocks (the pre-norm form), batch > 1
 LOWCH_EDGES = [(2, 64, 64, 37, 53), (1, 3, 70, 10, 11), (3, 12, 72, 9, 66),
                (1, 160, 64, 20, 70), (1, 64, 64, 8, 64)]
 IN_ACT_EDGES = [(1, 20, 70, 9, 7, 2, "relu", True), (2, 20, 40, 13, 30, 2, "lrelu", False),
                 (1, 64, 72, 37, 53, 1, "relu", True), (3, 7, 64, 4, 32, 2, None, True),
                 (2, 16, 24, 80, 80, 1, "relu", True), (1, 32, 32, 16, 16, 4, None, False)]
 ACT_CODES = {None: 0, "relu": 1, "lrelu": 2}
+
+
+def print_probe(v, lib, inputs, in_act, torch, card) -> None:
+    """The time stamps of a "probe:" variant's in_act call at batch 1 of the
+    edit's shapes: per phase the median and largest duration over the
+    blocks, the blocks' start spread, and how many SMs hold two blocks."""
+    import ctypes
+
+    lib.in_act_probe.argtypes = [ctypes.c_void_p]
+    lib.in_act_probe.restype = ctypes.c_int
+    for d, act, _ in EPI_CASES:
+        x, w, b, r = inputs[d]
+        x, r = x[:1].bfloat16(), None if r is None else r[:1].bfloat16()
+        out = torch.empty((1, 256, 64, 64), device="cuda", dtype=torch.bfloat16)
+        for _ in range(3):
+            in_act(v, x, w, b, d, act, r, out)
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * (4096 * 8))()
+        build_err = lib.in_act_probe(ctypes.addressof(buf))
+        if build_err != 0:
+            print(f"{v}: in_act_probe failed: cudaError {build_err}", flush=True)
+            return
+        blocks = [[buf[8 * i + p] for p in range(8)] for i in range(128)]
+        t0 = min(b_[0] for b_ in blocks)
+        phase = lambda p, q: sorted((b_[q] - b_[p]) / 1e3 for b_ in blocks)
+        sms = [b_[7] for b_ in blocks]
+        shared = sum(1 for s_ in set(sms) if sms.count(s_) > 1)
+        parts = [("start after the first", 0, None), ("products", 0, 1), ("stats", 1, 2),
+                 ("wait for the plane", 2, 3), ("merge", 3, 4), ("stores", 4, 5),
+                 ("end after the first start", None, 5)]
+        text = []
+        for name, p, q in parts:
+            ts = sorted((b_[0] - t0) / 1e3 for b_ in blocks) if q is None else \
+                sorted((b_[5] - t0) / 1e3 for b_ in blocks) if p is None else phase(p, q)
+            text.append(f"{name} {statistics.median(ts):.2f} / {ts[-1]:.2f}")
+        print(f"{v} dilation {d}: us, median / largest over the 128 blocks: "
+              f"{'; '.join(text)}; SMs holding two blocks: {shared} [{card}]", flush=True)
 
 
 def main(argv=None) -> int:
@@ -429,12 +604,13 @@ def main(argv=None) -> int:
         r_ptr = None if r is None else r.data_ptr()
         if x.dtype == torch.bfloat16:
             pre = torch.empty((n, co, h, wd), device="cuda") \
-                if lib.conv3x3_in_act_bf16_prenorm(h, wd) else None
+                if lib.conv3x3_in_act_bf16_prenorm(n, c, co, h, wd, d) else None
+            xt, wl, xchg = E.bf16_scratch(n, c, co, hp, wp, x.device)
             err = lib.conv3x3_in_act_bf16(
                 x.data_ptr(), w.data_ptr(), int(w.dtype == torch.float32), b.data_ptr(),
                 int(b.dtype == torch.bfloat16), r_ptr, out.data_ptr(),
-                None if pre is None else pre.data_ptr(), n, c, co, h, wd, d, 1e-5,
-                ACT_CODES[act], stream())
+                None if pre is None else pre.data_ptr(), xt.data_ptr(), wl.data_ptr(),
+                xchg.data_ptr(), n, c, co, h, wd, d, 1e-5, ACT_CODES[act], stream())
         else:
             err = lib.conv3x3_in_act_f32(
                 x.data_ptr(), w.data_ptr(), b.data_ptr(), r_ptr, out.data_ptr(),
@@ -540,12 +716,14 @@ def main(argv=None) -> int:
           f"({ref['in_act16 d1 off']:.2e}) (in_act d2 / d1) [{card}]", flush=True)
     for v in bf16:
         row = rows[v]
-        clusters = [libs[(v, "conv_in_act")].conv3x3_in_act_bf16_clusters(1, 256, 256, 64, 64, d)
-                    for d, _, _ in EPI_CASES]
+        blocks = [libs[(v, "conv_in_act")].conv3x3_in_act_bf16_blocks(1, 256, 256, 64, 64, d)
+                  for d, _, _ in EPI_CASES]
         print(f"{v:>24}: bf16 errors lowch {row['lowch16 err']:.3e} ({row['lowch16 off']:.2e}), "
               f"in_act d2 {row['in_act16 d2 err']:.3e} ({row['in_act16 d2 off']:.2e}), d1 "
-              f"{row['in_act16 d1 err']:.3e} ({row['in_act16 d1 off']:.2e}); in_act clusters "
-              f"resident at once (1,256,64^2) d2, d1: {clusters} [{card}]", flush=True)
+              f"{row['in_act16 d1 err']:.3e} ({row['in_act16 d1 off']:.2e}); in_act blocks a "
+              f"plane (1,256,64^2) d2, d1: {blocks} [{card}]", flush=True)
+    for v in [v for v in bf16 if v.startswith("probe:")]:
+        print_probe(v, libs[(v, "conv_in_act")], inputs, in_act, torch, card)
     if args.check:
         return 0 if all(rows[v]["edges"].startswith("all") for v in bf16) else 1
 

@@ -32,6 +32,7 @@ import torch
 
 from michigan_tpu_torch.ops import cuda as kernels
 from michigan_tpu_torch.ops import filters
+from michigan_tpu_torch.ops.cuda import build
 from michigan_tpu_torch.ops.cuda import epilogue as E
 from michigan_tpu_torch.ops.cuda import lowch as L
 from michigan_tpu_torch.ops.cuda import orient as O
@@ -135,13 +136,14 @@ EPILOGUE_CASES = [(1, 256, 256, 64, 64, 2, "relu", False), (1, 256, 256, 64, 64,
                   (2, 128, 128, 16, 16, 1, "lrelu", True), (1, 20, 70, 9, 7, 2, "relu", True),
                   (1, 3, 5, 5, 5, 1, None, False), (2, 20, 40, 13, 30, 2, "lrelu", False),
                   (1, 64, 72, 37, 53, 1, "relu", True), (3, 7, 64, 4, 32, 2, None, True)]
-# the bf16 form's own edges beside those: planes of more than one cluster's
-# 16 tiles of 4 x 64 (the pre-norm form; batch 2, and 3 with a 2-tile
-# remainder), dilation 4, one tile per plane at the edit's channel count
+# the bf16 form's own edges beside those: planes of more than 16 tiles of 4
+# x 64 (the pre-norm form; batch 2, and 3 with a 2-tile remainder),
+# dilation 4, one tile per plane at the edit's channel count, and more
+# planes than the card holds blocks for (one block walks each plane)
 EPILOGUE_BF16_CASES = EPILOGUE_CASES + [
     (2, 16, 24, 80, 80, 1, "relu", True), (3, 20, 36, 70, 130, 2, "lrelu", False),
     (1, 32, 32, 16, 16, 4, None, False), (2, 24, 40, 30, 66, 4, "relu", True),
-    (1, 256, 256, 4, 64, 1, None, True)]
+    (1, 256, 256, 4, 64, 1, None, True), (140, 8, 64, 8, 72, 1, "relu", True)]
 
 
 
@@ -317,17 +319,50 @@ def test_conv3x3_same_lowch_bf16_matches_plain(cuda_device, n, c, co, h, w, w_dt
 
 def test_bf16_convs_launch_one_device_kernel_per_call(cuda_device):
     """Every bf16 case above, one call each under torch.profiler in a
-    process of its own (tools/kernel_launches.py): one device kernel per
-    call, the bf16 form's own, and no other kernel (no pair pass, no norm
-    pass)."""
+    process of its own (tools/kernel_launches.py): conv3x3_same_lowch one
+    device kernel per call, conv3x3_in_act its layout pass and its
+    convolution, and no other kernel (no pair pass, no norm pass)."""
     from michigan_tpu_torch.tools import kernel_launches
 
     cases = [["in_act", list(c)] for c in EPILOGUE_BF16_CASES] + \
         [["lowch", list(c)] for c in LOWCH_BF16_CASES]
     launches = kernel_launches.run(cases)
     short = {k.split("::", 1)[-1].split("(")[0]: n for k, n in launches.items()}
-    assert short == {"conv3x3_in_act_bf16_kernel": len(EPILOGUE_BF16_CASES),
+    assert short == {"in_act_layout_kernel": len(EPILOGUE_BF16_CASES),
+                     "conv3x3_in_act_bf16_kernel": len(EPILOGUE_BF16_CASES),
                      "conv3x3_same_bf16_kernel": len(LOWCH_BF16_CASES)}, launches
+
+
+def test_conv3x3_same_lowch_bf16_takes_the_tensor_map_at_the_path_shape(cuda_device):
+    """features_2's (16, 64, 512^2) in bf16 qualifies for the tensor map by
+    shape, and a map the driver refused would raise, so a call that returns
+    and matches its plain version took the map; a W % 8 != 0 x and an x off
+    16 bytes go row by row."""
+    lib = build.load("conv_lowch")
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn((16, 64, 512, 512), generator=gen, device=cuda_device).relu_().bfloat16()
+    wt = (torch.randn((64, 64, 3, 3), generator=gen, device=cuda_device)
+          * math.sqrt(2 / 576)).bfloat16()
+    assert lib.conv3x3_same_bf16_uses_map(x.data_ptr(), 512) == 1
+    assert lib.conv3x3_same_bf16_uses_map(x.data_ptr(), 53) == 0
+    assert lib.conv3x3_same_bf16_uses_map(x.data_ptr() + 2, 512) == 0
+    got = L.conv3x3_same_lowch(x, wt)
+    torch.testing.assert_close(got, L.conv3x3_same_lowch_plain(x, wt), **TOLS[torch.bfloat16])
+
+
+@pytest.mark.parametrize("n,c,co,h,w", [(1, 3, 70, 10, 11), (2, 7, 64, 9, 64)])
+def test_conv3x3_same_lowch_bf16_on_an_x_off_16_bytes(cuda_device, n, c, co, h, w):
+    """x a view that starts 2 bytes past a 16-byte boundary and ends off
+    one: its first and last rows' widened copies would leave x's own bytes,
+    so they go by plain loads; the result is unchanged."""
+    gen = torch.Generator().manual_seed(12)
+    base = torch.randn((n * c * h * w + 1,), generator=gen).relu().to(cuda_device,
+                                                                       torch.bfloat16)
+    x = base[1:].view(n, c, h, w)
+    assert x.data_ptr() % 16 == 2
+    wt = (torch.randn((co, c, 3, 3), generator=gen) * math.sqrt(2 / (9 * c))).to(cuda_device)
+    got = L.conv3x3_same_lowch(x, wt)
+    torch.testing.assert_close(got, L.conv3x3_same_lowch_plain(x, wt), **TOLS[torch.bfloat16])
 
 
 def test_conv3x3_same_lowch_bf16_is_as_accurate_as_cudnn_bf16(cuda_device):
