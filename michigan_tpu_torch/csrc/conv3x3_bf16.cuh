@@ -111,6 +111,36 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// Host: a bf16 tensor map of `rank` dims (dims[0] innermost; strides in
+// bytes for dims 1..) with boxes of `box`, zero outside the tensor, through
+// the CUDA driver's cuTensorMapEncodeTiled (reached by the runtime, no
+// -lcuda); an error if the driver lacks it or refuses the map.
+inline cudaError_t encode_bf16_map(CUtensorMap* map, int rank, const void* base,
+                                   const cuuint64_t* dims, const cuuint64_t* strides,
+                                   const cuuint32_t* box) {
+  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                             const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                             const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess) return cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
 // generic-proxy writes to shared memory (st.shared, stmatrix) made visible
 // to the async proxy that wgmma reads its operands through
 __device__ __forceinline__ void fence_proxy_async() {

@@ -41,18 +41,19 @@
 // float32 or bf16), as the TPU kernel under the bf16 policy: the
 // convolution sums in float32 and the statistics, normalisation,
 // activation and residual add run on that float32 sum; the output is
-// rounded to bf16 once.  Two launches, the statistics kept on chip:
-// - a layout pass writes x_pad as 8-channel chunks of each pixel, (n,
-//   2 ceil(C/16), H+2d, W+2d, 8), and the weight, rounded to bf16, in the B-operand
-//   layout, per 32-channel block and 16-channel K stage (tap, chunk, co, 8)
-//   (2.4 + 1.2 MB at the edit's shape, once per call, not once per block);
+// rounded to bf16 once.  Two launches, no float32 plane at 64^2:
+// - a layout pass writes x_pad as 8-channel chunks of each pixel, (n, 2
+//   ceil(C/16), H+2d, W+2d, 8), and the weight, rounded to bf16, in the
+//   B-operand layout, per 32-channel block and 16-channel K stage (tap,
+//   chunk, co, 8) (2.4 + 1.2 MB at the edit's shape, once per call, not
+//   once per block);
 // - the convolution: wgmma m64n32k16 on a 4 x 64-pixel tile x 32 output
 //   channels by one consumer warpgroup, both operands from shared memory; a
-//   producer warp only issues bulk copies of the copy engine (per K stage
-//   one per (chunk, halo row) and one for the weights, straight into the
-//   operand layout), up to 3-6 stages ahead in a ring on full / empty
-//   mbarriers, so neither the copies' latency nor the hand-offs stand
-//   between the products.  (The one-launch form of the same tile, a
+//   producer thread only issues copies, per K stage one TMA box of the
+//   layout pass's x (the A operand, zero past the plane) and one bulk copy
+//   of its weights, straight into the operand layout, up to 3-6 stages
+//   ahead in a ring on full / empty mbarriers, so neither the copies'
+//   latency nor the hand-offs stand between the products.  (The one-launch form of the same tile, a
 //   producer warpgroup transposing NCHW rows and storing weights per stage
 //   through a 2-stage ring, took 100 us a call: its floor with no staging
 //   at all was 31-34 us of hand-offs; tools/tile_variants.py.)
@@ -278,7 +279,7 @@ namespace cb = conv_bf16;
 
 constexpr int kN16 = 32;        // output channels per block
 constexpr int kMaxBlocks = 16;  // blocks per (sample, co block) plane at most
-constexpr int kProd = 32;        // the producer warp: it only issues copies
+constexpr int kProd = 32;        // the producer warp: one thread issues the copies
 constexpr int kBlock16 = cb::kConsumers + kProd;
 constexpr int kWarps = cb::kConsumers / 32;
 constexpr int kRingMax = 6;         // operand stages in flight at most
@@ -395,7 +396,6 @@ in_act_layout_kernel(const uint16_t* __restrict__ x, const void* __restrict__ w,
 }
 
 struct Bf16Args {
-  const uint4* xt;             // the layout pass's x_pad (Geo16)
   const uint4* wl;             // the layout pass's weight (Geo16)
   const void* bias;            // (Co) float32, or bf16 (bias_bf16), or null
   const uint16_t* residual;    // (N, Co, H, W) bf16 or null
@@ -546,19 +546,34 @@ struct InActEpi {
       }
     }
     cb::consumer_sync();
-    // the parts into shared memory (over the staging, free until below),
-    // all the loads in flight at once, then the merges
-    float* s_part = reinterpret_cast<float*>(stg);
+    // thread (group g, channel m) merges the parts of ranks g, g + 4, ...
+    // (their loads all in flight at once), then the first kN16 threads
+    // merge the 4 groups in order: the same tree in every block
     __threadfence();
-    for (unsigned t = tid; t < gridDim.x * kN16 * 3; t += cb::kConsumers)
-      s_part[t] = __ldcg(part + t);
+    {
+      constexpr int kPer = kMaxBlocks / kWarps;
+      const int m = tid % kN16, grp = tid / kN16;
+      float q[kPer][3];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const unsigned r = grp + j * kWarps;
+        const float* at = part + (r * kN16 + m) * 3;
+#pragma unroll
+        for (int e = 0; e < 3; ++e) q[j][e] = r < gridDim.x ? __ldcg(at + e) : 0.f;
+      }
+      float cnt = 0.f, mean = 0.f, m2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) welford_merge(mean, m2, cnt, q[j][1], q[j][2], q[j][0]);
+      s_w[grp][m][0] = cnt;
+      s_w[grp][m][1] = mean;
+      s_w[grp][m][2] = m2;
+    }
     cb::consumer_sync();
     if (tid < kN16) {
       float cnt = 0.f, mean = 0.f, m2 = 0.f;
-      for (unsigned r = 0; r < gridDim.x; ++r) {
-        const float* q = s_part + (r * kN16 + tid) * 3;
-        welford_merge(mean, m2, cnt, q[1], q[2], q[0]);
-      }
+#pragma unroll
+      for (int k = 0; k < kWarps; ++k)
+        welford_merge(mean, m2, cnt, s_w[k][tid][1], s_w[k][tid][2], s_w[k][tid][0]);
       s_stat[tid] = make_float2(mean, rsqrtf(m2 / cnt + a.eps));
     }
     cb::consumer_sync();  // s_stat complete
@@ -631,16 +646,17 @@ struct InActEpi {
 };
 
 // The tiles blockIdx.x, blockIdx.x + gridDim.x, ... of plane (blockIdx.z,
-// co block blockIdx.y): a producer warp bulk-copies each K stage's operands
-// from xt and wl into a ring of g.ring stages (completion counted in bytes
-// on the stage's full mbarrier; it waits on the stage's empty one before
-// reusing it), one consumer warpgroup runs the stage's 36 wgmma m64n32k16
+// co block blockIdx.y): a producer thread copies each K stage's operands
+// from xt (map: a TMA box) and wl into a ring of g.ring stages (completion
+// counted in bytes on the stage's full mbarrier; it waits on the stage's
+// empty one before reusing it), one consumer warpgroup runs the stage's 36 wgmma m64n32k16
 // (4 output rows x 9 taps), both operands read through shared-memory
 // descriptors (a tap's shift moves A's start by whole 16-byte units), and
 // releases the stage once wgmma.wait_group has retired it; then the
 // epilogue.
 __global__ void __launch_bounds__(kBlock16, 2)
-conv3x3_in_act_bf16_kernel(const __grid_constant__ Bf16Args a) {
+conv3x3_in_act_bf16_kernel(const __grid_constant__ Bf16Args a,
+                           const __grid_constant__ CUtensorMap map) {
   extern __shared__ __align__(128) char dsmem[];
   __shared__ float s_w[kWarps][kN16][3];
   __shared__ float s_run[kN16][3];
@@ -666,10 +682,10 @@ conv3x3_in_act_bf16_kernel(const __grid_constant__ Bf16Args a) {
 
   if (tid >= cb::kConsumers) {
     // ------------------------------------------------------ producer ---
-    // lane < 2 rows: the A rows (chunk, halo row), clipped to the plane;
-    // lane 2 rows: the stage's weights
-    const int lane = tid & 31;
-    const int q = lane / g.rows, hr = lane - q * g.rows;
+    // one thread: per stage one TMA box of xt, the A operand [chunk][halo
+    // row][column][8] (zero past the plane), and one bulk copy of wl, B
+    if (tid != cb::kConsumers) return;
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map)) : "memory");
     int k = 0, li = 0;
     cb::Item it = cb::item_at(g, blockIdx.z, first);
 #pragma unroll 1
@@ -677,26 +693,10 @@ conv3x3_in_act_bf16_kernel(const __grid_constant__ Bf16Args a) {
       const int slot = s % g.ring;
       if (s >= g.ring) cb::mbar_wait(&empty_bar[slot], (s / g.ring - 1) & 1);
       char* base = dsmem + slot * g.stage;
-      const void* src = nullptr;
-      char* dst = nullptr;
-      unsigned bytes = 0;
-      if (q < 2) {
-        const int cols = g.pw - it.x0 < g.cols ? g.pw - it.x0 : g.cols;
-        if (it.y0 + hr < g.ph) {
-          src = a.xt + (((int64_t)it.n * 2 * g.nk + 2 * k + q) * g.ph + it.y0 + hr) * g.pw +
-                it.x0;
-          dst = base + q * g.a_chunk + hr * g.cols * 16;
-          bytes = cols * 16;
-        }
-      } else if (lane == 2 * g.rows) {
-        src = a.wl + ((int64_t)blockIdx.y * g.nk + k) * (kBStage / 16);
-        dst = base + g.a_stage;
-        bytes = kBStage;
-      }
-      const unsigned total = __reduce_add_sync(0xffffffffu, bytes);
-      if (lane == 0) cb::mbar_arrive_tx(&full_bar[slot], total);
-      __syncwarp();
-      if (bytes) cb::bulk_copy(dst, src, bytes, &full_bar[slot]);
+      cb::mbar_arrive_tx(&full_bar[slot], g.a_stage + kBStage);
+      cb::tma_load_4d(base, &map, 0, it.x0, it.y0, it.n * 2 * g.nk + 2 * k, &full_bar[slot]);
+      cb::bulk_copy(base + g.a_stage, a.wl + ((int64_t)blockIdx.y * g.nk + k) * (kBStage / 16),
+                    kBStage, &full_bar[slot]);
       if (++k == g.nk) {
         k = 0;
         if (++li < n_items) it = cb::item_at(g, blockIdx.z, first + li * stride);
@@ -754,7 +754,7 @@ struct Bf16Launch {
 inline cudaError_t bf16_launch(Bf16Launch& l, int64_t n, int64_t c, int64_t co, int64_t h,
                                int64_t w, int64_t d) {
   l.g = make_geo16((int)c, (int)h, (int)w, (int)d);
-  if (l.g.ring < 2 || l.g.rows * 2 >= 32) return cudaErrorInvalidValue;
+  if (l.g.ring < 2) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(conv3x3_in_act_bf16_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, l.g.smem);
   if (err != cudaSuccess) return err;
@@ -880,7 +880,6 @@ int conv3x3_in_act_bf16(const void* x, const void* wt, int w_f32, const void* bi
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   Bf16Args a;
-  a.xt = static_cast<const uint4*>(xt);
   a.wl = static_cast<const uint4*>(wl);
   a.bias = bias;
   a.residual = static_cast<const uint16_t*>(residual);
@@ -895,7 +894,14 @@ int conv3x3_in_act_bf16(const void* x, const void* wt, int w_f32, const void* bi
           reinterpret_cast<uintptr_t>(residual) % 16 == 0;
   a.eps = eps;
   a.g = l.g;
-  conv3x3_in_act_bf16_kernel<<<l.grid, kBlock16, l.g.smem, s>>>(a);
+  // xt as (8, pw, ph, n 2 nk) with boxes of a stage's A operand
+  CUtensorMap map;
+  const cuuint64_t dims[4] = {8, (cuuint64_t)l.g.pw, (cuuint64_t)l.g.ph,
+                              (cuuint64_t)(n * 2 * l.g.nk)};
+  const cuuint64_t strides[3] = {16, (cuuint64_t)l.g.pw * 16, (cuuint64_t)hw * 16};
+  const cuuint32_t box[4] = {8, (cuuint32_t)l.g.cols, (cuuint32_t)l.g.rows, 2};
+  if ((err = cb::encode_bf16_map(&map, 4, xt, dims, strides, box)) != cudaSuccess) return (int)err;
+  conv3x3_in_act_bf16_kernel<<<l.grid, kBlock16, l.g.smem, s>>>(a, map);
   return (int)cudaGetLastError();
 }
 

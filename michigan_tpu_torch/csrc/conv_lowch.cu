@@ -194,35 +194,14 @@ bool uses_map(const void* x, int64_t w) {
 }
 
 // x as a tensor map of boxes (cols, rows, 16, 1) over (w, h, c, n), zero
-// outside the tensor; an error if the driver's encoder is missing or
-// refuses the map
+// outside the tensor
 cudaError_t encode_map(CUtensorMap* map, const void* x, int64_t n, int64_t c, int64_t h,
                        int64_t w, const cb::Geo& g) {
-  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                             const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                             const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess) return cudaErrorSymbolNotFound;
-    encode = reinterpret_cast<Encode>(fn);
-  }
   const cuuint64_t dims[4] = {(cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)c, (cuuint64_t)n};
   const cuuint64_t strides[3] = {(cuuint64_t)w * 2, (cuuint64_t)(h * w * 2),
                                  (cuuint64_t)(c * h * w * 2)};
   const cuuint32_t box[4] = {(cuuint32_t)g.cols, (cuuint32_t)g.rows, cb::kStageCh, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-             ? cudaSuccess
-             : cudaErrorInvalidValue;
+  return cb::encode_bf16_map(map, 4, x, dims, strides, box);
 }
 
 }  // namespace

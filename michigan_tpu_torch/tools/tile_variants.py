@@ -32,8 +32,9 @@ after them; last the device time of each kernel of the package's own build
 per call (torch.profiler).  The bf16 variants: lowch's wgmma against an
 mma.sync form of the same staging, ring depths, a tile per block against the
 persistent grid, streamed against resident weights; in_act's ring depth and
-blocks per plane; a time-stamp probe of in_act's phases; the "diag:" variants each remove one part of the work (their
-results are wrong) to show where the time goes.
+blocks per plane; a time-stamp probe of in_act's phases; the "diag:"
+variants each remove one part of the work (their results are wrong) to
+show where the time goes.
 Prints the card's name and power limit first.  Needs a CUDA card and nvcc;
 exits 1 without them.
 """
@@ -121,9 +122,11 @@ IN_ACT_NO_PRODUCTS = ("conv_in_act.cu",
                       "if (da == db) acc[i][0] += 1.f;")
 # conv_in_act's bf16 copies not issued, their stage barriers expecting no bytes
 IN_ACT_NO_COPIES = [
-    ("conv_in_act.cu", "      if (lane == 0) cb::mbar_arrive_tx(&full_bar[slot], total);",
-     "      if (lane == 0) cb::mbar_arrive_tx(&full_bar[slot], 0 * total);"),
-    ("conv_in_act.cu", "      if (bytes) cb::bulk_copy(dst, src, bytes, &full_bar[slot]);\n", "")]
+    ("conv_in_act.cu",
+     "      cb::mbar_arrive_tx(&full_bar[slot], g.a_stage + kBStage);\n      cb::tma_load_4d(",
+     "      cb::mbar_arrive_tx(&full_bar[slot], 0);\n      if (k < 0) cb::tma_load_4d("),
+    ("conv_in_act.cu", "      cb::bulk_copy(base + g.a_stage,",
+     "      if (k < 0) cb::bulk_copy(base + g.a_stage,")]
 
 # conv_in_act's bf16 form with time stamps: thread 0 of every block writes
 # %globaltimer at its start (0), after its products (1), before the
@@ -145,19 +148,20 @@ IN_ACT_PROBE = [
      "}\n"),
     ("conv_in_act.cu", "  if (tid < kN16) epi.load_bias(s_bias);\n  __syncthreads();\n",
      "  if (tid < kN16) epi.load_bias(s_bias);\n  __syncthreads();\n  probe(0);\n"),
-    ("conv_in_act.cu", "    cb::mbar_arrive(&empty_bar[(s - 1) % g.ring]);  // the item's last stage\n",
-     "    cb::mbar_arrive(&empty_bar[(s - 1) % g.ring]);  // the item's last stage\n    probe(1);\n"),
+    ("conv_in_act.cu", "  // the item's last stage\n",
+     "  // the item's last stage\n    probe(1);\n"),
     ("conv_in_act.cu", "    const int plane = blockIdx.z * gridDim.y + blockIdx.y;\n",
      "    probe(2);\n    const int plane = blockIdx.z * gridDim.y + blockIdx.y;\n"),
-    ("conv_in_act.cu", "    cb::consumer_sync();\n    // the parts into shared memory",
-     "    cb::consumer_sync();\n    probe(3);\n    // the parts into shared memory"),
+    ("conv_in_act.cu", "    cb::consumer_sync();\n    // thread (group g, channel m) merges",
+     "    cb::consumer_sync();\n    probe(3);\n    // thread (group g, channel m) merges"),
     ("conv_in_act.cu", "    cb::consumer_sync();  // s_stat complete\n",
      "    cb::consumer_sync();  // s_stat complete\n    probe(4);\n"),
     ("conv_in_act.cu", "    // the block's earlier tiles, from the pre-norm plane\n",
      "    probe(5);\n    // the block's earlier tiles, from the pre-norm plane\n"),
     ("conv_in_act.cu", "}  // extern \"C\"\n",
      "int in_act_probe(void* dst) {\n"
-     "  return (int)cudaMemcpyFromSymbol(dst, g_probe, sizeof(g_probe));\n}\n\n}  // extern \"C\"\n")]
+     "  return (int)cudaMemcpyFromSymbol(dst, g_probe, sizeof(g_probe));\n}\n\n"
+     "}  // extern \"C\"\n")]
 
 # name: its edits, each a (file, text, replacement)
 VARIANTS = {
@@ -208,7 +212,8 @@ VARIANTS = {
     "lowch mma.sync": [
         ("conv3x3_bf16.cuh",
          "// ----------------------------------------------------------- geometry ---\n",
-         MMA_SYNC_HELPERS + "// ----------------------------------------------------------- geometry ---\n"),
+         MMA_SYNC_HELPERS
+         + "// ----------------------------------------------------------- geometry ---\n"),
         ("conv3x3_bf16.cuh", WGMMA_STAGE, MMA_SYNC_STAGE)],
     "lowch ring 2": [(
         "conv_lowch.cu", "constexpr int kLook = 3;", "constexpr int kLook = 2;")],
@@ -238,7 +243,8 @@ VARIANTS = {
     "in_act ring 3": [(
         "conv_in_act.cu", "constexpr int kRingMax = 6;", "constexpr int kRingMax = 3;")],
     "in_act one block an SM": [(
-        "conv_in_act.cu", "constexpr int kRingBytes = 110592;", "constexpr int kRingBytes = 180000;")],
+        "conv_in_act.cu", "constexpr int kRingBytes = 110592;",
+        "constexpr int kRingBytes = 180000;")],
     "in_act 8 blocks a plane": [(
         "conv_in_act.cu", "constexpr int kMaxBlocks = 16;", "constexpr int kMaxBlocks = 8;")],
     "probe: in_act time stamps": IN_ACT_PROBE,
@@ -293,7 +299,8 @@ VARIANTS = {
         ("conv_in_act.cu",
          "    const int u = 2 * (blockIdx.x * kLayoutThreads + tid);\n    if (u >= hw) return;",
          "    return;"),
-        ("conv_in_act.cu", "  if (blockIdx.x != 0) return;\n  const int cob", "  return;\n  const int cob")],
+        ("conv_in_act.cu", "  if (blockIdx.x != 0) return;\n  const int cob",
+         "  return;\n  const int cob")],
     "diag: in_act no products": [IN_ACT_NO_PRODUCTS],
     "diag: in_act no copies": IN_ACT_NO_COPIES,
     # ... its convolution kernel returning at once (the launch), without its
