@@ -288,7 +288,8 @@ EPI_BF16_EDGES = [(1, 7, 64, 9, 13, 2, "relu", True), (2, 20, 40, 13, 30, 1, "lr
 # in_act its layout pass and its convolution
 BF16_KERNELS = {
     "conv3x3_in_act": {"in_act_layout_kernel": 1.0, "conv3x3_in_act_bf16_kernel": 1.0},
-    "conv3x3_same_lowch": {"conv3x3_same_bf16_kernel": 1.0}}
+    "conv3x3_same_lowch": {"conv3x3_same_bf16_kernel": 1.0},
+    "filterbank_orientation": {"filterbank_bf16_kernel": 1.0}}
 NEW_KERNEL_REL = 1e-4  # of the reference's largest magnitude
 F64_RATIO = 2.0  # a conv kernel's error against float64 at most 2x F.conv2d's in fp32
 SEED = 0
@@ -467,6 +468,47 @@ def kernel_inputs(torch, kind, c, h, dtype, gen, n=1):
         gamma_beta = torch.randn((n, 2 * c, h, h), generator=gen).to("cuda", dtype)
         return (x, mean, inv, *gamma_beta.chunk(2, dim=1))
     return (x,)
+
+
+def in16_path(torch, F, K, shapes, n, gen, ph, per, tag):
+    """fused_instance_norm in bf16 over one path's calls, {(C, H=W, act):
+    calls} at batch n: device times of the kernel and its plain version
+    summed over the calls, its bound's bytes (2 B in and out per element),
+    and F.instance_norm beside the kernel on the act=None calls; prints each
+    shape with the blocks a plane its form takes."""
+    out = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "lib_ms": 0.0, "lib_kernel_ms": 0.0,
+           "lib_calls": 0}
+    for (c, h, act), calls in shapes.items():
+        x = kernel_inputs(torch, "fused_instance_norm", c, h, torch.bfloat16, gen, n=n)[0]
+        tk = median_ms(lambda: K.fused_instance_norm(x, act=act), torch, True)
+        tp = median_ms(lambda: K.fused_instance_norm_plain(x, act=act), torch, True)
+        out["ms"] += calls * tk
+        out["plain_ms"] += calls * tp
+        out["bytes"] += calls * 4 * x.numel()
+        lib = ""
+        if act is None:  # F.instance_norm computes the same function only without act
+            tl = median_ms(lambda: F.instance_norm(x, eps=1e-5), torch, True)
+            out["lib_ms"] += calls * tl
+            out["lib_kernel_ms"] += calls * tk
+            out["lib_calls"] += calls
+            lib = f", F.instance_norm {tl * 1e3:.1f} us"
+        print(f"[phase {ph}] fused_instance_norm bfloat16 ({n},{c},{h},{h}) act={act} x{calls}/"
+              f"{per}, {K.instance_norm_bf16_split(x)} blocks a plane: device kernel "
+              f"{tk * 1e3:.1f} us (bound {4 * x.numel() / HBM_BYTES_S * 1e6:.1f} us), plain "
+              f"{tp * 1e3:.1f} us{lib} {tag}", flush=True)
+    return out
+
+
+def in16_rows(step, edit, step_counts):
+    """The fused_instance_norm_bf16 row's keys for the bf16 training step
+    (batch 8) and the bf16 edit beside the flagship's."""
+    return {"step_launches": step_counts["fused_instance_norm"]["bfloat16"],
+            "step_ms": step["ms"], "step_plain_ms": step["plain_ms"],
+            "step_bound_ms": step["bytes"] / HBM_BYTES_S * 1e3,
+            "step_library_ms": step["lib_ms"],
+            "step_library_covers": (f"the step's {step['lib_calls']} act=None calls, where the "
+                                    f"kernel takes {step['lib_kernel_ms']} ms"),
+            "edit_ms": edit["ms"], "edit_bound_ms": edit["bytes"] / HBM_BYTES_S * 1e3}
 
 
 def epilogue_inputs(torch, case, gen, dtype=None):
@@ -904,6 +946,50 @@ def run():
               f"plain + {FB_F64_IDX:g}) {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             failed.append(("filterbank_orientation float64", mode))
+    # the two bf16 forms of the training step at its shapes: the bank's
+    # bf16-operand forward at (8, 1, 512^2) and fused_instance_norm in bf16 at
+    # the frozen inpainter's shapes at batch 8 (with gamma and beta at one),
+    # each form (blocks a plane) chosen by the shape
+    grays8 = train_grays(torch)
+    for mode in ("gabor", "dog"):
+        bank = filters.bank(mode, grays8.device)
+        ok, err, frac = fb16_compare(torch, O.filterbank_orientation(grays8, bank, True),
+                                     O.filterbank_orientation_plain(grays8, bank, True), grays8,
+                                     bank)
+        max_err_bf16["filterbank_orientation"] = max(
+            max_err_bf16.get("filterbank_orientation", 0.0), err)
+        print(f"[phase 3] filterbank_orientation bf16 operands {mode} (8,1,512,512): conf "
+              f"max_abs_err {err:.3e}, argmax differs on {frac:.2e} of pixels (limit "
+              f"{FB16_IDX_FRAC:g}, near-ties only) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(("filterbank_orientation bf16 operands", mode))
+    from michigan_tpu_torch.tools.filterbank_variants import sass_mma
+
+    ops = sass_mma(libs["filterbank"], "filterbank_bf16_kernel")
+    ok = any(k.startswith(("HMMA.16816.F32.BF16", "HGMMA")) for k in ops) and \
+        not any("TF32" in k for k in ops)
+    print(f"[phase 3] filterbank_orientation bf16 operands: tensor-core instructions of its "
+          f"kernel (cuobjdump -sass) {ops}: bf16 products, no TF32 {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        failed.append("filterbank_orientation bf16 operands: not on bf16 tensor-core products")
+    del grays8
+    for c, h, act in IN_SHAPES:
+        x, g, b = (kernel_inputs(torch, "fused_instance_norm", c, h, torch.bfloat16, gen,
+                                 n=TRAIN_BATCH)[0] for _ in range(3))
+        for gb in ((None, None), (g, b)) if act == "lrelu" else ((None, None),):
+            got = K.fused_instance_norm(x, *gb, act=act)
+            want = K.fused_instance_norm_plain(x, *gb, act=act)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ok = torch.allclose(got.float(), want.float(), **TOLS["bfloat16"])
+            max_err_bf16["fused_instance_norm"] = max(max_err_bf16["fused_instance_norm"], err)
+            print(f"[phase 3] fused_instance_norm bfloat16 ({TRAIN_BATCH},{c},{h},{h}) act={act}"
+                  f"{' with gamma/beta' if gb[0] is not None else ''}, "
+                  f"{K.instance_norm_bf16_split(x)} blocks a plane: max_abs_err {err:.3e} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failed.append(("fused_instance_norm bfloat16", TRAIN_BATCH, c, h, act))
     if failed:
         return fail(f"kernel disagrees with its plain version: {failed}")
     # not live when phase 6 reads peak memory
@@ -1658,6 +1744,11 @@ def run():
             return fail("conv3x3_in_act in bf16 is less accurate than cuDNN's bf16 route, or "
                         "runs other device kernels than its layout pass and its convolution")
     del xp, w, bias, r, want
+    in16_edit = in16_path(torch, F, K, STROKE_IN_SHAPES, 1, gen, 14, "edit", tag)
+    phase(14, f"fused_instance_norm bfloat16 per stroke edit ({sum(STROKE_IN_SHAPES.values())} "
+              f"calls): device kernel {in16_edit['ms']:.3f} ms (bound "
+              f"{in16_edit['bytes'] / HBM_BYTES_S * 1e3:.3f} ms), plain "
+              f"{in16_edit['plain_ms']:.3f} ms {tag}")
     for kind, path in BF16_ROWS.items():
         per = "stroke edit" if path == "edit" else "flagship forward"
         phase(14, f"{kind} bfloat16 per {per}: device kernel {bf16_ms[kind]:.3f} ms, plain "
@@ -1778,19 +1869,42 @@ def run():
     del x, w, fk, fl, turns
     k = "filterbank_orientation"
     bank = filters.bank("gabor", grays.device)  # the loss's bank
-    step16_ms[k] = median_ms(lambda: O.filterbank_orientation(grays, bank, True), torch, True,
-                             inner=5)
+    # in turns with the bank's route under XLA's bf16 policy, done by cuDNN:
+    # gray cast to bf16, the bf16 conv with the bank, the clamp, max and argmax
+    b16 = bank.bfloat16().permute(3, 2, 0, 1).contiguous()
+    fk = lambda: O.filterbank_orientation(grays, bank, True)
+    fr = lambda: F.conv2d(grays.bfloat16(), b16, padding=8).clamp_min(0).max(dim=1)
+    turns = {fk: [], fr: []}
+    for f in (fr, fk, fk, fr):
+        turns[f].append(median_ms(f, torch, True, inner=5))
+    step16_ms[k], bank_route16_ms = statistics.mean(turns[fk]), statistics.mean(turns[fr])
     step16_plain_ms[k] = median_ms(lambda: O.filterbank_orientation_plain(grays, bank, True),
                                    torch, True, inner=5)
     # 4-byte gray in, idx and conf out; 289 x 32 products per pixel of bf16
-    # operands, at the bf16 rate (the kernel runs one TF32 mma for each)
+    # operands, at the bf16 rate
     step16_work[k] = [12 * grays.numel() + bank.numel() * 4, 2 * grays.numel() * 32 * 289]
     b_bound = bound(*step16_work[k], BF16_FLOP_S)
     print(f"[phase 15] {k} bf16 operands (8,1,512,512) x1/step: device kernel "
-          f"{step16_ms[k] * 1e3:.1f} us (the 3xTF32 form {step_ms[k] * 1e3:.1f} us in phase 10; "
-          f"bound {b_bound[0] * 1e3:.1f} us by {b_bound[1]}), plain version "
-          f"{step16_plain_ms[k] * 1e3:.1f} us {tag}", flush=True)
-    del grays, bank
+          f"{', '.join(f'{t * 1e3:.1f}' for t in turns[fk])} us (the 3xTF32 form "
+          f"{step_ms[k] * 1e3:.1f} us in phase 10; bound {b_bound[0] * 1e3:.1f} us by "
+          f"{b_bound[1]}), cuDNN's bf16 route (cast, bf16 conv, clamp, max) "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in turns[fr])} us (in turns: route, kernel, "
+          f"kernel, route), plain version {step16_plain_ms[k] * 1e3:.1f} us {tag}", flush=True)
+    per_call = kernels_per_call([["bank16", [8, 512, 512]]])
+    print(f"[phase 15] {k} bf16 operands (8,1,512,512): device kernels per call {per_call}",
+          flush=True)
+    if per_call != BF16_KERNELS["filterbank_orientation"]:
+        return fail("the bank's bf16-operand form runs other than one device kernel per call")
+    del grays, bank, b16, fk, fr, turns
+    # fused_instance_norm in bf16 at the step's batch 8 (the frozen inpainter)
+    in16_step = in16_path(torch, F, K, IN_SHAPES, TRAIN_BATCH, gen, 15, "step", tag)
+    phase(15, f"fused_instance_norm bfloat16 per training step ({sum(IN_SHAPES.values())} calls "
+              f"at batch {TRAIN_BATCH}): device kernel {in16_step['ms']:.3f} ms (bound "
+              f"{in16_step['bytes'] / HBM_BYTES_S * 1e3:.3f} ms; fp32 "
+              f"{step_ms['fused_instance_norm']:.3f} ms in phase 10), plain "
+              f"{in16_step['plain_ms']:.3f} ms; on the {in16_step['lib_calls']} act=None calls "
+              f"{in16_step['lib_kernel_ms']:.3f} ms, F.instance_norm {in16_step['lib_ms']:.3f} ms "
+              f"{tag}")
     torch.cuda.empty_cache()
 
     # the step at batch 8, 512^2, full width
@@ -1963,6 +2077,8 @@ def run():
             **({"library_covers": (
                 f"the flagship's {bf16_in_lib['calls']} act=None calls, where the kernel takes "
                 f"{bf16_in_lib['kernel']} ms")} if k == "fused_instance_norm" else {}),
+            **(in16_rows(in16_step, in16_edit, step16_counts) if k == "fused_instance_norm"
+               else {}),
             **({"replaced_route_ms": epi_route16_ms} if k == "conv3x3_in_act" else {})})
     # the bf16 training step's two forms: launches from phase 15's counted step
     for k, replaces in STEP_BF16_ROWS.items():
@@ -1973,7 +2089,8 @@ def run():
             "launches": step16_counts[k]["bfloat16"], "max_abs_err": max_err_bf16[k],
             "ms": step16_ms[k], "plain_ms": step16_plain_ms[k], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib16_lowch if lowch else None,
-            **({} if lowch else {"operands": "bf16, sums float32"})})
+            **({} if lowch else {"operands": "bf16, sums float32",
+                                 "replaced_route_ms": bank_route16_ms})})
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

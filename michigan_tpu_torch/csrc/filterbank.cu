@@ -43,18 +43,47 @@
 //   quad; an all-zero pixel gets 0) are a quad-shuffle reduction.  Nothing
 //   of the (N, 32, H, W) response reaches device memory.
 //
-// The bf16-operand form (filterbank_orientation_bf16ops) is the JAX
-//   package's forward under --dtype bfloat16 without --orient_bank_fp32
-//   (michigan_tpu/ops/filters.py:207-225, fwd_bf16): gray and bank rounded
-//   to bf16, the products summed in float32, each response rounded to bf16
-//   (the dtype of XLA's bf16 conv) before the clamp and the argmax, so that
-//   responses equal in bf16 tie to the first index there too.  It is the
-//   same kernel with one template flag: the staged halo and the bank are
-//   rounded to bf16 (to nearest even) before the split, so every small half
-//   is zero and one TF32 mma (big x big) per step replaces three.  A bf16
-//   value is exact in TF32 and the product of two is exact in float32, so
-//   the one product is exact.  Its bound: 9,248 FMAs per pixel at the 495
-//   TFLOP/s of TF32, a third of the 3xTF32 form's.
+// filterbank_orientation_bf16ops is the JAX package's forward under --dtype
+//   bfloat16 without --orient_bank_fp32 (michigan_tpu/ops/filters.py:
+//   207-225, fwd_bf16): gray and bank rounded to bf16 (to nearest even), the
+//   products summed in float32, each response rounded to bf16 (the dtype of
+//   XLA's bf16 conv) before the clamp and the argmax, so that responses
+//   equal in bf16 tie to the first index there too.  A kernel of its own
+//   (filterbank_bf16_kernel below).
+//
+// What bounds it: the bf16 products, 9,248 FMAs per pixel at the 989
+// TFLOP/s of dense bf16 (0.039 ms at 8 x 512^2), against 12 B of HBM per
+// pixel (0.008 ms).  What the design does about it:
+// - the products are bf16 x bf16 -> f32 on the tensor cores, mma.sync
+//   m16n8k16 (wgmma m64n32k16 with A from registers is the tool's
+//   variant: tools/filterbank_variants.py).  M = pixels, N = the 32
+//   orientations, K = taps in 20 steps of 16: steps 0-16 are filter row s,
+//   taps 0-15 in order; steps 17-19 are tap column 16 as (16, 17) pairs of
+//   rows 8 (s - 17) + j, tap 17 and rows past 16 with zero bank entries.
+//   K = 320 for 289 taps;
+// - the halo is staged once per tile as bf16 pair words: word c of a halo
+//   row holds (bf16 g[c], bf16 g[c + 1]), so the two taps of an A register
+//   are one aligned 32-bit load whatever the pixel's column.  In a row step
+//   a thread's A registers of m16 tile i are the words at columns 16 i,
+//   16 i + 8 (twice: pixel + 8 at a tap equals pixel at tap + 8) and
+//   16 i + 16, so the 4 m16 tiles of a warp take 9 loads a step, not 16.
+//   The row stride (88 words, 24 mod 32) keeps the column steps' loads, a
+//   row per lane of a quad, conflict-free;
+// - a block of 8 warps takes a 64 x 8-pixel tile (a row of 64 pixels per
+//   warp, 64 float32 sums a thread): 81 x 24 halo values per 512 pixels
+//   (3.8 a pixel; the 3xTF32 form's 32 x 8 tile reads 4.5).  The float32
+//   halo of the next tile arrives by cp.async while the block multiplies;
+//   the pair words are made from it in one pass per tile;
+// - persistent blocks (two an SM) convert the bank to bf16 once, into the
+//   canonical K-major layout of a wgmma B operand ([step][k half][n][8 k],
+//   20 KB), which mma.sync reads one conflict-free word per lane;
+// - one float32 chain over all of K: the tensor cores add with truncation,
+//   ~2^-23 of the running sum per add, far below the bf16 ulp the response
+//   is rounded to (the 4-step chains of the 3xTF32 form are a variant in
+//   the tool);
+// - the clamp, the max and the first-index argmax are the 3xTF32 form's
+//   quad-shuffle reduction; nothing of the (N, 32, H, W) response reaches
+//   device memory.
 //
 // filterbank_orientation_backward is the gradient of conf with respect to
 //   gray, which the training step's ORIENT / CONFIDENCE loss needs (the
@@ -147,8 +176,6 @@ __device__ __forceinline__ Tile tile_at(int64_t t, int tiles_x, int per_plane, i
   return {b * h * w, ty * tile_h, (rem - ty * tiles_x) * tile_w};
 }
 
-// kBf16Ops: the bf16-operand form (above).
-template <bool kBf16Ops>
 __global__ void __launch_bounds__(kThreads, 2)
 filterbank_kernel(const float* __restrict__ gray, const float* __restrict__ bank,
                   int32_t* __restrict__ idx, float* __restrict__ conf, int n, int h, int w) {
@@ -187,7 +214,7 @@ filterbank_kernel(const float* __restrict__ gray, const float* __restrict__ bank
     const int tap = tap_of(s, (l & 3) + 4 * (el & 1));
     const int o = 8 * (2 * (q & 1) + (el >> 1)) + (l >> 2);
     const float b = tap < 0 ? 0.f : bank[tap * kNum + o];
-    const uint2 p = split_tf32(kBf16Ops ? round_bf16(b) : b);
+    const uint2 p = split_tf32(b);
     s_b[e] = q < 2 ? p.x : p.y;
   }
   for (int i = tid; i < 2 * (kInH - kStageH) * kRS; i += kThreads) {
@@ -205,9 +232,6 @@ filterbank_kernel(const float* __restrict__ gray, const float* __restrict__ bank
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if (kBf16Ops) {  // the same thread splits element i below: no barrier
-      for (int i = tid; i < kPlane; i += kThreads) cur[i] = round_bf16(cur[i]);
-    }
     // split the staged halo once: big in place, small into the second plane
     for (int i = tid; i < kPlane; i += kThreads) {
       const uint2 p = split_tf32(cur[i]);
@@ -247,37 +271,24 @@ filterbank_kernel(const float* __restrict__ gray, const float* __restrict__ bank
       const unsigned b_small[4][2] = {{q2.x, q2.y}, {q2.z, q2.w}, {q3.x, q3.y}, {q3.z, q3.w}};
       // the three passes in turn over the 8 tiles, so that no mma waits on
       // the one before it
-      if constexpr (kBf16Ops) {  // the small halves are zero: big x big only
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (s % kChain == 0) {
-              mma_tf32_first(part[i][j], a_big[i], b_big[j]);
-            } else {
-              mma_tf32(part[i][j], a_big[i], b_big[j]);
-            }
+        for (int j = 0; j < 4; ++j) {
+          if (s % kChain == 0) {
+            mma_tf32_first(part[i][j], a_small[i], b_big[j]);
+          } else {
+            mma_tf32(part[i][j], a_small[i], b_big[j]);
           }
-      } else {
+        }
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (s % kChain == 0) {
-              mma_tf32_first(part[i][j], a_small[i], b_big[j]);
-            } else {
-              mma_tf32(part[i][j], a_small[i], b_big[j]);
-            }
-          }
+        for (int j = 0; j < 4; ++j) mma_tf32(part[i][j], a_big[i], b_small[j]);
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) mma_tf32(part[i][j], a_big[i], b_small[j]);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_tf32(part[i][j], a_big[i], b_big[j]);
-      }
+        for (int j = 0; j < 4; ++j) mma_tf32(part[i][j], a_big[i], b_big[j]);
       if (s % kChain == kChain - 1 || s == kSteps - 1) {
 #pragma unroll
         for (int i = 0; i < 2; ++i)
@@ -288,14 +299,6 @@ filterbank_kernel(const float* __restrict__ gray, const float* __restrict__ bank
       }
     }
 
-    if (kBf16Ops) {  // the responses in bf16, as XLA's bf16 conv returns them
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[i][j][r] = round_bf16(acc[i][j][r]);
-    }
     // acc[i][j][2 hf + c]: pixel 16 i + 8 hf + gid of the warp's row,
     // orientation 8 j + 2 tig + c.  Per pixel the first index of the largest
     // clamped response, in this thread's 8 orientations, then across the quad
@@ -338,6 +341,218 @@ filterbank_kernel(const float* __restrict__ gray, const float* __restrict__ bank
   }
   cp_async_wait<0>();
 }
+
+// ---- forward on bf16 operands ----
+namespace bf16ops {
+
+constexpr int kWarps = 8;                     // one output row each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTileW = 64;                    // pixels per warp row
+constexpr int kMT = kTileW / 16;              // m16 tiles per warp
+constexpr int kTileH = kWarps;
+constexpr int kRowSteps = kK;                 // steps 0-16: filter row s, taps 0-15
+constexpr int kSteps = kRowSteps + 3;         // 17-19: tap column 16; K = 320
+constexpr int kInW = kTileW + kK;             // 81 halo columns: x0 - 8 .. x0 + 72
+constexpr int kWords = kTileW + 2 * kR;       // 80 pair words a halo row
+constexpr int kStageH = kTileH + 2 * kR;      // 24 halo rows
+constexpr int kPairH = kStageH + 7;           // and 7 zero rows for the pad pairs
+constexpr int kPS = 88;                       // pair-word row stride, 24 mod 32
+constexpr int kFS = 84;                       // float staging row stride
+constexpr int kStepBytes = 2 * kNum * 16;     // a step's bank: [k half][n][8 k] bf16
+constexpr int kBankBytes = kSteps * kStepBytes;
+constexpr size_t kSmem = kBankBytes + sizeof(unsigned) * kPairH * kPS +
+                         sizeof(float) * kStageH * kFS;
+
+// The bank entry at K index k of step s (row steps: tap (s, k); column
+// steps: pair j = (k % 8) / 2 + 4 (k / 8) of tap column 16 at row
+// 8 (s - 17) + j, its second tap zero), or -1 for a zero entry.
+__device__ __forceinline__ int tap16_of(int s, int k) {
+  if (s < kRowSteps) return s * kK + k;
+  const int dy = 8 * (s - kRowSteps) + (k & 7) / 2 + 4 * (k >> 3);
+  return (k & 1) == 0 && dy < kK ? dy * kK + kK - 1 : -1;
+}
+
+__device__ __forceinline__ void mma_bf16(float& d0, float& d1, float& d2, float& d3,
+                                         const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The products of one K step: the warp's kMT m16 tiles x the 32
+// orientations (4 n8 tiles), m16n8k16 bf16 -> f32.  acc[i][4 j + r] is the
+// accumulator r of n8 tile j; b the step's bank slice.
+__device__ __forceinline__ void step_products(float (&acc)[kMT][16], const unsigned (&a)[kMT][4],
+                                              const char* b, int lane) {
+  // lane (gid, tig) reads k = 2 tig, 2 tig + 1 (+ 8 for b1) of orientation
+  // 8 j + gid: one word per lane of a 128-byte block
+  const unsigned* bw = reinterpret_cast<const unsigned*>(b) + lane;
+  unsigned b0[4], b1[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    b0[j] = bw[32 * j];
+    b1[j] = bw[kStepBytes / 8 + 32 * j];
+  }
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      mma_bf16(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3], a[i],
+               b0[j], b1[j]);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+filterbank_bf16_kernel(const float* __restrict__ gray, const float* __restrict__ bank,
+                       int32_t* __restrict__ idx, float* __restrict__ conf, int n, int h,
+                       int w) {
+  extern __shared__ __align__(128) char smem16[];
+  char* s_b = smem16;                                                   // kSteps x kStepBytes
+  unsigned* s_pair = reinterpret_cast<unsigned*>(smem16 + kBankBytes);  // [kPairH][kPS]
+  float* s_stage = reinterpret_cast<float*>(s_pair + kPairH * kPS);     // [kStageH][kFS]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gid = lane >> 2;  // mma groupID
+  const int tig = lane & 3;   // mma threadID_in_group
+  const int tiles_x = (w + kTileW - 1) / kTileW;
+  const int per_plane = tiles_x * ((h + kTileH - 1) / kTileH);
+  const int64_t ntiles = (int64_t)n * per_plane;
+
+  auto stage = [&](int64_t t) {  // the float32 halo of tile t, zero outside the image
+    const Tile tl = tile_at(t, tiles_x, per_plane, h, w, kTileW, kTileH);
+    for (int i = tid; i < kStageH * kInW; i += kThreads) {
+      const int r = i / kInW, c = i - r * kInW;
+      const int y = tl.y0 - kR + r, x = tl.x0 - kR + c;
+      const bool ok = y >= 0 && y < h && x >= 0 && x < w;
+      cp_async4(s_stage + r * kFS + c, ok ? gray + tl.plane + (int64_t)y * w + x : gray, ok);
+    }
+  };
+
+  int64_t t = blockIdx.x;
+  if (t < ntiles) stage(t);
+  cp_async_commit();
+
+  // the bank in bf16, [step][k half][n][8 k]: the canonical K-major layout
+  // of a wgmma B operand without swizzle
+  __nv_bfloat16* s_bh = reinterpret_cast<__nv_bfloat16*>(s_b);
+  for (int e = tid; e < kBankBytes / 2; e += kThreads) {
+    const int s = e / (kStepBytes / 2), r = e % (kStepBytes / 2);
+    const int k = 8 * (r / (8 * kNum)) + (r & 7), o = (r / 8) % kNum;
+    const int tap = tap16_of(s, k);
+    s_bh[e] = __float2bfloat16_rn(tap < 0 ? 0.f : bank[tap * kNum + o]);
+  }
+  for (int i = tid; i < (kPairH - kStageH) * kPS; i += kThreads) s_pair[kStageH * kPS + i] = 0u;
+
+  // a thread's A words: row steps at a_row + s kPS + 16 i + {0, 8, 16};
+  // column steps at a_col + (8 (s - 17) + {0, 4}) kPS + 16 i + {0, 8}
+  const unsigned* a_row = s_pair + warp * kPS + gid + 2 * tig;
+  const unsigned* a_col = s_pair + (warp + tig) * kPS + gid + kK - 1;
+
+  for (; t < ntiles; t += gridDim.x) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t's halo has arrived; every warp is done with the pair words
+    // the pair words: (bf16 g[c], bf16 g[c + 1]), the lower column in the low half
+    for (int i = tid; i < kStageH * kWords; i += kThreads) {
+      const int r = i / kWords, c = i - r * kWords;
+      const __nv_bfloat162 p =
+          __floats2bfloat162_rn(s_stage[r * kFS + c], s_stage[r * kFS + c + 1]);
+      s_pair[r * kPS + c] = *reinterpret_cast<const unsigned*>(&p);
+    }
+    __syncthreads();
+    if (t + gridDim.x < ntiles) stage(t + gridDim.x);
+    cp_async_commit();
+
+    float acc[kMT][16];
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int r = 0; r < 16; ++r) acc[i][r] = 0.f;
+
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      // A of m16 tile i: rows (pixels) gid, gid + 8; K pairs 2 tig, 2 tig + 8
+      unsigned a[kMT][4];
+      if (s < kRowSteps) {  // pixel + 8 at tap k equals pixel at tap k + 8
+        unsigned wd[2 * kMT + 1];
+#pragma unroll
+        for (int u = 0; u <= 2 * kMT; ++u) wd[u] = a_row[s * kPS + 8 * u];
+#pragma unroll
+        for (int i = 0; i < kMT; ++i) {
+          a[i][0] = wd[2 * i];
+          a[i][1] = a[i][2] = wd[2 * i + 1];
+          a[i][3] = wd[2 * i + 2];
+        }
+      } else {
+        const unsigned* p = a_col + 8 * (s - kRowSteps) * kPS;
+#pragma unroll
+        for (int i = 0; i < kMT; ++i) {
+          a[i][0] = p[16 * i];
+          a[i][1] = p[16 * i + 8];
+          a[i][2] = p[4 * kPS + 16 * i];
+          a[i][3] = p[4 * kPS + 16 * i + 8];
+        }
+      }
+      step_products(acc, a, s_b + s * kStepBytes, lane);
+    }
+
+    // acc[i][4 j + 2 hf + c]: pixel 16 i + 8 hf + gid of the warp's row,
+    // orientation 8 j + 2 tig + c.  Each response rounded to bf16, as XLA's
+    // bf16 conv returns it, then per pixel the first index of the largest
+    // clamped response, in this thread's 8 orientations, then across the quad
+    float best[2 * kMT];
+    int best_k[2 * kMT];
+#pragma unroll
+    for (int m = 0; m < 2 * kMT; ++m) {
+      const int i = m >> 1, hf = m & 1;
+      best[m] = fmaxf(round_bf16(acc[i][2 * hf]), 0.f);
+      best_k[m] = 2 * tig;
+#pragma unroll
+      for (int o = 1; o < 8; ++o) {
+        const float v = fmaxf(round_bf16(acc[i][4 * (o >> 1) + 2 * hf + (o & 1)]), 0.f);
+        if (v > best[m]) {
+          best[m] = v;
+          best_k[m] = 8 * (o >> 1) + 2 * tig + (o & 1);
+        }
+      }
+#pragma unroll
+      for (int d = 1; d < 4; d <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, best[m], d);
+        const int ok = __shfl_xor_sync(0xffffffffu, best_k[m], d);
+        if (ov > best[m] || (ov == best[m] && ok < best_k[m])) {
+          best[m] = ov;
+          best_k[m] = ok;
+        }
+      }
+    }
+    // lane (gid, tig) stores slots m = 4 q + tig: pixels 32 q + 8 tig + gid
+    const Tile tl = tile_at(t, tiles_x, per_plane, h, w, kTileW, kTileH);
+    const int y = tl.y0 + warp;
+#pragma unroll
+    for (int q = 0; q < kMT / 2; ++q) {
+      float v = best[4 * q];
+      int k = best_k[4 * q];
+#pragma unroll
+      for (int u = 1; u < 4; ++u) {
+        if (tig == u) {
+          v = best[4 * q + u];
+          k = best_k[4 * q + u];
+        }
+      }
+      const int x = tl.x0 + 32 * q + 8 * tig + gid;
+      if (y < h && x < w) {
+        const int64_t o = tl.plane + (int64_t)y * w + x;
+        idx[o] = k;
+        conf[o] = v;
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+}  // namespace bf16ops
 
 // ---- backward ----
 constexpr int kBRows = 16;                          // pixels (rows) per thread
@@ -442,37 +657,24 @@ filterbank_backward_kernel(const float* __restrict__ dconf, const int32_t* __res
   }
 }
 
-// The forward's persistent grid: as many blocks as fit on the card at once,
-// at most `tiles`.  0 blocks and an error code where the card refuses.
-template <bool kBf16Ops>
-cudaError_t persistent_grid(int64_t tiles, int* blocks) {
+// A persistent grid for `kernel`: as many blocks as fit on the card at
+// once, at most `tiles`.  0 blocks and an error code where the card refuses.
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem, int64_t tiles,
+                            int* blocks) {
   *blocks = 0;
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaFuncSetAttribute(filterbank_kernel<kBf16Ops>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, filterbank_kernel<kBf16Ops>,
-                                                      kThreads, kSmem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int64_t most = (int64_t)per_sm * sms;
   *blocks = (int)(tiles < most ? tiles : most);
   return cudaSuccess;
-}
-
-template <bool kBf16Ops>
-int launch_forward(const void* gray, const void* bank, void* idx, void* conf, int64_t n,
-                   int64_t h, int64_t w, void* stream) {
-  const int64_t tiles = n * ((w + kTileW - 1) / kTileW) * ((h + kTileH - 1) / kTileH);
-  int blocks;
-  cudaError_t e = persistent_grid<kBf16Ops>(tiles, &blocks);
-  if (e != cudaSuccess) return (int)e;
-  filterbank_kernel<kBf16Ops><<<blocks, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(gray), static_cast<const float*>(bank),
-      static_cast<int32_t*>(idx), static_cast<float*>(conf), (int)n, (int)h, (int)w);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -483,14 +685,32 @@ extern "C" {
 // aligned; idx (n, h, w) int32 and conf (n, h, w) f32 out.
 int filterbank_orientation_f32(const void* gray, const void* bank, void* idx, void* conf,
                                int64_t n, int64_t h, int64_t w, void* stream) {
-  return launch_forward<false>(gray, bank, idx, conf, n, h, w, stream);
+  const int64_t tiles = n * ((w + kTileW - 1) / kTileW) * ((h + kTileH - 1) / kTileH);
+  int blocks;
+  const cudaError_t e = persistent_grid(filterbank_kernel, kThreads, kSmem, tiles, &blocks);
+  if (e != cudaSuccess) return (int)e;
+  filterbank_kernel<<<blocks, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(gray), static_cast<const float*>(bank),
+      static_cast<int32_t*>(idx), static_cast<float*>(conf), (int)n, (int)h, (int)w);
+  return (int)cudaGetLastError();
 }
 
 // The bf16-operand form, on the same float32 arguments: gray and bank are
 // rounded to bf16 in the kernel, conf holds bf16 values.
 int filterbank_orientation_bf16ops(const void* gray, const void* bank, void* idx, void* conf,
                                    int64_t n, int64_t h, int64_t w, void* stream) {
-  return launch_forward<true>(gray, bank, idx, conf, n, h, w, stream);
+  namespace b16 = bf16ops;
+  const int64_t tiles =
+      n * ((w + b16::kTileW - 1) / b16::kTileW) * ((h + b16::kTileH - 1) / b16::kTileH);
+  int blocks;
+  const cudaError_t e =
+      persistent_grid(b16::filterbank_bf16_kernel, b16::kThreads, b16::kSmem, tiles, &blocks);
+  if (e != cudaSuccess) return (int)e;
+  b16::filterbank_bf16_kernel<<<blocks, b16::kThreads, b16::kSmem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(gray), static_cast<const float*>(bank),
+      static_cast<int32_t*>(idx), static_cast<float*>(conf), (int)n, (int)h, (int)w);
+  return (int)cudaGetLastError();
 }
 
 // dconf (n, h, w) f32, idx (n, h, w) int32 and conf (n, h, w) f32 as the

@@ -33,9 +33,30 @@
 //   the 50 MB L2, and normalises.  The Pallas kernel's split into a resident
 //   and a streaming form exists only for VMEM residency and has no
 //   counterpart here.
-// - Known limit, left for a later change: with fewer planes than the 132 SMs
-//   (e.g. the inpainter's 64 planes of 256x256 at batch 1) the grid underfills
-//   the card; splitting a plane over several blocks needs a cross-block merge.
+// - the float32 form (instance_norm_kernel<float>) keeps that design and its
+//   limit: with fewer planes than the 132 SMs (the inpainter's 64 planes of
+//   256x256 at batch 1) its grid underfills the card.
+//
+// instance_norm in bf16 (instance_norm_bf16_kernel) reads x once: a plane
+// stays on chip between its statistics and its normalisation, so the kernel
+// moves the bound's bytes (2 B in and 2 B out per element, 4 more with
+// gamma and beta).  The form is picked by shape alone (bf16_split):
+// - a block of 256 threads holds up to 8,192 elements in registers, four
+//   16-byte vectors (or 32 scalars where H*W % 8 != 0 or a pointer is off 16
+//   bytes) a thread, all loads in flight at once;
+// - a plane larger than a block, or a plane of a call with fewer planes
+//   than the card has SMs, is split across a thread-block cluster of 2, 4 or
+//   8 blocks (the portable size; 16-block clusters fit on only 7 of this
+//   card's GPCs), each holding a slice: (1, 64, 256^2) at batch 1 runs 8
+//   blocks a plane on 512 blocks, (1, 128, 128^2) 2.  The blocks merge
+//   their (mean, M2, count) by Chan's rule through distributed shared
+//   memory: one cluster barrier, 2-8 remote 16-byte loads a block;
+// - a thread's own statistics are two passes over its registers (mean,
+//   then squared deviations), merged across the block and the cluster by
+//   welford.cuh's Chan merge, so the variance never comes from E[x^2] -
+//   mean^2;
+// - planes above 8 x 8,192 elements take the two-pass form above
+//   (instance_norm_kernel<__nv_bfloat16>), correct at any H*W.
 //
 // Every launcher returns cudaGetLastError() so the caller can raise on a
 // refused launch.  Nothing here allocates or synchronises.
@@ -250,6 +271,214 @@ int launch_instance_norm(const void* x, const void* gamma, const void* beta, voi
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// instance_norm in bf16: one read
+// ---------------------------------------------------------------------------
+
+constexpr int kResThreads = 256;
+constexpr int kResVecs = 4;                                 // 16-byte vectors a thread
+constexpr int kResElems = kResThreads * kResVecs * 8;       // 8,192 elements a block
+constexpr int kResWarps = kResThreads / 32;
+constexpr int kMaxCluster = 8;                              // the portable cluster size
+
+// Blocks per plane of the one-read form: as few as hold the plane, then
+// more, while the call has fewer blocks than the card has SMs and each
+// block keeps at least one vector a thread; 0 for the two-pass form.
+inline int bf16_split(int64_t planes, int64_t hw, int sms) {
+  int cs = 1;
+  while (cs <= kMaxCluster && (hw + cs - 1) / cs > kResElems) cs *= 2;
+  if (cs > kMaxCluster) return 0;
+  while (cs < kMaxCluster && planes * cs < sms && hw / (2 * cs) >= kResThreads * 8) cs *= 2;
+  return cs;
+}
+
+// element j of the eight bf16 in v, as float32
+__device__ __forceinline__ float bf16_at(const uint4& v, int j) {
+  const unsigned w = j < 2 ? v.x : j < 4 ? v.y : j < 6 ? v.z : v.w;
+  return __uint_as_float(j & 1 ? w & 0xffff0000u : w << 16);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the float4 at p in the shared memory of the cluster's block `rank`
+__device__ __forceinline__ float4 ld_cluster(const float4* p, int rank) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// One block per slice of `chunk` elements (a multiple of 8) of a plane; the
+// cs blocks of a plane form a cluster.  kVec: 16-byte vectors, thread t's
+// vector v at element 8 (v kResThreads + t) of the slice; else scalars, its
+// element j of vector v at (8 v + j) kResThreads + t.  At most 4 blocks an
+// SM's worth of registers (64 a thread), so that the 512 blocks of the
+// inpainter's (1, 64, 256^2) are resident at once.
+template <bool kVec>
+__global__ void __launch_bounds__(kResThreads, 4)
+instance_norm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                          const __nv_bfloat16* __restrict__ gamma,
+                          const __nv_bfloat16* __restrict__ beta, __nv_bfloat16* __restrict__ out,
+                          int64_t hw, int cs, int chunk, float eps, int act) {
+  __shared__ float4 s_part[kResWarps];
+  __shared__ __align__(16) float4 s_block;
+  __shared__ float2 s_stats;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t plane = blockIdx.x / cs;
+  const int rank = (int)(blockIdx.x - plane * cs);
+  // offsets within the plane (at most kMaxCluster * kResElems elements)
+  const int lo = rank * chunk;
+  const int hi = lo + chunk < hw ? lo + chunk : (int)hw;
+  const int64_t base = plane * hw;
+  auto at = [&](int v, int j) -> int {
+    return kVec ? lo + 8 * (v * kResThreads + tid) + j : lo + (8 * v + j) * kResThreads + tid;
+  };
+  auto load = [&](const __nv_bfloat16* p, int v) -> uint4 {
+    const unsigned short* q = reinterpret_cast<const unsigned short*>(p + base);
+    if (kVec) return at(v, 0) < hi ? *reinterpret_cast<const uint4*>(q + at(v, 0)) : uint4{};
+    unsigned e[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) e[j] = at(v, j) < hi ? q[at(v, j)] : 0u;
+    return make_uint4(e[0] | e[1] << 16, e[2] | e[3] << 16, e[4] | e[5] << 16, e[6] | e[7] << 16);
+  };
+
+  uint4 xv[kResVecs];
+#pragma unroll
+  for (int v = 0; v < kResVecs; ++v) xv[v] = load(x, v);
+
+  // this thread's (mean, M2, count): two passes over its registers
+  float sum = 0.f, cnt = 0.f;
+#pragma unroll
+  for (int v = 0; v < kResVecs; ++v)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (at(v, j) < hi) {
+        sum += bf16_at(xv[v], j);
+        cnt += 1.f;
+      }
+  float mean = cnt > 0.f ? sum / cnt : 0.f, m2 = 0.f;
+#pragma unroll
+  for (int v = 0; v < kResVecs; ++v)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (at(v, j) < hi) {
+        const float d = bf16_at(xv[v], j) - mean;
+        m2 += d * d;
+      }
+
+  // the block's, by Chan's rule (warps, then the warps' states)
+  warp_merge(mean, m2, cnt);
+  if (lane == 0) s_part[warp] = make_float4(mean, m2, cnt, 0.f);
+  __syncthreads();
+  if (warp == 0) {
+    const float4 p = lane < kResWarps ? s_part[lane] : make_float4(0.f, 0.f, 0.f, 0.f);
+    mean = p.x, m2 = p.y, cnt = p.z;
+    warp_merge(mean, m2, cnt);
+    if (lane == 0) s_block = make_float4(mean, m2, cnt, 0.f);
+  }
+  if (cs > 1) {  // the plane's, from every block of the cluster, in rank order
+    cluster_arrive();
+    cluster_wait();
+    if (warp == 0) {
+      const float4 p = lane < cs ? ld_cluster(&s_block, lane) : make_float4(0.f, 0.f, 0.f, 0.f);
+      mean = p.x, m2 = p.y, cnt = p.z;
+      warp_merge(mean, m2, cnt);
+      if (lane == 0) s_stats = make_float2(mean, rsqrtf(m2 / cnt + eps));
+    }
+    cluster_arrive();  // done reading the others' s_block; waited for before exit
+  } else if (tid == 0) {
+    s_stats = make_float2(mean, rsqrtf(m2 / cnt + eps));
+  }
+  __syncthreads();
+  const float mu = s_stats.x, rstd = s_stats.y;
+
+  unsigned short* o = reinterpret_cast<unsigned short*>(out + base);
+#pragma unroll
+  for (int v = 0; v < kResVecs; ++v) {
+    float y[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) y[j] = (bf16_at(xv[v], j) - mu) * rstd;
+    if (gamma) {
+      const uint4 g = load(gamma, v), b = load(beta, v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) y[j] = y[j] * (1.f + bf16_at(g, j)) + bf16_at(b, j);
+    }
+    unsigned e[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      e[j] = __bfloat16_as_ushort(__float2bfloat16_rn(apply_act(y[j], act)));
+    if (kVec) {
+      if (at(v, 0) < hi)
+        *reinterpret_cast<uint4*>(o + at(v, 0)) = make_uint4(
+            e[0] | e[1] << 16, e[2] | e[3] << 16, e[4] | e[5] << 16, e[6] | e[7] << 16);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (at(v, j) < hi) o[at(v, j)] = (unsigned short)e[j];
+    }
+  }
+  if (cs > 1) cluster_wait();  // no block leaves while another may read its s_block
+}
+
+int device_sms(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)e;
+}
+
+int launch_instance_norm_bf16(const void* x, const void* gamma, const void* beta, void* out,
+                              int64_t planes, int64_t hw, float eps, int act, void* stream) {
+  int sms = 0;
+  const int err = device_sms(&sms);
+  if (err != 0) return err;
+  const int cs = bf16_split(planes, hw, sms);
+  if (cs == 0) return launch_instance_norm<__nv_bfloat16>(x, gamma, beta, out, planes, hw, eps,
+                                                          act, stream);
+  const int chunk = (int)(((hw + cs - 1) / cs + 7) / 8 * 8);
+  // 16-byte vectors need H*W % 8 == 0 and every pointer on 16 bytes
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out) |
+                         (gamma ? reinterpret_cast<uintptr_t>(gamma) |
+                                      reinterpret_cast<uintptr_t>(beta)
+                                : 0);
+  const bool vec = hw % 8 == 0 && bits % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(planes * cs));
+  cfg.blockDim = dim3(kResThreads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cs > 1 ? 1 : 0;
+  const __nv_bfloat16 *xp = static_cast<const __nv_bfloat16*>(x),
+                      *gp = static_cast<const __nv_bfloat16*>(gamma),
+                      *bp = static_cast<const __nv_bfloat16*>(beta);
+  __nv_bfloat16* op = static_cast<__nv_bfloat16*>(out);
+  const cudaError_t e =
+      vec ? cudaLaunchKernelEx(&cfg, instance_norm_bf16_kernel<true>, xp, gp, bp, op, hw, cs, chunk,
+                               eps, act)
+          : cudaLaunchKernelEx(&cfg, instance_norm_bf16_kernel<false>, xp, gp, bp, op, hw, cs,
+                               chunk, eps, act);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -275,8 +504,14 @@ int instance_norm_f32(const void* x, const void* gamma, const void* beta, void* 
 
 int instance_norm_bf16(const void* x, const void* gamma, const void* beta, void* out,
                        int64_t planes, int64_t hw, float eps, int act, void* stream) {
-  return launch_instance_norm<__nv_bfloat16>(x, gamma, beta, out, planes, hw, eps, act,
-                                             stream);
+  return launch_instance_norm_bf16(x, gamma, beta, out, planes, hw, eps, act, stream);
+}
+
+// Blocks per plane that instance_norm_bf16 gives (planes, hw) on the current
+// card: 1-8 for the one-read form, 0 for the two-pass form; -1 on an error.
+int instance_norm_bf16_split(int64_t planes, int64_t hw) {
+  int sms = 0;
+  return device_sms(&sms) == 0 ? bf16_split(planes, hw, sms) : -1;
 }
 
 }  // extern "C"

@@ -108,6 +108,7 @@ SIGNATURES = {
                               ctypes.c_int, _P),
         "instance_norm_bf16": (_P, _P, _P, _P, _I64, _I64, ctypes.c_float,
                                ctypes.c_int, _P),
+        "instance_norm_bf16_split": (_I64, _I64),
     },
     "filterbank": {
         "filterbank_orientation_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _P),

@@ -30,12 +30,12 @@ OrientationResponse
     differentiates through it.
 
 The forward kernel is a dense product (9,248 FMAs per pixel) on the tensor
-cores, float32-accurate through the 3xTF32 split (with bf16 operands one
-TF32 product per step, which is exact for them); the backward a gather (289
-FMAs per pixel) bound by shared-memory reads, which skips the output blocks
-that no gradient reaches; the design notes are in the CUDA source.  A
-wrapper runs the plain PyTorch version for CPU tensors
-only.  For a CUDA tensor it checks dtype, shape, contiguity and device,
+cores, float32-accurate through the 3xTF32 split; with bf16 operands a
+kernel of its own on bf16 tensor-core products, one float32 chain over K.
+The backward is a gather (289 FMAs per pixel) bound by shared-memory reads,
+which skips the output blocks that no gradient reaches; the design notes
+are in the CUDA source.  A wrapper runs the plain PyTorch version for CPU
+tensors only.  For a CUDA tensor it checks dtype, shape, contiguity and device,
 launches the kernel on the current stream and counts the launch; anything the
 kernel does not take raises.  There is no fallback on CUDA tensors.
 """

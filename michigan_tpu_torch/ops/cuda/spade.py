@@ -13,8 +13,10 @@ fused_instance_norm(x, gamma=None, beta=None, eps=1e-5, act=None)
     Every norm of the orientation inpainter.
 
 Both kernels are memory-bound (16 B per f32 element for the modulation, 12-20
-B for the instance norm, against 3.35 TB/s); the design notes are in the CUDA
-source.
+B for the instance norm in float32, against 3.35 TB/s); in bf16 the instance
+norm reads x once, a plane held on chip by one block or split across a
+thread-block cluster of up to 8 (``instance_norm_bf16_split``); the design
+notes are in the CUDA source.
 
 Tensors are NCHW.  A wrapper runs the plain PyTorch version for CPU tensors
 only.  For a CUDA tensor it checks dtype, shape and contiguity, launches the
@@ -162,3 +164,17 @@ def fused_instance_norm(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
 
 fused_instance_norm.launches = 0
 fused_instance_norm.launches_by_dtype = {}
+
+
+def instance_norm_bf16_split(x: torch.Tensor) -> int:
+    """Blocks per (n, c) plane that ``fused_instance_norm`` runs on the bf16
+    CUDA tensor `x` (chosen by its shape and the card's SM count alone): 1
+    for a plane held by one block, 2-8 for a plane split across a
+    thread-block cluster, 0 for the two-pass form of planes too large for a
+    cluster."""
+    n, c, h, w = x.shape
+    with torch.cuda.device(x.device):
+        split = build.load("spade_norm").instance_norm_bf16_split(n * c, h * w)
+    if split < 0:
+        raise RuntimeError("instance_norm_bf16_split: the card's SM count could not be read")
+    return split

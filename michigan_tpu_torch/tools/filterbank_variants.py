@@ -3,7 +3,8 @@
     python -m michigan_tpu_torch.tools.filterbank_variants
 
 The design choices of ``csrc/filterbank.cu`` are each one textual change
-away from the built source: VARIANTS lists them as (file, text, replacement)
+away from the built source (the 3xTF32 forward, its backward and the
+forward on bf16 operands, whose variants are named "bf16 ..."): VARIANTS lists them as (file, text, replacement)
 edits, as ``tile_variants.py`` does for the 3x3 tile.  Every variant is
 compiled with the port's nvcc flags (and ``-Xptxas -v``) into
 ``michigan_tpu_torch/_build/fb_variants/v<i>/``, all nvcc processes started
@@ -13,14 +14,24 @@ together, loaded with ctypes and run at the training step's shapes:
   on one (the stroke edit's and the orientation tool's batch);
 - filterbank_orientation_backward at (8, 512^2) on a dense random dconf and
   on the same dconf times the hair masks of ``synthetic_train_data`` (what
-  the training loss passes back: it multiplies by the hair).
+  the training loss passes back: it multiplies by the hair);
+- the forward on bf16 operands at the bf16 training step's (8, 1, 512^2)
+  and at (1, 1, 512^2): mma.sync m16n8k16 as built against wgmma m64n32k16
+  with A from registers, tile shapes, and 4-step chains.
 
 For each variant: the forward's largest conf error and its argmax mismatch
 against a float64 bank convolution at (2, 1, 512^2), Gabor and DoG, beside
 the plain version's in float32 (cuDNN, TF32 off); the backward's largest
 error against its plain version over the gradient's largest magnitude; and
 device times (calls replayed in a CUDA graph, median of 5), the variants
-timed in turns (forward, then backward through the list).  Prints the card's
+timed in turns (forward, then backward through the list).  For the bf16
+forms: conf against the plain version (within one bf16 ulp, the argmax off
+on at most 1% of the pixels, and only at bf16 near-ties) and against
+float64 sums of the bf16 operands, beside the plain version's error; the
+tensor-core instructions of the kernel's SASS (``cuobjdump -sass``:
+HMMA.16816 bf16 for mma.sync, HGMMA for wgmma, HMMA.1684 for TF32); and
+device times beside cuDNN's bf16 route (the bf16 conv of the gray plane
+with the bank, then the clamp, max and argmax).  Prints the card's
 name and power limit first.  Needs a CUDA card and nvcc; exits 1 without
 them.
 """
@@ -29,9 +40,12 @@ from __future__ import annotations
 
 import ctypes
 import math
+import re
 import subprocess
 import sys
 import types
+from collections import Counter
+from pathlib import Path
 
 from michigan_tpu_torch.tools.tile_variants import median_ms, patched_sources, ptxas_report
 
@@ -110,33 +124,159 @@ VARIANTS = {
 for steps in ("1", "2", "8", "kSteps"):
     VARIANTS[f"chain {steps}"] = [(SRC, "constexpr int kChain = 4;",
                                    f"constexpr int kChain = {steps};")]
+# the bf16-operand forward's products as wgmma m64n32k16 with A from
+# registers: the warpgroup's 4 warps each give the 16 pixels of their m16
+# tile i, the bank comes by descriptor from the same canonical layout
+BF16_PRODUCTS = (
+    "  // lane (gid, tig) reads k = 2 tig, 2 tig + 1 (+ 8 for b1) of orientation\n"
+    "  // 8 j + gid: one word per lane of a 128-byte block\n"
+    "  const unsigned* bw = reinterpret_cast<const unsigned*>(b) + lane;\n"
+    "  unsigned b0[4], b1[4];\n"
+    "#pragma unroll\n"
+    "  for (int j = 0; j < 4; ++j) {\n"
+    "    b0[j] = bw[32 * j];\n"
+    "    b1[j] = bw[kStepBytes / 8 + 32 * j];\n"
+    "  }\n"
+    "#pragma unroll\n"
+    "  for (int i = 0; i < kMT; ++i)\n"
+    "#pragma unroll\n"
+    "    for (int j = 0; j < 4; ++j)\n"
+    "      mma_bf16(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3], a[i],\n"
+    "               b0[j], b1[j]);\n")
+WGMMA_RS = (
+    "__device__ __forceinline__ void wgmma_rs(float (&d)[16], const unsigned (&a)[4], "
+    "uint64_t db) {\n"
+    "  asm volatile(\n"
+    "      \"{\\n.reg .pred p;\\nsetp.ne.b32 p, %21, 0;\\n\"\n"
+    "      \"wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 \"\n"
+    "      \"{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, {%16,%17,%18,%19}, %20, \"\n"
+    "      \"p, 1, 1, 0;\\n}\\n\"\n"
+    "      : \"+f\"(d[0]), \"+f\"(d[1]), \"+f\"(d[2]), \"+f\"(d[3]), \"+f\"(d[4]), \"+f\"(d[5]), "
+    "\"+f\"(d[6]), \"+f\"(d[7]), \"+f\"(d[8]), \"+f\"(d[9]), \"+f\"(d[10]), \"+f\"(d[11]), "
+    "\"+f\"(d[12]), \"+f\"(d[13]), \"+f\"(d[14]), \"+f\"(d[15])\n"
+    "      : \"r\"(a[0]), \"r\"(a[1]), \"r\"(a[2]), \"r\"(a[3]), \"l\"(db), \"r\"(1));\n"
+    "}\n\n")
+STEP_DECL = "__device__ __forceinline__ void step_products("
+BF16_CALL = "      step_products(acc, a, s_b + s * kStepBytes, lane);\n"
+
+
+def wgmma_edits(pending: int) -> list:
+    """The bf16 forward's products by wgmma, waiting after each K step until
+    `pending` steps' products are still in flight (1: A of the next step
+    loads while this one multiplies)."""
+    edits = [
+        (SRC, '#include "tf32x3.cuh"\n', '#include "tf32x3.cuh"\n#include "conv3x3_bf16.cuh"\n'),
+        (SRC, STEP_DECL, WGMMA_RS + STEP_DECL),
+        (SRC, BF16_PRODUCTS,
+         "  (void)lane;\n"
+         "  const uint64_t db = conv_bf16::make_desc(conv_bf16::smem_u32(b), kStepBytes / 2, 128);\n"
+         "  conv_bf16::wgmma_fence();\n"
+         "#pragma unroll\n"
+         "  for (int i = 0; i < kMT; ++i) wgmma_rs(acc[i], a[i], db);\n"
+         "  conv_bf16::wgmma_commit();\n"
+         f"  conv_bf16::wgmma_wait<{pending}>();\n")]
+    if pending:
+        edits.append((SRC, BF16_CALL, BF16_CALL + "      if (s == kSteps - 1) {\n"
+                      "        conv_bf16::wgmma_wait<0>();\n"
+                      "#pragma unroll\n"
+                      "        for (int i = 0; i < kMT; ++i) conv_bf16::reg_fence<16>(acc[i]);\n"
+                      "      }\n"))
+    else:
+        edits.append((SRC, BF16_CALL, BF16_CALL + "#pragma unroll\n"
+                      "      for (int i = 0; i < kMT; ++i) conv_bf16::reg_fence<16>(acc[i]);\n"))
+    return edits
+
+
+BF16_LB = "__launch_bounds__(kThreads, 2)\nfilterbank_bf16_kernel("
+VARIANTS.update({
+    "bf16 wgmma": wgmma_edits(0),
+    "bf16 wgmma async": wgmma_edits(1),
+    # 4-step chains flushed into rounded float32 sums, as the 3xTF32 form
+    "bf16 chain 4": [
+        (SRC, "    float acc[kMT][16];\n", "    float acc[kMT][16], part[kMT][16];\n"),
+        (SRC, BF16_CALL,
+         "      if (s % 4 == 0) {\n"
+         "#pragma unroll\n"
+         "        for (int i = 0; i < kMT; ++i)\n"
+         "#pragma unroll\n"
+         "          for (int r = 0; r < 16; ++r) part[i][r] = 0.f;\n"
+         "      }\n"
+         "      step_products(part, a, s_b + s * kStepBytes, lane);\n"
+         "      if (s % 4 == 3 || s == kSteps - 1) {\n"
+         "#pragma unroll\n"
+         "        for (int i = 0; i < kMT; ++i)\n"
+         "#pragma unroll\n"
+         "          for (int r = 0; r < 16; ++r) acc[i][r] += part[i][r];\n"
+         "      }\n")],
+    # a warp row of 32 pixels (2 m16 tiles), or of 128 (8, one block an SM)
+    "bf16 tile 32x8": [
+        (SRC, "constexpr int kTileW = 64;                    // pixels per warp row",
+         "constexpr int kTileW = 32;"),
+        (SRC, "constexpr int kPS = 88;", "constexpr int kPS = 56;"),
+        (SRC, "constexpr int kFS = 84;", "constexpr int kFS = 52;")],
+    "bf16 tile 128x8": [
+        (SRC, "constexpr int kTileW = 64;                    // pixels per warp row",
+         "constexpr int kTileW = 128;"),
+        (SRC, "constexpr int kPS = 88;", "constexpr int kPS = 152;"),
+        (SRC, "constexpr int kFS = 84;", "constexpr int kFS = 148;"),
+        (SRC, BF16_LB, BF16_LB.replace("2)", "1)"))],
+    # 16 warps (a 64 x 16 tile, one block an SM)
+    "bf16 tile 64x16": [
+        (SRC, "constexpr int kWarps = 8;", "constexpr int kWarps = 16;"),
+        (SRC, BF16_LB, BF16_LB.replace("2)", "1)"))],
+    "bf16 one block per SM": [(SRC, BF16_LB, BF16_LB.replace("2)", "1)"))],
+})
+FWD16_VARIANTS = ("as built", "bf16 wgmma", "bf16 wgmma async", "bf16 chain 4",
+                  "bf16 tile 32x8", "bf16 tile 128x8", "bf16 tile 64x16",
+                  "bf16 one block per SM")
 FWD_VARIANTS = ("as built", "split in registers", "paired A loads", "chain 1", "chain 2",
                 "chain 8", "chain kSteps", "one block per SM", "steps fully unrolled",
                 "steps not unrolled")
 BWD_VARIANTS = ("as built", "backward 8 rows", "backward no skip")
-def build_variants(build) -> tuple:
-    """{variant: ctypes.CDLL}, {variant: ptxas report lines}."""
+def build_variants(build, names) -> tuple:
+    """{variant: ctypes.CDLL}, {variant: ptxas report lines}, {variant:
+    library path}, {variant: nvcc's error} for the variants (other than "as
+    built") that do not build."""
     root = build.BUILD_DIR / "fb_variants"
     nvcc = build.nvcc_path()
     procs = []
-    for i, (name, edits) in enumerate(VARIANTS.items()):
+    for i, name in enumerate(names):
         src = root / f"v{i}"
-        patched_sources(edits, src, build.CSRC_DIR)
+        patched_sources(VARIANTS[name], src, build.CSRC_DIR)
         out = src / "filterbank.so"
         cmd = [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), str(src / SRC)]
         procs.append((name, out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                   stderr=subprocess.PIPE, text=True)))
-    libs, ptxas = {}, {}
+    libs, ptxas, paths, failed = {}, {}, {}, {}
     for name, out, proc in procs:
         _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{err}")
+            if name == "as built":
+                raise RuntimeError(f"nvcc failed for {name}:\n{err}")
+            failed[name] = err[-3000:]
+            continue
         lib = ctypes.CDLL(str(out))
         for fn, argtypes in build.SIGNATURES["filterbank"].items():
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int
-        libs[name], ptxas[name] = lib, ptxas_report(err)
-    return libs, ptxas
+        libs[name], ptxas[name], paths[name] = lib, ptxas_report(err), out
+    return libs, ptxas, paths, failed
+
+
+def sass_mma(path, kernel: str) -> dict:
+    """{tensor-core opcode: count} in the SASS of the kernel whose name
+    contains `kernel`, in the library at `path` (cuobjdump -sass):
+    HMMA.16816.F32.BF16 for mma.sync m16n8k16 bf16, HGMMA.* for wgmma,
+    HMMA.1688.F32.TF32 for mma.sync m16n8k8 TF32."""
+    from michigan_tpu_torch.ops.cuda import build
+
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
+                         check=True).stdout
+    sections = [sec for sec in out.split("Function : ")[1:] if kernel in sec.splitlines()[0]]
+    if len(sections) != 1:
+        raise RuntimeError(f"{len(sections)} functions named like {kernel!r} in {path}")
+    return dict(Counter(re.findall(r"\b(HG?MMA\.[0-9A-Za-z.]+)", sections[0])))
 
 
 def strand_planes(torch, n, size, seed):
@@ -163,25 +303,13 @@ def float64_orientation(torch, gray, bank):
     return idx.to(torch.int32), conf
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("FAIL: no CUDA device", file=sys.stderr)
-        return 1
+def run_f32(torch, libs, card) -> int:
+    """The 3xTF32 forward's and the backward's variants: checks, then times."""
     from michigan_tpu_torch.data.synthetic import synthetic_train_data
     from michigan_tpu_torch.ops import filters
     from michigan_tpu_torch.ops.cuda import build
     from michigan_tpu_torch.ops.cuda import orient as O
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    libs, ptxas = build_variants(build)
-    for v, kernels in ptxas.items():
-        print(f"ptxas {v}: {' | '.join(kernels)}", flush=True)
     stream = lambda: torch.cuda.current_stream().cuda_stream
 
     def fwd(v, gray, bank, idx, conf):
@@ -263,6 +391,104 @@ def main() -> int:
     for (label, v), ts in times.items():
         print(f"{label} {v:>16}: {', '.join(f'{t:.4f}' for t in ts)} ms [{card}]", flush=True)
     return 0
+
+
+def run_bf16(torch, libs, paths, card) -> int:
+    """The bf16-operand forward's variants: checks, SASS, then times beside
+    cuDNN's bf16 route."""
+    import torch.nn.functional as F
+
+    from michigan_tpu_torch.ops import filters
+    from michigan_tpu_torch.ops.cuda import build
+    from michigan_tpu_torch.ops.cuda import orient as O
+
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    names = [v for v in FWD16_VARIANTS if v in libs]
+
+    def fwd16(v, gray, bank, idx, conf):
+        n, _, h, w = gray.shape
+        build.check_launch(v, libs[v].filterbank_orientation_bf16ops(
+            gray.data_ptr(), bank.data_ptr(), idx.data_ptr(), conf.data_ptr(), n, h, w, stream()))
+
+    for v in names:
+        print(f"sass {v}: {sass_mma(paths[v], 'filterbank_bf16_kernel')}", flush=True)
+    failed = []
+    for size in ((2, 512, 512), (2, 37, 53)):
+        gray = strand_planes(torch, size[0], 512, 5)[..., :size[1], :size[2]].contiguous()
+        g16 = gray.bfloat16().double()
+        for mode in ("gabor", "dog"):
+            bank = filters.bank(mode, gray.device)
+            res = F.conv2d(g16, bank.bfloat16().double().permute(3, 2, 0, 1), padding=8)
+            res = res.bfloat16().double().clamp_min(0.0)
+            c64, i64 = res.max(dim=1)
+            p_idx, p_conf = O.filterbank_orientation_plain(gray, bank, True)
+            p_err = (p_conf.double() - c64).abs().max().item()
+            print(f"bf16 operands {mode} {size} against float64 sums of the bf16 operands "
+                  f"(rounded to bf16): plain conf err {p_err:.3e}, argmax mismatch "
+                  f"{(p_idx != i64).float().mean().item():.2e}", flush=True)
+            idx = torch.empty(size, dtype=torch.int32, device="cuda")
+            conf = torch.empty(size, device="cuda")
+            for v in names:
+                fwd16(v, gray, bank, idx, conf)
+                torch.cuda.synchronize()
+                err = (conf.double() - c64).abs().max().item()
+                differ = idx != p_idx
+                a, b = (res.gather(1, i.long()[:, None])[:, 0][differ] for i in (idx, p_idx))
+                ties = bool(((a - b).abs() <= 1e-3 + 1e-2 * b.abs()).all())
+                frac = differ.float().mean().item()
+                ok = torch.allclose(conf, p_conf, rtol=1e-2, atol=1e-3) and frac <= 1e-2 and \
+                    ties and torch.equal(conf.bfloat16().float(), conf)
+                print(f"  {v:>22}: conf err {err:.3e} against float64, {frac:.2e} of the argmax "
+                      f"off the plain version's (near-ties {ties}), against float64's "
+                      f"{(idx != i64).float().mean().item():.2e} {'ok' if ok else 'FAIL'}",
+                      flush=True)
+                if not ok and v == "as built":
+                    failed.append(("bf16 forward", mode, size))
+    if failed:
+        print(f"FAIL: {failed}", file=sys.stderr)
+        return 1
+    bank = filters.bank("gabor", "cuda")
+    times = {}
+    for n in (8, 1):
+        planes = strand_planes(torch, n, 512, 2)
+        i_out = torch.empty((n, 512, 512), dtype=torch.int32, device="cuda")
+        c_out = torch.empty((n, 512, 512), device="cuda")
+        b16 = bank.bfloat16().permute(3, 2, 0, 1).contiguous()
+        route = lambda: F.conv2d(planes.bfloat16(), b16, padding=8).clamp_min(0).max(dim=1)
+        label = f"bf16 operands ({n},1,512^2)"
+        for v in ("cuDNN bf16 route",) + tuple(names) + tuple(names[::-1]) + ("cuDNN bf16 route",):
+            fn = route if v == "cuDNN bf16 route" else \
+                lambda v=v: fwd16(v, planes, bank, i_out, c_out)
+            times.setdefault((label, v), []).append(median_ms(fn, torch, inner=10))
+    for (label, v), ts in times.items():
+        print(f"{label} {v:>22}: {', '.join(f'{t:.4f}' for t in ts)} ms [{card}]", flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device", file=sys.stderr)
+        return 1
+    from michigan_tpu_torch.ops.cuda import build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf16_only = "--bf16" in argv
+    names = FWD16_VARIANTS if bf16_only else tuple(VARIANTS)
+    libs, ptxas, paths, failed = build_variants(build, names)
+    for v, kernels in ptxas.items():
+        print(f"ptxas {v}: {' | '.join(kernels)}", flush=True)
+    for v, err in failed.items():
+        print(f"nvcc refused {v}:\n{err}", flush=True)
+    if not bf16_only and run_f32(torch, libs, card):
+        return 1
+    return run_bf16(torch, libs, paths, card)
 
 
 if __name__ == "__main__":

@@ -1,11 +1,12 @@
-"""The device kernels each bf16 3x3 convolution call launches, by torch.profiler.
+"""The device kernels each call of a bf16 kernel launches, by torch.profiler.
 
     python -m michigan_tpu_torch.tools.kernel_launches '[["in_act", [1, 256, 256, 64, 64, 2, "relu", false]], ["lowch", [16, 64, 64, 512, 512]]]'
 
 Each case is ``["lowch", [n, c, co, h, w]]`` (conv3x3_same_lowch on a bf16
-x with a bf16 weight) or ``["in_act", [n, c, co, h, w, dilation, act,
+x with a bf16 weight), ``["in_act", [n, c, co, h, w, dilation, act,
 residual]]`` (conv3x3_in_act on a bf16 x_pad with the float32 weight and
-bias the bf16 policy hands it).  After one warm-up call of every case, one
+bias the bf16 policy hands it) or ``["bank16", [n, h, w]]`` (the filter
+bank's forward on bf16 operands, Gabor bank, on a float32 gray plane).  After one warm-up call of every case, one
 call per case runs under a single profiler session; the script prints one
 JSON object: {device kernel: launches} over all the cases.  It runs in a
 process of its own, with one session, because in a process that has held
@@ -29,8 +30,10 @@ def measure(cases) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from michigan_tpu_torch.ops import filters
     from michigan_tpu_torch.ops.cuda import epilogue as E
     from michigan_tpu_torch.ops.cuda import lowch as L
+    from michigan_tpu_torch.ops.cuda import orient as O
 
     gen = torch.Generator().manual_seed(0)
     rand = lambda *shape: torch.randn(shape, generator=gen)
@@ -41,6 +44,11 @@ def measure(cases) -> dict:
             x = rand(n, c, h, w).relu().cuda().bfloat16()
             wt = (rand(co, c, 3, 3) * math.sqrt(2 / (9 * c))).cuda().bfloat16()
             fn = lambda x=x, wt=wt: L.conv3x3_same_lowch(x, wt)
+        elif kind == "bank16":
+            n, h, w = shape
+            gray = (torch.rand((n, 1, h, w), generator=gen) * 255).cuda()
+            bank = filters.bank("gabor", gray.device)
+            fn = lambda gray=gray, bank=bank: O.filterbank_orientation(gray, bank, True)
         else:
             n, c, co, h, w, d, act, res = shape
             x = rand(n, c, h + 2 * d, w + 2 * d).cuda().bfloat16()

@@ -108,6 +108,79 @@ def test_instance_norm_is_stable_far_from_zero(cuda_device):
     torch.testing.assert_close(got, want, atol=2e-2, rtol=0)
 
 
+# fused_instance_norm's shapes on the bf16 paths (C, H=W, act): the
+# inpainter's norms, run by the flagship and the edit at batch 1 and by the
+# training step at batch 8
+IN_BF16_SHAPES = [(64, 256, "lrelu"), (128, 128, "lrelu"), (256, 64, "lrelu"),
+                  (256, 64, "relu"), (256, 64, None), (128, 128, "relu"), (64, 256, "relu")]
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("c,h,act", IN_BF16_SHAPES)
+def test_instance_norm_bf16_matches_plain_at_the_path_shapes(cuda_device, c, h, act, batch):
+    """The one-read bf16 form, with and without gamma and beta."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    x, g, b = (torch.randn((batch, c, h, h), generator=gen, device=cuda_device).bfloat16()
+               for _ in range(3))
+    for gb in ((None, None), (g, b)):
+        got = K.fused_instance_norm(x, *gb, act=act)
+        want = K.fused_instance_norm_plain(x, *gb, act=act)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **TOLS[torch.bfloat16])
+
+
+# (n, c, h, w): H*W % 8 != 0 and % 4 != 0 (the scalar path), in one block,
+# split across a cluster and above a cluster's 65,536 elements (the
+# two-pass form); small planes split because the call has few blocks
+@pytest.mark.parametrize("n,c,h,w", [(1, 64, 37, 53), (2, 3, 255, 257), (1, 2, 300, 301),
+                                     (1, 8, 128, 128), (2, 5, 24, 40)])
+def test_instance_norm_bf16_on_ragged_and_large_planes(cuda_device, n, c, h, w):
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    x, g, b = (torch.randn((n, c, h, w), generator=gen, device=cuda_device).bfloat16()
+               for _ in range(3))
+    for act in ACTS:
+        for gb in ((None, None), (g, b)):
+            got = K.fused_instance_norm(x, *gb, act=act)
+            want = K.fused_instance_norm_plain(x, *gb, act=act)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), **TOLS[torch.bfloat16])
+
+
+def test_instance_norm_bf16_is_stable_far_from_zero(cuda_device):
+    """A large mean with a spread of a few bf16 ulps (4 at 1000): E[x^2] -
+    mean^2 would cancel.  In one block, and split across a cluster."""
+    gen = torch.Generator().manual_seed(1)
+    for shape in ((1, 256, 64, 64), (1, 8, 256, 256)):
+        x = (torch.randn(shape, generator=gen) * 16 + 1e3).to(cuda_device, torch.bfloat16)
+        got = K.fused_instance_norm(x)
+        want = K.fused_instance_norm_plain(x.double()).bfloat16()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **TOLS[torch.bfloat16])
+
+
+def test_instance_norm_bf16_splits_planes_by_shape(cuda_device):
+    """The form is the shape's: the inpainter's (1, 64, 256^2) splits each
+    plane across a cluster of 8 blocks, (1, 128, 128^2) of 2, (1, 256, 64^2)
+    keeps one block a plane, at batch 8 too; a plane above 8 x 8,192
+    elements takes the two-pass form.  The split form at (1, 64, 256^2)
+    matches its plain version."""
+    z = lambda *shape: torch.zeros(shape, device=cuda_device, dtype=torch.bfloat16)
+    assert K.instance_norm_bf16_split(z(1, 64, 256, 256)) == 8
+    assert K.instance_norm_bf16_split(z(8, 64, 256, 256)) == 8
+    assert K.instance_norm_bf16_split(z(1, 128, 128, 128)) == 2
+    assert K.instance_norm_bf16_split(z(1, 256, 64, 64)) == 1
+    assert K.instance_norm_bf16_split(z(8, 256, 64, 64)) == 1
+    assert K.instance_norm_bf16_split(z(1, 1, 300, 300)) == 0
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    x = torch.randn((1, 64, 256, 256), generator=gen, device=cuda_device).bfloat16()
+    kernels.reset_launch_counts()
+    got = K.fused_instance_norm(x, act="lrelu")
+    torch.cuda.synchronize()
+    assert kernels.launch_counts(by_dtype=True)["fused_instance_norm"] == {"bfloat16": 1}
+    torch.testing.assert_close(got.float(), K.fused_instance_norm_plain(x, act="lrelu").float(),
+                               **TOLS[torch.bfloat16])
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     x = torch.zeros((1, 4, 8, 8), device=cuda_device)
     stats = torch.zeros(4, device=cuda_device)
@@ -420,6 +493,66 @@ def test_filterbank_bf16_operands_matches_plain(cuda_device, mode, n, h, w):
         n_, y_, x_ = differ.nonzero(as_tuple=True)
         a, b = (res[n_, i[differ].long(), y_, x_] for i in (idx, p_idx))
         assert bool(((a - b).abs() <= 1e-3 + 1e-2 * b.abs()).all())
+
+
+def test_filterbank_bf16_operands_zero_plane_and_bf16_ties(cuda_device):
+    """An all-zero plane gives idx 0 and conf 0.  A bank whose orientations
+    7 and 20 differ in float32 but are equal in bf16 (7 on the bf16 grid, 20
+    is 7 times 1 + 2^-12, under half a bf16 ulp away), and larger than the
+    others: the responses tie in bf16, and the first index, 7, wins wherever
+    either is the largest."""
+    bank = filters.bank("gabor", cuda_device)
+    idx, conf = O.filterbank_orientation(torch.zeros((1, 1, 40, 70), device=cuda_device), bank,
+                                         bf16_operands=True)
+    torch.cuda.synchronize()
+    assert idx.dtype == torch.int32 and not idx.any() and not conf.any()
+    bank = bank.clone()
+    bank[..., 7] = (bank[..., 7] * 4).bfloat16().float()
+    bank[..., 20] = bank[..., 7] * (1 + 2 ** -12)
+    assert torch.equal(bank[..., 20].bfloat16(), bank[..., 7].bfloat16())
+    assert not torch.equal(bank[..., 20], bank[..., 7])
+    gray = strand_gray(torch.Generator().manual_seed(16), 2, 100, 130, cuda_device)
+    idx, conf = O.filterbank_orientation(gray, bank, bf16_operands=True)
+    p_idx, _ = O.filterbank_orientation_plain(gray, bank, bf16_operands=True)
+    torch.cuda.synchronize()
+    assert (idx == 7).any() and not (idx == 20).any() and not (p_idx == 20).any()
+
+
+@pytest.mark.parametrize("mode", ["gabor", "dog"])
+def test_filterbank_bf16_operands_is_as_accurate_as_before(cuda_device, mode):
+    """(2, 1, 512^2) strand planes against float64 sums of the bf16
+    operands: the one float32 chain's conf error within 1% of the plain
+    version's (exact products, float32 sums, the responses rounded to bf16:
+    the arithmetic of the form this kernel replaced, whose error equalled
+    the plain version's), and its argmax off float64's (the float64 sums
+    rounded to bf16, first index) on at most 1e-4 of the pixels more."""
+    F = torch.nn.functional
+    gray = strand_gray(torch.Generator().manual_seed(9), 2, 512, 512, cuda_device)
+    bank = filters.bank(mode, cuda_device)
+    res = F.conv2d(gray.bfloat16().double(), bank.bfloat16().double().permute(3, 2, 0, 1),
+                   padding=8)
+    idx64 = res.bfloat16().double().clamp_min(0.0).argmax(dim=1)
+    exact = res.clamp_min(0.0).amax(dim=1)
+    (idx, conf), (p_idx, p_conf) = (O.filterbank_orientation(gray, bank, bf16_operands=True),
+                                    O.filterbank_orientation_plain(gray, bank, bf16_operands=True))
+    kernel, plain = ((c.double() - exact).abs().max().item() for c in (conf, p_conf))
+    assert kernel <= 1.01 * plain, (kernel, plain)
+    k_mis, p_mis = ((i != idx64).float().mean().item() for i in (idx, p_idx))
+    assert k_mis <= p_mis + 1e-4, (k_mis, p_mis)
+
+
+def test_filterbank_bf16_operands_one_kernel_on_bf16_tensor_cores(cuda_device):
+    """One device kernel per call at the training step's (8, 1, 512^2)
+    (torch.profiler, in a process of its own), and its SASS issues bf16
+    tensor-core products (HMMA.16816 bf16 or HGMMA) and no TF32 mma."""
+    from michigan_tpu_torch.tools import filterbank_variants, kernel_launches
+
+    launches = kernel_launches.run([["bank16", [8, 512, 512]]])
+    short = {k.split("::", 1)[-1].split("(")[0]: n for k, n in launches.items()}
+    assert short == {"filterbank_bf16_kernel": 1}, launches
+    ops = filterbank_variants.sass_mma(build.build("filterbank"), "filterbank_bf16_kernel")
+    assert any(k.startswith(("HMMA.16816.F32.BF16", "HGMMA")) for k in ops), ops
+    assert not any("TF32" in k for k in ops), ops
 
 
 def rel_err(got, want64):
