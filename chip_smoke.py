@@ -48,7 +48,14 @@ Phases, each on its own line:
      8 != 0, dilation 4 and its forms (a tile per block; the pre-norm
      plane past 16 tiles; one block per plane where the card holds fewer
      blocks than planes), conv3x3_same_lowch at odd C and W,
-     C too large for resident weights and fewer tiles than SMs
+     C too large for resident weights and fewer tiles than SMs; and the bf16
+     training step's two forms at its shapes: the bank's bf16-operand
+     forward at (8, 1, 512^2), Gabor and DoG (conf within one bf16 ulp, the
+     argmax off on at most 1% of the pixels and only at bf16 near-ties), its
+     kernel's SASS on bf16 tensor-core products and no TF32 mma (cuobjdump),
+     and fused_instance_norm in bf16 at the frozen inpainter's shapes at
+     batch 8 (with gamma and beta at the lrelu ones), each printed with the
+     blocks a plane its shape gives it
   4. the flagship on the card, counting launches: 18 spade_modulate and 29
      fused_instance_norm per forward, no other kernel
   5. the flagship on the CPU (plain versions), same weights and inputs: tanh
@@ -118,7 +125,9 @@ Phases, each on its own line:
       composition at batch 2 (the kernel's largest error at most F64_RATIO
       x the route's) and its device kernels per call under the profiler, in
       a process of its own (tools/kernel_launches.py; exactly its layout
-      pass and its convolution, one each); a profiler breakdown
+      pass and its convolution, one each); fused_instance_norm in bf16 at
+      the edit's shapes (device time beside its bound and plain version);
+      a profiler breakdown
   15. the training step at --dtype bfloat16: conv3x3_same_lowch in bf16
       against its plain version at (16, 64, 512^2) and (2, 64, 37, 53)
       (atol 1e-2, rtol 1.6e-2) and, with F.conv2d in bf16, against a
@@ -128,10 +137,15 @@ Phases, each on its own line:
       against its plain version at (8, 1, 512^2), Gabor and DoG (conf within one bf16 ulp, the
       argmax off on at most 1% of the pixels and only at bf16 near-ties) and
       against float64 sums of the bf16 operands; both timed at the step's
-      shapes (lowch in turns with F.conv2d in bf16); then the step at batch
-      8, 512^2, full width: launches per step exactly 29 fused_instance_norm,
-      1 conv3x3_same_lowch and 1 bank forward in bfloat16 and 1 bank
-      backward in float32; losses finite, netG and netD changed (float32),
+      shapes (lowch in turns with F.conv2d in bf16, the bank in turns with
+      cuDNN's bf16 route: the gray plane cast to bf16, the bf16 conv with
+      the bank, the clamp, max and argmax), the bank's device kernels per
+      call under the profiler in a process of its own (exactly one);
+      fused_instance_norm in bf16 at the step's batch 8 (beside its bound,
+      its plain version and F.instance_norm on the act=None calls); then
+      the step at batch 8, 512^2, full width: launches per step exactly 29
+      fused_instance_norm, 1 conv3x3_same_lowch and 1 bank forward in
+      bfloat16 and 1 bank backward in float32; losses finite, netG and netD changed (float32),
       netIG and VGG19 bit-identical in bf16; ms/step, img/s, G and D step,
       peak memory and a profiled step with the convolutions' share, beside
       phase 11's float32 numbers; then one bf16 G+D step card vs CPU at
@@ -161,11 +175,15 @@ conv3x3_in_act over one bf16 edit, fused_instance_norm over one bf16
 flagship forward) count 2-byte elements and bf16 products at 989 TFLOP/s,
 and the two conv3x3_in_act rows carry the replaced route's time
 (replaced_route_ms: cuDNN conv + fused_instance_norm, in the row's dtype).
-The bf16 training step's rows (phase 15: conv3x3_same_lowch_bf16 with
-F.conv2d in bf16 as library_ms, bound at 989 TFLOP/s of bf16 products;
-filterbank_orientation_bf16, the bank's bf16-operand form, bound at the
-same 989 TFLOP/s of bf16 products although it runs TF32 mma) take their
-launches from phase 15's counted step.  Last, the device line.  Any
+The fused_instance_norm_bf16 row also carries the bf16 training step's
+batch-8 calls (step_launches from phase 15's counted step; step_ms,
+step_plain_ms, step_bound_ms, and step_library_ms: F.instance_norm on its
+act=None calls) and the bf16 edit's (edit_ms, edit_bound_ms).  The bf16
+training step's rows (phase 15: conv3x3_same_lowch_bf16 with F.conv2d in
+bf16 as library_ms; filterbank_orientation_bf16, the bank's bf16-operand
+form, with cuDNN's bf16 route as replaced_route_ms; both bound at 989
+TFLOP/s of bf16 products) take their launches from phase 15's counted
+step.  Last, the device line.  Any
 failure exits non-zero without the device line; so does a machine without
 CUDA, and a directory without the rest of the repository.
 """
@@ -300,8 +318,7 @@ HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 TF32_FLOP_S = 495e12
 TF32X3_FLOP_S = TF32_FLOP_S / 3
-# dense bf16 products on the tensor cores: the rate for bf16 operands,
-# whatever mma the kernel runs (the bank's bf16-operand form runs TF32)
+# dense bf16 products on the tensor cores: the rate for bf16 operands
 BF16_FLOP_S = 989e12
 
 
@@ -443,7 +460,7 @@ def kernels_per_call(cases):
 
     counts = {}
     for key, n in kernel_launches.run(cases).items():
-        name = key.split("::", 1)[-1].split("<")[0].split("(")[0]
+        name = key.split("::", 1)[-1].split("<")[0].split("(")[0].rsplit("::", 1)[-1]
         counts[name] = counts.get(name, 0) + n
     return {k: v / len(cases) for k, v in counts.items()}
 

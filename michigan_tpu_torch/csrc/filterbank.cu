@@ -54,9 +54,12 @@
 // What bounds it: the bf16 products, 9,248 FMAs per pixel at the 989
 // TFLOP/s of dense bf16 (0.039 ms at 8 x 512^2), against 12 B of HBM per
 // pixel (0.008 ms).  What the design does about it:
-// - the products are bf16 x bf16 -> f32 on the tensor cores, mma.sync
-//   m16n8k16 (wgmma m64n32k16 with A from registers is the tool's
-//   variant: tools/filterbank_variants.py).  M = pixels, N = the 32
+// - the products are bf16 x bf16 -> f32 on the tensor cores, wgmma
+//   m64n32k16 with A from registers (the Toeplitz A has no shared-memory
+//   layout a descriptor could read) and the bank by descriptor: a
+//   warpgroup's 4 warps each give 16 pixels of a row.  mma.sync m16n8k16
+//   on the same registers took 0.152 against 0.121 ms at (8, 1, 512^2) on
+//   an H100 (tools/filterbank_variants.py, "bf16 mma.sync").  M = pixels, N = the 32
 //   orientations, K = taps in 20 steps of 16: steps 0-16 are filter row s,
 //   taps 0-15 in order; steps 17-19 are tap column 16 as (16, 17) pairs of
 //   rows 8 (s - 17) + j, tap 17 and rows past 16 with zero bank entries.
@@ -75,12 +78,13 @@
 //   halo of the next tile arrives by cp.async while the block multiplies;
 //   the pair words are made from it in one pass per tile;
 // - persistent blocks (two an SM) convert the bank to bf16 once, into the
-//   canonical K-major layout of a wgmma B operand ([step][k half][n][8 k],
-//   20 KB), which mma.sync reads one conflict-free word per lane;
+//   canonical K-major layout of a wgmma B operand without swizzle
+//   ([step][k half][n][8 k], 20 KB);
 // - one float32 chain over all of K: the tensor cores add with truncation,
-//   ~2^-23 of the running sum per add, far below the bf16 ulp the response
-//   is rounded to (the 4-step chains of the 3xTF32 form are a variant in
-//   the tool);
+//   ~2^-23 of the running sum per add, below the bf16 ulp the response is
+//   rounded to: against float64 its argmax is off on no more pixels than
+//   the plain version's (cuDNN's float32 sums), and 4-step chains flushed
+//   into rounded sums (mma.sync, "bf16 chain 4") spill and took 0.213 ms;
 // - the clamp, the max and the first-index argmax are the 3xTF32 form's
 //   quad-shuffle reduction; nothing of the (N, 32, H, W) response reaches
 //   device memory.
@@ -124,6 +128,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv3x3_bf16.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -372,35 +377,37 @@ __device__ __forceinline__ int tap16_of(int s, int k) {
   return (k & 1) == 0 && dy < kK ? dy * kK + kK - 1 : -1;
 }
 
-__device__ __forceinline__ void mma_bf16(float& d0, float& d1, float& d2, float& d3,
-                                         const unsigned (&a)[4], unsigned b0, unsigned b1) {
+// d += A * B on m64n32k16, bf16 operands, f32 sums: A from registers (each
+// warp of the warpgroup gives 16 rows in the m16n8k16 A-fragment layout), B
+// by the shared-memory descriptor db
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const unsigned (&a)[4], uint64_t db) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, {%16,%17,%18,%19}, %20, "
+      "p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // The products of one K step: the warp's kMT m16 tiles x the 32
-// orientations (4 n8 tiles), m16n8k16 bf16 -> f32.  acc[i][4 j + r] is the
-// accumulator r of n8 tile j; b the step's bank slice.
+// orientations.  Per m16 tile i, one m64n32k16 wgmma of the warpgroup: its 4
+// warps each give the 16 pixels of their tile i.  acc[i][4 j + r] is then
+// the m16n8 accumulator r of orientations 8 j .. 8 j + 7; b the step's
+// bank slice, [k half][n][8 k].
 __device__ __forceinline__ void step_products(float (&acc)[kMT][16], const unsigned (&a)[kMT][4],
-                                              const char* b, int lane) {
-  // lane (gid, tig) reads k = 2 tig, 2 tig + 1 (+ 8 for b1) of orientation
-  // 8 j + gid: one word per lane of a 128-byte block
-  const unsigned* bw = reinterpret_cast<const unsigned*>(b) + lane;
-  unsigned b0[4], b1[4];
+                                              const char* b) {
+  namespace cb = conv_bf16;
+  const uint64_t db = cb::make_desc(cb::smem_u32(b), kStepBytes / 2, 128);
+  cb::wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    b0[j] = bw[32 * j];
-    b1[j] = bw[kStepBytes / 8 + 32 * j];
-  }
+  for (int i = 0; i < kMT; ++i) wgmma_rs(acc[i], a[i], db);
+  cb::wgmma_commit();
+  cb::wgmma_wait<0>();  // a's registers are free, acc is readable
 #pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      mma_bf16(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3], a[i],
-               b0[j], b1[j]);
+  for (int i = 0; i < kMT; ++i) cb::reg_fence<16>(acc[i]);
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -495,7 +502,7 @@ filterbank_bf16_kernel(const float* __restrict__ gray, const float* __restrict__
           a[i][3] = p[4 * kPS + 16 * i + 8];
         }
       }
-      step_products(acc, a, s_b + s * kStepBytes, lane);
+      step_products(acc, a, s_b + s * kStepBytes);
     }
 
     // acc[i][4 j + 2 hf + c]: pixel 16 i + 8 hf + gid of the warp's row,

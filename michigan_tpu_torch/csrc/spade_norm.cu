@@ -41,16 +41,21 @@
 // stays on chip between its statistics and its normalisation, so the kernel
 // moves the bound's bytes (2 B in and 2 B out per element, 4 more with
 // gamma and beta).  The form is picked by shape alone (bf16_split):
-// - a block of 256 threads holds up to 8,192 elements in registers, four
-//   16-byte vectors (or 32 scalars where H*W % 8 != 0 or a pointer is off 16
-//   bytes) a thread, all loads in flight at once;
+// - a block of 128 threads holds up to 8,192 elements in registers, eight
+//   16-byte vectors (or 64 scalars where H*W % 8 != 0 or a pointer is off 16
+//   bytes) a thread, all loads in flight at once (256 threads of four took
+//   up to 14% longer, a slice brought by one bulk copy into shared memory up
+//   to 11%: tools/norm_variants.py);
 // - a plane larger than a block, or a plane of a call with fewer planes
 //   than the card has SMs, is split across a thread-block cluster of 2, 4 or
 //   8 blocks (the portable size; 16-block clusters fit on only 7 of this
 //   card's GPCs), each holding a slice: (1, 64, 256^2) at batch 1 runs 8
 //   blocks a plane on 512 blocks, (1, 128, 128^2) 2.  The blocks merge
 //   their (mean, M2, count) by Chan's rule through distributed shared
-//   memory: one cluster barrier, 2-8 remote 16-byte loads a block;
+//   memory: one cluster barrier, 2-8 remote 16-byte loads a block (a
+//   counted exchange through device memory, as conv_in_act.cu's, took
+//   10.5 -> 11.4 us at (1, 64, 256^2) and 6.0 -> 8.8 at (1, 128, 128^2) on an
+//   H100);
 // - a thread's own statistics are two passes over its registers (mean,
 //   then squared deviations), merged across the block and the cluster by
 //   welford.cuh's Chan merge, so the variance never comes from E[x^2] -
@@ -275,8 +280,8 @@ int launch_instance_norm(const void* x, const void* gamma, const void* beta, voi
 // instance_norm in bf16: one read
 // ---------------------------------------------------------------------------
 
-constexpr int kResThreads = 256;
-constexpr int kResVecs = 4;                                 // 16-byte vectors a thread
+constexpr int kResThreads = 128;
+constexpr int kResVecs = 8;                                 // 16-byte vectors a thread
 constexpr int kResElems = kResThreads * kResVecs * 8;       // 8,192 elements a block
 constexpr int kResWarps = kResThreads / 32;
 constexpr int kMaxCluster = 8;                              // the portable cluster size
@@ -322,9 +327,9 @@ __device__ __forceinline__ float4 ld_cluster(const float4* p, int rank) {
 // One block per slice of `chunk` elements (a multiple of 8) of a plane; the
 // cs blocks of a plane form a cluster.  kVec: 16-byte vectors, thread t's
 // vector v at element 8 (v kResThreads + t) of the slice; else scalars, its
-// element j of vector v at (8 v + j) kResThreads + t.  At most 4 blocks an
-// SM's worth of registers (64 a thread), so that the 512 blocks of the
-// inpainter's (1, 64, 256^2) are resident at once.
+// element j of vector v at (8 v + j) kResThreads + t.  Registers for 4
+// blocks an SM, so that the 512 blocks of the inpainter's (1, 64, 256^2)
+// are resident at once.
 template <bool kVec>
 __global__ void __launch_bounds__(kResThreads, 4)
 instance_norm_bf16_kernel(const __nv_bfloat16* __restrict__ x,

@@ -16,8 +16,9 @@ together, loaded with ctypes and run at the training step's shapes:
   on the same dconf times the hair masks of ``synthetic_train_data`` (what
   the training loss passes back: it multiplies by the hair);
 - the forward on bf16 operands at the bf16 training step's (8, 1, 512^2)
-  and at (1, 1, 512^2): mma.sync m16n8k16 as built against wgmma m64n32k16
-  with A from registers, tile shapes, and 4-step chains.
+  and at (1, 1, 512^2): wgmma m64n32k16 with A from registers as built
+  against mma.sync m16n8k16 and against wgmma waiting one step behind, tile
+  shapes, and 4-step chains.
 
 For each variant: the forward's largest conf error and its argmax mismatch
 against a float64 bank convolution at (2, 1, 512^2), Gabor and DoG, beside
@@ -124,73 +125,64 @@ VARIANTS = {
 for steps in ("1", "2", "8", "kSteps"):
     VARIANTS[f"chain {steps}"] = [(SRC, "constexpr int kChain = 4;",
                                    f"constexpr int kChain = {steps};")]
-# the bf16-operand forward's products as wgmma m64n32k16 with A from
-# registers: the warpgroup's 4 warps each give the 16 pixels of their m16
-# tile i, the bank comes by descriptor from the same canonical layout
-BF16_PRODUCTS = (
-    "  // lane (gid, tig) reads k = 2 tig, 2 tig + 1 (+ 8 for b1) of orientation\n"
-    "  // 8 j + gid: one word per lane of a 128-byte block\n"
-    "  const unsigned* bw = reinterpret_cast<const unsigned*>(b) + lane;\n"
-    "  unsigned b0[4], b1[4];\n"
+# the bf16-operand forward's products as built: wgmma m64n32k16 with A from
+# registers, waiting for each K step's products before the next step's A
+WGMMA_BODY = (
+    "  cb::wgmma_commit();\n"
+    "  cb::wgmma_wait<0>();  // a's registers are free, acc is readable\n"
     "#pragma unroll\n"
-    "  for (int j = 0; j < 4; ++j) {\n"
-    "    b0[j] = bw[32 * j];\n"
-    "    b1[j] = bw[kStepBytes / 8 + 32 * j];\n"
-    "  }\n"
+    "  for (int i = 0; i < kMT; ++i) cb::reg_fence<16>(acc[i]);\n")
+STEP_DECL = "// The products of one K step: the warp's kMT m16 tiles x the 32\n"
+STEP_PRODUCTS = (
+    "  namespace cb = conv_bf16;\n"
+    "  const uint64_t db = cb::make_desc(cb::smem_u32(b), kStepBytes / 2, 128);\n"
+    "  cb::wgmma_fence();\n"
     "#pragma unroll\n"
-    "  for (int i = 0; i < kMT; ++i)\n"
-    "#pragma unroll\n"
-    "    for (int j = 0; j < 4; ++j)\n"
-    "      mma_bf16(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3], a[i],\n"
-    "               b0[j], b1[j]);\n")
-WGMMA_RS = (
-    "__device__ __forceinline__ void wgmma_rs(float (&d)[16], const unsigned (&a)[4], "
-    "uint64_t db) {\n"
-    "  asm volatile(\n"
-    "      \"{\\n.reg .pred p;\\nsetp.ne.b32 p, %21, 0;\\n\"\n"
-    "      \"wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 \"\n"
-    "      \"{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, {%16,%17,%18,%19}, %20, \"\n"
-    "      \"p, 1, 1, 0;\\n}\\n\"\n"
-    "      : \"+f\"(d[0]), \"+f\"(d[1]), \"+f\"(d[2]), \"+f\"(d[3]), \"+f\"(d[4]), \"+f\"(d[5]), "
-    "\"+f\"(d[6]), \"+f\"(d[7]), \"+f\"(d[8]), \"+f\"(d[9]), \"+f\"(d[10]), \"+f\"(d[11]), "
-    "\"+f\"(d[12]), \"+f\"(d[13]), \"+f\"(d[14]), \"+f\"(d[15])\n"
-    "      : \"r\"(a[0]), \"r\"(a[1]), \"r\"(a[2]), \"r\"(a[3]), \"l\"(db), \"r\"(1));\n"
-    "}\n\n")
-STEP_DECL = "__device__ __forceinline__ void step_products("
-BF16_CALL = "      step_products(acc, a, s_b + s * kStepBytes, lane);\n"
-
-
-def wgmma_edits(pending: int) -> list:
-    """The bf16 forward's products by wgmma, waiting after each K step until
-    `pending` steps' products are still in flight (1: A of the next step
-    loads while this one multiplies)."""
-    edits = [
-        (SRC, '#include "tf32x3.cuh"\n', '#include "tf32x3.cuh"\n#include "conv3x3_bf16.cuh"\n'),
-        (SRC, STEP_DECL, WGMMA_RS + STEP_DECL),
-        (SRC, BF16_PRODUCTS,
-         "  (void)lane;\n"
-         "  const uint64_t db = conv_bf16::make_desc(conv_bf16::smem_u32(b), kStepBytes / 2, 128);\n"
-         "  conv_bf16::wgmma_fence();\n"
-         "#pragma unroll\n"
-         "  for (int i = 0; i < kMT; ++i) wgmma_rs(acc[i], a[i], db);\n"
-         "  conv_bf16::wgmma_commit();\n"
-         f"  conv_bf16::wgmma_wait<{pending}>();\n")]
-    if pending:
-        edits.append((SRC, BF16_CALL, BF16_CALL + "      if (s == kSteps - 1) {\n"
-                      "        conv_bf16::wgmma_wait<0>();\n"
-                      "#pragma unroll\n"
-                      "        for (int i = 0; i < kMT; ++i) conv_bf16::reg_fence<16>(acc[i]);\n"
-                      "      }\n"))
-    else:
-        edits.append((SRC, BF16_CALL, BF16_CALL + "#pragma unroll\n"
-                      "      for (int i = 0; i < kMT; ++i) conv_bf16::reg_fence<16>(acc[i]);\n"))
-    return edits
+    "  for (int i = 0; i < kMT; ++i) wgmma_rs(acc[i], a[i], db);\n" + WGMMA_BODY)
+BF16_CALL = "      step_products(acc, a, s_b + s * kStepBytes);\n"
+# the same products by mma.sync m16n8k16 on the same A registers, the bank
+# read one word per lane from the same layout
+MMA_SYNC = [
+    (SRC, STEP_DECL,
+     "__device__ __forceinline__ void mma_bf16(float& d0, float& d1, float& d2, float& d3,\n"
+     "                                         const unsigned (&a)[4], unsigned b0, unsigned b1) {\n"
+     "  asm volatile(\n"
+     "      \"mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 \"\n"
+     "      \"{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\\n\"\n"
+     "      : \"+f\"(d0), \"+f\"(d1), \"+f\"(d2), \"+f\"(d3)\n"
+     "      : \"r\"(a[0]), \"r\"(a[1]), \"r\"(a[2]), \"r\"(a[3]), \"r\"(b0), \"r\"(b1));\n"
+     "}\n\n" + STEP_DECL),
+    (SRC, STEP_PRODUCTS,
+     "  // lane (gid, tig) reads k = 2 tig, 2 tig + 1 (+ 8 for b1) of orientation\n"
+     "  // 8 j + gid: one word per lane of a 128-byte block\n"
+     "  const unsigned* bw = reinterpret_cast<const unsigned*>(b) + (threadIdx.x & 31);\n"
+     "  unsigned b0[4], b1[4];\n"
+     "#pragma unroll\n"
+     "  for (int j = 0; j < 4; ++j) {\n"
+     "    b0[j] = bw[32 * j];\n"
+     "    b1[j] = bw[kStepBytes / 8 + 32 * j];\n"
+     "  }\n"
+     "#pragma unroll\n"
+     "  for (int i = 0; i < kMT; ++i)\n"
+     "#pragma unroll\n"
+     "    for (int j = 0; j < 4; ++j)\n"
+     "      mma_bf16(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3], a[i],\n"
+     "               b0[j], b1[j]);\n")]
+# the next step's A loads while this step's products run: wait until one
+# step's products are still in flight, then for all before the epilogue
+WGMMA_ASYNC = [
+    (SRC, WGMMA_BODY, "  cb::wgmma_commit();\n  cb::wgmma_wait<1>();\n"),
+    (SRC, BF16_CALL, BF16_CALL + "      if (s == kSteps - 1) {\n"
+     "        conv_bf16::wgmma_wait<0>();\n"
+     "#pragma unroll\n"
+     "        for (int i = 0; i < kMT; ++i) conv_bf16::reg_fence<16>(acc[i]);\n"
+     "      }\n")]
 
 
 BF16_LB = "__launch_bounds__(kThreads, 2)\nfilterbank_bf16_kernel("
 VARIANTS.update({
-    "bf16 wgmma": wgmma_edits(0),
-    "bf16 wgmma async": wgmma_edits(1),
+    "bf16 mma.sync": MMA_SYNC,
+    "bf16 wgmma async": WGMMA_ASYNC,
     # 4-step chains flushed into rounded float32 sums, as the 3xTF32 form
     "bf16 chain 4": [
         (SRC, "    float acc[kMT][16];\n", "    float acc[kMT][16], part[kMT][16];\n"),
@@ -201,7 +193,7 @@ VARIANTS.update({
          "#pragma unroll\n"
          "          for (int r = 0; r < 16; ++r) part[i][r] = 0.f;\n"
          "      }\n"
-         "      step_products(part, a, s_b + s * kStepBytes, lane);\n"
+         "      step_products(part, a, s_b + s * kStepBytes);\n"
          "      if (s % 4 == 3 || s == kSteps - 1) {\n"
          "#pragma unroll\n"
          "        for (int i = 0; i < kMT; ++i)\n"
@@ -226,7 +218,7 @@ VARIANTS.update({
         (SRC, BF16_LB, BF16_LB.replace("2)", "1)"))],
     "bf16 one block per SM": [(SRC, BF16_LB, BF16_LB.replace("2)", "1)"))],
 })
-FWD16_VARIANTS = ("as built", "bf16 wgmma", "bf16 wgmma async", "bf16 chain 4",
+FWD16_VARIANTS = ("as built", "bf16 mma.sync", "bf16 wgmma async", "bf16 chain 4",
                   "bf16 tile 32x8", "bf16 tile 128x8", "bf16 tile 64x16",
                   "bf16 one block per SM")
 FWD_VARIANTS = ("as built", "split in registers", "paired A loads", "chain 1", "chain 2",

@@ -20,7 +20,7 @@ processes started together, and loaded with ctypes:
   conv3x3_in_act's bf16 form does); its launcher clears the counters first.
   It waits on blocks that must all be resident, so it runs only at batch 1
   (at most 512 blocks);
-- "128 threads": blocks of 128 threads holding 8 vectors each.
+- "256 threads": blocks of 256 threads holding 4 vectors each.
 
 Each variant is held against the plain version (atol 1e-2, rtol 1.6e-2) at
 every shape of fused_instance_norm on the bf16 paths (the flagship's and the
@@ -121,9 +121,9 @@ def variants(csrc) -> dict:
              "      me = cudaMemsetAsync(counters, 0, sizeof(unsigned) * planes, cfg.stream);\n"
              "    if (me != cudaSuccess) return (int)me;\n"
              "  }")],
-        "128 threads": [
-            (SRC, "constexpr int kResThreads = 256;", "constexpr int kResThreads = 128;"),
-            (SRC, "constexpr int kResVecs = 4; ", "constexpr int kResVecs = 8; ")],
+        "256 threads": [
+            (SRC, "constexpr int kResThreads = 128;", "constexpr int kResThreads = 256;"),
+            (SRC, "constexpr int kResVecs = 8; ", "constexpr int kResVecs = 4; ")],
     }
 
 

@@ -22,7 +22,11 @@ float64 at most 2x F.conv2d in bfloat16; the bank's bf16-operand form's
 conf within one bf16 ulp (rtol 1e-2, atol 1e-3: a float32 sum in another
 order may round to the neighbouring bf16 value), its argmax off on at most
 1% of the pixels and there only where the plain version's two responses
-lie within that tolerance.
+lie within that tolerance; against float64 sums of the bf16 operands its
+conf error within 1% of the plain version's (both round to bf16) and its
+argmax off float64's on at most 1e-4 of the pixels more.  fused_instance_norm
+in bf16 (one read, planes split across clusters) atol 1e-2, rtol 1.6e-2 at
+every shape of the bf16 paths, ragged and large planes, and far from zero.
 """
 
 import math
@@ -548,7 +552,8 @@ def test_filterbank_bf16_operands_one_kernel_on_bf16_tensor_cores(cuda_device):
     from michigan_tpu_torch.tools import filterbank_variants, kernel_launches
 
     launches = kernel_launches.run([["bank16", [8, 512, 512]]])
-    short = {k.split("::", 1)[-1].split("(")[0]: n for k, n in launches.items()}
+    short = {k.split("::", 1)[-1].split("(")[0].rsplit("::", 1)[-1]: n
+             for k, n in launches.items()}
     assert short == {"filterbank_bf16_kernel": 1}, launches
     ops = filterbank_variants.sass_mma(build.build("filterbank"), "filterbank_bf16_kernel")
     assert any(k.startswith(("HMMA.16816.F32.BF16", "HGMMA")) for k in ops), ops
