@@ -72,12 +72,13 @@
 //   16 i + 16, so the 4 m16 tiles of a warp take 9 loads a step, not 16.
 //   The row stride (88 words, 24 mod 32) keeps the column steps' loads, a
 //   row per lane of a quad, conflict-free;
-// - a block of 8 warps takes a 64 x 8-pixel tile (a row of 64 pixels per
-//   warp, 64 float32 sums a thread): 81 x 24 halo values per 512 pixels
-//   (3.8 a pixel; the 3xTF32 form's 32 x 8 tile reads 4.5).  The float32
-//   halo of the next tile arrives by cp.async while the block multiplies;
-//   the pair words are made from it in one pass per tile;
-// - persistent blocks (two an SM) convert the bank to bf16 once, into the
+// - a block of 16 warps takes a 64 x 16-pixel tile (a row of 64 pixels per
+//   warp, 64 float32 sums a thread): 81 x 32 halo values per 1,024 pixels
+//   (2.5 a pixel; the 3xTF32 form's 32 x 8 tile reads 4.5; two blocks of 8
+//   warps an SM took 2% longer at (8, 1, 512^2) and 17% at (1, 1, 512^2)).
+//   The float32 halo of the next tile arrives by cp.async while the block
+//   multiplies; the pair words are made from it in one pass per tile;
+// - persistent blocks (one an SM) convert the bank to bf16 once, into the
 //   canonical K-major layout of a wgmma B operand without swizzle
 //   ([step][k half][n][8 k], 20 KB);
 // - one float32 chain over all of K: the tensor cores add with truncation,
@@ -350,7 +351,7 @@ filterbank_kernel(const float* __restrict__ gray, const float* __restrict__ bank
 // ---- forward on bf16 operands ----
 namespace bf16ops {
 
-constexpr int kWarps = 8;                     // one output row each
+constexpr int kWarps = 16;                    // one output row each
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTileW = 64;                    // pixels per warp row
 constexpr int kMT = kTileW / 16;              // m16 tiles per warp
@@ -410,7 +411,7 @@ __device__ __forceinline__ void step_products(float (&acc)[kMT][16], const unsig
   for (int i = 0; i < kMT; ++i) cb::reg_fence<16>(acc[i]);
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, 1)
 filterbank_bf16_kernel(const float* __restrict__ gray, const float* __restrict__ bank,
                        int32_t* __restrict__ idx, float* __restrict__ conf, int n, int h,
                        int w) {

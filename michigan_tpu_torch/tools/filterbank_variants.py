@@ -179,7 +179,7 @@ WGMMA_ASYNC = [
      "      }\n")]
 
 
-BF16_LB = "__launch_bounds__(kThreads, 2)\nfilterbank_bf16_kernel("
+BF16_LB = "__launch_bounds__(kThreads, 1)\nfilterbank_bf16_kernel("
 VARIANTS.update({
     "bf16 mma.sync": MMA_SYNC,
     "bf16 wgmma async": WGMMA_ASYNC,
@@ -200,27 +200,25 @@ VARIANTS.update({
          "#pragma unroll\n"
          "          for (int r = 0; r < 16; ++r) acc[i][r] += part[i][r];\n"
          "      }\n")],
-    # a warp row of 32 pixels (2 m16 tiles), or of 128 (8, one block an SM)
-    "bf16 tile 32x8": [
+    # two blocks of 8 warps an SM (64 x 8 tiles); a warp row of 32 pixels (2
+    # m16 tiles); 8 warps of 128-pixel rows (8 m16 tiles)
+    "bf16 tile 64x8": [
+        (SRC, "constexpr int kWarps = 16;", "constexpr int kWarps = 8;"),
+        (SRC, BF16_LB, BF16_LB.replace("1)", "2)"))],
+    "bf16 tile 32x16": [
         (SRC, "constexpr int kTileW = 64;                    // pixels per warp row",
          "constexpr int kTileW = 32;"),
         (SRC, "constexpr int kPS = 88;", "constexpr int kPS = 56;"),
         (SRC, "constexpr int kFS = 84;", "constexpr int kFS = 52;")],
     "bf16 tile 128x8": [
+        (SRC, "constexpr int kWarps = 16;", "constexpr int kWarps = 8;"),
         (SRC, "constexpr int kTileW = 64;                    // pixels per warp row",
          "constexpr int kTileW = 128;"),
         (SRC, "constexpr int kPS = 88;", "constexpr int kPS = 152;"),
-        (SRC, "constexpr int kFS = 84;", "constexpr int kFS = 148;"),
-        (SRC, BF16_LB, BF16_LB.replace("2)", "1)"))],
-    # 16 warps (a 64 x 16 tile, one block an SM)
-    "bf16 tile 64x16": [
-        (SRC, "constexpr int kWarps = 8;", "constexpr int kWarps = 16;"),
-        (SRC, BF16_LB, BF16_LB.replace("2)", "1)"))],
-    "bf16 one block per SM": [(SRC, BF16_LB, BF16_LB.replace("2)", "1)"))],
+        (SRC, "constexpr int kFS = 84;", "constexpr int kFS = 148;")],
 })
 FWD16_VARIANTS = ("as built", "bf16 mma.sync", "bf16 wgmma async", "bf16 chain 4",
-                  "bf16 tile 32x8", "bf16 tile 128x8", "bf16 tile 64x16",
-                  "bf16 one block per SM")
+                  "bf16 tile 64x8", "bf16 tile 32x16", "bf16 tile 128x8")
 FWD_VARIANTS = ("as built", "split in registers", "paired A loads", "chain 1", "chain 2",
                 "chain 8", "chain kSteps", "one block per SM", "steps fully unrolled",
                 "steps not unrolled")
@@ -255,20 +253,25 @@ def build_variants(build, names) -> tuple:
     return libs, ptxas, paths, failed
 
 
-def sass_mma(path, kernel: str) -> dict:
-    """{tensor-core opcode: count} in the SASS of the kernel whose name
-    contains `kernel`, in the library at `path` (cuobjdump -sass):
+def mma_opcodes(sass: str, kernel: str) -> dict:
+    """{tensor-core opcode: count} in the SASS listing `sass` (cuobjdump
+    -sass) of the one function whose name contains `kernel`:
     HMMA.16816.F32.BF16 for mma.sync m16n8k16 bf16, HGMMA.* for wgmma,
     HMMA.1688.F32.TF32 for mma.sync m16n8k8 TF32."""
+    sections = [sec for sec in sass.split("Function : ")[1:] if kernel in sec.splitlines()[0]]
+    if len(sections) != 1:
+        raise RuntimeError(f"{len(sections)} functions named like {kernel!r}")
+    return dict(Counter(re.findall(r"\b(HG?MMA\.[0-9A-Za-z.]+)", sections[0])))
+
+
+def sass_mma(path, kernel: str) -> dict:
+    """mma_opcodes of `kernel` in the library at `path`."""
     from michigan_tpu_torch.ops.cuda import build
 
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
                          check=True).stdout
-    sections = [sec for sec in out.split("Function : ")[1:] if kernel in sec.splitlines()[0]]
-    if len(sections) != 1:
-        raise RuntimeError(f"{len(sections)} functions named like {kernel!r} in {path}")
-    return dict(Counter(re.findall(r"\b(HG?MMA\.[0-9A-Za-z.]+)", sections[0])))
+    return mma_opcodes(out, kernel)
 
 
 def strand_planes(torch, n, size, seed):

@@ -287,7 +287,9 @@ def test_tile_variants_reads_registers_and_spills_from_ptxas():
                                      "backward 8 rows",
                                      "backward no skip", "chain 1", "chain 2", "chain 8",
                                      "chain kSteps", "steps fully unrolled",
-                                     "steps not unrolled"])
+                                     "steps not unrolled", "bf16 mma.sync", "bf16 wgmma async",
+                                     "bf16 chain 4", "bf16 tile 64x8", "bf16 tile 32x16",
+                                     "bf16 tile 128x8"])
 def test_filterbank_variants_still_apply_to_the_source(tmp_path, variant):
     """tools/filterbank_variants.py measures the filter bank's design choices
     as edits of the built source: each edit must still find its text once."""
@@ -299,3 +301,39 @@ def test_filterbank_variants_still_apply_to_the_source(tmp_path, variant):
     text = (tmp_path / "filterbank.cu").read_text()
     for _name, _old, new in edits:
         assert new in text
+
+
+@pytest.mark.parametrize("variant", ["two-pass", "bulk copy into shared memory",
+                                     "counted global exchange", "256 threads"])
+def test_norm_variants_still_apply_to_the_source(tmp_path, variant):
+    """tools/norm_variants.py measures the bf16 instance norm's design
+    choices as edits of the built source: each edit must still find its
+    text exactly once."""
+    from michigan_tpu_torch.ops.cuda import build
+    from michigan_tpu_torch.tools import norm_variants
+
+    edits = norm_variants.variants(build.CSRC_DIR)[variant]
+    norm_variants.patched_sources(edits, tmp_path, build.CSRC_DIR)
+    text = (tmp_path / "spade_norm.cu").read_text()
+    for _name, _old, new in edits:
+        assert new in text
+
+
+def test_filterbank_variants_reads_the_tensor_core_opcodes_of_one_kernel():
+    """The SASS check behind the bf16 bank's acceptance: the tensor-core
+    instructions of the named function only."""
+    from michigan_tpu_torch.tools import filterbank_variants
+
+    sass = (
+        "\tcode for sm_90a\n"
+        "\t\tFunction : _ZN7bf16ops22filterbank_bf16_kernelEPKf\n"
+        "        /*0100*/   HGMMA.64x32x16.F32.BF16 R24, R16, gdesc[UR4], R24 ;\n"
+        "        /*0110*/   HGMMA.64x32x16.F32.BF16 R40, R20, gdesc[UR4], R40, gsb0 ;\n"
+        "\t\tFunction : _Z17filterbank_kernelPKf\n"
+        "        /*0200*/   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;\n")
+    assert filterbank_variants.mma_opcodes(sass, "filterbank_bf16_kernel") == {
+        "HGMMA.64x32x16.F32.BF16": 2}
+    assert filterbank_variants.mma_opcodes(sass, "17filterbank_kernel") == {
+        "HMMA.1688.F32.TF32": 1}
+    with pytest.raises(RuntimeError):
+        filterbank_variants.mma_opcodes(sass, "filterbank")
