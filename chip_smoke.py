@@ -1887,10 +1887,13 @@ def run():
     k = "filterbank_orientation"
     bank = filters.bank("gabor", grays.device)  # the loss's bank
     # in turns with the bank's route under XLA's bf16 policy, done by cuDNN:
-    # gray cast to bf16, the bf16 conv with the bank, the clamp, max and argmax
+    # gray cast to bf16, the bf16 conv with the bank, the clamp, max and
+    # argmax.  The route's gray has NCHW strides: the permuted planes (C = 1,
+    # also "contiguous") sent cuDNN to a kernel 3x slower
     b16 = bank.bfloat16().permute(3, 2, 0, 1).contiguous()
+    g_nchw = grays.new_empty(grays.shape).copy_(grays)
     fk = lambda: O.filterbank_orientation(grays, bank, True)
-    fr = lambda: F.conv2d(grays.bfloat16(), b16, padding=8).clamp_min(0).max(dim=1)
+    fr = lambda: F.conv2d(g_nchw.bfloat16(), b16, padding=8).clamp_min(0).max(dim=1)
     turns = {fk: [], fr: []}
     for f in (fr, fk, fk, fr):
         turns[f].append(median_ms(f, torch, True, inner=5))
@@ -1912,7 +1915,7 @@ def run():
           flush=True)
     if per_call != BF16_KERNELS["filterbank_orientation"]:
         return fail("the bank's bf16-operand form runs other than one device kernel per call")
-    del grays, bank, b16, fk, fr, turns
+    del grays, g_nchw, bank, b16, fk, fr, turns
     # fused_instance_norm in bf16 at the step's batch 8 (the frozen inpainter)
     in16_step = in16_path(torch, F, K, IN_SHAPES, TRAIN_BATCH, gen, 15, "step", tag)
     phase(15, f"fused_instance_norm bfloat16 per training step ({sum(IN_SHAPES.values())} calls "

@@ -13,8 +13,9 @@
 //
 // What bounds them: both are memory-bound elementwise/reduction passes with no
 // tensor-core work.  spade_modulate moves 16 B per f32 element (x, gamma, beta
-// in, y out); instance_norm reads x twice and writes y once (12 B per f32
-// element, 20 B with gamma/beta), against 3.35 TB/s of HBM.
+// in, y out); instance_norm in float32 reads x twice and writes y once (12 B
+// per element, 20 B with gamma/beta; the bf16 form reads x once, below),
+// against 3.35 TB/s of HBM.
 //
 // spade_modulate reads gamma and beta where the SPADE conv wrote them: the two
 // channel halves of one (N, 2C, H, W) output, each sample's (C, H, W) block
@@ -70,6 +71,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "conv3x3_bf16.cuh"
 #include "welford.cuh"
 
 namespace {
@@ -303,9 +305,6 @@ __device__ __forceinline__ float bf16_at(const uint4& v, int j) {
   return __uint_as_float(j & 1 ? w & 0xffff0000u : w << 16);
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
@@ -315,7 +314,9 @@ __device__ __forceinline__ void cluster_wait() {
 // the float4 at p in the shared memory of the cluster's block `rank`
 __device__ __forceinline__ float4 ld_cluster(const float4* p, int rank) {
   unsigned remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(conv_bf16::smem_u32(p)), "r"(rank));
   float4 v;
   asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
                : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)

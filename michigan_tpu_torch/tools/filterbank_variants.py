@@ -216,9 +216,27 @@ VARIANTS.update({
          "constexpr int kTileW = 128;"),
         (SRC, "constexpr int kPS = 88;", "constexpr int kPS = 152;"),
         (SRC, "constexpr int kFS = 84;", "constexpr int kFS = 148;")],
+    # diagnostics, each without one part of the work (their results are
+    # wrong; only their times are read): the products, the A loads from the
+    # pair words, the staging of the next tile's halo and the pair-word pass
+    "bf16 diag: no products": [
+        (SRC, BF16_CALL,
+         "#pragma unroll\n"
+         "      for (int i = 0; i < kMT; ++i)\n"
+         "        acc[i][s % 16] += __uint_as_float(a[i][0] ^ a[i][1] ^ a[i][2] ^ a[i][3]);\n")],
+    "bf16 diag: no A loads": [
+        (SRC, "wd[u] = a_row[s * kPS + 8 * u];", "wd[u] = 0x3f803f80u + s + u;"),
+        (SRC, "          a[i][0] = p[16 * i];\n          a[i][1] = p[16 * i + 8];\n"
+              "          a[i][2] = p[4 * kPS + 16 * i];\n          a[i][3] = p[4 * kPS + 16 * i + 8];\n",
+         "          a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0x3f803f80u + s + i;\n")],
+    "bf16 diag: no staging": [
+        (SRC, "    if (t + gridDim.x < ntiles) stage(t + gridDim.x);\n", ""),
+        (SRC, "    for (int i = tid; i < kStageH * kWords; i += kThreads) {\n",
+         "    for (int i = tid; i < 0; i += kThreads) {\n")],
 })
 FWD16_VARIANTS = ("as built", "bf16 mma.sync", "bf16 wgmma async", "bf16 chain 4",
-                  "bf16 tile 64x8", "bf16 tile 32x16", "bf16 tile 128x8")
+                  "bf16 tile 64x8", "bf16 tile 32x16", "bf16 tile 128x8", "bf16 diag: no products",
+                  "bf16 diag: no A loads", "bf16 diag: no staging")
 FWD_VARIANTS = ("as built", "split in registers", "paired A loads", "chain 1", "chain 2",
                 "chain 8", "chain kSteps", "one block per SM", "steps fully unrolled",
                 "steps not unrolled")
@@ -424,6 +442,8 @@ def run_bf16(torch, libs, paths, card) -> int:
             idx = torch.empty(size, dtype=torch.int32, device="cuda")
             conf = torch.empty(size, device="cuda")
             for v in names:
+                if "diag:" in v:  # no result to check
+                    continue
                 fwd16(v, gray, bank, idx, conf)
                 torch.cuda.synchronize()
                 err = (conf.double() - c64).abs().max().item()

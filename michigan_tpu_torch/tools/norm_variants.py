@@ -89,7 +89,6 @@ def variants(csrc) -> dict:
         "as built": [],
         "two-pass": [(SRC, "  if (cs == 0) return", "  if (true) return")],
         "bulk copy into shared memory": [
-            (SRC, '#include "welford.cuh"\n', '#include "welford.cuh"\n#include "conv3x3_bf16.cuh"\n'),
             (SRC, "  for (int v = 0; v < kResVecs; ++v) xv[v] = load(x, v);\n",
              "  __shared__ __align__(128) uint4 s_slice[kResElems / 8];\n"
              "  __shared__ __align__(8) unsigned long long s_bar;\n"

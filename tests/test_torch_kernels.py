@@ -289,7 +289,8 @@ def test_tile_variants_reads_registers_and_spills_from_ptxas():
                                      "chain kSteps", "steps fully unrolled",
                                      "steps not unrolled", "bf16 mma.sync", "bf16 wgmma async",
                                      "bf16 chain 4", "bf16 tile 64x8", "bf16 tile 32x16",
-                                     "bf16 tile 128x8"])
+                                     "bf16 tile 128x8", "bf16 diag: no products",
+                                     "bf16 diag: no A loads", "bf16 diag: no staging"])
 def test_filterbank_variants_still_apply_to_the_source(tmp_path, variant):
     """tools/filterbank_variants.py measures the filter bank's design choices
     as edits of the built source: each edit must still find its text once."""
