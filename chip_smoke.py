@@ -186,6 +186,13 @@ TFLOP/s of bf16 products) take their launches from phase 15's counted
 step.  Last, the device line.  Any
 failure exits non-zero without the device line; so does a machine without
 CUDA, and a directory without the rest of the repository.
+
+    python3 chip_smoke.py --host_ab DIR [PAIRS]
+
+compares the port of another checkout DIR (the parent's ``git archive``)
+with this one on the host clock, in fresh processes in turns: each bf16
+fused_instance_norm call launched from Python, the bf16 flagship forward at
+batch 1 and the bf16 stroke edit (host_ab; 10 pairs by default).
 """
 
 from __future__ import annotations
@@ -390,6 +397,17 @@ def median_ms(fn, torch, graph, reps=5, inner=20):
     return statistics.median(times)
 
 
+def edit_of(engine, m, batch_):
+    def stroke_edit():
+        """One edit as the demo engine runs it on the card: the stroke's
+        orientation through the DoG bank, the forward, the display encode,
+        and the one copy back."""
+        b = dict(batch_)
+        b["orient_stroke"] = engine.orient_stroke_plane(b["mask_stroke"], b["label_tag"])
+        return engine.render_edit(m, b, "stroke").cpu()
+    return stroke_edit
+
+
 def host_ms(fn, torch, reps):
     """Median host-clock time of fn() followed by a synchronize."""
     fn()
@@ -460,7 +478,7 @@ def kernels_per_call(cases):
 
     counts = {}
     for key, n in kernel_launches.run(cases).items():
-        name = key.split("::", 1)[-1].split("<")[0].split("(")[0].rsplit("::", 1)[-1]
+        name = kernel_launches.short_name(key)
         counts[name] = counts.get(name, 0) + n
     return {k: v / len(cases) for k, v in counts.items()}
 
@@ -477,8 +495,16 @@ def psnr_u8(a, b, np):
 
 def kernel_inputs(torch, kind, c, h, dtype, gen, n=1):
     """As the path gives them: spade_modulate's gamma and beta are the two
-    channel halves of one (n, 2C, H, W) conv output."""
-    x = torch.randn((n, c, h, h), generator=gen).to("cuda", dtype)
+    channel halves of one (n, 2C, H, W) conv output.  fused_instance_norm's
+    planes carry a trend along H*W (4 linspace(-1, 1)), so that the slices a
+    plane is split into differ in mean and spread: a merge that drops,
+    doubles or mis-weights a slice, or leaves out the slices' spread of
+    means, moves the output by far more than the tolerance (on i.i.d. planes
+    the slices agree and such a merge passes: tools/norm_variants.py)."""
+    x = torch.randn((n, c, h, h), generator=gen)
+    if kind == "fused_instance_norm":
+        x += 4 * torch.linspace(-1, 1, h * h).view(h, h)
+    x = x.to("cuda", dtype)
     if kind == "spade_modulate":
         mean = torch.randn(c, generator=gen).cuda()
         inv = torch.rand(c, generator=gen).add(0.5).cuda()
@@ -980,7 +1006,7 @@ def run():
               f"{FB16_IDX_FRAC:g}, near-ties only) {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             failed.append(("filterbank_orientation bf16 operands", mode))
-    from michigan_tpu_torch.tools.filterbank_variants import sass_mma
+    from michigan_tpu_torch.tools.kernel_launches import sass_mma
 
     ops = sass_mma(libs["filterbank"], "filterbank_bf16_kernel")
     ok = any(k.startswith(("HMMA.16816.F32.BF16", "HGMMA")) for k in ops) and \
@@ -1117,17 +1143,7 @@ def run():
     smodel.init_weights(SEED)
     sbatch = batch_from_numpy(stroke_data, "cuda:0")
 
-    def edit_of(m, batch_):
-        def stroke_edit():
-            """One edit as the demo engine runs it on the card: the stroke's
-            orientation through the DoG bank, the forward, the display
-            encode, and the one copy back."""
-            b = dict(batch_)
-            b["orient_stroke"] = engine.orient_stroke_plane(b["mask_stroke"], b["label_tag"])
-            return engine.render_edit(m, b, "stroke").cpu()
-        return stroke_edit
-
-    stroke_edit = edit_of(smodel, sbatch)
+    stroke_edit = edit_of(engine, smodel, sbatch)
 
     kernels.reset_launch_counts()
     u8 = stroke_edit()
@@ -1678,7 +1694,7 @@ def run():
     smodel16 = MichiGANModel(sopt16, "cuda:0")
     smodel16.init_weights(SEED)
     sbatch = batch_from_numpy(stroke_data, "cuda:0")
-    stroke_edit16 = edit_of(smodel16, sbatch)
+    stroke_edit16 = edit_of(engine, smodel16, sbatch)
     kernels.reset_launch_counts()
     u8 = stroke_edit16()
     torch.cuda.synchronize()
@@ -2118,7 +2134,95 @@ def run():
     return 0
 
 
+def host_times(root, reps=30):
+    """The bf16 serving paths on the host clock with the port of the
+    checkout `root`, in this process: each bf16 fused_instance_norm call of
+    the flagship launched from Python (mean of 50 back-to-back calls,
+    median of 5), the bf16 flagship forward at batch 1 (phase 13's) and the
+    bf16 stroke edit (phase 14's), each the median of `reps` after a
+    warm-up.  Prints one JSON line."""
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false")
+    import michigan_tpu_torch
+    from michigan_tpu_torch.data.synthetic import synthetic_inference_data, synthetic_stroke_data
+    from michigan_tpu_torch.demo import engine
+    from michigan_tpu_torch.inference import parse_options
+    from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
+    from michigan_tpu_torch.ops.cuda import build
+    from michigan_tpu_torch.ops.cuda import spade as K
+
+    port = Path(michigan_tpu_torch.__file__).resolve()
+    if not port.is_relative_to(Path(root).resolve()):
+        return fail(f"the port was imported from {port}, not from {root}")
+    build.build_all()
+    gen = torch.Generator().manual_seed(SEED)
+    norm_us = {}
+    for (c, h, act) in IN_SHAPES:
+        x = kernel_inputs(torch, "fused_instance_norm", c, h, torch.bfloat16, gen)[0]
+        norm_us[f"(1,{c},{h},{h}) {act}"] = 1e3 * median_ms(
+            lambda: K.fused_instance_norm(x, act=act), torch, False, inner=50)
+    opt = parse_options(FLAGS + ["--seed", str(SEED), "--dtype", "bfloat16"])
+    model = MichiGANModel(opt, "cuda:0")
+    model.init_weights(SEED)
+    batch = batch_from_numpy(synthetic_inference_data(opt, SEED), "cuda:0")
+    flagship_ms = host_ms(lambda: model.infer(batch), torch, reps)
+    del model, batch
+    sopt = engine.parse_options(STROKE_FLAGS + ["--seed", str(SEED), "--dtype", "bfloat16"])
+    smodel = MichiGANModel(sopt, "cuda:0")
+    smodel.init_weights(SEED)
+    stroke_data = synthetic_stroke_data(engine.parse_options(STROKE_FLAGS + ["--seed", str(SEED)]),
+                                        SEED)
+    edit_ms = host_ms(edit_of(engine, smodel, batch_from_numpy(stroke_data, "cuda:0")), torch,
+                      reps)
+    print(json.dumps({"root": str(root), "norm_launched_us": norm_us,
+                      "flagship_bf16_ms": flagship_ms, "edit_bf16_ms": edit_ms}))
+    return 0
+
+
+def host_ab(other, pairs):
+    """The parent (or any checkout `other`) against this checkout on the
+    host clock: host_times in fresh processes, `pairs` pairs in turns
+    (other, this, this, other, ...), on one card.  Prints every run, then
+    per metric the medians and how many pairs this checkout was slower in.
+    The bf16 serving paths are host-bound and a process's host clock spreads
+    more than two commits differ, hence many runs in turns."""
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    card = card_info()
+    print(f"card: {card}", flush=True)
+    runs = {"other": [], "this": []}
+    for i in range(pairs):
+        for who in ("other", "this") if i % 2 == 0 else ("this", "other"):
+            root = other if who == "other" else here
+            proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--host_times",
+                                   str(root)], capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                return fail(f"host_times {root} failed:\n{proc.stderr[-3000:]}")
+            run_ = json.loads(proc.stdout.strip().splitlines()[-1])
+            runs[who].append(run_)
+            print(json.dumps({"pair": i, "checkout": who, **run_}), flush=True)
+    flat = lambda r: {"flagship_bf16_ms": r["flagship_bf16_ms"], "edit_bf16_ms": r["edit_bf16_ms"],
+                      **{f"norm {k} us": v for k, v in r["norm_launched_us"].items()}}
+    for key in flat(runs["this"][0]):
+        a = [flat(r)[key] for r in runs["other"]]
+        b = [flat(r)[key] for r in runs["this"]]
+        print(f"{key}: other median {statistics.median(a):.3f} [{min(a):.3f}, {max(a):.3f}], "
+              f"this median {statistics.median(b):.3f} [{min(b):.3f}, {max(b):.3f}], this slower "
+              f"in {sum(y > x for x, y in zip(a, b))} of {pairs} pairs [{card}]", flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--host_ab"]:  # a comparison of two checkouts: see host_ab
+        sys.exit(host_ab(sys.argv[2], int(sys.argv[3]) if len(sys.argv) > 3 else 10))
+    if sys.argv[1:2] == ["--host_times"]:
+        sys.exit(host_times(sys.argv[2]))
     if sys.argv[1:2] == ["--conv_algorithms"]:  # a diagnostic: see its module
         from michigan_tpu_torch.tools import conv_algorithms
 

@@ -360,8 +360,11 @@ constexpr int kRowSteps = kK;                 // steps 0-16: filter row s, taps 
 constexpr int kSteps = kRowSteps + 3;         // 17-19: tap column 16; K = 320
 constexpr int kInW = kTileW + kK;             // 81 halo columns: x0 - 8 .. x0 + 72
 constexpr int kWords = kTileW + 2 * kR;       // 80 pair words a halo row
-constexpr int kStageH = kTileH + 2 * kR;      // 24 halo rows
+constexpr int kStageH = kTileH + 2 * kR;      // 32 halo rows
 constexpr int kPairH = kStageH + 7;           // and 7 zero rows for the pad pairs
+// the column steps' A loads reach row (warp) + (tig) + 8 (s - 17) + 4
+static_assert(kPairH > (kWarps - 1) + 3 + 8 * (kSteps - kRowSteps - 1) + 4,
+              "the pair words cover the column steps' rows");
 constexpr int kPS = 88;                       // pair-word row stride, 24 mod 32
 constexpr int kFS = 84;                       // float staging row stride
 constexpr int kStepBytes = 2 * kNum * 16;     // a step's bank: [k half][n][8 k] bf16

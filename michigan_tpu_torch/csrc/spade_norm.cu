@@ -71,6 +71,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "conv3x3_bf16.cuh"
 #include "welford.cuh"
 
@@ -439,10 +441,16 @@ instance_norm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   if (cs > 1) cluster_wait();  // no block leaves while another may read its s_block
 }
 
+// The current card's SM count, read from the driver once per device.
 int device_sms(int* sms) {
+  constexpr int kDevices = 64;
+  static std::atomic<int> cached[kDevices];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < kDevices && (*sms = cached[dev].load(std::memory_order_relaxed)) > 0) return 0;
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && dev < kDevices) cached[dev].store(*sms, std::memory_order_relaxed);
   return (int)e;
 }
 

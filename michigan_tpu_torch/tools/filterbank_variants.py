@@ -41,13 +41,11 @@ from __future__ import annotations
 
 import ctypes
 import math
-import re
 import subprocess
 import sys
 import types
-from collections import Counter
-from pathlib import Path
 
+from michigan_tpu_torch.tools.kernel_launches import sass_mma
 from michigan_tpu_torch.tools.tile_variants import median_ms, patched_sources, ptxas_report
 
 SRC = "filterbank.cu"
@@ -269,27 +267,6 @@ def build_variants(build, names) -> tuple:
             getattr(lib, fn).restype = ctypes.c_int
         libs[name], ptxas[name], paths[name] = lib, ptxas_report(err), out
     return libs, ptxas, paths, failed
-
-
-def mma_opcodes(sass: str, kernel: str) -> dict:
-    """{tensor-core opcode: count} in the SASS listing `sass` (cuobjdump
-    -sass) of the one function whose name contains `kernel`:
-    HMMA.16816.F32.BF16 for mma.sync m16n8k16 bf16, HGMMA.* for wgmma,
-    HMMA.1688.F32.TF32 for mma.sync m16n8k8 TF32."""
-    sections = [sec for sec in sass.split("Function : ")[1:] if kernel in sec.splitlines()[0]]
-    if len(sections) != 1:
-        raise RuntimeError(f"{len(sections)} functions named like {kernel!r}")
-    return dict(Counter(re.findall(r"\b(HG?MMA\.[0-9A-Za-z.]+)", sections[0])))
-
-
-def sass_mma(path, kernel: str) -> dict:
-    """mma_opcodes of `kernel` in the library at `path`."""
-    from michigan_tpu_torch.ops.cuda import build
-
-    tool = Path(build.nvcc_path()).with_name("cuobjdump")
-    out = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
-                         check=True).stdout
-    return mma_opcodes(out, kernel)
 
 
 def strand_planes(torch, n, size, seed):

@@ -13,6 +13,10 @@ process of its own, with one session, because in a process that has held
 many profiler sessions (a test run, chip_smoke.py, a dozen calls' own
 sessions) the later sessions were seen to list no device kernels at all.
 Needs a CUDA card.
+
+``short_name`` shortens the profiler's kernel names; ``sass_mma`` lists the
+tensor-core instructions of one kernel of a built library (cuobjdump
+-sass), the check that a kernel runs on bf16 tensor-core products.
 """
 
 from __future__ import annotations
@@ -20,8 +24,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
+from collections import Counter
 from pathlib import Path
 
 
@@ -76,6 +82,33 @@ def run(cases, timeout=600) -> dict:
     if proc.returncode != 0:
         raise RuntimeError(f"kernel_launches failed:\n{proc.stderr[-3000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def short_name(key: str) -> str:
+    """A profiler kernel name without its namespaces, template arguments
+    and parameters."""
+    return key.split("::", 1)[-1].split("<")[0].split("(")[0].rsplit("::", 1)[-1]
+
+
+def mma_opcodes(sass: str, kernel: str) -> dict:
+    """{tensor-core opcode: count} in the SASS listing `sass` (cuobjdump
+    -sass) of the one function whose name contains `kernel`:
+    HMMA.16816.F32.BF16 for mma.sync m16n8k16 bf16, HGMMA.* for wgmma,
+    HMMA.1688.F32.TF32 for mma.sync m16n8k8 TF32."""
+    sections = [sec for sec in sass.split("Function : ")[1:] if kernel in sec.splitlines()[0]]
+    if len(sections) != 1:
+        raise RuntimeError(f"{len(sections)} functions named like {kernel!r}")
+    return dict(Counter(re.findall(r"\b(HG?MMA\.[0-9A-Za-z.]+)", sections[0])))
+
+
+def sass_mma(path, kernel: str) -> dict:
+    """mma_opcodes of `kernel` in the library at `path`."""
+    from michigan_tpu_torch.ops.cuda import build
+
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
+                         check=True).stdout
+    return mma_opcodes(out, kernel)
 
 
 def main(argv=None) -> int:

@@ -20,16 +20,24 @@ processes started together, and loaded with ctypes:
   conv3x3_in_act's bf16 form does); its launcher clears the counters first.
   It waits on blocks that must all be resident, so it runs only at batch 1
   (at most 512 blocks);
-- "256 threads": blocks of 256 threads holding 4 vectors each.
+- "256 threads": blocks of 256 threads holding 4 vectors each;
+- "plant: ...": faults planted in the merges, which the comparison must
+  catch: a slice of a split plane dropped from the cluster's merge, a slice
+  counted twice, the cluster's merge without the spread of the slices'
+  means (Chan's d^2 term), and a warp dropped from a block's merge.
 
 Each variant is held against the plain version (atol 1e-2, rtol 1.6e-2) at
 every shape of fused_instance_norm on the bf16 paths (the flagship's and the
 stroke edit's at batch 1, the training step's at batch 8), with gamma and
-beta and with each act, and at a ragged H*W; then timed per shape (calls
-replayed in a CUDA graph, median of 5, the variants in turns) beside
-F.instance_norm, and summed over a flagship forward (batch 1) and a
-training step's frozen inpainter (batch 8).  Prints the card's name and
-power limit first.  Needs a CUDA card and nvcc; exits 1 without them.
+beta and with each act, and at a ragged H*W, on planes with a trend along
+H*W (``planes``, the input of chip_smoke.py's phase 3 and of the card
+tests), and each plant also on i.i.d. planes, whose slices agree.  The
+designs are then timed per shape (calls replayed in a CUDA graph, median of
+5, the variants in turns) beside F.instance_norm, and summed over a
+flagship forward (batch 1) and a training step's frozen inpainter (batch
+8).  Prints the card's name and power limit first.  Exits 1 if "as built"
+disagrees or a plant passes on the trended planes; needs a CUDA card and
+nvcc, and exits 1 without them.
 """
 
 from __future__ import annotations
@@ -71,6 +79,9 @@ GLOBAL_EXCHANGE = (
     "  } else if (tid == 0) {\n")
 CLUSTER_EXCHANGE_START = "  if (cs > 1) {  // the plane's, from every block of the cluster, in rank order\n"
 CLUSTER_EXCHANGE_END = "  } else if (tid == 0) {\n"
+CLUSTER_MERGE = ("      warp_merge(mean, m2, cnt);\n"
+                 "      if (lane == 0) s_stats = make_float2(mean, rsqrtf(m2 / cnt + eps));\n"
+                 "    }\n    cluster_arrive();")
 KERNEL_DECL = ("template <bool kVec>\n__global__ void __launch_bounds__(kResThreads, 4)\n"
                "instance_norm_bf16_kernel(")
 
@@ -123,7 +134,31 @@ def variants(csrc) -> dict:
         "256 threads": [
             (SRC, "constexpr int kResThreads = 128;", "constexpr int kResThreads = 256;"),
             (SRC, "constexpr int kResVecs = 8; ", "constexpr int kResVecs = 4; ")],
+        "plant: a slice dropped": [
+            (SRC, "lane < cs ? ld_cluster(&s_block, lane)",
+             "lane < cs - 1 ? ld_cluster(&s_block, lane)")],
+        "plant: a slice counted twice": [
+            (SRC, "ld_cluster(&s_block, lane)", "ld_cluster(&s_block, lane == cs - 1 ? 0 : lane)")],
+        "plant: no d^2 term": [
+            (SRC, CLUSTER_MERGE, CLUSTER_MERGE.replace(
+                "      if (lane == 0)",
+                "      m2 = p.y;  // the slices' own M2 only\n"
+                "      for (int off = 16; off > 0; off >>= 1)\n"
+                "        m2 += __shfl_down_sync(0xffffffffu, m2, off);\n"
+                "      if (lane == 0)", 1))],
+        "plant: a warp dropped": [
+            (SRC, "lane < kResWarps ? s_part[lane]", "lane < kResWarps - 1 ? s_part[lane]")],
     }
+
+
+def planes(torch, shape, gen, trend=True):
+    """bf16 planes on the card: randn, plus with `trend` 4 linspace(-1, 1)
+    along H*W, so that the slices of a split plane differ in mean."""
+    h, w = shape[-2:]
+    x = torch.randn(shape, generator=gen, device="cuda")
+    if trend:
+        x += 4 * torch.linspace(-1, 1, h * w, device="cuda").view(h, w)
+    return x.bfloat16()
 
 
 def build_variants(build) -> tuple:
@@ -189,31 +224,44 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rand = lambda shape: torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    plants = [v for v in names if v.startswith("plant: ")]
+    designs = [v for v in names if v not in plants]
     failures = []
+    caught = {v: {"trended": 0, "i.i.d.": 0} for v in plants}
     cases = [(n, c, h, h, act, gb) for n in (1, 8) for (c, h, act) in IN_SHAPES
              for gb in (False, True)]
     cases += [(1, 64, 37, 53, "lrelu", True), (2, 8, 300, 300, None, False),
               (1, 3, 255, 257, "relu", False)]  # ragged, and planes for the two-pass form
     for n, c, h, w, act, gb in cases:
-        x = rand((n, c, h, w)) * 3 + 1
-        g, b = (rand((n, c, h, w)), rand((n, c, h, w))) if gb else (None, None)
-        want = K.fused_instance_norm_plain(x, g, b, act=act).float()
-        out = torch.empty_like(x)
-        errs = []
-        for v in names:
-            if not fits(v, n):
-                continue
-            out.zero_()
-            run(v, x, g, b, act, out)
-            torch.cuda.synchronize()
-            ok = torch.allclose(out.float(), want, **TOL)
-            errs.append(f"{v} {(out.float() - want).abs().max().item():.2e}{'' if ok else ' FAIL'}")
-            if not ok:
-                failures.append((v, n, c, h, w, act, gb))
-        print(f"({n},{c},{h},{w}) act={act} gamma/beta={gb}: max abs err " + ", ".join(errs),
-              flush=True)
-    if any(f[0] == "as built" for f in failures):
-        print(f"FAIL: {failures}", file=sys.stderr)
+        for kind in ("trended", "i.i.d."):
+            x = planes(torch, (n, c, h, w), gen, trend=kind == "trended")
+            g, b = (rand((n, c, h, w)), rand((n, c, h, w))) if gb else (None, None)
+            want = K.fused_instance_norm_plain(x, g, b, act=act).float()
+            out = torch.empty_like(x)
+            errs = []
+            for v in names if kind == "trended" else plants:
+                if not fits(v, n):
+                    continue
+                out.zero_()
+                run(v, x, g, b, act, out)
+                torch.cuda.synchronize()
+                ok = torch.allclose(out.float(), want, **TOL)
+                errs.append(f"{v} {(out.float() - want).abs().max().item():.2e}"
+                            f"{'' if ok else ' FAIL'}")
+                if ok:
+                    continue
+                if v in caught:
+                    caught[v][kind] += 1
+                else:
+                    failures.append((v, n, c, h, w, act, gb))
+            print(f"({n},{c},{h},{w}) act={act} gamma/beta={gb}, {kind} planes: max abs err "
+                  + ", ".join(errs), flush=True)
+    for v, k in caught.items():
+        print(f"{v}: fails {k['trended']} of {len(cases)} cases on trended planes, "
+              f"{k['i.i.d.']} on i.i.d. planes", flush=True)
+    missed = [v for v, k in caught.items() if k["trended"] == 0]
+    if any(f[0] == "as built" for f in failures) or missed:
+        print(f"FAIL: {failures}; plants the trended planes miss: {missed}", file=sys.stderr)
         return 1
 
     totals = {}
@@ -221,7 +269,7 @@ def main(argv=None) -> int:
         for (c, h, act), calls in IN_SHAPES.items():
             x = rand((n, c, h, h))
             out = torch.empty_like(x)
-            order = [v for v in names if fits(v, n)]
+            order = [v for v in designs if fits(v, n)]
             ts = {}
             for v in order + order[::-1]:
                 ts.setdefault(v, []).append(median_ms(lambda: run(v, x, None, None, act, out),

@@ -26,7 +26,8 @@ lie within that tolerance; against float64 sums of the bf16 operands its
 conf error within 1% of the plain version's (both round to bf16) and its
 argmax off float64's on at most 1e-4 of the pixels more.  fused_instance_norm
 in bf16 (one read, planes split across clusters) atol 1e-2, rtol 1.6e-2 at
-every shape of the bf16 paths, ragged and large planes, and far from zero.
+every shape of the bf16 paths, ragged and large planes (all on planes with a
+trend along H*W, whose slices differ), and far from zero.
 """
 
 import math
@@ -112,6 +113,18 @@ def test_instance_norm_is_stable_far_from_zero(cuda_device):
     torch.testing.assert_close(got, want, atol=2e-2, rtol=0)
 
 
+def trended(shape, gen, device):
+    """bf16 planes whose slices differ: randn plus a trend along H*W (4
+    linspace(-1, 1)), chip_smoke.py's norm input.  Each slice of a plane
+    split across a cluster has its own mean, so a merge that drops, doubles
+    or mis-weights a slice, or leaves out the spread of the slices' means,
+    fails the comparison; on i.i.d. planes the slices agree and it would not
+    (tools/norm_variants.py plants such merges)."""
+    h, w = shape[-2:]
+    trend = 4 * torch.linspace(-1, 1, h * w, device=device).view(h, w)
+    return (torch.randn(shape, generator=gen, device=device) + trend).bfloat16()
+
+
 # fused_instance_norm's shapes on the bf16 paths (C, H=W, act): the
 # inpainter's norms, run by the flagship and the edit at batch 1 and by the
 # training step at batch 8
@@ -122,10 +135,12 @@ IN_BF16_SHAPES = [(64, 256, "lrelu"), (128, 128, "lrelu"), (256, 64, "lrelu"),
 @pytest.mark.parametrize("batch", [1, 8])
 @pytest.mark.parametrize("c,h,act", IN_BF16_SHAPES)
 def test_instance_norm_bf16_matches_plain_at_the_path_shapes(cuda_device, c, h, act, batch):
-    """The one-read bf16 form, with and without gamma and beta."""
+    """The one-read bf16 form, with and without gamma and beta, on planes
+    whose slices differ."""
     gen = torch.Generator(device=cuda_device).manual_seed(13)
-    x, g, b = (torch.randn((batch, c, h, h), generator=gen, device=cuda_device).bfloat16()
-               for _ in range(3))
+    x = trended((batch, c, h, h), gen, cuda_device)
+    g, b = (torch.randn((batch, c, h, h), generator=gen, device=cuda_device).bfloat16()
+            for _ in range(2))
     for gb in ((None, None), (g, b)):
         got = K.fused_instance_norm(x, *gb, act=act)
         want = K.fused_instance_norm_plain(x, *gb, act=act)
@@ -140,8 +155,9 @@ def test_instance_norm_bf16_matches_plain_at_the_path_shapes(cuda_device, c, h, 
                                      (1, 8, 128, 128), (2, 5, 24, 40)])
 def test_instance_norm_bf16_on_ragged_and_large_planes(cuda_device, n, c, h, w):
     gen = torch.Generator(device=cuda_device).manual_seed(14)
-    x, g, b = (torch.randn((n, c, h, w), generator=gen, device=cuda_device).bfloat16()
-               for _ in range(3))
+    x = trended((n, c, h, w), gen, cuda_device)
+    g, b = (torch.randn((n, c, h, w), generator=gen, device=cuda_device).bfloat16()
+            for _ in range(2))
     for act in ACTS:
         for gb in ((None, None), (g, b)):
             got = K.fused_instance_norm(x, *gb, act=act)
@@ -176,7 +192,7 @@ def test_instance_norm_bf16_splits_planes_by_shape(cuda_device):
     assert K.instance_norm_bf16_split(z(8, 256, 64, 64)) == 1
     assert K.instance_norm_bf16_split(z(1, 1, 300, 300)) == 0
     gen = torch.Generator(device=cuda_device).manual_seed(15)
-    x = torch.randn((1, 64, 256, 256), generator=gen, device=cuda_device).bfloat16()
+    x = trended((1, 64, 256, 256), gen, cuda_device)
     kernels.reset_launch_counts()
     got = K.fused_instance_norm(x, act="lrelu")
     torch.cuda.synchronize()
@@ -549,13 +565,12 @@ def test_filterbank_bf16_operands_one_kernel_on_bf16_tensor_cores(cuda_device):
     """One device kernel per call at the training step's (8, 1, 512^2)
     (torch.profiler, in a process of its own), and its SASS issues bf16
     tensor-core products (HMMA.16816 bf16 or HGMMA) and no TF32 mma."""
-    from michigan_tpu_torch.tools import filterbank_variants, kernel_launches
+    from michigan_tpu_torch.tools import kernel_launches
 
     launches = kernel_launches.run([["bank16", [8, 512, 512]]])
-    short = {k.split("::", 1)[-1].split("(")[0].rsplit("::", 1)[-1]: n
-             for k, n in launches.items()}
+    short = {kernel_launches.short_name(k): n for k, n in launches.items()}
     assert short == {"filterbank_bf16_kernel": 1}, launches
-    ops = filterbank_variants.sass_mma(build.build("filterbank"), "filterbank_bf16_kernel")
+    ops = kernel_launches.sass_mma(build.build("filterbank"), "filterbank_bf16_kernel")
     assert any(k.startswith(("HMMA.16816.F32.BF16", "HGMMA")) for k in ops), ops
     assert not any("TF32" in k for k in ops), ops
 

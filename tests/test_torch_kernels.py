@@ -305,7 +305,9 @@ def test_filterbank_variants_still_apply_to_the_source(tmp_path, variant):
 
 
 @pytest.mark.parametrize("variant", ["two-pass", "bulk copy into shared memory",
-                                     "counted global exchange", "256 threads"])
+                                     "counted global exchange", "256 threads",
+                                     "plant: a slice dropped", "plant: a slice counted twice",
+                                     "plant: no d^2 term", "plant: a warp dropped"])
 def test_norm_variants_still_apply_to_the_source(tmp_path, variant):
     """tools/norm_variants.py measures the bf16 instance norm's design
     choices as edits of the built source: each edit must still find its
@@ -320,10 +322,42 @@ def test_norm_variants_still_apply_to_the_source(tmp_path, variant):
         assert new in text
 
 
+@pytest.mark.parametrize("fault", ["a slice dropped", "a slice counted twice",
+                                   "no d^2 term"])
+def test_trended_norm_planes_expose_a_faulty_slice_merge(fault):
+    """The bf16 instance norm's card checks (chip_smoke.py's phase 3, the
+    card tests) use planes with a trend along H*W.  Merging the (mean, M2,
+    count) of a (256^2)-plane's 8 slices of 8,192 elements (the cluster of
+    the inpainter's (1, 64, 256^2)) with `fault` moves the normalised bf16
+    output past the bf16 tolerance (atol 1e-2, rtol 1.6e-2) on such planes,
+    but not on i.i.d. planes, whose slices agree."""
+    gen = torch.Generator().manual_seed(0)
+    iid = torch.randn((4, 256 * 256), generator=gen)
+    trended = iid + 4 * torch.linspace(-1, 1, 256 * 256)
+
+    def merged(x, fault):
+        s = x.bfloat16().double().view(x.shape[0], 8, 8192)
+        mean, m2 = s.mean(-1), ((s - s.mean(-1, keepdim=True)) ** 2).sum(-1)
+        cnt = torch.full_like(mean, 8192.0)
+        if fault == "a slice dropped":
+            mean, m2, cnt = mean[:, :7], m2[:, :7], cnt[:, :7]
+        elif fault == "a slice counted twice":
+            mean, m2, cnt = (torch.cat([a, a[:, :1]], 1) for a in (mean, m2, cnt))
+        mu = (mean * cnt).sum(1) / cnt.sum(1)
+        m2 = m2.sum(1) + (0 if fault == "no d^2 term" else
+                          (cnt * (mean - mu[:, None]) ** 2).sum(1))
+        y = (s.view(x.shape) - mu[:, None]) / (m2 / cnt.sum(1) + 1e-5).sqrt()[:, None]
+        return y.bfloat16().float()
+
+    for x, caught in ((trended, True), (iid, False)):
+        close = torch.allclose(merged(x, fault), merged(x, None), atol=1e-2, rtol=1.6e-2)
+        assert close is not caught
+
+
 def test_filterbank_variants_reads_the_tensor_core_opcodes_of_one_kernel():
     """The SASS check behind the bf16 bank's acceptance: the tensor-core
     instructions of the named function only."""
-    from michigan_tpu_torch.tools import filterbank_variants
+    from michigan_tpu_torch.tools import kernel_launches
 
     sass = (
         "\tcode for sm_90a\n"
@@ -332,9 +366,9 @@ def test_filterbank_variants_reads_the_tensor_core_opcodes_of_one_kernel():
         "        /*0110*/   HGMMA.64x32x16.F32.BF16 R40, R20, gdesc[UR4], R40, gsb0 ;\n"
         "\t\tFunction : _Z17filterbank_kernelPKf\n"
         "        /*0200*/   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;\n")
-    assert filterbank_variants.mma_opcodes(sass, "filterbank_bf16_kernel") == {
+    assert kernel_launches.mma_opcodes(sass, "filterbank_bf16_kernel") == {
         "HGMMA.64x32x16.F32.BF16": 2}
-    assert filterbank_variants.mma_opcodes(sass, "17filterbank_kernel") == {
+    assert kernel_launches.mma_opcodes(sass, "17filterbank_kernel") == {
         "HMMA.1688.F32.TF32": 1}
     with pytest.raises(RuntimeError):
-        filterbank_variants.mma_opcodes(sass, "filterbank")
+        kernel_launches.mma_opcodes(sass, "filterbank")
