@@ -441,7 +441,7 @@ instance_norm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   if (cs > 1) cluster_wait();  // no block leaves while another may read its s_block
 }
 
-// The current card's SM count, read from the driver once per device.
+// The current card's SM count, queried once per device.
 int device_sms(int* sms) {
   constexpr int kDevices = 64;
   static std::atomic<int> cached[kDevices];
