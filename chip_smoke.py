@@ -5,7 +5,8 @@
 
 Drives three paths of the port at full width on seeded random weights and
 seeded numpy samples, each through its own entry points, and all three again
-under the bf16 compute policy (--dtype bfloat16):
+under the bf16 compute policy (--dtype bfloat16); then the training step of
+the VAE, blender and unpaired two-stage configs (phase 16):
 
 - the flagship inference path (IG orientation inpainting -> partial-conv
   appearance encoder -> noise background encoder -> SPADEB generator with
@@ -156,11 +157,31 @@ Phases, each on its own line:
       the CPU's own count (plus 0.1%), every element within 2.5 lr; and a
       control that must fail that gate: the card's bf16 step on the first
       half of the batch
+  16. the training configs of the JAX package's flag matrix in float32 at
+      batch 8, 512^2, full width, TRAIN_FLAGS plus --use_vae (vae),
+      --use_blender (blender) or --unpairTrain --same_netD_model (unpair:
+      a stage-2 step on the unpaired synthetic batch, then a stage-1 step
+      on the paired one): per config and stage, the counts set to 0 just
+      before one G+D step and read just after, exactly 29
+      fused_instance_norm, 1 filterbank_orientation, 1
+      filterbank_orientation_backward and 1 conv3x3_same_lowch (0 in stage
+      2, which runs no VGG tower); losses finite (KLD among them for vae);
+      the nets the step trains changed and no other (netG, netE or netB,
+      netD; stage 2 netG and netD2, stage 1 netG and netD), netIG and VGG19
+      bit-identical; 5 timed steps after that warm-up (ms/step, img/s, G
+      step, D step, peak memory) and one profiled step (device busy); then
+      each config's G+D step (unpair: stage 2) on the card and on the CPU
+      at PARITY16's batch, crop and width in float32, the VAE's eps the
+      same draw on both, by phase 12's rule: per-term losses within rtol
+      1e-4, atol 1e-5, netG, netE / netB after the G step and netD (netD2)
+      after the D step (both from the card's post-G state) by the
+      scale-aware rule
 
 Then a JSON line of per-kernel results: for the training step's kernels
 (fused_instance_norm, filterbank_orientation and its backward,
 conv3x3_same_lowch) launches in phase 11's counted step and times summed over
-one step's calls (the backward on the hair-masked dconf); for spade_modulate
+one step's calls (the backward on the hair-masked dconf), with phase 16's
+counted steps under config_launches; for spade_modulate
 and conv3x3_in_act, which the step does
 not run, launches in phase 7's stroke edit and times over one edit.  Each
 row's bound_ms is the larger of its bytes (each input read once, each
@@ -197,6 +218,7 @@ batch 1 and the bf16 stroke edit (host_ab; 10 pairs by default).
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import statistics
@@ -293,6 +315,18 @@ TRAIN_BATCH = 8  # the slice's batch: an out-of-memory error fails phase 11
 TRAIN_STEPS = 5
 EXTRA_DILATE = 2  # the expected random mask dilation (encoder.py:294)
 PARITY_CROP = 512
+# phase 16: the three training configs of the JAX package's flag matrix
+# (artifacts/flag_matrix_r5.json), each on TRAIN_FLAGS; the unpaired stage
+# runs no VGG tower, so no conv3x3_same_lowch
+CONFIG_FLAGS = {"vae": ("--use_vae",), "blender": ("--use_blender",),
+                "unpair": ("--unpairTrain", "--same_netD_model")}
+STAGE2_LAUNCHES = {**STEP_LAUNCHES, "conv3x3_same_lowch": 0}
+# the modules those configs added, imported before the check that no module
+# of jax or of the JAX package was loaded
+CONFIG_MODULES = ("michigan_tpu_torch.models.blend", "michigan_tpu_torch.models.encoders",
+                  "michigan_tpu_torch.losses.color", "michigan_tpu_torch.ops.stats",
+                  "michigan_tpu_torch.training.checkpoint", "michigan_tpu_torch.convert",
+                  "michigan_tpu_torch.utils.iter_counter")
 # phase 15's card-bf16 vs CPU-bf16 step at this batch, crop and width, so
 # that the CPU's two steps (bf16 and fp32) fit the script's time
 PARITY16 = dict(crop=256, ngf=32, ndf=32, batch=2)
@@ -746,10 +780,10 @@ def step_breakdown(torch, trainer, batch):
         pre = m.preprocess(batch)
         orient = m.orient_for_training(pre)
         with torch.no_grad():
-            fake = m.generate_fake(pre, orient, EXTRA_DILATE).requires_grad_()
+            fake = m.generate_fake(pre, orient, EXTRA_DILATE)[0].requires_grad_()
 
         def g_fwd_bwd():
-            m.generate_fake(pre, orient, EXTRA_DILATE).sum().backward()
+            m.generate_fake(pre, orient, EXTRA_DILATE)[0].sum().backward()
 
         def vgg():  # in the compute dtype, as generator_loss runs the towers
             sum(f.float().sum() for f in m.vgg(fake.to(m.compute_dtype))).backward()
@@ -803,8 +837,11 @@ def run():
         from michigan_tpu_torch.ops.cuda import orient as O
         from michigan_tpu_torch.ops.cuda import spade as K
         from michigan_tpu_torch.train import parse_options as train_options
+        from michigan_tpu_torch.training.state import init_netd2_from_netd
         from michigan_tpu_torch.training.train_step import TrainStep
         from michigan_tpu_torch.utils.imaging import tensor2im
+        for name in CONFIG_MODULES:
+            importlib.import_module(name)
     except ImportError as e:
         print(f"FAIL: the port is not importable here: {e}", file=sys.stderr)
         return 1
@@ -2082,6 +2119,150 @@ def run():
     del card16, runs16, init16
     torch.cuda.empty_cache()
 
+    # 16 --------------------------------------------------------------
+    # the VAE, blender and unpaired two-stage training configs: each driven
+    # with the counts set to 0 just before its step and read just after
+    def config_trainer(cfg, n, crop, extra=()):
+        o, tr = make_trainer(n, crop, list(CONFIG_FLAGS[cfg]) + list(extra))
+        if o.unpairTrain and o.same_netD_model:
+            init_netd2_from_netd(tr.model)
+        return o, tr
+
+    def counted_step(tr, batch):
+        """(losses, launches) of one G+D step, the counts set to 0 just
+        before it and read just after."""
+        kernels.reset_launch_counts()
+        g, _f, o = tr.g_step(batch, EXTRA_DILATE)
+        d = tr.d_step(batch, EXTRA_DILATE, o)
+        torch.cuda.synchronize()
+        return {k: v.item() for k, v in {**g, **d}.items()}, kernels.launch_counts()
+
+    def timed_steps(tr, batch):
+        """(step ms, G ms, D ms, peak bytes, live bytes) over TRAIN_STEPS
+        steps after the warm-up, medians; each step synchronizes between
+        its G step and its D step."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        rows = []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            _g, _f, o = tr.g_step(batch, EXTRA_DILATE)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tr.d_step(batch, EXTRA_DILATE, o)
+            torch.cuda.synchronize()
+            rows.append(((time.perf_counter() - t0) * 1e3, (t1 - t0) * 1e3,
+                         (time.perf_counter() - t1) * 1e3))
+        med = [statistics.median(r[i] for r in rows) for i in range(3)]
+        return (*med, torch.cuda.max_memory_allocated(), live, [r[0] for r in rows])
+
+    config_rows, config_counts = {}, {}
+    for cfg in CONFIG_FLAGS:
+        n = TRAIN_BATCH
+        copt, tr = config_trainer(cfg, n, 512)
+        nets = tr.model.nets()
+        before = {k: snapshot(net) for k, net in nets.items()}
+        stages = (2, 1) if cfg == "unpair" else (1,)
+        for stage in stages:
+            copt.curr_step = stage
+            label = cfg if cfg != "unpair" else f"unpair stage {stage}"
+            cbatch = batch_from_numpy(synthetic_train_data(copt, SEED, n, paired=stage == 1),
+                                      "cuda:0")
+            start = {k: snapshot(net) for k, net in nets.items()}
+            losses, counts = counted_step(tr, cbatch)
+            want = STAGE2_LAUNCHES if stage == 2 else STEP_LAUNCHES
+            key = cfg if cfg != "unpair" else f"unpair_stage{stage}"
+            config_counts[key] = counts
+            moved = {k: any(not torch.equal(p, start[k][name])
+                            for name, p in nets[k].named_parameters()) for k in nets
+                     if k not in ("netIG", "vgg")}
+            frozen = {k: all(torch.equal(t, before[k][name])
+                             for name, t in nets[k].state_dict().items())
+                      for k in ("netIG", "vgg")}
+            # the nets a step of this config and stage must move, and no other
+            want_moved = {"vae": ("netG", "netE", "netD"), "blender": ("netG", "netB", "netD"),
+                          "unpair": ("netG", "netD2" if stage == 2 else "netD")}[cfg]
+            phase(16, f"{label}, batch {n}, 512^2, ngf {copt.ngf}, ndf {copt.ndf}: launches "
+                      f"{counts}; losses " + ", ".join(f"{k} {v:.4f}" for k, v in losses.items()))
+            phase(16, f"{label}: parameters changed {moved}; frozen nets bit-identical {frozen}")
+            if counts != want:
+                return fail(f"phase 16 {label}: expected launches per step {want}, got {counts}")
+            if not all(math.isfinite(v) for v in losses.values()) or \
+                    not all(frozen.values()) or \
+                    any(moved[k] != (k in want_moved) for k in moved) or \
+                    (cfg == "vae" and "KLD" not in losses):
+                return fail(f"phase 16 {label}: the step's losses or parameter updates are wrong")
+            ms, g_ms, d_ms, peak, live, times = timed_steps(tr, cbatch)
+            busy_ms, wall_ms, _t, conv_ms, dev_ms = profile_once(
+                lambda: tr.d_step(cbatch, EXTRA_DILATE, tr.g_step(cbatch, EXTRA_DILATE)[2]),
+                torch)
+            config_rows[key] = dict(ms=ms, g=g_ms, d=d_ms, peak=peak, busy=busy_ms,
+                                    wall=wall_ms)
+            phase(16, f"{label}: {TRAIN_STEPS} timed steps after the warm-up: "
+                      f"{', '.join(f'{t:.1f}' for t in times)} ms; median {ms:.1f} ms/step, "
+                      f"{n / ms * 1e3:.2f} img/s; G step {g_ms:.1f} ms, D step {d_ms:.1f} ms; "
+                      f"peak device memory {peak / 2**30:.2f} GiB ({live / 2**30:.2f} GiB live "
+                      f"before); profiled step: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms "
+                      f"wall, convolutions {conv_ms:.2f} of {dev_ms:.2f} ms device time {tag}")
+            del cbatch
+        del tr, nets, before, start
+        torch.cuda.empty_cache()
+
+    # each config's G+D step card vs CPU (unpair: stage 2) at PARITY16's
+    # size in float32, the VAE's eps the same draw on both: phase 12's rule
+    def config_parity(cfg):
+        extra = ["--ngf", str(PARITY16["ngf"]), "--ndf", str(PARITY16["ndf"])]
+        n = PARITY16["batch"]
+        popt, card = config_trainer(cfg, n, PARITY16["crop"], extra)
+        popt.curr_step = 2 if cfg == "unpair" else 1
+        cpu_model = MichiGANModel(popt, "cpu")
+        cpu_model.load_state_dicts({k: {n_: t.cpu() for n_, t in net.state_dict().items()}
+                                    for k, net in card.model.nets().items()})
+        cpu = TrainStep(cpu_model)
+        data = synthetic_train_data(popt, SEED, n, paired=cfg != "unpair")
+        b_card, b_cpu = batch_from_numpy(data, "cuda:0"), batch_from_numpy(data, "cpu")
+        eps = card.new_eps(n)
+        g_card, _, o_card = card.g_step(b_card, EXTRA_DILATE, eps)
+        t0 = time.perf_counter()
+        g_cpu, _, o_cpu = cpu.g_step(b_cpu, EXTRA_DILATE, None if eps is None else eps.cpu())
+        t_cpu = time.perf_counter() - t0
+        state = lambda net: {k: v.detach().cpu() for k, v in net.named_parameters()}
+        g_nets = [k for k in ("netG", "netE", "netB") if k in cpu_model.nets()]
+        rules = {k: scale_aware(state(cpu_model.nets()[k]), state(card.model.nets()[k]),
+                                popt.lr / 2) for k in g_nets}
+        # the D step on both from the card's post-G state, as phase 12's
+        for k in g_nets:
+            cpu_model.nets()[k].load_state_dict({n_: v.cpu() for n_, v in
+                                                 card.model.nets()[k].state_dict().items()})
+        d_card = card.d_step(b_card, EXTRA_DILATE, o_card)
+        t0 = time.perf_counter()
+        d_cpu = cpu.d_step(b_cpu, EXTRA_DILATE, o_cpu)
+        t_cpu += time.perf_counter() - t0
+        d_name = "netD2" if cfg == "unpair" else "netD"
+        rules[d_name] = scale_aware(state(cpu_model.nets()[d_name]),
+                                    state(card.model.nets()[d_name]), 2 * popt.lr)
+        loss_rows, ok = [], True
+        for k in list(g_card) + list(d_card):
+            a = (g_card[k] if k in g_card else d_card[k]).item()
+            b = (g_cpu[k] if k in g_cpu else d_cpu[k]).item()
+            good = abs(a - b) <= 1e-5 + 1e-4 * abs(b)
+            ok &= good
+            loss_rows.append(f"{k} {a:.6f}/{b:.6f}{'' if good else ' FAIL'}")
+        ok &= all(r[0] for r in rules.values())
+        phase(16, f"{cfg} G+D step card/CPU, batch {n}, {PARITY16['crop']}^2, ngf "
+                  f"{PARITY16['ngf']}, ndf {PARITY16['ndf']}: " + ", ".join(loss_rows))
+        phase(16, f"{cfg}: " + "; ".join(
+            f"{k} max diff {r[1]:.2e}, {r[2]} of {r[3]} beyond float noise"
+            for k, r in rules.items()) + f"; CPU step {t_cpu:.1f} s")
+        return None if ok else f"phase 16: the card's and the CPU's {cfg} steps disagree"
+
+    for cfg in CONFIG_FLAGS:
+        msg = config_parity(cfg)
+        torch.cuda.empty_cache()
+        if msg:
+            return fail(msg)
+
     train_kernels = ("fused_instance_norm", "filterbank_orientation",
                      "filterbank_orientation_backward", "conv3x3_same_lowch")
     rows = {k: (stroke_counts[k], edit_ms[k], edit_plain_ms[k])
@@ -2099,7 +2280,9 @@ def run():
          "library_ms": library_ms.get(k), **({"library_covers": (
              f"the step's {in_lib['calls']} act=None calls, where the kernel takes "
              f"{in_lib['kernel']} ms")} if k == "fused_instance_norm" else {}),
-         **({"replaced_route_ms": epi_route_ms} if k == "conv3x3_in_act" else {})}
+         **({"replaced_route_ms": epi_route_ms} if k == "conv3x3_in_act" else {}),
+         # phase 16's counted steps of the VAE, blender and unpaired configs
+         "config_launches": {c: config_counts[c][k] for c in config_counts}}
         for k in REPLACES]
     # the bf16 forms on the bf16 serving paths: launches from phases 13-14
     bf16_launches = {"flagship": counts16, "edit": scounts16}

@@ -2,12 +2,13 @@
 michigan_tpu/training/convert.py).
 
 ``state_dicts_from_flax(variables, opt)`` turns the JAX package's variable
-trees for netG, netIG, netSIG, netD and VGG19 (params / spectral /
-batch_stats, numpy or jax arrays) into state_dicts with the reference
-checkpoints' key names (torchvision's for VGG19), which the port's nets load
-with ``load_state_dict(strict=True)``:
+trees for netG, netIG, netSIG, netD, netD2, netE, netB and VGG19 (params /
+spectral / batch_stats, numpy or jax arrays) into state_dicts with the
+reference checkpoints' key names (torchvision's for VGG19), which the port's
+nets load with ``load_state_dict(strict=True)``:
 
   kernel (HWIO)                   -> weight (OIHW)
+  kernel (in, out) of a Linear    -> weight (out, in)
   kernel of a transposed conv     -> weight (I, O, kh, kw), the equivalent
                                      conv's spatial pre-flip undone
   kernel + spectral u / v         -> weight_orig, weight_u, weight_v
@@ -38,7 +39,11 @@ G_RENAMES = ((r"^mlp_shared_0$", "mlp_shared.0"),)
 # the norm layer's Sequential), model<last>_conv -> model<last>.0
 D_RENAMES = ((r"^model(\d+)_conv$", r"model\1.0"), (r"^conv$", "0.0"))
 VGG_RENAMES = ((r"^features_(\d+)$", r"features.\1"),)
+# netE: layer<i>/conv -> layer<i>.0, as convert_vae_encoder names them
+E_RENAMES = ((r"^conv$", "0"),)
+B_RENAMES = ((r"^model_middle_(\d+)$", r"model_middle.\1"),)
 IG_TRANSPOSED = frozenset({("decoder_0",), ("decoder_3",)})
+B_TRANSPOSED = frozenset({("model5_conv",), ("model6_conv",), ("model7_conv",)})
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -73,6 +78,8 @@ def module_state_dict(variables: Mapping, renames=G_RENAMES,
         pre = _torch_prefix(mod, renames)
         if leaf == "bias":
             sd[pre + "bias"] = t(a)
+        elif leaf == "kernel" and a.ndim == 2:  # a Linear's (in, out)
+            sd[pre + "weight"] = t(a.T)
         elif leaf == "kernel":
             if mod in transposed:  # K[h,w,i,o] = W[i,o,k-1-h,k-1-w]
                 w = np.transpose(a[::-1, ::-1], (2, 3, 0, 1))
@@ -96,7 +103,8 @@ def module_state_dict(variables: Mapping, renames=G_RENAMES,
 def state_dicts_from_flax(variables: Mapping, opt) -> Dict[str, Dict[str, torch.Tensor]]:
     """{'netG': tree, 'netIG': tree, ...} -> {'netG': state_dict, ...};
     netIG with --use_ig, netSIG with --use_stroke (the same network and key
-    names as netIG, with 5 input channels), netD and vgg when present."""
+    names as netIG, with 5 input channels), netD, netD2, netE, netB and vgg
+    when present."""
     out = {}
     if "netG" in variables:
         out["netG"] = module_state_dict(variables["netG"], G_RENAMES)
@@ -104,8 +112,13 @@ def state_dicts_from_flax(variables: Mapping, opt) -> Dict[str, Dict[str, torch.
         out["netIG"] = module_state_dict(variables["netIG"], IG_RENAMES, IG_TRANSPOSED)
     if opt.use_stroke and "netSIG" in variables:
         out["netSIG"] = module_state_dict(variables["netSIG"], IG_RENAMES, IG_TRANSPOSED)
-    if "netD" in variables:
-        out["netD"] = module_state_dict(variables["netD"], D_RENAMES)
+    for name in ("netD", "netD2"):
+        if name in variables:
+            out[name] = module_state_dict(variables[name], D_RENAMES)
+    if "netE" in variables:
+        out["netE"] = module_state_dict(variables["netE"], E_RENAMES)
+    if "netB" in variables:
+        out["netB"] = module_state_dict(variables["netB"], B_RENAMES, B_TRANSPOSED)
     if "vgg" in variables:
         out["vgg"] = module_state_dict(variables["vgg"], VGG_RENAMES)
     return out

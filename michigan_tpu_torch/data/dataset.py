@@ -4,8 +4,11 @@ custom_dataset.py and pix2pix_dataset.py:66-194), NHWC float32 numpy.
 
 The JAX package's loader ships uint8 planes and caches decodes to feed a
 remote TPU; on a local card the loader hands out float32 arrays and keeps no
-cache.  Only the paired stage (--curr_step 1) is ported: the ref planes are
-the tag planes.
+cache.  ``CustomDataset(opt, step)``: in the paired stage (step 1) the ref
+planes are the tag planes (the ref image color-jittered under
+--color_jitter); in the unpaired stage (step 2, --unpairTrain) the ref index
+is drawn from the sample's host rng right after the crop and flip, as the
+JAX package draws it, and the ref label and image are that sample's.
 """
 
 from __future__ import annotations
@@ -36,10 +39,10 @@ class CustomDataset:
     """{data_dir}/{clear_}train_labels | _images | _dense_orients, or the
     directories --label_dir / --image_dir / --orient_dir name."""
 
-    def __init__(self, opt):
+    def __init__(self, opt, step: int = 1):
         if opt.dataset_mode != "custom":
             raise ValueError(f"unknown --dataset_mode {opt.dataset_mode!r} (only 'custom')")
-        self.opt = opt
+        self.opt, self.step = opt, step
         phase = "train" if opt.isTrain else opt.subset
         pre = os.path.join(opt.data_dir, f"{'clear_' if opt.clear else ''}{phase}")
         cut = opt.max_dataset_size
@@ -61,13 +64,21 @@ class CustomDataset:
 
     def get_sample(self, index: int, rng: random.Random) -> Dict[str, np.ndarray]:
         """One sample, (H, W, C) float32 arrays with the keys of the train
-        step's batch; `rng` draws the crop, flip, hole and noise."""
+        step's batch; `rng` draws the crop, flip, the unpaired stage's ref
+        index, the hole and the noise."""
         opt = self.opt
         label = Image.open(self.label_paths[index])
         params = get_params(opt, label.size, rng)
+        index_ref = index if self.step == 1 else rng.randint(0, len(self) - 1)
         tl = get_transform(opt, params, method=Image.NEAREST, normalize=False)
         label_t = _label_tensor(tl, label, opt.label_nc)[0]
-        image_t = get_transform(opt, params)(Image.open(self.image_paths[index]).convert("RGB"))
+        label_ref_t = label_t if index_ref == index else \
+            _label_tensor(tl, Image.open(self.label_paths[index_ref]), opt.label_nc)[0]
+        rgb_at = lambda i: Image.open(self.image_paths[i]).convert("RGB")
+        image_t = get_transform(opt, params)(rgb_at(index))
+        image_ref_t = image_t
+        if self.step != 1 or opt.color_jitter:
+            image_ref_t = get_transform(opt, params, color=opt.color_jitter)(rgb_at(index_ref))
         orient_img = Image.open(self.orient_paths[index])
         orient_t = tl(orient_img) * 255.0
         rgb = trans_orient_to_rgb(np.array(orient_img), np.array(label))
@@ -76,8 +87,8 @@ class CustomDataset:
         hole_t = tl(generate_hole(np.array(label), other, rng)) * 255.0
         noise = generate_noise(opt.crop_size, opt.crop_size,
                                np.random.default_rng(rng.getrandbits(32)))
-        return {"label_tag": label_t, "label_ref": label_t, "image_tag": image_t,
-                "image_ref": image_t, "orient": orient_t, "orient_rgb": orient_rgb_t,
+        return {"label_tag": label_t, "label_ref": label_ref_t, "image_tag": image_t,
+                "image_ref": image_ref_t, "orient": orient_t, "orient_rgb": orient_rgb_t,
                 "hole": hole_t, "noise": noise.astype(np.float32)}
 
 

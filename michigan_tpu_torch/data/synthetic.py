@@ -8,7 +8,8 @@ synthetic_inference_data  the keys, shapes and dtypes of
 synthetic_train_data  a training batch with the training loader's keys
     (``label_ref``, ``label_tag``, ``image_ref``, ``image_tag``, ``orient``,
     ``hole``, ``orient_rgb``, ``noise``), the same samples: paired, so the
-    ref planes are the tag planes.
+    ref planes are the tag planes; or unpaired (the --unpairTrain stage's
+    batch), the ref label and image from other samples.
 synthetic_stroke_data  a stroke edit as ``demo_inference_data`` gives it,
     less ``orient_stroke``, which the caller makes from ``mask_stroke`` on
     its device (``michigan_tpu_torch.demo.engine.orient_stroke_plane``).
@@ -55,9 +56,13 @@ def synthetic_inference_data(opt, seed: int, batch: int = 1) -> Dict[str, np.nda
     return out
 
 
-def synthetic_train_data(opt, seed: int, batch: int) -> Dict[str, np.ndarray]:
+def synthetic_train_data(opt, seed: int, batch: int, paired: bool = True
+                         ) -> Dict[str, np.ndarray]:
     out = synthetic_inference_data(opt, seed, batch)
     del out["instance"]
+    if not paired:
+        other = synthetic_inference_data(opt, seed + 1, batch)
+        out["label_ref"], out["image_ref"] = other["label_tag"], other["image_tag"]
     return out
 
 

@@ -12,7 +12,11 @@ Same flags as the JAX CLI (the port's config.test_options).  The device
 comes from --gpu_ids: -1 is the CPU, N is cuda:N (an error when CUDA is
 absent).  --dtype bfloat16 runs the bf16 compute policy (model.py).  The
 released .pth files under checkpoints/<name>/ are loaded when present;
-otherwise the nets get seeded weights by --init_type from --seed.  Writes
+otherwise the nets get seeded weights by --init_type from --seed.  With
+--use_vae the generator's seed is z from netE (<which_epoch>_net_E.pth), its
+noise drawn from a generator seeded by --seed; with --use_blender the image
+written is netB's blend (<which_epoch>_net_B.pth) of the fake, or of the ref
+image under --only_blend, into the tag image.  Writes
 ./inference_samples/inpaint_fake_image.jpg (fake_image.jpg without
 --use_ig); with --batch_inference, --results_dir/<name>.jpg for the first
 --how_many names of --val_list_dir, rendered in batches of --batchSize.
@@ -42,14 +46,16 @@ def device_from_gpu_ids(gpu_ids: str) -> torch.device:
 
 
 def load_released(model, opt) -> bool:
-    """Load checkpoints/<name>/<which_epoch>_net_G.pth, the IG's
+    """Load checkpoints/<name>/<which_epoch>_net_G.pth (and _net_E.pth under
+    --use_vae, _net_B.pth under --use_blender), the IG's
     InpaintingModel_gen.pth ['generator'] (--use_ig) and the SIG's
     SInpaintingModel_gen.pth ['generator'] (--use_stroke) when present; True
     if netG came from a file."""
     from michigan_tpu_torch.convert import load_reference_state
 
     base = os.path.join(opt.checkpoints_dir, opt.name)
-    paths = {"netG": (os.path.join(base, f"{opt.which_epoch}_net_G.pth"), None)}
+    paths = {f"net{x}": (os.path.join(base, f"{opt.which_epoch}_net_{x}.pth"), None)
+             for x, on in (("G", True), ("E", opt.use_vae), ("B", opt.use_blender)) if on}
     if opt.use_ig:
         paths["netIG"] = (os.path.join(base, opt.ig_model_name), "generator")
     if opt.use_stroke:

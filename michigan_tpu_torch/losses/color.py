@@ -1,8 +1,8 @@
 """Colour losses (port of michigan_tpu/losses/color.py, reference
 loss.py:388-531): the Lab ab-channel L1, optionally balanced by the data's
 ab histogram (--balance_Lab, data_assets/ab_count.npy), and the background
-L1.  hair_avg_lab_loss (the unpair stage) and kld_loss (the VAE) wait for
-their configurations."""
+L1; the hair-average Lab L1 of the unpaired stage (--unpairTrain) and the
+VAE's KLD (--use_vae)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from michigan_tpu_torch.ops.color import rgb_to_lab
+from michigan_tpu_torch.ops.stats import hair_avg
 
 
 def load_ab_count(path: str, device) -> torch.Tensor:
@@ -50,3 +51,23 @@ def rgb_background_l1_loss(fake: torch.Tensor, input_tag: torch.Tensor,
     """L1 outside the hair; channel 0 of the one-hot is the background."""
     bg = input_tag[:, 0:1]
     return (fake * bg - (image_tag * bg).detach()).abs().mean()
+
+
+def hair_avg_lab_loss(fake: torch.Tensor, real: torch.Tensor, mask_fake: torch.Tensor,
+                      mask_real: torch.Tensor, opt, ab_count: torch.Tensor = None
+                      ) -> torch.Tensor:
+    """Mean |ab| difference of the average Lab colours of fake's hair
+    (`mask_fake`) and real's (`mask_real`, no gradient) (loss.py:601-621);
+    with --balance_Lab and `ab_count`, weighted by the balance map at the
+    real average's (b, a) cell."""
+    fake_avg = hair_avg(rgb_to_lab((fake + 1.0) / 2.0), mask_fake)
+    real_avg = hair_avg(rgb_to_lab((real + 1.0) / 2.0), mask_real).detach()
+    diff = (fake_avg[:, 1:] - real_avg[:, 1:]).abs()
+    if opt.balance_Lab and ab_count is not None:
+        return (_balance_weight_map(real_avg, ab_count, opt) * diff).mean()
+    return diff.mean()
+
+
+def kld_loss(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    """The VAE's KL divergence from the unit Gaussian, summed (loss.py:211-213)."""
+    return -0.5 * torch.sum(1 + logvar - mu.pow(2) - logvar.exp())

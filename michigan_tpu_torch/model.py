@@ -3,18 +3,29 @@
   preprocess(batch)          one-hot labels
   inpaint_orient(...)        IG orientation inpainting (pix2pix_model.py:407-429)
   inpaint_stroke_orient(...) SIG stroke inpainting (pix2pix_model.py:431-464)
-  generate_fake(...)         zeros-pad + netG (pix2pix_model.py:495-541)
+  encode_z(image, eps)       the VAE's z, mu, logvar (--use_vae)
+  generate_fake(...)         VAE + zeros-pad + netG + netB (pix2pix_model.py:495-541)
   infer(batch, mode)         the 'inference' mode (pix2pix_model.py:80-120)
-  discriminate(...)          fake and real as one D batch, split (:546-594)
-  generator_loss(...)        the paired stage's G losses (:257-365)
-  discriminator_loss(...)    D's hinge on the recomputed fake (:367-398)
+  discriminate(...)          fake and real as one D batch, split (:546-594);
+                             netD2 in the unpaired stage
+  generator_loss(...)        the G losses of either stage (:257-365)
+  discriminator_loss(...)    D's (or D2's) hinge on the recomputed fake (:367-398)
 
 A batch is a dict of NCHW float32 tensors on the model's device with the keys
 of ``michigan_tpu.data.single_inference_data`` (or ``demo_inference_data``
 for a stroke edit, or the training loader's); ``batch_from_numpy`` turns
 NHWC numpy arrays into one.  The inference paths of the flagship and demo
-configurations and the paired training stage are ported;
-``check_supported`` names what is not.
+configurations, the paired training stage, and the VAE (--use_vae), blender
+(--use_blender, --only_blend) and unpaired two-stage (--unpairTrain)
+configurations in float32 are ported; ``check_supported`` names what is not.
+
+The training stage (``stage``) is --curr_step under --unpairTrain, read on
+each call, else 1: stage 2 (unpaired ref) discriminates with netD2, drops
+every paired term and the VGG towers, and adds hairAvgLab and background.
+The VAE's noise eps is an argument: ``draw_eps`` draws it from one CPU
+``torch.Generator`` seeded by --seed (the same numbers on the card and the
+CPU), and the training step hands the G step's draw to its D step, as the
+JAX package passes one rng to both.
 
 The compute policy (--dtype, the JAX package's ``compute_dtype``): under
 bfloat16 the generator's six inputs are cast to bfloat16 after the zeros
@@ -30,12 +41,14 @@ inside their reductions; Adam updates the float32 parameters from float32
 gradients; the bank of the orientation loss takes bf16 operands unless
 --orient_bank_fp32 (losses/orient.py).
 
-With --isTrain netG and netD are in train mode.  Which forward writes
-buffers follows the JAX package: netG's batch-norm running statistics and
-spectral u / v are written by the G step's forward only; the D step's
+With --isTrain netG, netB and netD (netD2) are in train mode.  Which forward
+writes buffers follows the JAX package: netG's batch-norm running statistics
+and spectral u / v are written by the G step's forward only; the D step's
 recompute of the fake uses train-mode statistics and writes nothing; netD's
-spectral u / v are never written (each step iterates again from the stored
-ones).  netIG and VGG19 are frozen (eval mode, no gradient).
+and netD2's spectral u / v are never written (each step iterates again from
+the stored ones).  netE trains but runs in eval mode, as the JAX package
+applies it: sigma from its stored u / v, never iterated or written.  netIG
+and VGG19 are frozen (eval mode, no gradient).
 """
 
 from __future__ import annotations
@@ -55,7 +68,9 @@ from michigan_tpu_torch.losses.perceptual import (
     style_content_loss_from_features,
     vgg_loss_from_features,
 )
+from michigan_tpu_torch.models.blend import Blend2Generator
 from michigan_tpu_torch.models.discriminator import MultiscaleDiscriminator
+from michigan_tpu_torch.models.encoders import ConvEncoder
 from michigan_tpu_torch.models.generator import SPADEBGenerator, orient_to_two_channel
 from michigan_tpu_torch.models.inpaint import InpaintGenerator, SInpaintGenerator
 from michigan_tpu_torch.models.layers import frozen_buffers, init_weights
@@ -65,13 +80,26 @@ from michigan_tpu_torch.ops.resize import resize_nearest
 
 GEN_KEYS = ("input_ref", "input_tag", "orient", "image_ref", "image_tag", "noise")
 FROZEN_NETS = ("netIG", "netSIG", "vgg")
+# netG, then every net by name, in the order init_weights draws them: the
+# nets of the VAE, blender and unpair configs last, so that they leave every
+# other net's seeded weights as they were
+NET_NAMES = ("netG", "netIG", "netSIG", "netD", "vgg", "netE", "netB", "netD2")
+Z_NC = 256  # ConvEncoder's mu / logvar width (encoder.py:57-58)
 
 
 def check_supported(opt) -> None:
     """Raise for flags whose code paths are not ported yet."""
-    unported = [f"--{f}" for f in ("use_vae", "use_blender", "only_blend",
-                                   "use_instance_feat", "add_zeros")
-                if getattr(opt, f)]
+    unported = [f"--{f}" for f in ("use_instance_feat", "add_zeros") if getattr(opt, f)]
+    configs = [f"--{f}" for f in ("use_vae", "use_blender", "only_blend") if getattr(opt, f)]
+    if opt.isTrain and opt.unpairTrain:
+        configs.append("--unpairTrain")
+    if configs and opt.dtype == "bfloat16":
+        unported.append(f"{', '.join(configs)} with --dtype bfloat16")
+    if opt.only_blend and not opt.use_blender:
+        unported.append("--only_blend without --use_blender (the JAX package returns no image)")
+    if opt.use_blender and opt.add_feat_zeros:
+        unported.append("--use_blender with --add_feat_zeros (the JAX package's blender "
+                        "takes the unpadded planes and fails on the padded fake)")
     if not opt.no_instance:
         unported.append("instance maps (--no_instance False)")
     if opt.dtype not in ("float32", "bfloat16"):
@@ -81,12 +109,15 @@ def check_supported(opt) -> None:
         unported.append("a netG other than spadeb, a netIG other than inpaint or a "
                         "netSIG other than sinpaint")
     if opt.isTrain:
-        unported += [f"--{f}" for f in ("unpairTrain", "remat", "fused_step",
-                                        "reuse_fake_for_d") if getattr(opt, f)]
+        unported += [f"--{f}" for f in ("remat", "fused_step", "reuse_fake_for_d")
+                     if getattr(opt, f)]
         if opt.stats_freq:
             unported.append("--stats_freq (training diagnostics)")
-        if opt.curr_step != 1:
+        if opt.curr_step not in (1, 2):
             unported.append(f"--curr_step {opt.curr_step}")
+        if opt.only_blend and opt.unpairTrain:
+            unported.append("--only_blend with --unpairTrain (the JAX package's unpaired "
+                            "stage needs the generator's fake, which --only_blend skips)")
     if unported:
         raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
 
@@ -104,8 +135,9 @@ def batch_from_numpy(data: Dict, device) -> Dict[str, torch.Tensor]:
 
 class MichiGANModel:
     """Holds the nets of one configuration on one device: netG, netIG /
-    netSIG, and with --isTrain netD and the frozen VGG19.  The device is the
-    card unless the caller asks for the CPU."""
+    netSIG, netE (--use_vae), netB (--use_blender), and with --isTrain netD,
+    netD2 (--unpairTrain) and the frozen VGG19.  The device is the card
+    unless the caller asks for the CPU."""
 
     def __init__(self, opt, device="cuda"):
         check_supported(opt)
@@ -118,17 +150,31 @@ class MichiGANModel:
         self.netSIG = SInpaintGenerator(epilogue=epilogue).eval() if opt.use_stroke else None
         self.netD = MultiscaleDiscriminator(opt) if opt.isTrain else None
         self.vgg = VGG19().eval() if opt.isTrain else None
+        self.netE = ConvEncoder(opt).eval() if opt.use_vae else None
+        self.netB = Blend2Generator(opt).train(opt.isTrain) if opt.use_blender else None
+        self.netD2 = MultiscaleDiscriminator(opt) if opt.isTrain and opt.unpairTrain else None
         for frozen in (self.netIG, self.netSIG, self.vgg):
             if frozen is not None:
                 frozen.requires_grad_(False)
+        if opt.isTrain and opt.fix_netG:  # outside G's optimizer (training/state.py)
+            self.netG.requires_grad_(False)
+        self.eps_gen = torch.Generator().manual_seed(opt.seed)
         self.ab_count = None
         if opt.isTrain and opt.balance_Lab and os.path.exists(opt.weight_dir):
             self.ab_count = color_losses.load_ab_count(opt.weight_dir, self.device)
 
     def nets(self) -> Dict[str, torch.nn.Module]:
-        return {k: v for k, v in (("netG", self.netG), ("netIG", self.netIG),
-                                  ("netSIG", self.netSIG), ("netD", self.netD),
-                                  ("vgg", self.vgg)) if v is not None}
+        return {k: getattr(self, k) for k in NET_NAMES if getattr(self, k) is not None}
+
+    def stage(self, curr_step: Optional[int] = None) -> int:
+        """The training stage: `curr_step` (default --curr_step) under
+        --unpairTrain, else 1 (the JAX package's step reads it the same way)."""
+        s = self.opt.curr_step if curr_step is None else curr_step
+        return s if self.opt.unpairTrain else 1
+
+    def draw_eps(self, n: int) -> torch.Tensor:
+        """(n, 256) standard normal noise for the VAE, from ``eps_gen``."""
+        return torch.randn((n, Z_NC), generator=self.eps_gen).to(self.device)
 
     def init_weights(self, seed: int) -> None:
         """Seeded weights by --init_type (one CPU torch.Generator), VGG19's
@@ -226,24 +272,49 @@ class MichiGANModel:
             gin = {k: self._zeros_pad(v) for k, v in gin.items()}
         return {k: v.to(self.compute_dtype) for k, v in gin.items()}
 
-    def generate_fake(self, pre, orient, extra_dilate_steps: int = 2) -> torch.Tensor:
-        gin = self._padded_gen_inputs(pre, orient)
-        return self.netG(*(gin[k] for k in GEN_KEYS), extra_dilate_steps).float()
+    def encode_z(self, image: torch.Tensor, eps: Optional[torch.Tensor] = None):
+        """(z, mu, logvar): z = eps * exp(logvar / 2) + mu from netE on
+        `image`, with eps from ``draw_eps`` unless given."""
+        mu, logvar = self.netE(image)
+        if eps is None:
+            eps = self.draw_eps(mu.shape[0])
+        return eps * torch.exp(0.5 * logvar) + mu, mu, logvar
+
+    def generate_fake(self, pre, orient, extra_dilate_steps: int = 2,
+                      eps: Optional[torch.Tensor] = None):
+        """(fake, kld, blend): netG's image (None under --only_blend); the
+        weighted KLD (--use_vae, else None), whose z takes `eps`; netB's
+        blend of the fake (of the ref image under --only_blend) into the tag
+        image (--use_blender, else None)."""
+        opt = self.opt
+        z = kld = fake = blend = None
+        if opt.use_vae:
+            z, mu, logvar = self.encode_z(pre["image_ref"], eps)
+            kld = color_losses.kld_loss(mu, logvar) * opt.lambda_kld
+        if not opt.only_blend:
+            gin = self._padded_gen_inputs(pre, orient)
+            fake = self.netG(*(gin[k] for k in GEN_KEYS), extra_dilate_steps, z=z).float()
+        if opt.use_blender:
+            src = pre["image_ref"] if opt.only_blend else fake
+            blend = self.netB(src, pre["image_tag"], pre["input_tag"], pre["noise"])
+        return fake, kld, blend
 
     # ------------------------------------------------------------------
     # training, the paired stage (pix2pix_model.py:257-398, 546-594)
     # ------------------------------------------------------------------
 
-    def discriminate(self, input_tag, fake_image, real_image, orient):
-        """Fake and real through netD as one batch (so its instance norms and
-        spectral iteration see both), in the compute dtype, then split; the
-        features stay in it (the losses upcast).  netD's spectral u / v are
-        never written (MultiscaleDiscriminator)."""
+    def discriminate(self, input_tag, fake_image, real_image, orient, stage: int = 1):
+        """Fake and real through netD (netD2 in stage 2) as one batch (so its
+        instance norms and spectral iteration see both), in the compute
+        dtype, then split; the features stay in it (the losses upcast).  The
+        discriminators' spectral u / v are never written
+        (MultiscaleDiscriminator)."""
         if not self.opt.use_ig:
             orient = orient_to_two_channel(orient, input_tag[:, 1:2])
         both = torch.cat([torch.cat([input_tag, orient, fake_image], dim=1),
                           torch.cat([input_tag, orient, real_image], dim=1)], dim=0)
-        out = self.netD(both.to(self.compute_dtype))
+        net = self.netD2 if stage == 2 else self.netD
+        out = net(both.to(self.compute_dtype))
         n = fake_image.shape[0]
         return [[t[:n] for t in scale] for scale in out], [[t[n:] for t in scale] for scale in out]
 
@@ -256,32 +327,68 @@ class MichiGANModel:
         return self.inpaint_orient(pre["hole"], pre["orient_rgb"], pre["noise"],
                                    pre["input_tag"][:, 1:2])[1]
 
-    def generator_loss(self, batch, extra_dilate_steps: int = 2):
-        """(total, per-term losses by name, fake, orient).  netG's forward
-        writes its buffers; gradients reach netG (and netD's parameters,
-        unless the caller switched them off)."""
+    def generator_loss(self, batch, extra_dilate_steps: int = 2,
+                       eps: Optional[torch.Tensor] = None, curr_step: Optional[int] = None):
+        """(total, per-term losses by name, fake, orient) in the training
+        stage (``stage``).  netG's forward writes its buffers; gradients
+        reach netG, netE and netB (and the stage's D's parameters, unless
+        the caller switched them off).  The losses judge the blend under
+        --use_blender; `fake` is netG's image before it."""
         opt = self.opt
+        stage = self.stage(curr_step)
         pre = self.preprocess(batch)
         losses: Dict[str, torch.Tensor] = {}
         orient = self.orient_for_training(pre)
-        fake = self.generate_fake(pre, orient, extra_dilate_steps)
-        pred_fake, pred_real = self.discriminate(pre["input_tag"], fake, pre["image_tag"],
-                                                 orient)
+        fake, kld, blend = self.generate_fake(pre, orient, extra_dilate_steps, eps)
+        if opt.use_vae:
+            losses["KLD"] = kld
+        out = blend if opt.use_blender else fake
+        pred_fake, pred_real = self.discriminate(pre["input_tag"], out, pre["image_tag"],
+                                                 orient, stage)
         label_tag = pre["input_tag"][:, 1:2]
         label_ref = pre["input_ref"][:, 1:2]
         if not opt.no_gan_loss:
             losses["GAN"] = multiscale_gan_loss(pred_fake, True, False, opt, label_tag)
+        if stage == 1:
+            losses.update(self._paired_losses(pre, out, pred_fake, pred_real))
+        if not opt.no_orient_loss:
+            o_l1, conf = orient_loss(out, orient, pre["input_tag"], opt)
+            losses["ORIENT"] = o_l1 * opt.lambda_orient
+            if not opt.no_confidence_loss:
+                losses["CONFIDENCE"] = conf * opt.lambda_confidence
+        if stage == 2:
+            # the unpaired stage (pix2pix_model.py:353-363): the hair's
+            # average colour against the ref's, or the blend's against the
+            # fake it blends
+            if opt.use_blender:
+                lab = color_losses.hair_avg_lab_loss(blend, fake.detach(), label_tag, label_tag,
+                                                     opt, self.ab_count)
+            else:
+                lab = color_losses.hair_avg_lab_loss(fake, pre["image_ref"], label_tag,
+                                                     label_ref, opt, self.ab_count)
+            losses["hairAvgLab"] = lab * opt.lambda_hairavglab
+            losses["background"] = color_losses.rgb_background_l1_loss(
+                out, pre["input_tag"], pre["image_tag"]) * opt.lambda_background
+        return sum(losses.values()), losses, fake, orient
+
+    def _paired_losses(self, pre, out, pred_fake, pred_real) -> Dict[str, torch.Tensor]:
+        """The paired stage's terms on the output image `out`, in the JAX
+        package's order: GAN_Feat, VGG, content, style, background, rgb, lab."""
+        opt = self.opt
+        losses: Dict[str, torch.Tensor] = {}
+        label_tag = pre["input_tag"][:, 1:2]
+        label_ref = pre["input_ref"][:, 1:2]
         # the paired-data gate (pix2pix_model.py:286-291) as a factor, not a
         # branch: no host sync
         ref_is_tag = ((label_tag - label_ref).abs().sum() == 0).float()
         # one VGG forward per distinct image, in the compute dtype: the
-        # fake's with a gradient, the tag's and ref's as one no-grad forward
-        # at twice the batch
+        # output's with a gradient, the tag's and ref's as one no-grad
+        # forward at twice the batch
         cdt = self.compute_dtype
-        f_fake = self.vgg(fake.to(cdt))
+        f_fake = self.vgg(out.to(cdt))
         with torch.no_grad():
             f_tr = self.vgg(torch.cat([pre["image_tag"], pre["image_ref"]], dim=0).to(cdt))
-        n = fake.shape[0]
+        n = out.shape[0]
         f_tag, f_ref = [t[:n] for t in f_tr], [t[n:] for t in f_tr]
         if not opt.no_ganFeat_loss:
             losses["GAN_Feat"] = ref_is_tag * gan_feat_loss(pred_fake, pred_real, opt, label_tag)
@@ -296,45 +403,46 @@ class MichiGANModel:
             losses["style"] = loss_s * opt.lambda_style
         if not opt.no_background_loss:
             losses["background"] = ref_is_tag * (color_losses.rgb_background_l1_loss(
-                fake, pre["input_tag"], pre["image_tag"]) * opt.lambda_background)
+                out, pre["input_tag"], pre["image_tag"]) * opt.lambda_background)
         if not opt.no_rgb_loss:
-            losses["rgb"] = ref_is_tag * ((fake - pre["image_tag"]).abs().mean()
+            losses["rgb"] = ref_is_tag * ((out - pre["image_tag"]).abs().mean()
                                           * opt.lambda_rgb)
         if not opt.no_lab_loss:
             losses["lab"] = ref_is_tag * (color_losses.lab_color_loss(
-                fake, pre["image_tag"], opt, label_tag, self.ab_count) * opt.lambda_lab)
-        if not opt.no_orient_loss:
-            o_l1, conf = orient_loss(fake, orient, pre["input_tag"], opt)
-            losses["ORIENT"] = o_l1 * opt.lambda_orient
-            if not opt.no_confidence_loss:
-                losses["CONFIDENCE"] = conf * opt.lambda_confidence
-        return sum(losses.values()), losses, fake, orient
+                out, pre["image_tag"], opt, label_tag, self.ab_count) * opt.lambda_lab)
+        return losses
 
     def discriminator_loss(self, batch, extra_dilate_steps: int = 2,
-                           orient: Optional[torch.Tensor] = None):
-        """(total, {'D_Fake', 'D_real'}): the fake recomputed with the
-        current netG (train-mode statistics, nothing written, no gradient),
-        and the G step's orientation when given (the IG is frozen, so it is
-        the same)."""
+                           orient: Optional[torch.Tensor] = None,
+                           eps: Optional[torch.Tensor] = None, curr_step: Optional[int] = None):
+        """(total, {'D_Fake', 'D_real'}) of the stage's D: the fake (the
+        blend under --use_blender) recomputed with the current netG, netE
+        and netB (train-mode statistics, nothing written, no gradient) and
+        the VAE's `eps`, and the G step's orientation when given (the IG is
+        frozen, so it is the same)."""
         opt = self.opt
         pre = self.preprocess(batch)
         if orient is None:
             orient = self.orient_for_training(pre)
         with torch.no_grad(), frozen_buffers(self.netG):
-            fake = self.generate_fake(pre, orient, extra_dilate_steps)
-        pred_fake, pred_real = self.discriminate(pre["input_tag"], fake, pre["image_tag"],
-                                                 orient.detach())
+            fake, _, blend = self.generate_fake(pre, orient, extra_dilate_steps, eps)
+        pred_fake, pred_real = self.discriminate(
+            pre["input_tag"], blend if opt.use_blender else fake, pre["image_tag"],
+            orient.detach(), self.stage(curr_step))
         label_tag = pre["input_tag"][:, 1:2]
         d_fake = multiscale_gan_loss(pred_fake, False, True, opt, label_tag)
         d_real = multiscale_gan_loss(pred_real, True, True, opt, label_tag)
         return d_fake + d_real, {"D_Fake": d_fake, "D_real": d_real}
 
     @torch.no_grad()
-    def infer(self, batch: Dict[str, torch.Tensor], inpaint_mode: Optional[str] = None):
+    def infer(self, batch: Dict[str, torch.Tensor], inpaint_mode: Optional[str] = None,
+              eps: Optional[torch.Tensor] = None):
         """Returns (fake image, inpainted orient RGB or None), NCHW; the fake
-        keeps the add_feat_zeros frame, which the caller crops.
-        `inpaint_mode` ('ref' or 'stroke', default --inpaint_mode) picks the
-        orientation-inpainting branch; the options are never changed."""
+        (the blend under --use_blender) keeps the add_feat_zeros frame,
+        which the caller crops.  `inpaint_mode` ('ref' or 'stroke', default
+        --inpaint_mode) picks the orientation-inpainting branch; the options
+        are never changed.  Under --use_vae, z takes `eps` (default: a draw
+        from ``eps_gen``)."""
         mode = self.opt.inpaint_mode if inpaint_mode is None else inpaint_mode
         pre = self.preprocess(batch)
         orient_rgb_out: Optional[torch.Tensor] = None
@@ -350,4 +458,5 @@ class MichiGANModel:
                 pre["hole"], pre["orient_rgb"], pre["noise"], hair)
         else:
             orient = pre["orient"]
-        return self.generate_fake(pre, orient), orient_rgb_out
+        fake, _, blend = self.generate_fake(pre, orient, eps=eps)
+        return blend if self.opt.use_blender else fake, orient_rgb_out

@@ -1,6 +1,7 @@
-"""Condition-module encoders of the flagship path (port of
-michigan_tpu/models/encoders.py), NCHW: the partial-conv appearance encoder
-ImageEncoder3 and the noise background encoder BackgroundEncode2."""
+"""Encoders (port of michigan_tpu/models/encoders.py), NCHW: the VAE encoder
+ConvEncoder (--use_vae), and the flagship path's condition modules, the
+partial-conv appearance encoder ImageEncoder3 and the noise background
+encoder BackgroundEncode2."""
 
 from __future__ import annotations
 
@@ -8,7 +9,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from michigan_tpu_torch.models.layers import ConvBlock, PartialConv
+from michigan_tpu_torch.models.layers import ConvBlock, Linear, PartialConv
+from michigan_tpu_torch.models.normalization import NonSpadeNorm
 from michigan_tpu_torch.ops.norms import instance_norm
 from michigan_tpu_torch.ops.resize import (
     dilate_mask,
@@ -17,6 +19,35 @@ from michigan_tpu_torch.ops.resize import (
     resize_nearest,
 )
 from michigan_tpu_torch.ops.stats import masked_region_mean
+
+
+class ConvEncoder(nn.Module):
+    """The VAE encoder (encoder.py:17-59): the image resized bilinearly to
+    256^2, 5 stride-2 3x3 --norm_E layers (6 from a 256^2 crop up), leaky
+    ReLU, flattened in NCHW order, then fc_mu and fc_var to 256 each.
+    The model runs it in eval mode, as the JAX package applies it: sigma
+    from the stored spectral u / v, which it never writes."""
+
+    def __init__(self, opt):
+        super().__init__()
+        ndf = opt.ngf
+        self.n_layers = 6 if opt.crop_size >= 256 else 5
+        chans = [3, ndf, ndf * 2, ndf * 4, ndf * 8, ndf * 8, ndf * 8]
+        for i in range(1, self.n_layers + 1):
+            setattr(self, f"layer{i}", NonSpadeNorm(chans[i - 1], chans[i], 3, 2, 1, opt.norm_E))
+        s0 = 256 // 2 ** self.n_layers
+        self.fc_mu = Linear(ndf * 8 * s0 * s0, 256)
+        self.fc_var = Linear(ndf * 8 * s0 * s0, 256)
+
+    def forward(self, x: torch.Tensor):
+        """(mu, logvar), each (N, 256)."""
+        y = resize_bilinear(x, (256, 256))
+        for i in range(1, self.n_layers + 1):
+            if i > 1:
+                y = F.leaky_relu(y, 0.2)
+            y = getattr(self, f"layer{i}")(y)
+        y = F.leaky_relu(y, 0.2).flatten(1)
+        return self.fc_mu(y), self.fc_var(y)
 
 
 class ImageEncoder3(nn.Module):

@@ -5,6 +5,7 @@
                         (N,1,H,W) raw [0,255] dense orientation
   image_ref, image_tag  (N,3,H,W) in [-1,1]
   noise                 (N,3,H,W) noise pyramid in [0,1]
+  z                     (N,z_dim) the VAE latent (--use_vae)
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch.nn.functional as F
 
 from michigan_tpu_torch.models.architecture import SPADEResnetBlock
 from michigan_tpu_torch.models.encoders import BackgroundEncode2, ImageEncoder3
-from michigan_tpu_torch.models.layers import Conv2d, cudnn_off
+from michigan_tpu_torch.models.layers import Conv2d, Linear, cudnn_off
 from michigan_tpu_torch.ops.resize import resize_nearest, upsample2x_nearest
 
 
@@ -40,13 +41,14 @@ CUDNN_OFF = ("fc", "backgroud_enc", "head_0", "G_middle_0", "G_middle_1", "up_0"
 
 
 class SPADEBGenerator(nn.Module):
-    """Partial-conv encoder seed -> 7 SPADE blocks with 2x nearest upsampling
-    -> per-scale background composite -> conv_img -> tanh."""
+    """Seed (the partial-conv encoder, or under --use_vae a Linear from z) ->
+    7 SPADE blocks with 2x nearest upsampling -> per-scale background
+    composite -> conv_img -> tanh."""
 
     def __init__(self, opt):
         super().__init__()
-        unported = [f for f in ("use_vae", "orient_random_disturb") if getattr(opt, f)]
-        if not opt.use_encoder or opt.Image_encoder_mode != "partialconv":
+        unported = [f for f in ("orient_random_disturb",) if getattr(opt, f)]
+        if not opt.use_vae and (not opt.use_encoder or opt.Image_encoder_mode != "partialconv"):
             unported.append("an encoder other than --use_encoder partialconv")
         if not opt.noise_background:
             unported.append("BackgroundEncode (no --noise_background)")
@@ -57,7 +59,10 @@ class SPADEBGenerator(nn.Module):
         self.opt = opt
         nf = opt.ngf
         sw, sh = opt.latent_size()
-        self.fc = ImageEncoder3(opt, sw, sh)
+        # under --use_vae the seed is z's Linear whatever --use_encoder says,
+        # as in the JAX package (generator.py:71-73)
+        self.fc = Linear(opt.z_dim, 16 * nf * sw * sh) if opt.use_vae else \
+            ImageEncoder3(opt, sw, sh)
         self.head_0 = SPADEResnetBlock(16 * nf, 16 * nf, opt)
         self.G_middle_0 = SPADEResnetBlock(16 * nf, 16 * nf, opt)
         self.G_middle_1 = SPADEResnetBlock(16 * nf, 16 * nf, opt)
@@ -76,13 +81,18 @@ class SPADEBGenerator(nn.Module):
             return getattr(self, name)(*args, **kwargs)
 
     def forward(self, input_ref, input_tag, orient, image_ref, image_tag, noise,
-                extra_dilate_steps: int = 2):
+                extra_dilate_steps: int = 2, z=None):
         """`extra_dilate_steps` (training with --random_expand_mask) is the
-        number of 3x3 dilations added to the hair mask's base width."""
+        number of 3x3 dilations added to the hair mask's base width; `z` the
+        VAE latent, which --use_vae needs."""
         opt = self.opt
         seg = input_tag
         hair_mask = input_tag[:, 1:2]
-        x = self.block("fc", image_ref, input_ref[:, 1:2], hair_mask)
+        if opt.use_vae:
+            sw, sh = opt.latent_size()
+            x = self.fc(z.to(input_tag.dtype)).view(-1, 16 * opt.ngf, sh, sw)
+        else:
+            x = self.block("fc", image_ref, input_ref[:, 1:2], hair_mask)
 
         if not opt.no_orientation:
             o = orient if opt.use_ig else orient_to_two_channel(orient, hair_mask)

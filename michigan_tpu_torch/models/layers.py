@@ -6,6 +6,7 @@ michigan_tpu/models/layers.py), NCHW.
   PartialConv2d                     -> PartialConv
   nn.ReflectionPad2d                -> reflect_pad
   plain convs                       -> Conv2d (nn.Conv2d under the cast rule)
+  nn.ConvTranspose2d, nn.Linear     -> ConvTranspose2d, Linear (the same rule)
 
 Spectral norm runs as torch's does: in eval, sigma = u . (W v) from the
 stored u and v; in train mode one power iteration from the stored u first
@@ -43,7 +44,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from michigan_tpu_torch.ops.norms import power_iteration, spectral_sigma
+from michigan_tpu_torch.ops.norms import instance_norm, power_iteration, spectral_sigma
 
 
 def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -117,6 +118,22 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv(F.conv2d, x, *cast_params(x, self.weight, self.bias), self.stride,
                     self.padding, self.dilation, self.groups)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d (with its output_padding) under the cast rule."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv(F.conv_transpose2d, x, *cast_params(x, self.weight, self.bias),
+                    self.stride, self.padding, self.output_padding, self.groups,
+                    self.dilation)
+
+
+class Linear(nn.Linear):
+    """nn.Linear under the cast rule."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, *cast_params(x, self.weight, self.bias))
 
 
 @contextlib.contextmanager
@@ -220,17 +237,24 @@ class PartialConv(nn.Conv2d):
 
 
 class ConvBlock(nn.Module):
-    """reflect pad -> conv -> relu (MaskGAN_networks.py:114-173 as the
-    background encoder configures it: pad 'reflect', norm 'none')."""
+    """reflect pad -> conv -> norm -> act (MaskGAN_networks.py:114-173 with
+    pad 'reflect'): norm 'none' (the background encoder) or 'in' (the plain
+    instance norm, with autograd: the blender's resblocks), act 'relu' or
+    'none'."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int,
-                 padding: int):
+                 padding: int, norm: str = "none", activation: str = "relu"):
         super().__init__()
-        self.padding = padding
+        if norm not in ("none", "in") or activation not in ("relu", "none"):
+            raise NotImplementedError(f"ConvBlock norm {norm!r}, activation {activation!r}")
+        self.padding, self.norm, self.activation = padding, norm, activation
         self.conv = Conv2d(in_ch, out_ch, kernel_size, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.conv(reflect_pad(x, self.padding)))
+        y = self.conv(reflect_pad(x, self.padding))
+        if self.norm == "in":
+            y = instance_norm(y)
+        return F.relu(y) if self.activation == "relu" else y
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +262,8 @@ class ConvBlock(nn.Module):
 # ---------------------------------------------------------------------------
 
 def _fans(module: nn.Module, w: torch.Tensor):
-    # fans over the equivalent-conv kernel: in = I*kh*kw, out = O*kh*kw
+    # fans over the equivalent-conv kernel: in = I*kh*kw, out = O*kh*kw (a
+    # Linear's (out, in) weight: in and out)
     if getattr(module, "transposed", False):
         i, o = w.shape[0], w.shape[1]
     else:
@@ -271,14 +296,15 @@ POWER_ITERS = 10  # enough for sigma to settle on the random init's spectral nor
 @torch.no_grad()
 def init_weights(net: nn.Module, gen: torch.Generator, init_type: str = "xavier",
                  gain: Optional[float] = 0.02) -> None:
-    """Seeded weights on the CPU generator `gen`: conv kernels by --init_type,
-    biases zero, and for spectral convs unit u/v from a few power iterations
-    (so sigma is the weight's spectral norm, as in a trained checkpoint)."""
+    """Seeded weights on the CPU generator `gen`: conv, transposed-conv and
+    linear weights by --init_type, biases zero, and for spectral convs unit
+    u/v from a few power iterations (so sigma is the weight's spectral norm,
+    as in a trained checkpoint)."""
     gain = 0.02 if gain is None else gain
     for m in net.modules():
         if isinstance(m, SpectralConv2d):
             w = m.weight_orig
-        elif isinstance(m, nn.Conv2d):
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = m.weight
         else:
             continue

@@ -9,8 +9,9 @@ forward-only: in train mode SPADE is the plain composition with autograd
 (batch statistics, running statistics written unless under
 ``layers.frozen_buffers``), as the JAX package's training path is.
 
-NonSpadeNorm is the discriminator's norm layer: a spectral conv with the
-bias stripped, then the plain instance norm (with autograd).
+NonSpadeNorm is the norm layer of the discriminator and the VAE encoder: a
+spectral conv with the bias stripped, then the plain instance norm (with
+autograd).
 """
 
 from __future__ import annotations
@@ -117,7 +118,7 @@ class SPADE(nn.Module):
 
 class NonSpadeNorm(nn.Module):
     """get_nonspade_norm_layer's Sequential(spectral conv, norm)
-    (normalization.py:18-54) for --norm_D spectralinstance: the conv's
+    (normalization.py:18-54) for spectralinstance (--norm_D, --norm_E): the conv's
     bias is stripped because a norm follows; the state_dict key of the conv
     is ``0``, as in the reference."""
 
@@ -125,7 +126,8 @@ class NonSpadeNorm(nn.Module):
                  norm_str: str):
         super().__init__()
         if norm_str != "spectralinstance":
-            raise NotImplementedError(f"--norm_D {norm_str} is not ported")
+            raise NotImplementedError(f"the norm layer {norm_str} (--norm_D, --norm_E) "
+                                      "is not ported")
         self.add_module("0", SpectralConv2d(in_ch, out_ch, kernel_size, stride, padding,
                                             bias=False))
 

@@ -5,13 +5,18 @@
         --expand_mask_be --expand_th 5 --random_expand_mask \
         --num_upsampling_layers more --batchSize 8 --data_dir <dir>
 
-Same flags as the JAX CLI (the port's config.train_options).  <dir> holds
+Same flags as the JAX CLI (the port's config.train_options), with the VAE
+(--use_vae), the blender (--use_blender, --hair_random_disturb) and the
+unpaired two-stage schedule (--unpairTrain [--same_netD_model]: each epoch
+a pass of the unpaired stage, training netD2, then one of the paired stage,
+training netD) in float32.  <dir> holds
 train_images/, train_labels/ and train_dense_orients/ (or point --image_dir,
 --label_dir and --orient_dir at them).  The device comes from --gpu_ids: -1
 is the CPU, N is cuda:N; fp32 with TF32 off, or --dtype bfloat16 (the bf16
 compute policy: bf16 convolutions on float32 parameters, the frozen IG and
 VGG19 stored in bf16; checkpoints hold float32 netG, netD and Adam state
-either way, so a run resumes under either dtype).  netIG comes from
+either way, so a run resumes under either dtype; netE, netB and netD2 are
+saved beside them as <label>_net_E / _net_B / _net_D2.pth).  netIG comes from
 checkpoints/<name>/InpaintingModel_gen.pth when present, VGG19 from
 $MICHIGAN_VGG19 or checkpoints/vgg19*.{pth,npz}; otherwise seeded weights.
 
@@ -93,7 +98,7 @@ def main(argv=None):
     from michigan_tpu_torch.inference import device_from_gpu_ids
     from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
     from michigan_tpu_torch.training import checkpoint as CK
-    from michigan_tpu_torch.training.state import set_learning_rates
+    from michigan_tpu_torch.training.state import init_netd2_from_netd, set_learning_rates
     from michigan_tpu_torch.training.train_step import TrainStep
     from michigan_tpu_torch.utils.iter_counter import IterationCounter
 
@@ -109,8 +114,13 @@ def main(argv=None):
     loader = BatchLoader(CustomDataset(opt), opt)
     if len(loader) == 0:
         raise ValueError(f"the dataset at {opt.data_dir} yields no full batch of {opt.batchSize}")
+    # --unpairTrain: every epoch runs the unpaired stage over its own loader
+    # first, then the paired stage (reference train.py:42-90)
+    loader2 = BatchLoader(CustomDataset(opt, 2), opt) if opt.unpairTrain else None
     model = MichiGANModel(opt, device)
     model.init_weights(opt.seed)
+    if opt.unpairTrain and opt.same_netD_model:
+        init_netd2_from_netd(model)
     load_released_ig(model, opt)
     trainer = TrainStep(model)
     iter_counter = IterationCounter(opt, len(loader) * opt.batchSize)
@@ -127,10 +137,12 @@ def main(argv=None):
         CK.save_checkpoint(opt, "latest", trainer)
         iter_counter.record_current_iter()
 
-    for epoch in iter_counter.training_epochs():
+    def run_epoch(epoch, data_loader, curr_step) -> bool:
+        """One pass of `data_loader` in stage `curr_step`; True at --max_steps."""
+        opt.curr_step = curr_step
         iter_counter.record_epoch_start(epoch)
         t0, steps, stop = None, 0, False
-        for i, data in enumerate(loader):
+        for i, data in enumerate(data_loader):
             if opt.max_steps and iter_counter.total_steps_so_far // opt.batchSize >= opt.max_steps:
                 stop = True
                 break
@@ -138,15 +150,17 @@ def main(argv=None):
             batch = batch_from_numpy(data, device)
             # the random mask dilation width (encoder.py:294): 0..4 extra 3x3 steps
             extra = host_rng.randint(0, 4)
+            # one draw of the VAE's noise a step, for its G step and D step
+            eps = trainer.new_eps(opt.batchSize)
             g_losses, d_losses, orient = {}, {}, None
             # the step at 3 * batchSize samples, past the first steps' warm-up
             profiling = bool(opt.profile_dir) and \
                 iter_counter.total_steps_so_far == 3 * opt.batchSize
             with profiled_step(opt.profile_dir, device) if profiling else contextlib.nullcontext():
                 if i % opt.D_steps_per_G == 0:
-                    g_losses, _fake, orient = trainer.g_step(batch, extra)
+                    g_losses, _fake, orient = trainer.g_step(batch, extra, eps)
                 if i % opt.G_steps_per_D == 0 and not opt.no_discriminator:
-                    d_losses = trainer.d_step(batch, extra, orient)
+                    d_losses = trainer.d_step(batch, extra, orient, eps)
             if opt.debug_nans:
                 check_finite({**g_losses, **d_losses}, iter_counter.total_steps_so_far)
             if t0 is None:
@@ -169,13 +183,20 @@ def main(argv=None):
         if steps:
             sync()
             dt = time.perf_counter() - t0
-            print(f"epoch {epoch} wall throughput: {steps * opt.batchSize / dt:.2f} img/s over "
-                  f"{steps} steps ({dt / steps:.3f} s/step incl. data)")
+            print(f"epoch {epoch} (stage {curr_step}) wall throughput: "
+                  f"{steps * opt.batchSize / dt:.2f} img/s over {steps} steps "
+                  f"({dt / steps:.3f} s/step incl. data)")
+        return stop
+
+    for epoch in iter_counter.training_epochs():
+        stop = run_epoch(epoch, loader2, 2) if opt.unpairTrain else False
+        if not stop:
+            stop = run_epoch(epoch, loader, 1)
         if stop:
             print(f"stopping at --max_steps {opt.max_steps}")
             save_latest()
             break
-        set_learning_rates(trainer.opt_g, trainer.opt_d, opt, epoch + 1)
+        set_learning_rates(trainer.optimizers, opt, epoch + 1)
         iter_counter.record_epoch_end()
         if epoch % opt.save_epoch_freq == 0 or epoch == iter_counter.total_epochs:
             print(f"saving the model at the end of epoch {epoch}, "

@@ -1,7 +1,9 @@
-"""TTUR Adam pair and the linear LR decay (port of
+"""TTUR Adam optimizers, the linear LR decay and netD2's start (port of
 michigan_tpu/training/state.py; reference pix2pix_model.py:124-152 and
 pix2pix_trainer.py:99-119).
 
+G's Adam covers netG, netE (--use_vae) and netB (--use_blender); D's covers
+netD; under --unpairTrain netD2 has an Adam of its own at D's rate.
 torch.optim.Adam and optax's adam share the update, lr * m_hat /
 (sqrt(v_hat) + eps) with eps outside the square root.
 """
@@ -25,18 +27,45 @@ def learning_rates(opt, epoch: int) -> Tuple[float, float]:
     return new_lr / 2.0, new_lr * 2.0
 
 
-def make_optimizers(opt, net_g: torch.nn.Module, net_d: torch.nn.Module):
-    """(Adam over netG, Adam over netD): betas (0, 0.9) with TTUR, else
-    (--beta1, --beta2), at the learning rates of the first epoch."""
+def g_net_names(opt) -> Tuple[str, ...]:
+    """The nets G's optimizer trains (the JAX package's g_net_names)."""
+    names = [] if opt.fix_netG else ["netG"]
+    if opt.use_vae:
+        names.append("netE")
+    if opt.use_blender:
+        names.append("netB")
+    return tuple(names)
+
+
+def make_optimizers(opt, model):
+    """{'G': Adam over g_net_names, 'D': Adam over netD, and 'D2': Adam over
+    netD2 under --unpairTrain}: betas (0, 0.9) with TTUR, else (--beta1,
+    --beta2), at the learning rates of the first epoch."""
     betas = (opt.beta1, opt.beta2) if opt.no_TTUR else (0.0, 0.9)
     g_lr, d_lr = learning_rates(opt, 1)
-    return (torch.optim.Adam(net_g.parameters(), lr=g_lr, betas=betas),
-            torch.optim.Adam(net_d.parameters(), lr=d_lr, betas=betas))
+    nets = model.nets()
+    g_params = [p for n in g_net_names(opt) for p in nets[n].parameters()]
+    # --fix_netG alone leaves G's optimizer nothing to train (None)
+    out = {"G": torch.optim.Adam(g_params, lr=g_lr, betas=betas) if g_params else None,
+           "D": torch.optim.Adam(model.netD.parameters(), lr=d_lr, betas=betas)}
+    if model.netD2 is not None:
+        out["D2"] = torch.optim.Adam(model.netD2.parameters(), lr=d_lr, betas=betas)
+    return out
 
 
-def set_learning_rates(opt_g: torch.optim.Optimizer, opt_d: torch.optim.Optimizer, opt,
-                       epoch: int) -> None:
-    """The epoch-level LR update (host side, between epochs)."""
-    for optim, lr in zip((opt_g, opt_d), learning_rates(opt, epoch)):
-        for group in optim.param_groups:
-            group["lr"] = lr
+def set_learning_rates(optimizers, opt, epoch: int) -> None:
+    """The epoch-level LR update (host side, between epochs): G's rate to
+    'G', D's to 'D' and 'D2'."""
+    g_lr, d_lr = learning_rates(opt, epoch)
+    for key, optim in optimizers.items():
+        for group in optim.param_groups if optim is not None else ():
+            group["lr"] = g_lr if key == "G" else d_lr
+
+
+@torch.no_grad()
+def init_netd2_from_netd(model) -> None:
+    """--same_netD_model: netD2 starts as a copy of netD (reference
+    train_options.py:40), into netD2's own storage: the two never share a
+    tensor."""
+    for dst, src in zip(model.netD2.state_dict().values(), model.netD.state_dict().values()):
+        dst.copy_(src)

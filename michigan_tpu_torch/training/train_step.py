@@ -1,6 +1,13 @@
-"""One G+D training step (port of michigan_tpu/training/train_step.py:107-192;
+"""One G+D training step (port of michigan_tpu/training/train_step.py:107-245;
 reference pix2pix_trainer.py:39-77): the G step, then the D step against a
-fake recomputed with the updated netG.
+fake recomputed with the updated netG (netE, netB).
+
+Under --unpairTrain the stage is read from ``opt.curr_step`` on each call,
+as the JAX package's wrappers pick their compiled stage: stage 2 trains
+netD2 in its D step, stage 1 netD.  Under --use_vae the G step draws the
+VAE's eps (``MichiGANModel.draw_eps``) unless given one, and the D step
+reuses the last draw unless given one: the JAX package hands one step rng
+to both.
 
 The JAX package's one-program ``fused_step`` exists to hand XLA a single
 dispatch; the port runs eagerly and does not have it.
@@ -16,37 +23,70 @@ from michigan_tpu_torch.training.state import make_optimizers
 
 
 class TrainStep:
-    """Holds the model and its two optimizers; counts G steps."""
+    """Holds the model and its optimizers ('G', 'D', and 'D2' under
+    --unpairTrain); counts G steps."""
 
     def __init__(self, model):
         self.model = model
         self.opt = model.opt
-        self.opt_g, self.opt_d = make_optimizers(model.opt, model.netG, model.netD)
+        self.optimizers = make_optimizers(model.opt, model)
         self.step = 0
+        self.eps: Optional[torch.Tensor] = None
 
-    def g_step(self, batch: Dict[str, torch.Tensor], extra_dilate_steps: int = 2):
-        """(losses by name, fake, orient).  netD's parameters take no
-        gradient here: it is differentiated only with respect to its input."""
+    @property
+    def opt_g(self):
+        return self.optimizers["G"]
+
+    @property
+    def opt_d(self):
+        return self.optimizers["D"]
+
+    def new_eps(self, n: int) -> Optional[torch.Tensor]:
+        """A fresh draw of the VAE's eps for a batch of `n` (None without
+        --use_vae), kept for the D step."""
+        self.eps = self.model.draw_eps(n) if self.opt.use_vae else None
+        return self.eps
+
+    def g_step(self, batch: Dict[str, torch.Tensor], extra_dilate_steps: int = 2,
+               eps: Optional[torch.Tensor] = None):
+        """(losses by name, fake, orient); fake is netG's image before any
+        blend (None under --only_blend).  The discriminators' parameters take
+        no gradient here: they are differentiated only with respect to their
+        input."""
         m = self.model
-        m.netD.requires_grad_(False)
+        if self.opt.use_vae:
+            self.eps = eps if eps is not None else self.new_eps(batch["image_ref"].shape[0])
+        ds = [d for d in (m.netD, m.netD2) if d is not None]
+        for d in ds:
+            d.requires_grad_(False)
         try:
-            total, losses, fake, orient = m.generator_loss(batch, extra_dilate_steps)
+            total, losses, fake, orient = m.generator_loss(batch, extra_dilate_steps, self.eps)
         finally:
-            m.netD.requires_grad_(True)
-        self.opt_g.zero_grad(set_to_none=True)
-        total.backward()
-        self.opt_g.step()
+            for d in ds:
+                d.requires_grad_(True)
+        if self.opt_g is not None:
+            self.opt_g.zero_grad(set_to_none=True)
+            total.backward()
+            self.opt_g.step()
         self.step += 1
-        return {k: v.detach() for k, v in losses.items()}, fake.detach(), orient
+        return ({k: v.detach() for k, v in losses.items()},
+                None if fake is None else fake.detach(), orient)
 
     def d_step(self, batch: Dict[str, torch.Tensor], extra_dilate_steps: int = 2,
-               orient: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        """D's losses by name.  With --reuse_orient_for_d (the default) the G
-        step's orientation is reused: the frozen IG gives the same."""
+               orient: Optional[torch.Tensor] = None,
+               eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The stage's D's losses by name.  With --reuse_orient_for_d (the
+        default) the G step's orientation is reused: the frozen IG gives the
+        same."""
         if not (self.opt.reuse_orient_for_d and self.opt.use_ig):
             orient = None
-        total, losses = self.model.discriminator_loss(batch, extra_dilate_steps, orient)
-        self.opt_d.zero_grad(set_to_none=True)
+        if self.opt.use_vae:
+            self.eps = eps if eps is not None else (
+                self.eps if self.eps is not None else self.new_eps(batch["image_ref"].shape[0]))
+        total, losses = self.model.discriminator_loss(batch, extra_dilate_steps, orient,
+                                                      self.eps)
+        optim = self.optimizers["D2" if self.model.stage() == 2 else "D"]
+        optim.zero_grad(set_to_none=True)
         total.backward()
-        self.opt_d.step()
+        optim.step()
         return {k: v.detach() for k, v in losses.items()}

@@ -1,7 +1,8 @@
 """Epoch and iteration bookkeeping with resume (the port's copy of
 michigan_tpu/utils/iter_counter.py; reference util/iter_counter.py).
 iter.txt holds (epoch, epoch_iter, total_steps); the reference's
-two-column form is read too."""
+two-column form is read too, an --unpairTrain epoch counting two passes
+over the data (stage 2, then stage 1)."""
 
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ class IterationCounter:
                 self.total_steps_so_far = int(rec[2])
             print(f"Resuming from epoch {self.first_epoch} at iteration {self.epoch_iter}")
         if self.total_steps_so_far is None:
-            self.total_steps_so_far = (self.first_epoch - 1) * dataset_size + self.epoch_iter
+            per_epoch = dataset_size * (2 if opt.unpairTrain else 1)
+            self.total_steps_so_far = (self.first_epoch - 1) * per_epoch + self.epoch_iter
         self.time_per_iter = 0.0
         self.last_iter_time = self.epoch_start_time = time.time()
 

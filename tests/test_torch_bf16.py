@@ -499,8 +499,8 @@ def test_clis_run_bf16_without_jax(tmp_path):
 def test_bf16_is_refused_with_is_train():
     """(Since the bf16 training step was ported:) --dtype bfloat16 with
     --isTrain builds a training model; another dtype is still refused in
-    training and inference, and so are bf16 with an unported training
-    flag."""
+    training and inference, and so are bf16 with an unported flag and bf16
+    with the float32-only VAE, blender and unpaired configs."""
     opt = config.train_options(["--dtype", "bfloat16"] + TRAIN_SMALL)
     model = MichiGANModel(opt, "cpu")
     assert model.compute_dtype == torch.bfloat16 and model.netD is not None
@@ -509,8 +509,12 @@ def test_bf16_is_refused_with_is_train():
     for o in (flagship_opt(), opt):
         with pytest.raises(NotImplementedError, match="float16"):
             port_model.check_supported(dataclasses.replace(o, dtype="float16"))
-    with pytest.raises(NotImplementedError, match="unpairTrain"):
-        MichiGANModel(dataclasses.replace(opt, unpairTrain=True), "cpu")
+    with pytest.raises(NotImplementedError, match="use_instance_feat"):
+        MichiGANModel(dataclasses.replace(opt, use_instance_feat=True), "cpu")
+    # the VAE, blender and unpaired configs are float32 only
+    for flag in ("use_vae", "use_blender", "unpairTrain"):
+        with pytest.raises(NotImplementedError, match=f"--{flag} with --dtype bfloat16"):
+            MichiGANModel(dataclasses.replace(opt, **{flag: True}), "cpu")
 
 
 def test_trainer_cli_trains_bf16_saves_resumes_and_feeds_inference(tmp_path):

@@ -336,7 +336,7 @@ def test_trainer_cli_trains_saves_resumes_and_feeds_inference(tmp_path):
     with torch.no_grad():
         got, _ = model.infer(batch)
         pre = trained.preprocess(batch)
-        want = trained.generate_fake(pre, trained.orient_for_training(pre))
+        want = trained.generate_fake(pre, trained.orient_for_training(pre))[0]
     assert got.shape == (1, 3, 64, 64) and torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
 
