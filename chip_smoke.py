@@ -169,13 +169,15 @@ Phases, each on its own line:
       the nets the step trains changed and no other (netG, netE or netB,
       netD; stage 2 netG and netD2, stage 1 netG and netD), netIG and VGG19
       bit-identical; 5 timed steps after that warm-up (ms/step, img/s, G
-      step, D step, peak memory) and one profiled step (device busy); then
+      step, D step, peak memory) and one profiled step (device busy, the
+      top device time); then
       each config's G+D step (unpair: stage 2) on the card and on the CPU
       at PARITY16's batch, crop and width in float32, the VAE's eps the
       same draw on both, by phase 12's rule: per-term losses within rtol
       1e-4, atol 1e-5, netG, netE / netB after the G step and netD (netD2)
       after the D step (both from the card's post-G state) by the
-      scale-aware rule
+      scale-aware rule, netG's running statistics and spectral u / v
+      within rtol 1e-4, atol 1e-5
 
 Then a JSON line of per-kernel results: for the training step's kernels
 (fused_instance_norm, filterbank_orientation and its backward,
@@ -2194,7 +2196,7 @@ def run():
                     (cfg == "vae" and "KLD" not in losses):
                 return fail(f"phase 16 {label}: the step's losses or parameter updates are wrong")
             ms, g_ms, d_ms, peak, live, times = timed_steps(tr, cbatch)
-            busy_ms, wall_ms, _t, conv_ms, dev_ms = profile_once(
+            busy_ms, wall_ms, table, conv_ms, dev_ms = profile_once(
                 lambda: tr.d_step(cbatch, EXTRA_DILATE, tr.g_step(cbatch, EXTRA_DILATE)[2]),
                 torch)
             config_rows[key] = dict(ms=ms, g=g_ms, d=d_ms, peak=peak, busy=busy_ms,
@@ -2204,7 +2206,9 @@ def run():
                       f"{n / ms * 1e3:.2f} img/s; G step {g_ms:.1f} ms, D step {d_ms:.1f} ms; "
                       f"peak device memory {peak / 2**30:.2f} GiB ({live / 2**30:.2f} GiB live "
                       f"before); profiled step: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms "
-                      f"wall, convolutions {conv_ms:.2f} of {dev_ms:.2f} ms device time {tag}")
+                      f"wall, convolutions {conv_ms:.2f} of {dev_ms:.2f} ms device time {tag}; "
+                      f"top device time:")
+            print(table, flush=True)
             del cbatch
         del tr, nets, before, start
         torch.cuda.empty_cache()
@@ -2231,6 +2235,12 @@ def run():
         g_nets = [k for k in ("netG", "netE", "netB") if k in cpu_model.nets()]
         rules = {k: scale_aware(state(cpu_model.nets()[k]), state(card.model.nets()[k]),
                                 popt.lr / 2) for k in g_nets}
+        # netG's running statistics and spectral u / v, as phase 12 holds them
+        bufs = {k: v.cpu() for k, v in card.model.netG.named_buffers() if v.is_floating_point()}
+        cpu_bufs = dict(cpu_model.netG.named_buffers())
+        buf_err = max((cpu_bufs[k] - v).abs().max().item() for k, v in bufs.items())
+        bufs_ok = all(torch.allclose(cpu_bufs[k], v, rtol=1e-4, atol=1e-5)
+                      for k, v in bufs.items())
         # the D step on both from the card's post-G state, as phase 12's
         for k in g_nets:
             cpu_model.nets()[k].load_state_dict({n_: v.cpu() for n_, v in
@@ -2249,12 +2259,13 @@ def run():
             good = abs(a - b) <= 1e-5 + 1e-4 * abs(b)
             ok &= good
             loss_rows.append(f"{k} {a:.6f}/{b:.6f}{'' if good else ' FAIL'}")
-        ok &= all(r[0] for r in rules.values())
+        ok &= all(r[0] for r in rules.values()) and bufs_ok
         phase(16, f"{cfg} G+D step card/CPU, batch {n}, {PARITY16['crop']}^2, ngf "
                   f"{PARITY16['ngf']}, ndf {PARITY16['ndf']}: " + ", ".join(loss_rows))
         phase(16, f"{cfg}: " + "; ".join(
             f"{k} max diff {r[1]:.2e}, {r[2]} of {r[3]} beyond float noise"
-            for k, r in rules.items()) + f"; CPU step {t_cpu:.1f} s")
+            for k, r in rules.items()) + f"; netG buffers max diff {buf_err:.2e}; CPU step "
+                  f"{t_cpu:.1f} s")
         return None if ok else f"phase 16: the card's and the CPU's {cfg} steps disagree"
 
     for cfg in CONFIG_FLAGS:

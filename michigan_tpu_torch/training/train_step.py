@@ -33,14 +33,6 @@ class TrainStep:
         self.step = 0
         self.eps: Optional[torch.Tensor] = None
 
-    @property
-    def opt_g(self):
-        return self.optimizers["G"]
-
-    @property
-    def opt_d(self):
-        return self.optimizers["D"]
-
     def new_eps(self, n: int) -> Optional[torch.Tensor]:
         """A fresh draw of the VAE's eps for a batch of `n` (None without
         --use_vae), kept for the D step."""
@@ -64,10 +56,11 @@ class TrainStep:
         finally:
             for d in ds:
                 d.requires_grad_(True)
-        if self.opt_g is not None:
-            self.opt_g.zero_grad(set_to_none=True)
+        opt_g = self.optimizers["G"]
+        if opt_g is not None:
+            opt_g.zero_grad(set_to_none=True)
             total.backward()
-            self.opt_g.step()
+            opt_g.step()
         self.step += 1
         return ({k: v.detach() for k, v in losses.items()},
                 None if fake is None else fake.detach(), orient)
@@ -80,9 +73,10 @@ class TrainStep:
         same."""
         if not (self.opt.reuse_orient_for_d and self.opt.use_ig):
             orient = None
-        if self.opt.use_vae:
-            self.eps = eps if eps is not None else (
-                self.eps if self.eps is not None else self.new_eps(batch["image_ref"].shape[0]))
+        if eps is not None:
+            self.eps = eps
+        elif self.opt.use_vae and self.eps is None:
+            self.new_eps(batch["image_ref"].shape[0])
         total, losses = self.model.discriminator_loss(batch, extra_dilate_steps, orient,
                                                       self.eps)
         optim = self.optimizers["D2" if self.model.stage() == 2 else "D"]

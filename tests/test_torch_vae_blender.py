@@ -19,7 +19,8 @@ Then the pieces alone: kld_loss, the ConvEncoder forward and its bridge
 round trip through the JAX package's convert_vae_encoder, the blender's
 forward (with and without --hair_random_disturb; the transposed convs'
 output_padding), inference of each config (and --only_blend) against JAX's
-``infer`` with the same eps, --only_blend in training, and the refusals.
+``infer`` with the same eps, --only_blend and --fix_netG in training, and
+the refusals.
 
 JAX's variables come from one jitted init of a config with both nets; the
 blender config's netG (the partial-conv seed, not the VAE's Linear) from a
@@ -43,8 +44,13 @@ from michigan_tpu.training.convert import convert_vae_encoder
 from michigan_tpu.training.state import TrainState
 from michigan_tpu.training.train_step import make_train_steps
 from michigan_tpu_torch import model as port_model
-from michigan_tpu_torch.convert import module_state_dict, state_dicts_from_flax, B_RENAMES, \
-    B_TRANSPOSED, E_RENAMES
+from michigan_tpu_torch.convert import (
+    B_RENAMES,
+    B_TRANSPOSED,
+    E_RENAMES,
+    module_state_dict,
+    state_dicts_from_flax,
+)
 from michigan_tpu_torch.losses.color import kld_loss
 from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
 from michigan_tpu_torch.models.blend import Blend2Generator
@@ -328,6 +334,25 @@ def test_only_blend_trains_the_blender_alone():
     assert all(torch.equal(v, s0["netG"][k]) for k, v in s1["netG"].items())
     assert any(not torch.equal(v, s0["netB"][k]) for k, v in s1["netB"].items())
     assert any(not torch.equal(v, s0["netD"][k]) for k, v in s1["netD"].items())
+
+
+@pytest.mark.parametrize("kw", [dict(use_vae=True), {}])
+def test_fix_netg_keeps_netg_out_of_gs_optimizer(kw):
+    """--fix_netG: G's Adam trains the JAX package's g_net_names without
+    netG (netE under --use_vae; nothing, and no optimizer, alone); netG
+    stays, D still trains."""
+    opt = tiny_opt(fix_netG=True, **kw)
+    model = MichiGANModel(opt, "cpu")
+    model.init_weights(0)
+    trainer = TrainStep(model)
+    assert (trainer.optimizers["G"] is None) == (not kw)
+    s0 = snapshot(model)
+    _, _, orient = trainer.g_step(batch_from_numpy(tiny_batch(opt), "cpu"), EXTRA)
+    trainer.d_step(batch_from_numpy(tiny_batch(opt), "cpu"), EXTRA, orient)
+    s1 = snapshot(model)
+    moved = {k: any(not torch.equal(v, s0[k][n]) for n, v in s1[k].items()
+                    if n in dict(model.nets()[k].named_parameters())) for k in s1}
+    assert not moved["netG"] and moved["netD"] and moved.get("netE", True)
 
 
 def test_refusals_name_their_flags():
