@@ -198,7 +198,7 @@ def test_stages_alternate_on_one_train_step_each_training_its_own_d():
     A stage-2 step then trains netD2 alone, a stage-1 step netD alone (the
     stage read from opt.curr_step on each call), and the stage-1 losses are
     the paired ones."""
-    opt = tiny_opt(unpairTrain=True, same_netD_model=True, curr_step=2)
+    opt = tiny_opt(unpairTrain=True, same_netD_model=True, curr_step=2, use_ig=False)
     model = MichiGANModel(opt, "cpu")
     model.init_weights(0)
     init_netd2_from_netd(model)
@@ -301,14 +301,14 @@ def run_cli(tmp_path, module, *flags):
     code = BLOCK_JAX.replace('"michigan_tpu_torch.train"', repr(module)).replace(
         '["train"]', repr([module.rsplit(".", 1)[-1]]))
     proc = subprocess.run([sys.executable, "-c", code, *flags], cwd=tmp_path, env=env,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     return proc.stdout
 
 
 CLI_FLAGS = ["--gpu_ids", "-1", "--name", "u", "--netG", "spadeb", "--use_encoder", "--use_ig",
              "--noise_background", "--random_expand_mask", "--ngf", "8", "--ndf", "8",
-             "--crop_size", "64", "--load_size", "64", "--batchSize", "1", "--nThreads", "1",
+             "--crop_size", "64", "--load_size", "64", "--batchSize", "3", "--nThreads", "1",
              "--print_freq", "1", "--unpairTrain", "--same_netD_model", "--use_blender",
              "--use_vae", "--label_dir", os.path.join(DEMO, "labels"),
              "--image_dir", os.path.join(DEMO, "images"),
@@ -316,16 +316,17 @@ CLI_FLAGS = ["--gpu_ids", "-1", "--name", "u", "--netG", "spadeb", "--use_encode
 
 
 def test_trainer_cli_unpair_vae_blender_trains_saves_resumes_and_renders(tmp_path):
-    """Each epoch runs the stage-2 pass then the stage-1 pass (3 steps each:
-    3 samples at batch 1); the checkpoints hold net_E, net_B and net_D2 and
-    resume; the inference CLI restores netG, netE and netB and renders."""
+    """Each epoch runs the stage-2 pass then the stage-1 pass (a step each:
+    the 3 samples at batch 3); the checkpoints hold net_E, net_B and net_D2
+    and resume; the inference CLI restores netG, netE and netB and
+    renders."""
     ck = tmp_path / "checkpoints"
     first = run_cli(tmp_path, "michigan_tpu_torch.train", *CLI_FLAGS, "--checkpoints_dir",
                     str(ck), "--niter", "1")
     steps = [line for line in first.splitlines() if line.startswith("(epoch: 1,")]
-    assert len(steps) == 6 and first.strip().endswith("ok")
-    assert all("hairAvgLab" in s and "KLD" in s for s in steps[:3])
-    assert all("VGG" in s and "hairAvgLab" not in s for s in steps[3:])
+    assert len(steps) == 2 and first.strip().endswith("ok")
+    assert "hairAvgLab" in steps[0] and "KLD" in steps[0] and "VGG" not in steps[0]
+    assert "VGG" in steps[1] and "KLD" in steps[1] and "hairAvgLab" not in steps[1]
     for x in ("G", "D", "E", "B", "D2"):
         for label in ("1", "latest"):
             assert (ck / "u" / f"{label}_net_{x}.pth").exists(), (label, x)
@@ -334,7 +335,7 @@ def test_trainer_cli_unpair_vae_blender_trains_saves_resumes_and_renders(tmp_pat
     second = run_cli(tmp_path, "michigan_tpu_torch.train", *CLI_FLAGS, "--checkpoints_dir",
                      str(ck), "--niter", "2", "--continue_train")
     assert "resumed checkpoint 'latest'" in second
-    assert second.count("(epoch: 2,") == 6 and "(epoch: 1," not in second
+    assert second.count("(epoch: 2,") == 2 and "(epoch: 1," not in second
 
     data = os.path.join(REPO, "datasets", "FFHQ_single")
     out = run_cli(tmp_path, "michigan_tpu_torch.inference", "--gpu_ids", "-1", "--netG",
@@ -364,7 +365,7 @@ def test_orientation_of_a_near_flat_blend_differs_only_at_near_ties(rng):
     b = tiny_batch(opt, seed=1, paired=False)
     mask = np.concatenate([1 - b["label_tag"], b["label_tag"]], axis=-1)
     args = [jnp.asarray(a) for a in (b["image_ref"], b["image_tag"], mask, b["noise"])]
-    blend = JBlend(opt).apply(JBlend(opt).init(jax.random.PRNGKey(0), *args), *args)
+    blend = JBlend(opt).apply(jax.jit(JBlend(opt).init)(jax.random.PRNGKey(0), *args), *args)
     blend = np.asarray(blend)
     assert blend.std() < 0.05
     want, _ = j_orient(jnp.asarray(blend), "gabor", None)

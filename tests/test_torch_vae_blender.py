@@ -23,8 +23,11 @@ output_padding), inference of each config (and --only_blend) against JAX's
 the refusals.
 
 JAX's variables come from one jitted init of a config with both nets; the
-blender config's netG (the partial-conv seed, not the VAE's Linear) from a
-second, generator-only init with the same key.
+blender config's netG swaps the VAE's Linear seed for an init of the
+partial-conv encoder alone.  (At torch's default init the blender config's
+G step flips the sign of Adam's first update at 0.10-0.15% of netG's
+elements, all at near-zero gradients, against the rule's 0.1%; the config's
+own init stays under it, as the paired step's test does.)
 """
 
 import dataclasses
@@ -40,6 +43,7 @@ from michigan_tpu import losses as JL
 from michigan_tpu.model import MichiGANModel as JModel
 from michigan_tpu.models.blend import Blend2Generator as JBlend
 from michigan_tpu.models.encoders import ConvEncoder as JEncoder
+from michigan_tpu.models.encoders import ImageEncoder3 as JImageEncoder3
 from michigan_tpu.training.convert import convert_vae_encoder
 from michigan_tpu.training.state import TrainState
 from michigan_tpu.training.train_step import make_train_steps
@@ -67,9 +71,10 @@ from tests.test_torch_training import (
     to_np,
 )
 
-# (--hair_random_disturb is held in the blender's forward test: on this
+# the config's own init (xavier, gain 0.02), as tests/test_torch_training.py;
+# --hair_random_disturb is held in the blender's forward test: on this
 # batch's pixel-noise labels its edge band covers every pixel, and the blend
-# would not depend on the fake)
+# would not depend on the fake
 CONFIGS = {"vae": dict(use_vae=True), "blender": dict(use_blender=True)}
 OWN_NET = {"vae": "netE", "blender": "netB"}
 
@@ -87,16 +92,27 @@ def jax_init(opt, batch, rng):
         rng, {k: jnp.asarray(v) for k, v in batch.items()}))
 
 
+def plain_netg(opt, v_netg, batch):
+    """The VAE config's netG variables with the partial-conv encoder in
+    place of z's Linear: the blender config's netG.  Flax derives each
+    submodule's init from its path, so every other subtree is what a
+    full init of the blender config gives."""
+    pre = JModel(opt).preprocess({k: jnp.asarray(v) for k, v in batch.items()})
+    enc = JImageEncoder3(opt, *opt.latent_size())
+    fc = jax.jit(enc.init)(jax.random.PRNGKey(5), pre["image_ref"], pre["input_ref"][..., 1:2],
+                           pre["input_tag"][..., 1:2])
+    return {**v_netg, "params": {**v_netg["params"], "fc": to_np(fc["params"])}}
+
+
 @pytest.fixture(scope="module")
 def jax_runs():
     """JAX's initial variables of each config, its G step then D step, and
     the VAE's eps of the step's rng."""
     rng = jax.random.PRNGKey(0)
-    both = tiny_opt(**CONFIGS["vae"], **CONFIGS["blender"])
+    both = tiny_opt(**{**CONFIGS["vae"], **CONFIGS["blender"]})
     batch = tiny_batch(both)
     v_all = jax_init(both, batch, rng)
-    # the blender config's netG: the partial-conv seed, from the same key
-    g_plain = jax_init(tiny_opt(isTrain=False, use_ig=False), batch, rng)["netG"]
+    g_plain = plain_netg(tiny_opt(**CONFIGS["blender"]), v_all["netG"], batch)
     out = {"batch": batch, "eps": np.asarray(jax.random.normal(rng, (both.batchSize, 256)))}
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("MICHIGAN_FILTERBANK", "direct")
@@ -233,7 +249,7 @@ def test_conv_encoder_and_its_bridge_round_trip(rng, crop):
     state_dict back through convert_vae_encoder gives JAX's variables."""
     opt = tiny_opt(use_vae=True, crop_size=crop, load_size=crop)
     x = rng.uniform(-1, 1, (2, crop, crop, 3)).astype(np.float32)
-    variables = to_np(JEncoder(opt).init(jax.random.PRNGKey(1), jnp.asarray(x)))
+    variables = to_np(jax.jit(JEncoder(opt).init)(jax.random.PRNGKey(1), jnp.asarray(x)))
     net = ConvEncoder(opt).eval()
     net.load_state_dict(module_state_dict(variables, E_RENAMES), strict=True)
     assert net.n_layers == (6 if crop >= 256 else 5)
@@ -264,7 +280,7 @@ def test_blender_forward_matches_jax(rng, disturb):
     mask[..., 0] = 1 - mask[..., 1]
     noise = rng.uniform(0, 1, (n, s, s, 3)).astype(np.float32)
     args = [jnp.asarray(a) for a in (hair, bg, mask, noise)]
-    variables = to_np(JBlend(opt).init(jax.random.PRNGKey(2), *args))
+    variables = to_np(jax.jit(JBlend(opt).init)(jax.random.PRNGKey(2), *args))
     net = Blend2Generator(opt)
     net.load_state_dict(module_state_dict(variables, B_RENAMES, B_TRANSPOSED), strict=True)
     got = net(*(nchw(a) for a in (hair, bg, mask, noise)))
@@ -276,33 +292,18 @@ def test_blender_forward_matches_jax(rng, disturb):
     assert np.abs(other - want).max() > 1e-3  # the band matters
 
 
-INFER_KW = dict(isTrain=False, use_ig=False, init_type="none")
-
-
-@pytest.fixture(scope="module")
-def infer_vars():
-    """JAX's inference variables at torch's default init (outputs of order
-    0.1, where the training configs' xavier gain 0.02 gives 1e-4): netG with
-    the VAE's seed, netE and netB; and netG with the partial-conv seed."""
-    rng = jax.random.PRNGKey(4)
-    opt = tiny_opt(use_vae=True, use_blender=True, **INFER_KW)
-    batch = tiny_batch(opt)
-    out = jax_init(opt, batch, rng)
-    out["netG_plain"] = jax_init(tiny_opt(**INFER_KW), batch, rng)["netG"]
-    return out
-
-
 @pytest.mark.parametrize("name", ["vae", "blender", "only_blend"])
-def test_inference_matches_jax_infer(jax_runs, infer_vars, name):
+def test_inference_matches_jax_infer(jax_runs, name):
     """Each config's ``infer`` (the blend under --use_blender, of the ref
-    image under --only_blend) against JAX's with the same eps (without the
-    IG); under --use_vae another eps gives another image."""
+    image under --only_blend) against JAX's with the same eps, on the
+    training runs' initial variables without the IG, within rtol 1e-4 and
+    1e-5 of the image's largest magnitude (xavier gain 0.02 makes outputs
+    small); under --use_vae another eps gives another image."""
     kw = {"vae": CONFIGS["vae"], "blender": CONFIGS["blender"],
           "only_blend": dict(CONFIGS["blender"], only_blend=True)}[name]
-    opt = tiny_opt(**kw, **INFER_KW)
-    variables = {"netG": infer_vars["netG" if name == "vae" else "netG_plain"]}
-    variables.update({k: infer_vars[k] for k, on in (("netE", opt.use_vae),
-                                                      ("netB", opt.use_blender)) if on})
+    opt = tiny_opt(isTrain=False, use_ig=False, **kw)
+    v0 = jax_runs["vae" if name == "vae" else "blender"]["v0"]
+    variables = {k: v0[k] for k in ("netG", "netE", "netB") if k in v0}
     batch = tiny_batch(opt, seed=3, paired=False)
     rng = jax.random.PRNGKey(0)
     want, _ = jax.jit(lambda v, b: JModel(opt).infer(v, b, rng=rng))(
@@ -310,18 +311,19 @@ def test_inference_matches_jax_infer(jax_runs, infer_vars, name):
     want = np.asarray(want)
     model = port_model_from(opt, variables)
     got, _ = model.infer(batch_from_numpy(batch, "cpu"), eps=torch.from_numpy(jax_runs["eps"]))
+    scale = np.abs(want).max()
     assert got.shape == (opt.batchSize, 3, 64, 64) and torch.isfinite(got).all()
-    assert want.std() > 1e-2
-    np.testing.assert_allclose(nhwc(got), want, rtol=1e-4, atol=1e-5 * np.abs(want).max())
+    assert want.std() > 0.1 * scale  # not a constant image
+    np.testing.assert_allclose(nhwc(got), want, rtol=1e-4, atol=1e-5 * scale)
     if name == "vae":
         other, _ = model.infer(batch_from_numpy(batch, "cpu"))
-        assert (other - got).abs().max() > 1e-2
+        assert (other - got).abs().max() > 1e-2 * scale
 
 
 def test_only_blend_trains_the_blender_alone():
     """--only_blend --use_blender in training, as the JAX package's step:
     netB blends the ref image and trains; netG runs nowhere and stays."""
-    opt = tiny_opt(use_blender=True, only_blend=True)
+    opt = tiny_opt(use_blender=True, only_blend=True, use_ig=False)
     model = MichiGANModel(opt, "cpu")
     model.init_weights(0)
     trainer = TrainStep(model)
@@ -341,7 +343,7 @@ def test_fix_netg_keeps_netg_out_of_gs_optimizer(kw):
     """--fix_netG: G's Adam trains the JAX package's g_net_names without
     netG (netE under --use_vae; nothing, and no optimizer, alone); netG
     stays, D still trains."""
-    opt = tiny_opt(fix_netG=True, **kw)
+    opt = tiny_opt(fix_netG=True, use_ig=False, **kw)
     model = MichiGANModel(opt, "cpu")
     model.init_weights(0)
     trainer = TrainStep(model)
