@@ -2159,7 +2159,7 @@ def run():
         med = [statistics.median(r[i] for r in rows) for i in range(3)]
         return (*med, torch.cuda.max_memory_allocated(), live, [r[0] for r in rows])
 
-    config_rows, config_counts = {}, {}
+    config_counts = {}
     for cfg in CONFIG_FLAGS:
         n = TRAIN_BATCH
         copt, tr = config_trainer(cfg, n, 512)
@@ -2199,8 +2199,6 @@ def run():
             busy_ms, wall_ms, table, conv_ms, dev_ms = profile_once(
                 lambda: tr.d_step(cbatch, EXTRA_DILATE, tr.g_step(cbatch, EXTRA_DILATE)[2]),
                 torch)
-            config_rows[key] = dict(ms=ms, g=g_ms, d=d_ms, peak=peak, busy=busy_ms,
-                                    wall=wall_ms)
             phase(16, f"{label}: {TRAIN_STEPS} timed steps after the warm-up: "
                       f"{', '.join(f'{t:.1f}' for t in times)} ms; median {ms:.1f} ms/step, "
                       f"{n / ms * 1e3:.2f} img/s; G step {g_ms:.1f} ms, D step {d_ms:.1f} ms; "
