@@ -2420,4 +2420,9 @@ if __name__ == "__main__":
 
         sys.exit(conv_algorithms.main(sys.argv[2:], TRAIN_FLAGS, SEED, EXTRA_DILATE,
                                       scale_aware, card_info))
+    if sys.argv[1:2] == ["--blend_parity"]:  # a diagnostic: see its module
+        from michigan_tpu_torch.tools import blend_parity
+
+        sys.exit(blend_parity.main(sys.argv[2:], TRAIN_FLAGS, SEED, EXTRA_DILATE, scale_aware,
+                                   card_info))
     sys.exit(run())

@@ -80,6 +80,17 @@ CONFIGS = {"plain": dict(unpairTrain=True, curr_step=2, init_type="none"),
            "blender": dict(unpairTrain=True, curr_step=2, use_blender=True, init_type="none")}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU work here in one thread, restored after the module:
+    beside the other workers of a parallel run, torch's pool of a thread a
+    core waits on its barriers for cores the others hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def nchw(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32).transpose(0, 3, 1, 2)))
 
@@ -297,7 +308,7 @@ def test_stage2_loader_draws_the_ref_sample_as_jax(seed):
 
 
 def run_cli(tmp_path, module, *flags):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")  # as one_torch_thread
     code = BLOCK_JAX.replace('"michigan_tpu_torch.train"', repr(module)).replace(
         '["train"]', repr([module.rsplit(".", 1)[-1]]))
     proc = subprocess.run([sys.executable, "-c", code, *flags], cwd=tmp_path, env=env,

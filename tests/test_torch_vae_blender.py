@@ -79,6 +79,17 @@ CONFIGS = {"vae": dict(use_vae=True), "blender": dict(use_blender=True)}
 OWN_NET = {"vae": "netE", "blender": "netB"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU work here in one thread, restored after the module:
+    beside the other workers of a parallel run, torch's pool of a thread a
+    core waits on its barriers for cores the others hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def nchw(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32).transpose(0, 3, 1, 2)))
 
