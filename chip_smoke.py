@@ -172,12 +172,18 @@ Phases, each on its own line:
       step, D step, peak memory) and one profiled step (device busy, the
       top device time); then
       each config's G+D step (unpair: stage 2) on the card and on the CPU
-      at PARITY16's batch, crop and width in float32, the VAE's eps the
-      same draw on both, by phase 12's rule: per-term losses within rtol
-      1e-4, atol 1e-5, netG, netE / netB after the G step and netD (netD2)
-      after the D step (both from the card's post-G state) by the
-      scale-aware rule, netG's running statistics and spectral u / v
-      within rtol 1e-4, atol 1e-5
+      at PARITY16's batch, crop and width in float32 and the config's own
+      init (xavier), the VAE's eps the same draw on both, by phase 12's
+      rule: per-term losses within rtol 1e-4, atol 1e-5, netG, netE / netB
+      after the G step and netD (netD2) after the D step (both from the
+      card's post-G state) by the scale-aware rule, netG's running
+      statistics and spectral u / v within rtol 1e-4, atol 1e-5; where a
+      G-step net's elements beyond float noise may also count CONFIG_CAL x
+      the CPU's own count between its G step in one thread and in its
+      default threads (the blender's instance norms cancel most of the
+      gradient that reaches netG's low-resolution blocks: the CPU against
+      itself in another order differs there as much as the card does;
+      tools/blend_parity.py, run as python3 chip_smoke.py --blend_parity)
 
 Then a JSON line of per-kernel results: for the training step's kernels
 (fused_instance_norm, filterbank_orientation and its backward,
@@ -216,6 +222,12 @@ compares the port of another checkout DIR (the parent's ``git archive``)
 with this one on the host clock, in fresh processes in turns: each bf16
 fused_instance_norm call launched from Python, the bf16 flagship forward at
 batch 1 and the bf16 stroke edit (host_ab; 10 pairs by default).
+
+    python3 chip_smoke.py --blend_parity [--repeat N] [--init_type T]
+
+holds the blender config's G step card vs CPU, repeated, per route of the
+card's convolutions, beside the CPU against itself in another order of its
+sums (tools/blend_parity.py).
 """
 
 from __future__ import annotations
@@ -323,6 +335,7 @@ PARITY_CROP = 512
 CONFIG_FLAGS = {"vae": ("--use_vae",), "blender": ("--use_blender",),
                 "unpair": ("--unpairTrain", "--same_netD_model")}
 STAGE2_LAUNCHES = {**STEP_LAUNCHES, "conv3x3_same_lowch": 0}
+CONFIG_CAL = 2.0  # phase 16's card vs CPU: at most 2x the CPU's own count, plus 0.1%
 # the modules those configs added, imported before the check that no module
 # of jax or of the JAX package was loaded
 CONFIG_MODULES = ("michigan_tpu_torch.models.blend", "michigan_tpu_torch.models.encoders",
@@ -2212,15 +2225,23 @@ def run():
         torch.cuda.empty_cache()
 
     # each config's G+D step card vs CPU (unpair: stage 2) at PARITY16's
-    # size in float32, the VAE's eps the same draw on both: phase 12's rule
+    # size in float32 and the config's own init, the VAE's eps the same draw
+    # on both: phase 12's rule, where a G-step net's allowance for elements
+    # beyond float noise adds CONFIG_CAL x the CPU's own count between two
+    # orders of its float sums (one thread against its default threads):
+    # the blender's instance norms cancel most of the gradient that reaches
+    # netG's low-resolution blocks, so its step is ill-conditioned
+    # (tools/blend_parity.py)
     def config_parity(cfg):
-        extra = ["--ngf", str(PARITY16["ngf"]), "--ndf", str(PARITY16["ndf"])]
+        extra = ["--ngf", str(PARITY16["ngf"]), "--ndf", str(PARITY16["ndf"]),
+                 "--init_type", "xavier"]
         n = PARITY16["batch"]
         popt, card = config_trainer(cfg, n, PARITY16["crop"], extra)
         popt.curr_step = 2 if cfg == "unpair" else 1
+        init = {k: {n_: t.detach().cpu().clone() for n_, t in net.state_dict().items()}
+                for k, net in card.model.nets().items()}
         cpu_model = MichiGANModel(popt, "cpu")
-        cpu_model.load_state_dicts({k: {n_: t.cpu() for n_, t in net.state_dict().items()}
-                                    for k, net in card.model.nets().items()})
+        cpu_model.load_state_dicts(init)
         cpu = TrainStep(cpu_model)
         data = synthetic_train_data(popt, SEED, n, paired=cfg != "unpair")
         b_card, b_cpu = batch_from_numpy(data, "cuda:0"), batch_from_numpy(data, "cpu")
@@ -2233,6 +2254,19 @@ def run():
         g_nets = [k for k in ("netG", "netE", "netB") if k in cpu_model.nets()]
         rules = {k: scale_aware(state(cpu_model.nets()[k]), state(card.model.nets()[k]),
                                 popt.lr / 2) for k in g_nets}
+        # the CPU's own G step in another order of its sums
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            own_model = MichiGANModel(popt, "cpu")
+            own_model.load_state_dicts(init)
+            TrainStep(own_model).g_step(b_cpu, EXTRA_DILATE, None if eps is None else eps.cpu())
+        finally:
+            torch.set_num_threads(threads)
+        own = {k: scale_aware(state(own_model.nets()[k]), state(cpu_model.nets()[k]),
+                              popt.lr / 2)[2] for k in g_nets}
+        limits = {k: max(1e-3 * rules[k][3], 8) + CONFIG_CAL * own[k] for k in g_nets}
+        del own_model
         # netG's running statistics and spectral u / v, as phase 12 holds them
         bufs = {k: v.cpu() for k, v in card.model.netG.named_buffers() if v.is_floating_point()}
         cpu_bufs = dict(cpu_model.netG.named_buffers())
@@ -2257,13 +2291,15 @@ def run():
             good = abs(a - b) <= 1e-5 + 1e-4 * abs(b)
             ok &= good
             loss_rows.append(f"{k} {a:.6f}/{b:.6f}{'' if good else ' FAIL'}")
-        ok &= all(r[0] for r in rules.values()) and bufs_ok
+        ok &= bufs_ok and rules[d_name][0] and all(
+            rules[k][1] <= 2.5 * popt.lr / 2 and rules[k][2] <= limits[k] for k in g_nets)
         phase(16, f"{cfg} G+D step card/CPU, batch {n}, {PARITY16['crop']}^2, ngf "
                   f"{PARITY16['ngf']}, ndf {PARITY16['ndf']}: " + ", ".join(loss_rows))
         phase(16, f"{cfg}: " + "; ".join(
             f"{k} max diff {r[1]:.2e}, {r[2]} of {r[3]} beyond float noise"
-            for k, r in rules.items()) + f"; netG buffers max diff {buf_err:.2e}; CPU step "
-                  f"{t_cpu:.1f} s")
+            + (f" (the CPU's own, one thread: {own[k]}; limit {limits[k]:.0f})"
+               if k in own else "") for k, r in rules.items())
+                  + f"; netG buffers max diff {buf_err:.2e}; CPU step {t_cpu:.1f} s")
         return None if ok else f"phase 16: the card's and the CPU's {cfg} steps disagree"
 
     for cfg in CONFIG_FLAGS:

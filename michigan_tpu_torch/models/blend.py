@@ -21,13 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from michigan_tpu_torch.models.layers import (
-    ConvBlock,
-    Conv2d,
-    ConvTranspose2d,
-    cudnn_off,
-    reflect_pad,
-)
+from michigan_tpu_torch.models.layers import ConvBlock, Conv2d, ConvTranspose2d, reflect_pad
 from michigan_tpu_torch.ops.masks import wide_edges
 from michigan_tpu_torch.ops.norms import instance_norm
 
@@ -49,13 +43,6 @@ def _in_lrelu(y: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(instance_norm(y), 0.2)
 
 
-# Blocks whose float32 convolutions run with cuDNN off in train mode on a
-# card (models/layers.py: cudnn_off), as the generator's CUDNN_OFF blocks:
-# see tools/blend_parity.py for the blender step card against CPU by
-# chip_smoke.py's phase-16 rule, per route
-CUDNN_OFF = ("model_middle", "model5_conv", "model6_conv", "model7_conv")
-
-
 class Blend2Generator(nn.Module):
     """blend(hair, background, mask, noise): `hair` the generator's fake (or
     the ref image under --only_blend), `background` the tag image, `mask`
@@ -65,7 +52,6 @@ class Blend2Generator(nn.Module):
     def __init__(self, opt, ngf: int = 32):
         super().__init__()
         self.hair_random_disturb = opt.hair_random_disturb
-        self.cudnn_off_blocks = CUDNN_OFF
         self.model1_conv = Conv2d(4, ngf, 7)
         self.model2_conv = Conv2d(ngf, ngf * 2, 3, 2, 1)
         self.model3_conv = Conv2d(ngf * 2, ngf * 4, 3, 2, 1)
@@ -83,24 +69,15 @@ class Blend2Generator(nn.Module):
         if self.hair_random_disturb and noise is not None:
             edges = wide_edges(hair_mask, th=5.0 / hair_mask.shape[2])
             x = x * (1 - edges) + noise * edges
-        e1 = _in_lrelu(self.block("model1_conv", reflect_pad(torch.cat([x, hair_mask], dim=1),
-                                                             3)))
-        e2 = _in_lrelu(self.block("model2_conv", e1))
-        e3 = _in_lrelu(self.block("model3_conv", e2))
-        e4 = _in_lrelu(self.block("model4_conv", e3))
-        em = self.block("model_middle", e4)
-        e5 = _in_lrelu(self.block("model5_conv", torch.cat([em, e4], dim=1)))
-        e6 = _in_lrelu(self.block("model6_conv", torch.cat([e5, e3], dim=1)))
-        e7 = _in_lrelu(self.block("model7_conv", torch.cat([e6, e2], dim=1)))
-        out = self.block("model8_conv", reflect_pad(torch.cat([e7, e1], dim=1), 3))
+        e1 = _in_lrelu(self.model1_conv(reflect_pad(torch.cat([x, hair_mask], dim=1), 3)))
+        e2 = _in_lrelu(self.model2_conv(e1))
+        e3 = _in_lrelu(self.model3_conv(e2))
+        e4 = _in_lrelu(self.model4_conv(e3))
+        em = e4
+        for block in self.model_middle:
+            em = block(em)
+        e5 = _in_lrelu(self.model5_conv(torch.cat([em, e4], dim=1)))
+        e6 = _in_lrelu(self.model6_conv(torch.cat([e5, e3], dim=1)))
+        e7 = _in_lrelu(self.model7_conv(torch.cat([e6, e2], dim=1)))
+        out = self.model8_conv(reflect_pad(torch.cat([e7, e1], dim=1), 3))
         return torch.tanh(out)
-
-    def block(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        """self.<name>(x) (the resblocks in turn), with cuDNN off in train
-        mode for the blocks in ``cudnn_off_blocks``."""
-        with cudnn_off(self.training and name in self.cudnn_off_blocks):
-            if name == "model_middle":
-                for resblock in self.model_middle:
-                    x = resblock(x)
-                return x
-            return getattr(self, name)(x)

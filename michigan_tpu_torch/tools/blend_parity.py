@@ -1,34 +1,32 @@
-"""The blender config's training step on the card against the CPU, per route
-of the blender's convolutions, repeated, and each route's step time.
+"""How well conditioned the blender config's G step is: the card against the
+CPU, repeated, per route of the card's convolutions, beside the CPU against
+itself in another order of its float sums.
 
-    python3 chip_smoke.py --blend_parity [--repeat 3] [--no_timing]
+    python3 chip_smoke.py --blend_parity [--repeat 3] [--init_type none]
 
 ``main`` takes the training config, the seed, the mask dilation and the
 scale-aware rule from its caller (chip_smoke.py, which holds them for its
 phases 11, 12 and 16).  One G step of phase 16's blender config at its
 card-vs-CPU size (the training flags plus --use_blender, 256^2, ngf 32,
-ndf 32, batch 2) runs on the CPU; then, from the same weights, --repeat G
-steps on the card per route of netB's float32 convolutions in train mode:
-as the port runs them (``models/blend.py`` CUDNN_OFF), every one on cuDNN
-(default and deterministic algorithms), every one off cuDNN (PyTorch's own
-im2col + GEMM).  Each card step prints netG's and netB's elements beyond
-float noise against the CPU's by phase 16's rule (at most 0.1% of a net's
-elements, or 8).  Then, unless --no_timing, each route's G+D step at
-phase 16's size (batch 8, 512^2, full width): host-clock ms, median of 3
-after a warm-up.  Needs a card.
+ndf 32, batch 2) runs on the CPU from the same weights three times: twice
+with torch's default threads (they must match bit for bit) and once with
+one thread (another order of the same float32 sums).  Then --repeat G
+steps on the card per route: cuDNN's default algorithms, its deterministic
+ones, and every convolution off cuDNN (PyTorch's own im2col + GEMM; the
+generator's blocks keep their own routing).  Each line prints netG's and
+netB's elements beyond float noise by the scale-aware rule of
+chip_smoke.py's phase 12 (at most 0.1% of a net's elements, or 8).  Needs
+a card.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
-import statistics
-import time
 
 import torch
 
-ALL_BLOCKS = ("model1_conv", "model2_conv", "model3_conv", "model4_conv", "model_middle",
-              "model5_conv", "model6_conv", "model7_conv", "model8_conv")
+NETS = ("netG", "netB")
 
 
 def main(argv, train_flags, seed, extra, scale_aware, card_info):
@@ -38,14 +36,12 @@ def main(argv, train_flags, seed, extra, scale_aware, card_info):
     and power limit."""
     from michigan_tpu_torch.data.synthetic import synthetic_train_data
     from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
-    from michigan_tpu_torch.models.blend import CUDNN_OFF
     from michigan_tpu_torch.models.layers import cudnn_off
     from michigan_tpu_torch.train import parse_options
     from michigan_tpu_torch.training.train_step import TrainStep
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--repeat", type=int, default=3)
-    ap.add_argument("--no_timing", action="store_true")
     ap.add_argument("--init_type", default=None, help="default: the training flags' own")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -53,82 +49,54 @@ def main(argv, train_flags, seed, extra, scale_aware, card_info):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_info()
-
-    def options(n, crop, *more):
-        return parse_options(list(train_flags) + ["--use_blender", "--batchSize", str(n),
-                                                  "--crop_size", str(crop), "--load_size",
-                                                  str(crop), "--seed", str(seed), *more])
-
-    deterministic = lambda: torch.backends.cudnn.flags(enabled=True, benchmark=False,
-                                                       deterministic=True, allow_tf32=False)
-    routes = {f"as the port runs it (off cuDNN: {', '.join(CUDNN_OFF)})":
-              (CUDNN_OFF, contextlib.nullcontext),
-              "every netB conv on cuDNN": ((), contextlib.nullcontext),
-              "every netB conv on cuDNN, deterministic": ((), deterministic),
-              "every netB conv off cuDNN": (ALL_BLOCKS, contextlib.nullcontext),
-              "every conv of the step off cuDNN": (ALL_BLOCKS, cudnn_off)}
-
     init_flag = ["--init_type", args.init_type] if args.init_type else []
-    opt = options(2, 256, "--ngf", "32", "--ndf", "32", *init_flag)
+    opt = parse_options(list(train_flags) + ["--use_blender", "--batchSize", "2", "--crop_size",
+                                             "256", "--load_size", "256", "--seed", str(seed),
+                                             "--ngf", "32", "--ndf", "32", *init_flag])
     model = MichiGANModel(opt, "cuda:0")
     model.init_weights(seed)
     init = {k: {n: t.detach().cpu().clone() for n, t in net.state_dict().items()}
             for k, net in model.nets().items()}
     data = synthetic_train_data(opt, seed, 2)
-    cpu = MichiGANModel(opt, "cpu")
-    cpu.load_state_dicts(init)
-    params = lambda m, net: {k: v.detach().cpu() for k, v in m.nets()[net].named_parameters()}
-    want = None
-    for _ in range(2):  # twice: the CPU's own step must repeat exactly
-        cpu.load_state_dicts(init)
-        TrainStep(cpu).g_step(batch_from_numpy(data, "cpu"), extra)
-        got = {net: params(cpu, net) for net in ("netG", "netB")}
-        if want is not None:
-            same = all(torch.equal(got[n][k], v) for n in want for k, v in want[n].items())
-            print(f"the CPU's G step repeats bit for bit: {same}", flush=True)
-        want = got
+    params = lambda m: {net: {k: v.detach().cpu() for k, v in m.nets()[net].named_parameters()}
+                        for net in NETS}
+
+    def g_step(m, batch):
+        m.load_state_dicts(init)
+        TrainStep(m).g_step(batch, extra)
+        return params(m)
+
+    def counts(got, want):
+        rule = {net: scale_aware(got[net], want[net], opt.lr / 2) for net in NETS}
+        return ", ".join(f"{net} {r[2]} of {r[3]}{'' if r[0] else ' PAST'}"
+                         for net, r in rule.items())
+
+    cpu, b_cpu = MichiGANModel(opt, "cpu"), batch_from_numpy(data, "cpu")
+    want = g_step(cpu, b_cpu)
+    again = g_step(cpu, b_cpu)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = g_step(cpu, b_cpu)
+    finally:
+        torch.set_num_threads(threads)
+    same = all(torch.equal(again[n][k], v) for n in NETS for k, v in want[n].items())
     print(f"card: {card}; the blender G step at 256^2, ngf 32, batch 2, --init_type "
-          f"{opt.init_type}, card vs CPU; phase 16's limit: 0.1% of a net's elements beyond "
-          f"float noise", flush=True)
+          f"{opt.init_type}; phase 12's limit: 0.1% of a net's elements beyond float noise",
+          flush=True)
+    print(f"the CPU against itself: repeated, bit for bit {same}; with one thread against "
+          f"{threads}: {counts(one, want)}", flush=True)
+    deterministic = lambda: torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                                       deterministic=True, allow_tf32=False)
+    routes = {"cuDNN's default algorithms": contextlib.nullcontext,
+              "cuDNN's deterministic algorithms": deterministic,
+              "every convolution off cuDNN": cudnn_off}
     batch = batch_from_numpy(data, "cuda:0")
-    for label, (blocks, ctx) in routes.items():
+    for label, ctx in routes.items():
         rows = []
         for _ in range(args.repeat):
-            model.load_state_dicts(init)
-            model.netB.cudnn_off_blocks = blocks
             with ctx():
-                TrainStep(model).g_step(batch, extra)
-            got = {net: params(model, net) for net in want}
-            rule = {net: scale_aware(got[net], want[net], opt.lr / 2) for net in want}
-            rows.append(", ".join(f"{net} {r[2]} of {r[3]}{'' if r[0] else ' PAST'}"
-                                  for net, r in rule.items()))
-            if not rule["netG"][0] and len(rows) == args.repeat:
-                worst = sorted(((int(((got["netG"][k].double() - w.double()).abs() >
-                                      1e-4 * w.double().abs() + 1e-5).sum()), k)
-                                for k, w in want["netG"].items()), reverse=True)[:6]
-                rows[-1] += " (netG's most: " + ", ".join(f"{k} {c}" for c, k in worst) + ")"
-        print(f"{label}: " + "; ".join(rows) + f" [{card}]", flush=True)
-    del model, cpu
-    torch.cuda.empty_cache()
-    if args.no_timing:
-        return 0
-
-    topt = options(8, 512)
-    model = MichiGANModel(topt, "cuda:0")
-    model.init_weights(seed)
-    trainer = TrainStep(model)
-    batch = batch_from_numpy(synthetic_train_data(topt, seed, 8), "cuda:0")
-    for label, (blocks, ctx) in routes.items():
-        model.netB.cudnn_off_blocks = blocks
-        times = []
-        with ctx():
-            for i in range(4):
-                t0 = time.perf_counter()
-                _g, _f, o = trainer.g_step(batch, extra)
-                trainer.d_step(batch, extra, o)
-                torch.cuda.synchronize()
-                if i:
-                    times.append((time.perf_counter() - t0) * 1e3)
-        print(f"{label}: G+D step at batch 8, 512^2: {statistics.median(times):.1f} ms "
-              f"(median of 3 after a warm-up) [{card}]", flush=True)
+                rows.append(counts(g_step(model, batch), want))
+        print(f"the card against the CPU, {label}: " + "; ".join(rows) + f" [{card}]",
+              flush=True)
     return 0
