@@ -172,18 +172,22 @@ Phases, each on its own line:
       step, D step, peak memory) and one profiled step (device busy, the
       top device time); then
       each config's G+D step (unpair: stage 2) on the card and on the CPU
-      at PARITY16's batch, crop and width in float32 and the config's own
-      init (xavier), the VAE's eps the same draw on both, by phase 12's
-      rule: per-term losses within rtol 1e-4, atol 1e-5, netG, netE / netB
-      after the G step and netD (netD2) after the D step (both from the
-      card's post-G state) by the scale-aware rule, netG's running
-      statistics and spectral u / v within rtol 1e-4, atol 1e-5; where a
-      G-step net's elements beyond float noise may also count CONFIG_CAL x
-      the CPU's own count between its G step in one thread and in its
-      default threads (the blender's instance norms cancel most of the
-      gradient that reaches netG's low-resolution blocks: the CPU against
-      itself in another order differs there as much as the card does;
-      tools/blend_parity.py, run as python3 chip_smoke.py --blend_parity)
+      at PARITY16's batch, crop and width in float32, at torch's default
+      init and at the config's own (xavier), the VAE's eps the same draw
+      on both, by phase 12's rule: per-term losses within rtol 1e-4, atol
+      1e-5, netG, netE / netB after the G step and netD (netD2) after the
+      D step (both from the card's post-G state) by the scale-aware rule,
+      netG's running statistics and spectral u / v within rtol 1e-4, atol
+      1e-5.  The blender's netG and netB (F64_WITNESSED) may instead pass
+      a float64 witness: one G step on the CPU in float64 from the same
+      state (tools/float64_step.py), from whose gradient the card's G-step
+      gradient (read back from Adam's first moment) may lie at most
+      F64_CAL x as far, relative to its norm, as the CPU's float32 one.
+      netB's backward multiplies the relative rounding error of the
+      gradient that crosses it by thousands, and Adam's first step turns
+      each gradient element into +-lr by its sign, so even the CPU's
+      float32 step lies past phase 12's rule from the float64 one.  A
+      control, the card's G step on half the batch, must fail that gate.
 
 Then a JSON line of per-kernel results: for the training step's kernels
 (fused_instance_norm, filterbank_orientation and its backward,
@@ -222,12 +226,6 @@ compares the port of another checkout DIR (the parent's ``git archive``)
 with this one on the host clock, in fresh processes in turns: each bf16
 fused_instance_norm call launched from Python, the bf16 flagship forward at
 batch 1 and the bf16 stroke edit (host_ab; 10 pairs by default).
-
-    python3 chip_smoke.py --blend_parity [--repeat N] [--init_type T]
-
-holds the blender config's G step card vs CPU, repeated, per route of the
-card's convolutions, beside the CPU against itself in another order of its
-sums (tools/blend_parity.py).
 """
 
 from __future__ import annotations
@@ -335,10 +333,15 @@ PARITY_CROP = 512
 CONFIG_FLAGS = {"vae": ("--use_vae",), "blender": ("--use_blender",),
                 "unpair": ("--unpairTrain", "--same_netD_model")}
 STAGE2_LAUNCHES = {**STEP_LAUNCHES, "conv3x3_same_lowch": 0}
-CONFIG_CAL = 2.0  # phase 16's card vs CPU: at most 2x the CPU's own count, plus 0.1%
+# phase 16's float64 witness: the nets of a config whose card-vs-CPU step
+# may be judged against a float64 CPU step instead, and how much farther
+# from its gradient than the CPU's float32 gradient the card's may land
+F64_WITNESSED = {"blender": ("netG", "netB")}
+F64_CAL = 2.0
 # the modules those configs added, imported before the check that no module
 # of jax or of the JAX package was loaded
 CONFIG_MODULES = ("michigan_tpu_torch.models.blend", "michigan_tpu_torch.models.encoders",
+                  "michigan_tpu_torch.tools.float64_step",
                   "michigan_tpu_torch.losses.color", "michigan_tpu_torch.ops.stats",
                   "michigan_tpu_torch.training.checkpoint", "michigan_tpu_torch.convert",
                   "michigan_tpu_torch.utils.iter_counter")
@@ -851,6 +854,7 @@ def run():
         from michigan_tpu_torch.ops.cuda import lowch as LC
         from michigan_tpu_torch.ops.cuda import orient as O
         from michigan_tpu_torch.ops.cuda import spade as K
+        from michigan_tpu_torch.tools import float64_step
         from michigan_tpu_torch.train import parse_options as train_options
         from michigan_tpu_torch.training.state import init_netd2_from_netd
         from michigan_tpu_torch.training.train_step import TrainStep
@@ -2225,48 +2229,70 @@ def run():
         torch.cuda.empty_cache()
 
     # each config's G+D step card vs CPU (unpair: stage 2) at PARITY16's
-    # size in float32 and the config's own init, the VAE's eps the same draw
-    # on both: phase 12's rule, where a G-step net's allowance for elements
-    # beyond float noise adds CONFIG_CAL x the CPU's own count between two
-    # orders of its float sums (one thread against its default threads):
-    # the blender's instance norms cancel most of the gradient that reaches
-    # netG's low-resolution blocks, so its step is ill-conditioned
-    # (tools/blend_parity.py)
-    def config_parity(cfg):
+    # size in float32, at torch's default init and the config's own
+    # (xavier), the VAE's eps the same draw on both: phase 12's rule.  The
+    # blender's netG and netB, whose gradients come through netB's backward,
+    # may instead pass the float64 witness (F64_CAL; a half-batch control
+    # must fail both)
+    def config_parity(cfg, init):
         extra = ["--ngf", str(PARITY16["ngf"]), "--ndf", str(PARITY16["ndf"]),
-                 "--init_type", "xavier"]
+                 "--init_type", init]
         n = PARITY16["batch"]
         popt, card = config_trainer(cfg, n, PARITY16["crop"], extra)
         popt.curr_step = 2 if cfg == "unpair" else 1
-        init = {k: {n_: t.detach().cpu().clone() for n_, t in net.state_dict().items()}
-                for k, net in card.model.nets().items()}
+        init_sd = {k: {n_: t.detach().cpu().clone() for n_, t in net.state_dict().items()}
+                   for k, net in card.model.nets().items()}
         cpu_model = MichiGANModel(popt, "cpu")
-        cpu_model.load_state_dicts(init)
+        cpu_model.load_state_dicts(init_sd)
         cpu = TrainStep(cpu_model)
         data = synthetic_train_data(popt, SEED, n, paired=cfg != "unpair")
         b_card, b_cpu = batch_from_numpy(data, "cuda:0"), batch_from_numpy(data, "cpu")
         eps = card.new_eps(n)
+        eps_cpu = None if eps is None else eps.cpu()
         g_card, _, o_card = card.g_step(b_card, EXTRA_DILATE, eps)
         t0 = time.perf_counter()
-        g_cpu, _, o_cpu = cpu.g_step(b_cpu, EXTRA_DILATE, None if eps is None else eps.cpu())
+        g_cpu, _, o_cpu = cpu.g_step(b_cpu, EXTRA_DILATE, eps_cpu)
         t_cpu = time.perf_counter() - t0
         state = lambda net: {k: v.detach().cpu() for k, v in net.named_parameters()}
         g_nets = [k for k in ("netG", "netE", "netB") if k in cpu_model.nets()]
-        rules = {k: scale_aware(state(cpu_model.nets()[k]), state(card.model.nets()[k]),
-                                popt.lr / 2) for k in g_nets}
-        # the CPU's own G step in another order of its sums
-        threads = torch.get_num_threads()
-        torch.set_num_threads(1)
-        try:
-            own_model = MichiGANModel(popt, "cpu")
-            own_model.load_state_dicts(init)
-            TrainStep(own_model).g_step(b_cpu, EXTRA_DILATE, None if eps is None else eps.cpu())
-        finally:
-            torch.set_num_threads(threads)
-        own = {k: scale_aware(state(own_model.nets()[k]), state(cpu_model.nets()[k]),
-                              popt.lr / 2)[2] for k in g_nets}
-        limits = {k: max(1e-3 * rules[k][3], 8) + CONFIG_CAL * own[k] for k in g_nets}
-        del own_model
+        card_g = {k: state(card.model.nets()[k]) for k in g_nets}
+        cpu_g = {k: state(cpu_model.nets()[k]) for k in g_nets}
+        lr_g = popt.lr / 2
+        rules = {k: scale_aware(cpu_g[k], card_g[k], lr_g) for k in g_nets}
+        witness = {}
+        if cfg in F64_WITNESSED:
+            nets_w = F64_WITNESSED[cfg]
+            t0 = time.perf_counter()
+            _, g64, exact = float64_step.g_step64(popt, init_sd, b_cpu, eps_cpu, nets_w,
+                                                  EXTRA_DILATE)
+            t64 = time.perf_counter() - t0
+            control = TrainStep(MichiGANModel(popt, "cuda:0"))
+            control.model.load_state_dicts(init_sd)
+            control.g_step({k: v[:n // 2] for k, v in b_card.items()}, EXTRA_DILATE,
+                           None if eps is None else eps[:n // 2])
+            grads = {"card": float64_step.adam_grads(card, nets_w),
+                     "cpu": float64_step.adam_grads(cpu, nets_w),
+                     "control": float64_step.adam_grads(control, nets_w)}
+            for k in nets_w:
+                ctl = state(control.model.nets()[k])
+                worst, bad = scale_aware(cpu_g[k], ctl, lr_g)[1:3]
+                witness[k] = {
+                    "err": {r: float64_step.rel_err(g[k], g64[k]) for r, g in grads.items()},
+                    "bad64": {"card": scale_aware(card_g[k], exact[k], lr_g)[2],
+                              "cpu": scale_aware(cpu_g[k], exact[k], lr_g)[2]},
+                    "control": (worst, bad)}
+            del control, grads, g64, exact
+
+        def g_net_ok(k, worst, bad, tot, who="card"):
+            """phase 12's rule; or for a witnessed net, a gradient as close to
+            the float64 step's as F64_CAL x the CPU's float32 gradient."""
+            if worst > 2.5 * lr_g:
+                return False
+            if bad <= max(1e-3 * tot, 8):
+                return True
+            return k in witness and \
+                witness[k]["err"][who] <= F64_CAL * witness[k]["err"]["cpu"]
+
         # netG's running statistics and spectral u / v, as phase 12 holds them
         bufs = {k: v.cpu() for k, v in card.model.netG.named_buffers() if v.is_floating_point()}
         cpu_bufs = dict(cpu_model.netG.named_buffers())
@@ -2282,8 +2308,8 @@ def run():
         d_cpu = cpu.d_step(b_cpu, EXTRA_DILATE, o_cpu)
         t_cpu += time.perf_counter() - t0
         d_name = "netD2" if cfg == "unpair" else "netD"
-        rules[d_name] = scale_aware(state(cpu_model.nets()[d_name]),
-                                    state(card.model.nets()[d_name]), 2 * popt.lr)
+        d_rule = scale_aware(state(cpu_model.nets()[d_name]), state(card.model.nets()[d_name]),
+                             2 * popt.lr)
         loss_rows, ok = [], True
         for k in list(g_card) + list(d_card):
             a = (g_card[k] if k in g_card else d_card[k]).item()
@@ -2291,22 +2317,50 @@ def run():
             good = abs(a - b) <= 1e-5 + 1e-4 * abs(b)
             ok &= good
             loss_rows.append(f"{k} {a:.6f}/{b:.6f}{'' if good else ' FAIL'}")
-        ok &= bufs_ok and rules[d_name][0] and all(
-            rules[k][1] <= 2.5 * popt.lr / 2 and rules[k][2] <= limits[k] for k in g_nets)
-        phase(16, f"{cfg} G+D step card/CPU, batch {n}, {PARITY16['crop']}^2, ngf "
-                  f"{PARITY16['ngf']}, ndf {PARITY16['ndf']}: " + ", ".join(loss_rows))
-        phase(16, f"{cfg}: " + "; ".join(
-            f"{k} max diff {r[1]:.2e}, {r[2]} of {r[3]} beyond float noise"
-            + (f" (the CPU's own, one thread: {own[k]}; limit {limits[k]:.0f})"
-               if k in own else "") for k, r in rules.items())
-                  + f"; netG buffers max diff {buf_err:.2e}; CPU step {t_cpu:.1f} s")
-        return None if ok else f"phase 16: the card's and the CPU's {cfg} steps disagree"
+        net_rows = []
+        for k, (_, worst, bad, tot) in rules.items():
+            good = g_net_ok(k, worst, bad, tot)
+            ok &= good
+            row = (f"{k} max diff {worst:.2e}, {bad} of {tot} beyond float noise (phase 12's "
+                   f"limit {max(1e-3 * tot, 8):.0f})")
+            if k in witness:
+                w = witness[k]
+                row += (f"; gradient error against the CPU's float64 step: the card "
+                        f"{w['err']['card']:.2e}, the CPU's float32 step {w['err']['cpu']:.2e} "
+                        f"(limit {F64_CAL * w['err']['cpu']:.2e}); elements beyond float noise "
+                        f"against the float64 step: the card {w['bad64']['card']}, the CPU "
+                        f"{w['bad64']['cpu']}")
+            net_rows.append(row + ("" if good else " FAIL"))
+        ok &= bufs_ok and d_rule[0]
+        net_rows.append(f"{d_name} max diff {d_rule[1]:.2e}, {d_rule[2]} of {d_rule[3]} beyond "
+                        f"float noise; netG buffers max diff {buf_err:.2e}; CPU step "
+                        f"{t_cpu:.1f} s" + (f", float64 G step {t64:.1f} s" if witness else ""))
+        phase(16, f"{cfg} G+D step card/CPU at --init_type {init}, batch {n}, "
+                  f"{PARITY16['crop']}^2, ngf {PARITY16['ngf']}, ndf {PARITY16['ndf']}: "
+                  + ", ".join(loss_rows))
+        phase(16, f"{cfg} --init_type {init}: " + "; ".join(net_rows))
+        if not ok:
+            return f"phase 16: the card's and the CPU's {cfg} steps disagree at --init_type {init}"
+        if witness:
+            # the card's G step on the first half of the batch, through the same gate
+            passes = [g_net_ok(k, *w["control"], rules[k][3], "control")
+                      for k, w in witness.items()]
+            phase(16, f"{cfg} --init_type {init}: control, the card's G step on the first "
+                      f"{n // 2} of the {n} samples: " + ", ".join(
+                          f"{k} {w['control'][1]} beyond float noise against the CPU, gradient "
+                          f"error {w['err']['control']:.2e} against the float64 step"
+                          for k, w in witness.items())
+                      + (": passes, FAIL" if any(passes) else ": fails the gate, as it must"))
+            if any(passes):
+                return f"phase 16's gate passes a {cfg} step that dropped half its batch"
+        return None
 
     for cfg in CONFIG_FLAGS:
-        msg = config_parity(cfg)
-        torch.cuda.empty_cache()
-        if msg:
-            return fail(msg)
+        for init in ("none", "xavier"):
+            msg = config_parity(cfg, init)
+            torch.cuda.empty_cache()
+            if msg:
+                return fail(msg)
 
     train_kernels = ("fused_instance_norm", "filterbank_orientation",
                      "filterbank_orientation_backward", "conv3x3_same_lowch")
@@ -2456,9 +2510,4 @@ if __name__ == "__main__":
 
         sys.exit(conv_algorithms.main(sys.argv[2:], TRAIN_FLAGS, SEED, EXTRA_DILATE,
                                       scale_aware, card_info))
-    if sys.argv[1:2] == ["--blend_parity"]:  # a diagnostic: see its module
-        from michigan_tpu_torch.tools import blend_parity
-
-        sys.exit(blend_parity.main(sys.argv[2:], TRAIN_FLAGS, SEED, EXTRA_DILATE, scale_aware,
-                                   card_info))
     sys.exit(run())

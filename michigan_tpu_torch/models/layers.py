@@ -221,8 +221,9 @@ class PartialConv(nn.Conv2d):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor):
         k = self.kernel_size[0]
-        ones = torch.ones(1, 1, k, k, dtype=torch.float32, device=x.device)
-        update_mask = F.conv2d(mask.float(), ones, None, self.stride, self.padding)
+        m = mask.float()
+        ones = torch.ones(1, 1, k, k, dtype=m.dtype, device=x.device)
+        update_mask = F.conv2d(m, ones, None, self.stride, self.padding)
         mask_ratio = float(k * k) / (update_mask + 1e-8)
         update_mask = update_mask.clamp(0.0, 1.0)
         mask_ratio = mask_ratio * update_mask

@@ -65,7 +65,7 @@ def filterbank_orientation_plain(gray: torch.Tensor, bank: torch.Tensor,
     gray = gray.float()
     if bf16_operands:
         gray, bank = (t.to(torch.bfloat16).float() for t in (gray, bank))
-    res = F.conv2d(gray, bank.permute(3, 2, 0, 1), padding=bank.shape[0] // 2)
+    res = F.conv2d(gray, bank.permute(3, 2, 0, 1).to(gray.dtype), padding=bank.shape[0] // 2)
     if bf16_operands:
         res = res.to(torch.bfloat16).float()
     conf, idx = res.clamp_min(0.0).max(dim=1)
@@ -79,9 +79,9 @@ def filterbank_orientation_backward_plain(dconf: torch.Tensor, idx: torch.Tensor
     argmax orientation where conf > 0, and 0 elsewhere."""
     g = torch.where(conf > 0, dconf.float(), torch.zeros((), device=dconf.device))
     cot = torch.zeros((idx.shape[0], bank.shape[3]) + tuple(idx.shape[1:]),
-                      dtype=torch.float32, device=dconf.device)
+                      dtype=g.dtype, device=dconf.device)
     cot.scatter_(1, idx.long().unsqueeze(1), g.unsqueeze(1))
-    return F.conv_transpose2d(cot, bank.permute(3, 2, 0, 1), padding=bank.shape[0] // 2)
+    return F.conv_transpose2d(cot, bank.permute(3, 2, 0, 1).to(g.dtype), padding=bank.shape[0] // 2)
 
 
 def _check_bank(bank: torch.Tensor, like: torch.Tensor) -> None:

@@ -389,3 +389,49 @@ def test_refusals_name_their_flags():
         port_model.check_supported(tiny_opt(use_blender=True, add_feat_zeros=True))
     with pytest.raises(NotImplementedError, match="--curr_step 3"):
         port_model.check_supported(tiny_opt(unpairTrain=True, curr_step=3))
+
+
+def test_float64_witness_step_computes_the_g_step_in_float64():
+    """tools/float64_step.py's g_step64 (chip_smoke.py's phase 16 witness):
+    the blender config's G step on the CPU in float64 from float32 state
+    dicts; every gradient and parameter comes back float64, torch's casts
+    and default dtype are restored after it, its losses are the float32
+    step's (rtol 1e-5), and adam_grads reads the float32 step's gradients
+    back from Adam as autograd left them.
+    At crop 128: at 64^2 the float32 step's own losses differ from
+    float64's by up to 1e-3 (GAN, CONFIDENCE), at 128^2 by 1.2e-6."""
+    from michigan_tpu_torch.tools import float64_step
+
+    opt = tiny_opt(use_blender=True, crop_size=128, load_size=128)
+    model = MichiGANModel(opt, "cpu")
+    model.init_weights(0)
+    init = {k: {n: t.detach().clone() for n, t in net.state_dict().items()}
+            for k, net in model.nets().items()}
+    batch = batch_from_numpy(tiny_batch(opt), "cpu")
+    nets = ("netG", "netB")
+    losses, grads, exact = float64_step.g_step64(opt, init, batch, None, nets, EXTRA)
+    assert torch.ones(1).dtype == torch.float32
+    assert torch.ones(1).double().float().dtype == torch.float32
+    assert set(exact) == set(grads) == set(nets)
+    assert all(p.dtype == torch.float64 for d in (grads, exact) for net in d.values()
+               for p in net.values())
+    trainer = TrainStep(model)
+    seen = {}
+    adam_step = trainer.optimizers["G"].step
+
+    def step_keeping_grads(*a, **kw):
+        seen.update({(k, n): p.grad.clone() for k in nets
+                     for n, p in model.nets()[k].named_parameters()})
+        return adam_step(*a, **kw)
+
+    trainer.optimizers["G"].step = step_keeping_grads
+    want, _, _ = trainer.g_step(batch, EXTRA)
+    got = float64_step.adam_grads(trainer, nets)
+    assert all(torch.equal(got[k][n], seen[k, n].double()) for k, n in seen)
+    assert 0 < float64_step.rel_err(got["netG"], grads["netG"]) < 1e-2
+    assert list(losses) == list(want)
+    for k, v in want.items():
+        assert losses[k] == pytest.approx(v.item(), rel=1e-5, abs=1e-7), k
+    moved = {k: any(not torch.equal(p.float(), init[k][n]) for n, p in exact[k].items())
+             for k in exact}
+    assert all(moved.values())
