@@ -13,8 +13,9 @@ blender config's card step by them.
 runs the blender config's G step (chip_smoke.py's training flags plus
 --use_blender, 256^2, ngf 32, ndf 32, batch 2, torch's default init) on the
 CPU in float32 and in float64, then on the card per route of the
-convolutions: as built (4 repeats), each net's convolutions off cuDNN
-(PyTorch's own im2col + GEMM; 3 repeats each) and all of them.  Each line
+convolutions: as built (4 repeats, each profiled: the names of the
+device kernels it ran), each net's convolutions off cuDNN (PyTorch's own
+im2col + GEMM; 3 repeats each) and all of them.  Each line
 prints netG's and netB's elements beyond float noise by phase 12's
 scale-aware rule against the CPU's float32 step and against the float64
 one, and each net's gradient error relative to the float64 gradient.  Last,
@@ -111,12 +112,23 @@ def main():
                 return fwd(*a, **k)
         return forward
 
-    def g_step(dev, off=()):
+    def g_step(dev, off=(), kernels=None):
+        """(parameters, gradients) of one G step; the names of the device
+        kernels it ran are added to `kernels` when given."""
         m = MichiGANModel(opt, dev)
         m.load_state_dicts(init)
         route(m, off)
         tr = TrainStep(m)
-        tr.g_step(batch_from_numpy(data, dev), extra)
+        b = batch_from_numpy(data, dev)
+        if kernels is None:
+            tr.g_step(b, extra)
+        else:
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                tr.g_step(b, extra)
+                torch.cuda.synchronize()
+            kernels.update(e.name for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA)
         params = {k: {n: p.detach().cpu() for n, p in m.nets()[k].named_parameters()}
                   for k in WITNESS_NETS}
         return params, adam_grads(tr, WITNESS_NETS)
@@ -139,9 +151,15 @@ def main():
               "netG off cuDNN": ("netG",), "netB off cuDNN": ("netB",),
               "netIG off cuDNN": ("netIG",),
               "all off cuDNN": ("vgg", "netD", "netG", "netB", "netIG")}
+    seen = []
     for label, off in routes.items():
         for _ in range(4 if not off else 3):
-            print(f"  the card, {label}: " + row(*g_step("cuda:0", off)), flush=True)
+            if not off:
+                seen.append(set())
+            print(f"  the card, {label}: " + row(*g_step("cuda:0", off, seen[-1] if not off
+                                                          else None)), flush=True)
+    print(f"  the device kernels of the 4 steps as built: {len(seen[0])} names in the first; "
+          f"the others' differ by {[sorted(k ^ seen[0]) for k in seen[1:]]}", flush=True)
     del model
 
     opt8 = parse_options(flags + ["--batchSize", "8", "--crop_size", "512", "--load_size", "512"])
