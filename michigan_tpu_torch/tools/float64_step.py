@@ -21,6 +21,13 @@ scale-aware rule against the CPU's float32 step and against the float64
 one, and each net's gradient error relative to the float64 gradient.  Last,
 the G+D step at batch 8, 512^2, full width per route, in turns.  Needs a
 card; ~3 minutes.
+
+    env PYTHONPATH=. python -m michigan_tpu_torch.tools.float64_step --terms
+
+runs on the CPU only: per loss term of the same G step, the norm of
+netG's gradient of head_0.conv_0 in float64 and its float32 error
+relative to it, and the same at the blend and at the fake that netB
+blends (~3 minutes).
 """
 
 from __future__ import annotations
@@ -76,7 +83,50 @@ def rel_err(got, want):
     return (num / sum((w ** 2).sum() for w in want.values())).sqrt().item()
 
 
-def main():
+def term_errors(opt, init, batch, extra):
+    """{term: {where: (float64 norm, float32 relative error)}} of one G
+    step's loss terms on the CPU: netG's head_0.conv_0 gradient, and the
+    gradients at the blend (netB's output) and at the fake (its input)."""
+    from michigan_tpu_torch.model import MichiGANModel
+
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        to_float, default = torch.Tensor.float, torch.get_default_dtype()
+        if dtype == torch.float64:
+            torch.Tensor.float = lambda t, *a, **k: t.double(*a, **k)
+            torch.set_default_dtype(torch.float64)
+        try:
+            m = MichiGANModel(opt, "cpu")
+            m.load_state_dicts(init)
+            m.compute_dtype = dtype
+            for net in m.nets().values():
+                net.to(dtype)
+            m.netD.requires_grad_(False)
+            seen = {}
+            blend_forward = m.netB.forward
+
+            def forward(hair, *a, **k):
+                seen["fake"] = hair
+                seen["blend"] = blend_forward(hair, *a, **k)
+                return seen["blend"]
+
+            m.netB.forward = forward
+            _, losses, _, _ = m.generator_loss({k: v.to(dtype) for k, v in batch.items()}, extra)
+            w = m.netG.head_0.conv_0.weight_orig
+            runs[dtype] = {
+                term: dict(zip(("head_0.conv_0", "blend", "fake"), (
+                    g.detach().double() for g in torch.autograd.grad(
+                        v, [w, seen["blend"], seen["fake"]], retain_graph=True))))
+                for term, v in losses.items()}
+        finally:
+            torch.Tensor.float = to_float
+            torch.set_default_dtype(default)
+    f32, f64 = runs[torch.float32], runs[torch.float64]
+    return {term: {k: (g.norm().item(), ((f32[term][k] - g).norm() / g.norm()).item())
+                   for k, g in f64[term].items()} for term in f64}
+
+
+def main(argv=()):
     import chip_smoke
     from michigan_tpu_torch.data.synthetic import synthetic_train_data
     from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
@@ -84,15 +134,30 @@ def main():
     from michigan_tpu_torch.train import parse_options
     from michigan_tpu_torch.training.train_step import TrainStep
 
-    if not torch.cuda.is_available():
+    terms = "--terms" in argv
+    if not terms and not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = chip_smoke.card_info()
     seed, extra = chip_smoke.SEED, chip_smoke.EXTRA_DILATE
     flags = chip_smoke.TRAIN_FLAGS + ["--use_blender", "--seed", str(seed)]
     opt = parse_options(flags + ["--batchSize", "2", "--crop_size", "256", "--load_size", "256",
-                                 "--ngf", "32", "--ndf", "32"])
+                                 "--ngf", "32", "--ndf", "32"] + (["--gpu_ids", "-1"] if terms
+                                                                  else []))
+    if terms:
+        model = MichiGANModel(opt, "cpu")
+        model.init_weights(seed)
+        init = {k: net.state_dict() for k, net in model.nets().items()}
+        rows = term_errors(opt, init, batch_from_numpy(synthetic_train_data(opt, seed, 2), "cpu"),
+                           extra)
+        print(f"the blender config's G step on the CPU at 256^2, ngf 32, batch 2, --init_type "
+              f"{opt.init_type}: per loss term, the float64 gradient's norm and the float32 "
+              f"gradient's error relative to it", flush=True)
+        for term, row in rows.items():
+            print(f"  {term}: " + "; ".join(f"{k} {n:.3e}, error {e:.2e}"
+                                            for k, (n, e) in row.items()), flush=True)
+        return 0
+    card = chip_smoke.card_info()
     model = MichiGANModel(opt, "cuda:0")
     model.init_weights(seed)
     init = {k: {n: t.detach().cpu().clone() for n, t in net.state_dict().items()}
@@ -187,4 +252,6 @@ def main():
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    import sys
+
+    raise SystemExit(main(sys.argv[1:]))
