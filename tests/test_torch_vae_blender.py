@@ -19,8 +19,9 @@ Then the pieces alone: kld_loss, the ConvEncoder forward and its bridge
 round trip through the JAX package's convert_vae_encoder, the blender's
 forward (with and without --hair_random_disturb; the transposed convs'
 output_padding), inference of each config (and --only_blend) against JAX's
-``infer`` with the same eps, --only_blend and --fix_netG in training, and
-the refusals.
+``infer`` with the same eps, --only_blend and --fix_netG in training, the
+refusals, and the float64 G step of chip_smoke.py's phase 16 witness
+(tools/float64_step.py).
 
 JAX's variables come from one jitted init of a config with both nets; the
 blender config's netG swaps the VAE's Linear seed for an init of the
