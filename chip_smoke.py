@@ -6,7 +6,9 @@
 Drives three paths of the port at full width on seeded random weights and
 seeded numpy samples, each through its own entry points, and all three again
 under the bf16 compute policy (--dtype bfloat16); then the training step of
-the VAE, blender and unpaired two-stage configs (phase 16):
+the VAE, blender and unpaired two-stage configs (phase 16), and the
+flagship through the serving session, the exported program and FID's
+extractors (phase 17):
 
 - the flagship inference path (IG orientation inpainting -> partial-conv
   appearance encoder -> noise background encoder -> SPADEB generator with
@@ -188,6 +190,27 @@ Phases, each on its own line:
       each gradient element into +-lr by its sign, so even the CPU's
       float32 step lies past phase 12's rule from the float64 one.  A
       control, the card's G step on half the batch, must fail that gate.
+  17. serving (michigan_tpu_torch.serving) and FID at the flagship's full
+      width: the shape-bucketed InferenceSession with buckets (1, 4, 8) in
+      fp32 and at --dtype bfloat16, each bucket's graph captured (capture
+      seconds; the counts set to 0 just before it and read just after:
+      spade_modulate and fused_instance_norm launched; each graph exactly
+      FLAGSHIP_LAUNCHES; peak memory and what stays allocated with every
+      pool held); requests of 1, 3, 8 and 11 samples (padding, a split
+      into 8 + 4): replays per bucket and the graphs' launches per request,
+      no launch from Python, against eager infer of the same chunks within
+      2e-3 max abs and PSNR > 50 dB (phase 5's limit), bit for bit
+      printed; ms/image at batch 1 and 8, session and eager, numpy in and
+      out, host clock; device busy over wall of a profiled batch-1 request;
+      one bf16 --use_pallas_epilogue bucket whose graph launches exactly 24
+      conv3x3_in_act, 5 fused_instance_norm and 18 spade_modulate; the
+      exported program (serving.export, fp32, batch 1) loaded with
+      load_exported: the kernels launched (exactly FLAGSHIP_LAUNCHES), the
+      output against eager infer by the same limit, and a second seed's
+      state_dicts against that seed's eager output; FID's VGG19 relu4_1 and
+      InceptionV3 pool3 features of 16 seeded 299^2 images on the card
+      against the CPU (relative error at most 1e-3 of their norm), the FID
+      of two seeded sets, ms per batch of 8 and the pretrained tag.
 
 Then a JSON line of per-kernel results: for the training step's kernels
 (fused_instance_norm, filterbank_orientation and its backward,
@@ -216,7 +239,9 @@ training step's rows (phase 15: conv3x3_same_lowch_bf16 with F.conv2d in
 bf16 as library_ms; filterbank_orientation_bf16, the bank's bf16-operand
 form, with cuDNN's bf16 route as replaced_route_ms; both bound at 989
 TFLOP/s of bf16 products) take their launches from phase 15's counted
-step.  Last, the device line.  Any
+step.  The three serving kernels' rows carry session_launches, phase 17's
+launches per request through the captured graphs; conv3x3_same_lowch's
+row the launches of FID's VGG per batch.  Last, the device line.  Any
 failure exits non-zero without the device line; so does a machine without
 CUDA, and a directory without the rest of the repository.
 
@@ -224,8 +249,9 @@ CUDA, and a directory without the rest of the repository.
 
 compares the port of another checkout DIR (the parent's ``git archive``)
 with this one on the host clock, in fresh processes in turns: each bf16
-fused_instance_norm call launched from Python, the bf16 flagship forward at
-batch 1 and the bf16 stroke edit (host_ab; 10 pairs by default).
+fused_instance_norm call launched from Python, the flagship forward at
+batch 1 in fp32 and bf16 and the bf16 stroke edit (host_ab; 10 pairs by
+default).
 """
 
 from __future__ import annotations
@@ -233,6 +259,7 @@ from __future__ import annotations
 import importlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -344,7 +371,17 @@ CONFIG_MODULES = ("michigan_tpu_torch.models.blend", "michigan_tpu_torch.models.
                   "michigan_tpu_torch.tools.float64_step",
                   "michigan_tpu_torch.losses.color", "michigan_tpu_torch.ops.stats",
                   "michigan_tpu_torch.training.checkpoint", "michigan_tpu_torch.convert",
-                  "michigan_tpu_torch.utils.iter_counter")
+                  "michigan_tpu_torch.utils.iter_counter", "michigan_tpu_torch.serving",
+                  "michigan_tpu_torch.serving.session", "michigan_tpu_torch.serving.export",
+                  "michigan_tpu_torch.evaluate", "michigan_tpu_torch.models.inception")
+# phase 17: the serving session's buckets and request sizes (padding, and a
+# split into 8 + 4), the bf16 --use_pallas_epilogue bucket's graph, and FID
+SERVE_BUCKETS = (1, 4, 8)
+SERVE_REQUESTS = (1, 3, 8, 11)
+SERVE_KERNELS = ("spade_modulate", "fused_instance_norm", "conv3x3_in_act")
+EPILOGUE_GRAPH_LAUNCHES = {**FLAGSHIP_LAUNCHES, "fused_instance_norm": 5, "conv3x3_in_act": 24}
+FID_IMAGES, FID_SIZE, FID_BATCH = 16, 299, 8
+FID_REL = 1e-3  # card vs CPU features, relative to their norm
 # phase 15's card-bf16 vs CPU-bf16 step at this batch, crop and width, so
 # that the CPU's two steps (bf16 and fp32) fit the script's time
 PARITY16 = dict(crop=256, ngf=32, ndf=32, batch=2)
@@ -2362,6 +2399,14 @@ def run():
             if msg:
                 return fail(msg)
 
+    # 17 ---------------------------------------------------------------
+    t17 = time.perf_counter()
+    msg, served = serving_phase(torch, np, tag)
+    if msg:
+        return fail(msg)
+    session_launches, fid_lowch = served
+    phase(17, f"serving, export and FID in {time.perf_counter() - t17:.1f} s")
+
     train_kernels = ("fused_instance_norm", "filterbank_orientation",
                      "filterbank_orientation_backward", "conv3x3_same_lowch")
     rows = {k: (stroke_counts[k], edit_ms[k], edit_plain_ms[k])
@@ -2381,7 +2426,11 @@ def run():
              f"{in_lib['kernel']} ms")} if k == "fused_instance_norm" else {}),
          **({"replaced_route_ms": epi_route_ms} if k == "conv3x3_in_act" else {}),
          # phase 16's counted steps of the VAE, blender and unpaired configs
-         "config_launches": {c: config_counts[c][k] for c in config_counts}}
+         "config_launches": {c: config_counts[c][k] for c in config_counts},
+         # phase 17's session: the captured graphs' launches per request
+         **({"session_launches": {r: n for r, n in session_launches[k].items()
+                                  if r.startswith("fp32")}} if k in session_launches else {}),
+         **({"fid_vgg_launches_per_batch": fid_lowch} if k == "conv3x3_same_lowch" else {})}
         for k in REPLACES]
     # the bf16 forms on the bf16 serving paths: launches from phases 13-14
     bf16_launches = {"flagship": counts16, "edit": scounts16}
@@ -2397,6 +2446,8 @@ def run():
                 f"{bf16_in_lib['kernel']} ms")} if k == "fused_instance_norm" else {}),
             **(in16_rows(in16_step, in16_edit, step16_counts) if k == "fused_instance_norm"
                else {}),
+            "session_launches": {r: n for r, n in session_launches[k].items()
+                                 if r.startswith("bf16")},
             **({"replaced_route_ms": epi_route16_ms} if k == "conv3x3_in_act" else {})})
     # the bf16 training step's two forms: launches from phase 15's counted step
     for k, replaces in STEP_BF16_ROWS.items():
@@ -2416,13 +2467,189 @@ def run():
     return 0
 
 
+def serving_phase(torch, np, tag):
+    """Phase 17: the serving session, the exported program and FID's
+    features at full width.  Returns (failure message or None, {kernel:
+    {run: launches per request}} of the session, FID's VGG launches of
+    conv3x3_same_lowch per batch)."""
+    from michigan_tpu_torch import evaluate
+    from michigan_tpu_torch.data.synthetic import synthetic_inference_data
+    from michigan_tpu_torch.inference import parse_options
+    from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
+    from michigan_tpu_torch.ops import cuda as kernels
+    from michigan_tpu_torch.ops.cuda import build
+    from michigan_tpu_torch.serving import InferenceSession, export_inference, load_exported
+    from michigan_tpu_torch.utils.imaging import tensor2im
+
+    keys = tuple(InferenceSession.BATCH_CHANNELS)
+    seed = ["--seed", str(SEED)]
+
+    def request(opt, n, s):
+        data = synthetic_inference_data(opt, s, batch=n)
+        return {k: data[k] for k in keys}
+
+    def nhwc(t):
+        return t.permute(0, 2, 3, 1).float().cpu().numpy()
+
+    def compare(got, want, opt):
+        """(max abs, the lowest uint8 PSNR over the samples' crops, bit for bit)."""
+        r, c = opt.add_th // 2, opt.crop_size
+        crop = lambda a: tensor2im(a[r:r + c, r:r + c])
+        psnr = min(psnr_u8(crop(g), crop(w), np) for g, w in zip(got, want))
+        return float(np.abs(got - want).max()), psnr, bool(np.array_equal(got, want))
+
+    def eager_request(model, data):
+        image, orient = model.infer(batch_from_numpy(data, "cuda:0"))
+        return nhwc(image), nhwc(orient)
+
+    def eager_chunks(model, data, buckets):
+        """Eager infer of the chunks the session runs: the same batch sizes,
+        so the same convolution algorithms."""
+        n, out = len(data[keys[0]]), []
+        for start in range(0, n, buckets[-1]):
+            take = min(n - start, buckets[-1])
+            b = next(b for b in buckets if b >= take)
+            chunk = {k: v[start:start + take] for k, v in data.items()}
+            chunk = {k: np.concatenate([v] + [v[-1:]] * (b - take)) for k, v in chunk.items()}
+            out.append([a[:take] for a in eager_request(model, chunk)])
+        return tuple(np.concatenate(parts) for parts in zip(*out))
+
+    launches = {k: {} for k in SERVE_KERNELS}
+    runs = {"fp32": ([], SERVE_BUCKETS, SERVE_REQUESTS, FLAGSHIP_LAUNCHES),
+            "bf16": (["--dtype", "bfloat16"], SERVE_BUCKETS, SERVE_REQUESTS, FLAGSHIP_LAUNCHES),
+            "bf16 --use_pallas_epilogue": (["--dtype", "bfloat16", "--use_pallas_epilogue"], (1,),
+                                           (1,), EPILOGUE_GRAPH_LAUNCHES)}
+    for label, (extra, buckets, sizes, per_graph) in runs.items():
+        opt = parse_options(FLAGS + seed + extra)
+        model = MichiGANModel(opt, "cuda:0")
+        model.init_weights(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        session = InferenceSession(model, (opt.crop_size, opt.crop_size), buckets)
+        session.precompile()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        phase(17, f"{label} session: graphs of buckets {buckets} captured in "
+                  + ", ".join(f"{b}: {c['seconds']:.2f} s" for b, c in session.captured.items())
+                  + f" (warm-up included); launches while capturing {counts}; peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+                  f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated with every graph's "
+                  f"pool held {tag}")
+        graphs = {b: c["launches"] for b, c in session.captured.items()}
+        if any(g != per_graph for g in graphs.values()) or \
+                not all(counts[k] > 0 for k, n in per_graph.items() if n):
+            return f"{label} session: each graph should launch {per_graph}, got {graphs}", None
+        for n in sizes:
+            data = request(opt, n, SEED + n)
+            kernels.reset_launch_counts()
+            before = dict(session.replays)
+            image, orient = session.infer(data)
+            eager_counts = kernels.launch_counts()
+            replays = {b: session.replays[b] - before[b] for b in buckets}
+            per_request = {k: sum(r * graphs[b][k] for b, r in replays.items())
+                           for k in SERVE_KERNELS}
+            want_image, want_orient = eager_chunks(model, data, buckets)
+            diff, psnr, equal = compare(image, want_image, opt)
+            o_diff = float(np.abs(orient - want_orient).max())
+            phase(17, f"{label} request of {n}: replays {replays}, launches per request "
+                      f"{per_request}, launched from Python during it {sum(eager_counts.values())}; "
+                      f"session vs eager infer: image max abs {diff:.3e}, PSNR {psnr:.2f} dB (limit "
+                      f"2e-3, 50 dB), orientation max abs {o_diff:.3e}, bit for bit "
+                      f"{equal and o_diff == 0}")
+            if image.shape != want_image.shape or not diff <= 2e-3 or not psnr > 50 \
+                    or not o_diff <= 2e-3 or any(eager_counts.values()):
+                return f"{label} session disagrees with eager infer at request size {n}", None
+            for k in SERVE_KERNELS:
+                launches[k][f"{label}, request of {n}"] = per_request[k]
+        if len(buckets) > 1:
+            for n in (1, 8):
+                data = request(opt, n, SEED)
+                ms_s = host_ms(lambda: session.infer(data), torch, 10) / n
+                ms_e = host_ms(lambda: eager_request(model, data), torch, 10) / n
+                phase(17, f"{label} batch {n}: session {ms_s:.2f} ms/image, eager {ms_e:.2f} "
+                          f"ms/image (numpy in and out, host clock, median of 10) {tag}")
+            data = request(opt, 1, SEED)
+            for who, fn in (("session", lambda: session.infer(data)),
+                            ("eager", lambda: eager_request(model, data))):
+                busy_ms, wall_ms = profile_once(fn, torch)[:2]
+                phase(17, f"{label} batch-1 request, {who}, profiled: device busy {busy_ms:.2f} "
+                          f"ms of {wall_ms:.2f} ms wall ({busy_ms / wall_ms:.0%}) {tag}")
+        del session, model
+        torch.cuda.empty_cache()
+
+    # the exported program, fp32 at batch 1, and a second seed's state_dicts
+    opt = parse_options(FLAGS + seed)
+    models = [MichiGANModel(opt, "cuda:0") for _ in range(2)]
+    for i, m in enumerate(models):
+        m.init_weights(SEED + i)
+    batch = batch_from_numpy(request(opt, 1, SEED), "cuda:0")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(build.BUILD_DIR / "exported_flagship.pt2")
+    t0 = time.perf_counter()
+    export_inference(models[0], batch, path)
+    export_s = time.perf_counter() - t0
+    fn = load_exported(path)
+    for i, m in enumerate(models):
+        kernels.reset_launch_counts()
+        image, orient = fn({k: net.state_dict() for k, net in m.nets().items()}, batch)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want_image, want_orient = m.infer(batch)
+        diff, psnr, equal = compare(nhwc(image), nhwc(want_image), opt)
+        o_diff = (orient - want_orient).abs().max().item()
+        phase(17, f"exported program (export {export_s:.1f} s), seed {SEED + i}'s state_dicts: "
+                  f"launches {counts}; vs eager infer max abs {diff:.3e}, PSNR {psnr:.2f} dB, "
+                  f"orientation {o_diff:.3e}, bit for bit {equal and o_diff == 0}")
+        if counts != FLAGSHIP_LAUNCHES or not diff <= 2e-3 or not psnr > 50 or not o_diff <= 2e-3:
+            return "the exported program disagrees with eager infer or skips a kernel", None
+    os.remove(path)
+    del models, fn
+    torch.cuda.empty_cache()
+
+    # FID: the extractors' features of seeded 299^2 images on the card and CPU
+    rng = np.random.default_rng(SEED)
+    sets = [rng.uniform(-1, 1, (FID_IMAGES, FID_SIZE, FID_SIZE, 3)).astype(np.float32)
+            for _ in range(2)]
+    ckpt = str(build.BUILD_DIR / "no_weights")  # the seeded fallback on both devices
+    fid_lowch = None
+    for name in ("vgg", "inception"):
+        kernels.reset_launch_counts()
+        card = evaluate.extract_features(sets[0], name, FID_BATCH, "cuda:0", ckpt)
+        if name == "vgg":
+            fid_lowch = kernels.launch_counts()["conv3x3_same_lowch"] / (FID_IMAGES // FID_BATCH)
+        pretrained = evaluate.extract_features.last_pretrained
+        cpu = evaluate.extract_features(sets[0], name, FID_BATCH, "cpu", ckpt)
+        rel = float(np.linalg.norm(card - cpu) / np.linalg.norm(cpu))
+        fid = evaluate.frechet_distance(card, evaluate.extract_features(
+            sets[1], name, FID_BATCH, "cuda:0", ckpt))
+        net, _, _ = evaluate._extractor(name, torch.device("cuda:0"), ckpt)
+        x8 = torch.from_numpy(sets[0][:FID_BATCH]).cuda()
+
+        def features():
+            with torch.no_grad():
+                net(x8)
+
+        ms = median_ms(features, torch, False, reps=5, inner=3)
+        phase(17, f"FID {name}: features {card.shape} card vs CPU relative error {rel:.2e} "
+                  f"(limit {FID_REL:g}); FID of two seeded sets of {FID_IMAGES} on the card "
+                  f"{fid:.4f}; {ms:.2f} ms per batch of {FID_BATCH} (CUDA events); "
+                  f"pretrained={pretrained}"
+                  + (f"; conv3x3_same_lowch launches per batch {fid_lowch:g}" if name == "vgg"
+                     else "") + f" {tag}")
+        if not rel <= FID_REL or not np.isfinite(fid):
+            return f"FID {name}: card features disagree with the CPU's", None
+        del net, x8
+    return None, (launches, fid_lowch)
+
+
 def host_times(root, reps=30):
-    """The bf16 serving paths on the host clock with the port of the
-    checkout `root`, in this process: each bf16 fused_instance_norm call of
-    the flagship launched from Python (mean of 50 back-to-back calls,
-    median of 5), the bf16 flagship forward at batch 1 (phase 13's) and the
-    bf16 stroke edit (phase 14's), each the median of `reps` after a
-    warm-up.  Prints one JSON line."""
+    """The serving paths on the host clock with the port of the checkout
+    `root`, in this process: each bf16 fused_instance_norm call of the
+    flagship launched from Python (mean of 50 back-to-back calls, median of
+    5), the flagship forward at batch 1 in fp32 and bf16 (phases 6 and
+    13) and the bf16 stroke edit (phase 14's), each the median of `reps`
+    after a warm-up.  Prints one JSON line."""
     from pathlib import Path
 
     sys.path.insert(0, str(Path(root).resolve()))
@@ -2448,12 +2675,14 @@ def host_times(root, reps=30):
         x = kernel_inputs(torch, "fused_instance_norm", c, h, torch.bfloat16, gen)[0]
         norm_us[f"(1,{c},{h},{h}) {act}"] = 1e3 * median_ms(
             lambda: K.fused_instance_norm(x, act=act), torch, False, inner=50)
-    opt = parse_options(FLAGS + ["--seed", str(SEED), "--dtype", "bfloat16"])
-    model = MichiGANModel(opt, "cuda:0")
-    model.init_weights(SEED)
-    batch = batch_from_numpy(synthetic_inference_data(opt, SEED), "cuda:0")
-    flagship_ms = host_ms(lambda: model.infer(batch), torch, reps)
-    del model, batch
+    flagship_ms = {}
+    for dtype in ("float32", "bfloat16"):
+        opt = parse_options(FLAGS + ["--seed", str(SEED), "--dtype", dtype])
+        model = MichiGANModel(opt, "cuda:0")
+        model.init_weights(SEED)
+        batch = batch_from_numpy(synthetic_inference_data(opt, SEED), "cuda:0")
+        flagship_ms[dtype] = host_ms(lambda: model.infer(batch), torch, reps)
+        del model, batch
     sopt = engine.parse_options(STROKE_FLAGS + ["--seed", str(SEED), "--dtype", "bfloat16"])
     smodel = MichiGANModel(sopt, "cuda:0")
     smodel.init_weights(SEED)
@@ -2462,7 +2691,8 @@ def host_times(root, reps=30):
     edit_ms = host_ms(edit_of(engine, smodel, batch_from_numpy(stroke_data, "cuda:0")), torch,
                       reps)
     print(json.dumps({"root": str(root), "norm_launched_us": norm_us,
-                      "flagship_bf16_ms": flagship_ms, "edit_bf16_ms": edit_ms}))
+                      "flagship_fp32_ms": flagship_ms["float32"],
+                      "flagship_bf16_ms": flagship_ms["bfloat16"], "edit_bf16_ms": edit_ms}))
     return 0
 
 
@@ -2489,7 +2719,8 @@ def host_ab(other, pairs):
             run_ = json.loads(proc.stdout.strip().splitlines()[-1])
             runs[who].append(run_)
             print(json.dumps({"pair": i, "checkout": who, **run_}), flush=True)
-    flat = lambda r: {"flagship_bf16_ms": r["flagship_bf16_ms"], "edit_bf16_ms": r["edit_bf16_ms"],
+    flat = lambda r: {"flagship_fp32_ms": r["flagship_fp32_ms"],
+                      "flagship_bf16_ms": r["flagship_bf16_ms"], "edit_bf16_ms": r["edit_bf16_ms"],
                       **{f"norm {k} us": v for k, v in r["norm_launched_us"].items()}}
     for key in flat(runs["this"][0]):
         a = [flat(r)[key] for r in runs["other"]]

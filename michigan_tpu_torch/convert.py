@@ -15,7 +15,10 @@ nets load with ``load_state_dict(strict=True)``:
   batch_stats running_mean / var  -> running_mean, running_var
                                      (+ num_batches_tracked = 0)
 
-``load_reference_state`` loads a released ``.pth`` state_dict.
+``load_reference_state`` loads a released ``.pth`` state_dict, and
+``inception_state_dict`` turns the JAX package's InceptionV3 params
+({name: {kernel, bn_scale, bn_bias, bn_mean, bn_var}}, as its
+``inception_v3.npz`` holds them) into torchvision's state_dict.
 """
 
 from __future__ import annotations
@@ -145,3 +148,19 @@ def load_reference_state(net: torch.nn.Module, state: Mapping[str, torch.Tensor]
     for k in missing:
         state[k] = torch.zeros_like(own[k])
     net.load_state_dict(state, strict=True)
+
+
+def inception_state_dict(params: Mapping[str, Mapping]) -> Dict[str, torch.Tensor]:
+    """The JAX package's InceptionV3 params -> the state_dict of
+    ``models.inception.InceptionV3`` (torchvision's key names): HWIO kernels
+    to OIHW conv weights, bn_scale / bn_bias / bn_mean / bn_var to the batch
+    norm's weight, bias and running statistics."""
+    t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        sd[f"{name}.conv.weight"] = t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+        for leaf, key in (("bn_scale", "weight"), ("bn_bias", "bias"),
+                          ("bn_mean", "running_mean"), ("bn_var", "running_var")):
+            sd[f"{name}.bn.{key}"] = t(p[leaf])
+        sd[f"{name}.bn.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd

@@ -12,7 +12,11 @@ Spectral norm runs as torch's does: in eval, sigma = u . (W v) from the
 stored u and v; in train mode one power iteration from the stored u first
 (no gradient through it), then sigma from the iterated u and v.  Sigma and
 the normalised weight are float32 whatever the stored dtype (the frozen
-inpainters store bfloat16 under the bf16 policy).
+inpainters store bfloat16 under the bf16 policy).  An eval forward
+recomputes W / sigma on every call; inside ``frozen_spectral_weights`` it
+reads the weight computed once on entry (``ops.norms.spectral_weight``, the
+same expression), as the serving session's captured graphs and the exported
+program do.
 
 One cast rule for every conv (the JAX package's ``_conv``): the weight and
 the bias are cast to the input's dtype at the call, so netG's float32
@@ -44,7 +48,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from michigan_tpu_torch.ops.norms import instance_norm, power_iteration, spectral_sigma
+from michigan_tpu_torch.ops.norms import (
+    instance_norm,
+    power_iteration,
+    spectral_sigma,
+    spectral_weight,
+)
 
 
 def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -151,6 +160,26 @@ def frozen_buffers(*nets: nn.Module) -> Iterator[None]:
             m.write_buffers = w
 
 
+@contextlib.contextmanager
+def frozen_spectral_weights(*nets: nn.Module) -> Iterator[list]:
+    """Inside, every eval-mode spectral conv of `nets` reads its W / sigma
+    computed once on entry (``spectral_weight``, the expression an eval
+    forward recomputes) instead of recomputing it; yields those weights.
+    They stand for the weights of the moment: a write to a spectral conv's
+    weight or u / v inside is not seen."""
+    mods = [m for net in nets for m in net.modules()
+            if isinstance(m, SpectralConv2d) and not m.training]
+    with torch.no_grad():
+        for m in mods:
+            m.weight_frozen = spectral_weight(m.weight_orig, m.weight_u, m.weight_v,
+                                              m.transposed)
+    try:
+        yield [m.weight_frozen for m in mods]
+    finally:
+        for m in mods:
+            m.weight_frozen = None
+
+
 class SpectralConv2d(nn.Module):
     """spectral_norm(nn.Conv2d(...)); W is flattened OIHW -> (O, I*kh*kw)
     for sigma, as torch does."""
@@ -168,6 +197,9 @@ class SpectralConv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
         self.register_buffer("weight_u", torch.zeros(out_ch))
         self.register_buffer("weight_v", torch.zeros(in_ch * k * k))
+        # W / sigma inside frozen_spectral_weights, else None; not in the
+        # state_dict
+        self.register_buffer("weight_frozen", None, persistent=False)
 
     def w_mat(self) -> torch.Tensor:
         w = self.weight_orig.transpose(0, 1) if self.transposed else self.weight_orig
@@ -177,14 +209,17 @@ class SpectralConv2d(nn.Module):
         """The spectrally normalised weight, float32; with `bias`, what a
         fused kernel that computes the conv itself takes (conv3x3_in_act), as
         the JAX package's TorchConv(..., return_kernel=True) hands it out."""
+        if not self.training:
+            if self.weight_frozen is not None:
+                return self.weight_frozen
+            return spectral_weight(self.weight_orig, self.weight_u, self.weight_v,
+                                   self.transposed)
         w_mat = self.w_mat().float()
-        u, v = self.weight_u.float(), self.weight_v.float()
-        if self.training:
-            with torch.no_grad():
-                u, v = power_iteration(w_mat, u, 1)
-                if self.write_buffers:
-                    self.weight_u.copy_(u)
-                    self.weight_v.copy_(v)
+        with torch.no_grad():
+            u, v = power_iteration(w_mat, self.weight_u.float(), 1)
+            if self.write_buffers:
+                self.weight_u.copy_(u)
+                self.weight_v.copy_(v)
         return self.weight_orig.float() / spectral_sigma(w_mat, u, v)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

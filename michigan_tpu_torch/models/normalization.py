@@ -89,10 +89,11 @@ class SPADE(nn.Module):
         """(weight, bias) of mlp_gamma and mlp_beta as one conv, in `dtype`
         (the cast rule of layers.py).  Without autograd the concatenation is
         kept until a parameter is written or replaced (load_state_dict, init,
-        a move to another device) or another dtype is asked for."""
+        a move to another device) or another dtype is asked for; under
+        tracing (torch.export) it is computed in the traced program."""
         params = (self.mlp_gamma.weight, self.mlp_beta.weight,
                   self.mlp_gamma.bias, self.mlp_beta.bias)
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() or torch.compiler.is_compiling():
             return torch.cat(params[:2]).to(dtype), torch.cat(params[2:]).to(dtype)
         key = (dtype,) + tuple((p.device, p.data_ptr(), p._version) for p in params)
         if key != self._gamma_beta_key:

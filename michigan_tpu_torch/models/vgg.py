@@ -72,7 +72,7 @@ class VGG19(nn.Module):
                 if step[1] == LOWCH_CONV and not torch.is_grad_enabled():
                     x = conv3x3_same_lowch(x, conv.weight)
                     x += conv.bias.view(1, -1, 1, 1)
-                    x = x.relu_()
+                    x = F.relu(x, inplace=True)
                 else:
                     x = F.relu(conv(x))
             elif step[0] == "pool":

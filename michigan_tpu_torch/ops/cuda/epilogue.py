@@ -26,7 +26,9 @@ the blocks of a plane), with no cuDNN, cuBLAS or CUTLASS call.  A wrapper
 runs the plain PyTorch version for CPU tensors only.  For a CUDA tensor it checks dtype,
 shape, contiguity and device, launches the kernel on the current stream and
 counts the launch; anything the kernel does not take raises.  There is no
-fallback on CUDA tensors.
+fallback on CUDA tensors.  As the norms' wrappers (spade.py), it calls a
+``torch.library.custom_op`` (``torch.ops.michigan_tpu_torch.conv3x3_in_act``)
+with a fake implementation for CUDA tensors and under tracing.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from michigan_tpu_torch.ops.cuda import build
-from michigan_tpu_torch.ops.cuda.spade import _ACTS, _act
+from michigan_tpu_torch.ops.cuda.spade import _ACTS, _act, _check_device
 from michigan_tpu_torch.ops.norms import instance_norm
 
 
@@ -107,6 +109,16 @@ def conv3x3_in_act(x_pad: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tenso
     (-> + residual)]; see the module docstring."""
     if act not in _ACTS:
         raise ValueError(f"unknown activation {act!r}")
+    if x_pad.device.type == "cpu" and not torch.compiler.is_compiling():
+        return conv3x3_in_act_plain(x_pad, w, b, dilation, act, eps, residual)
+    _check_device(x_pad)
+    return _conv3x3_in_act_op(x_pad, w, b, int(dilation), act, float(eps), residual)
+
+
+@torch.library.custom_op("michigan_tpu_torch::conv3x3_in_act", mutates_args=())
+def _conv3x3_in_act_op(x_pad: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                       dilation: int, act: Optional[str], eps: float,
+                       residual: Optional[torch.Tensor]) -> torch.Tensor:
     if x_pad.device.type == "cpu":
         return conv3x3_in_act_plain(x_pad, w, b, dilation, act, eps, residual)
     if x_pad.device.type != "cuda":
@@ -166,6 +178,12 @@ def conv3x3_in_act(x_pad: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tenso
     build.check_launch("conv3x3_in_act", err)
     build.count_launch(conv3x3_in_act, x_pad.dtype)
     return out
+
+
+@_conv3x3_in_act_op.register_fake
+def _(x_pad, w, b, dilation, act, eps, residual):
+    n, _, hp, wp = x_pad.shape
+    return x_pad.new_empty((n, w.shape[0], hp - 2 * dilation, wp - 2 * dilation))
 
 
 conv3x3_in_act.launches = 0

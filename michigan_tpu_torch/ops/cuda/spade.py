@@ -22,6 +22,12 @@ Tensors are NCHW.  A wrapper runs the plain PyTorch version for CPU tensors
 only.  For a CUDA tensor it checks dtype, shape and contiguity, launches the
 kernel on the current stream and counts the launch; anything the kernel does
 not take raises.  There is no fallback on CUDA tensors.
+
+Each kernel is a ``torch.library.custom_op`` (``torch.ops.michigan_tpu_torch.
+spade_modulate`` and ``.fused_instance_norm``) with a fake implementation,
+so that ``torch.export`` records the call and a CUDA graph captures the
+launch.  A wrapper calls the op for CUDA tensors and under tracing; an eager
+call on CPU tensors takes the plain version directly, with autograd.
 """
 
 from __future__ import annotations
@@ -85,6 +91,13 @@ def _check_nchw(name: str, t: torch.Tensor, like: torch.Tensor,
                          + (" within each sample" if per_sample else ""))
 
 
+def _check_device(x: torch.Tensor) -> None:
+    """Before the op: another device than the CPU or a card (meta, say)
+    would get the op's fake implementation, not an error."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {x.device}")
+
+
 def _check_x(x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
@@ -107,6 +120,15 @@ def spade_modulate(x: torch.Tensor, mean: torch.Tensor, invstd: torch.Tensor,
     """(x - mean[c]) * invstd[c] * (1 + gamma) + beta on NCHW tensors;
     mean and invstd are float32 (C,).  gamma and beta may be the two channel
     halves of one (N, 2C, H, W) tensor, read in place."""
+    if x.device.type == "cpu" and not torch.compiler.is_compiling():
+        return spade_modulate_plain(x, mean, invstd, gamma, beta)
+    _check_device(x)
+    return _spade_modulate_op(x, mean, invstd, gamma, beta)
+
+
+@torch.library.custom_op("michigan_tpu_torch::spade_modulate", mutates_args=())
+def _spade_modulate_op(x: torch.Tensor, mean: torch.Tensor, invstd: torch.Tensor,
+                       gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return spade_modulate_plain(x, mean, invstd, gamma, beta)
     _check_x(x)
@@ -131,6 +153,11 @@ def spade_modulate(x: torch.Tensor, mean: torch.Tensor, invstd: torch.Tensor,
     return out
 
 
+@_spade_modulate_op.register_fake
+def _(x, mean, invstd, gamma, beta):
+    return x.new_empty(x.shape)
+
+
 spade_modulate.launches = 0
 spade_modulate.launches_by_dtype = {}
 
@@ -144,6 +171,16 @@ def fused_instance_norm(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
         raise ValueError(f"unknown activation {act!r}")
     if (gamma is None) != (beta is None):
         raise ValueError("gamma and beta come together")
+    if x.device.type == "cpu" and not torch.compiler.is_compiling():
+        return fused_instance_norm_plain(x, gamma, beta, eps, act)
+    _check_device(x)
+    return _fused_instance_norm_op(x, gamma, beta, float(eps), act)
+
+
+@torch.library.custom_op("michigan_tpu_torch::fused_instance_norm", mutates_args=())
+def _fused_instance_norm_op(x: torch.Tensor, gamma: Optional[torch.Tensor],
+                            beta: Optional[torch.Tensor], eps: float,
+                            act: Optional[str]) -> torch.Tensor:
     if x.device.type == "cpu":
         return fused_instance_norm_plain(x, gamma, beta, eps, act)
     _check_x(x)
@@ -160,6 +197,11 @@ def fused_instance_norm(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
     build.check_launch("fused_instance_norm", err)
     build.count_launch(fused_instance_norm, x.dtype)
     return out
+
+
+@_fused_instance_norm_op.register_fake
+def _(x, gamma, beta, eps, act):
+    return x.new_empty(x.shape)
 
 
 fused_instance_norm.launches = 0

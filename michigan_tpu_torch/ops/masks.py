@@ -3,16 +3,18 @@
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from michigan_tpu_torch.ops.resize import max_pool_same, resize_nearest
 
 
 def one_hot_label(label_map: torch.Tensor, num_classes: int) -> torch.Tensor:
     """Integer (N,1,H,W) label map -> one-hot float32 (N,num_classes,H,W),
-    the scatter_ one-hot of the reference; labels clipped to the range."""
-    lab = label_map[:, 0].long().clamp(0, num_classes - 1)
-    return F.one_hot(lab, num_classes).permute(0, 3, 1, 2).float()
+    the scatter_ one-hot of the reference; labels clipped to the range.
+    A comparison with arange, not F.one_hot, whose range check reads the
+    labels on the host on the CPU, which torch.export cannot trace."""
+    lab = label_map.long().clamp(0, num_classes - 1)
+    classes = torch.arange(num_classes, device=label_map.device).view(1, -1, 1, 1)
+    return (lab == classes).float()
 
 
 def wide_edges(mask: torch.Tensor, th: float = 0.06) -> torch.Tensor:

@@ -120,6 +120,16 @@ def spectral_sigma(w_mat: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> tor
     return torch.dot(u, torch.mv(w_mat, v))
 
 
+def spectral_weight(weight_orig: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                    transposed: bool = False) -> torch.Tensor:
+    """Eval-mode spectrally normalised weight W / sigma, float32, from the
+    stored u and v; W is flattened to (out, rest) for sigma, with a
+    transposed conv's (I, O, kh, kw) weight taken out-channels first."""
+    w = weight_orig.transpose(0, 1) if transposed else weight_orig
+    w_mat = w.reshape(w.shape[0], -1).float()
+    return weight_orig.float() / spectral_sigma(w_mat, u.float(), v.float())
+
+
 def power_iteration(w_mat: torch.Tensor, u: torch.Tensor, n_iter: int):
     """torch spectral_norm's power iteration: v = norm(W^T u); u = norm(W v).
     One iteration per training forward; a few to give freshly initialised

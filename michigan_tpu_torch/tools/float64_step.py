@@ -8,6 +8,15 @@ filter bank, keep their values).  ``adam_grads`` reads a G step's gradients
 back from Adam's first moment.  chip_smoke.py's phase 16 judges the
 blender config's card step by them.
 
+``branch_masks`` records the branches a float32 step took (which elements
+each ``F.relu`` and ``F.leaky_relu`` call passed, which element of each
+window ``F.max_pool2d`` took, the signs ``Tensor.abs`` saw), and makes a
+float64 step of the same code take the same ones (``g_step64(...,
+branches=...)``): that step differs from the float32 one by rounding alone.
+A value within float32 rounding of such a switch sends the two steps'
+gradients down different branches, and one such element can move a net's
+whole gradient by a percent (tests/test_torch_vae_blender.py).
+
     env PYTHONPATH=. python -m michigan_tpu_torch.tools.float64_step
 
 runs the blender config's G step (chip_smoke.py's training flags plus
@@ -32,18 +41,92 @@ blends (~3 minutes).
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 import time
 
 import torch
+import torch.nn.functional as F
 
 WITNESS_NETS = ("netG", "netB")
 
 
-def g_step64(opt, init, batch, eps, nets, extra_dilate_steps):
+@contextlib.contextmanager
+def branch_masks(replay=None):
+    """Inside, each F.relu and F.leaky_relu call records which elements of
+    its input are > 0, each F.max_pool2d call which element of each window
+    it took, and each Tensor.abs call the signs of its input, and yields the
+    list of those records in call order; or, given `replay` (such a list,
+    from a float32 run of the same code), takes the next record's choices
+    instead of reading its own input (raises if the calls do not line
+    up)."""
+    relu, leaky_relu = F.relu, F.leaky_relu
+    masks = [] if replay is None else None
+    todo = None if replay is None else iter(replay)
+
+    def recorded(like, what):
+        m = next(todo, None)
+        if m is None or m.shape != like.shape:
+            raise RuntimeError(f"no recorded branch for {what} of shape {tuple(like.shape)}")
+        return m
+
+    def mask_of(x):
+        if todo is None:
+            masks.append(x > 0)
+            return None
+        return recorded(x, "an activation")
+
+    def relu_(x, inplace=False):
+        m = mask_of(x)
+        if m is None:
+            return relu(x, inplace)
+        return x.mul_(m) if inplace else x * m
+
+    def leaky_relu_(x, negative_slope=0.01, inplace=False):
+        m = mask_of(x)
+        return leaky_relu(x, negative_slope, inplace) if m is None else \
+            torch.where(m, x, x * negative_slope)
+
+    def max_pool2d_(x, *args, **kwargs):
+        y, idx = max_pool2d(x, *args, **{**kwargs, "return_indices": True})
+        if todo is None:
+            masks.append(idx)
+            return y
+        return x.flatten(2).gather(2, recorded(idx, "a max pool").flatten(2)).view_as(y)
+
+    def abs_(x):
+        if todo is None:
+            masks.append(torch.sign(x).to(torch.int8))
+            return tensor_abs(x)
+        return x * recorded(x, "an abs")
+
+    max_pool2d, tensor_abs = F.max_pool2d, torch.Tensor.abs
+    F.relu, F.leaky_relu, F.max_pool2d = relu_, leaky_relu_, max_pool2d_
+    torch.Tensor.abs = abs_
+    try:
+        yield masks
+    finally:
+        F.relu, F.leaky_relu, F.max_pool2d = relu, leaky_relu, max_pool2d
+        torch.Tensor.abs = tensor_abs
+    if todo is not None and next(todo, None) is not None:
+        raise RuntimeError("recorded branches left over: the runs took different paths")
+
+
+def branch_differences(a, b):
+    """[(call, kind, shape, elements)] where the branch records `a` and `b`
+    (``branch_masks`` of two runs of the same code) differ: kind 'relu'
+    (F.relu, F.leaky_relu), 'max_pool' or 'abs'."""
+    kinds = {torch.bool: "relu", torch.int64: "max_pool", torch.int8: "abs"}
+    return [(i, kinds[x.dtype], tuple(x.shape), int((x != y).sum()))
+            for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
+
+
+def g_step64(opt, init, batch, eps, nets, extra_dilate_steps, branches=None):
     """(losses {name: float}, gradients and parameters after the step, each
     {net: {name: tensor}} of `nets`) of one G step on the CPU in float64
-    from the float32 state dicts `init`, the float32 `batch` and `eps`."""
+    from the float32 state dicts `init`, the float32 `batch` and `eps`;
+    with `branches` (``branch_masks``' record of a float32 G step of the same
+    config and batch) on that step's branches."""
     from michigan_tpu_torch.model import MichiGANModel
     from michigan_tpu_torch.training.train_step import TrainStep
 
@@ -57,8 +140,9 @@ def g_step64(opt, init, batch, eps, nets, extra_dilate_steps):
         for net in m.nets().values():
             net.double()
         tr = TrainStep(m)
-        losses, _, _ = tr.g_step({k: v.double() for k, v in batch.items()},
-                                 extra_dilate_steps, None if eps is None else eps.double())
+        with branch_masks(branches) if branches is not None else contextlib.nullcontext():
+            losses, _, _ = tr.g_step({k: v.double() for k, v in batch.items()},
+                                     extra_dilate_steps, None if eps is None else eps.double())
         params = {k: {n: p.detach().clone() for n, p in m.nets()[k].named_parameters()}
                   for k in nets}
         return {k: v.item() for k, v in losses.items()}, adam_grads(tr, nets), params

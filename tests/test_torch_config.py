@@ -106,6 +106,8 @@ def test_the_port_and_chip_smoke_import_without_the_jax_package():
     modules = [i.name for i in pkgutil.walk_packages(michigan_tpu_torch.__path__,
                                                      "michigan_tpu_torch.")]
     assert "michigan_tpu_torch.config" in modules
+    assert {"michigan_tpu_torch.serving.session", "michigan_tpu_torch.serving.export",
+            "michigan_tpu_torch.evaluate", "michigan_tpu_torch.models.inception"} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", BLOCKED, "\n".join(imports)], cwd=REPO,
                           env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
                           text=True, timeout=300)

@@ -150,8 +150,10 @@ def assert_losses(got, want):
         np.testing.assert_allclose(float(got[k]), float(want[k]), err_msg=k, **LOSS_TOL)
 
 
-def assert_params_scale_aware(got: dict, want: dict, max_lr: float):
-    """tests/test_training.py:212-247's rule over a set of parameters."""
+def count_beyond_noise(got: dict, want: dict, max_lr: float):
+    """(elements beyond float noise, elements) of tests/test_training.py:
+    212-247's rule over a set of parameters, after asserting its bound of
+    2.5 max_lr on every element."""
     n_bad = n_tot = 0
     for k, w in want.items():
         a = got[k].double().numpy()
@@ -160,7 +162,17 @@ def assert_params_scale_aware(got: dict, want: dict, max_lr: float):
         assert diff.max() <= 2.5 * max_lr, f"{k}: diff {diff.max():.2e} > {2.5 * max_lr:.2e}"
         n_bad += int((diff > (1e-4 * np.abs(b) + 1e-5)).sum())
         n_tot += diff.size
-    assert n_bad <= max(1e-3 * n_tot, 8), f"{n_bad}/{n_tot} elements beyond float noise"
+    return n_bad, n_tot
+
+
+def within_count(n_bad: int, n_tot: int) -> bool:
+    return n_bad <= max(1e-3 * n_tot, 8)
+
+
+def assert_params_scale_aware(got: dict, want: dict, max_lr: float):
+    """tests/test_training.py:212-247's rule over a set of parameters."""
+    n_bad, n_tot = count_beyond_noise(got, want, max_lr)
+    assert within_count(n_bad, n_tot), f"{n_bad}/{n_tot} elements beyond float noise"
 
 
 def jax_state(jax_run, key, net):
