@@ -2575,6 +2575,29 @@ def serving_phase(torch, np, tag):
                 busy_ms, wall_ms = profile_once(fn, torch)[:2]
                 phase(17, f"{label} batch-1 request, {who}, profiled: device busy {busy_ms:.2f} "
                           f"ms of {wall_ms:.2f} ms wall ({busy_ms / wall_ms:.0%}) {tag}")
+        if session.recaptures:
+            return f"{label} session captured again with its weights unchanged", None
+        if label == "fp32":
+            # a second checkpoint loaded in place: the session captures
+            # again and serves it
+            data = request(opt, 1, SEED)
+            before, _ = session.infer(data)
+            other = MichiGANModel(opt, "cuda:0")
+            other.init_weights(SEED + 1)
+            model.load_state_dicts({k: net.state_dict() for k, net in other.nets().items()})
+            del other
+            t0 = time.perf_counter()
+            image, _ = session.infer(data)
+            reload_s = time.perf_counter() - t0
+            want_image, _ = eager_chunks(model, data, buckets)
+            diff, psnr, _ = compare(image, want_image, opt)
+            moved = float(np.abs(image - before).max())
+            phase(17, f"{label} session after load_state_dicts of seed {SEED + 1}: recaptures "
+                      f"{session.recaptures}, first request {reload_s:.2f} s (capture of every "
+                      f"bucket included); vs that seed's eager infer max abs {diff:.3e}, PSNR "
+                      f"{psnr:.2f} dB; moved {moved:.3e} from the first checkpoint's image")
+            if session.recaptures != 1 or not diff <= 2e-3 or not psnr > 50 or not moved > 2e-2:
+                return f"{label} session does not serve a reloaded checkpoint", None
         del session, model
         torch.cuda.empty_cache()
 

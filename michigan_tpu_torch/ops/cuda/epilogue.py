@@ -26,9 +26,10 @@ the blocks of a plane), with no cuDNN, cuBLAS or CUTLASS call.  A wrapper
 runs the plain PyTorch version for CPU tensors only.  For a CUDA tensor it checks dtype,
 shape, contiguity and device, launches the kernel on the current stream and
 counts the launch; anything the kernel does not take raises.  There is no
-fallback on CUDA tensors.  As the norms' wrappers (spade.py), it calls a
-``torch.library.custom_op`` (``torch.ops.michigan_tpu_torch.conv3x3_in_act``)
-with a fake implementation for CUDA tensors and under tracing.
+fallback on CUDA tensors.  As the norms' wrappers (spade.py), it calls its
+body registered as a ``torch.library.custom_op``
+(``torch.ops.michigan_tpu_torch.conv3x3_in_act``, with a fake
+implementation) under tracing only, and the body directly otherwise.
 """
 
 from __future__ import annotations
@@ -109,16 +110,15 @@ def conv3x3_in_act(x_pad: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tenso
     (-> + residual)]; see the module docstring."""
     if act not in _ACTS:
         raise ValueError(f"unknown activation {act!r}")
-    if x_pad.device.type == "cpu" and not torch.compiler.is_compiling():
-        return conv3x3_in_act_plain(x_pad, w, b, dilation, act, eps, residual)
-    _check_device(x_pad)
-    return _conv3x3_in_act_op(x_pad, w, b, int(dilation), act, float(eps), residual)
+    if torch.compiler.is_compiling():
+        _check_device(x_pad)
+        return _conv3x3_in_act_op(x_pad, w, b, int(dilation), act, float(eps), residual)
+    return _conv3x3_in_act(x_pad, w, b, dilation, act, eps, residual)
 
 
-@torch.library.custom_op("michigan_tpu_torch::conv3x3_in_act", mutates_args=())
-def _conv3x3_in_act_op(x_pad: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-                       dilation: int, act: Optional[str], eps: float,
-                       residual: Optional[torch.Tensor]) -> torch.Tensor:
+def _conv3x3_in_act(x_pad: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                    dilation: int, act: Optional[str], eps: float,
+                    residual: Optional[torch.Tensor]) -> torch.Tensor:
     if x_pad.device.type == "cpu":
         return conv3x3_in_act_plain(x_pad, w, b, dilation, act, eps, residual)
     if x_pad.device.type != "cuda":
@@ -178,6 +178,10 @@ def _conv3x3_in_act_op(x_pad: torch.Tensor, w: torch.Tensor, b: Optional[torch.T
     build.check_launch("conv3x3_in_act", err)
     build.count_launch(conv3x3_in_act, x_pad.dtype)
     return out
+
+
+_conv3x3_in_act_op = torch.library.custom_op(
+    "michigan_tpu_torch::conv3x3_in_act", _conv3x3_in_act, mutates_args=())
 
 
 @_conv3x3_in_act_op.register_fake

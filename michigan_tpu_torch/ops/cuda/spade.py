@@ -23,11 +23,12 @@ only.  For a CUDA tensor it checks dtype, shape and contiguity, launches the
 kernel on the current stream and counts the launch; anything the kernel does
 not take raises.  There is no fallback on CUDA tensors.
 
-Each kernel is a ``torch.library.custom_op`` (``torch.ops.michigan_tpu_torch.
-spade_modulate`` and ``.fused_instance_norm``) with a fake implementation,
-so that ``torch.export`` records the call and a CUDA graph captures the
-launch.  A wrapper calls the op for CUDA tensors and under tracing; an eager
-call on CPU tensors takes the plain version directly, with autograd.
+Each kernel's body is also registered as a ``torch.library.custom_op``
+(``torch.ops.michigan_tpu_torch.spade_modulate`` and
+``.fused_instance_norm``) with a fake implementation, so that
+``torch.export`` records the call.  A wrapper calls the op only under
+tracing (``torch.compiler.is_compiling()``); an eager call, and so a CUDA
+graph's capture, runs the body directly, without the dispatcher's cost.
 """
 
 from __future__ import annotations
@@ -92,8 +93,8 @@ def _check_nchw(name: str, t: torch.Tensor, like: torch.Tensor,
 
 
 def _check_device(x: torch.Tensor) -> None:
-    """Before the op: another device than the CPU or a card (meta, say)
-    would get the op's fake implementation, not an error."""
+    """Before the op under tracing: another device than the CPU or a card
+    (meta, say) would get the op's fake implementation, not an error."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {x.device}")
 
@@ -120,15 +121,14 @@ def spade_modulate(x: torch.Tensor, mean: torch.Tensor, invstd: torch.Tensor,
     """(x - mean[c]) * invstd[c] * (1 + gamma) + beta on NCHW tensors;
     mean and invstd are float32 (C,).  gamma and beta may be the two channel
     halves of one (N, 2C, H, W) tensor, read in place."""
-    if x.device.type == "cpu" and not torch.compiler.is_compiling():
-        return spade_modulate_plain(x, mean, invstd, gamma, beta)
-    _check_device(x)
-    return _spade_modulate_op(x, mean, invstd, gamma, beta)
+    if torch.compiler.is_compiling():
+        _check_device(x)
+        return _spade_modulate_op(x, mean, invstd, gamma, beta)
+    return _spade_modulate(x, mean, invstd, gamma, beta)
 
 
-@torch.library.custom_op("michigan_tpu_torch::spade_modulate", mutates_args=())
-def _spade_modulate_op(x: torch.Tensor, mean: torch.Tensor, invstd: torch.Tensor,
-                       gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+def _spade_modulate(x: torch.Tensor, mean: torch.Tensor, invstd: torch.Tensor,
+                    gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return spade_modulate_plain(x, mean, invstd, gamma, beta)
     _check_x(x)
@@ -153,6 +153,10 @@ def _spade_modulate_op(x: torch.Tensor, mean: torch.Tensor, invstd: torch.Tensor
     return out
 
 
+_spade_modulate_op = torch.library.custom_op(
+    "michigan_tpu_torch::spade_modulate", _spade_modulate, mutates_args=())
+
+
 @_spade_modulate_op.register_fake
 def _(x, mean, invstd, gamma, beta):
     return x.new_empty(x.shape)
@@ -171,16 +175,15 @@ def fused_instance_norm(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
         raise ValueError(f"unknown activation {act!r}")
     if (gamma is None) != (beta is None):
         raise ValueError("gamma and beta come together")
-    if x.device.type == "cpu" and not torch.compiler.is_compiling():
-        return fused_instance_norm_plain(x, gamma, beta, eps, act)
-    _check_device(x)
-    return _fused_instance_norm_op(x, gamma, beta, float(eps), act)
+    if torch.compiler.is_compiling():
+        _check_device(x)
+        return _fused_instance_norm_op(x, gamma, beta, float(eps), act)
+    return _fused_instance_norm(x, gamma, beta, eps, act)
 
 
-@torch.library.custom_op("michigan_tpu_torch::fused_instance_norm", mutates_args=())
-def _fused_instance_norm_op(x: torch.Tensor, gamma: Optional[torch.Tensor],
-                            beta: Optional[torch.Tensor], eps: float,
-                            act: Optional[str]) -> torch.Tensor:
+def _fused_instance_norm(x: torch.Tensor, gamma: Optional[torch.Tensor],
+                         beta: Optional[torch.Tensor], eps: float,
+                         act: Optional[str]) -> torch.Tensor:
     if x.device.type == "cpu":
         return fused_instance_norm_plain(x, gamma, beta, eps, act)
     _check_x(x)
@@ -197,6 +200,10 @@ def _fused_instance_norm_op(x: torch.Tensor, gamma: Optional[torch.Tensor],
     build.check_launch("fused_instance_norm", err)
     build.count_launch(fused_instance_norm, x.dtype)
     return out
+
+
+_fused_instance_norm_op = torch.library.custom_op(
+    "michigan_tpu_torch::fused_instance_norm", _fused_instance_norm, mutates_args=())
 
 
 @_fused_instance_norm_op.register_fake

@@ -12,12 +12,23 @@ with one AOT-compiled executable per bucket: the forward's ~50 kernel
 launches from Python (PERF.md: the bf16 flagship is host-bound) become one
 replay.  Each bucket has static input buffers on the card, filled from
 pinned host staging, and static outputs copied back through pinned
-staging.  Warm-up runs on a side stream before capture.  The buckets share
-one memory pool; ``infer`` replays one graph at a time and waits for it.
-A capture that fails raises: there is no eager fallback on the card.  While
-capturing, each spectral conv reads its W / sigma computed once
+staging: each request slice is written straight into the staging, its
+padding too, and each output slice straight into the answer.  Warm-up runs
+on a side stream before capture.  The buckets share one memory pool;
+``infer`` replays one graph at a time and waits for it.  A capture that
+fails raises: there is no eager fallback on the card.  While capturing,
+each spectral conv reads its W / sigma computed once
 (``models.layers.frozen_spectral_weights``), which the session keeps, as
 it keeps every tensor outside the graphs' pool that they read.
+
+The graphs read the nets' parameters and buffers in place, and what the
+session keeps was computed from them.  So ``infer`` compares each
+parameter's and buffer's storage and version counter with those at
+capture; after a write (``load_state_dicts`` copies in place) or a new
+storage (``.to``, ``.data =``) it captures every bucket again
+(``recaptures`` counts this), and serves the weights of the moment, as
+eager ``infer`` does.  A parameter replaced by another object is not seen:
+build a new session then.
 
 On a CPU model, which only tests ask for, each bucket runs ``model.infer``
 eagerly with the same padding and splitting.
@@ -44,6 +55,7 @@ calls choose the same convolution algorithms.
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Dict, Sequence, Tuple
 
@@ -79,10 +91,15 @@ class InferenceSession:
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"buckets must be positive: {buckets!r}")
         self.replays = {b: 0 for b in self.buckets}
+        self.recaptures = 0
         self.captured: Dict[int, dict] = {}
         self._graphs: Dict[int, dict] = {}
         self._pool = None
         self._held = []
+        # what the graphs read in place, and its storage and versions at capture
+        self._tensors = [t for net in model.nets().values()
+                         for t in itertools.chain(net.parameters(), net.buffers())]
+        self._weights = None
 
     # ------------------------------------------------------------------
 
@@ -94,8 +111,11 @@ class InferenceSession:
         """Capture every bucket's graph (CUDA model); nothing on the CPU."""
         from michigan_tpu_torch.models.layers import frozen_spectral_weights
 
+        if self.model.device.type != "cuda":
+            return
+        self._drop_stale()
         todo = [b for b in self.buckets if b not in self._graphs]
-        if self.model.device.type != "cuda" or not todo:
+        if not todo:
             return
         nets = self.model.nets().values()
         with frozen_spectral_weights(*nets) as frozen:
@@ -106,6 +126,20 @@ class InferenceSession:
         self._held.append(frozen)
         self._held.append([m._gamma_beta for net in nets for m in net.modules()
                            if getattr(m, "_gamma_beta", None) is not None])
+        self._weights = self._weights_key()
+
+    def _drop_stale(self) -> None:
+        """Drop every graph once a parameter or buffer changed since capture."""
+        if self._graphs and self._weights_key() != self._weights:
+            self._graphs.clear()
+            self._held.clear()
+            self._pool = None
+            self.recaptures += 1
+
+    def _weights_key(self) -> tuple:
+        """Storage and version counter of every parameter and buffer the
+        graphs read (listed once: walking the nets costs ~0.3 ms)."""
+        return tuple((t.data_ptr(), t._version) for t in self._tensors)
 
     def _capture(self, bucket: int) -> dict:
         from michigan_tpu_torch.ops import cuda as kernels
@@ -142,20 +176,32 @@ class InferenceSession:
                 "out_host": {k: None if v is None else torch.empty(v.shape, pin_memory=True)
                              for k, v in out.items()}}
 
-    def _dispatch(self, bucket: int, chunk: Dict[str, np.ndarray]):
+    def _fill(self, dest: Dict[str, np.ndarray], part: Dict[str, np.ndarray]) -> None:
+        """Write each request slice into its bucket-sized `dest`, and pad
+        by repeating the slice's last sample."""
+        for k, v in part.items():
+            dest[k][:len(v)] = v
+            dest[k][len(v):] = v[-1]
+
+    def _dispatch(self, bucket: int, part: Dict[str, np.ndarray]):
+        """The bucket's (image, orient_rgb) of the request slice `part`, NHWC
+        numpy with the padding; on the card, views of the pinned output
+        staging, valid until the next replay."""
         model = self.model
         if model.device.type != "cuda":
             from michigan_tpu_torch.model import batch_from_numpy
 
+            chunk = {k: np.empty((bucket,) + v.shape[1:], np.float32) for k, v in part.items()}
+            self._fill(chunk, part)
             image, orient = model.infer(batch_from_numpy(chunk, model.device))
             to_np = lambda t: t.permute(0, 2, 3, 1).cpu().numpy()
             return to_np(image), None if orient is None else to_np(orient)
         if bucket not in self._graphs:
             self.precompile()
         g = self._graphs[bucket]
-        for k, v in chunk.items():
-            g["staging"][k].numpy()[...] = v
-            g["static"][k].copy_(g["staging"][k], non_blocking=True)
+        self._fill({k: t.numpy() for k, t in g["staging"].items()}, part)
+        for k, t in g["staging"].items():
+            g["static"][k].copy_(t, non_blocking=True)
         if g["eps"] is not None:
             g["eps"].copy_(model.draw_eps(bucket))
         g["graph"].replay()
@@ -165,8 +211,7 @@ class InferenceSession:
                 g["out_host"][k].copy_(v, non_blocking=True)
         torch.cuda.current_stream(model.device).synchronize()
         out = g["out_host"]
-        return out["image"].numpy().copy(), \
-            None if out["orient"] is None else out["orient"].numpy().copy()
+        return out["image"].numpy(), None if out["orient"] is None else out["orient"].numpy()
 
     def infer(self, batch: Dict[str, np.ndarray]):
         """Run any-size batch through the buckets.  Pads by repeating the
@@ -183,22 +228,21 @@ class InferenceSession:
         for k, c in self.BATCH_CHANNELS.items():
             if batch[k].shape[1:] != (h, w, c):
                 raise ValueError(f"{k} has shape {batch[k].shape}, expected (n, {h}, {w}, {c})")
-        images, orients = [], []
+        if self.model.device.type == "cuda":
+            self._drop_stale()
+        image = orient = None
         start = 0
         while start < n:
             take = min(n - start, self.buckets[-1])
             bucket = next(b for b in self.buckets if b >= take)
-            chunk = {}
-            for k in self.BATCH_CHANNELS:
-                part = np.asarray(batch[k][start:start + take], np.float32)
-                if take < bucket:
-                    pad = np.repeat(part[-1:], bucket - take, axis=0)
-                    part = np.concatenate([part, pad], axis=0)
-                chunk[k] = np.ascontiguousarray(part)
-            out, orient_rgb = self._dispatch(bucket, chunk)
-            images.append(out[:take])
-            orients.append(None if orient_rgb is None else orient_rgb[:take])
+            out, orient_rgb = self._dispatch(
+                bucket, {k: batch[k][start:start + take] for k in self.BATCH_CHANNELS})
+            if image is None:
+                image = np.empty((n,) + out.shape[1:], np.float32)
+                orient = None if orient_rgb is None else \
+                    np.empty((n,) + orient_rgb.shape[1:], np.float32)
+            image[start:start + take] = out[:take]
+            if orient is not None:
+                orient[start:start + take] = orient_rgb[:take]
             start += take
-        image = np.concatenate(images, axis=0)
-        orient = None if orients[0] is None else np.concatenate(orients, axis=0)
         return image, orient

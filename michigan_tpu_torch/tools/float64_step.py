@@ -52,14 +52,15 @@ WITNESS_NETS = ("netG", "netB")
 
 
 @contextlib.contextmanager
-def branch_masks(replay=None):
+def branch_masks(replay=None, inputs=None):
     """Inside, each F.relu and F.leaky_relu call records which elements of
     its input are > 0, each F.max_pool2d call which element of each window
     it took, and each Tensor.abs call the signs of its input, and yields the
     list of those records in call order; or, given `replay` (such a list,
     from a float32 run of the same code), takes the next record's choices
     instead of reading its own input (raises if the calls do not line
-    up)."""
+    up).  Given a list `inputs`, a recording run appends each call's input
+    to it (for ``branch_margins``)."""
     relu, leaky_relu = F.relu, F.leaky_relu
     masks = [] if replay is None else None
     todo = None if replay is None else iter(replay)
@@ -70,9 +71,14 @@ def branch_masks(replay=None):
             raise RuntimeError(f"no recorded branch for {what} of shape {tuple(like.shape)}")
         return m
 
+    def record(x, choice):
+        masks.append(choice)
+        if inputs is not None:
+            inputs.append(x.detach().clone())
+
     def mask_of(x):
         if todo is None:
-            masks.append(x > 0)
+            record(x, x > 0)
             return None
         return recorded(x, "an activation")
 
@@ -90,13 +96,13 @@ def branch_masks(replay=None):
     def max_pool2d_(x, *args, **kwargs):
         y, idx = max_pool2d(x, *args, **{**kwargs, "return_indices": True})
         if todo is None:
-            masks.append(idx)
+            record(x, idx)
             return y
         return x.flatten(2).gather(2, recorded(idx, "a max pool").flatten(2)).view_as(y)
 
     def abs_(x):
         if todo is None:
-            masks.append(torch.sign(x).to(torch.int8))
+            record(x, torch.sign(x).to(torch.int8))
             return tensor_abs(x)
         return x * recorded(x, "an abs")
 
@@ -112,13 +118,33 @@ def branch_masks(replay=None):
         raise RuntimeError("recorded branches left over: the runs took different paths")
 
 
-def branch_differences(a, b):
-    """[(call, kind, shape, elements)] where the branch records `a` and `b`
-    (``branch_masks`` of two runs of the same code) differ: kind 'relu'
-    (F.relu, F.leaky_relu), 'max_pool' or 'abs'."""
+def branch_margins(a, b, inputs):
+    """[(call, kind, shape, elements, margin)] of each call where the branch
+    record `a` (``branch_masks`` of a float32 step) differs from `b` (of a
+    float64 step of the same code, which recorded its calls' `inputs`):
+    kind 'relu' (F.relu, F.leaky_relu), 'max_pool' or 'abs'; elements, how
+    many of its choices differ; margin, how far from the switch the float64
+    input lay at the farthest of them, in float32 ulps of the call's input
+    (float32's eps times its largest magnitude): |x| for a relu or an abs,
+    for a max pool the window's maximum less the element `a` took.  A
+    margin of a few ulps is a choice that float32's rounding can flip."""
     kinds = {torch.bool: "relu", torch.int64: "max_pool", torch.int8: "abs"}
-    return [(i, kinds[x.dtype], tuple(x.shape), int((x != y).sum()))
-            for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
+    out = []
+    for i, (x, y, v) in enumerate(zip(a, b, inputs)):
+        differ = x != y
+        if not differ.any():
+            continue
+        v = v.double()
+        if x.dtype == torch.int64:
+            flat = v.flatten(2)
+            taken = flat.gather(2, x.flatten(2)) - flat.gather(2, y.flatten(2))
+            gap = taken.abs().view_as(x)[differ]
+        else:
+            gap = v.abs()[differ]
+        ulp = torch.finfo(torch.float32).eps * v.abs().max()
+        out.append((i, kinds[x.dtype], tuple(x.shape), int(differ.sum()),
+                    (gap.max() / ulp).item()))
+    return out
 
 
 def g_step64(opt, init, batch, eps, nets, extra_dilate_steps, branches=None):

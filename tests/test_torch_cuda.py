@@ -27,7 +27,9 @@ conf error within 1% of the plain version's (both round to bf16) and its
 argmax off float64's on at most 1e-4 of the pixels more.  fused_instance_norm
 in bf16 (one read, planes split across clusters) atol 1e-2, rtol 1.6e-2 at
 every shape of the bf16 paths, ragged and large planes (all on planes with a
-trend along H*W, whose slices differ), and far from zero.
+trend along H*W, whose slices differ), and far from zero.  The serving
+session on a small model: its graphs within 2e-3 of eager infer (phase
+17's limit), before and after a second checkpoint is loaded in place.
 """
 
 import math
@@ -718,3 +720,44 @@ def test_native_conv_route_matches_float64_on_the_card(cuda_device):
     for got, ref, base in zip(native, want, cudnn):
         assert rel_err(got, ref) <= max(2 * rel_err(base, ref), 1e-6), (
             rel_err(got, ref), rel_err(base, ref))
+
+
+def test_session_serves_a_reloaded_checkpoint(cuda_device):
+    """serving.InferenceSession on a small CUDA model (crop 64, ngf 8, the
+    flagship's flags): its graphs' images within 2e-3 of eager infer's (the
+    limit of chip_smoke.py's phase 17); after load_state_dicts of a second
+    checkpoint it captures again, once, and serves that checkpoint's images."""
+    import numpy as np
+
+    from michigan_tpu_torch.data.synthetic import synthetic_inference_data
+    from michigan_tpu_torch.inference import parse_options
+    from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
+    from michigan_tpu_torch.serving import InferenceSession
+
+    flags = ("--netG spadeb --use_encoder --noise_background --use_ig --expand_mask_be "
+             "--expand_th 5 --add_feat_zeros --init_type none --crop_size 64 --load_size 64 "
+             "--ngf 8").split()
+    opt = parse_options(flags)
+    models = [MichiGANModel(opt, str(cuda_device)) for _ in range(2)]
+    for seed, m in enumerate(models):
+        m.init_weights(seed)
+    data = synthetic_inference_data(opt, 1, batch=1)
+    batch = {k: data[k] for k in InferenceSession.BATCH_CHANNELS}
+    session = InferenceSession(models[0], (64, 64), buckets=(1, 2))
+    session.precompile()
+
+    def eager(m):
+        image, _ = m.infer(batch_from_numpy(batch, str(cuda_device)))
+        return image.permute(0, 2, 3, 1).cpu().numpy()
+
+    first, _ = session.infer(batch)
+    assert np.abs(first - eager(models[0])).max() <= 2e-3
+    assert session.recaptures == 0 and session.replays[1] == 1
+    models[0].load_state_dicts({k: net.state_dict() for k, net in models[1].nets().items()})
+    second, _ = session.infer(batch)
+    want = eager(models[1])
+    assert np.abs(second - want).max() <= 2e-3
+    assert np.abs(second - first).max() > 10 * 2e-3
+    assert session.recaptures == 1 and session.replays[1] == 2
+    session.infer(batch)
+    assert session.recaptures == 1

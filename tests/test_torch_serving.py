@@ -13,6 +13,8 @@ flagship's flags.
   as an eager call of the padded chunk does), and the JAX session's
   ValueErrors are raised;
 - ``--inpaint_mode stroke`` is refused, naming the host sync;
+- a reloaded checkpoint changes what tells a CUDA session to capture
+  again (tests/test_torch_cuda.py serves one on the card);
 - the frozen spectral weight equals the recomputed one bit for bit;
 - ``export_inference`` -> ``load_exported`` in a process where jax, the JAX
   package and ``michigan_tpu_torch.models`` stay unimported gives eager
@@ -115,8 +117,8 @@ def test_padding_repeats_the_last_sample():
     model = seeded_model(0)
     session = InferenceSession(model, (64, 64), buckets=(4,))
     chunks = []
-    dispatch = session._dispatch
-    session._dispatch = lambda b, chunk: chunks.append(chunk) or dispatch(b, chunk)
+    fill = session._fill
+    session._fill = lambda chunk, part: fill(chunk, part) or chunks.append(chunk)
     batch = request(3)
     image, orient = session.infer(batch)
     (chunk,) = chunks
@@ -141,6 +143,28 @@ def test_vae_session_draws_eps_as_eager_infer():
     first, _ = eager_nhwc(eager, {k: v[:2] for k, v in padded.items()})
     second, _ = eager_nhwc(eager, {k: v[2:] for k, v in padded.items()})
     np.testing.assert_array_equal(image, np.concatenate([first, second[:1]]))
+
+
+def test_session_sees_a_reloaded_checkpoint():
+    """What tells a CUDA session its graphs are stale (they read the nets'
+    tensors in place, and the frozen W / sigma and SPADE's gamma / beta
+    computed from them at capture): the storage and versions of every
+    parameter and buffer change with load_state_dicts, and not with infer.
+    The CPU session serves the reloaded checkpoint as eager infer does."""
+    model, other = seeded_model(0), seeded_model(1)
+    session = InferenceSession(model, (64, 64), buckets=(1, 2))
+    assert len(session._tensors) == sum(
+        len(list(net.parameters())) + len(list(net.buffers())) for net in model.nets().values())
+    key = session._weights_key()
+    batch = request(1)
+    session.infer(batch)
+    assert session._weights_key() == key
+    model.load_state_dicts({k: net.state_dict() for k, net in other.nets().items()})
+    assert session._weights_key() != key
+    image, orient = session.infer(batch)
+    want_image, want_orient = eager_nhwc(other, batch)
+    np.testing.assert_array_equal(image, want_image)
+    np.testing.assert_array_equal(orient, want_orient)
 
 
 def test_session_errors():
