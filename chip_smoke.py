@@ -6,9 +6,10 @@
 Drives three paths of the port at full width on seeded random weights and
 seeded numpy samples, each through its own entry points, and all three again
 under the bf16 compute policy (--dtype bfloat16); then the training step of
-the VAE, blender and unpaired two-stage configs (phase 16), and the
+the VAE, blender and unpaired two-stage configs (phase 16), the
 flagship through the serving session, the exported program and FID's
-extractors (phase 17):
+extractors (phase 17), and the training step on two data-parallel ranks
+(phase 18):
 
 - the flagship inference path (IG orientation inpainting -> partial-conv
   appearance encoder -> noise background encoder -> SPADEB generator with
@@ -211,6 +212,28 @@ Phases, each on its own line:
       InceptionV3 pool3 features of 16 seeded 299^2 images on the card
       against the CPU (relative error at most 1e-3 of their norm), the FID
       of two seeded sets, ms per batch of 8 and the pretrained tag.
+  18. data-parallel training (michigan_tpu_torch.parallel): two ranks
+      spawned on the one card (cuda:0) in a gloo group (NCCL refuses two
+      ranks on one device; gloo all-reduces CUDA tensors through the
+      host), each joined within DP_JOIN_S, the group's timeout
+      DP_GROUP_TIMEOUT_S; each rank starts from SEED's weights (checked
+      equal across ranks by one broadcast) and steps on its half of the
+      global batch.  Held against one process at the global batch on the
+      same objective (tools/replica_objective.py: the orientation loss's
+      two terms as the mean of their values on the two halves, as the JAX
+      package's replicas average them), the D steps of both from the one
+      process's post-G netG: the fp32 step at TRAIN_BATCH, 512^2, full
+      width by phase 12's rule, launches per rank exactly STEP_LAUNCHES,
+      the two ranks' losses, parameters and netG buffers bit for bit equal;
+      the bf16 step at DP16 by phase 15's gate (2x the one process's own
+      bf16-vs-fp32 effect), launches per rank exactly STEP_BF16_LAUNCHES;
+      a control, the fp32 ranks with the norms' group removed (local batch
+      statistics), that must fail phase 12's rule; ms/step (median of
+      DP_STEPS after the compared step) of the ranks and of the one process
+      and peak memory a rank.  Then an NCCL group of one on the card:
+      batch_norm_train with and without it, the gradient mean (fp32 and
+      bf16 rounding) and the loss mean; with two or more cards the fp32
+      ranks also run over NCCL, one card each.
 
 Then a JSON line of per-kernel results: for the training step's kernels
 (fused_instance_norm, filterbank_orientation and its backward,
@@ -373,7 +396,8 @@ CONFIG_MODULES = ("michigan_tpu_torch.models.blend", "michigan_tpu_torch.models.
                   "michigan_tpu_torch.training.checkpoint", "michigan_tpu_torch.convert",
                   "michigan_tpu_torch.utils.iter_counter", "michigan_tpu_torch.serving",
                   "michigan_tpu_torch.serving.session", "michigan_tpu_torch.serving.export",
-                  "michigan_tpu_torch.evaluate", "michigan_tpu_torch.models.inception")
+                  "michigan_tpu_torch.evaluate", "michigan_tpu_torch.models.inception",
+                  "michigan_tpu_torch.parallel.dist", "michigan_tpu_torch.tools.replica_objective")
 # phase 17: the serving session's buckets and request sizes (padding, and a
 # split into 8 + 4), the bf16 --use_pallas_epilogue bucket's graph, and FID
 SERVE_BUCKETS = (1, 4, 8)
@@ -382,6 +406,15 @@ SERVE_KERNELS = ("spade_modulate", "fused_instance_norm", "conv3x3_in_act")
 EPILOGUE_GRAPH_LAUNCHES = {**FLAGSHIP_LAUNCHES, "fused_instance_norm": 5, "conv3x3_in_act": 24}
 FID_IMAGES, FID_SIZE, FID_BATCH = 16, 299, 8
 FID_REL = 1e-3  # card vs CPU features, relative to their norm
+# phase 18: data parallelism on the one card: DP_WORLD ranks on cuda:0 in a
+# gloo group (NCCL refuses two ranks on one device; gloo all-reduces CUDA
+# tensors through the host), the fp32 step at TRAIN_BATCH and full width,
+# the bf16 step at DP16; group and join timeouts in seconds
+DP_WORLD = 2
+DP16 = dict(crop=256, ngf=32, ndf=32, batch=4)
+DP_STEPS = 3
+DP_GROUP_TIMEOUT_S = 300
+DP_JOIN_S = 900
 # phase 15's card-bf16 vs CPU-bf16 step at this batch, crop and width, so
 # that the CPU's two steps (bf16 and fp32) fit the script's time
 PARITY16 = dict(crop=256, ngf=32, ndf=32, batch=2)
@@ -1561,9 +1594,7 @@ def run():
 
     # 11 --------------------------------------------------------------
     def make_trainer(n, crop, extra=()):
-        o = train_options(TRAIN_FLAGS + ["--batchSize", str(n), "--crop_size", str(crop),
-                                         "--load_size", str(crop), "--seed", str(SEED),
-                                         *extra])
+        o = train_opts(train_options, n, crop, extra)
         m = MichiGANModel(o, "cuda:0")
         m.init_weights(SEED)
         return o, TrainStep(m)
@@ -2118,9 +2149,7 @@ def run():
     extra16 = ["--ngf", str(PARITY16["ngf"]), "--ndf", str(PARITY16["ndf"])]
     n = PARITY16["batch"]
     popt16, card16 = make_trainer(n, PARITY16["crop"], extra16 + ["--dtype", "bfloat16"])
-    popt32 = train_options(TRAIN_FLAGS + ["--batchSize", str(n), "--crop_size",
-                                          str(PARITY16["crop"]), "--load_size",
-                                          str(PARITY16["crop"]), "--seed", str(SEED), *extra16])
+    popt32 = train_opts(train_options, n, PARITY16["crop"], extra16)
     init16 = {k: {n_: t.detach().cpu().clone() for n_, t in net.state_dict().items()}
               for k, net in card16.model.nets().items()}
 
@@ -2407,6 +2436,11 @@ def run():
     session_launches, fid_lowch = served
     phase(17, f"serving, export and FID in {time.perf_counter() - t17:.1f} s")
 
+    # 18 ---------------------------------------------------------------
+    msg = dp_phase(torch, tag)
+    if msg:
+        return fail(msg)
+
     train_kernels = ("fused_instance_norm", "filterbank_orientation",
                      "filterbank_orientation_backward", "conv3x3_same_lowch")
     rows = {k: (stroke_counts[k], edit_ms[k], edit_plain_ms[k])
@@ -2664,6 +2698,329 @@ def serving_phase(torch, np, tag):
             return f"FID {name}: card features disagree with the CPU's", None
         del net, x8
     return None, (launches, fid_lowch)
+
+
+def train_opts(train_options, n, crop, extra=()):
+    """TRAIN_FLAGS at batch `n` (the global batch), `crop`, --seed SEED."""
+    return train_options(TRAIN_FLAGS + ["--batchSize", str(n), "--crop_size", str(crop),
+                                        "--load_size", str(crop), "--seed", str(SEED), *extra])
+
+
+def dp_step(opt, device, group, world, rank=0, post_g=None, save_post_g=None, init=None,
+            local_norms=False, timed=0):
+    """Phase 18's one G+D step from SEED's weights (or the state_dicts
+    `init`) on synthetic_train_data's global batch of --batchSize: with a
+    group, this rank's slice through TrainStep; without, the whole batch
+    on the `world`-replica objective (tools/replica_objective.py).  The D
+    step starts from the netG in the file `post_g` when given (phase 12's
+    D step from one post-G state); `save_post_g` writes netG after the G
+    step there.  `local_norms` drops the norms' group; `timed` plain
+    TrainStep steps follow, host clock.  Returns {'losses', 'params':
+    {netG after G, netD after D}, 'buffers': netG's after G, 'counts': by
+    dtype over the compared step, 'ms': [...], 'peak': bytes, and with a
+    group and `timed`, 'allreduce_ms': {net: the gradient mean alone}}."""
+    import torch
+
+    from michigan_tpu_torch.data.synthetic import synthetic_train_data
+    from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
+    from michigan_tpu_torch.models.normalization import ParamFreeNorm
+    from michigan_tpu_torch.ops import cuda as kernels
+    from michigan_tpu_torch.parallel.dist import average_gradients
+    from michigan_tpu_torch.tools import replica_objective
+    from michigan_tpu_torch.training.state import check_replicas
+    from michigan_tpu_torch.training.train_step import TrainStep
+
+    model = MichiGANModel(opt, device, group)
+    if init is None:
+        model.init_weights(SEED)
+    else:
+        model.load_state_dicts(init)
+    check_replicas(model)  # the replicas start equal (rank 0's broadcast)
+    if local_norms:
+        for m in model.netG.modules():
+            if isinstance(m, ParamFreeNorm):
+                m.group = None
+    tr = TrainStep(model)
+    data = synthetic_train_data(opt, SEED, opt.batchSize)
+    k = opt.batchSize // world if group is not None else opt.batchSize
+    batch = batch_from_numpy({key: v[rank * k:(rank + 1) * k] for key, v in data.items()}, device)
+    cpu = lambda items: {name: t.detach().cpu().clone() for name, t in items}
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    if group is None:
+        g, orient = replica_objective.g_step(tr, batch, EXTRA_DILATE, world)
+    else:
+        g, _fake, orient = tr.g_step(batch, EXTRA_DILATE)
+    res = {"params": {"netG": cpu(model.netG.named_parameters())},
+           "buffers": cpu(model.netG.named_buffers())}
+    if save_post_g:
+        torch.save(model.netG.state_dict(), save_post_g)
+    if post_g:
+        model.netG.load_state_dict(torch.load(post_g, map_location=device))
+    d = tr.d_step(batch, EXTRA_DILATE, orient)
+    torch.cuda.synchronize(device)
+    res["counts"] = kernels.launch_counts(by_dtype=True)
+    res["losses"] = {name: v.item() for name, v in {**g, **d}.items()}
+    res["params"]["netD"] = cpu(model.netD.named_parameters())
+    res["ms"] = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        _g, _f, o = tr.g_step(batch, EXTRA_DILATE)
+        tr.d_step(batch, EXTRA_DILATE, o)
+        torch.cuda.synchronize(device)
+        res["ms"].append((time.perf_counter() - t0) * 1e3)
+    res["peak"] = torch.cuda.max_memory_allocated(device)
+    if group is not None and timed:
+        # the gradient means alone, on the last step's gradients (their mean
+        # again leaves them as they are): host clock, median of 3
+        res["allreduce_ms"] = {}
+        for name in ("netG", "netD"):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                average_gradients(getattr(model, name).parameters(), group)
+                torch.cuda.synchronize(device)
+                times.append((time.perf_counter() - t0) * 1e3)
+            res["allreduce_ms"][name] = statistics.median(times)
+    del model, tr, batch, orient, g, d
+    torch.cuda.empty_cache()
+    return res
+
+
+def dp_rank(tmp, backend):
+    """Phase 18's rank (spawned by parallel.dist.launch): a `backend` group
+    of the launched ranks, on cuda:0 for gloo (both ranks on the one card)
+    or cuda:<rank> for NCCL; the fp32 step at full width (then DP_STEPS
+    timed steps), its local-statistics control, and the bf16 step at DP16;
+    writes <tmp>/rank<r>.pt."""
+    import datetime
+
+    import torch
+
+    from michigan_tpu_torch.parallel import dist as DP
+    from michigan_tpu_torch.train import parse_options as train_options
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    device = torch.device("cuda:0" if backend == "gloo" else f"cuda:{rank}")
+    torch.cuda.set_device(device)
+    group = DP.init_group(backend, rank, world, os.environ["MASTER_ADDR"],
+                          int(os.environ["MASTER_PORT"]), device,
+                          datetime.timedelta(seconds=DP_GROUP_TIMEOUT_S))
+    try:
+        o32 = train_opts(train_options, TRAIN_BATCH, 512)
+        o16 = train_opts(train_options, DP16["batch"], DP16["crop"], dp16_flags(True))
+        out = {"fp32": dp_step(o32, device, group, world, rank, f"{tmp}/post_g32.pt",
+                               timed=DP_STEPS),
+               "control": dp_step(o32, device, group, world, rank, f"{tmp}/post_g32.pt",
+                                  local_norms=True),
+               "bf16": dp_step(o16, device, group, world, rank, f"{tmp}/post_g16.pt")}
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def dp16_flags(bf16):
+    return ["--ngf", str(DP16["ngf"]), "--ndf", str(DP16["ndf"])] + \
+        (["--dtype", "bfloat16"] if bf16 else [])
+
+
+def nccl_world1(tmp):
+    """Phase 18's NCCL check (spawned, one rank): an NCCL group of one on
+    cuda:0; batch_norm_train with the group (float32 and bfloat16) against
+    it without, forward and dx; the trainer's gradient mean (float32 and
+    --bf16_grad_allreduce) and loss mean; the replicas' start-up check.
+    Writes <tmp>/nccl.pt."""
+    import datetime
+
+    import torch
+
+    from michigan_tpu_torch.ops.norms import batch_norm_train
+    from michigan_tpu_torch.parallel import dist as DP
+
+    device = torch.device("cuda:0")
+    torch.cuda.set_device(device)
+    group = DP.init_group(DP.backend_for(device), 0, 1, os.environ["MASTER_ADDR"],
+                          int(os.environ["MASTER_PORT"]), device,
+                          datetime.timedelta(seconds=DP_GROUP_TIMEOUT_S))
+    try:
+        gen = torch.Generator().manual_seed(SEED)
+        x = (torch.randn(8, 64, 32, 32, generator=gen) * 2 + 0.5).to(device)
+        w = torch.randn(8, 64, 32, 32, generator=gen).to(device)
+        res = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            runs = []
+            for grp in (group, None):
+                xx = x.to(dtype).detach().clone().requires_grad_()
+                y, m, v = batch_norm_train(xx, torch.zeros(64, device=device),
+                                           torch.ones(64, device=device), group=grp)
+                y.backward(w.to(dtype))
+                runs.append([t.detach().float() for t in (y, xx.grad, m, v)])
+            res[str(dtype).removeprefix("torch.")] = max(
+                (a - b).abs().max().item() for a, b in zip(*runs))
+        p = torch.nn.Parameter(torch.randn(1000, generator=gen).to(device))
+        p.grad = torch.randn(1000, generator=gen).to(device)
+        want = p.grad.clone()
+        DP.average_gradients([p], group)
+        res["grad_mean_fp32_exact"] = torch.equal(p.grad, want)
+        DP.average_gradients([p], group, bf16=True)
+        res["grad_mean_bf16_exact"] = torch.equal(p.grad, want.bfloat16().float())
+        losses = DP.mean_over({"a": want[0], "b": want[1]}, group)
+        res["loss_mean_exact"] = losses["a"].item() == want[0].item()
+        DP.check_replicas_identical([x, w], group)
+        torch.save(res, f"{tmp}/nccl.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def dp_rule(got, want, lr):
+    """Phase 12's rule for phase 18 (the replicas against one process):
+    (ok, printable rows)."""
+    import torch
+
+    rows, ok = [], True
+    bad = [k for k, v in want["losses"].items()
+           if abs(got["losses"][k] - v) > 1e-5 + 1e-4 * abs(v)]
+    ok &= not bad
+    rows.append(f"losses beyond rtol 1e-4 {bad or 'none'}")
+    for net, max_lr in (("netG", lr / 2), ("netD", 2 * lr)):
+        good, worst, n_bad, n_tot = scale_aware(got["params"][net], want["params"][net], max_lr)
+        ok &= good
+        rows.append(f"{net} max diff {worst:.2e} (limit {2.5 * max_lr:.1e}), {n_bad} of {n_tot} "
+                    f"beyond float noise{'' if good else ' FAIL'}")
+    bufs = [k for k, v in want["buffers"].items() if v.is_floating_point()]
+    buf_err = max((got["buffers"][k] - want["buffers"][k]).abs().max().item() for k in bufs)
+    bufs_ok = all(torch.allclose(got["buffers"][k], want["buffers"][k], rtol=1e-4, atol=1e-5)
+                  for k in bufs)
+    ok &= bufs_ok
+    rows.append(f"netG running statistics and u / v max diff {buf_err:.2e}"
+                f"{'' if bufs_ok else ' FAIL'}")
+    return ok, rows
+
+
+def bit_identical(a, b):
+    """Whether two ranks' results of dp_step hold the same losses,
+    parameters and buffers, bit for bit."""
+    import torch
+
+    same = lambda x, y: x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
+    return (a["losses"] == b["losses"] and same(a["buffers"], b["buffers"])
+            and all(same(a["params"][n], b["params"][n]) for n in a["params"]))
+
+
+def dp_phase(torch, tag):
+    """Phase 18: data-parallel training on the card; returns the failure
+    message or None."""
+    import shutil
+    import tempfile
+
+    from michigan_tpu_torch.parallel import dist as DP
+    from michigan_tpu_torch.train import parse_options as train_options
+
+    t18 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase18_")
+    try:
+        torch.cuda.empty_cache()
+        dev = torch.device("cuda:0")
+        # one process at the global batch on the replicas' objective
+        o32 = train_opts(train_options, TRAIN_BATCH, 512)
+        ref32 = dp_step(o32, dev, None, DP_WORLD, save_post_g=f"{tmp}/post_g32.pt",
+                        timed=DP_STEPS)
+        o16 = train_opts(train_options, DP16["batch"], DP16["crop"], dp16_flags(True))
+        ref16 = dp_step(o16, dev, None, DP_WORLD, save_post_g=f"{tmp}/post_g16.pt")
+        # the policy's own effect: the fp32 step from the bf16 model's state
+        # (its frozen nets rounded to bf16), its D step from the bf16 post-G netG
+        from michigan_tpu_torch.model import MichiGANModel
+
+        m16 = MichiGANModel(o16, "cpu")
+        m16.init_weights(SEED)
+        init16 = {k: net.state_dict() for k, net in m16.nets().items()}
+        del m16
+        ref16_32 = dp_step(train_opts(train_options, DP16["batch"], DP16["crop"],
+                                      dp16_flags(False)), dev, None, DP_WORLD,
+                           post_g=f"{tmp}/post_g16.pt", init=init16)
+        torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t18
+        t0 = time.perf_counter()
+        two_cards = torch.cuda.device_count() >= 2
+        DP.launch(dp_rank, (tmp, "gloo"), DP_WORLD, timeout=DP_JOIN_S)
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(DP_WORLD)]
+        t_ranks = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        DP.launch(nccl_world1, (tmp,), 1, timeout=DP_JOIN_S)
+        nccl = torch.load(f"{tmp}/nccl.pt")
+        if two_cards:
+            DP.launch(dp_rank, (tmp, "nccl"), DP_WORLD, timeout=DP_JOIN_S)
+            nccl_ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(DP_WORLD)]
+        t_nccl = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    lr = o32.lr
+    fails = []
+    for r, res in enumerate(ranks):
+        counts = {k: sum(v.values()) for k, v in res["fp32"]["counts"].items()}
+        phase(18, f"rank {r} of {DP_WORLD} (gloo, both on cuda:0), fp32 step at global batch "
+                  f"{TRAIN_BATCH} ({TRAIN_BATCH // DP_WORLD} a rank), 512^2, ngf {o32.ngf}: "
+                  f"launches {counts}; bf16 step at {DP16['crop']}^2, ngf {DP16['ngf']}: "
+                  f"launches {res['bf16']['counts']}")
+        if counts != STEP_LAUNCHES or res["bf16"]["counts"] != STEP_BF16_LAUNCHES:
+            fails.append(f"rank {r}'s launches")
+    ok, rows = dp_rule(ranks[0]["fp32"], ref32, lr)
+    phase(18, "fp32, the 2 ranks against one process at batch "
+              f"{TRAIN_BATCH} (the D steps from its post-G netG): " + "; ".join(rows))
+    phase(18, "fp32 losses, ranks / one process: " + ", ".join(
+        f"{k} {ranks[0]['fp32']['losses'][k]:.6f}/{v:.6f}" for k, v in ref32["losses"].items()))
+    if not ok:
+        fails.append("the fp32 2-rank step against one process")
+    same = [bit_identical(ranks[0][k], ranks[1][k]) for k in ("fp32", "bf16")]
+    phase(18, f"the two ranks bit for bit equal after the step (losses, netG parameters and "
+              f"running statistics and u / v, netD): fp32 {same[0]}, bf16 {same[1]}")
+    if not all(same):
+        fails.append("the ranks' states differ")
+    ok16, rows16 = step_gate(ranks[0]["bf16"], ref16, ref16_32,
+                             {"netG": o16.lr / 2, "netD": 2 * o16.lr})
+    phase(18, f"bf16, the 2 ranks against one process at batch {DP16['batch']}, per loss "
+              f"ranks-vs-one / one-process bf16 vs fp32: " + ", ".join(rows16))
+    if not ok16:
+        fails.append("the bf16 2-rank step against one process")
+    control_ok, control_rows = dp_rule(ranks[0]["control"], ref32, lr)
+    phase(18, "control, the 2 ranks with the norms' group removed (each its own batch "
+              "statistics): " + "; ".join(control_rows)
+              + (": passes, FAIL" if control_ok else ": fails the rule, as it must"))
+    if control_ok:
+        fails.append("phase 18's rule passes a step with local batch statistics")
+    rank_ms = ", ".join(f"{statistics.median(r['fp32']['ms']):.1f}" for r in ranks)
+    rank_peak = ", ".join(f"{r['fp32']['peak'] / 2**30:.2f}" for r in ranks)
+    rank_ar = ", ".join(f"{r['fp32']['allreduce_ms']['netG']:.1f} / "
+                        f"{r['fp32']['allreduce_ms']['netD']:.1f}" for r in ranks)
+    phase(18, f"fp32 step, batch {TRAIN_BATCH}, 512^2: one process "
+              f"{statistics.median(ref32['ms']):.1f} ms/step (median of {DP_STEPS} after the "
+              f"compared step), peak {ref32['peak'] / 2**30:.2f} GiB; 2 ranks on one card "
+              f"{rank_ms} ms/step, peak {rank_peak} GiB a rank; the gradient mean alone, netG "
+              f"/ netD, {rank_ar} ms a rank (median of 3) {tag}")
+    nccl_ok = (nccl["float32"] <= 1e-4 and nccl["bfloat16"] <= 2e-2 and
+               nccl["grad_mean_fp32_exact"] and nccl["grad_mean_bf16_exact"]
+               and nccl["loss_mean_exact"])
+    phase(18, f"NCCL group of one on cuda:0: batch_norm_train with / without it max diff fp32 "
+              f"{nccl['float32']:.2e}, bf16 {nccl['bfloat16']:.2e}; gradient mean fp32 exact "
+              f"{nccl['grad_mean_fp32_exact']}, bf16 rounding exact "
+              f"{nccl['grad_mean_bf16_exact']}; loss mean exact {nccl['loss_mean_exact']}")
+    if not nccl_ok:
+        fails.append("the NCCL group of one")
+    if two_cards:
+        ok2, rows2 = dp_rule(nccl_ranks[0]["fp32"], ref32, lr)
+        phase(18, "fp32 over NCCL on two cards: " + "; ".join(rows2))
+        if not (ok2 and bit_identical(nccl_ranks[0]["fp32"], nccl_ranks[1]["fp32"])):
+            fails.append("the 2-rank step over NCCL on two cards")
+    else:
+        phase(18, f"{torch.cuda.device_count()} card: the two ranks ran on one card over gloo; "
+                  "no step ran over NCCL on two cards")
+    phase(18, f"data parallelism in {time.perf_counter() - t18:.1f} s (references "
+              f"{t_ref:.1f} s, ranks {t_ranks:.1f} s, NCCL {t_nccl:.1f} s)")
+    return f"phase 18: {', '.join(fails)}" if fails else None
 
 
 def host_times(root, reps=30):

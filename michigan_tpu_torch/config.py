@@ -31,7 +31,7 @@ from typing import List, Optional
 class Options:
     # ---- experiment specifics (base_options.py:22-32) ----
     name: str = "MichiGAN"
-    gpu_ids: str = "0"                   # -1: the CPU; N: cuda:N (first id)
+    gpu_ids: str = "0"                   # -1: the CPU; N: cuda:N; N,M,...: a process each
     checkpoints_dir: str = "./checkpoints"
     model: str = "pix2pix"
     norm_G: str = "spectralspadesyncbatch3x3"  # resolved default for netG=spadeb
@@ -234,10 +234,13 @@ class Options:
     # float32 under bfloat16), seed, use_pallas_epilogue (the resblocks'
     # fused conv3x3_in_act kernel),
     # reuse_orient_for_d, max_steps, debug_nans and profile_dir (the
-    # trainer's finite-loss check and one profiled step), and refuses remat,
-    # fused_step and reuse_fake_for_d (check_supported in model.py); the rest
-    # configure the JAX package's mesh, jit and input pipeline and are parsed
-    # and ignored here.
+    # trainer's finite-loss check and one profiled step), mesh_shape (data:-1
+    # or data:N replicas; any other axis raises) and bf16_grad_allreduce (the
+    # data-parallel gradient mean in bfloat16), accepts multihost (torchrun's
+    # environment spans hosts), and refuses remat, fused_step and
+    # reuse_fake_for_d (check_supported in model.py); the rest configure the
+    # JAX package's jit, relay and input pipeline and are parsed and ignored
+    # here.
     dtype: str = "float32"
     mesh_shape: str = "data:-1"
     seed: int = 0

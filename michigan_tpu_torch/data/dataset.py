@@ -16,7 +16,7 @@ from __future__ import annotations
 import os
 import random
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 from PIL import Image
@@ -96,11 +96,22 @@ class BatchLoader:
     """Batches of --batchSize samples (the last partial batch dropped), in a
     shuffled order per epoch unless --serial_batches, assembled by
     --nThreads threads one batch ahead of the consumer.  Each sample's rng is
-    keyed by (seed, epoch, batch, position), so a run is reproducible."""
+    keyed by (seed, epoch, batch, position), so a run is reproducible.
 
-    def __init__(self, dataset: CustomDataset, opt):
+    ``shard=(rank, world)`` (data parallelism): every rank draws the same
+    global order and assembles only its contiguous slice of each global
+    batch, batchSize / world samples; the rng keys keep the samples' global
+    positions, so the ranks' slices together are the unsharded batches
+    (the JAX package's PrefetchLoader)."""
+
+    def __init__(self, dataset: CustomDataset, opt, shard: Tuple[int, int] = (0, 1)):
         self.dataset, self.opt = dataset, opt
         self.epoch = 0
+        self.rank, world = shard
+        if opt.batchSize % world:
+            raise ValueError(f"--batchSize {opt.batchSize} (the global batch) must divide "
+                             f"by the {world} replicas")
+        self.local = opt.batchSize // world
 
     def __len__(self) -> int:
         return len(self.dataset) // self.opt.batchSize
@@ -110,14 +121,15 @@ class BatchLoader:
         if not self.opt.serial_batches:
             random.Random(self.opt.seed + self.epoch).shuffle(order)
         bs = self.opt.batchSize
-        batches = [order[i:i + bs] for i in range(0, len(self) * bs, bs)]
+        off = self.rank * self.local
+        batches = [order[i + off:i + off + self.local] for i in range(0, len(self) * bs, bs)]
         with ThreadPoolExecutor(max(1, self.opt.nThreads)) as pool:
 
             def submit(bi):
                 if bi >= len(batches):
                     return None
                 return [pool.submit(self.dataset.get_sample, i,
-                                    random.Random(hash((self.opt.seed, self.epoch, bi, j))))
+                                    random.Random(hash((self.opt.seed, self.epoch, bi, off + j))))
                         for j, i in enumerate(batches[bi])]
 
             try:

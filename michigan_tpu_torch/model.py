@@ -137,14 +137,19 @@ class MichiGANModel:
     """Holds the nets of one configuration on one device: netG, netIG /
     netSIG, netE (--use_vae), netB (--use_blender), and with --isTrain netD,
     netD2 (--unpairTrain) and the frozen VGG19.  The device is the card
-    unless the caller asks for the CPU."""
+    unless the caller asks for the CPU.  `group` is the data-parallel
+    process group of a replica (parallel/dist.py; None with one process):
+    netG's sync batch norms take their statistics over it, and the training
+    step averages gradients and losses over it.  netD, netE and netB hold
+    instance norms only, which take no group in the JAX package either."""
 
-    def __init__(self, opt, device="cuda"):
+    def __init__(self, opt, device="cuda", group=None):
         check_supported(opt)
         self.opt = opt
         self.device = torch.device(device)
+        self.group = group
         self.compute_dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
-        self.netG = SPADEBGenerator(opt).train(opt.isTrain)
+        self.netG = SPADEBGenerator(opt, group).train(opt.isTrain)
         epilogue = opt.use_pallas_epilogue
         self.netIG = InpaintGenerator(epilogue=epilogue).eval() if opt.use_ig else None
         self.netSIG = SInpaintGenerator(epilogue=epilogue).eval() if opt.use_stroke else None

@@ -12,9 +12,10 @@ from michigan_tpu_torch.models.normalization import SPADE
 
 class SPADEResnetBlock(nn.Module):
     """2x (SPADE -> LeakyReLU(0.2) -> 3x3 conv) + a learned 1x1 shortcut when
-    fin != fout.  Convs are spectral when opt.norm_G says so."""
+    fin != fout.  Convs are spectral when opt.norm_G says so; the SPADE norms
+    take the data-parallel `group`."""
 
-    def __init__(self, fin: int, fout: int, opt):
+    def __init__(self, fin: int, fout: int, opt, group=None):
         super().__init__()
         if opt.weight_norm_G:
             raise NotImplementedError("--weight_norm_G is not ported")
@@ -25,11 +26,11 @@ class SPADEResnetBlock(nn.Module):
         label_nc = opt.spade_label_nc()
         self.conv_0 = conv(fin, fmiddle, 3, padding=1)
         self.conv_1 = conv(fmiddle, fout, 3, padding=1)
-        self.norm_0 = SPADE(spade_cfg, fin, label_nc)
-        self.norm_1 = SPADE(spade_cfg, fmiddle, label_nc)
+        self.norm_0 = SPADE(spade_cfg, fin, label_nc, group=group)
+        self.norm_1 = SPADE(spade_cfg, fmiddle, label_nc, group=group)
         if self.learned_shortcut:
             self.conv_s = conv(fin, fout, 1, bias=False)
-            self.norm_s = SPADE(spade_cfg, fin, label_nc)
+            self.norm_s = SPADE(spade_cfg, fin, label_nc, group=group)
 
     def forward(self, x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
         x_s = self.conv_s(self.norm_s(x, seg)) if self.learned_shortcut else x

@@ -43,9 +43,10 @@ CUDNN_OFF = ("fc", "backgroud_enc", "head_0", "G_middle_0", "G_middle_1", "up_0"
 class SPADEBGenerator(nn.Module):
     """Seed (the partial-conv encoder, or under --use_vae a Linear from z) ->
     7 SPADE blocks with 2x nearest upsampling -> per-scale background
-    composite -> conv_img -> tanh."""
+    composite -> conv_img -> tanh.  The blocks' sync batch norms take the
+    data-parallel `group` (None: this process's batch)."""
 
-    def __init__(self, opt):
+    def __init__(self, opt, group=None):
         super().__init__()
         unported = [f for f in ("orient_random_disturb",) if getattr(opt, f)]
         if not opt.use_vae and (not opt.use_encoder or opt.Image_encoder_mode != "partialconv"):
@@ -63,13 +64,13 @@ class SPADEBGenerator(nn.Module):
         # as in the JAX package (generator.py:71-73)
         self.fc = Linear(opt.z_dim, 16 * nf * sw * sh) if opt.use_vae else \
             ImageEncoder3(opt, sw, sh)
-        self.head_0 = SPADEResnetBlock(16 * nf, 16 * nf, opt)
-        self.G_middle_0 = SPADEResnetBlock(16 * nf, 16 * nf, opt)
-        self.G_middle_1 = SPADEResnetBlock(16 * nf, 16 * nf, opt)
-        self.up_0 = SPADEResnetBlock(16 * nf, 8 * nf, opt)
-        self.up_1 = SPADEResnetBlock(8 * nf, 4 * nf, opt)
-        self.up_2 = SPADEResnetBlock(4 * nf, 2 * nf, opt)
-        self.up_3 = SPADEResnetBlock(2 * nf, 1 * nf, opt)
+        self.head_0 = SPADEResnetBlock(16 * nf, 16 * nf, opt, group)
+        self.G_middle_0 = SPADEResnetBlock(16 * nf, 16 * nf, opt, group)
+        self.G_middle_1 = SPADEResnetBlock(16 * nf, 16 * nf, opt, group)
+        self.up_0 = SPADEResnetBlock(16 * nf, 8 * nf, opt, group)
+        self.up_1 = SPADEResnetBlock(8 * nf, 4 * nf, opt, group)
+        self.up_2 = SPADEResnetBlock(4 * nf, 2 * nf, opt, group)
+        self.up_3 = SPADEResnetBlock(2 * nf, 1 * nf, opt, group)
         self.conv_img = Conv2d(nf, 3, 3, padding=1)
         self.backgroud_enc = BackgroundEncode2(opt)
         self.cudnn_off_blocks = CUDNN_OFF

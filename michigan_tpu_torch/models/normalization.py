@@ -38,16 +38,19 @@ class ParamFreeNorm(nn.Module):
     """Affine-free instance / batch / syncbatch norm.  Batch norms hold the
     buffers of torch's BatchNorm2d (running_mean, running_var,
     num_batches_tracked); in train mode they normalise with the batch's
-    statistics (one device: sync batch norm is batch norm) and write the
-    running statistics with momentum 0.1 unless their buffers are frozen."""
+    statistics and write the running statistics with momentum 0.1 unless
+    their buffers are frozen.  A syncbatch norm takes the statistics of the
+    data-parallel `group`'s global batch (ops/norms.py); without a group,
+    and for batch norms, the process's own batch's."""
 
     write_buffers = True
 
-    def __init__(self, norm_type: str, num_features: int, eps: float = 1e-5):
+    def __init__(self, norm_type: str, num_features: int, eps: float = 1e-5, group=None):
         super().__init__()
         if norm_type not in ("instance", "batch", "syncbatch"):
             raise ValueError(norm_type)
         self.norm_type, self.eps = norm_type, eps
+        self.group = group if norm_type == "syncbatch" else None
         if norm_type != "instance":
             self.register_buffer("running_mean", torch.zeros(num_features))
             self.register_buffer("running_var", torch.ones(num_features))
@@ -58,7 +61,7 @@ class ParamFreeNorm(nn.Module):
             return instance_norm(x, self.eps)
         if self.training:
             y, new_mean, new_var = batch_norm_train(x, self.running_mean, self.running_var,
-                                                    eps=self.eps)
+                                                    eps=self.eps, group=self.group)
             if self.write_buffers:
                 self.running_mean.copy_(new_mean)
                 self.running_var.copy_(new_var)
@@ -73,11 +76,12 @@ class SPADE(nn.Module):
     channels, whose two halves the kernel reads in place; the state_dict
     keeps mlp_gamma and mlp_beta."""
 
-    def __init__(self, config_text: str, norm_nc: int, label_nc: int, nhidden: int = 128):
+    def __init__(self, config_text: str, norm_nc: int, label_nc: int, nhidden: int = 128,
+                 group=None):
         super().__init__()
         self.norm_type, ks = parse_spade_config(config_text)
         self.pw = ks // 2
-        self.param_free_norm = ParamFreeNorm(self.norm_type, norm_nc)
+        self.param_free_norm = ParamFreeNorm(self.norm_type, norm_nc, group=group)
         self.mlp_shared = nn.Sequential(
             Conv2d(label_nc, nhidden, ks, padding=self.pw), nn.ReLU()
         )

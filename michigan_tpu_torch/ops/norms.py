@@ -7,12 +7,23 @@ with float32 sums (sum x, sum x^2: var = E[x^2] - mean^2); autograd keeps
 the bfloat16 x and per-channel float32 statistics, no full-size float32
 tensor; the backward is inv * (g - mean(g) - x_hat * mean(g * x_hat)) in
 bfloat16 with float32 reductions.  float32 inputs keep the float32 code.
+
+Sync batch norm across data-parallel replicas (``group``, the JAX package's
+``axis_name``): the per-channel (sum, sum of squares, count) are summed over
+the group in one all-reduce, whose backward sums the gradients over the
+group too (parallel/dist.py ``all_reduce_sum``); the bfloat16 Function sums
+(s, ss, count) in its forward and (sum g, sum g * x_hat) in its backward,
+where ``_bn_fwd_impl`` / ``_bn_b16_bwd`` psum.  Without a group nothing
+changes.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from michigan_tpu_torch.parallel.dist import all_reduce_sum
 
 
 class InstanceNormB16(torch.autograd.Function):
@@ -42,20 +53,25 @@ class InstanceNormB16(torch.autograd.Function):
 class BatchNormTrainB16(torch.autograd.Function):
     """batch_norm_train's normalisation of a bfloat16 x (_bn_fwd_impl /
     _bn_b16_bwd): returns (y, mean, biased var); the statistics carry no
-    gradient (the running statistics are buffers)."""
+    gradient (the running statistics are buffers).  With a `group` the sums
+    and the count are the group's."""
 
     @staticmethod
-    def forward(ctx, x, eps):
+    def forward(ctx, x, eps, group=None):
         count = x.numel() // x.shape[1]
         xf = x.float()
         s = xf.sum(dim=(0, 2, 3))
         ss = (xf * xf).sum(dim=(0, 2, 3))
         del xf
+        if group is not None:
+            stats = torch.cat([s, ss, s.new_full((1,), count)])
+            dist.all_reduce(stats, group=group)
+            s, ss, count = stats[:s.numel()], stats[s.numel():-1], stats[-1:]
         mean = s / count
         var_b = ss / count - mean * mean
         inv = torch.rsqrt(var_b + eps)
         ctx.save_for_backward(x, mean, inv)
-        ctx.count = count
+        ctx.count, ctx.group = count, group
         ctx.mark_non_differentiable(mean, var_b)
         return (x - mean.view(1, -1, 1, 1).to(x.dtype)) * inv.view(1, -1, 1, 1).to(x.dtype), \
             mean, var_b
@@ -66,10 +82,15 @@ class BatchNormTrainB16(torch.autograd.Function):
         mean, inv = mean.view(1, -1, 1, 1).to(x.dtype), inv.view(1, -1, 1, 1).to(x.dtype)
         xhat = (x - mean) * inv
         gf = g.float()
-        mg = (gf.sum(dim=(0, 2, 3)) / ctx.count).view(1, -1, 1, 1).to(x.dtype)
-        mgx = ((gf * xhat.float()).sum(dim=(0, 2, 3)) / ctx.count).view(1, -1, 1, 1).to(x.dtype)
+        sum_g, sum_gx = gf.sum(dim=(0, 2, 3)), (gf * xhat.float()).sum(dim=(0, 2, 3))
         del gf
-        return inv * (g - mg - xhat * mgx), None
+        if ctx.group is not None:
+            sums = torch.cat([sum_g, sum_gx])
+            dist.all_reduce(sums, group=ctx.group)
+            sum_g, sum_gx = sums.chunk(2)
+        mg = (sum_g / ctx.count).view(1, -1, 1, 1).to(x.dtype)
+        mgx = (sum_gx / ctx.count).view(1, -1, 1, 1).to(x.dtype)
+        return inv * (g - mg - xhat * mgx), None, None
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -85,22 +106,36 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def batch_norm_train(x: torch.Tensor, running_mean: torch.Tensor,
-                     running_var: torch.Tensor, momentum: float = 0.1, eps: float = 1e-5):
+                     running_var: torch.Tensor, momentum: float = 0.1, eps: float = 1e-5,
+                     group=None):
     """Training-mode batch norm, affine-free: normalise with the batch's
     per-channel mean and biased variance (statistics in float32, gradients
     through them), and return the running statistics updated with the
     unbiased variance, as sync batch norm does.  Returns (y, new_mean,
     new_var); the caller decides whether to write them.  bfloat16:
-    BatchNormTrainB16."""
+    BatchNormTrainB16.  With a data-parallel `group` the statistics are the
+    group's global batch's (batch_stats: mean = s / count, var = ss / count
+    - mean^2), the count too."""
+    count = x.numel() // x.shape[1]
     if x.dtype == torch.bfloat16:
-        y, mean, var_b = BatchNormTrainB16.apply(x, float(eps))
+        y, mean, var_b = BatchNormTrainB16.apply(x, float(eps), group)
+    elif group is not None:
+        xf = x.float()
+        c = x.shape[1]
+        stats = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                                          xf.new_full((1,), count)]), group)
+        mean = stats[:c] / stats[c * 2:]
+        var_b = stats[c:c * 2] / stats[c * 2:] - mean * mean
+        inv = torch.rsqrt(var_b + eps)
+        y = ((xf - mean.view(1, -1, 1, 1)) * inv.view(1, -1, 1, 1)).to(x.dtype)
     else:
         xf = x.float()
         var_b, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
         inv = torch.rsqrt(var_b + eps)
         y = ((xf - mean.view(1, -1, 1, 1)) * inv.view(1, -1, 1, 1)).to(x.dtype)
+    if group is not None:  # every replica holds an equal slice of the global batch
+        count *= dist.get_world_size(group)
     with torch.no_grad():
-        count = x.numel() // x.shape[1]
         var_u = var_b * (count / max(count - 1, 1))
         new_mean = (1 - momentum) * running_mean + momentum * mean
         new_var = (1 - momentum) * running_var + momentum * var_u

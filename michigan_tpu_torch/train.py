@@ -20,6 +20,19 @@ saved beside them as <label>_net_E / _net_B / _net_D2.pth).  netIG comes from
 checkpoints/<name>/InpaintingModel_gen.pth when present, VGG19 from
 $MICHIGAN_VGG19 or checkpoints/vgg19*.{pth,npz}; otherwise seeded weights.
 
+Data parallelism, one process per GPU (the JAX package's data mesh;
+parallel/dist.py): several --gpu_ids (``--gpu_ids 0,1,2,3``) start one
+process per id on this host; under torchrun (``torchrun --nproc_per_node N
+-m michigan_tpu_torch.train --gpu_ids 0,...,N-1 ...``, also across hosts,
+where --multihost is accepted) each rank takes cuda:<gpu_ids[LOCAL_RANK]>,
+or the CPU with gloo under --gpu_ids -1.  --batchSize is the global batch:
+each rank loads and steps on its batchSize / world slice; netG's sync batch
+norms, the gradients (--bf16_grad_allreduce: in bfloat16) and the printed
+losses are reduced over the ranks; --mesh_shape takes data:-1 or data:N.
+Every rank seeds the same weights and host RNG; rank 0 alone prints and
+writes opt.json, loss_log.txt, iter.txt and the checkpoints.  With one
+process nothing is reduced.
+
 The loop follows the JAX trainer: epochs with the linear LR decay,
 --max_steps, the mask dilation width drawn per step from a host RNG seeded
 by --seed, losses printed every --print_freq images (and appended to
@@ -27,9 +40,10 @@ checkpoints/<name>/loss_log.txt), 'latest' saved every --save_latest_freq
 images and at the end of each epoch, each --save_epoch_freq epoch saved
 under its number, --continue_train resuming from --which_epoch and iter.txt.
 --debug_nans checks every loss of every step for a finite value (a host
-sync per step); --profile_dir writes a torch.profiler trace of the step at
-3 * --batchSize samples there (trace.json, for chrome://tracing or
-Perfetto).  Image display (the HTML visualizer) is not ported.
+sync per step); --profile_dir writes a torch.profiler trace of rank 0's
+step at 3 * --batchSize samples there (trace.json, for chrome://tracing or
+Perfetto).  The reference's image display (the HTML visualizer) is not
+ported: the trainer prints and logs losses only.
 """
 
 from __future__ import annotations
@@ -45,10 +59,7 @@ import time
 def parse_options(argv=None):
     from michigan_tpu_torch.config import train_options
 
-    opt = train_options(argv)
-    if len([s for s in str(opt.gpu_ids).split(",") if s.strip() not in ("", "-1")]) > 1:
-        raise NotImplementedError("multi-GPU training is not ported yet: give one --gpu_ids")
-    return opt
+    return train_options(argv)
 
 
 @contextlib.contextmanager
@@ -78,7 +89,7 @@ def check_finite(losses: dict, step: int) -> None:
             raise FloatingPointError(f"non-finite loss {k}={val} at step {step}")
 
 
-def load_released_ig(model, opt) -> None:
+def load_released_ig(model, opt, print_=print) -> None:
     from michigan_tpu_torch.convert import load_reference_state
 
     path = os.path.join(opt.checkpoints_dir, opt.name, opt.ig_model_name)
@@ -88,44 +99,76 @@ def load_released_ig(model, opt) -> None:
         state = torch.load(path, map_location="cpu", weights_only=True)
         load_reference_state(model.netIG, state.get("generator", state))
         model.to_device()
-        print(f"loaded netIG from {path}")
+        print_(f"loaded netIG from {path}")
 
 
 def main(argv=None):
     import torch
 
+    from michigan_tpu_torch.parallel import dist as DP
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    opt = parse_options(argv)
+    ids = DP.gpu_id_list(opt.gpu_ids)
+    if len(ids) > 1 and not DP.in_launched_process():
+        # the reference's --gpu_ids 0,1,2,3: one process per id on this host
+        DP.check_gpus(ids)
+        DP.launch(main, (argv,), len(ids))
+        return
+    replica = DP.replica_from_env(opt.gpu_ids, opt.mesh_shape)
+    try:
+        train(opt, replica)
+    finally:
+        if replica.group is not None:
+            torch.distributed.destroy_process_group()
+
+
+def train(opt, replica) -> None:
+    """The training loop on this process's `replica` (parallel/dist.py)."""
+    import torch
+
     from michigan_tpu_torch.data.dataset import BatchLoader, CustomDataset
-    from michigan_tpu_torch.inference import device_from_gpu_ids
     from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
     from michigan_tpu_torch.training import checkpoint as CK
-    from michigan_tpu_torch.training.state import init_netd2_from_netd, set_learning_rates
+    from michigan_tpu_torch.training.state import (
+        check_replicas,
+        init_netd2_from_netd,
+        set_learning_rates,
+    )
     from michigan_tpu_torch.training.train_step import TrainStep
     from michigan_tpu_torch.utils.iter_counter import IterationCounter
 
-    opt = parse_options(argv)
-    print(" ".join(sys.argv))
-    device = device_from_gpu_ids(opt.gpu_ids)
+    main_rank = replica.is_main()
+    print_ = print if main_rank else (lambda *a, **k: None)
+    print_(" ".join(sys.argv))
+    if replica.world > 1:
+        print_(f"data parallel: {replica.world} replicas, global batch {opt.batchSize}, "
+               f"{opt.batchSize // replica.world} a replica")
+    device = replica.device
     if device.type == "cuda":
         # cuDNN's fp32 convolutions default to TF32; keep full fp32
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    opt.save(os.path.join(opt.checkpoints_dir, opt.name, "opt.json"))
+    if main_rank:
+        opt.save(os.path.join(opt.checkpoints_dir, opt.name, "opt.json"))
 
-    loader = BatchLoader(CustomDataset(opt), opt)
+    shard = (replica.rank, replica.world)
+    loader = BatchLoader(CustomDataset(opt), opt, shard)
     if len(loader) == 0:
         raise ValueError(f"the dataset at {opt.data_dir} yields no full batch of {opt.batchSize}")
     # --unpairTrain: every epoch runs the unpaired stage over its own loader
     # first, then the paired stage (reference train.py:42-90)
-    loader2 = BatchLoader(CustomDataset(opt, 2), opt) if opt.unpairTrain else None
-    model = MichiGANModel(opt, device)
+    loader2 = BatchLoader(CustomDataset(opt, 2), opt, shard) if opt.unpairTrain else None
+    model = MichiGANModel(opt, device, replica.group)
     model.init_weights(opt.seed)
     if opt.unpairTrain and opt.same_netD_model:
         init_netd2_from_netd(model)
-    load_released_ig(model, opt)
+    load_released_ig(model, opt, print_)
     trainer = TrainStep(model)
-    iter_counter = IterationCounter(opt, len(loader) * opt.batchSize)
+    iter_counter = IterationCounter(opt, len(loader) * opt.batchSize, main=main_rank)
     if opt.continue_train and CK.load_checkpoint(opt, opt.which_epoch, trainer):
-        print(f"resumed checkpoint '{opt.which_epoch}'")
+        print_(f"resumed checkpoint '{opt.which_epoch}'")
+    check_replicas(model)
     log_path = os.path.join(opt.checkpoints_dir, opt.name, "loss_log.txt")
     host_rng = random.Random(opt.seed)
 
@@ -151,10 +194,10 @@ def main(argv=None):
             # the random mask dilation width (encoder.py:294): 0..4 extra 3x3 steps
             extra = host_rng.randint(0, 4)
             # one draw of the VAE's noise a step, for its G step and D step
-            eps = trainer.new_eps(opt.batchSize)
+            eps = trainer.new_eps(opt.batchSize // replica.world)
             g_losses, d_losses, orient = {}, {}, None
             # the step at 3 * batchSize samples, past the first steps' warm-up
-            profiling = bool(opt.profile_dir) and \
+            profiling = bool(opt.profile_dir) and main_rank and \
                 iter_counter.total_steps_so_far == 3 * opt.batchSize
             with profiled_step(opt.profile_dir, device) if profiling else contextlib.nullcontext():
                 if i % opt.D_steps_per_G == 0:
@@ -173,19 +216,20 @@ def main(argv=None):
                        f"time: {iter_counter.time_per_iter:.3f}) ")
                 msg += "".join(f"{k}: {v.item():.3f} " for k, v in {**g_losses,
                                                                    **d_losses}.items())
-                print(msg)
-                with open(log_path, "a") as f:
-                    f.write(msg + "\n")
+                print_(msg)
+                if main_rank:
+                    with open(log_path, "a") as f:
+                        f.write(msg + "\n")
             if iter_counter.needs_saving():
-                print(f"saving the latest model (epoch {epoch}, "
-                      f"total_steps {iter_counter.total_steps_so_far})")
+                print_(f"saving the latest model (epoch {epoch}, "
+                       f"total_steps {iter_counter.total_steps_so_far})")
                 save_latest()
         if steps:
             sync()
             dt = time.perf_counter() - t0
-            print(f"epoch {epoch} (stage {curr_step}) wall throughput: "
-                  f"{steps * opt.batchSize / dt:.2f} img/s over {steps} steps "
-                  f"({dt / steps:.3f} s/step incl. data)")
+            print_(f"epoch {epoch} (stage {curr_step}) wall throughput: "
+                   f"{steps * opt.batchSize / dt:.2f} img/s over {steps} steps "
+                   f"({dt / steps:.3f} s/step incl. data)")
         return stop
 
     for epoch in iter_counter.training_epochs():
@@ -193,18 +237,18 @@ def main(argv=None):
         if not stop:
             stop = run_epoch(epoch, loader, 1)
         if stop:
-            print(f"stopping at --max_steps {opt.max_steps}")
+            print_(f"stopping at --max_steps {opt.max_steps}")
             save_latest()
             break
         set_learning_rates(trainer.optimizers, opt, epoch + 1)
         iter_counter.record_epoch_end()
         if epoch % opt.save_epoch_freq == 0 or epoch == iter_counter.total_epochs:
-            print(f"saving the model at the end of epoch {epoch}, "
-                  f"iters {iter_counter.total_steps_so_far}")
+            print_(f"saving the model at the end of epoch {epoch}, "
+                   f"iters {iter_counter.total_steps_so_far}")
             CK.save_checkpoint(opt, "latest", trainer)
             iter_counter.record_current_iter(epoch + 1, 0)
             CK.save_checkpoint(opt, epoch, trainer)
-    print("Training was successfully finished.")
+    print_("Training was successfully finished.")
 
 
 if __name__ == "__main__":

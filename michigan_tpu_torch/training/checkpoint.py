@@ -4,13 +4,16 @@ the configuration, G and D, and E (--use_vae), B (--use_blender) and D2
 (--unpairTrain) (state_dicts with the reference's keys, on the CPU), and
 ``<label>_optim.pth`` (every optimizer's state and the step count).  The
 port's inference CLI loads ``<which_epoch>_net_G.pth`` (and ``_net_E``,
-``_net_B``) as it loads a released generator."""
+``_net_B``) as it loads a released generator.  Under data parallelism
+(the trainer's group) rank 0 alone writes, and every rank waits at a
+barrier until it has; every rank reads."""
 
 from __future__ import annotations
 
 import os
 
 import torch
+import torch.distributed as dist
 
 # checkpoint file letter -> the model's net
 NETS = {"G": "netG", "D": "netD", "E": "netE", "B": "netB", "D2": "netD2"}
@@ -30,11 +33,16 @@ def _nets(trainer):
 
 
 def save_checkpoint(opt, label, trainer) -> None:
-    os.makedirs(os.path.join(opt.checkpoints_dir, opt.name), exist_ok=True)
-    for x, net in _nets(trainer).items():
-        torch.save(_cpu(net.state_dict()), _path(opt, label, f"net_{x}"))
-    optim = {f"opt_{k}": o.state_dict() for k, o in trainer.optimizers.items() if o is not None}
-    torch.save({**optim, "step": trainer.step}, _path(opt, label, "optim"))
+    group = trainer.group
+    if group is None or group.rank() == 0:
+        os.makedirs(os.path.join(opt.checkpoints_dir, opt.name), exist_ok=True)
+        for x, net in _nets(trainer).items():
+            torch.save(_cpu(net.state_dict()), _path(opt, label, f"net_{x}"))
+        optim = {f"opt_{k}": o.state_dict() for k, o in trainer.optimizers.items()
+                 if o is not None}
+        torch.save({**optim, "step": trainer.step}, _path(opt, label, "optim"))
+    if group is not None:
+        dist.barrier(group)
 
 
 def load_checkpoint(opt, label, trainer) -> bool:

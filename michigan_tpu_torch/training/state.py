@@ -14,6 +14,8 @@ from typing import Tuple
 
 import torch
 
+from michigan_tpu_torch.parallel.dist import check_replicas_identical
+
 
 def learning_rates(opt, epoch: int) -> Tuple[float, float]:
     """(G lr, D lr) for `epoch`: constant for --niter epochs, then linear
@@ -69,3 +71,15 @@ def init_netd2_from_netd(model) -> None:
     tensor."""
     for dst, src in zip(model.netD2.state_dict().values(), model.netD.state_dict().values()):
         dst.copy_(src)
+
+
+def check_replicas(model) -> None:
+    """Data parallelism: raise on every rank unless every net's parameters
+    and buffers equal rank 0's bit for bit (one broadcast from rank 0).  The
+    replicas start equal because every rank seeds its weights with --seed on
+    the CPU; equal collectives and Adam steps keep them so, running
+    statistics and spectral u / v included."""
+    if model.group is not None:
+        check_replicas_identical(
+            [t for net in model.nets().values() for t in (*net.parameters(), *net.buffers())],
+            model.group, "the nets' parameters and buffers")

@@ -11,15 +11,25 @@ to both.
 
 The JAX package's one-program ``fused_step`` exists to hand XLA a single
 dispatch; the port runs eagerly and does not have it.
+
+Data parallelism (the model's ``group``; the JAX package's sharded steps):
+each replica's batch is its slice of the global batch; after each backward
+and before Adam every trained net's gradients are averaged over the group
+in one flattened all-reduce a net (in bfloat16 under
+--bf16_grad_allreduce), and the losses returned are the group's means.  The
+VAE's eps of a replica is its slice of one draw for the global batch, so
+the replicas together draw what one process does.  Overlapping the
+reduction with the backward (DDP's buckets) is not done.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 import torch
 
-from michigan_tpu_torch.training.state import make_optimizers
+from michigan_tpu_torch.parallel.dist import average_gradients, mean_over
+from michigan_tpu_torch.training.state import g_net_names, make_optimizers
 
 
 class TrainStep:
@@ -29,15 +39,33 @@ class TrainStep:
     def __init__(self, model):
         self.model = model
         self.opt = model.opt
+        self.group = model.group
         self.optimizers = make_optimizers(model.opt, model)
         self.step = 0
         self.eps: Optional[torch.Tensor] = None
 
     def new_eps(self, n: int) -> Optional[torch.Tensor]:
-        """A fresh draw of the VAE's eps for a batch of `n` (None without
-        --use_vae), kept for the D step."""
-        self.eps = self.model.draw_eps(n) if self.opt.use_vae else None
+        """A fresh draw of the VAE's eps for this replica's batch of `n`
+        (None without --use_vae), kept for the D step."""
+        if not self.opt.use_vae:
+            self.eps = None
+        elif self.group is None:
+            self.eps = self.model.draw_eps(n)
+        else:
+            rank, world = self.group.rank(), self.group.size()
+            self.eps = self.model.draw_eps(n * world)[rank * n:(rank + 1) * n]
         return self.eps
+
+    def _all_reduce(self, nets: Iterable[torch.nn.Module], losses: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """With a group: each net's gradients and the losses averaged over
+        it (the JAX package's _grad_pmean and pmean of the losses)."""
+        losses = {k: v.detach() for k, v in losses.items()}
+        if self.group is None:
+            return losses
+        for net in nets:
+            average_gradients(net.parameters(), self.group, self.opt.bf16_grad_allreduce)
+        return mean_over(losses, self.group)
 
     def g_step(self, batch: Dict[str, torch.Tensor], extra_dilate_steps: int = 2,
                eps: Optional[torch.Tensor] = None):
@@ -57,13 +85,16 @@ class TrainStep:
             for d in ds:
                 d.requires_grad_(True)
         opt_g = self.optimizers["G"]
+        nets = m.nets()
+        trained = [nets[n] for n in g_net_names(self.opt)] if opt_g is not None else []
         if opt_g is not None:
             opt_g.zero_grad(set_to_none=True)
             total.backward()
+        losses = self._all_reduce(trained, losses)
+        if opt_g is not None:
             opt_g.step()
         self.step += 1
-        return ({k: v.detach() for k, v in losses.items()},
-                None if fake is None else fake.detach(), orient)
+        return losses, None if fake is None else fake.detach(), orient
 
     def d_step(self, batch: Dict[str, torch.Tensor], extra_dilate_steps: int = 2,
                orient: Optional[torch.Tensor] = None,
@@ -79,8 +110,10 @@ class TrainStep:
             self.new_eps(batch["image_ref"].shape[0])
         total, losses = self.model.discriminator_loss(batch, extra_dilate_steps, orient,
                                                       self.eps)
-        optim = self.optimizers["D2" if self.model.stage() == 2 else "D"]
+        stage2 = self.model.stage() == 2
+        optim = self.optimizers["D2" if stage2 else "D"]
         optim.zero_grad(set_to_none=True)
         total.backward()
+        losses = self._all_reduce([self.model.netD2 if stage2 else self.model.netD], losses)
         optim.step()
-        return {k: v.detach() for k, v in losses.items()}
+        return losses

@@ -2,7 +2,9 @@
 michigan_tpu/utils/iter_counter.py; reference util/iter_counter.py).
 iter.txt holds (epoch, epoch_iter, total_steps); the reference's
 two-column form is read too, an --unpairTrain epoch counting two passes
-over the data (stage 2, then stage 1)."""
+over the data (stage 2, then stage 1).  Counts are of global-batch
+images on every data-parallel rank; only the counter made with `main`
+(rank 0's) prints and writes iter.txt."""
 
 from __future__ import annotations
 
@@ -13,8 +15,8 @@ import numpy as np
 
 
 class IterationCounter:
-    def __init__(self, opt, dataset_size: int):
-        self.opt = opt
+    def __init__(self, opt, dataset_size: int, main: bool = True):
+        self.opt, self.main = opt, main
         self.dataset_size = dataset_size
         self.first_epoch = 1
         self.total_epochs = opt.niter + opt.niter_decay
@@ -27,7 +29,8 @@ class IterationCounter:
             self.first_epoch, self.epoch_iter = int(rec[0]), int(rec[1])
             if rec.size >= 3:
                 self.total_steps_so_far = int(rec[2])
-            print(f"Resuming from epoch {self.first_epoch} at iteration {self.epoch_iter}")
+            if main:
+                print(f"Resuming from epoch {self.first_epoch} at iteration {self.epoch_iter}")
         if self.total_steps_so_far is None:
             per_epoch = dataset_size * (2 if opt.unpairTrain else 1)
             self.total_steps_so_far = (self.first_epoch - 1) * per_epoch + self.epoch_iter
@@ -50,10 +53,13 @@ class IterationCounter:
         self.epoch_iter += self.opt.batchSize
 
     def record_epoch_end(self) -> None:
-        print(f"End of epoch {self.current_epoch} / {self.total_epochs} \t"
-              f" Time Taken: {time.time() - self.epoch_start_time:.0f} sec")
+        if self.main:
+            print(f"End of epoch {self.current_epoch} / {self.total_epochs} \t"
+                  f" Time Taken: {time.time() - self.epoch_start_time:.0f} sec")
 
     def record_current_iter(self, epoch=None, epoch_iter=None) -> None:
+        if not self.main:
+            return
         os.makedirs(os.path.dirname(self.iter_record_path), exist_ok=True)
         np.savetxt(self.iter_record_path,
                    (self.current_epoch if epoch is None else epoch,

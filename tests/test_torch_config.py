@@ -107,7 +107,9 @@ def test_the_port_and_chip_smoke_import_without_the_jax_package():
                                                      "michigan_tpu_torch.")]
     assert "michigan_tpu_torch.config" in modules
     assert {"michigan_tpu_torch.serving.session", "michigan_tpu_torch.serving.export",
-            "michigan_tpu_torch.evaluate", "michigan_tpu_torch.models.inception"} <= set(modules)
+            "michigan_tpu_torch.evaluate", "michigan_tpu_torch.models.inception",
+            "michigan_tpu_torch.parallel.dist",
+            "michigan_tpu_torch.tools.replica_objective"} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", BLOCKED, "\n".join(imports)], cwd=REPO,
                           env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
                           text=True, timeout=300)
