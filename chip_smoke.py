@@ -8,8 +8,9 @@ seeded numpy samples, each through its own entry points, and all three again
 under the bf16 compute policy (--dtype bfloat16); then the training step of
 the VAE, blender and unpaired two-stage configs (phase 16), the
 flagship through the serving session, the exported program and FID's
-extractors (phase 17), and the training step on two data-parallel ranks
-(phase 18):
+extractors (phase 17), the training step on two data-parallel ranks
+(phase 18), and the VAE, blender and unpaired configs again at --dtype
+bfloat16 (phase 19):
 
 - the flagship inference path (IG orientation inpainting -> partial-conv
   appearance encoder -> noise background encoder -> SPADEB generator with
@@ -171,9 +172,9 @@ Phases, each on its own line:
       2, which runs no VGG tower); losses finite (KLD among them for vae);
       the nets the step trains changed and no other (netG, netE or netB,
       netD; stage 2 netG and netD2, stage 1 netG and netD), netIG and VGG19
-      bit-identical; 5 timed steps after that warm-up (ms/step, img/s, G
-      step, D step, peak memory) and one profiled step (device busy, the
-      top device time); then
+      bit-identical; CONFIG_STEPS timed steps after that warm-up (ms/step,
+      img/s, G step, D step, peak memory) and one profiled step (device
+      busy, the top device time); then
       each config's G+D step (unpair: stage 2) on the card and on the CPU
       at PARITY16's batch, crop and width in float32, at torch's default
       init and at the config's own (xavier), the VAE's eps the same draw
@@ -191,6 +192,13 @@ Phases, each on its own line:
       each gradient element into +-lr by its sign, so even the CPU's
       float32 step lies past phase 12's rule from the float64 one.  A
       control, the card's G step on half the batch, must fail that gate.
+      The blender's card G and D steps run under
+      torch.use_deterministic_algorithms(True) (CUBLAS_WORKSPACE_CONFIG
+      :4096:8, set before the first CUDA call; its batch-8 step is also
+      timed under them, beside the time without), and its G step runs
+      DET_REPEATS times from the same state: printed, whether netG and
+      netB come out bit for bit equal, and each repeat's netG count
+      beyond float noise against the float64 step.
   17. serving (michigan_tpu_torch.serving) and FID at the flagship's full
       width: the shape-bucketed InferenceSession with buckets (1, 4, 8) in
       fp32 and at --dtype bfloat16, each bucket's graph captured (capture
@@ -234,12 +242,33 @@ Phases, each on its own line:
       batch_norm_train with and without it, the gradient mean (fp32 and
       bf16 rounding) and the loss mean; with two or more cards the fp32
       ranks also run over NCCL, one card each.
+  19. phase 16's configs at --dtype bfloat16 (vae, blender, unpair stage
+      2, then stage 1) at batch 8, 512^2, full width: per config and
+      stage, the counts set to 0 just before one G+D step and read just
+      after, by dtype: exactly 29 fused_instance_norm, 1 bank forward and 1
+      conv3x3_same_lowch in bfloat16 and 1 bank backward in float32 (stage
+      2: no conv3x3_same_lowch); losses finite (KLD for vae); the nets the
+      step trains changed and no other, stored in float32, netIG and VGG19
+      bit-identical in bfloat16; TRAIN_STEPS timed steps after that
+      warm-up (ms/step, img/s, G step, D step, peak memory beside phase
+      16's float32 numbers).  Then each config and stage one bf16 G+D step
+      card vs CPU at PARITY16's batch, crop and width by phase 15's gate
+      (step_gate; netG, netE, netB and netD or netD2 in its rates), with
+      the VAE's eps one draw and the CPU's D steps from the card's post-G
+      netG, netE and netB; a control, the card's step on the first half of
+      the batch, must fail it.  The blender's card steps and its control
+      run under torch.use_deterministic_algorithms(True), as in phase 16.
+      After the unpaired stage-2 comparison, the
+      trainer's --stats_freq diagnostics (training/diagnostics.py) of the
+      card's model against the same weights on the CPU (relative
+      difference at most DIAG_REL).
 
 Then a JSON line of per-kernel results: for the training step's kernels
 (fused_instance_norm, filterbank_orientation and its backward,
 conv3x3_same_lowch) launches in phase 11's counted step and times summed over
 one step's calls (the backward on the hair-masked dconf), with phase 16's
-counted steps under config_launches; for spade_modulate
+counted steps under config_launches (the bank backward's phase 19
+launches under bf16_config_launches); for spade_modulate
 and conv3x3_in_act, which the step does
 not run, launches in phase 7's stroke edit and times over one edit.  Each
 row's bound_ms is the larger of its bytes (each input read once, each
@@ -254,6 +283,8 @@ conv3x3_in_act over one bf16 edit, fused_instance_norm over one bf16
 flagship forward) count 2-byte elements and bf16 products at 989 TFLOP/s,
 and the two conv3x3_in_act rows carry the replaced route's time
 (replaced_route_ms: cuDNN conv + fused_instance_norm, in the row's dtype).
+The bf16 rows of fused_instance_norm, conv3x3_same_lowch and the bank
+forward carry phase 19's counted steps under config_launches.
 The fused_instance_norm_bf16 row also carries the bf16 training step's
 batch-8 calls (step_launches from phase 15's counted step; step_ms,
 step_plain_ms, step_bound_ms, and step_library_ms: F.instance_norm on its
@@ -279,6 +310,7 @@ default).
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import math
@@ -388,6 +420,15 @@ STAGE2_LAUNCHES = {**STEP_LAUNCHES, "conv3x3_same_lowch": 0}
 # from its gradient than the CPU's float32 gradient the card's may land
 F64_WITNESSED = {"blender": ("netG", "netB")}
 F64_CAL = 2.0
+# phase 16's timed steps a config (fewer than phase 11's, to leave phase 19
+# room in the script's time), and the witnessed config's repeats of its
+# card G step under deterministic algorithms
+CONFIG_STEPS = 3
+DET_REPEATS = 3
+# phase 19: phase 16's configs at --dtype bfloat16; the unpaired stage runs
+# no VGG tower, so no conv3x3_same_lowch
+STAGE2_BF16_LAUNCHES = {**STEP_BF16_LAUNCHES, "conv3x3_same_lowch": {}}
+DIAG_REL = 1e-4  # the diagnostics card vs CPU, relative
 # the modules those configs added, imported before the check that no module
 # of jax or of the JAX package was loaded
 CONFIG_MODULES = ("michigan_tpu_torch.models.blend", "michigan_tpu_torch.models.encoders",
@@ -397,7 +438,8 @@ CONFIG_MODULES = ("michigan_tpu_torch.models.blend", "michigan_tpu_torch.models.
                   "michigan_tpu_torch.utils.iter_counter", "michigan_tpu_torch.serving",
                   "michigan_tpu_torch.serving.session", "michigan_tpu_torch.serving.export",
                   "michigan_tpu_torch.evaluate", "michigan_tpu_torch.models.inception",
-                  "michigan_tpu_torch.parallel.dist", "michigan_tpu_torch.tools.replica_objective")
+                  "michigan_tpu_torch.parallel.dist", "michigan_tpu_torch.tools.replica_objective",
+                  "michigan_tpu_torch.training.diagnostics", "michigan_tpu_torch.utils.visualizer")
 # phase 17: the serving session's buckets and request sizes (padding, and a
 # split into 8 + 4), the bf16 --use_pallas_epilogue bucket's graph, and FID
 SERVE_BUCKETS = (1, 4, 8)
@@ -464,6 +506,22 @@ def conv3x3_work(n, c, co, h, w, pad, extra_bytes=0, elem=4):
     2 FLOPs per FMA."""
     nbytes = elem * (n * c * (h + 2 * pad) * (w + 2 * pad) + n * co * h * w) + 4 * co * c * 9
     return nbytes + extra_bytes, 2 * n * co * h * w * c * 9
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(torch, on=True):
+    """Inside (with `on`), torch.use_deterministic_algorithms(True): every
+    op without a deterministic CUDA form raises, cuDNN takes its
+    deterministic algorithms (CUBLAS_WORKSPACE_CONFIG is set before the
+    first CUDA call, in run)."""
+    if not on:
+        yield
+        return
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 def phase(n, msg):
@@ -901,6 +959,9 @@ def step_breakdown(torch, trainer, batch):
 
 
 def run():
+    # deterministic algorithms (phase 16) need cuBLAS's fixed workspace,
+    # set before the first CUDA call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -926,6 +987,7 @@ def run():
         from michigan_tpu_torch.ops.cuda import spade as K
         from michigan_tpu_torch.tools import float64_step
         from michigan_tpu_torch.train import parse_options as train_options
+        from michigan_tpu_torch.training.diagnostics import diagnostics
         from michigan_tpu_torch.training.state import init_netd2_from_netd
         from michigan_tpu_torch.training.train_step import TrainStep
         from michigan_tpu_torch.utils.imaging import tensor2im
@@ -2213,24 +2275,25 @@ def run():
             init_netd2_from_netd(tr.model)
         return o, tr
 
-    def counted_step(tr, batch):
+    def counted_step(tr, batch, by_dtype=False):
         """(losses, launches) of one G+D step, the counts set to 0 just
-        before it and read just after."""
+        before it and read just after (by dtype with `by_dtype`)."""
         kernels.reset_launch_counts()
         g, _f, o = tr.g_step(batch, EXTRA_DILATE)
         d = tr.d_step(batch, EXTRA_DILATE, o)
         torch.cuda.synchronize()
-        return {k: v.item() for k, v in {**g, **d}.items()}, kernels.launch_counts()
+        return ({k: v.item() for k, v in {**g, **d}.items()},
+                kernels.launch_counts(by_dtype=by_dtype))
 
-    def timed_steps(tr, batch):
-        """(step ms, G ms, D ms, peak bytes, live bytes) over TRAIN_STEPS
-        steps after the warm-up, medians; each step synchronizes between
-        its G step and its D step."""
+    def timed_steps(tr, batch, steps=TRAIN_STEPS):
+        """(step ms, G ms, D ms, peak bytes, live bytes) over `steps` steps
+        after the warm-up, medians; each step synchronizes between its G
+        step and its D step."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         live = torch.cuda.memory_allocated()
         rows = []
-        for _ in range(TRAIN_STEPS):
+        for _ in range(steps):
             t0 = time.perf_counter()
             _g, _f, o = tr.g_step(batch, EXTRA_DILATE)
             torch.cuda.synchronize()
@@ -2242,7 +2305,7 @@ def run():
         med = [statistics.median(r[i] for r in rows) for i in range(3)]
         return (*med, torch.cuda.max_memory_allocated(), live, [r[0] for r in rows])
 
-    config_counts = {}
+    config_counts, config_e2e = {}, {}
     for cfg in CONFIG_FLAGS:
         n = TRAIN_BATCH
         copt, tr = config_trainer(cfg, n, 512)
@@ -2278,11 +2341,12 @@ def run():
                     any(moved[k] != (k in want_moved) for k in moved) or \
                     (cfg == "vae" and "KLD" not in losses):
                 return fail(f"phase 16 {label}: the step's losses or parameter updates are wrong")
-            ms, g_ms, d_ms, peak, live, times = timed_steps(tr, cbatch)
+            ms, g_ms, d_ms, peak, live, times = timed_steps(tr, cbatch, CONFIG_STEPS)
+            config_e2e[key] = (ms, peak)
             busy_ms, wall_ms, table, conv_ms, dev_ms = profile_once(
                 lambda: tr.d_step(cbatch, EXTRA_DILATE, tr.g_step(cbatch, EXTRA_DILATE)[2]),
                 torch)
-            phase(16, f"{label}: {TRAIN_STEPS} timed steps after the warm-up: "
+            phase(16, f"{label}: {CONFIG_STEPS} timed steps after the warm-up: "
                       f"{', '.join(f'{t:.1f}' for t in times)} ms; median {ms:.1f} ms/step, "
                       f"{n / ms * 1e3:.2f} img/s; G step {g_ms:.1f} ms, D step {d_ms:.1f} ms; "
                       f"peak device memory {peak / 2**30:.2f} GiB ({live / 2**30:.2f} GiB live "
@@ -2290,6 +2354,16 @@ def run():
                       f"wall, convolutions {conv_ms:.2f} of {dev_ms:.2f} ms device time {tag}; "
                       f"top device time:")
             print(table, flush=True)
+            if cfg in F64_WITNESSED:
+                # what deterministic algorithms, under which its card-vs-CPU
+                # steps below run, cost this config's step
+                with deterministic_algorithms(torch):
+                    tr.d_step(cbatch, EXTRA_DILATE, tr.g_step(cbatch, EXTRA_DILATE)[2])
+                    det_ms, _, _, _, _, det_times = timed_steps(tr, cbatch, CONFIG_STEPS)
+                phase(16, f"{label}: under torch.use_deterministic_algorithms(True), "
+                          f"{CONFIG_STEPS} timed steps after a warm-up: "
+                          f"{', '.join(f'{t:.1f}' for t in det_times)} ms; median {det_ms:.1f} "
+                          f"ms/step against {ms:.1f} without ({det_ms / ms - 1:+.1%}) {tag}")
             del cbatch
         del tr, nets, before, start
         torch.cuda.empty_cache()
@@ -2315,7 +2389,11 @@ def run():
         b_card, b_cpu = batch_from_numpy(data, "cuda:0"), batch_from_numpy(data, "cpu")
         eps = card.new_eps(n)
         eps_cpu = None if eps is None else eps.cpu()
-        g_card, _, o_card = card.g_step(b_card, EXTRA_DILATE, eps)
+        # the blender's card steps under deterministic algorithms: under
+        # cuDNN's default algorithms its step does not repeat bit for bit
+        det = cfg in F64_WITNESSED
+        with deterministic_algorithms(torch, det):
+            g_card, _, o_card = card.g_step(b_card, EXTRA_DILATE, eps)
         t0 = time.perf_counter()
         g_cpu, _, o_cpu = cpu.g_step(b_cpu, EXTRA_DILATE, eps_cpu)
         t_cpu = time.perf_counter() - t0
@@ -2347,7 +2425,27 @@ def run():
                     "bad64": {"card": scale_aware(card_g[k], exact[k], lr_g)[2],
                               "cpu": scale_aware(cpu_g[k], exact[k], lr_g)[2]},
                     "control": (worst, bad)}
-            del control, grads, g64, exact
+            # the card's G step again from the same state, under
+            # deterministic algorithms: equal bit for bit, and netG's count
+            # against float64 each time
+            repeats = [card_g]
+            for _ in range(DET_REPEATS - 1):
+                again = TrainStep(MichiGANModel(popt, "cuda:0"))
+                again.model.load_state_dicts(init_sd)
+                with deterministic_algorithms(torch, True):
+                    again.g_step(b_card, EXTRA_DILATE, eps)
+                repeats.append({k: state(again.model.nets()[k]) for k in nets_w})
+                del again
+            same = all(torch.equal(r[k][p], repeats[0][k][p]) for r in repeats[1:]
+                       for k in nets_w for p in repeats[0][k])
+            phase(16, f"{cfg} --init_type {init}: the card's G step under "
+                      f"torch.use_deterministic_algorithms(True), {DET_REPEATS} times from the "
+                      f"same state: {', '.join(nets_w)} bit for bit equal {same}; netG's "
+                      f"elements beyond float noise against the float64 G step "
+                      f"{[scale_aware(r['netG'], exact['netG'], lr_g)[2] for r in repeats]} "
+                      f"(under torch's default algorithms it spread 20,032-20,076 over repeats: PERF.md) "
+                      f"{tag}")
+            del control, grads, g64, exact, repeats
 
         def g_net_ok(k, worst, bad, tot, who="card"):
             """phase 12's rule; or for a witnessed net, a gradient as close to
@@ -2369,7 +2467,8 @@ def run():
         for k in g_nets:
             cpu_model.nets()[k].load_state_dict({n_: v.cpu() for n_, v in
                                                  card.model.nets()[k].state_dict().items()})
-        d_card = card.d_step(b_card, EXTRA_DILATE, o_card)
+        with deterministic_algorithms(torch, det):
+            d_card = card.d_step(b_card, EXTRA_DILATE, o_card)
         t0 = time.perf_counter()
         d_cpu = cpu.d_step(b_cpu, EXTRA_DILATE, o_cpu)
         t_cpu += time.perf_counter() - t0
@@ -2441,6 +2540,165 @@ def run():
     if msg:
         return fail(msg)
 
+    # 19 ---------------------------------------------------------------
+    # phase 16's configs at --dtype bfloat16: each step at batch 8, 512^2,
+    # full width, with the counts set to 0 just before it and read just
+    # after, by dtype; then each step card-bf16 vs CPU-bf16 by phase 15's
+    # gate, with a half-batch control that must fail it
+    t19 = time.perf_counter()
+    bf16 = ["--dtype", "bfloat16"]
+    counts19 = {}
+    for cfg in CONFIG_FLAGS:
+        n = TRAIN_BATCH
+        copt, tr = config_trainer(cfg, n, 512, bf16)
+        nets = tr.model.nets()
+        for stage in ((2, 1) if cfg == "unpair" else (1,)):
+            copt.curr_step = stage
+            label = cfg if cfg != "unpair" else f"unpair stage {stage}"
+            key = cfg if cfg != "unpair" else f"unpair_stage{stage}"
+            cbatch = batch_from_numpy(synthetic_train_data(copt, SEED, n, paired=stage == 1),
+                                      "cuda:0")
+            start = {k: snapshot(net) for k, net in nets.items()}
+            losses, counts = counted_step(tr, cbatch, by_dtype=True)
+            counts19[key] = counts
+            want = STAGE2_BF16_LAUNCHES if stage == 2 else STEP_BF16_LAUNCHES
+            moved = {k: any(not torch.equal(p, start[k][name])
+                            for name, p in nets[k].named_parameters()) for k in nets
+                     if k not in ("netIG", "vgg")}
+            frozen = {k: all(torch.equal(t, start[k][name])
+                             for name, t in nets[k].state_dict().items())
+                      for k in ("netIG", "vgg")}
+            stored = {k: sorted({str(t.dtype) for t in nets[k].state_dict().values()
+                                 if t.is_floating_point()}) for k in nets}
+            want_moved = {"vae": ("netG", "netE", "netD"), "blender": ("netG", "netB", "netD"),
+                          "unpair": ("netG", "netD2" if stage == 2 else "netD")}[cfg]
+            phase(19, f"{label} at --dtype bfloat16, batch {n}, 512^2, ngf {copt.ngf}, ndf "
+                      f"{copt.ndf}: launches by dtype {counts}; losses "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in losses.items()))
+            phase(19, f"{label} bf16: parameters changed {moved}; frozen nets bit-identical "
+                      f"{frozen}; floating dtypes stored {stored}")
+            if counts != want:
+                return fail(f"phase 19 {label}: expected launches per bf16 step {want}, "
+                            f"got {counts}")
+            if not all(math.isfinite(v) for v in losses.values()) or \
+                    not all(frozen.values()) or \
+                    any(moved[k] != (k in want_moved) for k in moved) or \
+                    any(stored[k] != ["torch.float32"] for k in nets
+                        if k not in ("netIG", "vgg")) or \
+                    stored["vgg"] != ["torch.bfloat16"] or \
+                    (cfg == "vae" and "KLD" not in losses):
+                return fail(f"phase 19 {label}: the bf16 step's losses, updates or stored "
+                            f"dtypes are wrong")
+            ms, g_ms, d_ms, peak, live, times = timed_steps(tr, cbatch)
+            ms32, peak32 = config_e2e[key]
+            phase(19, f"{label} bf16: {TRAIN_STEPS} timed steps after the warm-up: "
+                      f"{', '.join(f'{t:.1f}' for t in times)} ms; median {ms:.1f} ms/step, "
+                      f"{n / ms * 1e3:.2f} img/s; G step {g_ms:.1f} ms, D step {d_ms:.1f} ms; "
+                      f"peak device memory {peak / 2**30:.2f} GiB ({live / 2**30:.2f} GiB live "
+                      f"before); float32 (phase 16) {ms32:.1f} ms/step, {peak32 / 2**30:.2f} GiB "
+                      f"{tag}")
+            del cbatch
+        del tr, nets, start
+        torch.cuda.empty_cache()
+
+    def bf16_config_parity(cfg, stage):
+        """Phase 15's card-vs-CPU bf16 comparison of one config and stage,
+        with the VAE's eps one draw on all three and the G-side nets of
+        the CPU's D steps the card's post-G ones; returns (failure or None,
+        the card's trainer)."""
+        extra16 = ["--ngf", str(PARITY16["ngf"]), "--ndf", str(PARITY16["ndf"])]
+        n = PARITY16["batch"]
+        popt16, card16 = config_trainer(cfg, n, PARITY16["crop"], extra16 + bf16)
+        popt32 = train_opts(train_options, n, PARITY16["crop"], list(CONFIG_FLAGS[cfg]) + extra16)
+        popt16.curr_step = popt32.curr_step = stage
+        init16 = {k: {n_: t.detach().cpu().clone() for n_, t in net.state_dict().items()}
+                  for k, net in card16.model.nets().items()}
+
+        def trainer_from_init(o, dev):
+            m = MichiGANModel(o, dev)
+            m.load_state_dicts(init16)  # float32 modules take the bf16 frozen leaves as they are
+            return TrainStep(m)
+
+        data = synthetic_train_data(popt16, SEED, n, paired=stage == 1)
+        eps = card16.new_eps(n)
+        cut = lambda e, dev, k=n: None if e is None else e[:k].to(dev)
+        trainers = {"card": (card16, "cuda:0", data, eps),
+                    "cpu16": (trainer_from_init(popt16, "cpu"), "cpu", data, cut(eps, "cpu")),
+                    "cpu32": (trainer_from_init(popt32, "cpu"), "cpu", data, cut(eps, "cpu")),
+                    "control": (trainer_from_init(popt16, "cuda:0"), "cuda:0",
+                                {k: v[:n // 2] for k, v in data.items()},
+                                cut(eps, "cuda:0", n // 2))}
+        g_names = [k for k in ("netG", "netE", "netB") if k in card16.model.nets()]
+        d_name = "netD2" if stage == 2 else "netD"
+        params_of = lambda net: {k: v.detach().cpu().clone() for k, v in net.named_parameters()}
+        runs19, batches, orients, t_cpu = {}, {}, {}, 0.0
+        # the blender's card steps (and its control) under deterministic
+        # algorithms, as phase 16 runs them: the gate is calibrated on a step
+        # that repeats
+        det = lambda dev: deterministic_algorithms(torch, cfg in F64_WITNESSED and dev != "cpu")
+        for name, (tr_, dev, d_, e_) in trainers.items():
+            batches[name] = batch_from_numpy(d_, dev)
+            t0 = time.perf_counter()
+            with det(dev):
+                g, _f, orients[name] = tr_.g_step(batches[name], EXTRA_DILATE, e_)
+            t_cpu += (time.perf_counter() - t0) if dev == "cpu" else 0.0
+            runs19[name] = {"losses": {k: v.item() for k, v in g.items()},
+                            "params": {k: params_of(tr_.model.nets()[k]) for k in g_names}}
+        post_g = {k: {n_: v.cpu() for n_, v in card16.model.nets()[k].state_dict().items()}
+                  for k in g_names}
+        for name, (tr_, dev, d_, e_) in trainers.items():
+            if dev == "cpu":
+                for k in g_names:
+                    tr_.model.nets()[k].load_state_dict(post_g[k])
+            t0 = time.perf_counter()
+            with det(dev):
+                d = tr_.d_step(batches[name], EXTRA_DILATE, orients[name])
+            t_cpu += (time.perf_counter() - t0) if dev == "cpu" else 0.0
+            runs19[name]["losses"].update({k: v.item() for k, v in d.items()})
+            runs19[name]["params"][d_name] = params_of(tr_.model.nets()[d_name])
+        lrs = {**{k: popt16.lr / 2 for k in g_names}, d_name: 2 * popt16.lr}
+        ok, rows = step_gate(runs19["card"], runs19["cpu16"], runs19["cpu32"], lrs)
+        control_ok, control_rows = step_gate(runs19["control"], runs19["cpu16"], runs19["cpu32"],
+                                             lrs)
+        label = cfg if cfg != "unpair" else f"unpair stage {stage}"
+        phase(19, f"{label}: one bf16 G+D step card/CPU, batch {n}, {PARITY16['crop']}^2, ngf "
+                  f"{PARITY16['ngf']}, ndf {PARITY16['ndf']}, per loss card-vs-CPU bf16 / CPU "
+                  f"bf16 vs fp32: " + ", ".join(rows) + f"; CPU steps {t_cpu:.1f} s")
+        phase(19, f"{label}: control, the card's step on the first {n // 2} of the {n} samples "
+                  f"against the same CPU steps: " + ", ".join(control_rows)
+                  + (": passes, FAIL" if control_ok else ": fails the gate, as it must"))
+        if not ok:
+            return f"phase 19: the card's and the CPU's bf16 {label} steps disagree", None
+        if control_ok:
+            return f"phase 19's gate passes a bf16 {label} step that dropped half its batch", None
+        return None, card16
+
+    for cfg in CONFIG_FLAGS:
+        for stage in ((2, 1) if cfg == "unpair" else (1,)):
+            msg, card16 = bf16_config_parity(cfg, stage)
+            if msg:
+                return fail(msg)
+            if cfg == "unpair" and stage == 2:
+                # the trainer's --stats_freq diagnostics on the card, against
+                # the same weights on the CPU
+                cpu_model = MichiGANModel(card16.opt, "cpu")
+                cpu_model.load_state_dicts({k: {n_: t.cpu() for n_, t in net.state_dict().items()}
+                                            for k, net in card16.model.nets().items()})
+                diag, diag_cpu = diagnostics(card16.model), diagnostics(cpu_model)
+                worst = max(abs(diag[k] - v) / max(abs(v), 1e-12) for k, v in diag_cpu.items())
+                phase(19, f"--stats_freq diagnostics of the bf16 unpair model after its stage-2 "
+                          f"step, on the card: " + ", ".join(f"{k} {v:.6g}" for k, v in
+                                                              diag.items())
+                          + f"; against the CPU's, largest relative difference {worst:.2e} "
+                          f"(limit {DIAG_REL:g})")
+                if set(diag) != set(diag_cpu) or not worst <= DIAG_REL or \
+                        not all(math.isfinite(v) for v in diag.values()):
+                    return fail("phase 19: the card's diagnostics disagree with the CPU's")
+                del cpu_model
+            del card16
+            torch.cuda.empty_cache()
+    phase(19, f"the bf16 configs in {time.perf_counter() - t19:.1f} s")
+
     train_kernels = ("fused_instance_norm", "filterbank_orientation",
                      "filterbank_orientation_backward", "conv3x3_same_lowch")
     rows = {k: (stroke_counts[k], edit_ms[k], edit_plain_ms[k])
@@ -2461,6 +2719,9 @@ def run():
          **({"replaced_route_ms": epi_route_ms} if k == "conv3x3_in_act" else {}),
          # phase 16's counted steps of the VAE, blender and unpaired configs
          "config_launches": {c: config_counts[c][k] for c in config_counts},
+         # phase 19's, at --dtype bfloat16: this row's float32 launches
+         **({"bf16_config_launches": {c: counts19[c][k].get("float32", 0) for c in counts19}}
+            if k == "filterbank_orientation_backward" else {}),
          # phase 17's session: the captured graphs' launches per request
          **({"session_launches": {r: n for r, n in session_launches[k].items()
                                   if r.startswith("fp32")}} if k in session_launches else {}),
@@ -2482,6 +2743,8 @@ def run():
                else {}),
             "session_launches": {r: n for r, n in session_launches[k].items()
                                  if r.startswith("bf16")},
+            **({"config_launches": {c: counts19[c][k].get("bfloat16", 0) for c in counts19}}
+               if k == "fused_instance_norm" else {}),
             **({"replaced_route_ms": epi_route16_ms} if k == "conv3x3_in_act" else {})})
     # the bf16 training step's two forms: launches from phase 15's counted step
     for k, replaces in STEP_BF16_ROWS.items():
@@ -2492,6 +2755,8 @@ def run():
             "launches": step16_counts[k]["bfloat16"], "max_abs_err": max_err_bf16[k],
             "ms": step16_ms[k], "plain_ms": step16_plain_ms[k], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib16_lowch if lowch else None,
+            # phase 19's counted steps of the bf16 VAE, blender and unpaired configs
+            "config_launches": {c: counts19[c][k].get("bfloat16", 0) for c in counts19},
             **({} if lowch else {"operands": "bf16, sums float32",
                                  "replaced_route_ms": bank_route16_ms})})
     print(json.dumps({"kernels": kernel_rows}))

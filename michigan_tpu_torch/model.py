@@ -17,7 +17,8 @@ for a stroke edit, or the training loader's); ``batch_from_numpy`` turns
 NHWC numpy arrays into one.  The inference paths of the flagship and demo
 configurations, the paired training stage, and the VAE (--use_vae), blender
 (--use_blender, --only_blend) and unpaired two-stage (--unpairTrain)
-configurations in float32 are ported; ``check_supported`` names what is not.
+configurations are ported, under either dtype; ``check_supported`` names
+what is not.
 
 The training stage (``stage``) is --curr_step under --unpairTrain, read on
 each call, else 1: stage 2 (unpaired ref) discriminates with netD2, drops
@@ -39,7 +40,12 @@ takes the fake-and-real batch in bfloat16; VGG19 is stored in bfloat16 and
 takes the fake's and the tag / ref batch in bfloat16; the losses upcast
 inside their reductions; Adam updates the float32 parameters from float32
 gradients; the bank of the orientation loss takes bf16 operands unless
---orient_bank_fp32 (losses/orient.py).
+--orient_bank_fp32 (losses/orient.py).  netE takes the float32 image and
+runs in float32, so under --use_vae z, netG's Linear seed and the SPADE
+blocks after it stay float32, as the JAX package's generator takes z
+(only the background encoder runs bfloat16 there); netB takes its four
+inputs in the compute dtype and returns a float32 blend; netD2 takes the
+stage-2 batch in the compute dtype, as netD does.
 
 With --isTrain netG, netB and netD (netD2) are in train mode.  Which forward
 writes buffers follows the JAX package: netG's batch-norm running statistics
@@ -90,11 +96,6 @@ Z_NC = 256  # ConvEncoder's mu / logvar width (encoder.py:57-58)
 def check_supported(opt) -> None:
     """Raise for flags whose code paths are not ported yet."""
     unported = [f"--{f}" for f in ("use_instance_feat", "add_zeros") if getattr(opt, f)]
-    configs = [f"--{f}" for f in ("use_vae", "use_blender", "only_blend") if getattr(opt, f)]
-    if opt.isTrain and opt.unpairTrain:
-        configs.append("--unpairTrain")
-    if configs and opt.dtype == "bfloat16":
-        unported.append(f"{', '.join(configs)} with --dtype bfloat16")
     if opt.only_blend and not opt.use_blender:
         unported.append("--only_blend without --use_blender (the JAX package returns no image)")
     if opt.use_blender and opt.add_feat_zeros:
@@ -111,8 +112,6 @@ def check_supported(opt) -> None:
     if opt.isTrain:
         unported += [f"--{f}" for f in ("remat", "fused_step", "reuse_fake_for_d")
                      if getattr(opt, f)]
-        if opt.stats_freq:
-            unported.append("--stats_freq (training diagnostics)")
         if opt.curr_step not in (1, 2):
             unported.append(f"--curr_step {opt.curr_step}")
         if opt.only_blend and opt.unpairTrain:
@@ -279,7 +278,9 @@ class MichiGANModel:
 
     def encode_z(self, image: torch.Tensor, eps: Optional[torch.Tensor] = None):
         """(z, mu, logvar): z = eps * exp(logvar / 2) + mu from netE on
-        `image`, with eps from ``draw_eps`` unless given."""
+        `image`, with eps from ``draw_eps`` unless given.  netE takes the
+        image as it comes (float32 under either dtype), as the JAX package
+        applies it."""
         mu, logvar = self.netE(image)
         if eps is None:
             eps = self.draw_eps(mu.shape[0])
@@ -301,7 +302,9 @@ class MichiGANModel:
             fake = self.netG(*(gin[k] for k in GEN_KEYS), extra_dilate_steps, z=z).float()
         if opt.use_blender:
             src = pre["image_ref"] if opt.only_blend else fake
-            blend = self.netB(src, pre["image_tag"], pre["input_tag"], pre["noise"])
+            cdt = self.compute_dtype
+            blend = self.netB(src.to(cdt), pre["image_tag"].to(cdt), pre["input_tag"].to(cdt),
+                              pre["noise"].to(cdt)).float()
         return fake, kld, blend
 
     # ------------------------------------------------------------------

@@ -91,7 +91,7 @@ class SPADEBGenerator(nn.Module):
         hair_mask = input_tag[:, 1:2]
         if opt.use_vae:
             sw, sh = opt.latent_size()
-            x = self.fc(z.to(input_tag.dtype)).view(-1, 16 * opt.ngf, sh, sw)
+            x = self.fc(z).view(-1, 16 * opt.ngf, sh, sw)
         else:
             x = self.block("fc", image_ref, input_ref[:, 1:2], hair_mask)
 

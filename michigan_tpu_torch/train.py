@@ -9,7 +9,7 @@ Same flags as the JAX CLI (the port's config.train_options), with the VAE
 (--use_vae), the blender (--use_blender, --hair_random_disturb) and the
 unpaired two-stage schedule (--unpairTrain [--same_netD_model]: each epoch
 a pass of the unpaired stage, training netD2, then one of the paired stage,
-training netD) in float32.  <dir> holds
+training netD), under either dtype.  <dir> holds
 train_images/, train_labels/ and train_dense_orients/ (or point --image_dir,
 --label_dir and --orient_dir at them).  The device comes from --gpu_ids: -1
 is the CPU, N is cuda:N; fp32 with TF32 off, or --dtype bfloat16 (the bf16
@@ -42,8 +42,12 @@ under its number, --continue_train resuming from --which_epoch and iter.txt.
 --debug_nans checks every loss of every step for a finite value (a host
 sync per step); --profile_dir writes a torch.profiler trace of rank 0's
 step at 3 * --batchSize samples there (trace.json, for chrome://tracing or
-Perfetto).  The reference's image display (the HTML visualizer) is not
-ported: the trainer prints and logs losses only.
+Perfetto).  Rank 0 logs through utils/visualizer.py as the JAX trainer
+does: the printed losses to loss_log.txt and scalars.jsonl (with the
+epoch's wall img/s), every --stats_freq samples the diagnostics of
+training/diagnostics.py to scalars.jsonl, and every --display_freq samples
+the first sample's labels, images and fake to the HTML gallery under
+checkpoints/<name>/web/ (--no_html: none; --tf_log: TensorBoard too).
 """
 
 from __future__ import annotations
@@ -135,8 +139,10 @@ def train(opt, replica) -> None:
         init_netd2_from_netd,
         set_learning_rates,
     )
+    from michigan_tpu_torch.training.diagnostics import diagnostics
     from michigan_tpu_torch.training.train_step import TrainStep
     from michigan_tpu_torch.utils.iter_counter import IterationCounter
+    from michigan_tpu_torch.utils.visualizer import Visualizer
 
     main_rank = replica.is_main()
     print_ = print if main_rank else (lambda *a, **k: None)
@@ -169,7 +175,7 @@ def train(opt, replica) -> None:
     if opt.continue_train and CK.load_checkpoint(opt, opt.which_epoch, trainer):
         print_(f"resumed checkpoint '{opt.which_epoch}'")
     check_replicas(model)
-    log_path = os.path.join(opt.checkpoints_dir, opt.name, "loss_log.txt")
+    visualizer = Visualizer(opt) if main_rank else None
     host_rng = random.Random(opt.seed)
 
     def sync():
@@ -195,13 +201,13 @@ def train(opt, replica) -> None:
             extra = host_rng.randint(0, 4)
             # one draw of the VAE's noise a step, for its G step and D step
             eps = trainer.new_eps(opt.batchSize // replica.world)
-            g_losses, d_losses, orient = {}, {}, None
+            g_losses, d_losses, orient, fake = {}, {}, None, None
             # the step at 3 * batchSize samples, past the first steps' warm-up
             profiling = bool(opt.profile_dir) and main_rank and \
                 iter_counter.total_steps_so_far == 3 * opt.batchSize
             with profiled_step(opt.profile_dir, device) if profiling else contextlib.nullcontext():
                 if i % opt.D_steps_per_G == 0:
-                    g_losses, _fake, orient = trainer.g_step(batch, extra, eps)
+                    g_losses, fake, orient = trainer.g_step(batch, extra, eps)
                 if i % opt.G_steps_per_D == 0 and not opt.no_discriminator:
                     d_losses = trainer.d_step(batch, extra, orient, eps)
             if opt.debug_nans:
@@ -211,15 +217,21 @@ def train(opt, replica) -> None:
                 t0 = time.perf_counter()  # the first step's build and warm-up off the clock
             else:
                 steps += 1
-            if iter_counter.needs_printing():
-                msg = (f"(epoch: {epoch}, iters: {iter_counter.epoch_iter}, "
-                       f"time: {iter_counter.time_per_iter:.3f}) ")
-                msg += "".join(f"{k}: {v.item():.3f} " for k, v in {**g_losses,
-                                                                   **d_losses}.items())
-                print_(msg)
-                if main_rank:
-                    with open(log_path, "a") as f:
-                        f.write(msg + "\n")
+            step = iter_counter.total_steps_so_far
+            if visualizer is not None and iter_counter.needs_printing():
+                losses = {k: v.item() for k, v in {**g_losses, **d_losses}.items()}
+                visualizer.print_current_errors(epoch, iter_counter.epoch_iter, losses,
+                                                iter_counter.time_per_iter)
+                visualizer.plot_current_errors(losses, step)
+            if visualizer is not None and iter_counter._trigger(opt.stats_freq):
+                visualizer.plot_current_errors(diagnostics(model), step)
+            if visualizer is not None and iter_counter.needs_displaying() and fake is not None:
+                visualizer.display_current_results({
+                    "input_ref": data.get("label_ref", data["label_tag"])[0],
+                    "input_tag": data["label_tag"][0],
+                    "synthesized_image": fake[0].permute(1, 2, 0).float().cpu().numpy(),
+                    "image_ref": data.get("image_ref", data["image_tag"])[0],
+                    "image_tag": data["image_tag"][0]}, epoch, step)
             if iter_counter.needs_saving():
                 print_(f"saving the latest model (epoch {epoch}, "
                        f"total_steps {iter_counter.total_steps_so_far})")
@@ -227,9 +239,12 @@ def train(opt, replica) -> None:
         if steps:
             sync()
             dt = time.perf_counter() - t0
-            print_(f"epoch {epoch} (stage {curr_step}) wall throughput: "
-                   f"{steps * opt.batchSize / dt:.2f} img/s over {steps} steps "
-                   f"({dt / steps:.3f} s/step incl. data)")
+            rate = steps * opt.batchSize / dt
+            print_(f"epoch {epoch} (stage {curr_step}) wall throughput: {rate:.2f} img/s "
+                   f"over {steps} steps ({dt / steps:.3f} s/step incl. data)")
+            if visualizer is not None:
+                visualizer.plot_current_errors({"wall_img_per_s": rate},
+                                               iter_counter.total_steps_so_far)
         return stop
 
     for epoch in iter_counter.training_epochs():

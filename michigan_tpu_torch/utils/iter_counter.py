@@ -72,5 +72,8 @@ class IterationCounter:
     def needs_printing(self) -> bool:
         return self._trigger(self.opt.print_freq)
 
+    def needs_displaying(self) -> bool:
+        return self._trigger(self.opt.display_freq)
+
     def needs_saving(self) -> bool:
         return self._trigger(self.opt.save_latest_freq)

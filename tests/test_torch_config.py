@@ -109,7 +109,9 @@ def test_the_port_and_chip_smoke_import_without_the_jax_package():
     assert {"michigan_tpu_torch.serving.session", "michigan_tpu_torch.serving.export",
             "michigan_tpu_torch.evaluate", "michigan_tpu_torch.models.inception",
             "michigan_tpu_torch.parallel.dist",
-            "michigan_tpu_torch.tools.replica_objective"} <= set(modules)
+            "michigan_tpu_torch.tools.replica_objective",
+            "michigan_tpu_torch.training.diagnostics", "michigan_tpu_torch.utils.visualizer",
+            "michigan_tpu_torch.utils.colormap", "michigan_tpu_torch.utils.coco"} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", BLOCKED, "\n".join(imports)], cwd=REPO,
                           env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
                           text=True, timeout=300)

@@ -312,7 +312,9 @@ def test_trainer_cli_under_torchrun_two_cpu_ranks(tmp_path):
     run_dir = tmp_path / "ck" / "dp"
     for f in ("2_net_G.pth", "latest_net_D.pth", "latest_optim.pth", "iter.txt", "opt.json"):
         assert (run_dir / f).exists(), f
-    assert len((run_dir / "loss_log.txt").read_text().splitlines()) == 2  # rank 0 alone
+    log = (run_dir / "loss_log.txt").read_text().splitlines()
+    # rank 0 alone: the visualizer's one header and the two printed steps
+    assert len(log) == 3 and sum(line.startswith("(epoch: ") for line in log) == 2
     second = run_bounded(torchrun + flags + ["--niter", "3", "--continue_train"], tmp_path)
     assert second.count("resumed checkpoint 'latest'") == 1
     assert "(epoch: 3, iters: 2" in second and "(epoch: 1," not in second

@@ -21,16 +21,18 @@ Then the pieces alone: kld_loss, the ConvEncoder forward and its bridge
 round trip through the JAX package's convert_vae_encoder, the blender's
 forward (with and without --hair_random_disturb; the transposed convs'
 output_padding), inference of each config (and --only_blend) against JAX's
-``infer`` with the same eps, --only_blend and --fix_netG in training, the
-refusals, and the float64 G step of chip_smoke.py's phase 16 witness
-(tools/float64_step.py).
+``infer`` with the same eps, --only_blend and --fix_netG in training, and
+the refusals.  The float64 G step of chip_smoke.py's phase 16 witness
+(tools/float64_step.py) is tested in
+tests/test_torch_vae_blender_default_init.py.
 
 JAX's variables come from one jitted init of a config with both nets; the
 blender config's netG swaps the VAE's Linear seed for an init of the
 partial-conv encoder alone.  The blender's G step is also held at torch's
-default init (``blender_default_init``, its own JAX init), where it flips
-the sign of Adam's first update at 0.10-0.15% of netG's elements, all at
-near-zero gradients, against the rule's 0.1%.
+default init (``blender_default_init``, its own JAX init, in
+tests/test_torch_vae_blender_default_init.py), where it flips the sign of
+Adam's first update at 0.10-0.15% of netG's elements, all at near-zero
+gradients, against the rule's 0.1%.
 
 The float64 witness (tools/float64_step.py; chip_smoke.py's phase 16 uses
 its plain form).  Adam's first step moves each element by +-lr by its
@@ -104,13 +106,15 @@ from tests.test_torch_training import (
 # batch's pixel-noise labels its edge band covers every pixel, and the blend
 # would not depend on the fake
 CONFIGS = {"vae": dict(use_vae=True), "blender": dict(use_blender=True)}
-# the G step alone is also held at torch's default init (the blender)
-G_CASES = {**CONFIGS, "blender_default_init": dict(use_blender=True, init_type="none")}
+# the G step alone is also held at torch's default init (the blender), in
+# tests/test_torch_vae_blender_default_init.py: a file of its own, with its
+# own JAX init, so that the two files' JAX work runs in two workers
+G_CASES = dict(CONFIGS)
 OWN_NET = {"vae": "netE", "blender": "netB", "blender_default_init": "netB"}
 # the cases whose netG and own net may pass by the float64 witness, and
 # how much farther from float64 the port's gradient may lie than JAX's
 # (chip_smoke.py's phase-16 F64_CAL)
-WITNESSED = ("vae", "blender_default_init")
+WITNESSED = ("vae",)
 F64_CAL = 2.0
 # the float64 step replays the port's float32 branches only where float32's
 # rounding can flip them: at most this many choices of the step (of ~5e7)
@@ -191,14 +195,19 @@ def jax_runs():
             out[name] = dict(opt=opt, v0=v0, v1=to_np(state1.variables),
                              v2=to_np(state2.variables), g_losses=to_np(g_losses),
                              d_losses=to_np(d_losses), grads=adam_mu(state1.opt_g_state))
-        opt = tiny_opt(**G_CASES["blender_default_init"])
+    return out
+
+
+def jax_g_step(opt, batch, rng):
+    """JAX's initial variables of `opt` (its own jitted init) and its G
+    step (with its gradient), under MICHIGAN_FILTERBANK=direct."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MICHIGAN_FILTERBANK", "direct")
         v0 = jax_init(opt, batch, rng)
         _, g_step, _ = make_train_steps(opt)
         state1, _, _, _ = g_step(TrainState.create(opt, v0), batch, rng,
                                  jnp.asarray(EXTRA, jnp.int32))
-        out["blender_default_init"] = dict(opt=opt, v0=v0, v1=to_np(state1.variables),
-                                           grads=adam_mu(state1.opt_g_state))
-    return out
+    return dict(opt=opt, v0=v0, v1=to_np(state1.variables), grads=adam_mu(state1.opt_g_state))
 
 
 def port_model_from(opt, variables):
@@ -212,37 +221,42 @@ def snapshot(model):
             for name, net in model.nets().items()}
 
 
+def port_g_step(jax_runs, name):
+    """The port's G step of case `name` from JAX's initial variables, on
+    float64_step.branch_masks: (its run, the trainer, the batch, orient)."""
+    run = jax_runs[name]
+    eps = torch.from_numpy(jax_runs["eps"])
+    batch = batch_from_numpy(jax_runs["batch"], "cpu")
+    model = port_model_from(run["opt"], run["v0"])
+    trainer = TrainStep(model)
+    s0 = snapshot(model)
+    with float64_step.branch_masks() as branches:
+        g_losses, fake, orient = trainer.g_step(batch, EXTRA, eps)
+    grads = float64_step.adam_grads(trainer, ("netG", OWN_NET[name]))
+    out = dict(s0=s0, s1=snapshot(model), model=model, branches=branches, grads=grads,
+               g_losses=g_losses, fake=fake)
+    return out, trainer, batch, orient
+
+
 @pytest.fixture(scope="module")
 def port_runs(jax_runs):
     out = {}
     eps = torch.from_numpy(jax_runs["eps"])
     for name in G_CASES:
         run = jax_runs[name]
-        batch = batch_from_numpy(jax_runs["batch"], "cpu")
-        model = port_model_from(run["opt"], run["v0"])
-        trainer = TrainStep(model)
-        s0 = snapshot(model)
-        with float64_step.branch_masks() as branches:
-            g_losses, fake, orient = trainer.g_step(batch, EXTRA, eps)
-        s1 = snapshot(model)
-        grads = float64_step.adam_grads(trainer, ("netG", OWN_NET[name]))
-        if name not in CONFIGS:
-            out[name] = dict(s0=s0, s1=s1, model=model, branches=branches, grads=grads)
-            continue
+        out[name], trainer, batch, orient = port_g_step(jax_runs, name)
+        model = out[name]["model"]
         d_losses = trainer.d_step(batch, EXTRA, orient)  # the G step's eps
         s2 = snapshot(model)
         from_jax_g = TrainStep(port_model_from(run["opt"], run["v1"]))
         d_from_jax_g = from_jax_g.d_step(batch, EXTRA, eps=eps)
-        out[name] = dict(s0=s0, s1=s1, s2=s2, g_losses=g_losses, d_losses=d_losses,
-                         fake=fake, d_from_jax_g=d_from_jax_g,
-                         s2_from_jax_g=snapshot(from_jax_g.model), model=model,
-                         branches=branches, grads=grads)
+        out[name].update(s2=s2, d_losses=d_losses, d_from_jax_g=d_from_jax_g,
+                         s2_from_jax_g=snapshot(from_jax_g.model))
     return out
 
 
-@pytest.fixture(scope="module")
-def witness_runs(jax_runs, port_runs):
-    """{case: {net: gradient errors relative to float64}} of the WITNESSED
+def witness_of(jax_runs, port_runs, witnessed):
+    """{case: {net: gradient errors relative to float64}} of the `witnessed`
     cases' G steps: 'plain' the port's float32 step against the float64
     step as it runs, 'port' against the float64 step on its branches, 'jax' JAX's float32 step against the float64 step as
     it runs, 'control' the port's step on the first sample only against the
@@ -250,7 +264,7 @@ def witness_runs(jax_runs, port_runs):
     out = {}
     eps = torch.from_numpy(jax_runs["eps"])
     batch = batch_from_numpy(jax_runs["batch"], "cpu")
-    for name in WITNESSED:
+    for name in witnessed:
         run, port = jax_runs[name], port_runs[name]
         opt, nets = run["opt"], ("netG", OWN_NET[name])
         init = state_dicts_from_flax(run["v0"], opt)
@@ -276,6 +290,11 @@ def witness_runs(jax_runs, port_runs):
         # branches the port's float32 step took apart from float64's
         print(f"\n{name}: {out[name]}")
     return out
+
+
+@pytest.fixture(scope="module")
+def witness_runs(jax_runs, port_runs):
+    return witness_of(jax_runs, port_runs, WITNESSED)
 
 
 def jax_sd(jax_runs, name, key, net):
@@ -304,15 +323,19 @@ def test_d_step_losses_match_jax(jax_runs, port_runs, name):
 
 @pytest.mark.parametrize("name", list(G_CASES))
 def test_g_step_updates_netg_and_own_net_as_jax(request, jax_runs, port_runs, name):
+    check_g_step_updates(request, jax_runs, port_runs, name, WITNESSED)
+
+
+def check_g_step_updates(request, jax_runs, port_runs, name, witnessed):
     """netG and netE (netB) by the scale-aware rule at G's rate (in the
-    WITNESSED cases its count, where it fails, by the float64 witness); most
+    `witnessed` cases its count, where it fails, by the float64 witness); most
     of each net's elements moved; netD untouched by the G step."""
     model, run = port_runs[name]["model"], port_runs[name]
     lr = jax_runs[name]["opt"].lr
     for net in ("netG", OWN_NET[name]):
         want = params_of(jax_sd(jax_runs, name, "v1", net), model.nets()[net])
         got = params_of(run["s1"][net], model.nets()[net])
-        if name not in WITNESSED:
+        if name not in witnessed:
             assert_params_scale_aware(got, want, lr / 2)
         else:
             n_bad, n_tot = count_beyond_noise(got, want, lr / 2)
@@ -333,6 +356,10 @@ def test_g_step_updates_netg_and_own_net_as_jax(request, jax_runs, port_runs, na
 
 @pytest.mark.parametrize("name", WITNESSED)
 def test_half_batch_control_fails_the_float64_witness(witness_runs, name):
+    check_half_batch_control(witness_runs, name)
+
+
+def check_half_batch_control(witness_runs, name):
     """The witness can fail: the port's G step on the first sample alone
     lies farther from the float64 step than F64_CAL x JAX's error, in each
     net."""
@@ -524,17 +551,16 @@ def test_fix_netg_keeps_netg_out_of_gs_optimizer(kw):
 
 
 def test_refusals_name_their_flags():
-    """These configs under --dtype bfloat16, --only_blend where the JAX
-    package returns no image or fails, and --use_blender with the padded
-    generator planes are refused by name; float32 takes every config."""
-    for flag, kw in (("--use_vae", dict(use_vae=True)),
-                     ("--use_blender", dict(use_blender=True)),
-                     ("--unpairTrain", dict(unpairTrain=True, curr_step=2)),
-                     ("--only_blend", dict(use_blender=True, only_blend=True))):
+    """--only_blend where the JAX package returns no image or fails, and
+    --use_blender with the padded generator planes are refused by name;
+    every config builds under float32 and (since they were ported under
+    the bf16 policy) under --dtype bfloat16."""
+    for kw in (dict(use_vae=True), dict(use_blender=True), dict(unpairTrain=True, curr_step=2),
+               dict(use_blender=True, only_blend=True)):
         opt = tiny_opt(**kw)
         port_model.check_supported(opt)
-        with pytest.raises(NotImplementedError, match=f"{flag}.*with --dtype bfloat16"):
-            port_model.check_supported(dataclasses.replace(opt, dtype="bfloat16"))
+        port_model.check_supported(dataclasses.replace(opt, dtype="bfloat16"))
+        port_model.check_supported(dataclasses.replace(opt, dtype="bfloat16", isTrain=False))
     with pytest.raises(NotImplementedError, match="--only_blend without --use_blender"):
         port_model.check_supported(tiny_opt(only_blend=True))
     with pytest.raises(NotImplementedError, match="--only_blend with --unpairTrain"):
@@ -544,49 +570,3 @@ def test_refusals_name_their_flags():
         port_model.check_supported(tiny_opt(use_blender=True, add_feat_zeros=True))
     with pytest.raises(NotImplementedError, match="--curr_step 3"):
         port_model.check_supported(tiny_opt(unpairTrain=True, curr_step=3))
-
-
-def test_float64_witness_step_computes_the_g_step_in_float64():
-    """tools/float64_step.py's g_step64 (chip_smoke.py's phase 16 witness):
-    the blender config's G step on the CPU in float64 from float32 state
-    dicts; every gradient and parameter comes back float64, torch's casts
-    and default dtype are restored after it, its losses are the float32
-    step's (rtol 1e-5), and adam_grads reads the float32 step's gradients
-    back from Adam as autograd left them.
-    At crop 128: at 64^2 the float32 step's own losses differ from
-    float64's by up to 1e-3 (GAN, CONFIDENCE), at 128^2 by 1.2e-6."""
-    from michigan_tpu_torch.tools import float64_step
-
-    opt = tiny_opt(use_blender=True, crop_size=128, load_size=128)
-    model = MichiGANModel(opt, "cpu")
-    model.init_weights(0)
-    init = {k: {n: t.detach().clone() for n, t in net.state_dict().items()}
-            for k, net in model.nets().items()}
-    batch = batch_from_numpy(tiny_batch(opt), "cpu")
-    nets = ("netG", "netB")
-    losses, grads, exact = float64_step.g_step64(opt, init, batch, None, nets, EXTRA)
-    assert torch.ones(1).dtype == torch.float32
-    assert torch.ones(1).double().float().dtype == torch.float32
-    assert set(exact) == set(grads) == set(nets)
-    assert all(p.dtype == torch.float64 for d in (grads, exact) for net in d.values()
-               for p in net.values())
-    trainer = TrainStep(model)
-    seen = {}
-    adam_step = trainer.optimizers["G"].step
-
-    def step_keeping_grads(*a, **kw):
-        seen.update({(k, n): p.grad.clone() for k in nets
-                     for n, p in model.nets()[k].named_parameters()})
-        return adam_step(*a, **kw)
-
-    trainer.optimizers["G"].step = step_keeping_grads
-    want, _, _ = trainer.g_step(batch, EXTRA)
-    got = float64_step.adam_grads(trainer, nets)
-    assert all(torch.equal(got[k][n], seen[k, n].double()) for k, n in seen)
-    assert 0 < float64_step.rel_err(got["netG"], grads["netG"]) < 1e-2
-    assert list(losses) == list(want)
-    for k, v in want.items():
-        assert losses[k] == pytest.approx(v.item(), rel=1e-5, abs=1e-7), k
-    moved = {k: any(not torch.equal(p.float(), init[k][n]) for n, p in exact[k].items())
-             for k in exact}
-    assert all(moved.values())
