@@ -9,8 +9,9 @@ under the bf16 compute policy (--dtype bfloat16); then the training step of
 the VAE, blender and unpaired two-stage configs (phase 16), the
 flagship through the serving session, the exported program and FID's
 extractors (phase 17), the training step on two data-parallel ranks
-(phase 18), and the VAE, blender and unpaired configs again at --dtype
-bfloat16 (phase 19):
+(phase 18), the VAE, blender and unpaired configs again at --dtype
+bfloat16 (phase 19), and the 1024^2 configuration (--num_upsampling_layers
+most) with --remat activation checkpointing (phase 20):
 
 - the flagship inference path (IG orientation inpainting -> partial-conv
   appearance encoder -> noise background encoder -> SPADEB generator with
@@ -262,6 +263,38 @@ Phases, each on its own line:
       trainer's --stats_freq diagnostics (training/diagnostics.py) of the
       card's model against the same weights on the CPU (relative
       difference at most DIAG_REL).
+  20. the 1024^2 configuration (--num_upsampling_layers most: up_4 and the
+      background encoder's half-width stem) at full width: the kernels at
+      its shapes against their plain versions (spade_modulate at up_4's
+      (1, 64 and 32, 1152^2) in fp32 and bf16, conv3x3_same_lowch at (2,
+      64, 1024^2) in fp32 and bf16, the bank forward in fp32 and on bf16
+      operands and its backward on a hair-masked dconf at (1, 1, 1024^2)),
+      then device times beside their plain versions, F.conv2d and their
+      bounds, summed over a forward's 21 spade_modulate calls; inference
+      on FLAGS at 1024 + --add_th 128 (planes 9^2 ... 1152^2), batch 1, fp32
+      and bf16: the counts set to 0 just before and read just after,
+      exactly 21 spade_modulate and 29 fused_instance_norm, the output
+      finite, ms/image (median of 5, host clock) and peak memory; the same
+      path at MOST_CHECK_CROP + 128 card vs CPU by phase 5's limit (fp32)
+      and phase 13's (bf16); the training step on TRAIN_FLAGS at 1024
+      (the flag matrix's most_1024 row), batch 1, fp32 and bf16, with and
+      without --remat (up_1..up_4 and the VGG tower of the fake): exactly
+      STEP_LAUNCHES (STEP_BF16_LAUNCHES by dtype), losses finite, ms/step
+      (median of MOST_STEPS, with their spread) and peak, then the largest
+      batch of MOST_BATCHES that fits (an out-of-memory error above batch 1
+      is that probe's printed result; anything else fails); the flag
+      matrix's all_losses_remat row (every loss, batch 8, 512^2,
+      --remat_blocks up_1,up_2,up_3) beside phase 11's step without
+      --remat; then at PARITY16's batch, crop and width, `most`: the fp32
+      G+D step card vs CPU by phase 12's rule at torch's default init and
+      at xavier, the bf16 step with --no_confidence_loss by phase 15's
+      whole gate at SEED and by its gate on netG and netD at each of
+      MOST_GATE_SEEDS (the Gabor confidence term's clamp decides the bf16
+      netG at this size; SEED's step with it is printed), each with a
+      half-batch control that must fail; and the card's step with
+      --remat against its step without, from one state, under
+      deterministic algorithms, fp32 and bf16: bit for bit equal (or
+      within phase 12's rule, printed).
 
 Then a JSON line of per-kernel results: for the training step's kernels
 (fused_instance_norm, filterbank_orientation and its backward,
@@ -295,7 +328,12 @@ form, with cuDNN's bf16 route as replaced_route_ms; both bound at 989
 TFLOP/s of bf16 products) take their launches from phase 15's counted
 step.  The three serving kernels' rows carry session_launches, phase 17's
 launches per request through the captured graphs; conv3x3_same_lowch's
-row the launches of FID's VGG per batch.  Last, the device line.  Any
+row the launches of FID's VGG per batch.  Phase 20 adds rows named
+<kernel>_1024 (and <kernel>_bf16_1024) at the 1024^2 configuration's
+shapes: spade_modulate over a forward's 21 calls, the training kernels over
+the batch-1 step's calls, launches from phase 20's counted runs; the
+fused_instance_norm rows carry launches_1024 (forward and step), whose
+shapes are the 512^2 paths'.  Last, the device line.  Any
 failure exits non-zero without the device line; so does a machine without
 CUDA, and a directory without the rest of the repository.
 
@@ -457,6 +495,28 @@ DP16 = dict(crop=256, ngf=32, ndf=32, batch=4)
 DP_STEPS = 3
 DP_GROUP_TIMEOUT_S = 300
 DP_JOIN_S = 900
+# phase 20: the 1024^2 configuration (--num_upsampling_layers most) at full
+# width: inference on FLAGS at 1024 + --add_th 128 (generator planes 9^2 ...
+# 1152^2, the pad-crop back to 1024), the training step on TRAIN_FLAGS at
+# 1024 (the flag matrix's most_1024 row: planes 8^2 ... 1024^2), with and
+# without --remat over up_1..up_4 (and the VGG tower of the fake); the flag
+# matrix's all_losses_remat row on train-step-512's config at batch 8
+MOST_INFER = ["--num_upsampling_layers", "most", "--crop_size", "1024", "--load_size", "1024",
+              "--add_th", "128"]
+MOST_TRAIN = ["--num_upsampling_layers", "most", "--load_size", "1136"]
+MOST_REMAT = ["--remat", "--remat_blocks", "up_1,up_2,up_3,up_4"]
+ALL_LOSSES_REMAT = ["--remat", "--remat_blocks", "up_1,up_2,up_3"]
+# up_4's SPADE norms at 1152^2 (norm_0 and norm_s on its 64 input channels,
+# norm_1 on 32) after the flagship's 18, whose planes `most` keeps
+MOST_SPADE_SHAPES = {**SPADE_SHAPES, (64, 1152): 2, (32, 1152): 1}
+MOST_LAUNCHES = {**FLAGSHIP_LAUNCHES, "spade_modulate": sum(MOST_SPADE_SHAPES.values())}
+MOST_BF16_LAUNCHES = {**NO_LAUNCHES, "spade_modulate": {"bfloat16": MOST_LAUNCHES["spade_modulate"]},
+                      "fused_instance_norm": {"bfloat16": 29}}
+MOST_BATCHES = (1, 2, 4, 8)  # the largest-batch probes of the 1024^2 step
+MOST_CHECK_CROP = 512        # the 1024^2 inference path card vs CPU at 512 + 128
+MOST_STEPS = 12              # timed batch-1 1024^2 steps after the counted one
+REMAT512_STEPS = 3           # timed all_losses_remat steps (batch 8) after the counted one
+MOST_LOWCH = (2, 64, 1024, 1024)  # features_2 of the batch-1 step's tag+ref tower
 # phase 15's card-bf16 vs CPU-bf16 step at this batch, crop and width, so
 # that the CPU's two steps (bf16 and fp32) fit the script's time
 PARITY16 = dict(crop=256, ngf=32, ndf=32, batch=2)
@@ -482,6 +542,7 @@ BF16_KERNELS = {
 NEW_KERNEL_REL = 1e-4  # of the reference's largest magnitude
 F64_RATIO = 2.0  # a conv kernel's error against float64 at most 2x F.conv2d's in fp32
 SEED = 0
+MOST_GATE_SEEDS = (SEED, SEED + 1, SEED + 2)  # phase 20's bf16 gate on netG and netD
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s; float32
 # FMAs outside the tensor cores; float32-accurate products on the tensor
 # cores through the 3xTF32 split, a third of the 495 TFLOP/s TF32 rate
@@ -959,6 +1020,7 @@ def step_breakdown(torch, trainer, batch):
 
 
 def run():
+    """The smoke test."""
     # deterministic algorithms (phase 16) need cuBLAS's fixed workspace,
     # set before the first CUDA call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -1022,6 +1084,7 @@ def run():
     phase(2, f"{', '.join(p.name for p in libs.values())}: "
              f"{'already built, loaded' if all(prebuilt.values()) else 'nvcc builds (in parallel) and load'} "
              f"in {time.perf_counter() - t0:.2f} s")
+
 
     # 3 ---------------------------------------------------------------
     plain = {"spade_modulate": K.spade_modulate_plain,
@@ -2699,6 +2762,15 @@ def run():
             torch.cuda.empty_cache()
     phase(19, f"the bf16 configs in {time.perf_counter() - t19:.1f} s")
 
+    # 20 --------------------------------------------------------------
+    # the 1024^2 configuration (--num_upsampling_layers most) and --remat
+    msg, k20 = most_kernels(torch, F, tag)
+    if msg:
+        return fail(msg)
+    msg, most = most_phase(torch, np, tag, step32)
+    if msg:
+        return fail(msg)
+
     train_kernels = ("fused_instance_norm", "filterbank_orientation",
                      "filterbank_orientation_backward", "conv3x3_same_lowch")
     rows = {k: (stroke_counts[k], edit_ms[k], edit_plain_ms[k])
@@ -2759,6 +2831,16 @@ def run():
             "config_launches": {c: counts19[c][k].get("bfloat16", 0) for c in counts19},
             **({} if lowch else {"operands": "bf16, sums float32",
                                  "replaced_route_ms": bank_route16_ms})})
+    # the 1024^2 configuration's forward and step launch the fused
+    # instance norm at the IG's shapes, as at 512^2 (phase 20)
+    for row in kernel_rows:
+        if row["name"] in ("fused_instance_norm", "fused_instance_norm_bf16"):
+            key = "bfloat16" if row["name"].endswith("_bf16") else None
+            pick = lambda c: c["fused_instance_norm"][key] if key else c["fused_instance_norm"]
+            row["launches_1024"] = {
+                "forward": pick(most[f"infer_{key or 'float32'}"]),
+                "step": pick(most[f"step_{key or 'float32'}"])}
+    kernel_rows += most_rows(k20, most)
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2965,10 +3047,506 @@ def serving_phase(torch, np, tag):
     return None, (launches, fid_lowch)
 
 
-def train_opts(train_options, n, crop, extra=()):
-    """TRAIN_FLAGS at batch `n` (the global batch), `crop`, --seed SEED."""
+def most_kernels(torch, F, tag):
+    """Phase 20's kernels at the 1024^2 configuration's shapes, each against
+    its plain version, then device times beside the plain version, the
+    library call where one computes the same function and the bound.
+    Returns (failure or None, {row: {max_abs_err, ms, plain_ms, work, rate,
+    library_ms, shape}})."""
+    from michigan_tpu_torch.ops import filters
+    from michigan_tpu_torch.ops.cuda import lowch as LC
+    from michigan_tpu_torch.ops.cuda import orient as O
+    from michigan_tpu_torch.ops.cuda import spade as K
+
+    cgen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    rows, failed = {}, []
+    # spade_modulate: the forward's 21 calls, device time summed over them;
+    # up_4's shapes also against the plain version
+    for dname, tol in TOLS.items():
+        dtype = getattr(torch, dname)
+        row = rows.setdefault(f"spade_modulate{'_bf16' if dname == 'bfloat16' else ''}", dict(
+            max_abs_err=0.0, ms=0.0, plain_ms=0.0, work=[0, 0], library_ms=None,
+            rate=FP32_FLOP_S, shape=f"{sum(MOST_SPADE_SHAPES.values())} calls of a 1024^2 "
+                                    "forward, up to (1, 64, 1152, 1152)"))
+        for (c, h), calls in MOST_SPADE_SHAPES.items():
+            x = torch.randn((1, c, h, h), generator=cgen, device="cuda").to(dtype)
+            mean = torch.randn(c, generator=cgen, device="cuda")
+            inv = torch.rand(c, generator=cgen, device="cuda").add_(0.5)
+            gb = torch.randn((1, 2 * c, h, h), generator=cgen, device="cuda").to(dtype)
+            args = (x, mean, inv, *gb.chunk(2, dim=1))
+            if h == 1152:
+                got, want = K.spade_modulate(*args), K.spade_modulate_plain(*args)
+                err = (got.float() - want.float()).abs().max().item()
+                ok = torch.allclose(got.float(), want.float(), **tol)
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                print(f"[phase 20] spade_modulate {dname} (1,{c},{h},{h}) vs its plain version: "
+                      f"max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    failed.append(("spade_modulate", dname, c, h))
+                del got, want
+            tk = median_ms(lambda: K.spade_modulate(*args), torch, True, inner=5)
+            tp = median_ms(lambda: K.spade_modulate_plain(*args), torch, True, inner=5)
+            row["ms"] += calls * tk
+            row["plain_ms"] += calls * tp
+            elem = x.element_size()
+            # x, gamma, beta and the output, the two (C,) statistics
+            row["work"][0] += calls * (4 * elem * x.numel() + 8 * c)
+            row["work"][1] += calls * 4 * x.numel()
+            if h == 1152:
+                print(f"[phase 20] spade_modulate {dname} (1,{c},{h},{h}) x{calls}/forward: device "
+                      f"kernel {tk * 1e3:.1f} us, plain {tp * 1e3:.1f} us, bound "
+                      f"{4 * elem * x.numel() / HBM_BYTES_S * 1e6:.1f} us (bytes) {tag}",
+                      flush=True)
+            del x, gb, args
+    # conv3x3_same_lowch at the batch-1 step's features_2, fp32 and bf16
+    n, c, h, w_ = MOST_LOWCH
+    for dname in TOLS:
+        bf = dname == "bfloat16"
+        x = torch.randn(MOST_LOWCH, generator=cgen, device="cuda").relu_()
+        w = torch.randn((64, c, 3, 3), generator=cgen, device="cuda") * math.sqrt(2 / (9 * c))
+        if bf:
+            x, w = x.bfloat16(), w.bfloat16()
+        got, want = LC.conv3x3_same_lowch(x, w), LC.conv3x3_same_lowch_plain(x, w)
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), **TOLS["bfloat16"]) if bf else \
+            err <= NEW_KERNEL_REL * want.abs().max().item()
+        print(f"[phase 20] conv3x3_same_lowch {dname} {MOST_LOWCH} vs its plain version: "
+              f"max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(("conv3x3_same_lowch", dname))
+        del got, want
+        fk = lambda: LC.conv3x3_same_lowch(x, w)
+        fl = lambda: F.conv2d(x, w, padding=1)
+        turns = {fk: [], fl: []}
+        for f in (fl, fk, fk, fl):
+            turns[f].append(median_ms(f, torch, True, reps=3, inner=3))
+        elem = x.element_size()
+        rows[f"conv3x3_same_lowch{'_bf16' if bf else ''}"] = dict(
+            max_abs_err=err, ms=statistics.mean(turns[fk]),
+            plain_ms=median_ms(lambda: LC.conv3x3_same_lowch_plain(x, w), torch, True, reps=3,
+                               inner=3),
+            library_ms=statistics.mean(turns[fl]), rate=BF16_FLOP_S if bf else TF32X3_FLOP_S,
+            work=[elem * (n * c * h * w_ + n * 64 * h * w_) + w.element_size() * 64 * c * 9,
+                  2 * n * 64 * h * w_ * c * 9], shape=str(MOST_LOWCH))
+        del x, w, fk, fl, turns
+    # the bank forward (fp32; bf16 operands) and its backward at 1024^2 on a
+    # strand plane, the backward on a hair-masked dconf, as the loss gives it
+    img = strand_image(torch, 1024, SEED) * 2 - 1
+    gray = filters.rgb_to_gray255(img[None]).permute(0, 3, 1, 2).contiguous()
+    hair = ellipse_mask(torch, 1024)[None]
+    bank = filters.bank("gabor", gray.device)
+    pixels, bank_bytes = gray.numel(), bank.numel() * 4
+    for bf in (False, True):
+        got = O.filterbank_orientation(gray, bank, bf)
+        want = O.filterbank_orientation_plain(gray, bank, bf)
+        ok, err, frac = (fb16_compare(torch, got, want, gray, bank) if bf else
+                         fb_compare(torch, got, want, gray, bank)[:3])
+        name = f"filterbank_orientation{'_bf16' if bf else ''}"
+        print(f"[phase 20] {name} (1,1,1024,1024) vs its plain version: conf max_abs_err "
+              f"{err:.3e}, argmax differs on {frac:.2e} of pixels {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failed.append((name,))
+        rows[name] = dict(
+            max_abs_err=err, library_ms=None, rate=BF16_FLOP_S if bf else TF32X3_FLOP_S,
+            ms=median_ms(lambda: O.filterbank_orientation(gray, bank, bf), torch, True, inner=5),
+            plain_ms=median_ms(lambda: O.filterbank_orientation_plain(gray, bank, bf), torch,
+                               True, inner=5),
+            work=[12 * pixels + bank_bytes, 2 * pixels * 32 * 289], shape="(1,1,1024,1024)")
+    idx, conf = O.filterbank_orientation(gray, bank)
+    dconf = torch.randn(hair.shape, generator=cgen, device="cuda") * hair
+    got = O.filterbank_orientation_backward(dconf, idx, conf, bank)
+    want = O.filterbank_orientation_backward_plain(dconf, idx, conf, bank)
+    err = (got - want).abs().max().item()
+    ok = err <= NEW_KERNEL_REL * want.abs().max().item()
+    print(f"[phase 20] filterbank_orientation_backward (1,1,1024,1024) hair-masked dconf vs its "
+          f"plain version: max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failed.append(("filterbank_orientation_backward",))
+    carry = int(((dconf != 0) & (conf > 0)).sum())
+    rows["filterbank_orientation_backward"] = dict(
+        max_abs_err=err, library_ms=None, rate=FP32_FLOP_S,
+        ms=median_ms(lambda: O.filterbank_orientation_backward(dconf, idx, conf, bank), torch,
+                     True, inner=5),
+        plain_ms=median_ms(lambda: O.filterbank_orientation_backward_plain(dconf, idx, conf,
+                                                                           bank), torch, True,
+                           inner=5),
+        work=[16 * pixels + bank_bytes, 2 * 289 * carry], shape="(1,1,1024,1024)")
+    del img, gray, hair, idx, conf, dconf, got, want
+    torch.cuda.empty_cache()
+    for k, r in rows.items():
+        b_ms, b_by = bound(*r["work"], r["rate"])
+        r["bound_ms"], r["bound_by"] = b_ms, b_by
+        phase(20, f"{k} at 1024^2 ({r['shape']}): device kernel {r['ms']:.3f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms, bound {b_ms:.3f} ms by {b_by}"
+                  + (f", one library call {r['library_ms']:.3f} ms" if r["library_ms"] else "")
+                  + f" {tag}")
+    if failed:
+        return f"phase 20: a kernel disagrees with its plain version at 1024^2: {failed}", rows
+    return None, rows
+
+
+def most_phase(torch, np, tag, step32):
+    """Phase 20: the 1024^2 configuration at full width.  `step32`: phase
+    11's {'ms', 'peak'}.  Returns (failure or None, {run: launches} of the
+    counted runs)."""
+    from michigan_tpu_torch.data.synthetic import synthetic_inference_data, synthetic_train_data
+    from michigan_tpu_torch.inference import parse_options
+    from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
+    from michigan_tpu_torch.ops import cuda as kernels
+    from michigan_tpu_torch.train import parse_options as train_options
+    from michigan_tpu_torch.training.train_step import TrainStep
+    from michigan_tpu_torch.utils.imaging import tensor2im
+
+    t20 = time.perf_counter()
+    launches = {}
+
+    # inference at 1024 + 128, batch 1, fp32 and bf16: counted, timed
+    for dtype, want in (("float32", MOST_LAUNCHES), ("bfloat16", MOST_BF16_LAUNCHES)):
+        opt = parse_options(FLAGS + MOST_INFER + ["--seed", str(SEED), "--dtype", dtype])
+        model = MichiGANModel(opt, "cuda:0")
+        model.init_weights(SEED)
+        batch = batch_from_numpy(synthetic_inference_data(opt, SEED), "cuda:0")
+        kernels.reset_launch_counts()
+        fake, _ = model.infer(batch)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts(by_dtype=dtype == "bfloat16")
+        size = opt.generator_input_size()
+        phase(20, f"1024^2 inference ({dtype}, --num_upsampling_layers most, --add_th "
+                  f"{opt.add_th}, latent {opt.latent_size()}): fake {tuple(fake.shape)}, "
+                  f"launches {counts}")
+        if counts != want:
+            return f"phase 20: expected launches per 1024^2 forward {want}, got {counts}", None
+        if fake.shape != (1, 3, size, size) or not torch.isfinite(fake).all() \
+                or fake.abs().max() > 1 or fake.std() < 1e-3:
+            return f"phase 20: the 1024^2 {dtype} output is wrong", None
+        launches[f"infer_{dtype}"] = counts
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = host_ms(lambda: model.infer(batch), torch, 5)
+        phase(20, f"1024^2 inference {dtype}, batch 1: {ms:.2f} ms/image (median of 5, host "
+                  f"clock), peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}")
+        del model, batch, fake
+        torch.cuda.empty_cache()
+
+    # the same path card vs CPU at MOST_CHECK_CROP + 128, full width: phase
+    # 5's limit in fp32, phase 13's in bf16
+    outs = {}
+    for dtype in ("float32", "bfloat16"):
+        opt = parse_options(FLAGS + MOST_INFER + ["--crop_size", str(MOST_CHECK_CROP),
+                                                  "--load_size", str(MOST_CHECK_CROP),
+                                                  "--seed", str(SEED), "--dtype", dtype])
+        model = MichiGANModel(opt, "cuda:0")
+        model.init_weights(SEED)
+        cpu = MichiGANModel(opt, "cpu")
+        cpu.load_state_dicts({k: {n: t.cpu() for n, t in net.state_dict().items()}
+                              for k, net in model.nets().items()})
+        data = synthetic_inference_data(opt, SEED)
+        card_out = model.infer(batch_from_numpy(data, "cuda:0"))[0].cpu()
+        t0 = time.perf_counter()
+        outs[dtype] = (card_out, cpu.infer(batch_from_numpy(data, "cpu"))[0],
+                       time.perf_counter() - t0)
+        del model, cpu
+    r = opt.add_th // 2
+    u8 = lambda t: tensor2im(t.permute(0, 2, 3, 1).numpy()[0, r:r + MOST_CHECK_CROP,
+                                                           r:r + MOST_CHECK_CROP])
+    (c32, p32, s32), (c16, p16, s16) = outs["float32"], outs["bfloat16"]
+    diff32, diff16 = (c32 - p32).abs().max().item(), (c16 - p16).abs().max().item()
+    cal = (p16 - p32).abs().max().item()
+    psnr = psnr_u8(u8(c32), u8(p32), np)
+    phase(20, f"{MOST_CHECK_CROP}^2 + {opt.add_th} `most` card vs CPU, ngf {opt.ngf}: fp32 "
+              f"max_abs {diff32:.3e} (limit 2e-3), PSNR {psnr:.2f} dB (limit 50); bf16 max_abs "
+              f"{diff16:.3e} (limit {BF16_CAL:g} x the CPU's own bf16 vs fp32 {cal:.3e}); CPU "
+              f"forwards {s32:.1f} s, {s16:.1f} s")
+    if not (diff32 <= 2e-3 and psnr > 50 and diff16 <= BF16_CAL * cal):
+        return "phase 20: the `most` inference path's card and CPU outputs disagree", None
+    del outs, c32, p32, c16, p16
+    torch.cuda.empty_cache()
+
+    def trainer(n, crop, extra):
+        o = train_opts(train_options, n, crop, extra)
+        m = MichiGANModel(o, "cuda:0")
+        m.init_weights(SEED)
+        return o, TrainStep(m)
+
+    def counted(tr, batch, by_dtype):
+        kernels.reset_launch_counts()
+        g, _f, o = tr.g_step(batch, EXTRA_DILATE)
+        d = tr.d_step(batch, EXTRA_DILATE, o)
+        torch.cuda.synchronize()
+        return {k: v.item() for k, v in {**g, **d}.items()}, kernels.launch_counts(by_dtype)
+
+    def timed(tr, batch, steps):
+        """(median ms, min ms, max ms, peak bytes) of `steps` G+D steps."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            _g, _f, o = tr.g_step(batch, EXTRA_DILATE)
+            tr.d_step(batch, EXTRA_DILATE, o)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times), min(times), max(times), torch.cuda.max_memory_allocated()
+
+    # the 1024^2 step at batch 1, fp32 and bf16, without and with --remat:
+    # counted, timed; then the largest batch of MOST_BATCHES that fits
+    for dtype in ("float32", "bfloat16"):
+        bf = dtype == "bfloat16"
+        want = STEP_BF16_LAUNCHES if bf else STEP_LAUNCHES
+        for remat in (False, True):
+            label = f"{dtype}{', --remat up_1..up_4' if remat else ''}"
+            o, tr = trainer(1, 1024, MOST_TRAIN + ["--dtype", dtype]
+                            + (MOST_REMAT if remat else []))
+            batch = batch_from_numpy(synthetic_train_data(o, SEED, 1), "cuda:0")
+            losses, counts = counted(tr, batch, bf)
+            phase(20, f"1024^2 step ({label}), batch 1, ngf {o.ngf}, ndf {o.ndf}: launches "
+                      f"{counts}; losses " + ", ".join(f"{k} {v:.4f}" for k, v in losses.items()))
+            if counts != want or not all(math.isfinite(v) for v in losses.values()):
+                return f"phase 20: the 1024^2 step ({label}) launched {counts} or lost finiteness", \
+                    None
+            launches[f"step_{dtype}{'_remat' if remat else ''}"] = counts
+            ms, lo, hi, peak = timed(tr, batch, MOST_STEPS)
+            fits = [1]
+            for n in MOST_BATCHES[1:]:
+                del batch
+                for net in tr.model.nets().values():
+                    net.zero_grad(set_to_none=True)
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                try:
+                    batch = batch_from_numpy(synthetic_train_data(o, SEED, n), "cuda:0")
+                    t0 = time.perf_counter()
+                    _g, _f, ori = tr.g_step(batch, EXTRA_DILATE)
+                    tr.d_step(batch, EXTRA_DILATE, ori)
+                    torch.cuda.synchronize()
+                    fits.append(n)
+                    print(f"[phase 20]   batch {n} fits: {(time.perf_counter() - t0) * 1e3:.1f} "
+                          f"ms (one step), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                          f"GiB {tag}", flush=True)
+                    del _g, _f, ori
+                except torch.OutOfMemoryError as e:
+                    print(f"[phase 20]   batch {n}: out of memory ({str(e).splitlines()[0][:120]})",
+                          flush=True)
+                    batch = None
+                    break
+            phase(20, f"1024^2 step ({label}), batch 1: {ms:.1f} ms/step (median of {MOST_STEPS} "
+                      f"after the counted step; {lo:.1f} to {hi:.1f}), peak {peak / 2**30:.2f} "
+                      f"GiB; largest batch of "
+                      f"{MOST_BATCHES} that fits: {fits[-1]} {tag}")
+            del tr, batch
+            torch.cuda.empty_cache()
+
+    # the flag matrix's all_losses_remat row: every loss, batch 8, 512^2,
+    # --remat_blocks up_1,up_2,up_3, beside phase 11's step without --remat
+    o, tr = trainer(TRAIN_BATCH, 512, ALL_LOSSES_REMAT)
+    batch = batch_from_numpy(synthetic_train_data(o, SEED, TRAIN_BATCH), "cuda:0")
+    losses, counts = counted(tr, batch, False)
+    if counts != STEP_LAUNCHES or not all(math.isfinite(v) for v in losses.values()):
+        return f"phase 20: the all_losses_remat step launched {counts}", None
+    launches["step_all_losses_remat"] = counts
+    ms, _lo, _hi, peak = timed(tr, batch, REMAT512_STEPS)
+    del tr, batch
+    torch.cuda.empty_cache()
+    phase(20, f"all_losses_remat (--remat_blocks up_1,up_2,up_3), batch {TRAIN_BATCH}, 512^2, "
+              f"losses {sorted(losses)}: {ms:.1f} ms/step, peak {peak / 2**30:.2f} GiB; without "
+              f"--remat (phase 11) {step32['ms']:.1f} ms/step, {step32['peak'] / 2**30:.2f} GiB "
+              f"{tag}")
+
+    # card vs CPU at PARITY16's batch, crop and width, `most`: fp32 by phase
+    # 12's rule (both inits), bf16 by phase 15's whole gate, each with a
+    # half-batch control that must fail; the card's remat step against its
+    # step without, under deterministic algorithms
+    extra = ["--ngf", str(PARITY16["ngf"]), "--ndf", str(PARITY16["ndf"]), *MOST_TRAIN]
+    for init in ("none", "xavier"):
+        o, _init, r32 = most_step_runs(torch, extra + ["--init_type", init])
+        ok, row = rule12(r32["card"], r32["cpu"], o)
+        c_ok, c_row = rule12(r32["control"], r32["cpu"], o)
+        phase(20, f"`most` fp32 G+D step card vs CPU at --init_type {init}, batch "
+                  f"{PARITY16['batch']}, {PARITY16['crop']}^2, ngf {o.ngf}: {row}: "
+                  f"{'passes' if ok else 'FAIL'}; half-batch control: {c_row}: "
+                  f"{'passes, FAIL' if c_ok else 'fails, as it must'}")
+        if not ok or c_ok:
+            return f"phase 20: the `most` fp32 gate at --init_type {init} failed", None
+    msg = most_bf16_gates(torch, extra)
+    if msg:
+        return msg, None
+    # the card's remat step against its step without, from one initial
+    # state, under deterministic algorithms, fp32 and bf16
+    for dtype in ("float32", "bfloat16"):
+        flags = extra + ["--dtype", dtype]
+        o, init, plain = most_step_runs(torch, flags, det=True, card_only=True)
+        _o, _i, remat = most_step_runs(torch, flags + MOST_REMAT, init_state=init, det=True,
+                                       card_only=True)
+        same = bit_identical(plain["card"], remat["card"])
+        ok, row = (True, "bit for bit equal") if same else rule12(remat["card"], plain["card"], o)
+        phase(20, f"`most` {dtype} card step with --remat (up_1..up_4, the VGG tower) against the "
+                  f"card's step without, under deterministic algorithms: {row}"
+                  + ("" if same else f": {'within' if ok else 'past'} phase 12's rule"))
+        if not ok:
+            return f"phase 20: the {dtype} remat step differs from the step without", None
+    phase(20, f"the 1024^2 configuration in {time.perf_counter() - t20:.1f} s")
+    return None, launches
+
+
+def most_step_runs(torch, flags, seed=SEED, init_state=None, det=False, cpu32_flags=None,
+                   card_only=False):
+    """{name: one G+D step from one initial state} at PARITY16's batch, on
+    TRAIN_FLAGS + `flags` with `seed`: the card's; unless `card_only` the
+    CPU's and the card's on the first half of the batch (the control), and
+    with `cpu32_flags` the CPU's at those flags (float32); the CPU's and the
+    control's D steps from the card's post-G netG, as phase 12's.  Each
+    {'losses', 'params': {netG after G, netD after D}, 'buffers': netG's
+    after G}.  Returns (options, initial state, runs)."""
+    from michigan_tpu_torch.data.synthetic import synthetic_train_data
+    from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
+    from michigan_tpu_torch.train import parse_options as train_options
+    from michigan_tpu_torch.training.train_step import TrainStep
+
+    n, crop = PARITY16["batch"], PARITY16["crop"]
+    params_of = lambda net: {k: v.detach().cpu().clone() for k, v in net.named_parameters()}
+    buffers_of = lambda net: {k: v.detach().cpu().clone() for k, v in net.named_buffers()
+                              if v.is_floating_point()}
+    o = train_opts(train_options, n, crop, flags, seed)
+    card_model = MichiGANModel(o, "cuda:0")
+    card_model.init_weights(seed)
+    init = init_state or {k: {n_: t.detach().cpu().clone() for n_, t in net.state_dict().items()}
+                          for k, net in card_model.nets().items()}
+    card_model.load_state_dicts(init)
+    data = synthetic_train_data(o, seed, n)
+    todo = {"card": (o, "cuda:0", data)}
+    if not card_only:
+        todo.update(cpu=(o, "cpu", data),
+                    control=(o, "cuda:0", {k: v[:n // 2] for k, v in data.items()}))
+    if cpu32_flags is not None:
+        todo["cpu32"] = (train_opts(train_options, n, crop, cpu32_flags, seed), "cpu", data)
+    out, post_g = {}, None
+    for name, (o_, dev, d_) in todo.items():
+        if name == "card":
+            m = card_model
+        else:
+            m = MichiGANModel(o_, dev)
+            m.load_state_dicts(init)
+        tr = TrainStep(m)
+        b = batch_from_numpy(d_, dev)
+        with deterministic_algorithms(torch, det and dev != "cpu"):
+            g, _f, ori = tr.g_step(b, EXTRA_DILATE)
+            res = {"losses": {k: v.item() for k, v in g.items()},
+                   "params": {"netG": params_of(tr.model.netG)},
+                   "buffers": buffers_of(tr.model.netG)}
+            if name == "card":
+                post_g = {k: v.cpu() for k, v in tr.model.netG.state_dict().items()}
+            else:
+                tr.model.netG.load_state_dict(post_g)
+            d = tr.d_step(b, EXTRA_DILATE, ori)
+        res["losses"].update({k: v.item() for k, v in d.items()})
+        res["params"]["netD"] = params_of(tr.model.netD)
+        out[name] = res
+        del m, tr, b, g, d, ori, _f
+    del card_model
+    torch.cuda.empty_cache()
+    return o, init, out
+
+
+def rule12(got, want, o):
+    """Phase 12's rule over two of most_step_runs' runs: (ok, printable)."""
+    import torch
+
+    bad = [k for k, v in want["losses"].items()
+           if not abs(got["losses"][k] - v) <= 1e-5 + 1e-4 * abs(v)]
+    g_ok, g_worst, g_bad, g_tot = scale_aware(got["params"]["netG"], want["params"]["netG"],
+                                              o.lr / 2)
+    d_ok, d_worst, d_bad, _ = scale_aware(got["params"]["netD"], want["params"]["netD"],
+                                          2 * o.lr)
+    b_ok = all(torch.allclose(got["buffers"][k], v, rtol=1e-4, atol=1e-5)
+               for k, v in want["buffers"].items())
+    ok = not bad and g_ok and d_ok and b_ok
+    return ok, (f"losses beyond rtol 1e-4 {bad}; netG {g_bad} of {g_tot} beyond float noise, "
+                f"max diff {g_worst:.2e}; netD {d_bad} beyond, max diff {d_worst:.2e}; "
+                f"buffers {'within' if b_ok else 'past'} rtol 1e-4")
+
+
+def most_bf16_gate(torch, flags, seed):
+    """Phase 15's gate on one `most` bf16 G+D step card vs CPU at
+    PARITY16's batch and crop and `seed`, and on its half-batch control.
+    Returns ({'whole': ok, 'nets': ok}, the same of the control,
+    printable): the whole gate (every loss, netG and netD) and its verdict
+    on netG and netD alone."""
+    t0 = time.perf_counter()
+    o, _init, r = most_step_runs(torch, flags + ["--dtype", "bfloat16"], seed, cpu32_flags=flags)
+    lrs = {"netG": o.lr / 2, "netD": 2 * o.lr}
+    nets = lambda k: {"losses": {}, "params": r[k]["params"]}
+
+    def verdicts(who):
+        whole, rows = step_gate(r[who], r["cpu"], r["cpu32"], lrs)
+        return {"whole": whole, "nets": step_gate(nets(who), nets("cpu"), nets("cpu32"), lrs)[0]}, \
+            rows
+
+    ok, rows = verdicts("card")
+    c_ok, c_rows = verdicts("control")
+    word = lambda v: "passes" if v else "fails"
+    return ok, c_ok, (f"seed {seed}, batch {PARITY16['batch']}, {PARITY16['crop']}^2, per loss "
+                      f"card-vs-CPU bf16 / CPU bf16 vs fp32: " + ", ".join(rows)
+                      + f": the whole gate {word(ok['whole'])}, on netG and netD "
+                      f"{word(ok['nets'])}; half-batch control: " + ", ".join(c_rows)
+                      + f": the whole gate {word(c_ok['whole'])}, on netG and netD "
+                      f"{word(c_ok['nets'])} ({time.perf_counter() - t0:.1f} s)")
+
+
+def most_bf16_gates(torch, flags):
+    """Phase 20's bf16 gates at PARITY16's batch, crop and width, `most`
+    (TRAIN_FLAGS + `flags`), with --no_confidence_loss: the Gabor
+    confidence term's clamp at 0 decides which pixels its gradient reaches,
+    and at this size it alone moves the card's bf16 netG past the CPU's own
+    bf16 vs fp32 count (PERF.md section 7).  Phase 15's whole gate on
+    SEED's step; on each of MOST_GATE_SEEDS the gate on netG and netD, the
+    per-loss rows printed; each control fails what it is held to.  Then
+    SEED's step with the confidence term, printed, not gated.  Returns the
+    failure or None."""
+    for seed in MOST_GATE_SEEDS:
+        ok, c_ok, row = most_bf16_gate(torch, flags + ["--no_confidence_loss"], seed)
+        held = "whole" if seed == SEED else "nets"
+        phase(20, f"`most` bf16 G+D step (--no_confidence_loss) card vs CPU, held to phase 15's "
+                  f"{'whole gate' if held == 'whole' else 'gate on netG and netD'}: {row}")
+        if not ok[held]:
+            return f"phase 20: the `most` bf16 step at seed {seed} fails phase 15's gate"
+        if c_ok[held]:
+            return f"phase 20: the `most` bf16 gate at seed {seed} passes its half-batch control"
+    _ok, _c_ok, row = most_bf16_gate(torch, flags, SEED)
+    phase(20, f"`most` bf16 G+D step with the confidence term card vs CPU, printed: {row}")
+    return None
+
+
+def most_rows(k20, launches):
+    """The kernels line's rows of the 1024^2 configuration (phase 20): each
+    kernel at its 1024^2 shapes, its launches from phase 20's counted runs
+    (the forward's for spade_modulate, the batch-1 step's for the rest)."""
+    counts = {"spade_modulate": launches["infer_float32"]["spade_modulate"],
+              "spade_modulate_bf16": launches["infer_bfloat16"]["spade_modulate"]["bfloat16"]}
+    for k in ("conv3x3_same_lowch", "filterbank_orientation", "filterbank_orientation_backward"):
+        counts[k] = launches["step_float32"][k]
+    for k in ("conv3x3_same_lowch", "filterbank_orientation"):
+        counts[f"{k}_bf16"] = launches["step_bfloat16"][k]["bfloat16"]
+    rows = []
+    for name, r in k20.items():
+        base = name[:-5] if name.endswith("_bf16") else name
+        bf16_step_form = name.endswith("_bf16") and base in STEP_BF16_ROWS
+        rows.append({
+            "name": f"{name}_1024", "route": "cuda", "source": SOURCES[base],
+            "replaces": STEP_BF16_ROWS[base] if bf16_step_form else REPLACES[base],
+            "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "path": "1024^2 inference forward" if base == "spade_modulate" else
+                    "1024^2 training step, batch 1"})
+    return rows
+
+
+def train_opts(train_options, n, crop, extra=(), seed=SEED):
+    """TRAIN_FLAGS at batch `n` (the global batch), `crop`, --seed `seed`."""
     return train_options(TRAIN_FLAGS + ["--batchSize", str(n), "--crop_size", str(crop),
-                                        "--load_size", str(crop), "--seed", str(SEED), *extra])
+                                        "--load_size", str(crop), "--seed", str(seed), *extra])
 
 
 def dp_step(opt, device, group, world, rank=0, post_g=None, save_post_g=None, init=None,

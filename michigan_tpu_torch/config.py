@@ -236,11 +236,12 @@ class Options:
     # reuse_orient_for_d, max_steps, debug_nans and profile_dir (the
     # trainer's finite-loss check and one profiled step), mesh_shape (data:-1
     # or data:N replicas; any other axis raises) and bf16_grad_allreduce (the
-    # data-parallel gradient mean in bfloat16), accepts multihost (torchrun's
-    # environment spans hosts), and refuses remat, fused_step and
-    # reuse_fake_for_d (check_supported in model.py); the rest configure the
-    # JAX package's jit, relay and input pipeline and are parsed and ignored
-    # here.
+    # data-parallel gradient mean in bfloat16), remat and remat_blocks
+    # (activation checkpointing of netG's SPADE blocks and the VGG tower),
+    # accepts multihost (torchrun's environment spans hosts), and refuses
+    # fused_step and reuse_fake_for_d (check_supported in model.py); the rest
+    # configure the JAX package's jit, relay and input pipeline and are
+    # parsed and ignored here.
     dtype: str = "float32"
     mesh_shape: str = "data:-1"
     seed: int = 0

@@ -79,7 +79,7 @@ from michigan_tpu_torch.models.discriminator import MultiscaleDiscriminator
 from michigan_tpu_torch.models.encoders import ConvEncoder
 from michigan_tpu_torch.models.generator import SPADEBGenerator, orient_to_two_channel
 from michigan_tpu_torch.models.inpaint import InpaintGenerator, SInpaintGenerator
-from michigan_tpu_torch.models.layers import frozen_buffers, init_weights
+from michigan_tpu_torch.models.layers import checkpointed, frozen_buffers, init_weights
 from michigan_tpu_torch.models.vgg import VGG19, load_vgg19
 from michigan_tpu_torch.ops.masks import one_hot_label
 from michigan_tpu_torch.ops.resize import resize_nearest
@@ -110,8 +110,7 @@ def check_supported(opt) -> None:
         unported.append("a netG other than spadeb, a netIG other than inpaint or a "
                         "netSIG other than sinpaint")
     if opt.isTrain:
-        unported += [f"--{f}" for f in ("remat", "fused_step", "reuse_fake_for_d")
-                     if getattr(opt, f)]
+        unported += [f"--{f}" for f in ("fused_step", "reuse_fake_for_d") if getattr(opt, f)]
         if opt.curr_step not in (1, 2):
             unported.append(f"--curr_step {opt.curr_step}")
         if opt.only_blend and opt.unpairTrain:
@@ -390,10 +389,14 @@ class MichiGANModel:
         # branch: no host sync
         ref_is_tag = ((label_tag - label_ref).abs().sum() == 0).float()
         # one VGG forward per distinct image, in the compute dtype: the
-        # output's with a gradient, the tag's and ref's as one no-grad
-        # forward at twice the batch
+        # output's with a gradient (under --remat recomputed in the backward,
+        # as the JAX package's jax.checkpoint of the tower), the tag's and
+        # ref's as one no-grad forward at twice the batch
         cdt = self.compute_dtype
-        f_fake = self.vgg(out.to(cdt))
+        if opt.remat and torch.is_grad_enabled():
+            f_fake = checkpointed(self.vgg, self.vgg, out.to(cdt))
+        else:
+            f_fake = self.vgg(out.to(cdt))
         with torch.no_grad():
             f_tr = self.vgg(torch.cat([pre["image_tag"], pre["image_ref"]], dim=0).to(cdt))
         n = out.shape[0]

@@ -113,16 +113,22 @@ def _expanded_back_mask(opt, mask: torch.Tensor, extra_dilate_steps: int = 2):
 
 class BackgroundEncode2(nn.Module):
     """Noise-background condition module (encoder.py:271-341).  Returns the
-    feature pyramid coarsest-first, with the background mask at each scale.
-    The reference's layer4 is never applied and is not built."""
+    feature pyramid coarsest-first, with the background mask at each scale:
+    four levels, or under --num_upsampling_layers most five, from a stem of
+    ngf // 2 channels at full resolution (conv0) and a stride-2 layer0 in
+    place of conv1.  The reference's layer4 is never applied and is not
+    built."""
 
     def __init__(self, opt):
         super().__init__()
-        if opt.num_upsampling_layers == "most":
-            raise NotImplementedError("--num_upsampling_layers most is not ported")
         ngf = opt.ngf
         self.opt = opt
-        self.conv1 = ConvBlock(3, ngf, 7, 1, 3)
+        self.most = opt.num_upsampling_layers == "most"
+        if self.most:
+            self.conv0 = ConvBlock(3, ngf // 2, 7, 1, 3)
+            self.layer0 = ConvBlock(ngf // 2, ngf, 4, 2, 1)
+        else:
+            self.conv1 = ConvBlock(3, ngf, 7, 1, 3)
         self.layer1 = ConvBlock(ngf, 2 * ngf, 4, 2, 1)
         self.layer2 = ConvBlock(2 * ngf, 4 * ngf, 4, 2, 1)
         self.layer3 = ConvBlock(4 * ngf, 8 * ngf, 4, 2, 1)
@@ -133,10 +139,18 @@ class BackgroundEncode2(nn.Module):
             inp = noise
         else:
             inp = image * back_mask + noise * (1.0 - back_mask)
-        x0 = self.conv1(inp.to(image.dtype))
+        inp = inp.to(image.dtype)
+        if self.most:
+            x00 = self.conv0(inp)
+            x0 = self.layer0(x00)
+        else:
+            x0 = self.conv1(inp)
         x1 = self.layer1(x0)
         x2 = self.layer2(x1)
         x3 = self.layer3(x2)
         h, w = back_mask.shape[2:]
-        bms = [resize_nearest(back_mask, (h // f, w // f)) for f in (8, 4, 2)]
-        return [x3, x2, x1, x0], bms + [back_mask]
+        factors = (16, 8, 4, 2) if self.most else (8, 4, 2)
+        bms = [resize_nearest(back_mask, (h // f, w // f)) for f in factors] + [back_mask]
+        if self.most:
+            return [x3, x2, x1, x0, x00], bms
+        return [x3, x2, x1, x0], bms

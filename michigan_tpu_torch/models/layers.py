@@ -36,6 +36,11 @@ statistics in normalization.py) is explicit: a module writes them in train
 mode while its ``write_buffers`` is true.  ``frozen_buffers`` clears it
 around one call, which keeps the train-mode arithmetic and writes nothing
 (the JAX package's ``mutable=False``); the discriminator clears it for good.
+
+``checkpointed`` runs a module under activation checkpointing (--remat):
+its recompute in the backward reads the spectral u the forward read and
+writes no buffer, so the gradient is the one of the forward that ran and the
+buffers are written once.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from typing import Iterator, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from michigan_tpu_torch.ops.norms import (
     instance_norm,
@@ -225,6 +231,37 @@ class SpectralConv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv(F.conv2d, x, *cast_params(x, self.weight(), self.bias), self.stride,
                     self.padding, self.dilation)
+
+
+@contextlib.contextmanager
+def _as_read(module: nn.Module, u_read: dict) -> Iterator[None]:
+    """Inside, `module` computes as its train-mode forward did from the
+    spectral u in `u_read` ({conv: u before the forward wrote it}) and
+    writes no buffer."""
+    written = {m: m.weight_u for m in u_read}
+    for m, u in u_read.items():
+        m.weight_u = u
+    try:
+        with frozen_buffers(module):
+            yield
+    finally:
+        for m, u in written.items():
+            m.weight_u = u
+
+
+def checkpointed(module: nn.Module, fn, *args):
+    """fn(*args), a call of `module`, with the activations it saves for the
+    backward freed and recomputed there (torch.utils.checkpoint,
+    non-reentrant): the JAX package's nn.remat.  The forward writes what it
+    writes (batch-norm running statistics, spectral u / v); the recompute
+    starts each spectral conv's power iteration from the u the forward read,
+    so it gets the forward's sigma, and writes nothing.  fn draws no random
+    numbers, so no RNG state is kept for the recompute."""
+    u_read = {m: m.weight_u.clone() for m in module.modules()
+              if isinstance(m, SpectralConv2d) and m.training}
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), _as_read(module, u_read)))
 
 
 class SpectralConvTranspose2d(SpectralConv2d):

@@ -2,12 +2,14 @@
 take on the card, and how far each lands from float64.
 
     python3 chip_smoke.py --conv_algorithms \
-        [--init_type xavier] [--crop 512] [--no_table] [--native PREFIX[,PREFIX...] ...]
+        [--init_type xavier] [--crop 512] [--ups more|most] [--no_table]
+        [--native PREFIX[,PREFIX...] ...]
 
 ``main`` takes the training config, the seed, the mask dilation and the
 scale-aware rule from its caller (chip_smoke.py, which holds them for its
 phases 11 and 12).  One G step of that config (bench.py's flags, full
-width, batch 1, ``--init_type`` as given; default: the config's own xavier)
+width, batch 1, ``--init_type`` as given, default the config's own xavier;
+``--ups most`` the 1024^2 configuration's generator, with up_4)
 records every convolution that reaches netG's parameters: its input, the
 weight it was given, and the gradient of its output in the step's backward.
 Each is then replayed alone on those tensors: in float32 through cuDNN
@@ -149,6 +151,8 @@ def main(argv, train_flags, seed, extra, scale_aware, card_info):
     ap = argparse.ArgumentParser()
     ap.add_argument("--init_type", default="xavier")
     ap.add_argument("--crop", type=int, default=512)
+    ap.add_argument("--ups", default="more", choices=("normal", "more", "most"),
+                    help="--num_upsampling_layers")
     ap.add_argument("--native", nargs="*", default=[])
     ap.add_argument("--no_table", action="store_true", help="only the G step comparison")
     ap.add_argument("--device", default="cuda:0", help="cpu: a rehearsal at a small --crop")
@@ -162,14 +166,15 @@ def main(argv, train_flags, seed, extra, scale_aware, card_info):
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     flags = [f for f in train_flags if f not in ("none",)]
     flags = [f for f in flags if f != "--init_type"] + ["--init_type", args.init_type]
-    opt = parse_options(flags + ["--batchSize", "1", "--crop_size", str(args.crop),
+    opt = parse_options(flags + ["--num_upsampling_layers", args.ups,
+                                 "--batchSize", "1", "--crop_size", str(args.crop),
                                  "--load_size", str(args.crop), "--seed", str(seed)])
     model = MichiGANModel(opt, dev)
     model.init_weights(seed)
     data = synthetic_train_data(opt, seed, 1)
     batch = batch_from_numpy(data, dev)
     print(f"card: {card}; torch {torch.__version__}; init {args.init_type}, batch 1, "
-          f"{args.crop}^2, ngf {opt.ngf}", flush=True)
+          f"{args.crop}^2, --num_upsampling_layers {args.ups}, ngf {opt.ngf}", flush=True)
 
     # the step's convolutions, with their output gradients (every conv on
     # cuDNN, so that each reaches F.conv2d with autograd recording)

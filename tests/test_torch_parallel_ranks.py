@@ -145,3 +145,14 @@ def step_from_states(out: str) -> None:
     states = torch.load(os.path.join(out, "init.pt"))
     res = one_step(opt, data, rep.group, states=states)
     torch.save(res, os.path.join(out, f"from_states{rep.rank}.pt"))
+
+
+def remat_and_plain_step(out: str) -> None:
+    """(g) one G+D step on this rank's half of tiny_batch with --remat
+    (every SPADE block and the VGG tower rematerialised) and without;
+    <out>/remat<rank>.pt."""
+    rep = _replica()
+    data = _slice(tiny_batch(tiny_opt()), rep.rank, rep.world)
+    res = {name: one_step(tiny_opt(remat=remat), data, rep.group)
+           for name, remat in (("plain", False), ("remat", True))}
+    torch.save(res, os.path.join(out, f"remat{rep.rank}.pt"))
