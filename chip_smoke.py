@@ -11,7 +11,8 @@ flagship through the serving session, the exported program and FID's
 extractors (phase 17), the training step on two data-parallel ranks
 (phase 18), the VAE, blender and unpaired configs again at --dtype
 bfloat16 (phase 19), and the 1024^2 configuration (--num_upsampling_layers
-most) with --remat activation checkpointing (phase 20):
+most) with --remat activation checkpointing (phase 20), and the last
+model options of the JAX package (phase 21):
 
 - the flagship inference path (IG orientation inpainting -> partial-conv
   appearance encoder -> noise background encoder -> SPADEB generator with
@@ -105,7 +106,7 @@ Phases, each on its own line:
       tower), 1 filterbank_orientation and 1 filterbank_orientation_backward
       (the ORIENT/CONFIDENCE loss), no spade_modulate or conv3x3_in_act;
       losses finite, netG and netD changed, netIG and VGG19 bit-identical;
-      one warm-up then 5 timed steps (ms/step, img/s, peak device memory)
+      one warm-up then TRAIN_STEPS timed steps (ms/step, img/s, peak device memory)
       and one profiled step
   12. one G+D step on the card and on the CPU (plain versions) from the same
       weights, batch 1, crop PARITY_CROP at full width, at torch's default
@@ -295,6 +296,24 @@ Phases, each on its own line:
       --remat against its step without, from one state, under
       deterministic algorithms, fp32 and bf16: bit for bit equal (or
       within phase 12's rule, printed).
+  21. the port's last model options at full width: inference on FLAGS,
+      batch 1, 512², under each of VARIANT_INFER (--Image_encoder_mode
+      norm, instance, no --use_encoder, no --noise_background,
+      --orient_random_disturb, --weight_norm_G, --no_instance False with
+      a synthetic two-id instance map): the counts set to 0 just before
+      and read just after, exactly FLAGSHIP_LAUNCHES (under
+      --weight_norm_G spade_modulate with mean 0 and invstd 1), the output
+      finite, card vs CPU by phase 5's limits, ms/image (median of
+      VARIANT_INFER_REPS, host clock) and peak memory; spade_modulate with
+      mean 0 and invstd 1 against x * (1 + gamma) + beta at WN_SHAPES;
+      then the two configs of VARIANT_TRAIN on TRAIN_FLAGS (A: the norm
+      encoder and D with spectral batch norms, --weight_norm_G,
+      --reuse_fake_for_d; B: the instance encoder, netFE, an instance map,
+      --netD n_layer, no --noise_background, --no_ganFeat_loss): one G+D
+      step card vs CPU at PARITY16's size by phase 12's rule with a
+      half-batch control that must fail, then at TRAIN_BATCH, 512², full
+      width: exactly STEP_LAUNCHES, losses finite, ms/step (median of
+      VARIANT_STEPS) and peak.
 
 Then a JSON line of per-kernel results: for the training step's kernels
 (fused_instance_norm, filterbank_orientation and its backward,
@@ -333,7 +352,8 @@ row the launches of FID's VGG per batch.  Phase 20 adds rows named
 shapes: spade_modulate over a forward's 21 calls, the training kernels over
 the batch-1 step's calls, launches from phase 20's counted runs; the
 fused_instance_norm rows carry launches_1024 (forward and step), whose
-shapes are the 512^2 paths'.  Last, the device line.  Any
+shapes are the 512^2 paths'.  The float32 rows carry variants_launches,
+phase 21's counted runs.  Last, the device line.  Any
 failure exits non-zero without the device line; so does a machine without
 CUDA, and a directory without the rest of the repository.
 
@@ -444,7 +464,8 @@ TRAIN_FLAGS = ("--netG spadeb --use_encoder --use_ig --noise_background --expand
                "--expand_th 5 --random_expand_mask --num_upsampling_layers more "
                "--init_type none --gpu_ids 0").split()
 TRAIN_BATCH = 8  # the slice's batch: an out-of-memory error fails phase 11
-TRAIN_STEPS = 5
+TRAIN_STEPS = 3  # timed batch-8 steps after the warm-up (phases 11, 15, 19)
+SPLIT_STEPS = 2  # steps timed as a G step and a D step apart (phases 11, 15)
 EXTRA_DILATE = 2  # the expected random mask dilation (encoder.py:294)
 PARITY_CROP = 512
 # phase 16: the three training configs of the JAX package's flag matrix
@@ -461,7 +482,7 @@ F64_CAL = 2.0
 # phase 16's timed steps a config (fewer than phase 11's, to leave phase 19
 # room in the script's time), and the witnessed config's repeats of its
 # card G step under deterministic algorithms
-CONFIG_STEPS = 3
+CONFIG_STEPS = 2
 DET_REPEATS = 3
 # phase 19: phase 16's configs at --dtype bfloat16; the unpaired stage runs
 # no VGG tower, so no conv3x3_same_lowch
@@ -470,6 +491,7 @@ DIAG_REL = 1e-4  # the diagnostics card vs CPU, relative
 # the modules those configs added, imported before the check that no module
 # of jax or of the JAX package was loaded
 CONFIG_MODULES = ("michigan_tpu_torch.models.blend", "michigan_tpu_torch.models.encoders",
+                  "michigan_tpu_torch.models.maskgan", "michigan_tpu_torch.models.discriminator",
                   "michigan_tpu_torch.tools.float64_step",
                   "michigan_tpu_torch.losses.color", "michigan_tpu_torch.ops.stats",
                   "michigan_tpu_torch.training.checkpoint", "michigan_tpu_torch.convert",
@@ -492,7 +514,7 @@ FID_REL = 1e-3  # card vs CPU features, relative to their norm
 # the bf16 step at DP16; group and join timeouts in seconds
 DP_WORLD = 2
 DP16 = dict(crop=256, ngf=32, ndf=32, batch=4)
-DP_STEPS = 3
+DP_STEPS = 2
 DP_GROUP_TIMEOUT_S = 300
 DP_JOIN_S = 900
 # phase 20: the 1024^2 configuration (--num_upsampling_layers most) at full
@@ -514,8 +536,8 @@ MOST_BF16_LAUNCHES = {**NO_LAUNCHES, "spade_modulate": {"bfloat16": MOST_LAUNCHE
                       "fused_instance_norm": {"bfloat16": 29}}
 MOST_BATCHES = (1, 2, 4, 8)  # the largest-batch probes of the 1024^2 step
 MOST_CHECK_CROP = 512        # the 1024^2 inference path card vs CPU at 512 + 128
-MOST_STEPS = 12              # timed batch-1 1024^2 steps after the counted one
-REMAT512_STEPS = 3           # timed all_losses_remat steps (batch 8) after the counted one
+MOST_STEPS = 4               # timed batch-1 1024^2 steps after the counted one
+REMAT512_STEPS = 2           # timed all_losses_remat steps (batch 8) after the counted one
 MOST_LOWCH = (2, 64, 1024, 1024)  # features_2 of the batch-1 step's tag+ref tower
 # phase 15's card-bf16 vs CPU-bf16 step at this batch, crop and width, so
 # that the CPU's two steps (bf16 and fp32) fit the script's time
@@ -541,6 +563,35 @@ BF16_KERNELS = {
     "filterbank_orientation": {"filterbank_bf16_kernel": 1.0}}
 NEW_KERNEL_REL = 1e-4  # of the reference's largest magnitude
 F64_RATIO = 2.0  # a conv kernel's error against float64 at most 2x F.conv2d's in fp32
+# phase 21: the port's last model options at full width.  Inference: FLAGS
+# with each option ({name: (flags added, flags dropped)}); the SPADE norms
+# keep their spade_modulate launch under each (under --weight_norm_G with
+# mean 0 and invstd 1: no param-free norm), and the IG its 29
+# fused_instance_norm
+VARIANT_INFER = {
+    "Image_encoder_mode_norm": (["--Image_encoder_mode", "norm"], ()),
+    "Image_encoder_mode_instance": (["--Image_encoder_mode", "instance"], ()),
+    "no_encoder": ([], ("--use_encoder",)),
+    "no_noise_background": ([], ("--noise_background",)),
+    "orient_random_disturb": (["--orient_random_disturb"], ()),
+    "weight_norm_G": (["--weight_norm_G"], ()),
+    "instance_map": (["--no_instance", "False"], ()),
+}
+VARIANT_INFER_REPS = 3  # timed forwards a variant, after a warm-up
+# training: two combined configs on TRAIN_FLAGS.  B's one n_layer D gives
+# its features to the GAN-feature loss as the JAX package's split does
+# (michigan_tpu_torch/model.py discriminate), whose fake and real pieces
+# broadcast against each other only at batch 1: B runs without that loss
+VARIANT_TRAIN = {
+    "A": (["--Image_encoder_mode", "norm", "--norm_E", "spectralbatch", "--norm_D",
+           "spectralbatch", "--weight_norm_G", "--reuse_fake_for_d"], ()),
+    "B": (["--Image_encoder_mode", "instance", "--use_instance_feat", "--no_instance", "False",
+           "--netD", "n_layer", "--no_ganFeat_loss"], ("--noise_background",)),
+}
+VARIANT_STEPS = 2  # timed batch-8 steps a config, after the counted one (the warm-up)
+# spade_modulate under --weight_norm_G against x * (1 + gamma) + beta at the
+# flagship's first and last SPADE shapes (C, H=W)
+WN_SHAPES = ((1024, 18), (64, 576))
 SEED = 0
 MOST_GATE_SEEDS = (SEED, SEED + 1, SEED + 2)  # phase 20's bf16 gate on netG and netD
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s; float32
@@ -1777,7 +1828,7 @@ def run():
     if counts != {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES.items()}:
         return fail(f"launches over {TRAIN_STEPS} steps: {counts}")
     g_times, d_times = [], []
-    for _ in range(3):
+    for _ in range(SPLIT_STEPS):
         t0 = time.perf_counter()
         _g, _f, o = trainer.g_step(tbatch, EXTRA_DILATE)
         torch.cuda.synchronize()
@@ -1787,7 +1838,7 @@ def run():
         g_times.append((t1 - t0) * 1e3)
         d_times.append((time.perf_counter() - t1) * 1e3)
     phase(11, f"G step {statistics.median(g_times):.1f} ms, D step "
-              f"{statistics.median(d_times):.1f} ms (medians of 3) {tag}")
+              f"{statistics.median(d_times):.1f} ms (medians of {SPLIT_STEPS}) {tag}")
     for k, v in step_breakdown(torch, trainer, tbatch).items():
         phase(11, f"  part, alone: {k}: {v:.1f} ms {tag}")
     busy_ms, wall_ms, table, conv_ms, dev_ms = profile_once(train_step, torch)
@@ -2245,7 +2296,7 @@ def run():
               f"(fp32 {step32['peak'] / 2**30:.2f}), of which {live / 2**30:.2f} GiB live before "
               f"the steps {tag}")
     g_times, d_times = [], []
-    for _ in range(3):
+    for _ in range(SPLIT_STEPS):
         t0 = time.perf_counter()
         _g, _f, o = trainer16.g_step(tbatch, EXTRA_DILATE)
         torch.cuda.synchronize()
@@ -2255,7 +2306,7 @@ def run():
         g_times.append((t1 - t0) * 1e3)
         d_times.append((time.perf_counter() - t1) * 1e3)
     phase(15, f"bf16 G step {statistics.median(g_times):.1f} ms, D step "
-              f"{statistics.median(d_times):.1f} ms (medians of 3; fp32 {step32['g']:.1f} / "
+              f"{statistics.median(d_times):.1f} ms (medians of {SPLIT_STEPS}; fp32 {step32['g']:.1f} / "
               f"{step32['d']:.1f}) {tag}")
     for k, v in step_breakdown(torch, trainer16, tbatch).items():
         phase(15, f"  part, alone: {k}: {v:.1f} ms {tag}")
@@ -2771,6 +2822,13 @@ def run():
     if msg:
         return fail(msg)
 
+    # 21 --------------------------------------------------------------
+    # the port's last model options (encoders, seeds, background encoder,
+    # norms, discriminators, netFE, instance maps) at full width
+    msg, variants = variants_phase(torch, np, tag)
+    if msg:
+        return fail(msg)
+
     train_kernels = ("fused_instance_norm", "filterbank_orientation",
                      "filterbank_orientation_backward", "conv3x3_same_lowch")
     rows = {k: (stroke_counts[k], edit_ms[k], edit_plain_ms[k])
@@ -2841,6 +2899,10 @@ def run():
                 "forward": pick(most[f"infer_{key or 'float32'}"]),
                 "step": pick(most[f"step_{key or 'float32'}"])}
     kernel_rows += most_rows(k20, most)
+    # phase 21's counted runs of the last model options
+    for row in kernel_rows:
+        if row["name"] in REPLACES:
+            row["variants_launches"] = {r: c[row["name"]] for r, c in variants.items()}
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3391,9 +3453,9 @@ def most_phase(torch, np, tag, step32):
 
 
 def most_step_runs(torch, flags, seed=SEED, init_state=None, det=False, cpu32_flags=None,
-                   card_only=False):
+                   card_only=False, drop=()):
     """{name: one G+D step from one initial state} at PARITY16's batch, on
-    TRAIN_FLAGS + `flags` with `seed`: the card's; unless `card_only` the
+    TRAIN_FLAGS less `drop` + `flags` with `seed`: the card's; unless `card_only` the
     CPU's and the card's on the first half of the batch (the control), and
     with `cpu32_flags` the CPU's at those flags (float32); the CPU's and the
     control's D steps from the card's post-G netG, as phase 12's.  Each
@@ -3408,7 +3470,7 @@ def most_step_runs(torch, flags, seed=SEED, init_state=None, det=False, cpu32_fl
     params_of = lambda net: {k: v.detach().cpu().clone() for k, v in net.named_parameters()}
     buffers_of = lambda net: {k: v.detach().cpu().clone() for k, v in net.named_buffers()
                               if v.is_floating_point()}
-    o = train_opts(train_options, n, crop, flags, seed)
+    o = train_opts(train_options, n, crop, flags, seed, drop)
     card_model = MichiGANModel(o, "cuda:0")
     card_model.init_weights(seed)
     init = init_state or {k: {n_: t.detach().cpu().clone() for n_, t in net.state_dict().items()}
@@ -3420,7 +3482,8 @@ def most_step_runs(torch, flags, seed=SEED, init_state=None, det=False, cpu32_fl
         todo.update(cpu=(o, "cpu", data),
                     control=(o, "cuda:0", {k: v[:n // 2] for k, v in data.items()}))
     if cpu32_flags is not None:
-        todo["cpu32"] = (train_opts(train_options, n, crop, cpu32_flags, seed), "cpu", data)
+        todo["cpu32"] = (train_opts(train_options, n, crop, cpu32_flags, seed, drop), "cpu",
+                         data)
     out, post_g = {}, None
     for name, (o_, dev, d_) in todo.items():
         if name == "card":
@@ -3439,7 +3502,7 @@ def most_step_runs(torch, flags, seed=SEED, init_state=None, det=False, cpu32_fl
                 post_g = {k: v.cpu() for k, v in tr.model.netG.state_dict().items()}
             else:
                 tr.model.netG.load_state_dict(post_g)
-            d = tr.d_step(b, EXTRA_DILATE, ori)
+            d = tr.d_step(b, EXTRA_DILATE, ori, None, _f)  # _f: --reuse_fake_for_d
         res["losses"].update({k: v.item() for k, v in d.items()})
         res["params"]["netD"] = params_of(tr.model.netD)
         out[name] = res
@@ -3543,10 +3606,141 @@ def most_rows(k20, launches):
     return rows
 
 
-def train_opts(train_options, n, crop, extra=(), seed=SEED):
-    """TRAIN_FLAGS at batch `n` (the global batch), `crop`, --seed `seed`."""
-    return train_options(TRAIN_FLAGS + ["--batchSize", str(n), "--crop_size", str(crop),
-                                        "--load_size", str(crop), "--seed", str(seed), *extra])
+def variants_phase(torch, np, tag):
+    """Phase 21: the port's last model options at full width.  Returns
+    (failure or None, {run: launches} of the counted runs)."""
+    from michigan_tpu_torch.data.synthetic import synthetic_inference_data, synthetic_train_data
+    from michigan_tpu_torch.inference import parse_options
+    from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
+    from michigan_tpu_torch.ops import cuda as kernels
+    from michigan_tpu_torch.ops.cuda import spade as K
+    from michigan_tpu_torch.train import parse_options as train_options
+    from michigan_tpu_torch.training.train_step import TrainStep
+    from michigan_tpu_torch.utils.imaging import tensor2im
+
+    t21 = time.perf_counter()
+    launches = {}
+
+    # (i) inference on FLAGS with each option, batch 1: counted, timed, and
+    # card vs CPU by phase 5's limits
+    for name, (add, drop) in VARIANT_INFER.items():
+        opt = parse_options([f for f in FLAGS if f not in drop] + add + ["--seed", str(SEED)])
+        model = MichiGANModel(opt, "cuda:0")
+        model.init_weights(SEED)
+        data = synthetic_inference_data(opt, SEED)
+        batch = batch_from_numpy(data, "cuda:0")
+        kernels.reset_launch_counts()
+        fake, _ = model.infer(batch)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        launches[f"infer_{name}"] = counts
+        size = opt.generator_input_size()
+        if counts != FLAGSHIP_LAUNCHES:
+            return f"phase 21 {name}: expected launches {FLAGSHIP_LAUNCHES}, got {counts}", None
+        if fake.shape != (1, 3, size, size) or not torch.isfinite(fake).all() \
+                or fake.abs().max() > 1 or fake.std() < 1e-3:
+            return f"phase 21 {name}: the output is wrong", None
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = host_ms(lambda: model.infer(batch), torch, VARIANT_INFER_REPS)
+        peak = torch.cuda.max_memory_allocated()
+        cpu = MichiGANModel(opt, "cpu")
+        cpu.load_state_dicts({k: {n: t.cpu() for n, t in net.state_dict().items()}
+                              for k, net in model.nets().items()})
+        t0 = time.perf_counter()
+        fake_cpu = cpu.infer(batch_from_numpy(data, "cpu"))[0]
+        cpu_s = time.perf_counter() - t0
+        r = opt.add_th // 2
+        u8 = lambda t: tensor2im(t.permute(0, 2, 3, 1).cpu().numpy()[
+            0, r:r + opt.crop_size, r:r + opt.crop_size])
+        diff = (fake.cpu() - fake_cpu).abs().max().item()
+        psnr = psnr_u8(u8(fake), u8(fake_cpu), np)
+        phase(21, f"{name}: launches {counts}; card vs CPU max_abs {diff:.3e} (limit 2e-3), "
+                  f"PSNR {psnr:.2f} dB (limit 50); batch 1, 512^2, ngf {opt.ngf}: {ms:.2f} "
+                  f"ms/image (median of {VARIANT_INFER_REPS}, host clock), peak device memory "
+                  f"{peak / 2**30:.2f} GiB ({live / 2**30:.2f} GiB live before) {tag}; CPU "
+                  f"forward {cpu_s:.1f} s")
+        if not diff <= 2e-3 or not psnr > 50:
+            return f"phase 21 {name}: card and CPU outputs disagree", None
+        del model, cpu, batch, fake, fake_cpu
+        torch.cuda.empty_cache()
+
+    # the --weight_norm_G form of spade_modulate (mean 0, invstd 1) against
+    # the plain x * (1 + gamma) + beta
+    gen = torch.Generator(device="cuda:0").manual_seed(SEED)
+    for c, h in WN_SHAPES:
+        x, gamma, beta = (torch.randn((1, c, h, h), device="cuda:0", generator=gen)
+                          for _ in range(3))
+        got = K.spade_modulate(x, torch.zeros(c, device="cuda:0"),
+                               torch.ones(c, device="cuda:0"), gamma, beta)
+        want = x * (1 + gamma) + beta
+        err = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, **TOLS["float32"])
+        phase(21, f"spade_modulate (1, {c}, {h}, {h}) with mean 0, invstd 1 against x * (1 + "
+                  f"gamma) + beta: max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            return "phase 21: spade_modulate under --weight_norm_G disagrees", None
+
+    # (ii) training: each combined config card vs CPU at PARITY16's size by
+    # phase 12's rule with a half-batch control that must fail, then at
+    # TRAIN_BATCH, 512^2, full width: counted, timed
+    for cfg, (flags, drop) in VARIANT_TRAIN.items():
+        extra = ["--ngf", str(PARITY16["ngf"]), "--ndf", str(PARITY16["ndf"]), *flags]
+        o, _init, runs = most_step_runs(torch, extra, drop=drop)
+        ok, row = rule12(runs["card"], runs["cpu"], o)
+        c_ok, c_row = rule12(runs["control"], runs["cpu"], o)
+        phase(21, f"config {cfg} ({' '.join(flags)}{' less ' + ' '.join(drop) if drop else ''}) "
+                  f"G+D step card vs CPU, batch {PARITY16['batch']}, {PARITY16['crop']}^2, ngf "
+                  f"{o.ngf}: {row}: {'passes' if ok else 'FAIL'}; half-batch control: {c_row}: "
+                  f"{'passes, FAIL' if c_ok else 'fails, as it must'}")
+        if not ok or c_ok:
+            return f"phase 21: config {cfg}'s card-vs-CPU gate failed", None
+        del runs
+        o = train_opts(train_options, TRAIN_BATCH, 512, flags, drop=drop)
+        model = MichiGANModel(o, "cuda:0")
+        model.init_weights(SEED)
+        tr = TrainStep(model)
+        batch = batch_from_numpy(synthetic_train_data(o, SEED, TRAIN_BATCH), "cuda:0")
+        kernels.reset_launch_counts()
+        g, fake, ori = tr.g_step(batch, EXTRA_DILATE)
+        d = tr.d_step(batch, EXTRA_DILATE, ori, None, fake)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        launches[f"step_{cfg}"] = counts
+        losses = {k: v.item() for k, v in {**g, **d}.items()}
+        if counts != STEP_LAUNCHES:
+            return f"phase 21 config {cfg}: expected launches {STEP_LAUNCHES}, got {counts}", None
+        if not all(math.isfinite(v) for v in losses.values()):
+            return f"phase 21 config {cfg}: a loss is not finite: {losses}", None
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(VARIANT_STEPS):  # after the counted step, the warm-up
+            t0 = time.perf_counter()
+            _g, fake_, ori_ = tr.g_step(batch, EXTRA_DILATE)
+            tr.d_step(batch, EXTRA_DILATE, ori_, None, fake_)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        phase(21, f"config {cfg}, batch {TRAIN_BATCH}, 512^2, ngf {o.ngf}, ndf {o.ndf}: "
+                  f"launches {counts}; losses " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                                            losses.items())
+                  + f"; {', '.join(f'{t:.1f}' for t in times)} ms, median {ms:.1f} ms/step "
+                  f"(host clock, after the counted step), {TRAIN_BATCH / ms * 1e3:.2f} img/s, "
+                  f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                  f"({live / 2**30:.2f} GiB live before) {tag}")
+        del model, tr, batch, g, d, fake, ori
+        torch.cuda.empty_cache()
+    phase(21, f"the last model options in {time.perf_counter() - t21:.1f} s")
+    return None, launches
+
+
+def train_opts(train_options, n, crop, extra=(), seed=SEED, drop=()):
+    """TRAIN_FLAGS less `drop` at batch `n` (the global batch), `crop`,
+    --seed `seed`."""
+    return train_options([f for f in TRAIN_FLAGS if f not in drop] + [
+        "--batchSize", str(n), "--crop_size", str(crop), "--load_size", str(crop),
+        "--seed", str(seed), *extra])
 
 
 def dp_step(opt, device, group, world, rank=0, post_g=None, save_post_g=None, init=None,

@@ -233,13 +233,14 @@ class Options:
     # and training), orient_bank_fp32 (the orientation loss's bank in
     # float32 under bfloat16), seed, use_pallas_epilogue (the resblocks'
     # fused conv3x3_in_act kernel),
-    # reuse_orient_for_d, max_steps, debug_nans and profile_dir (the
+    # reuse_orient_for_d, reuse_fake_for_d (the D step on the G step's fake,
+    # not with --use_blender), max_steps, debug_nans and profile_dir (the
     # trainer's finite-loss check and one profiled step), mesh_shape (data:-1
     # or data:N replicas; any other axis raises) and bf16_grad_allreduce (the
     # data-parallel gradient mean in bfloat16), remat and remat_blocks
     # (activation checkpointing of netG's SPADE blocks and the VGG tower),
     # accepts multihost (torchrun's environment spans hosts), and refuses
-    # fused_step and reuse_fake_for_d (check_supported in model.py); the rest
+    # fused_step (check_supported in model.py); the rest
     # configure the JAX package's jit, relay and input pipeline and are
     # parsed and ignored here.
     dtype: str = "float32"
@@ -295,13 +296,14 @@ class Options:
         return self.crop_size + (self.add_th if self.add_feat_zeros else 0)
 
     def spade_label_nc(self) -> int:
-        """Channels of the SPADE conditioning map (architecture.py:58)."""
-        return (
-            self.label_nc
-            + (self.orient_nc if not self.no_orientation else 0)
-            + (self.feat_num if self.use_instance_feat else 0)
-            + (3 if "spadebase" in self.netG else 0)
-        )
+        """Channels of the SPADE conditioning map the generator builds: the
+        one-hot tag labels (with the don't-care class and, under
+        --no_instance False, the instance edges) and the
+        orientation.  The JAX package's convs take their input channels
+        from this map; no path of it concatenates netFE's features."""
+        return (self.label_nc + (1 if self.contain_dontcare_label else 0)
+                + (0 if self.no_instance else 1)
+                + (self.orient_nc if not self.no_orientation else 0))
 
     def d_input_nc(self) -> int:
         """Discriminator input channels (discriminator.py:102-108)."""

@@ -4,10 +4,13 @@ test.
 
 synthetic_inference_data  the keys, shapes and dtypes of
     ``single_inference_data``: a hair ellipse over the upper face, a
-    disk-shaped hole inside it, a smooth orientation field, noise around 0.5.
+    disk-shaped hole inside it, a smooth orientation field, noise around 0.5;
+    under --no_instance False the (N,H,W,1) instance map a caller builds
+    for the model (no loader reads one): two ids, split at a seeded column.
 synthetic_train_data  a training batch with the training loader's keys
     (``label_ref``, ``label_tag``, ``image_ref``, ``image_tag``, ``orient``,
-    ``hole``, ``orient_rgb``, ``noise``), the same samples: paired, so the
+    ``hole``, ``orient_rgb``, ``noise``; ``instance`` under --no_instance
+    False), the same samples: paired, so the
     ref planes are the tag planes; or unpaired (the --unpairTrain stage's
     batch), the ref label and image from other samples.
 synthetic_stroke_data  a stroke edit as ``demo_inference_data`` gives it,
@@ -52,14 +55,21 @@ def synthetic_inference_data(opt, seed: int, batch: int = 1) -> Dict[str, np.nda
 
     samples = [sample() for _ in range(batch)]
     out = {k: np.stack([x[k] for x in samples]).astype(np.float32) for k in samples[0]}
-    out["instance"] = np.zeros((1,), np.float32)
+    if getattr(opt, "no_instance", True):
+        out["instance"] = np.zeros((1,), np.float32)
+    else:  # its own generator: the other planes stay as they are
+        cut = np.random.default_rng(seed + 1000).integers(s // 4, 3 * s // 4, batch)
+        out["instance"] = np.broadcast_to(
+            np.arange(s)[None, None, :, None] >= cut[:, None, None, None],
+            (batch, s, s, 1)).astype(np.float32)
     return out
 
 
 def synthetic_train_data(opt, seed: int, batch: int, paired: bool = True
                          ) -> Dict[str, np.ndarray]:
     out = synthetic_inference_data(opt, seed, batch)
-    del out["instance"]
+    if getattr(opt, "no_instance", True):
+        del out["instance"]
     if not paired:
         other = synthetic_inference_data(opt, seed + 1, batch)
         out["label_ref"], out["image_ref"] = other["label_tag"], other["image_tag"]

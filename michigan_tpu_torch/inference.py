@@ -47,7 +47,8 @@ def device_from_gpu_ids(gpu_ids: str) -> torch.device:
 
 def load_released(model, opt) -> bool:
     """Load checkpoints/<name>/<which_epoch>_net_G.pth (and _net_E.pth under
-    --use_vae, _net_B.pth under --use_blender), the IG's
+    --use_vae, _net_B.pth under --use_blender, _net_FE.pth under
+    --use_instance_feat), the IG's
     InpaintingModel_gen.pth ['generator'] (--use_ig) and the SIG's
     SInpaintingModel_gen.pth ['generator'] (--use_stroke) when present; True
     if netG came from a file."""
@@ -55,7 +56,8 @@ def load_released(model, opt) -> bool:
 
     base = os.path.join(opt.checkpoints_dir, opt.name)
     paths = {f"net{x}": (os.path.join(base, f"{opt.which_epoch}_net_{x}.pth"), None)
-             for x, on in (("G", True), ("E", opt.use_vae), ("B", opt.use_blender)) if on}
+             for x, on in (("G", True), ("E", opt.use_vae), ("B", opt.use_blender),
+                           ("FE", opt.use_instance_feat)) if on}
     if opt.use_ig:
         paths["netIG"] = (os.path.join(base, opt.ig_model_name), "generator")
     if opt.use_stroke:

@@ -13,15 +13,28 @@ from michigan_tpu_torch.ops.masks import wide_edges
 from michigan_tpu_torch.ops.resize import resize_nearest
 
 
+def label_at(label: torch.Tensor, pred: torch.Tensor, fn=None):
+    """(the hair label resized to pred's planes, then `fn` of it, in pred's
+    layout; pred's channels).  pred is NCHW, or a 3-D piece of a single
+    discriminator's feature in the JAX package's (H, W, C) layout
+    (model.discriminate under --netD n_layer): that one's label is resized
+    to (pred.shape[1], pred.shape[2]) and laid out (N, h, w, 1), as the
+    JAX losses resize an NHWC label to an NHWC pred's shape[1:3]."""
+    fn = fn or (lambda m: m)
+    if pred.dim() == 4:
+        return fn(resize_nearest(label, pred.shape[2:])), pred.shape[1]
+    return fn(resize_nearest(label, pred.shape[1:3])).permute(0, 2, 3, 1), pred.shape[-1]
+
+
 def _weight_mask(pred: torch.Tensor, label: torch.Tensor, wide_edge: float) -> torch.Tensor:
-    edges = wide_edges(resize_nearest(label, pred.shape[2:]))
+    edges, _ = label_at(label, pred, wide_edges)
     return edges * wide_edge + (1.0 - edges)
 
 
 def gan_loss(pred: torch.Tensor, target_is_real: bool, for_discriminator: bool, opt,
              label: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One scale (loss.py:80-124); `label` is the target hair mask
-    (N,1,H,W) at full resolution."""
+    (N,1,H,W) at full resolution; pred as ``label_at`` takes it."""
     pred = pred.float()
     mode = opt.gan_mode
     if mode == "original":
@@ -39,8 +52,8 @@ def gan_loss(pred: torch.Tensor, target_is_real: bool, for_discriminator: bool, 
             if not target_is_real:
                 raise ValueError("the generator's hinge loss aims for real")
             return -pred.mean()
-        label1 = resize_nearest(label, pred.shape[2:])
-        denom = label1.sum() * pred.shape[1] + 1e-5
+        label1, c = label_at(label, pred)
+        denom = label1.sum() * c + 1e-5
         if for_discriminator:
             raw = (pred - 1) if target_is_real else (-pred - 1)
             return -torch.clamp_max(raw * label1, 0.0).sum() / denom

@@ -1,6 +1,6 @@
 """MichiGAN orchestration (port of michigan_tpu/model.py), NCHW.
 
-  preprocess(batch)          one-hot labels
+  preprocess(batch)          one-hot labels (+ instance edges, --no_instance False)
   inpaint_orient(...)        IG orientation inpainting (pix2pix_model.py:407-429)
   inpaint_stroke_orient(...) SIG stroke inpainting (pix2pix_model.py:431-464)
   encode_z(image, eps)       the VAE's z, mu, logvar (--use_vae)
@@ -17,8 +17,9 @@ for a stroke edit, or the training loader's); ``batch_from_numpy`` turns
 NHWC numpy arrays into one.  The inference paths of the flagship and demo
 configurations, the paired training stage, and the VAE (--use_vae), blender
 (--use_blender, --only_blend) and unpaired two-stage (--unpairTrain)
-configurations are ported, under either dtype; ``check_supported`` names
-what is not.
+configurations are ported, under either dtype, with every model option
+of the JAX package (appearance encoders, seeds, background encoders,
+norms, discriminators, netFE); ``check_supported`` names what is not.
 
 The training stage (``stage``) is --curr_step under --unpairTrain, read on
 each call, else 1: stage 2 (unpaired ref) discriminates with netD2, drops
@@ -54,7 +55,22 @@ recompute of the fake uses train-mode statistics and writes nothing; netD's
 and netD2's spectral u / v are never written (each step iterates again from
 the stored ones).  netE trains but runs in eval mode, as the JAX package
 applies it: sigma from its stored u / v, never iterated or written.  netIG
-and VGG19 are frozen (eval mode, no gradient).
+and VGG19 are frozen (eval mode, no gradient).  netD's and netD2's batch
+norms (--norm_D) normalise with the batch's statistics and never write
+their running statistics, a batch-norm netE (--norm_E) normalises with its
+running statistics, and the appearance encoder's batch norms inside netG
+write theirs in the G step only, as netG's SPADE norms do.  netFE
+(--use_instance_feat) is built, seeded, in G's optimizer and checkpointed,
+and no path runs it, as in the JAX package.
+
+Under --reuse_fake_for_d (not with --use_blender) the D step takes the G
+step's fake, detached, and does not recompute it (JAX model.py:511-537):
+D trains against the image of netG before its update.
+
+Under --netD n_layer netD is one NLayerDiscriminator, whose output is one
+list of features rather than a list of lists; ``discriminate`` splits it
+as the JAX package's does (see there), and the losses read the pieces as
+the JAX package's losses do.
 """
 
 from __future__ import annotations
@@ -75,34 +91,34 @@ from michigan_tpu_torch.losses.perceptual import (
     vgg_loss_from_features,
 )
 from michigan_tpu_torch.models.blend import Blend2Generator
-from michigan_tpu_torch.models.discriminator import MultiscaleDiscriminator
+from michigan_tpu_torch.models.discriminator import define_D
 from michigan_tpu_torch.models.encoders import ConvEncoder
 from michigan_tpu_torch.models.generator import SPADEBGenerator, orient_to_two_channel
 from michigan_tpu_torch.models.inpaint import InpaintGenerator, SInpaintGenerator
 from michigan_tpu_torch.models.layers import checkpointed, frozen_buffers, init_weights
+from michigan_tpu_torch.models.maskgan import FeatureEncoder
 from michigan_tpu_torch.models.vgg import VGG19, load_vgg19
-from michigan_tpu_torch.ops.masks import one_hot_label
+from michigan_tpu_torch.ops.masks import instance_edges, one_hot_label
 from michigan_tpu_torch.ops.resize import resize_nearest
 
 GEN_KEYS = ("input_ref", "input_tag", "orient", "image_ref", "image_tag", "noise")
 FROZEN_NETS = ("netIG", "netSIG", "vgg")
 # netG, then every net by name, in the order init_weights draws them: the
 # nets of the VAE, blender and unpair configs last, so that they leave every
-# other net's seeded weights as they were
-NET_NAMES = ("netG", "netIG", "netSIG", "netD", "vgg", "netE", "netB", "netD2")
+# other net's seeded weights as they were, and netFE after them
+NET_NAMES = ("netG", "netIG", "netSIG", "netD", "vgg", "netE", "netB", "netD2", "netFE")
 Z_NC = 256  # ConvEncoder's mu / logvar width (encoder.py:57-58)
 
 
 def check_supported(opt) -> None:
-    """Raise for flags whose code paths are not ported yet."""
-    unported = [f"--{f}" for f in ("use_instance_feat", "add_zeros") if getattr(opt, f)]
+    """Raise for flags whose code paths are not ported, and for the
+    combinations the JAX package cannot run."""
+    unported = []
     if opt.only_blend and not opt.use_blender:
         unported.append("--only_blend without --use_blender (the JAX package returns no image)")
     if opt.use_blender and opt.add_feat_zeros:
         unported.append("--use_blender with --add_feat_zeros (the JAX package's blender "
                         "takes the unpadded planes and fails on the padded fake)")
-    if not opt.no_instance:
-        unported.append("instance maps (--no_instance False)")
     if opt.dtype not in ("float32", "bfloat16"):
         unported.append(f"--dtype {opt.dtype}")
     if opt.netG != "spadeb" or (opt.use_ig and opt.netIG != "inpaint") or \
@@ -110,7 +126,9 @@ def check_supported(opt) -> None:
         unported.append("a netG other than spadeb, a netIG other than inpaint or a "
                         "netSIG other than sinpaint")
     if opt.isTrain:
-        unported += [f"--{f}" for f in ("fused_step", "reuse_fake_for_d") if getattr(opt, f)]
+        if opt.fused_step:
+            unported.append("--fused_step (one XLA program of the G and D steps; the port "
+                            "runs eagerly)")
         if opt.curr_step not in (1, 2):
             unported.append(f"--curr_step {opt.curr_step}")
         if opt.only_blend and opt.unpairTrain:
@@ -134,12 +152,12 @@ def batch_from_numpy(data: Dict, device) -> Dict[str, torch.Tensor]:
 class MichiGANModel:
     """Holds the nets of one configuration on one device: netG, netIG /
     netSIG, netE (--use_vae), netB (--use_blender), and with --isTrain netD,
-    netD2 (--unpairTrain) and the frozen VGG19.  The device is the card
-    unless the caller asks for the CPU.  `group` is the data-parallel
-    process group of a replica (parallel/dist.py; None with one process):
-    netG's sync batch norms take their statistics over it, and the training
-    step averages gradients and losses over it.  netD, netE and netB hold
-    instance norms only, which take no group in the JAX package either."""
+    netD2 (--unpairTrain) and the frozen VGG19; netFE under
+    --use_instance_feat.  The device is the card unless the caller asks
+    for the CPU.  `group` is the data-parallel process group of a replica
+    (parallel/dist.py; None with one process): the sync batch norms of
+    netG, netD, netD2 and netE take their statistics over it, and the
+    training step averages gradients and losses over it."""
 
     def __init__(self, opt, device="cuda", group=None):
         check_supported(opt)
@@ -151,11 +169,13 @@ class MichiGANModel:
         epilogue = opt.use_pallas_epilogue
         self.netIG = InpaintGenerator(epilogue=epilogue).eval() if opt.use_ig else None
         self.netSIG = SInpaintGenerator(epilogue=epilogue).eval() if opt.use_stroke else None
-        self.netD = MultiscaleDiscriminator(opt) if opt.isTrain else None
+        self.netD = define_D(opt, group) if opt.isTrain else None
         self.vgg = VGG19().eval() if opt.isTrain else None
-        self.netE = ConvEncoder(opt).eval() if opt.use_vae else None
+        self.netE = ConvEncoder(opt, group).eval() if opt.use_vae else None
         self.netB = Blend2Generator(opt).train(opt.isTrain) if opt.use_blender else None
-        self.netD2 = MultiscaleDiscriminator(opt) if opt.isTrain and opt.unpairTrain else None
+        self.netD2 = define_D(opt, group) if opt.isTrain and opt.unpairTrain else None
+        self.netFE = FeatureEncoder(opt.feat_input_nc, opt.feat_num, opt.nef) \
+            if opt.use_instance_feat else None
         for frozen in (self.netIG, self.netSIG, self.vgg):
             if frozen is not None:
                 frozen.requires_grad_(False)
@@ -221,6 +241,9 @@ class MichiGANModel:
         out = dict(batch)
         out["input_ref"] = one_hot_label(batch["label_ref"], nc)
         out["input_tag"] = one_hot_label(batch["label_tag"], nc)
+        if not self.opt.no_instance:  # the batch's (N,1,H,W) instance-id map
+            out["input_tag"] = torch.cat([out["input_tag"], instance_edges(batch["instance"])],
+                                         dim=1)
         return out
 
     def _run_ig(self, net: torch.nn.Module, inp: torch.Tensor) -> torch.Tensor:
@@ -312,16 +335,24 @@ class MichiGANModel:
 
     def discriminate(self, input_tag, fake_image, real_image, orient, stage: int = 1):
         """Fake and real through netD (netD2 in stage 2) as one batch (so its
-        instance norms and spectral iteration see both), in the compute
-        dtype, then split; the features stay in it (the losses upcast).  The
-        discriminators' spectral u / v are never written
-        (MultiscaleDiscriminator)."""
+        norms and spectral iteration see both), in the compute dtype, then
+        split; the features stay in it (the losses upcast).  The
+        discriminators' buffers are never written (models/discriminator.py).
+
+        The split is the JAX package's ``[[t[:n] for t in scale] for scale
+        in out]`` (model.py:372-373).  For --netD multiscale each `scale` is
+        a list of features, each split along the batch.  For --netD n_layer
+        `out` is one list of features, so each `scale` is one feature and
+        `t` runs over its 2n samples, each in JAX's (H, W, C) layout, and
+        t[:n] / t[n:] take its first n rows / the rest: what the losses then
+        read (losses/gan.py, losses/feat.py)."""
         if not self.opt.use_ig:
             orient = orient_to_two_channel(orient, input_tag[:, 1:2])
         both = torch.cat([torch.cat([input_tag, orient, fake_image], dim=1),
                           torch.cat([input_tag, orient, real_image], dim=1)], dim=0)
         net = self.netD2 if stage == 2 else self.netD
-        out = net(both.to(self.compute_dtype))
+        out = [[t.permute(1, 2, 0) for t in scale] if torch.is_tensor(scale) else scale
+               for scale in net(both.to(self.compute_dtype))]
         n = fake_image.shape[0]
         return [[t[:n] for t in scale] for scale in out], [[t[n:] for t in scale] for scale in out]
 
@@ -425,21 +456,25 @@ class MichiGANModel:
 
     def discriminator_loss(self, batch, extra_dilate_steps: int = 2,
                            orient: Optional[torch.Tensor] = None,
-                           eps: Optional[torch.Tensor] = None, curr_step: Optional[int] = None):
-        """(total, {'D_Fake', 'D_real'}) of the stage's D: the fake (the
+                           eps: Optional[torch.Tensor] = None, curr_step: Optional[int] = None,
+                           fake_image: Optional[torch.Tensor] = None):
+        """(total, {'D_Fake', 'D_real'}) of the stage's D on `fake_image`
+        (--reuse_fake_for_d: the G step's fake), or else on the fake (the
         blend under --use_blender) recomputed with the current netG, netE
         and netB (train-mode statistics, nothing written, no gradient) and
-        the VAE's `eps`, and the G step's orientation when given (the IG is
+        the VAE's `eps`; with the G step's orientation when given (the IG is
         frozen, so it is the same)."""
         opt = self.opt
         pre = self.preprocess(batch)
         if orient is None:
             orient = self.orient_for_training(pre)
-        with torch.no_grad(), frozen_buffers(self.netG):
-            fake, _, blend = self.generate_fake(pre, orient, extra_dilate_steps, eps)
+        if fake_image is None:
+            with torch.no_grad(), frozen_buffers(self.netG):
+                fake, _, blend = self.generate_fake(pre, orient, extra_dilate_steps, eps)
+            fake_image = blend if opt.use_blender else fake
         pred_fake, pred_real = self.discriminate(
-            pre["input_tag"], blend if opt.use_blender else fake, pre["image_tag"],
-            orient.detach(), self.stage(curr_step))
+            pre["input_tag"], fake_image.detach(), pre["image_tag"], orient.detach(),
+            self.stage(curr_step))
         label_tag = pre["input_tag"][:, 1:2]
         d_fake = multiscale_gan_loss(pred_fake, False, True, opt, label_tag)
         d_real = multiscale_gan_loss(pred_real, True, True, opt, label_tag)

@@ -17,9 +17,18 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from michigan_tpu_torch.models.architecture import SPADEResnetBlock
-from michigan_tpu_torch.models.encoders import BackgroundEncode2, ImageEncoder3
+from michigan_tpu_torch.models.encoders import (
+    BackgroundEncode,
+    BackgroundEncode2,
+    ImageEncoder,
+    ImageEncoder2,
+    ImageEncoder3,
+)
 from michigan_tpu_torch.models.layers import Conv2d, Linear, checkpointed, cudnn_off
+from michigan_tpu_torch.ops.masks import wide_edges_outer
 from michigan_tpu_torch.ops.resize import resize_nearest, upsample2x_nearest
+
+ENCODERS = {"norm": ImageEncoder, "instance": ImageEncoder2, "partialconv": ImageEncoder3}
 
 
 def orient_to_two_channel(orient255: torch.Tensor, hair_mask: torch.Tensor) -> torch.Tensor:
@@ -78,11 +87,18 @@ def remat_block_names(opt) -> frozenset:
 
 
 class SPADEBGenerator(nn.Module):
-    """Seed (the partial-conv encoder, or under --use_vae a Linear from z) ->
-    7 SPADE blocks (8 under --num_upsampling_layers most: up_4, at the
-    output's side) with 2x nearest upsampling -> per-scale background
-    composite -> conv_img -> tanh.  The blocks' sync batch norms take the
-    data-parallel `group` (None: this process's batch).
+    """Seed ``fc``: under --use_vae a Linear from z; with --use_encoder the
+    appearance encoder of --Image_encoder_mode (partialconv, norm or
+    instance); else the ref image nearest resized to the latent and a 3x3
+    conv (JAX generator.py:88-90) -> 7 SPADE blocks (8 under
+    --num_upsampling_layers most: up_4, at the output's side) with 2x
+    nearest upsampling -> per-scale background composite -> conv_img ->
+    tanh.  The blocks' sync batch norms take the
+    data-parallel `group` (None: this process's batch), as do the
+    appearance encoder's sync batch norms (--norm_E).  The background
+    features come from BackgroundEncode2 (--noise_background) or
+    BackgroundEncode.  Under --orient_random_disturb the orientation's band
+    just inside the hair's border is replaced by the noise's channel 0.
 
     With --remat, the blocks of --remat_blocks free their activations after
     a train-mode forward that records gradients and recompute them in the
@@ -90,13 +106,6 @@ class SPADEBGenerator(nn.Module):
 
     def __init__(self, opt, group=None):
         super().__init__()
-        unported = [f for f in ("orient_random_disturb",) if getattr(opt, f)]
-        if not opt.use_vae and (not opt.use_encoder or opt.Image_encoder_mode != "partialconv"):
-            unported.append("an encoder other than --use_encoder partialconv")
-        if not opt.noise_background:
-            unported.append("BackgroundEncode (no --noise_background)")
-        if unported:
-            raise NotImplementedError(f"not ported: {', '.join(unported)}")
         check_most_sizes(opt)
         self.remat_blocks = remat_block_names(opt)
         self.opt = opt
@@ -104,8 +113,12 @@ class SPADEBGenerator(nn.Module):
         sw, sh = opt.latent_size()
         # under --use_vae the seed is z's Linear whatever --use_encoder says,
         # as in the JAX package (generator.py:71-73)
-        self.fc = Linear(opt.z_dim, 16 * nf * sw * sh) if opt.use_vae else \
-            ImageEncoder3(opt, sw, sh)
+        if opt.use_vae:
+            self.fc = Linear(opt.z_dim, 16 * nf * sw * sh)
+        elif opt.use_encoder:
+            self.fc = ENCODERS[opt.Image_encoder_mode](opt, sw, sh, group)
+        else:
+            self.fc = Conv2d(3, 16 * nf, 3, padding=1)
         self.head_0 = SPADEResnetBlock(16 * nf, 16 * nf, opt, group)
         self.G_middle_0 = SPADEResnetBlock(16 * nf, 16 * nf, opt, group)
         self.G_middle_1 = SPADEResnetBlock(16 * nf, 16 * nf, opt, group)
@@ -117,7 +130,7 @@ class SPADEBGenerator(nn.Module):
             self.up_4 = SPADEResnetBlock(1 * nf, nf // 2, opt, group)
         self.conv_img = Conv2d(nf // 2 if opt.num_upsampling_layers == "most" else nf, 3, 3,
                                padding=1)
-        self.backgroud_enc = BackgroundEncode2(opt)
+        self.backgroud_enc = (BackgroundEncode2 if opt.noise_background else BackgroundEncode)(opt)
         self.cudnn_off_blocks = CUDNN_OFF
 
     def block(self, name: str, *args):
@@ -144,14 +157,19 @@ class SPADEBGenerator(nn.Module):
         opt = self.opt
         seg = input_tag
         hair_mask = input_tag[:, 1:2]
+        sw, sh = opt.latent_size()
         if opt.use_vae:
-            sw, sh = opt.latent_size()
             x = self.fc(z).view(-1, 16 * opt.ngf, sh, sw)
-        else:
+        elif opt.use_encoder:
             x = self.block("fc", image_ref, input_ref[:, 1:2], hair_mask)
+        else:
+            x = self.block("fc", resize_nearest(image_ref, (sh, sw)))
 
         if not opt.no_orientation:
             o = orient if opt.use_ig else orient_to_two_channel(orient, hair_mask)
+            if opt.orient_random_disturb:
+                edges = wide_edges_outer(hair_mask, 5)
+                o = o * (1 - edges) + edges * noise[:, 0:1]
             seg = torch.cat([seg, o.to(seg.dtype)], dim=1)
 
         back_feats, back_masks = self.block("backgroud_enc", image_tag, input_tag, noise,

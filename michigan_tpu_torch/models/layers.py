@@ -3,6 +3,9 @@ michigan_tpu/models/layers.py), NCHW.
 
   spectral_norm(nn.Conv2d)          -> SpectralConv2d: weight_orig + weight_u/weight_v
   spectral_norm(nn.ConvTranspose2d) -> SpectralConvTranspose2d (norm over dim=1)
+  weight_norm(nn.Conv2d)            -> WeightNormConv2d: weight_g + weight_v
+  the reference's Weight_norm (g 1) -> UnitNormConv2d: a plain weight
+                                       normalised once, at init
   PartialConv2d                     -> PartialConv
   nn.ReflectionPad2d                -> reflect_pad
   plain convs                       -> Conv2d (nn.Conv2d under the cast rule)
@@ -279,6 +282,40 @@ class SpectralConvTranspose2d(SpectralConv2d):
                     self.stride, self.padding)
 
 
+class WeightNormConv2d(nn.Module):
+    """weight_norm(nn.Conv2d(...)) (--weight_norm_G --weight_norm_g 0; the
+    JAX package's TorchConv(weight_norm="torch")): W = g * v / ||v||, the
+    norm over each output channel's (I, kh, kw), computed in float32 on
+    every forward from the parameters weight_g (O, 1, 1, 1) and weight_v
+    (O, I, kh, kw); no buffer, so a recompute under ``checkpointed`` reads
+    what the forward read."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, bias: bool = True):
+        super().__init__()
+        k = kernel_size
+        self.stride, self.padding = stride, padding
+        self.weight_g = nn.Parameter(torch.ones(out_ch, 1, 1, 1))
+        self.weight_v = nn.Parameter(torch.empty(out_ch, in_ch, k, k))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+
+    def weight(self) -> torch.Tensor:
+        v = self.weight_v.float()
+        return v * (self.weight_g.float() / v.flatten(1).norm(dim=1).view(-1, 1, 1, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv(F.conv2d, x, *cast_params(x, self.weight(), self.bias), self.stride,
+                    self.padding)
+
+
+class UnitNormConv2d(Conv2d):
+    """The reference's Weight_norm with g fixed at 1 (--weight_norm_G
+    --weight_norm_g 1; the JAX package's TorchConv(weight_norm="fixed")):
+    ``init_weights`` divides each output channel's weight by its norm (+
+    1e-10) once; after that, and in a loaded checkpoint, which holds the
+    normalised weight, it is a plain conv."""
+
+
 class PartialConv(nn.Conv2d):
     """NVIDIA partial convolution with a single-channel mask
     (partialconv2d.py:15-86): returns (out, updated_mask), where
@@ -310,24 +347,34 @@ class PartialConv(nn.Conv2d):
 
 
 class ConvBlock(nn.Module):
-    """reflect pad -> conv -> norm -> act (MaskGAN_networks.py:114-173 with
-    pad 'reflect'): norm 'none' (the background encoder) or 'in' (the plain
-    instance norm, with autograd: the blender's resblocks), act 'relu' or
-    'none'."""
+    """pad -> conv -> norm -> act (MaskGAN_networks.py:114-173; JAX
+    layers.py:323-365): pad 'reflect' (the background encoders, the
+    blender's resblocks), 'replicate' or 'zero'; norm 'none' or 'in' (the
+    plain instance norm, with autograd); act 'relu', 'lrelu' (0.2), 'tanh'
+    or 'none'."""
+
+    PADS = {"reflect": "reflect", "replicate": "replicate", "zero": "constant"}
+    ACTS = {"relu": F.relu, "lrelu": lambda y: F.leaky_relu(y, 0.2), "tanh": torch.tanh,
+            "none": lambda y: y}
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int,
-                 padding: int, norm: str = "none", activation: str = "relu"):
+                 padding: int, norm: str = "none", activation: str = "relu",
+                 pad_type: str = "reflect"):
         super().__init__()
-        if norm not in ("none", "in") or activation not in ("relu", "none"):
-            raise NotImplementedError(f"ConvBlock norm {norm!r}, activation {activation!r}")
+        if norm not in ("none", "in") or activation not in self.ACTS or \
+                pad_type not in self.PADS:
+            raise ValueError(f"ConvBlock norm {norm!r}, activation {activation!r}, "
+                             f"pad {pad_type!r}")
         self.padding, self.norm, self.activation = padding, norm, activation
+        self.pad_mode = self.PADS[pad_type]
         self.conv = Conv2d(in_ch, out_ch, kernel_size, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv(reflect_pad(x, self.padding))
+        p = self.padding
+        y = self.conv(F.pad(x, (p, p, p, p), mode=self.pad_mode) if p else x)
         if self.norm == "in":
             y = instance_norm(y)
-        return F.relu(y) if self.activation == "relu" else y
+        return self.ACTS[self.activation](y)
 
 
 # ---------------------------------------------------------------------------
@@ -377,6 +424,8 @@ def init_weights(net: nn.Module, gen: torch.Generator, init_type: str = "xavier"
     for m in net.modules():
         if isinstance(m, SpectralConv2d):
             w = m.weight_orig
+        elif isinstance(m, WeightNormConv2d):
+            w = m.weight_v
         elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = m.weight
         else:
@@ -385,6 +434,10 @@ def init_weights(net: nn.Module, gen: torch.Generator, init_type: str = "xavier"
         w.copy_(_draw(tuple(w.shape), init_type, gain, fan_in, fan_out, gen))
         if m.bias is not None:
             m.bias.zero_()
+        if isinstance(m, WeightNormConv2d):  # W = v at init (JAX: g = ||kernel||)
+            m.weight_g.copy_(w.flatten(1).norm(dim=1).view(-1, 1, 1, 1))
+        if isinstance(m, UnitNormConv2d):
+            w.div_(w.flatten(1).norm(dim=1).view(-1, 1, 1, 1) + 1e-10)
         if isinstance(m, SpectralConv2d):
             w_mat = m.w_mat().detach().cpu()
             u0 = F.normalize(torch.randn(w_mat.shape[0], generator=gen), dim=0)

@@ -9,9 +9,14 @@ forward-only: in train mode SPADE is the plain composition with autograd
 (batch statistics, running statistics written unless under
 ``layers.frozen_buffers``), as the JAX package's training path is.
 
-NonSpadeNorm is the norm layer of the discriminator and the VAE encoder: a
-spectral conv with the bias stripped, then the plain instance norm (with
-autograd).
+Under --weight_norm_G a SPADE has no param-free norm and no buffer
+(normalization.py:103-107): x * (1 + gamma) + beta, in eval still one
+`spade_modulate` launch, with mean 0 and invstd 1.
+
+NonSpadeNorm is the norm layer of the discriminators, the VAE encoder and
+the norm / instance appearance encoders (--norm_D, --norm_E): a conv
+(spectral or plain), then an instance norm, an affine batch or sync batch
+norm, or none.
 """
 
 from __future__ import annotations
@@ -77,11 +82,16 @@ class SPADE(nn.Module):
     keeps mlp_gamma and mlp_beta."""
 
     def __init__(self, config_text: str, norm_nc: int, label_nc: int, nhidden: int = 128,
-                 group=None):
+                 group=None, weight_norm: bool = False):
         super().__init__()
         self.norm_type, ks = parse_spade_config(config_text)
         self.pw = ks // 2
-        self.param_free_norm = ParamFreeNorm(self.norm_type, norm_nc, group=group)
+        self.weight_norm = weight_norm
+        if weight_norm:  # no param-free norm (JAX normalization.py:129-131)
+            self.register_buffer("zeros", torch.zeros(norm_nc), persistent=False)
+            self.register_buffer("ones", torch.ones(norm_nc), persistent=False)
+        else:
+            self.param_free_norm = ParamFreeNorm(self.norm_type, norm_nc, group=group)
         self.mlp_shared = nn.Sequential(
             Conv2d(label_nc, nhidden, ks, padding=self.pw), nn.ReLU()
         )
@@ -112,6 +122,10 @@ class SPADE(nn.Module):
         actv = self.mlp_shared(seg)
         weight, bias = self.gamma_beta_conv(actv.dtype)
         gamma, beta = conv(F.conv2d, actv, weight, bias, 1, self.pw).chunk(2, dim=1)
+        if self.weight_norm:
+            if self.training:
+                return x * (1.0 + gamma) + beta
+            return spade_modulate(x, self.zeros, self.ones, gamma, beta)
         if self.training:
             return self.param_free_norm(x) * (1.0 + gamma) + beta
         if self.norm_type == "instance":
@@ -121,20 +135,46 @@ class SPADE(nn.Module):
         return spade_modulate(x, pfn.running_mean, invstd, gamma, beta)
 
 
-class NonSpadeNorm(nn.Module):
-    """get_nonspade_norm_layer's Sequential(spectral conv, norm)
-    (normalization.py:18-54) for spectralinstance (--norm_D, --norm_E): the conv's
-    bias is stripped because a norm follows; the state_dict key of the conv
-    is ``0``, as in the reference."""
+class AffineBatchNorm(ParamFreeNorm):
+    """BatchNorm2d(affine=True) of a NonSpadeNorm (normalization.py:43-46):
+    the batch or sync batch norm of ParamFreeNorm, then weight * y + bias
+    (the JAX package's norm_scale and norm_bias)."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int, padding: int,
-                 norm_str: str):
-        super().__init__()
-        if norm_str != "spectralinstance":
-            raise NotImplementedError(f"the norm layer {norm_str} (--norm_D, --norm_E) "
-                                      "is not ported")
-        self.add_module("0", SpectralConv2d(in_ch, out_ch, kernel_size, stride, padding,
-                                            bias=False))
+    def __init__(self, norm_type: str, num_features: int, group=None):
+        super().__init__(norm_type, num_features, group=group)
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return instance_norm(self._modules["0"](x))
+        y = super().forward(x)
+        return y * self.weight.to(y.dtype).view(1, -1, 1, 1) + \
+            self.bias.to(y.dtype).view(1, -1, 1, 1)
+
+
+class NonSpadeNorm(nn.Sequential):
+    """get_nonspade_norm_layer's Sequential(conv, norm) (normalization.py:18-54;
+    JAX normalization.py:190-226) for every --norm_D / --norm_E:
+    '[spectral]instance', '[spectral]batch', '[spectral]sync_batch' and
+    '[spectral]none'.  The conv (``0``) is spectral under the 'spectral'
+    prefix and has a bias only when no norm follows; the norm (``1``) is
+    the plain instance norm (no state), or an AffineBatchNorm with running
+    statistics (a sync batch norm takes the data-parallel `group`)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int, padding: int,
+                 norm_str: str, group=None):
+        spectral = norm_str.startswith("spectral")
+        sub = norm_str[len("spectral"):] if spectral else norm_str
+        if sub not in ("", "none", "instance", "batch", "sync_batch"):
+            raise ValueError(f"the norm layer {norm_str!r} (--norm_D, --norm_E)")
+        has_norm = sub not in ("", "none")
+        cls = SpectralConv2d if spectral else Conv2d
+        layers = [cls(in_ch, out_ch, kernel_size, stride, padding, bias=not has_norm)]
+        if sub in ("batch", "sync_batch"):
+            layers.append(AffineBatchNorm("syncbatch" if sub == "sync_batch" else "batch",
+                                          out_ch, group))
+        super().__init__(*layers)
+        self.instance = sub == "instance"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x)
+        return instance_norm(y) if self.instance else y

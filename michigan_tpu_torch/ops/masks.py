@@ -26,3 +26,26 @@ def wide_edges(mask: torch.Tensor, th: float = 0.06) -> torch.Tensor:
     grow = max_pool_same(mask, k, 1, p)
     shrink = 1.0 - max_pool_same(1.0 - mask, k, 1, p)
     return resize_nearest(grow - shrink, mask.shape[2:])
+
+
+def wide_edges_outer(mask: torch.Tensor, k: int = 5) -> torch.Tensor:
+    """The band just inside a binary mask's border, m - erode(m) with a k x k
+    window (generator.py:98-105); an even window's extra row and column are
+    resized back, as in wide_edges."""
+    p = int(k / 2)
+    shrink = 1.0 - max_pool_same(1.0 - mask, k, 1, p)
+    return resize_nearest(mask - shrink, mask.shape[2:])
+
+
+def instance_edges(inst: torch.Tensor) -> torch.Tensor:
+    """The boundary map of an instance-id map (pix2pix_model.py:596-602):
+    1 at each pixel whose right, left, lower or upper neighbour holds
+    another id.  (N,1,H,W) -> float32 (N,1,H,W)."""
+    dx = inst[:, :, :, 1:] != inst[:, :, :, :-1]
+    dy = inst[:, :, 1:, :] != inst[:, :, :-1, :]
+    edge = torch.zeros(inst.shape, dtype=torch.bool, device=inst.device)
+    edge[:, :, :, 1:] |= dx
+    edge[:, :, :, :-1] |= dx
+    edge[:, :, 1:, :] |= dy
+    edge[:, :, :-1, :] |= dy
+    return edge.float()

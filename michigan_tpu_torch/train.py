@@ -209,7 +209,7 @@ def train(opt, replica) -> None:
                 if i % opt.D_steps_per_G == 0:
                     g_losses, fake, orient = trainer.g_step(batch, extra, eps)
                 if i % opt.G_steps_per_D == 0 and not opt.no_discriminator:
-                    d_losses = trainer.d_step(batch, extra, orient, eps)
+                    d_losses = trainer.d_step(batch, extra, orient, eps, fake)
             if opt.debug_nans:
                 check_finite({**g_losses, **d_losses}, iter_counter.total_steps_so_far)
             if t0 is None:

@@ -1,7 +1,7 @@
 """Checkpoints in the reference's naming (util/util.py:195-272): under
 <checkpoints_dir>/<name>/, ``<label>_net_<X>.pth`` for each trained net X of
-the configuration, G and D, and E (--use_vae), B (--use_blender) and D2
-(--unpairTrain) (state_dicts with the reference's keys, on the CPU), and
+the configuration, G and D, and E (--use_vae), B (--use_blender), D2
+(--unpairTrain) and FE (--use_instance_feat) (state_dicts with the reference's keys, on the CPU), and
 ``<label>_optim.pth`` (every optimizer's state and the step count).  The
 port's inference CLI loads ``<which_epoch>_net_G.pth`` (and ``_net_E``,
 ``_net_B``) as it loads a released generator.  Under data parallelism
@@ -16,7 +16,7 @@ import torch
 import torch.distributed as dist
 
 # checkpoint file letter -> the model's net
-NETS = {"G": "netG", "D": "netD", "E": "netE", "B": "netB", "D2": "netD2"}
+NETS = {"G": "netG", "D": "netD", "E": "netE", "B": "netB", "D2": "netD2", "FE": "netFE"}
 
 
 def _path(opt, label, what: str) -> str:

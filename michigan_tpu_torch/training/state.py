@@ -2,8 +2,9 @@
 michigan_tpu/training/state.py; reference pix2pix_model.py:124-152 and
 pix2pix_trainer.py:99-119).
 
-G's Adam covers netG, netE (--use_vae) and netB (--use_blender); D's covers
-netD; under --unpairTrain netD2 has an Adam of its own at D's rate.
+G's Adam covers netG, netE (--use_vae), netFE (--use_instance_feat: no
+loss reaches it, so it never changes, as in the JAX package) and netB
+(--use_blender); D's covers netD; under --unpairTrain netD2 has an Adam of its own at D's rate.
 torch.optim.Adam and optax's adam share the update, lr * m_hat /
 (sqrt(v_hat) + eps) with eps outside the square root.
 """
@@ -34,6 +35,8 @@ def g_net_names(opt) -> Tuple[str, ...]:
     names = [] if opt.fix_netG else ["netG"]
     if opt.use_vae:
         names.append("netE")
+    if opt.use_instance_feat:
+        names.append("netFE")
     if opt.use_blender:
         names.append("netB")
     return tuple(names)

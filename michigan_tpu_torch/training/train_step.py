@@ -1,6 +1,8 @@
 """One G+D training step (port of michigan_tpu/training/train_step.py:107-245;
 reference pix2pix_trainer.py:39-77): the G step, then the D step against a
-fake recomputed with the updated netG (netE, netB).
+fake recomputed with the updated netG (netE, netB), or under
+--reuse_fake_for_d (not with --use_blender) against the G step's fake
+(JAX train_step.py:220-262).
 
 Under --unpairTrain the stage is read from ``opt.curr_step`` on each call,
 as the JAX package's wrappers pick their compiled stage: stage 2 trains
@@ -98,18 +100,21 @@ class TrainStep:
 
     def d_step(self, batch: Dict[str, torch.Tensor], extra_dilate_steps: int = 2,
                orient: Optional[torch.Tensor] = None,
-               eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+               eps: Optional[torch.Tensor] = None,
+               fake: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """The stage's D's losses by name.  With --reuse_orient_for_d (the
         default) the G step's orientation is reused: the frozen IG gives the
-        same."""
+        same.  With --reuse_fake_for_d the G step's `fake` is, when given."""
         if not (self.opt.reuse_orient_for_d and self.opt.use_ig):
             orient = None
+        if not (self.opt.reuse_fake_for_d and not self.opt.use_blender):
+            fake = None
         if eps is not None:
             self.eps = eps
         elif self.opt.use_vae and self.eps is None:
             self.new_eps(batch["image_ref"].shape[0])
         total, losses = self.model.discriminator_loss(batch, extra_dilate_steps, orient,
-                                                      self.eps)
+                                                      self.eps, fake_image=fake)
         stage2 = self.model.stage() == 2
         optim = self.optimizers["D2" if stage2 else "D"]
         optim.zero_grad(set_to_none=True)

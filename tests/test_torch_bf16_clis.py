@@ -148,7 +148,8 @@ def test_bf16_is_refused_with_is_train():
     --isTrain builds a training model; another dtype is still refused in
     training and inference, and so is bf16 with an unported flag.  (Since
     the VAE, blender and unpaired configs were ported under bf16, they
-    build with it too.)"""
+    build with it too; since --use_instance_feat was ported, the flag
+    refused is --fused_step.)"""
     opt = config.train_options(["--dtype", "bfloat16"] + TRAIN_SMALL)
     model = MichiGANModel(opt, "cpu")
     assert model.compute_dtype == torch.bfloat16 and model.netD is not None
@@ -157,8 +158,8 @@ def test_bf16_is_refused_with_is_train():
     for o in (flagship_opt(), opt):
         with pytest.raises(NotImplementedError, match="float16"):
             port_model.check_supported(dataclasses.replace(o, dtype="float16"))
-    with pytest.raises(NotImplementedError, match="use_instance_feat"):
-        MichiGANModel(dataclasses.replace(opt, use_instance_feat=True), "cpu")
+    with pytest.raises(NotImplementedError, match="fused_step"):
+        MichiGANModel(dataclasses.replace(opt, fused_step=True), "cpu")
     # the VAE, blender and unpaired configs build under bf16
     for flag in ("use_vae", "use_blender", "unpairTrain"):
         m = MichiGANModel(dataclasses.replace(opt, **{flag: True}), "cpu")
