@@ -11,8 +11,9 @@ flagship through the serving session, the exported program and FID's
 extractors (phase 17), the training step on two data-parallel ranks
 (phase 18), the VAE, blender and unpaired configs again at --dtype
 bfloat16 (phase 19), and the 1024^2 configuration (--num_upsampling_layers
-most) with --remat activation checkpointing (phase 20), and the last
-model options of the JAX package (phase 21):
+most) with --remat activation checkpointing (phase 20), the last
+model options of the JAX package (phase 21), and the trainer's native host
+library on this machine's host (phase 22):
 
 - the flagship inference path (IG orientation inpainting -> partial-conv
   appearance encoder -> noise background encoder -> SPADEB generator with
@@ -32,8 +33,9 @@ model options of the JAX package (phase 21):
 Phases, each on its own line:
 
   1. card name and power limit (nvidia-smi), torch and CUDA versions; TF32
-     off for cuDNN convolutions and matmuls; neither jax nor any module of
-     the JAX package (michigan_tpu) was loaded by the port's imports
+     off for cuDNN convolutions and matmuls; subnormals flushed to zero on
+     the CPU (its references); neither jax nor any module of the JAX
+     package (michigan_tpu) was loaded by the port's imports
   2. build the four CUDA libraries from michigan_tpu_torch/csrc, one nvcc
      each, all started together
   3. each kernel against its plain PyTorch version at every distinct shape
@@ -314,6 +316,18 @@ Phases, each on its own line:
       half-batch control that must fail, then at TRAIN_BATCH, 512², full
       width: exactly STEP_LAUNCHES, losses finite, ms/step (median of
       VARIANT_STEPS) and peak.
+  22. the native host library (michigan_tpu_torch/native: the loader's
+      noise pyramid, bilinear resize and hole rasterization) on this
+      machine's host: g++ builds it from the checkout (a failed build
+      fails the run); noise_pyramid at 512^2 and 1024^2 twice with one
+      seed (bit for bit equal) and once with another (different), mean
+      within 0.02 of 0.5 and std in (0.05, 0.3); rasterize_hole equal to
+      its numpy formula and bilinear_resize within 1e-4 of a numpy
+      half-pixel bilinear (this machine has no cv2) at the pyramid's
+      shapes; ms per noise sample (median of NATIVE_REPS) at both sizes
+      beside the bf16 512^2 step's card ms per image (phase 15).  The Qt
+      editor and the PIL loader do not run here (no PyQt5, PIL or cv2):
+      their edit and step are phases 9 and 14, and 11 and 15.
 
 Then a JSON line of per-kernel results: for the training step's kernels
 (fused_instance_norm, filterbank_orientation and its backward,
@@ -488,9 +502,12 @@ DET_REPEATS = 3
 # no VGG tower, so no conv3x3_same_lowch
 STAGE2_BF16_LAUNCHES = {**STEP_BF16_LAUNCHES, "conv3x3_same_lowch": {}}
 DIAG_REL = 1e-4  # the diagnostics card vs CPU, relative
-# the modules those configs added, imported before the check that no module
-# of jax or of the JAX package was loaded
-CONFIG_MODULES = ("michigan_tpu_torch.models.blend", "michigan_tpu_torch.models.encoders",
+# phase 22: the noise pyramid's timed calls a size
+NATIVE_REPS = 10
+# the modules those configs added (and phase 22's library), imported before
+# the check that no module of jax or of the JAX package was loaded
+CONFIG_MODULES = ("michigan_tpu_torch.native", "michigan_tpu_torch.data.noise",
+                  "michigan_tpu_torch.models.blend", "michigan_tpu_torch.models.encoders",
                   "michigan_tpu_torch.models.maskgan", "michigan_tpu_torch.models.discriminator",
                   "michigan_tpu_torch.tools.float64_step",
                   "michigan_tpu_torch.losses.color", "michigan_tpu_torch.ops.stats",
@@ -638,6 +655,29 @@ def deterministic_algorithms(torch, on=True):
 
 def phase(n, msg):
     print(f"[phase {n}] {msg}", flush=True)
+
+
+class PhaseClock:
+    """Standard output that notes when each phase's first line is written,
+    so that the run can say how its time splits across the phases."""
+
+    def __init__(self, out):
+        self.out, self.first, self.t0 = out, {}, time.perf_counter()
+
+    def write(self, text):
+        if text.startswith("[phase ") and "]" in text:
+            self.first.setdefault(text[7:text.index("]")], time.perf_counter())
+        return self.out.write(text)
+
+    def __getattr__(self, name):
+        return getattr(self.out, name)
+
+    def seconds(self):
+        """{phase: seconds from its first line to the next phase's first
+        line (the last: to now)}, in the order the phases began."""
+        order = sorted(self.first.items(), key=lambda kv: kv[1])
+        ends = [t for _, t in order[1:]] + [time.perf_counter()]
+        return {n: round(end - t, 1) for (n, t), end in zip(order, ends)}
 
 
 def fail(msg):
@@ -1080,6 +1120,11 @@ def run():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    clock = sys.stdout = PhaseClock(sys.stdout)
+    # before the first parallel CPU op, so that torch's worker threads
+    # inherit it: the seeded inpainters' attention softmax underflows into
+    # subnormals, on which the CPU references' matmuls run ~80x slower
+    flushed = torch.set_flush_denormal(True)
     try:
         from michigan_tpu_torch import cal_orientation
         from michigan_tpu_torch.data.synthetic import (
@@ -1125,6 +1170,8 @@ def run():
     torch.backends.cuda.matmul.allow_tf32 = False
     phase(1, "TF32 off: cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False "
              "(cuDNN's fp32 convolutions default to TF32)")
+    phase(1, f"CPU subnormals flushed to zero: {flushed} (each flushed value is below "
+             f"1.2e-38, far inside every limit of the CPU references; the card is untouched)")
 
     # 2 ---------------------------------------------------------------
     prebuilt = {name: build.library_path(name).exists() for name in build.SIGNATURES}
@@ -2829,6 +2876,12 @@ def run():
     if msg:
         return fail(msg)
 
+    # 22 --------------------------------------------------------------
+    # the trainer's native host library, built and held here on the host
+    msg = native_phase(np, tag, ms16 / TRAIN_BATCH)
+    if msg:
+        return fail(msg)
+
     train_kernels = ("fused_instance_norm", "filterbank_orientation",
                      "filterbank_orientation_backward", "conv3x3_same_lowch")
     rows = {k: (stroke_counts[k], edit_ms[k], edit_plain_ms[k])
@@ -2903,11 +2956,81 @@ def run():
     for row in kernel_rows:
         if row["name"] in REPLACES:
             row["variants_launches"] = {r: c[row["name"]] for r, c in variants.items()}
+    print(f"[timing] seconds from each phase's first line to the next's: {clock.seconds()}; "
+          f"{time.perf_counter() - clock.t0:.1f} s in all")
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def native_phase(np, tag, step_ms_per_image):
+    """Phase 22 (see the module docstring); returns a failure message or
+    None."""
+    from michigan_tpu_torch import native
+
+    t_phase = time.perf_counter()
+    try:
+        path = native.build()
+        native.get_lib()
+    except (RuntimeError, OSError) as e:
+        return f"phase 22: the native library does not build or load here: {e}"
+    phase(22, f"g++ built and loaded {os.path.relpath(path, os.path.dirname(__file__))} in "
+              f"{time.perf_counter() - t_phase:.2f} s")
+    failed = []
+    for size in (512, 1024):
+        a, b = (native.noise_pyramid(size, size, SEED) for _ in range(2))
+        c = native.noise_pyramid(size, size, SEED + 1)
+        ok = (a.shape == (size, size, 3) and bool(np.isfinite(a).all()) and np.array_equal(a, b)
+              and not np.array_equal(a, c) and abs(float(a.mean()) - 0.5) < 0.02
+              and 0.05 < float(a.std()) < 0.3)
+        phase(22, f"noise_pyramid {size}^2: seed {SEED} twice bit-equal {np.array_equal(a, b)}, "
+                  f"seed {SEED + 1} differs {not np.array_equal(a, c)}; mean {a.mean():.4f}, "
+                  f"std {a.std():.4f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"noise_pyramid {size}^2")
+    rng = np.random.default_rng(SEED)
+    mask = (rng.uniform(size=(512, 512)) > 0.3).astype(np.float32)
+    orient = mask * (rng.uniform(size=(512, 512)) > 0.5).astype(np.float32)
+    for ch, cw, rr in ((256, 300, 2500.0), (0, 511, 90000.0), (511, 0, 1.0)):
+        got = native.rasterize_hole(mask, orient, ch, cw, rr)
+        ok = np.array_equal(got, native.rasterize_hole_plain(mask, orient, ch, cw, rr))
+        phase(22, f"rasterize_hole (512,512) centre ({ch},{cw}) rr {rr:g} equals its numpy "
+                  f"formula: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append("rasterize_hole")
+    # the pyramid's upsamplings at 512^2 and 1024^2, and a ragged downsample
+    for (h, w), (dh, dw) in (((256, 256), (512, 512)), ((8, 8), (512, 512)),
+                             ((16, 16), (1024, 1024)), ((37, 53), (100, 64))):
+        src = rng.standard_normal((h, w, 3)).astype(np.float32)
+        err = float(np.abs(native.bilinear_resize(src, dh, dw)
+                           - native.bilinear_resize_plain(src, dh, dw)).max())
+        phase(22, f"bilinear_resize ({h},{w},3) -> ({dh},{dw}) vs numpy half-pixel bilinear: "
+                  f"max_abs_err {err:.3e} {'ok' if err <= 1e-4 else 'FAIL'}")
+        if err > 1e-4:
+            failed.append("bilinear_resize")
+    per_sample = {}
+    for size in (512, 1024):
+        native.noise_pyramid(size, size, 1)
+        times = []
+        for i in range(NATIVE_REPS):
+            t0 = time.perf_counter()
+            native.noise_pyramid(size, size, i)
+            times.append((time.perf_counter() - t0) * 1e3)
+        per_sample[size] = statistics.median(times)
+        phase(22, f"noise_pyramid {size}^2: {per_sample[size]:.3f} ms per sample (median of "
+                  f"{NATIVE_REPS}, host clock, one thread; {min(times):.3f}-{max(times):.3f}) {tag}")
+    phase(22, f"the loader's noise at 512^2 is {per_sample[512]:.3f} ms of one loader thread per "
+              f"sample, beside {step_ms_per_image:.2f} ms of card per image in the bf16 512^2 "
+              f"step (phase 15): {per_sample[512] / step_ms_per_image:.1%} {tag}")
+    phase(22, "the Qt editor and the PIL loader are not run on this machine (no PyQt5, PIL or "
+              "cv2); the edit they drive is phases 9 and 14 (DemoEngine, fp32 and bf16), the "
+              "step they feed phases 11 and 15")
+    phase(22, f"{time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        return f"phase 22: the native library's checks failed: {failed}"
+    return None
 
 
 def serving_phase(torch, np, tag):

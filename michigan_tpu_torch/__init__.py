@@ -14,12 +14,13 @@ Layer map:
                first use and bound with ctypes, each beside its plain version
   models       the inference nets: SPADEB generator, encoders, IG and SIG
   data         host prep (numpy / PIL / cv2) for single-image inference and
-               demo edits; seeded numpy-only samples
+               demo edits; the trainer's loader; seeded numpy-only samples
+  native       the loader's C++ noise pyramid (g++ at first use, ctypes)
   model        inference orchestration (IG or SIG inpainting -> generator)
   convert      weight bridge from the JAX package's variable trees
   inference    the CLI (python -m michigan_tpu_torch.inference ...)
-  demo         the headless edit engine and its CLI
-               (python -m michigan_tpu_torch.demo --stroke ...)
+  demo         the edit engine, the Qt editor and the headless edit
+               (python -m michigan_tpu_torch.demo [--stroke ...])
   cal_orientation  the dense-orientation CLI
                (python -m michigan_tpu_torch.cal_orientation ...)
 """

@@ -63,13 +63,13 @@ class Options:
     nThreads: int = 8
     max_dataset_size: int = sys.maxsize
     load_from_opt_file: bool = False
+    # the loader's <dir>/files.list (data/dataset.py list_images)
     cache_filelist_write: bool = False
     cache_filelist_read: bool = False
-    # bounded RAM cache of DECODED source images (MB; 0 disables).  JPEG/PNG
-    # decode dominates per-sample host time on low-core hosts (PERF.md
-    # input-pipeline section); with the cache sized to the working set,
-    # epochs after the first skip decode entirely and the loader becomes
-    # transform-bound.  ~1 MB per 568² RGB image
+    # the loader's RAM cache of decoded (and, where --preprocess_mode
+    # scales, pre-scaled) source images, in MB; 0 disables it
+    # (data/dataset.py _DecodeCache).  Sized to the working set, epochs
+    # after the first decode nothing.  ~1 MB per 568² RGB image
     decode_cache_mb: int = 0
     color_jitter: bool = False
     orient_random_disturb: bool = False
@@ -240,9 +240,11 @@ class Options:
     # data-parallel gradient mean in bfloat16), remat and remat_blocks
     # (activation checkpointing of netG's SPADE blocks and the VGG tower),
     # accepts multihost (torchrun's environment spans hosts), and refuses
-    # fused_step (check_supported in model.py); the rest
-    # configure the JAX package's jit, relay and input pipeline and are
-    # parsed and ignored here.
+    # fused_step (check_supported in model.py); the rest configure the JAX
+    # package's jit, relay and device-side input pipeline (device_prefetch,
+    # compact_transfer, device_noise, device_orient_rgb, donate_buffers,
+    # rss_restart_gb, ...) and are parsed and ignored here.  The host
+    # pipeline's decode_cache_mb and cache_filelist_* (above) are read.
     dtype: str = "float32"
     mesh_shape: str = "data:-1"
     seed: int = 0

@@ -1,5 +1,8 @@
-"""Multi-octave background noise pyramid (copy of
-michigan_tpu/ops/noise.py:generate_noise; reference base_dataset.py:387-396)."""
+"""Multi-octave background noise pyramid (reference base_dataset.py:387-396):
+``generate_noise``, the copy of michigan_tpu/ops/noise.py:generate_noise
+(numpy and cv2; single-image inference and the demo engine), and
+``generate_noise_fast``, its :58 counterpart (the native library; the
+trainer's loader)."""
 
 from __future__ import annotations
 
@@ -23,3 +26,13 @@ def generate_noise(width: int, height: int, rng: np.random.Generator | None = No
         w //= 2
         h //= 2
     return noise / weight_sum
+
+
+def generate_noise_fast(width: int, height: int, seed: int) -> np.ndarray:
+    """The native C++ pyramid (michigan_tpu_torch/native), deterministic in
+    `seed`: the JAX package's loader noise bit for bit.  (H,W,3) float32.
+    Raises RuntimeError when the library cannot be built: there is no cv2
+    fallback, which would draw another stream."""
+    from michigan_tpu_torch import native
+
+    return native.noise_pyramid(height, width, seed)

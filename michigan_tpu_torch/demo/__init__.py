@@ -1,1 +1,2 @@
-"""Headless interactive-editing demo (``python -m michigan_tpu_torch.demo``)."""
+"""The interactive-editing demo: the edit engine, the Qt editor and the
+headless edit (``python -m michigan_tpu_torch.demo``)."""

@@ -1,5 +1,10 @@
-"""Headless scripted edit of the port (counterpart of demo.py's run_headless;
-reference demo.py without the Qt shell).
+"""The port's demo (counterpart of demo.py): the Qt editor, or a headless
+scripted edit (reference demo.py).
+
+    python -m michigan_tpu_torch.demo --demo_data_dir ./datasets/FFHQ_demo [--gpu_ids 0]
+
+starts the editor (michigan_tpu_torch/demo/qt_ui.py) when PyQt5 imports and
+MICHIGAN_HEADLESS is not 1; otherwise it runs the headless edit:
 
     python -m michigan_tpu_torch.demo --demo_data_dir ./datasets/FFHQ_demo \
         --tag_name 67172 --ref_name 59144 [--stroke | --erase] [--gpu_ids 0]
@@ -36,18 +41,19 @@ def _load_demo_sample(demo_dir: str, name: str):
     return img, label, orient, recon
 
 
-def main(argv=None):
+def run_headless(argv=None):
+    """The scripted edit (demo.py run_headless)."""
     from PIL import Image
 
     from michigan_tpu_torch.demo.engine import (
         DemoEngine,
         dilate_hole,
         draw_stroke,
+        engine_device,
         parse_options,
         select_tag_image,
         stroke_to_orient,
     )
-    from michigan_tpu_torch.inference import device_from_gpu_ids
 
     parser = argparse.ArgumentParser(add_help=False)
     parser.add_argument("--tag_name", type=str, default="67172")
@@ -61,11 +67,7 @@ def main(argv=None):
     args, rest = parser.parse_known_args(argv)
 
     opt = parse_options(rest)
-    device = device_from_gpu_ids(opt.gpu_ids)
-    if device.type == "cuda":
-        # cuDNN's fp32 convolutions default to TF32; keep full fp32
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    device = engine_device(opt)
     engine = DemoEngine(opt, device)
 
     demo_dir = opt.demo_data_dir
@@ -105,6 +107,28 @@ def main(argv=None):
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     Image.fromarray(result).save(args.out)
     print(f"saved {args.out} (latency {latency:.3f}s)")
+
+
+def run_qt(argv=None):
+    """The Qt editor (reference demo.py's Ex widget); needs PyQt5."""
+    from michigan_tpu_torch.demo.qt_ui import launch
+
+    launch(argv)
+
+
+def main(argv=None):
+    try:
+        import PyQt5  # noqa: F401
+
+        has_qt = True
+    except ImportError:
+        has_qt = False
+    if has_qt and os.environ.get("MICHIGAN_HEADLESS", "0") != "1":
+        run_qt(argv)
+    else:
+        if not has_qt:
+            print("PyQt5 not available — running headless scripted demo")
+        run_headless(argv)
 
 
 if __name__ == "__main__":

@@ -35,6 +35,19 @@ def parse_options(argv=None):
     return demo_options(argv)
 
 
+def engine_device(opt) -> torch.device:
+    """The device --gpu_ids names (-1: the CPU; a card raises where CUDA is
+    missing); on a card, cuDNN's float32 convolutions and matmuls without
+    TF32, as every CLI of the port runs them."""
+    from michigan_tpu_torch.inference import device_from_gpu_ids
+
+    device = device_from_gpu_ids(opt.gpu_ids)
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return device
+
+
 def stroke_to_orient(mask: torch.Tensor) -> torch.Tensor:
     """Binary stroke mask (H,W in {0,1}) -> RGB orientation image in
     [0,255], float32 (H,W,3), on the mask's device

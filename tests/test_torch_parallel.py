@@ -233,18 +233,15 @@ def tiny_dataset(tmp_path):
     return str(base)
 
 
-def test_loader_shards_match_jax_and_the_unsharded_stream(tiny_dataset, monkeypatch):
-    """The JAX loader with its cv2 noise pyramid (the fallback of
-    generate_noise_fast, seeded by the same draw) ships uint8 planes and no
-    ref planes in the paired stage: decoded, each sample equals the port's."""
+def test_loader_shards_match_jax_and_the_unsharded_stream(tiny_dataset):
+    """The JAX loader (its native noise pyramid, which the port's loader
+    draws too) ships uint8 planes and no ref planes in the paired stage:
+    decoded, each sample equals the port's."""
     from michigan_tpu import config as jax_config
     from michigan_tpu.data import dataset as jax_dataset
-    from michigan_tpu.ops.noise import generate_noise
     from michigan_tpu_torch.config import Options
     from michigan_tpu_torch.data.dataset import BatchLoader, CustomDataset
 
-    monkeypatch.setattr(jax_dataset, "generate_noise_fast",
-                        lambda w, h, seed: generate_noise(w, h, np.random.default_rng(seed)))
     kw = dict(isTrain=True, crop_size=32, load_size=32, batchSize=4, use_ig=True, nThreads=1,
               data_dir=tiny_dataset, preprocess_mode="resize_and_crop")
     port_opt, jax_opt = Options(**kw).finalize(), jax_config.Options(**kw).finalize()

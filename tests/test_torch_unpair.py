@@ -293,14 +293,16 @@ def demo_opts(**kw):
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_stage2_loader_draws_the_ref_sample_as_jax(seed):
     """CustomDataset(opt, 2) on FFHQ_demo's three samples: for the same
-    host seed, the ref label and image (of the sample the rng drew) and the
-    tag planes equal the JAX loader's (its uint8 wire decoded)."""
+    host seed, the ref label and image (of the sample the rng drew), the
+    tag planes, the orientation planes and the noise equal the JAX loader's
+    (its uint8 wire decoded)."""
     ours_opt, jax_opt = demo_opts()
     ours, theirs = CustomDataset(ours_opt, 2), JDataset(jax_opt, 2)
     for index in range(len(ours)):
         got = ours.get_sample(index, random.Random(seed * 10 + index))
         want = theirs.get_sample(index, random.Random(seed * 10 + index))
-        for k in ("label_ref", "label_tag", "hole"):
+        assert sorted(got) == sorted(want)
+        for k in ("label_ref", "label_tag", "hole", "orient", "orient_rgb", "noise"):
             np.testing.assert_array_equal(got[k], want[k].astype(np.float32), err_msg=k)
         for k in ("image_ref", "image_tag"):
             np.testing.assert_array_equal(got[k], want[k].astype(np.float32) / 127.5 - 1.0,
