@@ -12,8 +12,9 @@ extractors (phase 17), the training step on two data-parallel ranks
 (phase 18), the VAE, blender and unpaired configs again at --dtype
 bfloat16 (phase 19), and the 1024^2 configuration (--num_upsampling_layers
 most) with --remat activation checkpointing (phase 20), the last
-model options of the JAX package (phase 21), and the trainer's native host
-library on this machine's host (phase 22):
+model options of the JAX package (phase 21), the trainer's native host
+library on this machine's host (phase 22), and the 1024^2 forward in row
+bands on two ranks of one spatial group (phase 23):
 
 - the flagship inference path (IG orientation inpainting -> partial-conv
   appearance encoder -> noise background encoder -> SPADEB generator with
@@ -328,6 +329,28 @@ Phases, each on its own line:
       beside the bf16 512^2 step's card ms per image (phase 15).  The Qt
       editor and the PIL loader do not run here (no PyQt5, PIL or cv2):
       their edit and step are phases 9 and 14, and 11 and 15.
+  23. spatial sharding of inference (michigan_tpu_torch.parallel.spatial):
+      the generator's planes over SPACE_WORLD ranks (printed: which are
+      bands and which whole); spade_modulate at up_4's band (1, 64, 576,
+      1152) against its plain version in fp32 and bf16 (TOLS), with its
+      device time, its plain version's and its bound; then one process's
+      1024^2 `most` forward (FLAGS + MOST_INFER, batch 1, SEED's weights),
+      fp32 and bf16, on the card; then SPACE_WORLD ranks spawned on the one
+      card in a gloo group (each joined within SPACE_JOIN_S, the group's
+      timeout SPACE_GROUP_TIMEOUT_S), each running make_spatial_infer on
+      the same host batch: the counts set to 0 just before the compared
+      forward and read just after, exactly 21 spade_modulate and 29
+      fused_instance_norm a rank in each dtype; the gathered output against
+      one process's by phase 5's limits (fp32: 2e-3 max abs and PSNR > 50
+      dB) and phase 13's (bf16: 2x the card's own bf16-vs-fp32 difference);
+      a control, the fp32 ranks with zeros in place of the neighbours' halo
+      rows, must fail phase 5's limits; ms/image (median of SPACE_REPS,
+      host clock) and peak memory a rank beside one process's (each above
+      what its process held before its model); one more forward a rank
+      with the transport (halo rows, gathers, all-reduces) clocked between
+      synchronizes: its calls and ms.  With two or more cards, the same
+      ranks over NCCL, one card each (four bands on four cards, else two),
+      by the same gates.
 
 Then a JSON line of per-kernel results: for the training step's kernels
 (fused_instance_norm, filterbank_orientation and its backward,
@@ -367,7 +390,11 @@ shapes: spade_modulate over a forward's 21 calls, the training kernels over
 the batch-1 step's calls, launches from phase 20's counted runs; the
 fused_instance_norm rows carry launches_1024 (forward and step), whose
 shapes are the 512^2 paths'.  The float32 rows carry variants_launches,
-phase 21's counted runs.  Last, the device line.  Any
+phase 21's counted runs.  The spade_modulate and fused_instance_norm
+rows (and their _bf16 rows) carry spatial_launches_per_rank, phase 23's
+counted forwards, and the spade_modulate rows a band entry: its shape,
+max_abs_err, ms, plain_ms, bound_ms and bound_by at up_4's band.  Last,
+the device line.  Any
 failure exits non-zero without the device line; so does a machine without
 CUDA, and a directory without the rest of the repository.
 
@@ -515,7 +542,8 @@ CONFIG_MODULES = ("michigan_tpu_torch.native", "michigan_tpu_torch.data.noise",
                   "michigan_tpu_torch.utils.iter_counter", "michigan_tpu_torch.serving",
                   "michigan_tpu_torch.serving.session", "michigan_tpu_torch.serving.export",
                   "michigan_tpu_torch.evaluate", "michigan_tpu_torch.models.inception",
-                  "michigan_tpu_torch.parallel.dist", "michigan_tpu_torch.tools.replica_objective",
+                  "michigan_tpu_torch.parallel.dist", "michigan_tpu_torch.parallel.spatial",
+                  "michigan_tpu_torch.tools.replica_objective",
                   "michigan_tpu_torch.training.diagnostics", "michigan_tpu_torch.utils.visualizer")
 # phase 17: the serving session's buckets and request sizes (padding, and a
 # split into 8 + 4), the bf16 --use_pallas_epilogue bucket's graph, and FID
@@ -534,6 +562,17 @@ DP16 = dict(crop=256, ngf=32, ndf=32, batch=4)
 DP_STEPS = 2
 DP_GROUP_TIMEOUT_S = 300
 DP_JOIN_S = 900
+# phase 23: spatial sharding of inference (parallel/spatial.py): SPACE_WORLD
+# gloo ranks on cuda:0, each holding one band of rows of the 1024^2 `most`
+# flagship's planes (FLAGS + MOST_INFER, batch 1), against one process's
+# forward on the same card; SPACE_REPS timed forwards after the compared
+# one; spade_modulate at up_4's band (1, 64, 1152 / SPACE_WORLD, 1152)
+# against its plain version; with two or more cards, NCCL ranks one card
+# each as well; group and join timeouts in seconds
+SPACE_WORLD = 2
+SPACE_REPS = 3
+SPACE_GROUP_TIMEOUT_S = 300
+SPACE_JOIN_S = 600
 # phase 20: the 1024^2 configuration (--num_upsampling_layers most) at full
 # width: inference on FLAGS at 1024 + --add_th 128 (generator planes 9^2 ...
 # 1152^2, the pad-crop back to 1024), the training step on TRAIN_FLAGS at
@@ -2882,6 +2921,12 @@ def run():
     if msg:
         return fail(msg)
 
+    # 23 --------------------------------------------------------------
+    # spatial sharding of the 1024^2 forward: row bands on two ranks
+    msg, space = spatial_phase(torch, np, tag)
+    if msg:
+        return fail(msg)
+
     train_kernels = ("fused_instance_norm", "filterbank_orientation",
                      "filterbank_orientation_backward", "conv3x3_same_lowch")
     rows = {k: (stroke_counts[k], edit_ms[k], edit_plain_ms[k])
@@ -2956,6 +3001,16 @@ def run():
     for row in kernel_rows:
         if row["name"] in REPLACES:
             row["variants_launches"] = {r: c[row["name"]] for r, c in variants.items()}
+    # phase 23's counted spatial forwards, a rank's launches (fp32 on the
+    # float32 rows, bf16 on the _bf16 rows), and spade_modulate at a band
+    for row in kernel_rows:
+        name, dtype = (row["name"][:-5], "bfloat16") if row["name"].endswith("_bf16") \
+            else (row["name"], "float32")
+        if name in SERVE_KERNELS[:2]:
+            row["spatial_launches_per_rank"] = [c[dtype][name].get(dtype, 0)
+                                                for c in space["counts"]]
+            if name == "spade_modulate":
+                row["band"] = space["band"][dtype]
     print(f"[timing] seconds from each phase's first line to the next's: {clock.seconds()}; "
           f"{time.perf_counter() - clock.t0:.1f} s in all")
     print(json.dumps({"kernels": kernel_rows}))
@@ -4181,6 +4236,274 @@ def dp_phase(torch, tag):
     phase(18, f"data parallelism in {time.perf_counter() - t18:.1f} s (references "
               f"{t_ref:.1f} s, ranks {t_ranks:.1f} s, NCCL {t_nccl:.1f} s)")
     return f"phase 18: {', '.join(fails)}" if fails else None
+
+
+def zero_neighbour_rows(bands, x, lo, hi):
+    """Phase 23's control (Bands.neighbour_rows replaced): zeros in place of
+    the neighbours' halo rows."""
+    z = lambda n: x.new_zeros((x.shape[0], x.shape[1], n, x.shape[3]))
+    return (z(lo) if lo and bands.r > 0 else None), \
+        (z(hi) if hi and bands.r < bands.P - 1 else None)
+
+
+def space_forwards(torch, model, infer, batch, reps):
+    """The compared forward (the counts set to 0 just before it and read
+    just after, by dtype; peak memory from a reset) then `reps` timed ones:
+    (fake, counts, peak bytes, median ms, host clock)."""
+    from michigan_tpu_torch.ops import cuda as kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    fake = infer(batch)[0]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts(by_dtype=True)
+    peak = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        infer(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return fake, counts, peak, statistics.median(times)
+
+
+def transport_clock(torch, bands_cls, infer, batch):
+    """One more forward with Bands' three transport methods clocked (host
+    clock, a synchronize before and after each, so that the card's queued
+    work is not counted in them): {'calls', 'ms' in them, 'forward_ms'}."""
+    acc = {"calls": 0, "ms": 0.0}
+    saved = {n: getattr(bands_cls, n) for n in ("neighbour_rows", "all_reduce", "gather_rows")}
+
+    def clocked(fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            acc["ms"] += (time.perf_counter() - t0) * 1e3
+            acc["calls"] += 1
+            return out
+        return run
+
+    for n, fn in saved.items():
+        setattr(bands_cls, n, clocked(fn))
+    try:
+        t0 = time.perf_counter()
+        infer(batch)
+        torch.cuda.synchronize()
+        acc["forward_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n, fn in saved.items():
+            setattr(bands_cls, n, fn)
+    return acc
+
+
+def space_rank(tmp, backend):
+    """Phase 23's rank (spawned by parallel.dist.launch): a `backend` group
+    of the launched ranks, on cuda:0 for gloo (all on the one card) or
+    cuda:<rank> for NCCL; make_spatial_infer of the 1024^2 `most` flagship
+    at SEED's weights on synthetic_inference_data's host batch: fp32
+    (space_forwards), the fp32 control with zeros in place of the
+    neighbours' rows, then bf16 from the same weights; writes
+    <tmp>/<backend><r>.pt (the gathered outputs on rank 0)."""
+    import datetime
+
+    import torch
+
+    from michigan_tpu_torch.data.synthetic import synthetic_inference_data
+    from michigan_tpu_torch.inference import parse_options
+    from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
+    from michigan_tpu_torch.parallel import dist as DP
+    from michigan_tpu_torch.parallel import spatial
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    device = torch.device("cuda:0" if backend == "gloo" else f"cuda:{rank}")
+    torch.cuda.set_device(device)
+    group = DP.init_group(backend, rank, world, os.environ["MASTER_ADDR"],
+                          int(os.environ["MASTER_PORT"]), device,
+                          datetime.timedelta(seconds=SPACE_GROUP_TIMEOUT_S))
+    space = spatial.Space(group, rank, world, device)
+    cpu = lambda t: None if t is None else t.cpu()
+    try:
+        res = {"held": torch.cuda.memory_allocated(device)}
+        opt = parse_options(FLAGS + MOST_INFER + ["--seed", str(SEED)])
+        batch = batch_from_numpy(synthetic_inference_data(opt, SEED), "cpu")
+        model = MichiGANModel(opt, device)
+        model.init_weights(SEED)
+        infer = spatial.make_spatial_infer(model, space)
+        fake, counts, peak, ms = space_forwards(torch, model, infer, batch, SPACE_REPS)
+        res["float32"] = {"fake": cpu(fake), "counts": counts, "peak": peak, "ms": ms,
+                          "transport": transport_clock(torch, spatial.Bands, infer, batch)}
+        normal = spatial.Bands.neighbour_rows
+        spatial.Bands.neighbour_rows = zero_neighbour_rows
+        res["control"] = cpu(spatial.make_spatial_infer(model, space)(batch)[0])
+        spatial.Bands.neighbour_rows = normal
+        states = {k: {n: t.cpu() for n, t in net.state_dict().items()}
+                  for k, net in model.nets().items()}
+        del model
+        torch.cuda.empty_cache()
+        model = MichiGANModel(parse_options(FLAGS + MOST_INFER + ["--seed", str(SEED), "--dtype",
+                                                                  "bfloat16"]), device)
+        model.load_state_dicts(states)
+        infer = spatial.make_spatial_infer(model, space)
+        fake, counts, peak, ms = space_forwards(torch, model, infer, batch, SPACE_REPS)
+        res["bfloat16"] = {"fake": cpu(fake), "counts": counts, "peak": peak, "ms": ms,
+                           "transport": transport_clock(torch, spatial.Bands, infer, batch)}
+        torch.save(res, f"{tmp}/{backend}{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spatial_phase(torch, np, tag):
+    """Phase 23: spatial sharding of inference on the card.  Returns
+    (failure or None, {'counts': [a rank's launches by dtype, ...], 'band':
+    {dtype: spade_modulate at up_4's band}})."""
+    import shutil
+    import tempfile
+
+    from michigan_tpu_torch.data.synthetic import synthetic_inference_data
+    from michigan_tpu_torch.inference import parse_options
+    from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
+    from michigan_tpu_torch.ops.cuda import spade as K
+    from michigan_tpu_torch.parallel import dist as DP
+    from michigan_tpu_torch.parallel import spatial
+    from michigan_tpu_torch.utils.imaging import tensor2im
+
+    t23 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False  # as phase 1 and the ranks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opt = parse_options(FLAGS + MOST_INFER + ["--seed", str(SEED)])
+    frame, crop, r0 = opt.generator_input_size(), opt.crop_size, opt.add_th // 2
+    phase(23, f"{SPACE_WORLD} ranks (gloo, all on cuda:0), `most` at {crop} + --add_th "
+              f"{opt.add_th} (frame {frame}), ngf {opt.ngf}, batch 1; the generator's planes: "
+              f"{spatial.plane_plan(opt, SPACE_WORLD)}; the encoders' planes are bands, the "
+              f"IG whole on every rank")
+
+    # spade_modulate at up_4's band against its plain version, and its times
+    gen = torch.Generator().manual_seed(SEED)
+    c, rows = opt.ngf, frame // SPACE_WORLD  # up_4 takes ngf channels at the frame
+    band = {}
+    for dname, tol in TOLS.items():
+        dtype = getattr(torch, dname)
+        x = torch.randn((1, c, rows, frame), generator=gen).to("cuda", dtype)
+        mean = torch.randn(c, generator=gen).cuda()
+        inv = torch.rand(c, generator=gen).add(0.5).cuda()
+        gb = torch.randn((1, 2 * c, rows, frame), generator=gen).to("cuda", dtype)
+        args = (x, mean, inv, *gb.chunk(2, dim=1))
+        got, want = K.spade_modulate(*args), K.spade_modulate_plain(*args)
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), **tol)
+        elem = x.element_size()
+        b_ms, b_by = bound(elem * 4 * x.numel() + 8 * c, 4 * x.numel(), FP32_FLOP_S)
+        band[dname] = {"shape": [1, c, rows, frame], "max_abs_err": err,
+                       "ms": median_ms(lambda: K.spade_modulate(*args), torch, True),
+                       "plain_ms": median_ms(lambda: K.spade_modulate_plain(*args), torch, True),
+                       "bound_ms": b_ms, "bound_by": b_by}
+        r = band[dname]
+        phase(23, f"spade_modulate {dname} at up_4's band (1, {c}, {rows}, {frame}) vs its plain "
+                  f"version: max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}; device kernel "
+                  f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by}) "
+                  f"{tag}")
+        if not ok:
+            return "phase 23: spade_modulate disagrees with its plain version at a band", None
+        del x, gb, args, got, want
+    torch.cuda.empty_cache()
+
+    # one process's forward on the card, then the ranks'; each peak is read
+    # above what the process held before its model (this one holds what
+    # earlier phases left)
+    dev = torch.device("cuda:0")
+    held = torch.cuda.memory_allocated(dev)
+    batch = batch_from_numpy(synthetic_inference_data(opt, SEED), dev)
+    model = MichiGANModel(opt, dev)
+    model.init_weights(SEED)
+    one = {}
+    one["float32"] = space_forwards(torch, model, model.infer, batch, SPACE_REPS)
+    states = {k: {n: t.cpu() for n, t in net.state_dict().items()}
+              for k, net in model.nets().items()}
+    del model
+    torch.cuda.empty_cache()
+    model = MichiGANModel(parse_options(FLAGS + MOST_INFER + ["--seed", str(SEED), "--dtype",
+                                                              "bfloat16"]), dev)
+    model.load_state_dicts(states)
+    one["bfloat16"] = space_forwards(torch, model, model.infer, batch, SPACE_REPS)
+    del model, batch, states
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t23
+    u8 = lambda t: tensor2im(t.permute(0, 2, 3, 1).numpy()[0, r0:r0 + crop, r0:r0 + crop])
+    one32, one16 = one["float32"][0].cpu(), one["bfloat16"][0].cpu()
+    want = {"float32": {k: ({"float32": v} if v else {}) for k, v in MOST_LAUNCHES.items()},
+            "bfloat16": MOST_BF16_LAUNCHES}
+
+    def check(ranks, how):
+        """The gates and lines of one launch's ranks; the failures."""
+        fails = []
+        for r, res in enumerate(ranks):
+            phase(23, f"{how}, rank {r}: launches fp32 {res['float32']['counts']}, bf16 "
+                      f"{res['bfloat16']['counts']}")
+            if any(res[d]["counts"] != want[d] for d in want):
+                fails.append(f"{how}: rank {r}'s launches")
+        got32, got16 = ranks[0]["float32"]["fake"], ranks[0]["bfloat16"]["fake"]
+        diff32, psnr = (got32 - one32).abs().max().item(), psnr_u8(u8(got32), u8(one32), np)
+        diff16, cal = (got16 - one16).abs().max().item(), (one16 - one32).abs().max().item()
+        ok = (got32.shape == one32.shape == (1, 3, frame, frame) and torch.isfinite(got32).all()
+              and diff32 <= 2e-3 and psnr > 50 and diff16 <= BF16_CAL * cal)
+        phase(23, f"{how}: the {len(ranks)} ranks' gathered output against one process on the "
+                  f"card: fp32 max_abs {diff32:.3e} (limit 2e-3), PSNR {psnr:.2f} dB (limit 50); "
+                  f"bf16 max_abs {diff16:.3e} (limit {BF16_CAL:g} x the card's own bf16 vs fp32 "
+                  f"{cal:.3e})")
+        if not ok:
+            fails.append(f"{how}: the bands' output against one process's")
+        control = ranks[0]["control"]
+        c_diff = (control - one32).abs().max().item()
+        c_psnr = psnr_u8(u8(control), u8(one32), np)
+        c_ok = c_diff <= 2e-3 and c_psnr > 50
+        phase(23, f"{how}: control, zeros in place of the neighbours' halo rows: max_abs "
+                  f"{c_diff:.3e}, PSNR {c_psnr:.2f} dB" + (
+                      ": passes, FAIL" if c_ok else ": fails the gate, as it must"))
+        if c_ok:
+            fails.append(f"{how}: the gate passes the zero-halo control")
+        for d in ("float32", "bfloat16"):
+            peaks = ", ".join(f"{(res[d]['peak'] - res['held']) / 2**30:.2f}" for res in ranks)
+            ms = ", ".join(f"{res[d]['ms']:.2f}" for res in ranks)
+            tr = ", ".join(f"{res[d]['transport']['calls']} calls {res[d]['transport']['ms']:.2f} "
+                           f"of {res[d]['transport']['forward_ms']:.2f} ms" for res in ranks)
+            phase(23, f"{how}, {d}, batch 1: one process {one[d][3]:.2f} ms/image, peak "
+                      f"{(one[d][2] - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} it held "
+                      f"before; the {len(ranks)} ranks {ms} ms/image a rank "
+                      f"(median of {SPACE_REPS}, host clock), peak {peaks} GiB a rank; in the "
+                      f"exchanges, gathers and all-reduces (one more forward, each clocked "
+                      f"between two synchronizes) {tr} a rank {tag}")
+        return fails
+
+    tmp = tempfile.mkdtemp(prefix="phase23_")
+    n_cards = torch.cuda.device_count()
+    try:
+        t0 = time.perf_counter()
+        DP.launch(space_rank, (tmp, "gloo"), SPACE_WORLD, timeout=SPACE_JOIN_S)
+        ranks = [torch.load(f"{tmp}/gloo{r}.pt") for r in range(SPACE_WORLD)]
+        t_ranks = time.perf_counter() - t0
+        fails = check(ranks, "gloo, all on cuda:0")
+        if n_cards >= 2:  # one rank a card over NCCL: 4 bands on 4 cards, else 2
+            world = 4 if n_cards >= 4 else 2
+            phase(23, f"NCCL, {world} ranks one card each: the generator's planes "
+                      f"{spatial.plane_plan(opt, world)}")
+            DP.launch(space_rank, (tmp, "nccl"), world, timeout=SPACE_JOIN_S)
+            fails += check([torch.load(f"{tmp}/nccl{r}.pt") for r in range(world)],
+                           f"NCCL, {world} cards")
+        else:
+            phase(23, f"{n_cards} card: the ranks ran on one card over gloo; none ran over NCCL")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase(23, f"spatial sharding in {time.perf_counter() - t23:.1f} s (one process {t_one:.1f} s, "
+              f"the gloo ranks {t_ranks:.1f} s)")
+    if fails:
+        return f"phase 23: {', '.join(fails)}", None
+    return None, {"counts": [{d: res[d]["counts"] for d in want} for res in ranks],
+                  "band": band}
 
 
 def host_times(root, reps=30):

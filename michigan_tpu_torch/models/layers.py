@@ -321,23 +321,26 @@ class PartialConv(nn.Conv2d):
     (partialconv2d.py:15-86): returns (out, updated_mask), where
     out = (conv(x*m) * winsize / (conv(m) + 1e-8) + b) * clamp(conv(m), 0, 1).
     The mask ratio is computed in float32 and cast to x's dtype; the updated
-    mask stays float32."""
+    mask stays float32.  `padding` (rows, columns) overrides the layer's
+    own: a row band of a plane whose halo rows are already in place
+    (parallel/spatial.py) takes (0, its padding)."""
 
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 2,
                  padding: int = 1, bias: bool = True):
         super().__init__(in_ch, out_ch, kernel_size, stride, padding, bias=bias)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor):
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, padding=None):
         k = self.kernel_size[0]
+        pad = self.padding if padding is None else padding
         m = mask.float()
         ones = torch.ones(1, 1, k, k, dtype=m.dtype, device=x.device)
-        update_mask = F.conv2d(m, ones, None, self.stride, self.padding)
+        update_mask = F.conv2d(m, ones, None, self.stride, pad)
         mask_ratio = float(k * k) / (update_mask + 1e-8)
         update_mask = update_mask.clamp(0.0, 1.0)
         mask_ratio = mask_ratio * update_mask
         w, b = cast_params(x, self.weight, self.bias)
-        raw = conv(F.conv2d, x * mask.to(x.dtype), w, None, self.stride, self.padding)
+        raw = conv(F.conv2d, x * mask.to(x.dtype), w, None, self.stride, pad)
         mask_ratio = mask_ratio.to(raw.dtype)
         if b is not None:
             out = (raw * mask_ratio + b.view(1, -1, 1, 1)) * update_mask.to(raw.dtype)

@@ -64,8 +64,9 @@ def data_axis_size(mesh_shape: str) -> int:
     parts = [p.split(":") for p in mesh_shape.split(",")]
     if len(parts) != 1 or len(parts[0]) != 2 or parts[0][0] != "data":
         raise NotImplementedError(
-            f"--mesh_shape {mesh_shape}: only 'data:-1' or 'data:N' is ported; other axes "
-            "(spatial sharding, michigan_tpu/parallel/spatial.py) are not")
+            f"--mesh_shape {mesh_shape}: only 'data:-1' or 'data:N' is ported; the trainer "
+            "does not shard rows (spatial sharding of training is not ported; inference runs "
+            "in row bands through michigan_tpu_torch.parallel.spatial.make_spatial_infer)")
     return int(parts[0][1])
 
 
