@@ -189,7 +189,9 @@ Phases, each on its own line:
       netG's running statistics and spectral u / v within rtol 1e-4, atol
       1e-5.  The blender's netG and netB (F64_WITNESSED) may instead pass
       a float64 witness: one G step on the CPU in float64 from the same
-      state (tools/float64_step.py), from whose gradient the card's G-step
+      state (tools/float64_step.py; computed from phase 15 on beside the
+      card's work, in a niced process of its own: CpuRefs), from whose
+      gradient the card's G-step
       gradient (read back from Adam's first moment) may lie at most
       F64_CAL x as far, relative to its norm, as the CPU's float32 one.
       netB's backward multiplies the relative rounding error of the
@@ -306,8 +308,10 @@ Phases, each on its own line:
       a synthetic two-id instance map): the counts set to 0 just before
       and read just after, exactly FLAGSHIP_LAUNCHES (under
       --weight_norm_G spade_modulate with mean 0 and invstd 1), the output
-      finite, card vs CPU by phase 5's limits, ms/image (median of
-      VARIANT_INFER_REPS, host clock) and peak memory; spade_modulate with
+      finite, card vs CPU by phase 5's limits (the CPU forward from SEED's
+      weights, computed beside the card's work by CpuRefs), ms/image
+      (median of VARIANT_INFER_REPS, host clock) and peak memory;
+      spade_modulate with
       mean 0 and invstd 1 against x * (1 + gamma) + beta at WN_SHAPES;
       then the two configs of VARIANT_TRAIN on TRAIN_FLAGS (A: the norm
       encoder and D with spectral batch norms, --weight_norm_G,
@@ -505,8 +509,8 @@ TRAIN_FLAGS = ("--netG spadeb --use_encoder --use_ig --noise_background --expand
                "--expand_th 5 --random_expand_mask --num_upsampling_layers more "
                "--init_type none --gpu_ids 0").split()
 TRAIN_BATCH = 8  # the slice's batch: an out-of-memory error fails phase 11
-TRAIN_STEPS = 3  # timed batch-8 steps after the warm-up (phases 11, 15, 19)
-SPLIT_STEPS = 2  # steps timed as a G step and a D step apart (phases 11, 15)
+TRAIN_STEPS = 2  # timed batch-8 steps after the warm-up (phases 11, 15, 19)
+SPLIT_STEPS = 1  # steps timed as a G step and a D step apart (phases 11, 15)
 EXTRA_DILATE = 2  # the expected random mask dilation (encoder.py:294)
 PARITY_CROP = 512
 # phase 16: the three training configs of the JAX package's flag matrix
@@ -520,10 +524,19 @@ STAGE2_LAUNCHES = {**STEP_LAUNCHES, "conv3x3_same_lowch": 0}
 # from its gradient than the CPU's float32 gradient the card's may land
 F64_WITNESSED = {"blender": ("netG", "netB")}
 F64_CAL = 2.0
+# the CPU references that need no card result: the blender's float64
+# witness (phase 16) at both inits and phase 21's seven CPU forwards, each
+# from SEED's weights, computed beside the card's work from phase 15 on in
+# one process of its own, niced (REFS_NICE) so that the phases' own CPU work
+# keeps the cores it asks for, with REFS_THREADS torch threads; a phase that
+# needs one waits for it at most REFS_WAIT_S seconds
+REFS_NICE = 10
+REFS_THREADS = 4
+REFS_WAIT_S = 900
 # phase 16's timed steps a config (fewer than phase 11's, to leave phase 19
 # room in the script's time), and the witnessed config's repeats of its
 # card G step under deterministic algorithms
-CONFIG_STEPS = 2
+CONFIG_STEPS = 1
 DET_REPEATS = 3
 # phase 19: phase 16's configs at --dtype bfloat16; the unpaired stage runs
 # no VGG tower, so no conv3x3_same_lowch
@@ -559,7 +572,7 @@ FID_REL = 1e-3  # card vs CPU features, relative to their norm
 # the bf16 step at DP16; group and join timeouts in seconds
 DP_WORLD = 2
 DP16 = dict(crop=256, ngf=32, ndf=32, batch=4)
-DP_STEPS = 2
+DP_STEPS = 1
 DP_GROUP_TIMEOUT_S = 300
 DP_JOIN_S = 900
 # phase 23: spatial sharding of inference (parallel/spatial.py): SPACE_WORLD
@@ -570,7 +583,7 @@ DP_JOIN_S = 900
 # against its plain version; with two or more cards, NCCL ranks one card
 # each as well; group and join timeouts in seconds
 SPACE_WORLD = 2
-SPACE_REPS = 3
+SPACE_REPS = 2
 SPACE_GROUP_TIMEOUT_S = 300
 SPACE_JOIN_S = 600
 # phase 20: the 1024^2 configuration (--num_upsampling_layers most) at full
@@ -592,8 +605,8 @@ MOST_BF16_LAUNCHES = {**NO_LAUNCHES, "spade_modulate": {"bfloat16": MOST_LAUNCHE
                       "fused_instance_norm": {"bfloat16": 29}}
 MOST_BATCHES = (1, 2, 4, 8)  # the largest-batch probes of the 1024^2 step
 MOST_CHECK_CROP = 512        # the 1024^2 inference path card vs CPU at 512 + 128
-MOST_STEPS = 4               # timed batch-1 1024^2 steps after the counted one
-REMAT512_STEPS = 2           # timed all_losses_remat steps (batch 8) after the counted one
+MOST_STEPS = 2               # timed batch-1 1024^2 steps after the counted one
+REMAT512_STEPS = 1           # timed all_losses_remat steps (batch 8) after the counted one
 MOST_LOWCH = (2, 64, 1024, 1024)  # features_2 of the batch-1 step's tag+ref tower
 # phase 15's card-bf16 vs CPU-bf16 step at this batch, crop and width, so
 # that the CPU's two steps (bf16 and fp32) fit the script's time
@@ -633,7 +646,7 @@ VARIANT_INFER = {
     "weight_norm_G": (["--weight_norm_G"], ()),
     "instance_map": (["--no_instance", "False"], ()),
 }
-VARIANT_INFER_REPS = 3  # timed forwards a variant, after a warm-up
+VARIANT_INFER_REPS = 2  # timed forwards a variant, after a warm-up
 # training: two combined configs on TRAIN_FLAGS.  B's one n_layer D gives
 # its features to the GAN-feature loss as the JAX package's split does
 # (michigan_tpu_torch/model.py discriminate), whose fake and real pieces
@@ -644,7 +657,7 @@ VARIANT_TRAIN = {
     "B": (["--Image_encoder_mode", "instance", "--use_instance_feat", "--no_instance", "False",
            "--netD", "n_layer", "--no_ganFeat_loss"], ("--noise_background",)),
 }
-VARIANT_STEPS = 2  # timed batch-8 steps a config, after the counted one (the warm-up)
+VARIANT_STEPS = 1  # timed batch-8 steps a config, after the counted one (the warm-up)
 # spade_modulate under --weight_norm_G against x * (1 + gamma) + beta at the
 # flagship's first and last SPADE shapes (C, H=W)
 WN_SHAPES = ((1024, 18), (64, 576))
@@ -2190,7 +2203,9 @@ def run():
     # 15 --------------------------------------------------------------
     # the bf16 training step (--dtype bfloat16): its two new kernel forms,
     # conv3x3_same_lowch in bf16 (A) and the bank's bf16-operand forward
-    # (B), against their plain versions and float64, then the step
+    # (B), against their plain versions and float64, then the step; the CPU
+    # references of phases 16 and 21 start beside it (CpuRefs)
+    refs = CpuRefs()
     torch.cuda.empty_cache()
     cgen = torch.Generator(device="cuda").manual_seed(SEED + 15)
     failed, step16_ms, step16_plain_ms, step16_work = [], {}, {}, {}
@@ -2606,10 +2621,10 @@ def run():
         witness = {}
         if cfg in F64_WITNESSED:
             nets_w = F64_WITNESSED[cfg]
-            t0 = time.perf_counter()
-            _, g64, exact = float64_step.g_step64(popt, init_sd, b_cpu, eps_cpu, nets_w,
-                                                  EXTRA_DILATE)
-            t64 = time.perf_counter() - t0
+            if cfg != "blender" or eps_cpu is not None or nets_w != F64_WITNESSED["blender"]:
+                return f"phase 16: no float64 witness was computed for {cfg}"
+            w64 = refs.get(f"witness_{init}")  # computed beside the card's work
+            g64, exact, t64 = w64["g64"], w64["exact"], w64["s"]
             control = TrainStep(MichiGANModel(popt, "cuda:0"))
             control.model.load_state_dicts(init_sd)
             control.g_step({k: v[:n // 2] for k, v in b_card.items()}, EXTRA_DILATE,
@@ -2699,7 +2714,8 @@ def run():
         ok &= bufs_ok and d_rule[0]
         net_rows.append(f"{d_name} max diff {d_rule[1]:.2e}, {d_rule[2]} of {d_rule[3]} beyond "
                         f"float noise; netG buffers max diff {buf_err:.2e}; CPU step "
-                        f"{t_cpu:.1f} s" + (f", float64 G step {t64:.1f} s" if witness else ""))
+                        f"{t_cpu:.1f} s" + (f", float64 G step {t64:.1f} s (beside the card's "
+                                           f"work, niced)" if witness else ""))
         phase(16, f"{cfg} G+D step card/CPU at --init_type {init}, batch {n}, "
                   f"{PARITY16['crop']}^2, ngf {PARITY16['ngf']}, ndf {PARITY16['ndf']}: "
                   + ", ".join(loss_rows))
@@ -2911,7 +2927,7 @@ def run():
     # 21 --------------------------------------------------------------
     # the port's last model options (encoders, seeds, background encoder,
     # norms, discriminators, netFE, instance maps) at full width
-    msg, variants = variants_phase(torch, np, tag)
+    msg, variants = variants_phase(torch, np, tag, refs)
     if msg:
         return fail(msg)
 
@@ -3784,9 +3800,10 @@ def most_rows(k20, launches):
     return rows
 
 
-def variants_phase(torch, np, tag):
-    """Phase 21: the port's last model options at full width.  Returns
-    (failure or None, {run: launches} of the counted runs)."""
+def variants_phase(torch, np, tag, refs):
+    """Phase 21: the port's last model options at full width, the CPU
+    forwards from `refs` (CpuRefs).  Returns (failure or None, {run:
+    launches} of the counted runs)."""
     from michigan_tpu_torch.data.synthetic import synthetic_inference_data, synthetic_train_data
     from michigan_tpu_torch.inference import parse_options
     from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
@@ -3822,12 +3839,8 @@ def variants_phase(torch, np, tag):
         torch.cuda.reset_peak_memory_stats()
         ms = host_ms(lambda: model.infer(batch), torch, VARIANT_INFER_REPS)
         peak = torch.cuda.max_memory_allocated()
-        cpu = MichiGANModel(opt, "cpu")
-        cpu.load_state_dicts({k: {n: t.cpu() for n, t in net.state_dict().items()}
-                              for k, net in model.nets().items()})
-        t0 = time.perf_counter()
-        fake_cpu = cpu.infer(batch_from_numpy(data, "cpu"))[0]
-        cpu_s = time.perf_counter() - t0
+        ref = refs.get(f"variant_{name}")  # SEED's weights on the CPU, beside the card's work
+        fake_cpu, cpu_s = ref["fake"], ref["s"]
         r = opt.add_th // 2
         u8 = lambda t: tensor2im(t.permute(0, 2, 3, 1).cpu().numpy()[
             0, r:r + opt.crop_size, r:r + opt.crop_size])
@@ -3837,10 +3850,10 @@ def variants_phase(torch, np, tag):
                   f"PSNR {psnr:.2f} dB (limit 50); batch 1, 512^2, ngf {opt.ngf}: {ms:.2f} "
                   f"ms/image (median of {VARIANT_INFER_REPS}, host clock), peak device memory "
                   f"{peak / 2**30:.2f} GiB ({live / 2**30:.2f} GiB live before) {tag}; CPU "
-                  f"forward {cpu_s:.1f} s")
+                  f"forward {cpu_s:.1f} s (beside the card's work, niced)")
         if not diff <= 2e-3 or not psnr > 50:
             return f"phase 21 {name}: card and CPU outputs disagree", None
-        del model, cpu, batch, fake, fake_cpu
+        del model, batch, fake, fake_cpu
         torch.cuda.empty_cache()
 
     # the --weight_norm_G form of spade_modulate (mean 0, invstd 1) against
@@ -4504,6 +4517,94 @@ def spatial_phase(torch, np, tag):
         return f"phase 23: {', '.join(fails)}", None
     return None, {"counts": [{d: res[d]["counts"] for d in want} for res in ranks],
                   "band": band}
+
+
+def witness_opts(train_options, init):
+    """Phase 16's options of the blender config's card-vs-CPU step at
+    PARITY16's size and `init`."""
+    return train_opts(train_options, PARITY16["batch"], PARITY16["crop"],
+                      list(CONFIG_FLAGS["blender"]) + [
+                          "--ngf", str(PARITY16["ngf"]), "--ndf", str(PARITY16["ndf"]),
+                          "--init_type", init])
+
+
+def cpu_refs_worker(out):
+    """The CPU references computed beside the card's work (spawned, niced):
+    the blender's float64 G step (phase 16's witness) at --init_type none
+    and xavier from SEED's weights on synthetic_train_data's paired batch,
+    then phase 21's CPU forward of each of VARIANT_INFER from SEED's
+    weights; each result written to <out>/<name>.pt as it is done
+    (witness_<init>: {'g64', 'exact', 's'}; variant_<name>: {'fake', 's'})."""
+    os.nice(REFS_NICE)
+    import torch
+
+    from michigan_tpu_torch.data.synthetic import synthetic_inference_data, synthetic_train_data
+    from michigan_tpu_torch.inference import parse_options
+    from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
+    from michigan_tpu_torch.tools import float64_step
+    from michigan_tpu_torch.train import parse_options as train_options
+
+    torch.set_num_threads(REFS_THREADS)
+    torch.set_flush_denormal(True)
+
+    def save(name, obj):
+        torch.save(obj, f"{out}/{name}.pt.part")
+        os.replace(f"{out}/{name}.pt.part", f"{out}/{name}.pt")
+
+    for init in ("none", "xavier"):
+        popt = witness_opts(train_options, init)
+        model = MichiGANModel(popt, "cpu")
+        model.init_weights(SEED)
+        init_sd = {k: {n: t.detach().clone() for n, t in net.state_dict().items()}
+                   for k, net in model.nets().items()}
+        del model
+        batch = batch_from_numpy(synthetic_train_data(popt, SEED, PARITY16["batch"]), "cpu")
+        t0 = time.perf_counter()
+        _, g64, exact = float64_step.g_step64(popt, init_sd, batch, None,
+                                              F64_WITNESSED["blender"], EXTRA_DILATE)
+        save(f"witness_{init}", {"g64": g64, "exact": exact, "s": time.perf_counter() - t0})
+    for name, (add, drop) in VARIANT_INFER.items():
+        opt = parse_options([f for f in FLAGS if f not in drop] + add + ["--seed", str(SEED)])
+        model = MichiGANModel(opt, "cpu")
+        model.init_weights(SEED)
+        batch = batch_from_numpy(synthetic_inference_data(opt, SEED), "cpu")
+        t0 = time.perf_counter()
+        fake = model.infer(batch)[0]
+        save(f"variant_{name}", {"fake": fake, "s": time.perf_counter() - t0})
+        del model
+
+
+class CpuRefs:
+    """cpu_refs_worker in a daemonic spawned process (ended with this one),
+    and its results as they come."""
+
+    def __init__(self):
+        import atexit
+        import multiprocessing
+        import shutil
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="cpu_refs_")
+        atexit.register(shutil.rmtree, self.dir, True)
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=cpu_refs_worker, args=(self.dir,), daemon=True)
+        self.proc.start()
+
+    def get(self, name):
+        """The result `name`, waiting for it (at most REFS_WAIT_S seconds);
+        RuntimeError if the worker ended without it."""
+        import torch
+
+        path = f"{self.dir}/{name}.pt"
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if not self.proc.is_alive() and not os.path.exists(path):
+                raise RuntimeError(f"the CPU reference worker exited with code "
+                                   f"{self.proc.exitcode} before {name}")
+            if time.perf_counter() - t0 > REFS_WAIT_S:
+                raise RuntimeError(f"no CPU reference {name} after {REFS_WAIT_S} s")
+            time.sleep(0.2)
+        return torch.load(path)
 
 
 def host_times(root, reps=30):
