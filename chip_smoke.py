@@ -13,8 +13,9 @@ extractors (phase 17), the training step on two data-parallel ranks
 bfloat16 (phase 19), and the 1024^2 configuration (--num_upsampling_layers
 most) with --remat activation checkpointing (phase 20), the last
 model options of the JAX package (phase 21), the trainer's native host
-library on this machine's host (phase 22), and the 1024^2 forward in row
-bands on two ranks of one spatial group (phase 23):
+library on this machine's host (phase 22), the 1024^2 forward in row
+bands on two ranks of one spatial group (phase 23), and the 1024^2 training
+step in row bands on two ranks (phase 24):
 
 - the flagship inference path (IG orientation inpainting -> partial-conv
   appearance encoder -> noise background encoder -> SPADEB generator with
@@ -355,6 +356,29 @@ Phases, each on its own line:
       synchronizes: its calls and ms.  With two or more cards, the same
       ranks over NCCL, one card each (four bands on four cards, else two),
       by the same gates.
+  24. spatial sharding of training: the plane plan (the generator's and
+      VGG19's bands, netD whole); filterbank_orientation, its backward
+      and conv3x3_same_lowch at the band shapes (rank 1's band of the
+      1024^2 plane with the bank's 8 halo rows, zeros below the frame; the
+      tag + ref tower's band with a halo row each side), each against its
+      plain version by phase 3's tolerances; one process's fp32 `most` G+D
+      step at 1024^2, batch 1 (TRAIN_FLAGS + MOST_TRAIN, SEED's weights,
+      synthetic_train_data) on the card, then SPACE_WORLD ranks spawned on
+      the one card in a gloo group, each running TrainStep with its Space
+      on its band of the same batch (spatial.shard_batch) from the same
+      weights: the counts set to 0 just before the compared G step and
+      read just after its D step, exactly STEP_LAUNCHES a rank; the D step
+      from one process's post-G netG; per-term losses within
+      SPACE_LOSS_RTOL of one process's (ORIENT SPACE_ORIENT_RTOL), netG
+      after the G step and netD after the D step by phase 12's rule, netG's
+      buffers within rtol 1e-4; every rank's nets and losses equal rank
+      0's bit for bit; two controls from the same weights, zeros in place
+      of the neighbours' halo rows and each band's own batch-norm
+      statistics, whose G steps must fail the same gate; ms/step (median
+      of SPACE_TRAIN_STEPS, host clock) and peak memory a rank beside one
+      process's; one more step a rank with its collectives clocked between
+      synchronizes.  With two or more cards, the same ranks over NCCL, one
+      card each, by the same gates.
 
 Then a JSON line of per-kernel results: for the training step's kernels
 (fused_instance_norm, filterbank_orientation and its backward,
@@ -397,7 +421,10 @@ shapes are the 512^2 paths'.  The float32 rows carry variants_launches,
 phase 21's counted runs.  The spade_modulate and fused_instance_norm
 rows (and their _bf16 rows) carry spatial_launches_per_rank, phase 23's
 counted forwards, and the spade_modulate rows a band entry: its shape,
-max_abs_err, ms, plain_ms, bound_ms and bound_by at up_4's band.  Last,
+max_abs_err, ms, plain_ms, bound_ms and bound_by at up_4's band.  The
+float32 rows of fused_instance_norm, the bank, its backward and
+conv3x3_same_lowch carry spatial_train_launches_per_rank, phase 24's
+counted steps.  Last,
 the device line.  Any
 failure exits non-zero without the device line; so does a machine without
 CUDA, and a directory without the rest of the repository.
@@ -586,6 +613,16 @@ SPACE_WORLD = 2
 SPACE_REPS = 2
 SPACE_GROUP_TIMEOUT_S = 300
 SPACE_JOIN_S = 600
+# phase 24: spatial sharding of training: SPACE_WORLD gloo ranks on cuda:0,
+# each holding one band of rows of the 1024^2 `most` step (TRAIN_FLAGS +
+# MOST_TRAIN, batch 1, fp32, every default loss), against one process's step
+# on the same card from the same weights, batch and EXTRA_DILATE: the
+# losses within SPACE_LOSS_RTOL (ORIENT SPACE_ORIENT_RTOL, the JAX package's
+# own limit for reordered argmax near-ties), the nets by phase 12's rule;
+# SPACE_TRAIN_STEPS timed steps after the compared one
+SPACE_LOSS_RTOL = 1e-3
+SPACE_ORIENT_RTOL = 2e-2
+SPACE_TRAIN_STEPS = 2
 # phase 20: the 1024^2 configuration (--num_upsampling_layers most) at full
 # width: inference on FLAGS at 1024 + --add_th 128 (generator planes 9^2 ...
 # 1152^2, the pad-crop back to 1024), the training step on TRAIN_FLAGS at
@@ -2943,6 +2980,12 @@ def run():
     if msg:
         return fail(msg)
 
+    # 24 --------------------------------------------------------------
+    # spatial sharding of the 1024^2 training step: row bands on two ranks
+    msg, space_train = spatial_train_phase(torch, np, tag)
+    if msg:
+        return fail(msg)
+
     train_kernels = ("fused_instance_norm", "filterbank_orientation",
                      "filterbank_orientation_backward", "conv3x3_same_lowch")
     rows = {k: (stroke_counts[k], edit_ms[k], edit_plain_ms[k])
@@ -3027,6 +3070,12 @@ def run():
                                                 for c in space["counts"]]
             if name == "spade_modulate":
                 row["band"] = space["band"][dtype]
+    # phase 24's counted training step in row bands, a rank's launches
+    for row in kernel_rows:
+        if row["name"] in ("fused_instance_norm", "filterbank_orientation",
+                           "filterbank_orientation_backward", "conv3x3_same_lowch"):
+            row["spatial_train_launches_per_rank"] = [c[row["name"]]
+                                                      for c in space_train["counts"]]
     print(f"[timing] seconds from each phase's first line to the next's: {clock.seconds()}; "
           f"{time.perf_counter() - clock.t0:.1f} s in all")
     print(json.dumps({"kernels": kernel_rows}))
@@ -4517,6 +4566,362 @@ def spatial_phase(torch, np, tag):
         return f"phase 23: {', '.join(fails)}", None
     return None, {"counts": [{d: res[d]["counts"] for d in want} for res in ranks],
                   "band": band}
+
+
+def space_train_opts(train_options):
+    """Phase 24's options: TRAIN_FLAGS + MOST_TRAIN at 1024, batch 1,
+    float32, every default loss."""
+    return train_opts(train_options, 1, 1024, MOST_TRAIN)
+
+
+def space_gate(got, want, o):
+    """Phase 24's gate of one run ({'losses', 'params': {net: {name:
+    tensor}}, 'buffers'}) against one process's: each loss that `got` has
+    within SPACE_LOSS_RTOL (ORIENT SPACE_ORIENT_RTOL) plus 1e-5; netG and
+    netD, where `got` has them, by phase 12's scale-aware rule; netG's
+    buffers, where given, within rtol 1e-4, atol 1e-5.  Returns (ok,
+    printable)."""
+    import torch
+
+    bad = [k for k, v in want["losses"].items() if k in got["losses"] and not abs(
+        got["losses"][k] - v) <= (SPACE_ORIENT_RTOL if k == "ORIENT" else SPACE_LOSS_RTOL)
+        * abs(v) + 1e-5]
+    ok, rows = not bad, [f"losses beyond the limit {bad}"]
+    for net, lr in (("netG", o.lr / 2), ("netD", 2 * o.lr)):
+        if net in got["params"]:
+            n_ok, worst, n_bad, n_tot = scale_aware(got["params"][net], want["params"][net], lr)
+            ok &= n_ok
+            rows.append(f"{net} {n_bad} of {n_tot} beyond float noise, max diff {worst:.2e} "
+                        f"(limit {2.5 * lr:.1e})")
+    if "buffers" in got:
+        b_ok = all(torch.allclose(got["buffers"][k], v, rtol=1e-4, atol=1e-5)
+                   for k, v in want["buffers"].items())
+        ok &= b_ok
+        rows.append(f"netG's buffers {'within' if b_ok else 'past'} rtol 1e-4")
+    return ok, "; ".join(rows)
+
+
+def space_train_step(torch, tr, batch, post_g=None, g_only=False, save_post_g=None):
+    """One G step then (unless `g_only`) one D step of the TrainStep `tr` on
+    `batch`, the D step from the netG state_dict `post_g` when given
+    (`save_post_g`: a file netG's state_dict after the G step is written
+    to): {'losses', 'params': {'netG' after G, 'netD' after D}, 'buffers':
+    netG's float buffers after G} on the CPU."""
+    cpu = lambda items: {k: v.detach().cpu().clone() for k, v in items}
+    m = tr.model
+    g, _fake, orient = tr.g_step(batch, EXTRA_DILATE)
+    res = {"losses": {k: v.item() for k, v in g.items()},
+           "params": {"netG": cpu(m.netG.named_parameters())},
+           "buffers": cpu((k, v) for k, v in m.netG.named_buffers() if v.is_floating_point())}
+    if save_post_g:
+        torch.save(m.netG.state_dict(), save_post_g)
+    if not g_only:
+        if post_g is not None:
+            m.netG.load_state_dict(post_g)
+        d = tr.d_step(batch, EXTRA_DILATE, orient)
+        res["losses"].update({k: v.item() for k, v in d.items()})
+        res["params"]["netD"] = cpu(m.netD.named_parameters())
+    torch.cuda.synchronize()
+    return res
+
+
+def collectives_clock(torch, spatial, step):
+    """`step()` with every collective of the step clocked (host clock, a
+    synchronize before and after each, so that queued card work is not
+    counted): torch.distributed's all_reduce and all_gather (the norms'
+    sums, the gathers, the gradient sums) and the halo exchanges
+    (Bands._exchange).  Returns {'calls', 'ms' in them, 'step_ms'}."""
+    import torch.distributed as tdist
+
+    acc = {"calls": 0, "ms": 0.0}
+    saved = [(tdist, "all_reduce"), (tdist, "all_gather"), (spatial.Bands, "_exchange")]
+    fns = {(o, n): getattr(o, n) for o, n in saved}
+
+    def clocked(fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            acc["ms"] += (time.perf_counter() - t0) * 1e3
+            acc["calls"] += 1
+            return out
+        return run
+
+    for (o, n), fn in fns.items():
+        setattr(o, n, clocked(fn))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        acc["step_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        for (o, n), fn in fns.items():
+            setattr(o, n, fn)
+    return acc
+
+
+def space_train_rank(tmp, backend):
+    """Phase 24's rank (spawned by parallel.dist.launch): a `backend` group
+    of the launched ranks, on cuda:0 for gloo or cuda:<rank> for NCCL;
+    TrainStep in row bands of the 1024^2 `most` step at SEED's weights on
+    synthetic_train_data's batch (shard_batch): the counted G step, then
+    the D step from one process's post-G netG (<tmp>/post_g.pt), held by
+    phase 24's gate against one process's (<tmp>/one.pt); whether every
+    rank's nets equal rank 0's; the zero-halo and local-statistics
+    controls' G steps from the same weights, by the same gate; then
+    SPACE_TRAIN_STEPS timed steps and one with its collectives clocked.
+    Writes <tmp>/<backend><r>.pt."""
+    import datetime
+
+    import torch
+
+    from michigan_tpu_torch.data.synthetic import synthetic_train_data
+    from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
+    from michigan_tpu_torch.ops import cuda as kernels
+    from michigan_tpu_torch.parallel import dist as DP
+    from michigan_tpu_torch.parallel import spatial
+    from michigan_tpu_torch.train import parse_options as train_options
+    from michigan_tpu_torch.training.train_step import TrainStep
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    device = torch.device("cuda:0" if backend == "gloo" else f"cuda:{rank}")
+    torch.cuda.set_device(device)
+    group = DP.init_group(backend, rank, world, os.environ["MASTER_ADDR"],
+                          int(os.environ["MASTER_PORT"]), device,
+                          datetime.timedelta(seconds=SPACE_GROUP_TIMEOUT_S))
+    space = spatial.Space(group, rank, world, device)
+    try:
+        res = {"held": torch.cuda.memory_allocated(device)}
+        o = space_train_opts(train_options)
+        band = spatial.shard_batch(batch_from_numpy(synthetic_train_data(o, SEED, 1), "cpu"),
+                                   space)
+        model = MichiGANModel(o, device)
+        model.init_weights(SEED)
+        init = {k: {n: t.detach().cpu().clone() for n, t in net.state_dict().items()}
+                for k, net in model.nets().items()}
+        one = torch.load(f"{tmp}/one.pt")
+        post_g = torch.load(f"{tmp}/post_g.pt", map_location=device)
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        kernels.reset_launch_counts()
+        step = space_train_step(torch, TrainStep(model, space), band, post_g)
+        res["counts"] = kernels.launch_counts()
+        res["peak"] = torch.cuda.max_memory_allocated(device)
+        res["losses"] = step["losses"]
+        res["gate"] = space_gate(step, one, o)
+        try:
+            DP.check_replicas_identical([t for net in model.nets().values()
+                                         for t in (*net.parameters(), *net.buffers())], group)
+            res["identical"] = True
+        except RuntimeError:
+            res["identical"] = False
+        del step
+        # the controls' G steps from the same weights
+        saved_rows, saved_bn = spatial.Bands.neighbour_rows, spatial.batch_norm_train
+        for name in ("zero_halo", "local_stats"):
+            model.load_state_dicts(init)
+            if name == "zero_halo":
+                spatial.Bands.neighbour_rows = zero_neighbour_rows
+            else:
+                spatial.batch_norm_train = lambda x, m, v, eps, group: saved_bn(x, m, v, eps=eps)
+            try:
+                ctl = space_train_step(torch, TrainStep(model, space), band, g_only=True)
+            finally:
+                spatial.Bands.neighbour_rows, spatial.batch_norm_train = saved_rows, saved_bn
+            del ctl["buffers"]
+            res[name] = space_gate(ctl, one, o)
+        # timed steps (warm: the compared and control steps ran first), then
+        # one with its collectives clocked
+        model.load_state_dicts(init)
+        tr = TrainStep(model, space)
+
+        def g_and_d():
+            _g, _f, ori = tr.g_step(band, EXTRA_DILATE)
+            tr.d_step(band, EXTRA_DILATE, ori)
+
+        res["ms"] = []
+        for _ in range(SPACE_TRAIN_STEPS):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            g_and_d()
+            torch.cuda.synchronize(device)
+            res["ms"].append((time.perf_counter() - t0) * 1e3)
+        res["transport"] = collectives_clock(torch, spatial, g_and_d)
+        torch.save(res, f"{tmp}/{backend}{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def space_train_kernels(torch, tag):
+    """Phase 24's kernels at their band shapes (SPACE_WORLD bands of the
+    1024^2 step), each against its plain version by phase 3's tolerances:
+    the bank forward and its backward on rank 1's band of a strand plane
+    with its BANK_HALO rows (zeros below the frame), the backward on a
+    hair-masked dconf zero on the halo rows; conv3x3_same_lowch on the tag
+    + ref tower's band with a halo row each side.  Returns the failures."""
+    from michigan_tpu_torch.ops import filters
+    from michigan_tpu_torch.ops.cuda import lowch as LC
+    from michigan_tpu_torch.ops.cuda import orient as O
+    from michigan_tpu_torch.parallel.spatial import BANK_HALO
+
+    cgen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    rows, halo = 1024 // SPACE_WORLD, BANK_HALO
+    img = strand_image(torch, 1024, SEED) * 2 - 1
+    whole = filters.rgb_to_gray255(img[None]).permute(0, 3, 1, 2).contiguous()
+    gray = torch.cat([whole[:, :, 1024 - rows - halo:], whole.new_zeros((1, 1, halo, 1024))],
+                     dim=2).contiguous()
+    bank = filters.bank("gabor", gray.device)
+    failed = []
+    got, want = O.filterbank_orientation(gray, bank), O.filterbank_orientation_plain(gray, bank)
+    ok, err, frac, note = fb_compare(torch, got, want, gray, bank)
+    phase(24, f"filterbank_orientation at a band {tuple(gray.shape)} vs its plain version: conf "
+              f"max_abs_err {err:.3e}, argmax differs on {frac:.2e} of pixels{note} "
+              f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append("filterbank_orientation")
+    idx, conf = got
+    hair = torch.cat([ellipse_mask(torch, 1024)[None, 1024 - rows - halo:],
+                      gray.new_zeros((1, halo, 1024))], dim=1)
+    hair[:, :halo] = 0
+    dconf = (torch.randn(hair.shape, generator=cgen, device="cuda") * hair).contiguous()
+    got_b = O.filterbank_orientation_backward(dconf, idx, conf, bank)
+    want_b = O.filterbank_orientation_backward_plain(dconf, idx, conf, bank)
+    err = (got_b - want_b).abs().max().item()
+    ok = err <= NEW_KERNEL_REL * want_b.abs().max().item()
+    phase(24, f"filterbank_orientation_backward at a band {tuple(dconf.shape)}, hair-masked "
+              f"dconf, zero on the halo rows, vs its plain version: max_abs_err {err:.3e} "
+              f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append("filterbank_orientation_backward")
+    shape = (2, 64, rows + 2, 1024)
+    x = torch.randn(shape, generator=cgen, device="cuda").relu_()
+    w = torch.randn((64, 64, 3, 3), generator=cgen, device="cuda") * math.sqrt(2 / (9 * 64))
+    got_l, want_l = LC.conv3x3_same_lowch(x, w), LC.conv3x3_same_lowch_plain(x, w)
+    err = (got_l - want_l).abs().max().item()
+    ok = err <= NEW_KERNEL_REL * want_l.abs().max().item()
+    phase(24, f"conv3x3_same_lowch at a band {shape} vs its plain version: max_abs_err "
+              f"{err:.3e} {'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        failed.append("conv3x3_same_lowch")
+    del img, whole, gray, got, want, idx, conf, hair, dconf, got_b, want_b, x, w, got_l, want_l
+    torch.cuda.empty_cache()
+    return failed
+
+
+def spatial_train_phase(torch, np, tag):
+    """Phase 24: spatial sharding of training on the card.  Returns
+    (failure or None, {'counts': [a rank's launches, ...]})."""
+    import shutil
+    import tempfile
+
+    from michigan_tpu_torch.data.synthetic import synthetic_train_data
+    from michigan_tpu_torch.model import MichiGANModel, batch_from_numpy
+    from michigan_tpu_torch.parallel import dist as DP
+    from michigan_tpu_torch.parallel import spatial
+    from michigan_tpu_torch.train import parse_options as train_options
+    from michigan_tpu_torch.training.train_step import TrainStep
+
+    t24 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False  # as phase 1 and the ranks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    o = space_train_opts(train_options)
+    plan = spatial.train_plane_plan(o, SPACE_WORLD)
+    phase(24, f"{SPACE_WORLD} ranks (gloo, all on cuda:0), the `most` step at {o.crop_size}^2, "
+              f"ngf {o.ngf}, ndf {o.ndf}, batch 1, float32, every default loss; planes: "
+              f"generator {plan['generator']}, VGG19 {plan['vgg19']}; netD {plan['netD']}; the "
+              f"IG whole on every rank")
+    failed = space_train_kernels(torch, tag)
+    if failed:
+        return f"phase 24: a kernel disagrees with its plain version at a band: {failed}", None
+
+    # one process's step on the card: the compared step (peak from a
+    # reset, above what this process held before its model), then the
+    # timed ones
+    dev = torch.device("cuda:0")
+    held = torch.cuda.memory_allocated(dev)
+    model = MichiGANModel(o, dev)
+    model.init_weights(SEED)
+    tr = TrainStep(model)
+    batch = batch_from_numpy(synthetic_train_data(o, SEED, 1), dev)
+    tmp = tempfile.mkdtemp(prefix="phase24_")
+    n_cards = torch.cuda.device_count()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        one = space_train_step(torch, tr, batch, save_post_g=f"{tmp}/post_g.pt")
+        one_peak = torch.cuda.max_memory_allocated() - held
+        torch.save(one, f"{tmp}/one.pt")
+        one_ms = []
+        for _ in range(SPACE_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            _g, _f, ori = tr.g_step(batch, EXTRA_DILATE)
+            tr.d_step(batch, EXTRA_DILATE, ori)
+            torch.cuda.synchronize()
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+        del model, tr, batch, ori, _f, _g
+        torch.cuda.empty_cache()
+        phase(24, "one process: losses " + ", ".join(f"{k} {v:.5g}"
+                                                    for k, v in one["losses"].items()))
+        t_one = time.perf_counter() - t24
+
+        def check(ranks, how):
+            """The gates and lines of one launch's ranks; the failures."""
+            fails = []
+            for r, res in enumerate(ranks):
+                ok, row = res["gate"]
+                phase(24, f"{how}, rank {r}: launches {res['counts']}; against one process: "
+                          f"{row} {'ok' if ok else 'FAIL'}")
+                if res["counts"] != STEP_LAUNCHES:
+                    fails.append(f"{how}: rank {r}'s launches")
+                if not ok:
+                    fails.append(f"{how}: rank {r}'s step against one process's")
+            same = all(res["identical"] for res in ranks) and \
+                all(res["losses"] == ranks[0]["losses"] for res in ranks)
+            phase(24, f"{how}: the ranks' nets and losses after the step "
+                      f"{'equal rank 0s bit for bit' if same else 'DIFFER'}")
+            if not same:
+                fails.append(f"{how}: the ranks differ")
+            for name, what in (("zero_halo", "zeros in place of the neighbours' halo rows"),
+                               ("local_stats", "each band's own batch-norm statistics")):
+                ok, row = ranks[0][name]
+                phase(24, f"{how}: control, {what}, its G step: {row}" + (
+                    ": passes, FAIL" if ok else ": fails the gate, as it must"))
+                if ok:
+                    fails.append(f"{how}: the gate passes the {name} control")
+            peaks = ", ".join(f"{(res['peak'] - res['held']) / 2**30:.2f}" for res in ranks)
+            ms = ", ".join(f"{statistics.median(res['ms']):.1f}" for res in ranks)
+            tr_ = ", ".join(f"{res['transport']['calls']} calls {res['transport']['ms']:.1f} of "
+                            f"{res['transport']['step_ms']:.1f} ms" for res in ranks)
+            phase(24, f"{how}, batch 1: one process {statistics.median(one_ms):.1f} ms/step "
+                      f"(median of {SPACE_TRAIN_STEPS}, host clock), peak "
+                      f"{one_peak / 2**30:.2f} GiB above the {held / 2**30:.2f} it held before; "
+                      f"the {len(ranks)} ranks {ms} ms/step a rank, peak {peaks} GiB a rank "
+                      f"(the compared step); in the collectives (one more step, each clocked "
+                      f"between two synchronizes) {tr_} a rank {tag}")
+            return fails
+
+        t0 = time.perf_counter()
+        DP.launch(space_train_rank, (tmp, "gloo"), SPACE_WORLD, timeout=SPACE_JOIN_S)
+        ranks = [torch.load(f"{tmp}/gloo{r}.pt") for r in range(SPACE_WORLD)]
+        t_ranks = time.perf_counter() - t0
+        fails = check(ranks, "gloo, all on cuda:0")
+        if n_cards >= 2:  # one rank a card over NCCL
+            DP.launch(space_train_rank, (tmp, "nccl"), SPACE_WORLD, timeout=SPACE_JOIN_S)
+            fails += check([torch.load(f"{tmp}/nccl{r}.pt") for r in range(SPACE_WORLD)],
+                           f"NCCL, {SPACE_WORLD} cards")
+        else:
+            phase(24, f"{n_cards} card: the ranks ran on one card over gloo; none ran over NCCL")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase(24, f"spatial training in {time.perf_counter() - t24:.1f} s (one process {t_one:.1f} s, "
+              f"the gloo ranks {t_ranks:.1f} s)")
+    if fails:
+        return f"phase 24: {', '.join(fails)}", None
+    return None, {"counts": [res["counts"] for res in ranks]}
 
 
 def witness_opts(train_options, init):

@@ -236,7 +236,8 @@ class Options:
     # reuse_orient_for_d, reuse_fake_for_d (the D step on the G step's fake,
     # not with --use_blender), max_steps, debug_nans and profile_dir (the
     # trainer's finite-loss check and one profiled step), mesh_shape (data:-1
-    # or data:N replicas; any other axis raises) and bf16_grad_allreduce (the
+    # or data:N replicas, space:N ranks in row bands; the data x space grid
+    # and any other axis raise) and bf16_grad_allreduce (the
     # data-parallel gradient mean in bfloat16), remat and remat_blocks
     # (activation checkpointing of netG's SPADE blocks and the VGG tower),
     # accepts multihost (torchrun's environment spans hosts), and refuses

@@ -15,7 +15,10 @@ collectives and take the same optimizer step:
 - the losses are averaged for printing (``mean_over``).
 
 With one process there is no group and nothing here runs a collective, as
-the JAX package builds no mesh on one device.  A ``Replica`` comes from
+the JAX package builds no mesh on one device.  Under --mesh_shape space:N
+the processes are one spatial group instead (parallel/spatial.py): no
+replicas, each rank a band of rows; ``average_gradients`` and ``mean_over``
+then sum (``mean=False``).  A ``Replica`` comes from
 torchrun's environment (``replica_from_env``) or from a caller that made
 its own group; ``launch`` starts the processes of one host itself.
 """
@@ -29,7 +32,7 @@ import os
 import socket
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, List, Optional, Sequence
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -59,15 +62,36 @@ def gpu_id_list(gpu_ids: str) -> List[int]:
     return [] if not ids or ids[0] < 0 else ids
 
 
-def data_axis_size(mesh_shape: str) -> int:
-    """--mesh_shape 'data:-1' (every process) or 'data:N' -> -1 or N."""
+def mesh_axes(mesh_shape: str) -> Tuple[int, int]:
+    """--mesh_shape -> (data axis size, space axis size): 'data:-1' (every
+    process) or 'data:N' -> (-1 or N, 1); 'space:N' or 'data:1,space:N' ->
+    (1, N), the ranks one spatial group that trains in row bands
+    (parallel/spatial.py).  The data x space grid ('data:M,space:N', M > 1)
+    raises NotImplementedError: it is the next slice of spatial training."""
     parts = [p.split(":") for p in mesh_shape.split(",")]
-    if len(parts) != 1 or len(parts[0]) != 2 or parts[0][0] != "data":
+    if any(len(p) != 2 for p in parts) or len({p[0] for p in parts}) != len(parts) or \
+            not {p[0] for p in parts} <= {"data", "space"}:
         raise NotImplementedError(
-            f"--mesh_shape {mesh_shape}: only 'data:-1' or 'data:N' is ported; the trainer "
-            "does not shard rows (spatial sharding of training is not ported; inference runs "
-            "in row bands through michigan_tpu_torch.parallel.spatial.make_spatial_infer)")
-    return int(parts[0][1])
+            f"--mesh_shape {mesh_shape}: the ported axes are 'data:-1', 'data:N' (data "
+            "parallelism), and 'space:N' or 'data:1,space:N' (spatial sharding of training: "
+            "row bands over N ranks); inference runs in row bands through "
+            "michigan_tpu_torch.parallel.spatial.make_spatial_infer")
+    sizes = {name: int(n) for name, n in parts}
+    data, space = sizes.get("data", 1 if "space" in sizes else -1), sizes.get("space", 1)
+    if space < 1:
+        raise ValueError(f"--mesh_shape {mesh_shape}: the space axis needs a size of at least 1")
+    if space > 1 and data != 1:
+        raise NotImplementedError(
+            f"--mesh_shape {mesh_shape}: the data x space grid (data parallelism over replicas "
+            "that each train in row bands) is not ported yet; it is the next slice of spatial "
+            "training. Use 'data:N' or 'space:N'")
+    return data, space
+
+
+def data_axis_size(mesh_shape: str) -> int:
+    """--mesh_shape 'data:-1' (every process) or 'data:N' -> -1 or N; 1
+    under 'space:N' (``mesh_axes``)."""
+    return mesh_axes(mesh_shape)[0]
 
 
 def backend_for(device: torch.device) -> str:
@@ -103,8 +127,11 @@ def replica_from_env(gpu_ids: str, mesh_shape: str = "data:-1",
     group, the device of --gpu_ids' first id."""
     ids = gpu_id_list(gpu_ids)
     world = int(os.environ.get("WORLD_SIZE", "1")) if in_launched_process() else 1
-    size = data_axis_size(mesh_shape)
-    if size not in (-1, world):
+    size, space = mesh_axes(mesh_shape)
+    if space > 1 and space != world:
+        raise ValueError(f"--mesh_shape {mesh_shape} asks for {space} ranks in row bands; "
+                         f"{world} processes were started")
+    if space == 1 and size not in (-1, world):
         raise ValueError(f"--mesh_shape data:{size} asks for {size} replicas; "
                          f"{world} processes were started")
     if world == 1:
@@ -134,35 +161,41 @@ def check_gpus(ids: Sequence[int]) -> None:
                            f"this host has {have}")
 
 
+def _sum(x: torch.Tensor, group: dist.ProcessGroup, staged: bool) -> torch.Tensor:
+    # a new tensor: the sum, on x's device; through a host copy when `staged`
+    y = x.detach().to("cpu", copy=True) if staged else x.detach().clone()
+    dist.all_reduce(y, group=group)
+    return y.to(x.device)
+
+
 class _AllReduceSum(torch.autograd.Function):
     """Sum over the group; its backward sums the cotangents over the group
-    (the transpose of psum)."""
+    (the transpose of psum).  `staged`: both through host copies (a gloo
+    group holding CUDA tensors, parallel/spatial.py)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        y = x.clone()
-        dist.all_reduce(y, group=group)
-        return y
+    def forward(ctx, x, group, staged=False):
+        ctx.group, ctx.staged = group, staged
+        return _sum(x, group, staged)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return _sum(g.contiguous(), ctx.group, ctx.staged), None, None
 
 
-def all_reduce_sum(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+def all_reduce_sum(x: torch.Tensor, group: dist.ProcessGroup, staged: bool = False
+                   ) -> torch.Tensor:
     """x summed over `group`, differentiably (lax.psum)."""
-    return _AllReduceSum.apply(x, group)
+    return _AllReduceSum.apply(x, group, staged)
 
 
 def average_gradients(params: Iterable[torch.Tensor], group: dist.ProcessGroup,
-                      bf16: bool = False) -> None:
-    """Replace each parameter's .grad by its mean over `group`, all of them
-    in one flattened all-reduce.  With `bf16` (--bf16_grad_allreduce) the
-    JAX package's rounding: cast to bfloat16, sum and divide in bfloat16,
-    cast back."""
+                      bf16: bool = False, mean: bool = True) -> None:
+    """Replace each parameter's .grad by its mean over `group` (its sum
+    without `mean`: the ranks of one spatial group, whose objectives add up
+    to the one process's), all of them in one flattened all-reduce.  With
+    `bf16` (--bf16_grad_allreduce) the JAX package's rounding: cast to
+    bfloat16, sum and divide in bfloat16, cast back."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
@@ -170,19 +203,23 @@ def average_gradients(params: Iterable[torch.Tensor], group: dist.ProcessGroup,
     if bf16:
         flat = flat.to(torch.bfloat16)
     dist.all_reduce(flat, group=group)
-    flat = (flat / dist.get_world_size(group)).to(grads[0].dtype)
-    for g, mean in zip(grads, flat.split([g.numel() for g in grads])):
-        g.copy_(mean.view_as(g))
+    if mean:
+        flat = flat / dist.get_world_size(group)
+    flat = flat.to(grads[0].dtype)
+    for g, mean_ in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(mean_.view_as(g))
 
 
-def mean_over(values: Dict[str, torch.Tensor], group: dist.ProcessGroup
+def mean_over(values: Dict[str, torch.Tensor], group: dist.ProcessGroup, mean: bool = True
               ) -> Dict[str, torch.Tensor]:
-    """{name: scalar} averaged over `group`, in one all-reduce."""
+    """{name: scalar} averaged over `group` (summed without `mean`), in one
+    all-reduce."""
     if not values:
         return values
     flat = torch.stack([v.detach().float() for v in values.values()])
     dist.all_reduce(flat, group=group)
-    flat /= dist.get_world_size(group)
+    if mean:
+        flat /= dist.get_world_size(group)
     return dict(zip(values, flat.unbind()))
 
 

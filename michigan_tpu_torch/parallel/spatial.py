@@ -1,13 +1,14 @@
-"""Spatial sharding of inference (port of michigan_tpu/parallel/spatial.py),
-NCHW.
+"""Spatial sharding of inference and training (port of
+michigan_tpu/parallel/spatial.py), NCHW.
 
 The JAX package shards H of every activation over a ('space',) mesh axis
-and lets GSPMD insert the convolutions' halo exchanges.  PyTorch has no
-GSPMD: here the P ranks of one process group (a ``Space``) each hold one
-contiguous band of rows of every large plane and take the rows a
-convolution reads across a band's edge from their neighbours
-(``Bands.halo``), by hand.  The purpose is the JAX module's: memory at
-1024^2, where the generator's planes reach 1152^2.
+and lets GSPMD insert the convolutions' halo exchanges, in inference and in
+the ordinary G and D steps alike.  PyTorch has no GSPMD: here the P ranks of
+one process group (a ``Space``) each hold one contiguous band of rows of
+every large plane and take the rows a convolution reads across a band's
+edge from their neighbours (``Bands.halo``), by hand.  The purpose is the
+JAX module's: memory at 1024^2, where the generator's planes reach 1152^2
+in inference and a training step's activations outgrow one card's batch.
 
 Bands.  A plane of global height h is sharded when h % P == 0 and each
 band holds at least MIN_BAND_ROWS rows (the SPADE conditioning's halo):
@@ -20,11 +21,11 @@ encoder's output is resized bilinearly to the seed
 (models/encoders.py ImageEncoder3).  What else crosses bands:
 
 - a convolution's halo rows (``halo_rows``), the global top and bottom
-  padded as the layer pads: zeros (Conv2d, PartialConv, the SPADE convs),
-  reflection (the background encoder's ConvBlocks), -inf (the max-pool of
-  the expanded background mask, which pads at the crop's edge by global
-  row index, inside the bands, as ``_expanded_back_mask`` does under
-  --add_feat_zeros);
+  padded as the layer pads: zeros (Conv2d, PartialConv, the SPADE convs,
+  VGG19's convs, the filter bank), reflection (the background encoder's
+  ConvBlocks), -inf (the max-pools of the expanded background mask, which
+  pad at the crop's edge by global row index, inside the bands, as
+  ``_expanded_back_mask`` does under --add_feat_zeros);
 - the instance norms of the appearance encoder and its masked mean:
   per-(n, c) sums all-reduced in float32;
 - the SPADE conditioning resized onto a whole plane: an all-reduce of the
@@ -37,47 +38,111 @@ encoder's output is resized bilinearly to the seed
   and each rank upsamples the rows of its band out of its 256^2 output.
 
 So no rank holds a full-size plane of the generator, its encoders or the
-crop on the device.  The kernels run as in ``MichiGANModel.infer``: each
-SPADE norm is one ``spade_modulate`` launch on the band (eval mode: the
-running statistics, nothing to reduce), the IG's 29
-``fused_instance_norm`` launches on every rank.
+crop on the device.  In inference the kernels run as in
+``MichiGANModel.infer``: each SPADE norm is one ``spade_modulate`` launch
+on the band (eval mode: the running statistics, nothing to reduce), the
+IG's 29 ``fused_instance_norm`` launches on every rank.
+
+Training (``TrainStep`` with a Space; ``--mesh_shape space:N``).  Each rank
+takes its band of the crop's rows (``shard_batch``), and the G and D steps
+run the paired stage in bands with autograd through them:
+
+- every collective is differentiable: the halo's backward sends the
+  cotangent of each received row back to the rank that owns it, which adds
+  it onto its edge rows (at the frame's top and bottom the adjoint follows
+  the pad: zeros and -inf drop it, reflection adds it onto the mirrored
+  rows); an all-reduce's backward is an all-reduce; an all_gather's is a
+  reduce-scatter (an all-reduce of the cotangent, then this rank's rows);
+- netG's sync batch norms (train mode) take their (sum, sum of squares,
+  count) over the group (ops/norms.py ``batch_norm_train``), so the count
+  is the global count of rows and the running statistics come out the same
+  on every rank; spectral convs iterate u once a forward, as one process;
+- the frozen IG runs whole on every rank under no_grad, as above (its 29
+  ``fused_instance_norm`` launches a rank a step); the D step recomputes
+  the fake in bands with netG's buffers frozen;
+- VGG19 runs in bands (its 2x2 pools are band-local: a band's rows stay
+  even), the no-grad tag + ref tower's ``features_2`` as one
+  ``conv3x3_same_lowch`` launch on the band with one halo row each side,
+  whose outer rows are cropped; the orientation loss runs the filter bank
+  (``filterbank_orientation`` and its backward) on the band's gray plane
+  with 8 halo rows each side, cropped after;
+- netD runs whole on every rank, on the all-gathered fake, real image,
+  labels and orientation: its planes (513, 257, 129, 130, 131 rows at
+  1024) do not divide into bands.
+
+One rule for the gradients: the sum over the ranks of each rank's objective
+is the one process's objective.  A term over pixels enters with its band's
+share of the global mean (the band's sum over the global count); a term
+computed whole on every rank (the GAN and GAN-feature terms, D's hinge, the
+style term's per-channel statistics) enters with weight 1/P.  So every
+parameter gradient is a sum over the group (``TrainStep``), and the losses
+reported are the group's sums of the shares.  The replicas stay bit for bit
+equal: the same summed gradients, the same Adam step, the same all-reduced
+statistics.
 
 Transport.  NCCL groups move device tensors (batch_isend_irecv,
 all_gather, gather, all_reduce); gloo groups (the CPU, or several ranks on
 one card) move host tensors: a CUDA tensor is copied to the host, sent,
 and the received rows copied back, and 2-byte floats travel as bytes.
 
-The path is the flagship's flags (--netG spadeb --use_encoder
+Inference runs the flagship's flags (--netG spadeb --use_encoder
 --noise_background --use_ig --expand_mask_be --add_feat_zeros) at
 --num_upsampling_layers normal, more or most, either dtype, eval mode,
---inpaint_mode ref; ``check_spatial`` raises for any other option and for
-a crop whose bands do not align with the layers.  The JAX module's
-``batch_spec`` / ``shard_batch`` place a training batch over ('data',
-'space'): training in row bands is not ported.
+--inpaint_mode ref; ``check_spatial`` raises for any other option and for a
+frame whose bands do not align with the layers.  Training runs the
+training flags (--use_encoder --use_ig --noise_background, with or without
+--random_expand_mask) in float32 with every default loss;
+``check_spatial_train`` raises for the data x space grid, --dtype bfloat16
+and the other options it names, which are the next slices.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from michigan_tpu_torch.models.layers import SpectralConv2d, cast_params, conv
+from michigan_tpu_torch.losses.feat import gan_feat_loss
+from michigan_tpu_torch.losses.gan import multiscale_gan_loss
+from michigan_tpu_torch.losses.perceptual import VGG_WEIGHTS
+from michigan_tpu_torch.models.layers import (
+    SpectralConv2d,
+    cast_params,
+    conv,
+    cudnn_off,
+    frozen_buffers,
+)
 from michigan_tpu_torch.models.normalization import parse_spade_config
+from michigan_tpu_torch.models.vgg import LOWCH_CONV, PLAN as VGG_PLAN
+from michigan_tpu_torch.ops.color import rgb_to_lab
+from michigan_tpu_torch.ops.cuda.lowch import conv3x3_same_lowch
+from michigan_tpu_torch.ops.cuda.orient import OrientationResponse
 from michigan_tpu_torch.ops.cuda.spade import spade_modulate
+from michigan_tpu_torch.ops.filters import KERNEL_SIZE, NUM_KERNELS, bank, rgb_to_gray255
 from michigan_tpu_torch.ops.masks import one_hot_label
-from michigan_tpu_torch.ops.resize import resize_bilinear, resize_nearest, upsample2x_nearest
-from michigan_tpu_torch.parallel.dist import TIMEOUT, replica_from_env
+from michigan_tpu_torch.ops.norms import batch_norm_train, instance_norm
+from michigan_tpu_torch.ops.resize import (
+    max_pool_same,
+    resize_bilinear,
+    resize_nearest,
+    upsample2x_nearest,
+)
+from michigan_tpu_torch.ops.stats import masked_region_mean
+from michigan_tpu_torch.parallel.dist import TIMEOUT, all_reduce_sum, replica_from_env
 
 SPACE_AXIS = "space"
 IG_SIZE = 256        # the inpainter's plane (model.py _run_ig)
 ENCODER_STRIDE = 32  # the appearance encoder's five stride-2 layers
 MIN_BAND_ROWS = 2    # the SPADE conditioning's halo: two stacked 3x3 convs
+VGG_STRIDE = 16      # VGG19's four 2x2 pools before relu5_1
+BANK_HALO = KERNEL_SIZE // 2  # the filter bank's 17x17 reach
 HALF = (torch.bfloat16, torch.float16)  # sent as bytes: gloo has no 2-byte types
+GEN_KEYS = ("input_ref", "input_tag", "orient", "image_ref", "image_tag", "noise")
 
 
 @dataclass(frozen=True)
@@ -105,12 +170,9 @@ def space_from_env(gpu_ids: str, timeout=TIMEOUT) -> Space:
     return Space(r.group, r.rank, r.world, r.device)
 
 
-def check_spatial(opt, world: int) -> None:
-    """Raise NotImplementedError for an option outside the ported path and
-    ValueError for a frame whose bands do not align with its layers."""
+# options outside both paths: (flag, whether it is set)
+def _common_refusals(opt) -> List[str]:
     out = []
-    if opt.isTrain:
-        out.append("--isTrain (training in row bands: shard_batch, the data x space grid)")
     for flag, on in (("--use_vae", opt.use_vae), ("--use_blender", opt.use_blender),
                      ("--orient_random_disturb", opt.orient_random_disturb),
                      ("--weight_norm_G", opt.weight_norm_G), ("--no_orientation",
@@ -120,21 +182,35 @@ def check_spatial(opt, world: int) -> None:
         if on:
             out.append(flag)
     for flag, on in (("--use_encoder", opt.use_encoder), ("--use_ig", opt.use_ig),
-                     ("--noise_background", opt.noise_background),
-                     ("--expand_mask_be", opt.expand_mask_be),
-                     ("--add_feat_zeros", opt.add_feat_zeros)):
+                     ("--noise_background", opt.noise_background)):
         if not on:
             out.append(f"no {flag}")
     if opt.Image_encoder_mode != "partialconv":
         out.append(f"--Image_encoder_mode {opt.Image_encoder_mode}")
-    if opt.inpaint_mode != "ref":
-        out.append(f"--inpaint_mode {opt.inpaint_mode}")
     if not opt.no_instance:
         out.append("--no_instance False")
     if parse_spade_config(opt.norm_G.replace("spectral", ""))[0] == "instance":
         out.append(f"--norm_G {opt.norm_G}")
     if opt.aspect_ratio != 1.0:
         out.append(f"--aspect_ratio {opt.aspect_ratio}")
+    return out
+
+
+def check_spatial(opt, world: int) -> None:
+    """Inference: raise NotImplementedError for an option outside the ported
+    path and ValueError for a frame whose bands do not align with its
+    layers."""
+    out = []
+    if opt.isTrain:
+        out.append("--isTrain (training in row bands runs through TrainStep with a Space; "
+                   "check_spatial_train)")
+    out += _common_refusals(opt)
+    for flag, on in (("--expand_mask_be", opt.expand_mask_be),
+                     ("--add_feat_zeros", opt.add_feat_zeros)):
+        if not on:
+            out.append(f"no {flag}")
+    if opt.inpaint_mode != "ref":
+        out.append(f"--inpaint_mode {opt.inpaint_mode}")
     if out:
         raise NotImplementedError(f"spatial sharding of inference does not run {', '.join(out)}")
     frame = opt.generator_input_size()
@@ -151,6 +227,58 @@ def check_spatial(opt, world: int) -> None:
     if max(int(k / 2), k - 1 - int(k / 2)) > frame // world:
         raise ValueError(f"--expand_th {k}: the max-pool's halo exceeds a band of "
                          f"{frame // world} rows")
+
+
+def expand_kernels(opt, h: int, extra_dilate_steps: int) -> List[int]:
+    """The max-pool sizes of --random_expand_mask's dilation of the hair at
+    a crop of `h` rows (_expanded_back_mask): int(0.05 h) made odd, less 4,
+    then `extra_dilate_steps` 3x3 ones."""
+    th = int(h * opt.random_expand_th)
+    th = th if th % 2 == 1 else th + 1
+    return [max(th - 4, 1)] + [3] * extra_dilate_steps
+
+
+MAX_EXTRA_DILATE = 4  # the trainer's draw of extra 3x3 dilations (train.py)
+
+
+def check_spatial_train(opt, world: int) -> None:
+    """Training: raise NotImplementedError for an option outside the ported
+    path (the float32 paired stage on the training flags) and ValueError
+    for a crop whose bands do not align with its layers or cannot hold a
+    halo."""
+    out = _common_refusals(opt)
+    if not opt.isTrain:
+        out.append("no --isTrain")
+    if opt.dtype != "float32":
+        out.append(f"--dtype {opt.dtype} (bfloat16 in row bands is the next slice)")
+    for flag, on in (("--add_feat_zeros", opt.add_feat_zeros),
+                     ("--unpairTrain", opt.unpairTrain), ("--remat", opt.remat),
+                     ("--reuse_fake_for_d", opt.reuse_fake_for_d),
+                     ("--remove_background", opt.remove_background),
+                     ("--balance_Lab", opt.balance_Lab), ("--fused_step", opt.fused_step)):
+        if on:
+            out.append(flag)
+    if "gabor" not in opt.orient_filter and not opt.no_orient_loss:
+        out.append(f"--orient_filter {opt.orient_filter}")
+    if out:
+        raise NotImplementedError(f"spatial sharding of training does not run {', '.join(out)}")
+    crop = opt.crop_size
+    if world < 2 or crop % world or (crop // world) % VGG_STRIDE:
+        raise ValueError(
+            f"spatial training over {world} ranks needs at least 2 ranks and --crop_size "
+            f"{crop} / {world} to be a multiple of {VGG_STRIDE} (VGG19's and the background "
+            f"encoder's stride-2 layers); it is {crop / world:g}")
+    if IG_SIZE % world:
+        raise ValueError(f"spatial training over {world} ranks needs {world} to divide the "
+                         f"inpainter's {IG_SIZE} rows")
+    band = crop // world
+    need = {"the filter bank's": BANK_HALO}
+    if opt.random_expand_mask:
+        need["--random_expand_mask's dilation"] = sum(
+            k // 2 for k in expand_kernels(opt, crop, MAX_EXTRA_DILATE))
+    for what, rows in need.items():
+        if rows > band:
+            raise ValueError(f"{what} halo of {rows} rows exceeds a band of {band} rows")
 
 
 def halo_rows(k: int, stride: int, padding: int, dilation: int,
@@ -187,6 +315,109 @@ def plane_plan(opt, world: int) -> Dict[int, str]:
             else "whole" for i in range(ups, -1, -1)}
 
 
+def train_plane_plan(opt, world: int) -> Dict[str, object]:
+    """The training step's planes over `world` ranks: the generator's
+    (``plane_plan``), VGG19's slices (bands), and netD's, which run whole on
+    every rank (each scale's layers' output rows)."""
+    crop = opt.crop_size
+    d_rows, h = [], crop
+    for _ in range(opt.num_D):
+        rows, x = [], h
+        for n in range(opt.n_layers_D + 1):
+            stride = 2 if n < opt.n_layers_D - 1 else 1
+            x = (x + 2 * 2 - 4) // stride + 1
+            rows.append(x)
+        d_rows.append(rows)
+        h = (h + 2 - 3) // 2 + 1
+    return {"generator": plane_plan(opt, world),
+            "vgg19": {crop >> i: f"band of {(crop >> i) // world} rows" for i in range(5)},
+            "netD": f"whole on every rank (gathered), rows by scale {d_rows}"}
+
+
+def batch_spec(space: Space) -> Tuple[Optional[str], ...]:
+    """The axis each NCHW dimension of a training batch is split over (the
+    JAX module's PartitionSpec): H over 'space'; N is whole (the data x
+    space grid is not ported)."""
+    return (None, None, SPACE_AXIS if space.world > 1 else None, None)
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], space: Space) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a whole NCHW batch (every rank holds the same
+    batch, on any device), on the Space's device: the JAX module's
+    shard_batch, which places the batch P(None, 'space')."""
+    out = {}
+    for k, v in batch.items():
+        h = v.shape[2]
+        if h % space.world:
+            raise ValueError(f"{k}: {h} rows do not divide into {space.world} bands")
+        a, b = space.rank * h // space.world, (space.rank + 1) * h // space.world
+        out[k] = v[:, :, a:b].contiguous().to(space.device)
+    return out
+
+
+def _cols(t: torch.Tensor, w: int) -> torch.Tensor:
+    """The nearest resize of t's columns alone."""
+    return resize_nearest(t, (t.shape[2], w)) if t.shape[2] else \
+        t.new_zeros((*t.shape[:3], w))
+
+
+class _Halo(torch.autograd.Function):
+    """``Bands.halo``, differentiable.  The backward sends the cotangent of
+    the rows received from each neighbour back to it, which adds it onto
+    its own edge rows; at the frame's top and bottom the adjoint follows the
+    pad: zeros and -inf drop it, reflection adds it onto the mirrored
+    interior rows."""
+
+    @staticmethod
+    def forward(ctx, x, bands, lo, hi, pad):
+        ctx.bands, ctx.lo, ctx.hi, ctx.pad, ctx.h = bands, lo, hi, pad, x.shape[2]
+        above, below = bands.neighbour_rows(x, lo, hi) if bands.P > 1 else (None, None)
+        if lo and above is None:
+            above = bands._edge(x, lo, pad, top=True)
+        if hi and below is None:
+            below = bands._edge(x, hi, pad, top=False)
+        return torch.cat([t for t in (above, x, below) if t is not None], dim=2)
+
+    @staticmethod
+    def backward(ctx, g):
+        b, lo, hi, h = ctx.bands, ctx.lo, ctx.hi, ctx.h
+        g = g.contiguous()
+        dx = g[:, :, lo:lo + h].clone()
+        g_above, g_below = g[:, :, :lo], g[:, :, lo + h:]
+        top, bottom = b.r == 0, b.r == b.P - 1
+        if b.P > 1:
+            from_below, from_above = b.return_rows(g_above if lo and not top else None,
+                                                   g_below if hi and not bottom else None,
+                                                   lo, hi, dx)
+            if from_below is not None:
+                dx[:, :, h - lo:] += from_below
+            if from_above is not None:
+                dx[:, :, :hi] += from_above
+        if ctx.pad == "reflect":
+            if lo and top:
+                dx[:, :, 1:lo + 1] += g_above.flip(2)
+            if hi and bottom:
+                dx[:, :, h - 1 - hi:h - 1] += g_below.flip(2)
+        return dx, None, None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """``Bands.gather_rows`` on every rank, differentiable: the backward is
+    a reduce-scatter, an all-reduce of the cotangent and this band's rows
+    of it."""
+
+    @staticmethod
+    def forward(ctx, x, bands):
+        ctx.bands, ctx.h = bands, x.shape[2]
+        return bands._gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        b, h = ctx.bands, ctx.h
+        s = b._all_reduce(g.contiguous())
+        return s[:, :, b.r * h:(b.r + 1) * h].contiguous(), None
+
+
 class Bands:
     """The band forms of the path's layers on one Space.  Every method
     takes and returns this rank's band of a sharded plane (or a whole
@@ -213,6 +444,17 @@ class Bands:
         a, b = self.rows(h)
         return x[:, :, a:b].contiguous()
 
+    def frame_rows(self, t: torch.Tensor, pw: int) -> torch.Tensor:
+        """(1, 1, rows, 1): 1 on t's rows inside the frame, 0 on the `pw`
+        rows beyond it above the first band and below the last (t: a band
+        with `pw` halo rows each side)."""
+        keep = torch.ones(t.shape[2], dtype=t.dtype, device=t.device)
+        if self.r == 0:
+            keep[:pw] = 0
+        if self.r == self.P - 1:
+            keep[t.shape[2] - pw:] = 0
+        return keep.view(1, 1, -1, 1)
+
     # -- transport --------------------------------------------------------
 
     def _peer(self, r: int) -> int:
@@ -234,6 +476,20 @@ class Bands:
                         device="cpu" if self.space.staged() else like.device)
         return t.view(torch.uint8) if t.dtype in HALF else t
 
+    def _exchange(self, sends, recvs) -> None:
+        """Each (travelling tensor, band) of `sends` sent to that band's rank,
+        each of `recvs` received from it; returns when all are done."""
+        group = self.space.group
+        if dist.get_backend(group) == "nccl":
+            ops = [dist.P2POp(dist.isend, t, self._peer(p), group) for t, p in sends] + \
+                [dist.P2POp(dist.irecv, t, self._peer(p), group) for t, p in recvs]
+            reqs = dist.batch_isend_irecv(ops) if ops else []
+        else:
+            reqs = [dist.isend(t, self._peer(p), group=group) for t, p in sends] + \
+                [dist.irecv(t, self._peer(p), group=group) for t, p in recvs]
+        for q in reqs:
+            q.wait()
+
     def neighbour_rows(self, x: torch.Tensor, lo: int, hi: int):
         """(the `lo` last rows of the band above, the `hi` first rows of the
         band below); None at the global edges and where a count is 0."""
@@ -250,33 +506,44 @@ class Bands:
             sends.append((self._out(x[:, :, x.shape[2] - lo:]), r + 1))
         if hi and r > 0:
             sends.append((self._out(x[:, :, :hi]), r - 1))
-        group = self.space.group
-        if dist.get_backend(group) == "nccl":
-            ops = [dist.P2POp(dist.isend, t, self._peer(p), group) for t, p in sends] + \
-                [dist.P2POp(dist.irecv, t, self._peer(p), group) for t, p in recvs]
-            reqs = dist.batch_isend_irecv(ops) if ops else []
-        else:
-            reqs = [dist.isend(t, self._peer(p), group=group) for t, p in sends] + \
-                [dist.irecv(t, self._peer(p), group=group) for t, p in recvs]
-        for q in reqs:
-            q.wait()
+        self._exchange(sends, recvs)
         return (None if above is None else self._in(above, x),
                 None if below is None else self._in(below, x))
 
+    def return_rows(self, up: Optional[torch.Tensor], down: Optional[torch.Tensor], lo: int,
+                    hi: int, like: torch.Tensor):
+        """The adjoint of ``neighbour_rows``: `up` (the cotangent of the rows
+        received from the band above, or None) goes back to it, `down` to
+        the band below.  Returns (the cotangent of this band's `lo` last rows
+        from the band below, of its `hi` first rows from the band above);
+        None where no band is there."""
+        r, P = self.r, self.P
+        sends, recvs = [], []
+        from_below = from_above = None
+        if lo and r < P - 1:
+            from_below = self._buffer(like, lo)
+            recvs.append((from_below, r + 1))
+        if hi and r > 0:
+            from_above = self._buffer(like, hi)
+            recvs.append((from_above, r - 1))
+        if up is not None:
+            sends.append((self._out(up), r - 1))
+        if down is not None:
+            sends.append((self._out(down), r + 1))
+        self._exchange(sends, recvs)
+        return (None if from_below is None else self._in(from_below, like),
+                None if from_above is None else self._in(from_above, like))
+
     def halo(self, x: torch.Tensor, lo: int, hi: int, pad: str = "zeros") -> torch.Tensor:
         """x with `lo` rows above and `hi` below: the neighbours' rows, or at
-        the global top and bottom `pad` ('zeros', 'reflect' or 'neg_inf')."""
+        the global top and bottom `pad` ('zeros', 'reflect' or 'neg_inf');
+        differentiable (``_Halo``)."""
         if lo == hi == 0:
             return x
         h = x.shape[2]
         if max(lo, hi) > h or (pad == "reflect" and max(lo, hi) >= h):
             raise ValueError(f"a halo of ({lo}, {hi}) rows around a band of {h} rows")
-        above, below = self.neighbour_rows(x, lo, hi) if self.P > 1 else (None, None)
-        if lo and above is None:
-            above = self._edge(x, lo, pad, top=True)
-        if hi and below is None:
-            below = self._edge(x, hi, pad, top=False)
-        return torch.cat([t for t in (above, x, below) if t is not None], dim=2)
+        return _Halo.apply(x, self, lo, hi, pad)
 
     @staticmethod
     def _edge(x: torch.Tensor, n: int, pad: str, top: bool) -> torch.Tensor:
@@ -286,29 +553,38 @@ class Bands:
         return x.new_full((x.shape[0], x.shape[1], n, x.shape[3]),
                           float("-inf") if pad == "neg_inf" else 0.0)
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of `t` (float32) over the ranks."""
+    def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of `t` over the ranks, a new tensor (no autograd)."""
         if self.P == 1:
             return t
-        u = t.cpu() if self.space.staged() else t.clone()
+        u = t.detach().cpu() if self.space.staged() else t.detach().clone()
         dist.all_reduce(u, group=self.space.group)
         return u.to(t.device)
 
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of `t` (float32) over the ranks; differentiable (its
+        backward sums the cotangents over the ranks)."""
+        if self.P == 1:
+            return t
+        return all_reduce_sum(t, self.space.group, self.space.staged())
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        t = self._out(x)
+        parts = [torch.empty_like(t) for _ in range(self.P)]
+        dist.all_gather(parts, t, group=self.space.group)
+        return self._in(torch.cat(parts, dim=2), x)
+
     def gather_rows(self, x: torch.Tensor, dst: Optional[int] = None) -> Optional[torch.Tensor]:
-        """The bands stacked along H: on every rank (`dst` None), or on rank
-        `dst` only (None on the others)."""
+        """The bands stacked along H: on every rank (`dst` None;
+        differentiable), or on rank `dst` only (None on the others)."""
         if self.P == 1:
             return x
-        t = self._out(x)
-        group = self.space.group
-        parts = [torch.empty_like(t) for _ in range(self.P)]
         if dst is None:
-            dist.all_gather(parts, t, group=group)
-        else:
-            dist.gather(t, parts if self.r == dst else None, dst=self._peer(dst), group=group)
-            if self.r != dst:
-                return None
-        return self._in(torch.cat(parts, dim=2), x)
+            return _GatherRows.apply(x, self)
+        t = self._out(x)
+        parts = [torch.empty_like(t) for _ in range(self.P)] if self.r == dst else None
+        dist.gather(t, parts, dst=self._peer(dst), group=self.space.group)
+        return self._in(torch.cat(parts, dim=2), x) if self.r == dst else None
 
     # -- layers -----------------------------------------------------------
 
@@ -320,11 +596,10 @@ class Bands:
         return conv(F.conv2d, xe, *cast_params(x, w, b), stride, (0, padding), dilation)
 
     def conv(self, m, x: torch.Tensor) -> torch.Tensor:
-        """m(x) on a band: m a Conv2d or an eval-mode SpectralConv2d (W /
-        sigma from its stored u and v, the same on every rank)."""
+        """m(x) on a band: m a Conv2d or a SpectralConv2d (W / sigma the same
+        on every rank: in eval from its stored u and v; in train mode after
+        its one power iteration, which writes u and v as m's forward does)."""
         if isinstance(m, SpectralConv2d):
-            if m.training:
-                raise ValueError("spatial sharding runs spectral convs in eval mode only")
             return self._conv(x, m.weight(), m.bias, m.weight_orig.shape[-1], m.stride,
                               m.padding, m.dilation)
         return self._conv(x, m.weight, m.bias, m.kernel_size[0], m.stride[0], m.padding[0],
@@ -416,32 +691,62 @@ class Bands:
         pooled = F.max_pool2d(he, k, 1)
         return 1.0 - pooled.masked_fill(~inside[p:p + b - a], 0.0)
 
+    def train_back_mask(self, opt, mask: torch.Tensor, h: int,
+                        extra_dilate_steps: int) -> torch.Tensor:
+        """_expanded_back_mask's training form on this band of the crop: one
+        minus the hair dilated by --random_expand_mask's max-pools
+        (``expand_kernels``), each padding the frame's edges with -inf as
+        its pool does; without --random_expand_mask the background label."""
+        if not opt.random_expand_mask:
+            return mask[:, 0:1]
+        ks = expand_kernels(opt, h, extra_dilate_steps)
+        half = sum(k // 2 for k in ks)
+        y = self.halo(mask[:, 1:2], half, half, "neg_inf")
+        for k in ks:
+            y = F.max_pool2d(F.pad(y, (k // 2, k // 2, 0, 0), value=float("-inf")), k, 1)
+        return 1.0 - y
+
     def appearance(self, enc, x, label_ref, label_tag, h: int) -> torch.Tensor:
         """ImageEncoder3 on this band of the frame: the seed, whole, or this
         band of it where the seed plane is sharded and is the encoder's own
-        output plane (no resize)."""
+        output plane (no resize).  Where a band grows too thin for the
+        next stride-2 layer's alignment (an odd number of rows), the layers
+        from there on run whole on every rank, on the gathered planes."""
         mask, y = label_ref, x
+        banded = True
         for i in range(1, 6):
+            layer = getattr(enc, f"layer{i}")
+            if banded and y.shape[2] % layer.stride[0]:
+                y, mask, banded = self.gather_rows(y), self.gather_rows(mask), False
             if i > 1:
                 y = F.leaky_relu(y, 0.2)
-            y, mask = self.partial_conv(getattr(enc, f"layer{i}"), y, mask)
+            y, mask = self.partial_conv(layer, y, mask) if banded else layer(y, mask)
             if enc.use_in:
-                y = self.instance_norm(y)
+                y = self.instance_norm(y) if banded else instance_norm(y)
         y = F.leaky_relu(y, 0.2)
         hy = h // ENCODER_STRIDE
-        size = (hy, y.shape[3])
-        lr = self.resize_nearest(label_ref, h, size, whole=False)
-        lt = self.resize_nearest(label_tag, h, size, whole=False)
-        out = self.masked_mean(y, lr).expand_as(y) * lt
-        if enc.sh == hy and self.sharded(hy):
-            return out
-        out = self.gather_rows(out)
+        if banded:
+            size = (hy, y.shape[3])
+            lr = self.resize_nearest(label_ref, h, size, whole=False)
+            lt = self.resize_nearest(label_tag, h, size, whole=False)
+            out = self.masked_mean(y, lr).expand_as(y) * lt
+            if enc.sh == hy and self.sharded(hy):
+                return out
+            out = self.gather_rows(out)
+        else:
+            lr, lt = (resize_nearest(self.gather_rows(t), y.shape[2:])
+                      for t in (label_ref, label_tag))
+            out = masked_region_mean(y, lr).expand_as(y) * lt
         return out if enc.sh == hy else resize_bilinear(out, (enc.sh, enc.sw))
 
-    def background(self, enc, image, mask, noise, h: int):
+    def background(self, enc, image, mask, noise, h: int, extra_dilate_steps: int = 2):
         """BackgroundEncode2 on this band of the frame: (features, masks),
-        coarsest first, each this band of its plane."""
-        back_mask = self.expanded_back_mask(enc.opt, mask[:, 1:2], h)
+        coarsest first, each this band of its plane; the background mask of
+        training (``train_back_mask``) when the options say --isTrain."""
+        if enc.opt.isTrain:
+            back_mask = self.train_back_mask(enc.opt, mask, h, extra_dilate_steps)
+        else:
+            back_mask = self.expanded_back_mask(enc.opt, mask[:, 1:2], h)
         inp = (image * back_mask + noise * (1.0 - back_mask)).to(image.dtype)
         if enc.most:
             x00 = self.conv_block(enc.conv0, inp)
@@ -458,22 +763,30 @@ class Bands:
         return feats, bms + [back_mask]
 
     def spade(self, sp, x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
-        """An eval-mode SPADE (batch-norm running statistics) on a band: `seg`
-        is the conditioning at x's plane with 2 pw halo rows, over which
-        mlp_shared runs, so that the fused gamma / beta conv finds its halo
-        in place; rows beyond the frame are zeroed as that conv pads."""
+        """A SPADE on a band: `seg` is the conditioning at x's plane with 2 pw
+        halo rows, over which mlp_shared runs, so that the fused gamma / beta
+        conv finds its halo in place; rows beyond the frame are zeroed as
+        that conv pads.  Eval mode: one ``spade_modulate`` launch with the
+        running statistics; train mode: the sync batch norm's statistics
+        over the ranks (the global count of rows), the running statistics
+        written unless frozen, as ParamFreeNorm does."""
         seg = seg.to(x.dtype)
         m = sp.mlp_shared[0]
         actv = F.relu(conv(F.conv2d, seg, *cast_params(seg, m.weight, m.bias), 1, (0, sp.pw)))
-        if self.r == 0:
-            actv[:, :, :sp.pw] = 0
-        if self.r == self.P - 1:
-            actv[:, :, actv.shape[2] - sp.pw:] = 0
+        actv = actv * self.frame_rows(actv, sp.pw)
         weight, bias = sp.gamma_beta_conv(actv.dtype)
         gamma, beta = conv(F.conv2d, actv, weight, bias, 1, (0, sp.pw)).chunk(2, dim=1)
         pfn = sp.param_free_norm
-        return spade_modulate(x, pfn.running_mean, torch.rsqrt(pfn.running_var + pfn.eps),
-                              gamma, beta)
+        if not sp.training:
+            return spade_modulate(x, pfn.running_mean, torch.rsqrt(pfn.running_var + pfn.eps),
+                                  gamma, beta)
+        y, new_mean, new_var = batch_norm_train(x, pfn.running_mean, pfn.running_var,
+                                                eps=pfn.eps, group=self.space.group)
+        if pfn.write_buffers:
+            pfn.running_mean.copy_(new_mean)
+            pfn.running_var.copy_(new_var)
+            pfn.num_batches_tracked += 1
+        return y * (1.0 + gamma) + beta
 
     def block(self, blk, x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
         """SPADEResnetBlock.forward on a band."""
@@ -483,16 +796,22 @@ class Bands:
         dx = self.conv(blk.conv_1, F.leaky_relu(self.spade(blk.norm_1, dx, seg), 0.2))
         return x_s + dx
 
-    def generator(self, g, input_ref, input_tag, orient, image_ref, image_tag, noise):
-        """SPADEBGenerator.forward in eval mode on this band of the frame:
-        this band of the fake."""
+    def generator(self, g, input_ref, input_tag, orient, image_ref, image_tag, noise,
+                  extra_dilate_steps: int = 2):
+        """SPADEBGenerator.forward on this band of the frame: this band of
+        the fake; in train mode with cuDNN off in the blocks where the
+        module takes it off (models/generator.py CUDNN_OFF)."""
         opt = g.opt
         h = input_tag.shape[2] * self.P
         hair = input_tag[:, 1:2]
         hx = g.fc.sh
-        x = self.cut(self.appearance(g.fc, image_ref, input_ref[:, 1:2], hair, h), hx)
+        off = lambda name: cudnn_off(g.training and name in g.cudnn_off_blocks)
+        with off("fc"):
+            x = self.cut(self.appearance(g.fc, image_ref, input_ref[:, 1:2], hair, h), hx)
         seg = torch.cat([input_tag, orient.to(input_tag.dtype)], dim=1)
-        back_feats, back_masks = self.background(g.backgroud_enc, image_tag, input_tag, noise, h)
+        with off("backgroud_enc"):
+            back_feats, back_masks = self.background(g.backgroud_enc, image_tag, input_tag,
+                                                     noise, h, extra_dilate_steps)
         most = opt.num_upsampling_layers == "most"
         w = hair.shape[3]
         hair_masks = [self.resize_nearest(hair, h, (h // f, w // f))
@@ -505,7 +824,8 @@ class Bands:
                 s = self.resize_nearest(seg, h, (hh, xx.shape[3]))
                 segs[hh] = self.halo(s, 2 * blk.norm_0.pw, 2 * blk.norm_0.pw) \
                     if self.sharded(hh) else s
-            return self.block(blk, xx, segs[hh]) if self.sharded(hh) else blk(xx, segs[hh])
+            with off(name):
+                return self.block(blk, xx, segs[hh]) if self.sharded(hh) else blk(xx, segs[hh])
 
         def up(xx, hh):
             return self.cut(upsample2x_nearest(xx), 2 * hh), 2 * hh
@@ -544,23 +864,19 @@ class Bands:
             t = batch[key]
             return t.index_select(2, rows.to(t.device)).to(dev)
 
-        def cols(t, w):  # the nearest resize of the columns alone
-            return resize_nearest(t, (t.shape[2], w)) if t.shape[2] else \
-                t.new_zeros((*t.shape[:3], w))
-
         # the IG's input: this band of its 256 rows, then every band
         a, b = self.rows(IG_SIZE)
         src = nearest_index(crop, IG_SIZE)[a:b]
         hole, orient_rgb, noise = (take(k, src) for k in ("hole", "orient_rgb", "noise"))
         comp = orient_rgb * (1 - hole) + noise * hole
-        inp = cols(torch.cat([comp, hole], dim=1), IG_SIZE)
+        inp = _cols(torch.cat([comp, hole], dim=1), IG_SIZE)
         ig_out = model.netIG(self.gather_rows(inp).to(cdt)).float()
 
         # the crop's rows inside this band of the frame
         fa, fb = self.rows(frame)
         ca, cb = min(max(fa - r0, 0), crop), min(max(fb - r0, 0), crop)
         rows = torch.arange(ca, cb)
-        up = cols(ig_out.index_select(2, nearest_index(IG_SIZE, crop)[rows].to(dev)), crop)
+        up = _cols(ig_out.index_select(2, nearest_index(IG_SIZE, crop)[rows].to(dev)), crop)
         hole, orient_rgb = take("hole", rows), take("orient_rgb", rows)
         orient_out = up * hole + orient_rgb * (1 - hole)
         input_tag = one_hot_label(take("label_tag", rows), nc)
@@ -573,13 +889,204 @@ class Bands:
             out[:, :, ca + r0 - fa:cb + r0 - fa, c0:c0 + crop] = t
             return out
 
-        gin = [framed(pre[k], r0, frame).to(cdt) for k in
-               ("input_ref", "input_tag", "orient", "image_ref", "image_tag", "noise")]
+        gin = [framed(pre[k], r0, frame).to(cdt) for k in GEN_KEYS]
         fake = self.gather_rows(self.generator(model.netG, *gin).float(), dst)
         orient_rgb = self.gather_rows(framed(orient_out, 0, crop), dst)
         if fake is None:
             return None, None
         return fake, orient_rgb[:, :, r0:r0 + crop]
+
+    # -- training ---------------------------------------------------------
+
+    def mean_share(self, t: torch.Tensor) -> torch.Tensor:
+        """This band's share of the whole plane's t.mean(): its sum over the
+        global count."""
+        return t.sum() / (t.numel() * self.P)
+
+    def total(self, t: torch.Tensor) -> torch.Tensor:
+        """t (a no-grad sum over this band) summed over the ranks."""
+        return self._all_reduce(t.detach())
+
+    @torch.no_grad()
+    def orient_for_training(self, model, pre) -> torch.Tensor:
+        """MichiGANModel.orient_for_training on this band of the crop: the
+        frozen IG whole on every rank, on the gathered 256^2 input; this
+        band of the decoded orientation."""
+        dev, cdt = pre["hole"].device, model.compute_dtype
+        width = pre["hole"].shape[3]
+        crop = pre["hole"].shape[2] * self.P
+        a_in, b_in = self.rows(crop)
+        a, b = self.rows(IG_SIZE)
+        src = nearest_index(crop, IG_SIZE)[a:b] - a_in
+        if src.min() < 0 or src.max() >= b_in - a_in:
+            raise ValueError(f"the inpainter's rows {a}..{b} of a {crop}-row crop are not all "
+                             f"in band {a_in}..{b_in}")
+        hole, orient_rgb, noise = (pre[k].index_select(2, src.to(dev))
+                                   for k in ("hole", "orient_rgb", "noise"))
+        comp = orient_rgb * (1 - hole) + noise * hole
+        inp = _cols(torch.cat([comp, hole], dim=1), IG_SIZE)
+        ig_out = model.netIG(self.gather_rows(inp).to(cdt)).float()
+        up = _cols(ig_out.index_select(2, nearest_index(IG_SIZE, crop)[a_in:b_in].to(dev)),
+                   width)
+        out = up * pre["hole"] + pre["orient_rgb"] * (1 - pre["hole"])
+        return model._decode_orient_rgb(out, pre["input_tag"][:, 1:2])
+
+    def generate(self, model, pre, orient, extra_dilate_steps: int = 2) -> torch.Tensor:
+        """MichiGANModel.generate_fake's fake (no VAE, no blender, no zeros
+        frame) on this band: this band of the fake, float32."""
+        cdt = model.compute_dtype
+        gin = {**{k: pre[k] for k in GEN_KEYS if k != "orient"}, "orient": orient}
+        return self.generator(model.netG, *(gin[k].to(cdt) for k in GEN_KEYS),
+                              extra_dilate_steps).float()
+
+    def whole_inputs(self, pre, orient):
+        """(input_tag, orientation, tag image), each whole on every rank: one
+        gather, for netD."""
+        parts = (pre["input_tag"], orient, pre["image_tag"])
+        whole = self.gather_rows(torch.cat([t.detach().float() for t in parts], dim=1))
+        return whole.split([t.shape[1] for t in parts], dim=1)
+
+    def vgg(self, vgg, x: torch.Tensor) -> List[torch.Tensor]:
+        """VGG19.forward on a band: [relu1_1, ..., relu5_1], each this band
+        of its plane.  Without autograd, features_2 is one
+        conv3x3_same_lowch launch on the band with a halo row each side,
+        whose two outer output rows are dropped."""
+        outs = []
+        for step in VGG_PLAN:
+            if step[0] == "conv":
+                c = vgg.features[str(step[1])]
+                if step[1] == LOWCH_CONV and not torch.is_grad_enabled():
+                    y = conv3x3_same_lowch(self.halo(x, 1, 1), c.weight)
+                    x = F.relu(y[:, :, 1:-1] + c.bias.view(1, -1, 1, 1))
+                else:
+                    x = F.relu(self.conv(c, x))
+            elif step[0] == "pool":
+                x = max_pool_same(x, 2, 2, 0)
+            else:
+                outs.append(x)
+        return outs
+
+    def mean_std(self, feats: List[torch.Tensor], eps: float = 1e-5):
+        """losses.perceptual._mean_std of each of `feats` over the whole
+        plane (per (n, c): the mean and sqrt(unbiased var + eps)), from two
+        all-reduces for all of them: the sums, then the centred sums of
+        squares."""
+        fs = [f.float().flatten(2) for f in feats]
+        widths = [f.shape[1] for f in fs]
+        counts = [f.shape[2] * self.P for f in fs]
+        sums = self.all_reduce(torch.cat([f.sum(2) for f in fs], dim=1)).split(widths, dim=1)
+        means = [s / n for s, n in zip(sums, counts)]
+        sq = self.all_reduce(torch.cat([((f - m[..., None]) ** 2).sum(2)
+                                        for f, m in zip(fs, means)], dim=1)).split(widths, dim=1)
+        return [(m, torch.sqrt(v / (n - 1) + eps)) for m, v, n in zip(means, sq, counts)]
+
+    def orient_loss(self, fake: torch.Tensor, orient: torch.Tensor, input_tag: torch.Tensor):
+        """losses.orient.orient_loss (Gabor bank, --use_ig) on this band:
+        (its share of the orientation L1, its share of the confidence
+        loss).  The bank runs on the band's gray plane with BANK_HALO rows
+        of the neighbours' each side (zeros at the frame's edges, as the
+        bank pads), and the outer rows of its output are dropped."""
+        hair = input_tag[:, 1:2].permute(0, 2, 3, 1)
+        gray = rgb_to_gray255(fake.permute(0, 2, 3, 1)).permute(0, 3, 1, 2).contiguous()
+        idx, raw = OrientationResponse.apply(self.halo(gray, BANK_HALO, BANK_HALO),
+                                             bank("gabor", gray.device), False)
+        idx, raw = idx[:, BANK_HALO:-BANK_HALO], raw[:, BANK_HALO:-BANK_HALO]
+        theta = idx.float() * (math.pi / NUM_KERNELS)
+        conf = (torch.tanh(raw) + 1.0) / 2.0
+        two = torch.stack([torch.sin(2.0 * theta), torch.cos(2.0 * theta)], dim=-1) * \
+            conf[..., None]
+        conf = conf[..., None]
+        target = orient.permute(0, 2, 3, 1)
+        l1 = self.mean_share((two * hair - (target * hair).detach()).abs())
+        conf_loss = -(torch.log(conf.clamp(0.001, 1.0)) * hair).sum() / self.total(hair.sum())
+        return l1, conf_loss
+
+    def paired_losses(self, model, pre, out, pred_fake, pred_real, label_tag_w):
+        """MichiGANModel._paired_losses on this band: each term's share."""
+        opt, P = model.opt, self.P
+        losses: Dict[str, torch.Tensor] = {}
+        label_tag, label_ref = pre["input_tag"][:, 1:2], pre["input_ref"][:, 1:2]
+        ref_is_tag = (self.total((label_tag - label_ref).abs().sum()) == 0).float()
+        f_fake = self.vgg(model.vgg, out)
+        with torch.no_grad():
+            f_tr = self.vgg(model.vgg, torch.cat([pre["image_tag"], pre["image_ref"]], dim=0))
+        n = out.shape[0]
+        f_tag, f_ref = [t[:n] for t in f_tr], [t[n:] for t in f_tr]
+        if not opt.no_ganFeat_loss:
+            losses["GAN_Feat"] = ref_is_tag * gan_feat_loss(pred_fake, pred_real, opt,
+                                                            label_tag_w) / P
+        if not opt.no_vgg_loss:
+            vgg_l = sum(w * self.mean_share((a.float() - b.detach().float()).abs())
+                        for w, a, b in zip(VGG_WEIGHTS, f_fake, f_tag))
+            losses["VGG"] = ref_is_tag * (vgg_l * opt.lambda_vgg)
+        loss_c = self.mean_share((f_fake[-1].float() - f_tag[-1].float()) ** 2)
+        stats = self.mean_std(list(f_ref) + list(f_fake))
+        k = len(f_ref)
+        loss_s = sum(((sm - fm) ** 2).mean() + ((ss - fs) ** 2).mean()
+                     for (sm, ss), (fm, fs) in zip(stats[:k], stats[k:])) / P
+        if not opt.no_content_loss:
+            losses["content"] = loss_c * opt.lambda_content
+        if not opt.no_style_loss:
+            losses["style"] = loss_s * opt.lambda_style
+        tag = pre["image_tag"]
+        if not opt.no_background_loss:
+            bg = pre["input_tag"][:, 0:1]
+            losses["background"] = ref_is_tag * (self.mean_share(
+                (out * bg - (tag * bg).detach()).abs()) * opt.lambda_background)
+        if not opt.no_rgb_loss:
+            losses["rgb"] = ref_is_tag * (self.mean_share((out - tag).abs()) * opt.lambda_rgb)
+        if not opt.no_lab_loss:
+            fake_lab = rgb_to_lab((out + 1.0) / 2.0)
+            real_lab = rgb_to_lab((tag + 1.0) / 2.0).detach()
+            losses["lab"] = ref_is_tag * (self.mean_share(
+                (fake_lab[:, 1:] - real_lab[:, 1:]).abs()) * opt.lambda_lab)
+        return losses
+
+    def generator_loss(self, model, batch, extra_dilate_steps: int = 2):
+        """MichiGANModel.generator_loss (the paired stage) on this rank's
+        band of the batch: (this rank's objective, its share of each term
+        by name, the whole fake (on every rank), this band of the
+        orientation).  netG's forward writes its buffers, the same on every
+        rank."""
+        opt = model.opt
+        pre = model.preprocess(batch)
+        orient = self.orient_for_training(model, pre)
+        fake = self.generate(model, pre, orient, extra_dilate_steps)
+        tag_w, orient_w, real_w = self.whole_inputs(pre, orient)
+        fake_w = self.gather_rows(fake)
+        pred_fake, pred_real = model.discriminate(tag_w, fake_w, real_w, orient_w)
+        label_tag_w = tag_w[:, 1:2]
+        losses: Dict[str, torch.Tensor] = {}
+        if not opt.no_gan_loss:
+            losses["GAN"] = multiscale_gan_loss(pred_fake, True, False, opt,
+                                                label_tag_w) / self.P
+        losses.update(self.paired_losses(model, pre, fake, pred_fake, pred_real, label_tag_w))
+        if not opt.no_orient_loss:
+            o_l1, conf = self.orient_loss(fake, orient, pre["input_tag"])
+            losses["ORIENT"] = o_l1 * opt.lambda_orient
+            if not opt.no_confidence_loss:
+                losses["CONFIDENCE"] = conf * opt.lambda_confidence
+        return sum(losses.values()), losses, fake_w, orient
+
+    def discriminator_loss(self, model, batch, extra_dilate_steps: int = 2,
+                           orient: Optional[torch.Tensor] = None):
+        """MichiGANModel.discriminator_loss on this rank's band: the fake
+        recomputed in bands with the current netG (train-mode statistics,
+        nothing written, no gradient), netD whole on every rank on the
+        gathered planes; (this rank's objective, {'D_Fake', 'D_real'}, each
+        1/P of the whole hinge)."""
+        opt = model.opt
+        pre = model.preprocess(batch)
+        if orient is None:
+            orient = self.orient_for_training(model, pre)
+        with torch.no_grad(), frozen_buffers(model.netG):
+            fake_w = self.gather_rows(self.generate(model, pre, orient, extra_dilate_steps))
+        tag_w, orient_w, real_w = self.whole_inputs(pre, orient)
+        pred_fake, pred_real = model.discriminate(tag_w, fake_w, real_w, orient_w)
+        label_tag_w = tag_w[:, 1:2]
+        d_fake = multiscale_gan_loss(pred_fake, False, True, opt, label_tag_w) / self.P
+        d_real = multiscale_gan_loss(pred_real, True, True, opt, label_tag_w) / self.P
+        return d_fake + d_real, {"D_Fake": d_fake, "D_real": d_real}
 
 
 def make_spatial_infer(model, space: Space, to_all: bool = False):

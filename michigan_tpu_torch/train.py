@@ -28,10 +28,20 @@ where --multihost is accepted) each rank takes cuda:<gpu_ids[LOCAL_RANK]>,
 or the CPU with gloo under --gpu_ids -1.  --batchSize is the global batch:
 each rank loads and steps on its batchSize / world slice; netG's sync batch
 norms, the gradients (--bf16_grad_allreduce: in bfloat16) and the printed
-losses are reduced over the ranks; --mesh_shape takes data:-1 or data:N.
+losses are reduced over the ranks; --mesh_shape takes data:-1 or data:N
+for this, and space:N for row bands (below).
 Every rank seeds the same weights and host RNG; rank 0 alone prints and
 writes opt.json, loss_log.txt, iter.txt and the checkpoints.  With one
 process nothing is reduced.
+
+Spatial sharding of training (parallel/spatial.py): --mesh_shape space:N
+(or data:1,space:N) makes the N processes one spatial group, which trains
+in row bands: every rank loads the same --batchSize samples (the loader's
+shard is the data axis alone) and steps on its band of their rows, the
+fp32 paired stage with every default loss; gradients and losses are summed
+over the group, and rank 0's checkpoints are one process's.  The data x
+space grid (data:M,space:N with M > 1) and --dtype bfloat16 in bands raise
+NotImplementedError: they are the next slice.
 
 The loop follows the JAX trainer: epochs with the linear LR decay,
 --max_steps, the mask dilation width drawn per step from a host RNG seeded
@@ -144,10 +154,19 @@ def train(opt, replica) -> None:
     from michigan_tpu_torch.utils.iter_counter import IterationCounter
     from michigan_tpu_torch.utils.visualizer import Visualizer
 
+    from michigan_tpu_torch.parallel import spatial
+    from michigan_tpu_torch.parallel.dist import mesh_axes
+
     main_rank = replica.is_main()
     print_ = print if main_rank else (lambda *a, **k: None)
     print_(" ".join(sys.argv))
-    if replica.world > 1:
+    # --mesh_shape space:N: the processes are one spatial group, no replicas
+    space = spatial.Space(replica.group, replica.rank, replica.world, replica.device) \
+        if mesh_axes(opt.mesh_shape)[1] > 1 else None
+    if space is not None:
+        print_(f"spatial sharding: {space.world} ranks, each {opt.crop_size // space.world} rows "
+               f"of the crop; batch {opt.batchSize} on every rank")
+    elif replica.world > 1:
         print_(f"data parallel: {replica.world} replicas, global batch {opt.batchSize}, "
                f"{opt.batchSize // replica.world} a replica")
     device = replica.device
@@ -158,23 +177,23 @@ def train(opt, replica) -> None:
     if main_rank:
         opt.save(os.path.join(opt.checkpoints_dir, opt.name, "opt.json"))
 
-    shard = (replica.rank, replica.world)
+    shard = (0, 1) if space is not None else (replica.rank, replica.world)
     loader = BatchLoader(CustomDataset(opt), opt, shard)
     if len(loader) == 0:
         raise ValueError(f"the dataset at {opt.data_dir} yields no full batch of {opt.batchSize}")
     # --unpairTrain: every epoch runs the unpaired stage over its own loader
     # first, then the paired stage (reference train.py:42-90)
     loader2 = BatchLoader(CustomDataset(opt, 2), opt, shard) if opt.unpairTrain else None
-    model = MichiGANModel(opt, device, replica.group)
+    model = MichiGANModel(opt, device, None if space is not None else replica.group)
     model.init_weights(opt.seed)
     if opt.unpairTrain and opt.same_netD_model:
         init_netd2_from_netd(model)
     load_released_ig(model, opt, print_)
-    trainer = TrainStep(model)
+    trainer = TrainStep(model, space)
     iter_counter = IterationCounter(opt, len(loader) * opt.batchSize, main=main_rank)
     if opt.continue_train and CK.load_checkpoint(opt, opt.which_epoch, trainer):
         print_(f"resumed checkpoint '{opt.which_epoch}'")
-    check_replicas(model)
+    check_replicas(model, trainer.ranks_group)
     visualizer = Visualizer(opt) if main_rank else None
     host_rng = random.Random(opt.seed)
 
@@ -196,11 +215,12 @@ def train(opt, replica) -> None:
                 stop = True
                 break
             iter_counter.record_one_iteration()
-            batch = batch_from_numpy(data, device)
+            batch = batch_from_numpy(data, device) if space is None else \
+                spatial.shard_batch(batch_from_numpy(data, "cpu"), space)
             # the random mask dilation width (encoder.py:294): 0..4 extra 3x3 steps
             extra = host_rng.randint(0, 4)
             # one draw of the VAE's noise a step, for its G step and D step
-            eps = trainer.new_eps(opt.batchSize // replica.world)
+            eps = trainer.new_eps(opt.batchSize // (1 if space is not None else replica.world))
             g_losses, d_losses, orient, fake = {}, {}, None, None
             # the step at 3 * batchSize samples, past the first steps' warm-up
             profiling = bool(opt.profile_dir) and main_rank and \

@@ -5,8 +5,9 @@ the configuration, G and D, and E (--use_vae), B (--use_blender), D2
 ``<label>_optim.pth`` (every optimizer's state and the step count).  The
 port's inference CLI loads ``<which_epoch>_net_G.pth`` (and ``_net_E``,
 ``_net_B``) as it loads a released generator.  Under data parallelism
-(the trainer's group) rank 0 alone writes, and every rank waits at a
-barrier until it has; every rank reads."""
+or spatial sharding (the trainer's ``ranks_group``) rank 0 alone writes,
+in the format of one process, and every rank waits at a barrier until it
+has; every rank reads."""
 
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ def _nets(trainer):
 
 
 def save_checkpoint(opt, label, trainer) -> None:
-    group = trainer.group
+    group = trainer.ranks_group
     if group is None or group.rank() == 0:
         os.makedirs(os.path.join(opt.checkpoints_dir, opt.name), exist_ok=True)
         for x, net in _nets(trainer).items():

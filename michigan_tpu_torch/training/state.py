@@ -76,13 +76,15 @@ def init_netd2_from_netd(model) -> None:
         dst.copy_(src)
 
 
-def check_replicas(model) -> None:
-    """Data parallelism: raise on every rank unless every net's parameters
-    and buffers equal rank 0's bit for bit (one broadcast from rank 0).  The
-    replicas start equal because every rank seeds its weights with --seed on
-    the CPU; equal collectives and Adam steps keep them so, running
-    statistics and spectral u / v included."""
-    if model.group is not None:
+def check_replicas(model, group=None) -> None:
+    """Data parallelism (or the ranks of a spatial `group`): raise on every
+    rank unless every net's parameters and buffers equal rank 0's bit for
+    bit (one broadcast from rank 0).  The replicas start equal because every
+    rank seeds its weights with --seed on the CPU; equal collectives and
+    Adam steps keep them so, running statistics and spectral u / v
+    included."""
+    group = model.group if group is None else group
+    if group is not None:
         check_replicas_identical(
             [t for net in model.nets().values() for t in (*net.parameters(), *net.buffers())],
-            model.group, "the nets' parameters and buffers")
+            group, "the nets' parameters and buffers")

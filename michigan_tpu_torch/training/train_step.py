@@ -22,6 +22,15 @@ in one flattened all-reduce a net (in bfloat16 under
 VAE's eps of a replica is its slice of one draw for the global batch, so
 the replicas together draw what one process does.  Overlapping the
 reduction with the backward (DDP's buckets) is not done.
+
+Spatial sharding (a ``Space``, parallel/spatial.py; --mesh_shape space:N):
+every rank takes its band of the crop's rows of the same batch
+(``spatial.shard_batch``) and runs the paired stage's G and D steps in row
+bands, each rank's objective its share of the one process's; after each
+backward every trained net's gradients are summed over the group (not
+averaged: the shares add up to the whole), and the losses returned are the
+group's sums of the shares.  The G step returns the whole fake (on every
+rank) and this band of the orientation, which the D step reuses.
 """
 
 from __future__ import annotations
@@ -30,21 +39,39 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
+from michigan_tpu_torch.parallel import spatial
 from michigan_tpu_torch.parallel.dist import average_gradients, mean_over
 from michigan_tpu_torch.training.state import g_net_names, make_optimizers
 
 
 class TrainStep:
     """Holds the model and its optimizers ('G', 'D', and 'D2' under
-    --unpairTrain); counts G steps."""
+    --unpairTrain); counts G steps.  With a `space` (a spatial.Space of two
+    or more ranks, the model on its device and without a data-parallel
+    group) the steps run in row bands over it."""
 
-    def __init__(self, model):
+    def __init__(self, model, space: Optional[spatial.Space] = None):
         self.model = model
         self.opt = model.opt
         self.group = model.group
+        self.space = space
+        self.bands = None
+        if space is not None:
+            if model.group is not None:
+                raise NotImplementedError(
+                    "the data x space grid (data parallelism over replicas that each train in "
+                    "row bands) is not ported yet; it is the next slice of spatial training")
+            spatial.check_spatial_train(model.opt, space.world)
+            self.bands = spatial.Bands(space)
         self.optimizers = make_optimizers(model.opt, model)
         self.step = 0
         self.eps: Optional[torch.Tensor] = None
+
+    @property
+    def ranks_group(self):
+        """The group whose rank 0 alone writes checkpoints and logs (the
+        data-parallel group or the spatial one; None with one process)."""
+        return self.space.group if self.space is not None else self.group
 
     def new_eps(self, n: int) -> Optional[torch.Tensor]:
         """A fresh draw of the VAE's eps for this replica's batch of `n`
@@ -61,8 +88,13 @@ class TrainStep:
     def _all_reduce(self, nets: Iterable[torch.nn.Module], losses: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
         """With a group: each net's gradients and the losses averaged over
-        it (the JAX package's _grad_pmean and pmean of the losses)."""
+        it (the JAX package's _grad_pmean and pmean of the losses); with a
+        Space, summed over its ranks."""
         losses = {k: v.detach() for k, v in losses.items()}
+        if self.space is not None:
+            for net in nets:
+                average_gradients(net.parameters(), self.space.group, mean=False)
+            return mean_over(losses, self.space.group, mean=False)
         if self.group is None:
             return losses
         for net in nets:
@@ -82,7 +114,12 @@ class TrainStep:
         for d in ds:
             d.requires_grad_(False)
         try:
-            total, losses, fake, orient = m.generator_loss(batch, extra_dilate_steps, self.eps)
+            if self.bands is not None:
+                total, losses, fake, orient = self.bands.generator_loss(m, batch,
+                                                                        extra_dilate_steps)
+            else:
+                total, losses, fake, orient = m.generator_loss(batch, extra_dilate_steps,
+                                                               self.eps)
         finally:
             for d in ds:
                 d.requires_grad_(True)
@@ -113,8 +150,12 @@ class TrainStep:
             self.eps = eps
         elif self.opt.use_vae and self.eps is None:
             self.new_eps(batch["image_ref"].shape[0])
-        total, losses = self.model.discriminator_loss(batch, extra_dilate_steps, orient,
-                                                      self.eps, fake_image=fake)
+        if self.bands is not None:
+            total, losses = self.bands.discriminator_loss(self.model, batch, extra_dilate_steps,
+                                                          orient)
+        else:
+            total, losses = self.model.discriminator_loss(batch, extra_dilate_steps, orient,
+                                                          self.eps, fake_image=fake)
         stage2 = self.model.stage() == 2
         optim = self.optimizers["D2" if stage2 else "D"]
         optim.zero_grad(set_to_none=True)
