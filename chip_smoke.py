@@ -368,13 +368,17 @@ Phases, each on its own line:
       on its band of the same batch (spatial.shard_batch) from the same
       weights: the counts set to 0 just before the compared G step and
       read just after its D step, exactly STEP_LAUNCHES a rank; the D step
-      from one process's post-G netG; per-term losses within
-      SPACE_LOSS_RTOL of one process's (ORIENT SPACE_ORIENT_RTOL), netG
-      after the G step and netD after the D step by phase 12's rule, netG's
-      buffers within rtol 1e-4; every rank's nets and losses equal rank
-      0's bit for bit; two controls from the same weights, zeros in place
-      of the neighbours' halo rows and each band's own batch-norm
-      statistics, whose G steps must fail the same gate; ms/step (median
+      from one process's post-G netG; the compared steps (one process's,
+      the ranks' and the controls') under
+      torch.use_deterministic_algorithms(True), as in phase 16; the
+      ranks' loss terms the same as one process's, each within
+      SPACE_LOSS_RTOL of it (ORIENT SPACE_ORIENT_RTOL), its relative
+      difference printed; netG after the G step and netD after the D step
+      by phase 12's rule, netG's buffers within rtol 1e-4; every rank's
+      nets and losses equal rank 0's bit for bit; two controls from the
+      same weights, zeros in place of the neighbours' halo rows and each
+      band's own batch-norm statistics, whose G steps must fail the same
+      gate; ms/step (median
       of SPACE_TRAIN_STEPS, host clock) and peak memory a rank beside one
       process's; one more step a rank with its collectives clocked between
       synchronizes.  With two or more cards, the same ranks over NCCL, one
@@ -618,8 +622,9 @@ SPACE_JOIN_S = 600
 # MOST_TRAIN, batch 1, fp32, every default loss), against one process's step
 # on the same card from the same weights, batch and EXTRA_DILATE: the
 # losses within SPACE_LOSS_RTOL (ORIENT SPACE_ORIENT_RTOL, the JAX package's
-# own limit for reordered argmax near-ties), the nets by phase 12's rule;
-# SPACE_TRAIN_STEPS timed steps after the compared one
+# own limit for reordered argmax near-ties), the nets by phase 12's rule,
+# the compared steps under deterministic algorithms; SPACE_TRAIN_STEPS
+# timed steps (default algorithms) after the compared one
 SPACE_LOSS_RTOL = 1e-3
 SPACE_ORIENT_RTOL = 2e-2
 SPACE_TRAIN_STEPS = 2
@@ -4576,17 +4581,29 @@ def space_train_opts(train_options):
 
 def space_gate(got, want, o):
     """Phase 24's gate of one run ({'losses', 'params': {net: {name:
-    tensor}}, 'buffers'}) against one process's: each loss that `got` has
-    within SPACE_LOSS_RTOL (ORIENT SPACE_ORIENT_RTOL) plus 1e-5; netG and
-    netD, where `got` has them, by phase 12's scale-aware rule; netG's
-    buffers, where given, within rtol 1e-4, atol 1e-5.  Returns (ok,
-    printable)."""
+    tensor}}, 'buffers'}) against one process's: the same loss terms as one
+    process's G step (and D step, where `got` has netD), each within
+    SPACE_LOSS_RTOL (ORIENT SPACE_ORIENT_RTOL) plus 1e-5; netG and netD,
+    where `got` has them, by phase 12's scale-aware rule; netG's buffers,
+    where given, within rtol 1e-4, atol 1e-5.  Returns (ok, printable: the
+    relative difference of every term)."""
     import torch
 
-    bad = [k for k, v in want["losses"].items() if k in got["losses"] and not abs(
-        got["losses"][k] - v) <= (SPACE_ORIENT_RTOL if k == "ORIENT" else SPACE_LOSS_RTOL)
-        * abs(v) + 1e-5]
-    ok, rows = not bad, [f"losses beyond the limit {bad}"]
+    keys = [k for k in want["losses"] if "netD" in got["params"] or not k.startswith("D_")]
+    ok = sorted(got["losses"]) == sorted(keys)
+    rows = [] if ok else [f"loss terms {sorted(got['losses'])} where one process has {keys}"]
+    rel, bad = {}, []
+    for k in keys:
+        if k not in got["losses"]:
+            continue
+        v, g = want["losses"][k], got["losses"][k]
+        rel[k] = abs(g - v) / max(abs(v), 1e-30)
+        if not abs(g - v) <= (SPACE_ORIENT_RTOL if k == "ORIENT" else SPACE_LOSS_RTOL) \
+                * abs(v) + 1e-5:
+            bad.append(k)
+    ok &= not bad
+    rows.append("relative differences " + ", ".join(f"{k} {r:.2e}" for k, r in rel.items())
+                + f"; beyond the limit {bad}")
     for net, lr in (("netG", o.lr / 2), ("netD", 2 * o.lr)):
         if net in got["params"]:
             n_ok, worst, n_bad, n_tot = scale_aware(got["params"][net], want["params"][net], lr)
@@ -4667,8 +4684,9 @@ def space_train_rank(tmp, backend):
     of the launched ranks, on cuda:0 for gloo or cuda:<rank> for NCCL;
     TrainStep in row bands of the 1024^2 `most` step at SEED's weights on
     synthetic_train_data's batch (shard_batch): the counted G step, then
-    the D step from one process's post-G netG (<tmp>/post_g.pt), held by
-    phase 24's gate against one process's (<tmp>/one.pt); whether every
+    the D step from one process's post-G netG (<tmp>/post_g.pt), under
+    deterministic algorithms, held by phase 24's gate against one
+    process's (<tmp>/one.pt); whether every
     rank's nets equal rank 0's; the zero-halo and local-statistics
     controls' G steps from the same weights, by the same gate; then
     SPACE_TRAIN_STEPS timed steps and one with its collectives clocked.
@@ -4708,7 +4726,8 @@ def space_train_rank(tmp, backend):
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
         kernels.reset_launch_counts()
-        step = space_train_step(torch, TrainStep(model, space), band, post_g)
+        with deterministic_algorithms(torch):
+            step = space_train_step(torch, TrainStep(model, space), band, post_g)
         res["counts"] = kernels.launch_counts()
         res["peak"] = torch.cuda.max_memory_allocated(device)
         res["losses"] = step["losses"]
@@ -4729,7 +4748,8 @@ def space_train_rank(tmp, backend):
             else:
                 spatial.batch_norm_train = lambda x, m, v, eps, group: saved_bn(x, m, v, eps=eps)
             try:
-                ctl = space_train_step(torch, TrainStep(model, space), band, g_only=True)
+                with deterministic_algorithms(torch):
+                    ctl = space_train_step(torch, TrainStep(model, space), band, g_only=True)
             finally:
                 spatial.Bands.neighbour_rows, spatial.batch_norm_train = saved_rows, saved_bn
             del ctl["buffers"]
@@ -4852,7 +4872,8 @@ def spatial_train_phase(torch, np, tag):
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        one = space_train_step(torch, tr, batch, save_post_g=f"{tmp}/post_g.pt")
+        with deterministic_algorithms(torch):
+            one = space_train_step(torch, tr, batch, save_post_g=f"{tmp}/post_g.pt")
         one_peak = torch.cuda.max_memory_allocated() - held
         torch.save(one, f"{tmp}/one.pt")
         one_ms = []

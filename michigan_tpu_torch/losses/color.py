@@ -2,7 +2,8 @@
 loss.py:388-531): the Lab ab-channel L1, optionally balanced by the data's
 ab histogram (--balance_Lab, data_assets/ab_count.npy), and the background
 L1; the hair-average Lab L1 of the unpaired stage (--unpairTrain) and the
-VAE's KLD (--use_vae)."""
+VAE's KLD (--use_vae).  The per-pixel means go through `red`
+(losses/reduce.py: the whole plane, or a band's share of it)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from michigan_tpu_torch.losses.reduce import WHOLE
 from michigan_tpu_torch.ops.color import rgb_to_lab
 from michigan_tpu_torch.ops.stats import hair_avg
 
@@ -32,7 +34,7 @@ def _balance_weight_map(real_lab: torch.Tensor, ab_count: torch.Tensor, opt) -> 
 
 
 def lab_color_loss(fake: torch.Tensor, real: torch.Tensor, opt, mask: torch.Tensor = None,
-                   ab_count: torch.Tensor = None) -> torch.Tensor:
+                   ab_count: torch.Tensor = None, red=WHOLE) -> torch.Tensor:
     """Mean |ab(fake) - ab(real)| of (N,3,H,W) images in [-1,1]; with
     --balance_Lab and `ab_count`, weighted by the balance map inside `mask`
     (weight 1 outside)."""
@@ -42,15 +44,15 @@ def lab_color_loss(fake: torch.Tensor, real: torch.Tensor, opt, mask: torch.Tens
     if opt.balance_Lab and ab_count is not None:
         wm = _balance_weight_map(real_lab, ab_count, opt) * mask
         wm = torch.where(wm == 0, torch.ones_like(wm), wm)
-        return (wm * diff).mean()
-    return diff.mean()
+        return red.mean(wm * diff)
+    return red.mean(diff)
 
 
 def rgb_background_l1_loss(fake: torch.Tensor, input_tag: torch.Tensor,
-                           image_tag: torch.Tensor) -> torch.Tensor:
+                           image_tag: torch.Tensor, red=WHOLE) -> torch.Tensor:
     """L1 outside the hair; channel 0 of the one-hot is the background."""
     bg = input_tag[:, 0:1]
-    return (fake * bg - (image_tag * bg).detach()).abs().mean()
+    return red.mean((fake * bg - (image_tag * bg).detach()).abs())
 
 
 def hair_avg_lab_loss(fake: torch.Tensor, real: torch.Tensor, mask_fake: torch.Tensor,

@@ -71,6 +71,12 @@ Under --netD n_layer netD is one NLayerDiscriminator, whose output is one
 list of features rather than a list of lists; ``discriminate`` splits it
 as the JAX package's does (see there), and the losses read the pieces as
 the JAX package's losses do.
+
+The G and D losses take `bands` (parallel/spatial.py ``Bands``; the paired
+stage in row bands over the ranks of one spatial group): then the batch is
+this rank's band of rows, netG and the orientation run in bands, netD runs
+whole on every rank on the gathered planes, and each term is this rank's
+share of the one process's, through the reductions of losses/reduce.py.
 """
 
 from __future__ import annotations
@@ -90,6 +96,7 @@ from michigan_tpu_torch.losses.perceptual import (
     style_content_loss_from_features,
     vgg_loss_from_features,
 )
+from michigan_tpu_torch.losses.reduce import WHOLE
 from michigan_tpu_torch.models.blend import Blend2Generator
 from michigan_tpu_torch.models.discriminator import define_D
 from michigan_tpu_torch.models.encoders import ConvEncoder
@@ -365,32 +372,48 @@ class MichiGANModel:
         return self.inpaint_orient(pre["hole"], pre["orient_rgb"], pre["noise"],
                                    pre["input_tag"][:, 1:2])[1]
 
+    def _d_planes(self, pre, out, orient, bands=None):
+        """netD's (input_tag, fake, real, orient): whole planes, gathered on
+        every rank in bands (one gather; the fake's gradient returns to its
+        band)."""
+        planes = (pre["input_tag"], out, pre["image_tag"], orient)
+        return planes if bands is None else bands.gather_planes(planes)
+
     def generator_loss(self, batch, extra_dilate_steps: int = 2,
-                       eps: Optional[torch.Tensor] = None, curr_step: Optional[int] = None):
+                       eps: Optional[torch.Tensor] = None, curr_step: Optional[int] = None,
+                       bands=None):
         """(total, per-term losses by name, fake, orient) in the training
         stage (``stage``).  netG's forward writes its buffers; gradients
         reach netG, netE and netB (and the stage's D's parameters, unless
         the caller switched them off).  The losses judge the blend under
-        --use_blender; `fake` is netG's image before it."""
+        --use_blender; `fake` is netG's image before it.  With `bands`:
+        this rank's share of each term, the whole fake (on every rank) and
+        this band of the orientation."""
         opt = self.opt
         stage = self.stage(curr_step)
+        red = WHOLE if bands is None else bands
         pre = self.preprocess(batch)
         losses: Dict[str, torch.Tensor] = {}
-        orient = self.orient_for_training(pre)
-        fake, kld, blend = self.generate_fake(pre, orient, extra_dilate_steps, eps)
+        if bands is None:
+            orient = self.orient_for_training(pre)
+            fake, kld, blend = self.generate_fake(pre, orient, extra_dilate_steps, eps)
+        else:
+            orient = bands.orient_for_training(self, pre)
+            fake, kld, blend = bands.generate(self, pre, orient, extra_dilate_steps), None, None
         if opt.use_vae:
             losses["KLD"] = kld
         out = blend if opt.use_blender else fake
-        pred_fake, pred_real = self.discriminate(pre["input_tag"], out, pre["image_tag"],
-                                                 orient, stage)
+        planes = self._d_planes(pre, out, orient, bands)
+        pred_fake, pred_real = self.discriminate(*planes, stage)
         label_tag = pre["input_tag"][:, 1:2]
         label_ref = pre["input_ref"][:, 1:2]
+        label_d = planes[0][:, 1:2]  # the hair at netD's (whole) planes
         if not opt.no_gan_loss:
-            losses["GAN"] = multiscale_gan_loss(pred_fake, True, False, opt, label_tag)
+            losses["GAN"] = red.whole(multiscale_gan_loss(pred_fake, True, False, opt, label_d))
         if stage == 1:
-            losses.update(self._paired_losses(pre, out, pred_fake, pred_real))
+            losses.update(self._paired_losses(pre, out, pred_fake, pred_real, red, label_d))
         if not opt.no_orient_loss:
-            o_l1, conf = orient_loss(out, orient, pre["input_tag"], opt)
+            o_l1, conf = orient_loss(out, orient, pre["input_tag"], opt, red)
             losses["ORIENT"] = o_l1 * opt.lambda_orient
             if not opt.no_confidence_loss:
                 losses["CONFIDENCE"] = conf * opt.lambda_confidence
@@ -407,18 +430,22 @@ class MichiGANModel:
             losses["hairAvgLab"] = lab * opt.lambda_hairavglab
             losses["background"] = color_losses.rgb_background_l1_loss(
                 out, pre["input_tag"], pre["image_tag"]) * opt.lambda_background
-        return sum(losses.values()), losses, fake, orient
+        return sum(losses.values()), losses, fake if bands is None else planes[1], orient
 
-    def _paired_losses(self, pre, out, pred_fake, pred_real) -> Dict[str, torch.Tensor]:
+    def _paired_losses(self, pre, out, pred_fake, pred_real, red=WHOLE, label_d=None
+                       ) -> Dict[str, torch.Tensor]:
         """The paired stage's terms on the output image `out`, in the JAX
-        package's order: GAN_Feat, VGG, content, style, background, rgb, lab."""
+        package's order: GAN_Feat, VGG, content, style, background, rgb, lab;
+        each reduced by `red` (losses/reduce.py).  `label_d`: the hair at
+        netD's planes (default the tag's)."""
         opt = self.opt
         losses: Dict[str, torch.Tensor] = {}
         label_tag = pre["input_tag"][:, 1:2]
         label_ref = pre["input_ref"][:, 1:2]
+        label_d = label_tag if label_d is None else label_d
         # the paired-data gate (pix2pix_model.py:286-291) as a factor, not a
         # branch: no host sync
-        ref_is_tag = ((label_tag - label_ref).abs().sum() == 0).float()
+        ref_is_tag = (red.total((label_tag - label_ref).abs()) == 0).float()
         # one VGG forward per distinct image, in the compute dtype: the
         # output's with a gradient (under --remat recomputed in the backward,
         # as the JAX package's jax.checkpoint of the tower), the tag's and
@@ -427,57 +454,64 @@ class MichiGANModel:
         if opt.remat and torch.is_grad_enabled():
             f_fake = checkpointed(self.vgg, self.vgg, out.to(cdt))
         else:
-            f_fake = self.vgg(out.to(cdt))
+            f_fake = red.vgg(self.vgg, out.to(cdt))
         with torch.no_grad():
-            f_tr = self.vgg(torch.cat([pre["image_tag"], pre["image_ref"]], dim=0).to(cdt))
+            f_tr = red.vgg(self.vgg,
+                           torch.cat([pre["image_tag"], pre["image_ref"]], dim=0).to(cdt))
         n = out.shape[0]
         f_tag, f_ref = [t[:n] for t in f_tr], [t[n:] for t in f_tr]
         if not opt.no_ganFeat_loss:
-            losses["GAN_Feat"] = ref_is_tag * gan_feat_loss(pred_fake, pred_real, opt, label_tag)
+            losses["GAN_Feat"] = ref_is_tag * red.whole(
+                gan_feat_loss(pred_fake, pred_real, opt, label_d))
         if not opt.no_vgg_loss:
-            losses["VGG"] = ref_is_tag * (vgg_loss_from_features(f_fake, f_tag, opt, label_tag)
-                                          * opt.lambda_vgg)
+            losses["VGG"] = ref_is_tag * (vgg_loss_from_features(f_fake, f_tag, opt, label_tag,
+                                                                 red) * opt.lambda_vgg)
         loss_c, loss_s = style_content_loss_from_features(f_fake, f_ref, f_tag, opt, label_ref,
-                                                          label_tag)
+                                                          label_tag, red)
         if not opt.no_content_loss:
             losses["content"] = loss_c * opt.lambda_content
         if not opt.no_style_loss:
             losses["style"] = loss_s * opt.lambda_style
         if not opt.no_background_loss:
             losses["background"] = ref_is_tag * (color_losses.rgb_background_l1_loss(
-                out, pre["input_tag"], pre["image_tag"]) * opt.lambda_background)
+                out, pre["input_tag"], pre["image_tag"], red) * opt.lambda_background)
         if not opt.no_rgb_loss:
-            losses["rgb"] = ref_is_tag * ((out - pre["image_tag"]).abs().mean()
+            losses["rgb"] = ref_is_tag * (red.mean((out - pre["image_tag"]).abs())
                                           * opt.lambda_rgb)
         if not opt.no_lab_loss:
             losses["lab"] = ref_is_tag * (color_losses.lab_color_loss(
-                out, pre["image_tag"], opt, label_tag, self.ab_count) * opt.lambda_lab)
+                out, pre["image_tag"], opt, label_tag, self.ab_count, red) * opt.lambda_lab)
         return losses
 
     def discriminator_loss(self, batch, extra_dilate_steps: int = 2,
                            orient: Optional[torch.Tensor] = None,
                            eps: Optional[torch.Tensor] = None, curr_step: Optional[int] = None,
-                           fake_image: Optional[torch.Tensor] = None):
+                           fake_image: Optional[torch.Tensor] = None, bands=None):
         """(total, {'D_Fake', 'D_real'}) of the stage's D on `fake_image`
         (--reuse_fake_for_d: the G step's fake), or else on the fake (the
         blend under --use_blender) recomputed with the current netG, netE
         and netB (train-mode statistics, nothing written, no gradient) and
         the VAE's `eps`; with the G step's orientation when given (the IG is
-        frozen, so it is the same)."""
+        frozen, so it is the same).  With `bands`: the fake recomputed in
+        bands, netD on the gathered planes, each term this rank's share."""
         opt = self.opt
+        red = WHOLE if bands is None else bands
         pre = self.preprocess(batch)
         if orient is None:
-            orient = self.orient_for_training(pre)
+            orient = self.orient_for_training(pre) if bands is None else \
+                bands.orient_for_training(self, pre)
         if fake_image is None:
             with torch.no_grad(), frozen_buffers(self.netG):
-                fake, _, blend = self.generate_fake(pre, orient, extra_dilate_steps, eps)
+                if bands is None:
+                    fake, _, blend = self.generate_fake(pre, orient, extra_dilate_steps, eps)
+                else:
+                    fake, blend = bands.generate(self, pre, orient, extra_dilate_steps), None
             fake_image = blend if opt.use_blender else fake
-        pred_fake, pred_real = self.discriminate(
-            pre["input_tag"], fake_image.detach(), pre["image_tag"], orient.detach(),
-            self.stage(curr_step))
-        label_tag = pre["input_tag"][:, 1:2]
-        d_fake = multiscale_gan_loss(pred_fake, False, True, opt, label_tag)
-        d_real = multiscale_gan_loss(pred_real, True, True, opt, label_tag)
+        planes = self._d_planes(pre, fake_image.detach(), orient.detach(), bands)
+        pred_fake, pred_real = self.discriminate(*planes, self.stage(curr_step))
+        label_d = planes[0][:, 1:2]
+        d_fake = red.whole(multiscale_gan_loss(pred_fake, False, True, opt, label_d))
+        d_real = red.whole(multiscale_gan_loss(pred_real, True, True, opt, label_d))
         return d_fake + d_real, {"D_Fake": d_fake, "D_real": d_real}
 
     @torch.no_grad()

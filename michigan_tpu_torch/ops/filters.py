@@ -111,15 +111,19 @@ def dense_orientation(gray: torch.Tensor, mode: str = "dog"):
 
 
 def cal_orientation_two_channel(image_pm1: torch.Tensor, mode: str = "gabor",
-                                hair_mask: torch.Tensor = None, bf16_operands: bool = False):
+                                hair_mask: torch.Tensor = None, bf16_operands: bool = False,
+                                response=OrientationResponse.apply):
     """loss.py:293-343: ((sin 2t, cos 2t) * confidence (N,H,W,2), confidence
     (N,H,W,1)) of an NHWC [-1,1] image.  Gabor squashes the max response
     with (tanh + 1) / 2; DoG masks it by `hair_mask` (N,H,W,1) and divides
     by its maximum over the batch.  The gradient reaches the image through
     the max response only, as in torch.  `bf16_operands`: the bank's
-    bf16-operand forward (the JAX package's fwd_bf16)."""
+    bf16-operand forward (the JAX package's fwd_bf16).  `response(gray,
+    bank, bf16_operands)` gives (argmax, max response): the bank on the
+    plane (``OrientationResponse``), or on a band with its halo rows
+    (parallel/spatial.py ``Bands.orientation_response``)."""
     gray = rgb_to_gray255(image_pm1).permute(0, 3, 1, 2).contiguous()
-    idx, raw_conf = OrientationResponse.apply(gray, bank(mode, gray.device), bf16_operands)
+    idx, raw_conf = response(gray, bank(mode, gray.device), bf16_operands)
     theta = idx.float() * (math.pi / NUM_KERNELS)
     if mode == "gabor":
         conf = (torch.tanh(raw_conf) + 1.0) / 2.0

@@ -161,32 +161,27 @@ def check_gpus(ids: Sequence[int]) -> None:
                            f"this host has {have}")
 
 
-def _sum(x: torch.Tensor, group: dist.ProcessGroup, staged: bool) -> torch.Tensor:
-    # a new tensor: the sum, on x's device; through a host copy when `staged`
-    y = x.detach().to("cpu", copy=True) if staged else x.detach().clone()
-    dist.all_reduce(y, group=group)
-    return y.to(x.device)
-
-
 class _AllReduceSum(torch.autograd.Function):
     """Sum over the group; its backward sums the cotangents over the group
-    (the transpose of psum).  `staged`: both through host copies (a gloo
-    group holding CUDA tensors, parallel/spatial.py)."""
+    (the transpose of psum)."""
 
     @staticmethod
-    def forward(ctx, x, group, staged=False):
-        ctx.group, ctx.staged = group, staged
-        return _sum(x, group, staged)
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        return _sum(g.contiguous(), ctx.group, ctx.staged), None, None
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
-def all_reduce_sum(x: torch.Tensor, group: dist.ProcessGroup, staged: bool = False
-                   ) -> torch.Tensor:
+def all_reduce_sum(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
     """x summed over `group`, differentiably (lax.psum)."""
-    return _AllReduceSum.apply(x, group, staged)
+    return _AllReduceSum.apply(x, group)
 
 
 def average_gradients(params: Iterable[torch.Tensor], group: dist.ProcessGroup,

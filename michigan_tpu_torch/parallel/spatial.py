@@ -74,16 +74,21 @@ One rule for the gradients: the sum over the ranks of each rank's objective
 is the one process's objective.  A term over pixels enters with its band's
 share of the global mean (the band's sum over the global count); a term
 computed whole on every rank (the GAN and GAN-feature terms, D's hinge, the
-style term's per-channel statistics) enters with weight 1/P.  So every
-parameter gradient is a sum over the group (``TrainStep``), and the losses
-reported are the group's sums of the shares.  The replicas stay bit for bit
-equal: the same summed gradients, the same Adam step, the same all-reduced
-statistics.
+style term's per-channel statistics) enters with weight 1/P.  The losses
+are MichiGANModel's and losses/*.py's own, handed this module's ``Bands``
+as their reductions (losses/reduce.py: ``mean``, ``total``, ``whole``,
+``mean_std``) and band forms (``vgg``, ``orientation_response``, the IG,
+netG, the gather of netD's planes).  So every parameter gradient is a sum
+over the group (``TrainStep``), and the losses reported are the group's
+sums of the shares.  The replicas stay bit for bit equal: the same summed
+gradients, the same Adam step, the same all-reduced statistics.
 
 Transport.  NCCL groups move device tensors (batch_isend_irecv,
-all_gather, gather, all_reduce); gloo groups (the CPU, or several ranks on
-one card) move host tensors: a CUDA tensor is copied to the host, sent,
-and the received rows copied back, and 2-byte floats travel as bytes.
+all_gather, gather, all_reduce).  In gloo groups (the CPU, or several
+ranks on one card) the halo rows and the gathers travel as host tensors:
+a CUDA tensor is copied to the host, sent, and the received rows copied
+back, and 2-byte floats travel as bytes; an all-reduce takes the device
+tensor, as the sync batch norms' does (ops/norms.py).
 
 Inference runs the flagship's flags (--netG spadeb --use_encoder
 --noise_background --use_ig --expand_mask_be --add_feat_zeros) at
@@ -98,7 +103,6 @@ and the other options it names, which are the next slices.
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -107,23 +111,18 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from michigan_tpu_torch.losses.feat import gan_feat_loss
-from michigan_tpu_torch.losses.gan import multiscale_gan_loss
-from michigan_tpu_torch.losses.perceptual import VGG_WEIGHTS
 from michigan_tpu_torch.models.layers import (
     SpectralConv2d,
     cast_params,
     conv,
     cudnn_off,
-    frozen_buffers,
 )
 from michigan_tpu_torch.models.normalization import parse_spade_config
 from michigan_tpu_torch.models.vgg import LOWCH_CONV, PLAN as VGG_PLAN
-from michigan_tpu_torch.ops.color import rgb_to_lab
 from michigan_tpu_torch.ops.cuda.lowch import conv3x3_same_lowch
 from michigan_tpu_torch.ops.cuda.orient import OrientationResponse
 from michigan_tpu_torch.ops.cuda.spade import spade_modulate
-from michigan_tpu_torch.ops.filters import KERNEL_SIZE, NUM_KERNELS, bank, rgb_to_gray255
+from michigan_tpu_torch.ops.filters import KERNEL_SIZE
 from michigan_tpu_torch.ops.masks import one_hot_label
 from michigan_tpu_torch.ops.norms import batch_norm_train, instance_norm
 from michigan_tpu_torch.ops.resize import (
@@ -156,8 +155,8 @@ class Space:
     device: torch.device
 
     def staged(self) -> bool:
-        """Whether collectives go through host tensors (gloo holding CUDA
-        tensors)."""
+        """Whether the halo rows and the gathers go through host tensors
+        (gloo holding CUDA tensors)."""
         return self.group is not None and self.device.type == "cuda" and \
             dist.get_backend(self.group) == "gloo"
 
@@ -557,16 +556,16 @@ class Bands:
         """The sum of `t` over the ranks, a new tensor (no autograd)."""
         if self.P == 1:
             return t
-        u = t.detach().cpu() if self.space.staged() else t.detach().clone()
+        u = t.detach().clone()
         dist.all_reduce(u, group=self.space.group)
-        return u.to(t.device)
+        return u
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of `t` (float32) over the ranks; differentiable (its
         backward sums the cotangents over the ranks)."""
         if self.P == 1:
             return t
-        return all_reduce_sum(t, self.space.group, self.space.staged())
+        return all_reduce_sum(t, self.space.group)
 
     def _gather(self, x: torch.Tensor) -> torch.Tensor:
         t = self._out(x)
@@ -897,15 +896,67 @@ class Bands:
         return fake, orient_rgb[:, :, r0:r0 + crop]
 
     # -- training ---------------------------------------------------------
+    # The reductions of losses/reduce.py on a band, which MichiGANModel's G
+    # and D losses take as `red`, and the band forms of the IG, netG and
+    # netD's input that they call.
 
-    def mean_share(self, t: torch.Tensor) -> torch.Tensor:
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
         """This band's share of the whole plane's t.mean(): its sum over the
         global count."""
         return t.sum() / (t.numel() * self.P)
 
     def total(self, t: torch.Tensor) -> torch.Tensor:
-        """t (a no-grad sum over this band) summed over the ranks."""
-        return self._all_reduce(t.detach())
+        """t.sum() over the whole plane, on every rank (no gradient)."""
+        return self._all_reduce(t.detach().sum())
+
+    def whole(self, t: torch.Tensor) -> torch.Tensor:
+        """A term computed whole, alike on every rank: its share, 1/P."""
+        return t / self.P
+
+    def mean_std(self, feats: List[torch.Tensor]):
+        """losses.reduce.mean_std of each of `feats` over the whole plane
+        (per (n, c): the mean and sqrt(unbiased var + eps)), from two
+        all-reduces for all of them: the sums, then the centred sums of
+        squares."""
+        eps = 1e-5
+        fs = [f.float().flatten(2) for f in feats]
+        widths = [f.shape[1] for f in fs]
+        counts = [f.shape[2] * self.P for f in fs]
+        sums = self.all_reduce(torch.cat([f.sum(2) for f in fs], dim=1)).split(widths, dim=1)
+        means = [s / n for s, n in zip(sums, counts)]
+        sq = self.all_reduce(torch.cat([((f - m[..., None]) ** 2).sum(2)
+                                        for f, m in zip(fs, means)], dim=1)).split(widths, dim=1)
+        return [(m, torch.sqrt(v / (n - 1) + eps)) for m, v, n in zip(means, sq, counts)]
+
+    def vgg(self, vgg, x: torch.Tensor) -> List[torch.Tensor]:
+        """VGG19.forward on a band: [relu1_1, ..., relu5_1], each this band
+        of its plane.  Without autograd, features_2 is one
+        conv3x3_same_lowch launch on the band with a halo row each side,
+        whose two outer output rows are dropped."""
+        outs = []
+        for step in VGG_PLAN:
+            if step[0] == "conv":
+                c = vgg.features[str(step[1])]
+                if step[1] == LOWCH_CONV and not torch.is_grad_enabled():
+                    y = conv3x3_same_lowch(self.halo(x, 1, 1), c.weight)
+                    x = F.relu(y[:, :, 1:-1] + c.bias.view(1, -1, 1, 1))
+                else:
+                    x = F.relu(self.conv(c, x))
+            elif step[0] == "pool":
+                x = max_pool_same(x, 2, 2, 0)
+            else:
+                outs.append(x)
+        return outs
+
+    def orientation_response(self, gray: torch.Tensor, bank: torch.Tensor,
+                             bf16_operands: bool = False):
+        """``OrientationResponse`` of this band of the gray plane: the bank
+        runs on the band with BANK_HALO rows of the neighbours' each side
+        (zeros at the frame's edges, as the bank pads), and the outer rows
+        of its output are dropped."""
+        idx, raw = OrientationResponse.apply(self.halo(gray, BANK_HALO, BANK_HALO), bank,
+                                             bf16_operands)
+        return idx[:, BANK_HALO:-BANK_HALO], raw[:, BANK_HALO:-BANK_HALO]
 
     @torch.no_grad()
     def orient_for_training(self, model, pre) -> torch.Tensor:
@@ -939,154 +990,11 @@ class Bands:
         return self.generator(model.netG, *(gin[k].to(cdt) for k in GEN_KEYS),
                               extra_dilate_steps).float()
 
-    def whole_inputs(self, pre, orient):
-        """(input_tag, orientation, tag image), each whole on every rank: one
-        gather, for netD."""
-        parts = (pre["input_tag"], orient, pre["image_tag"])
-        whole = self.gather_rows(torch.cat([t.detach().float() for t in parts], dim=1))
-        return whole.split([t.shape[1] for t in parts], dim=1)
-
-    def vgg(self, vgg, x: torch.Tensor) -> List[torch.Tensor]:
-        """VGG19.forward on a band: [relu1_1, ..., relu5_1], each this band
-        of its plane.  Without autograd, features_2 is one
-        conv3x3_same_lowch launch on the band with a halo row each side,
-        whose two outer output rows are dropped."""
-        outs = []
-        for step in VGG_PLAN:
-            if step[0] == "conv":
-                c = vgg.features[str(step[1])]
-                if step[1] == LOWCH_CONV and not torch.is_grad_enabled():
-                    y = conv3x3_same_lowch(self.halo(x, 1, 1), c.weight)
-                    x = F.relu(y[:, :, 1:-1] + c.bias.view(1, -1, 1, 1))
-                else:
-                    x = F.relu(self.conv(c, x))
-            elif step[0] == "pool":
-                x = max_pool_same(x, 2, 2, 0)
-            else:
-                outs.append(x)
-        return outs
-
-    def mean_std(self, feats: List[torch.Tensor], eps: float = 1e-5):
-        """losses.perceptual._mean_std of each of `feats` over the whole
-        plane (per (n, c): the mean and sqrt(unbiased var + eps)), from two
-        all-reduces for all of them: the sums, then the centred sums of
-        squares."""
-        fs = [f.float().flatten(2) for f in feats]
-        widths = [f.shape[1] for f in fs]
-        counts = [f.shape[2] * self.P for f in fs]
-        sums = self.all_reduce(torch.cat([f.sum(2) for f in fs], dim=1)).split(widths, dim=1)
-        means = [s / n for s, n in zip(sums, counts)]
-        sq = self.all_reduce(torch.cat([((f - m[..., None]) ** 2).sum(2)
-                                        for f, m in zip(fs, means)], dim=1)).split(widths, dim=1)
-        return [(m, torch.sqrt(v / (n - 1) + eps)) for m, v, n in zip(means, sq, counts)]
-
-    def orient_loss(self, fake: torch.Tensor, orient: torch.Tensor, input_tag: torch.Tensor):
-        """losses.orient.orient_loss (Gabor bank, --use_ig) on this band:
-        (its share of the orientation L1, its share of the confidence
-        loss).  The bank runs on the band's gray plane with BANK_HALO rows
-        of the neighbours' each side (zeros at the frame's edges, as the
-        bank pads), and the outer rows of its output are dropped."""
-        hair = input_tag[:, 1:2].permute(0, 2, 3, 1)
-        gray = rgb_to_gray255(fake.permute(0, 2, 3, 1)).permute(0, 3, 1, 2).contiguous()
-        idx, raw = OrientationResponse.apply(self.halo(gray, BANK_HALO, BANK_HALO),
-                                             bank("gabor", gray.device), False)
-        idx, raw = idx[:, BANK_HALO:-BANK_HALO], raw[:, BANK_HALO:-BANK_HALO]
-        theta = idx.float() * (math.pi / NUM_KERNELS)
-        conf = (torch.tanh(raw) + 1.0) / 2.0
-        two = torch.stack([torch.sin(2.0 * theta), torch.cos(2.0 * theta)], dim=-1) * \
-            conf[..., None]
-        conf = conf[..., None]
-        target = orient.permute(0, 2, 3, 1)
-        l1 = self.mean_share((two * hair - (target * hair).detach()).abs())
-        conf_loss = -(torch.log(conf.clamp(0.001, 1.0)) * hair).sum() / self.total(hair.sum())
-        return l1, conf_loss
-
-    def paired_losses(self, model, pre, out, pred_fake, pred_real, label_tag_w):
-        """MichiGANModel._paired_losses on this band: each term's share."""
-        opt, P = model.opt, self.P
-        losses: Dict[str, torch.Tensor] = {}
-        label_tag, label_ref = pre["input_tag"][:, 1:2], pre["input_ref"][:, 1:2]
-        ref_is_tag = (self.total((label_tag - label_ref).abs().sum()) == 0).float()
-        f_fake = self.vgg(model.vgg, out)
-        with torch.no_grad():
-            f_tr = self.vgg(model.vgg, torch.cat([pre["image_tag"], pre["image_ref"]], dim=0))
-        n = out.shape[0]
-        f_tag, f_ref = [t[:n] for t in f_tr], [t[n:] for t in f_tr]
-        if not opt.no_ganFeat_loss:
-            losses["GAN_Feat"] = ref_is_tag * gan_feat_loss(pred_fake, pred_real, opt,
-                                                            label_tag_w) / P
-        if not opt.no_vgg_loss:
-            vgg_l = sum(w * self.mean_share((a.float() - b.detach().float()).abs())
-                        for w, a, b in zip(VGG_WEIGHTS, f_fake, f_tag))
-            losses["VGG"] = ref_is_tag * (vgg_l * opt.lambda_vgg)
-        loss_c = self.mean_share((f_fake[-1].float() - f_tag[-1].float()) ** 2)
-        stats = self.mean_std(list(f_ref) + list(f_fake))
-        k = len(f_ref)
-        loss_s = sum(((sm - fm) ** 2).mean() + ((ss - fs) ** 2).mean()
-                     for (sm, ss), (fm, fs) in zip(stats[:k], stats[k:])) / P
-        if not opt.no_content_loss:
-            losses["content"] = loss_c * opt.lambda_content
-        if not opt.no_style_loss:
-            losses["style"] = loss_s * opt.lambda_style
-        tag = pre["image_tag"]
-        if not opt.no_background_loss:
-            bg = pre["input_tag"][:, 0:1]
-            losses["background"] = ref_is_tag * (self.mean_share(
-                (out * bg - (tag * bg).detach()).abs()) * opt.lambda_background)
-        if not opt.no_rgb_loss:
-            losses["rgb"] = ref_is_tag * (self.mean_share((out - tag).abs()) * opt.lambda_rgb)
-        if not opt.no_lab_loss:
-            fake_lab = rgb_to_lab((out + 1.0) / 2.0)
-            real_lab = rgb_to_lab((tag + 1.0) / 2.0).detach()
-            losses["lab"] = ref_is_tag * (self.mean_share(
-                (fake_lab[:, 1:] - real_lab[:, 1:]).abs()) * opt.lambda_lab)
-        return losses
-
-    def generator_loss(self, model, batch, extra_dilate_steps: int = 2):
-        """MichiGANModel.generator_loss (the paired stage) on this rank's
-        band of the batch: (this rank's objective, its share of each term
-        by name, the whole fake (on every rank), this band of the
-        orientation).  netG's forward writes its buffers, the same on every
-        rank."""
-        opt = model.opt
-        pre = model.preprocess(batch)
-        orient = self.orient_for_training(model, pre)
-        fake = self.generate(model, pre, orient, extra_dilate_steps)
-        tag_w, orient_w, real_w = self.whole_inputs(pre, orient)
-        fake_w = self.gather_rows(fake)
-        pred_fake, pred_real = model.discriminate(tag_w, fake_w, real_w, orient_w)
-        label_tag_w = tag_w[:, 1:2]
-        losses: Dict[str, torch.Tensor] = {}
-        if not opt.no_gan_loss:
-            losses["GAN"] = multiscale_gan_loss(pred_fake, True, False, opt,
-                                                label_tag_w) / self.P
-        losses.update(self.paired_losses(model, pre, fake, pred_fake, pred_real, label_tag_w))
-        if not opt.no_orient_loss:
-            o_l1, conf = self.orient_loss(fake, orient, pre["input_tag"])
-            losses["ORIENT"] = o_l1 * opt.lambda_orient
-            if not opt.no_confidence_loss:
-                losses["CONFIDENCE"] = conf * opt.lambda_confidence
-        return sum(losses.values()), losses, fake_w, orient
-
-    def discriminator_loss(self, model, batch, extra_dilate_steps: int = 2,
-                           orient: Optional[torch.Tensor] = None):
-        """MichiGANModel.discriminator_loss on this rank's band: the fake
-        recomputed in bands with the current netG (train-mode statistics,
-        nothing written, no gradient), netD whole on every rank on the
-        gathered planes; (this rank's objective, {'D_Fake', 'D_real'}, each
-        1/P of the whole hinge)."""
-        opt = model.opt
-        pre = model.preprocess(batch)
-        if orient is None:
-            orient = self.orient_for_training(model, pre)
-        with torch.no_grad(), frozen_buffers(model.netG):
-            fake_w = self.gather_rows(self.generate(model, pre, orient, extra_dilate_steps))
-        tag_w, orient_w, real_w = self.whole_inputs(pre, orient)
-        pred_fake, pred_real = model.discriminate(tag_w, fake_w, real_w, orient_w)
-        label_tag_w = tag_w[:, 1:2]
-        d_fake = multiscale_gan_loss(pred_fake, False, True, opt, label_tag_w) / self.P
-        d_real = multiscale_gan_loss(pred_real, True, True, opt, label_tag_w) / self.P
-        return d_fake + d_real, {"D_Fake": d_fake, "D_real": d_real}
+    def gather_planes(self, planes):
+        """Each of `planes` (bands, float32) whole on every rank, by one
+        gather; differentiable."""
+        whole = self.gather_rows(torch.cat(planes, dim=1))
+        return whole.split([t.shape[1] for t in planes], dim=1)
 
 
 def make_spatial_infer(model, space: Space, to_all: bool = False):

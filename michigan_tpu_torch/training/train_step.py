@@ -114,12 +114,8 @@ class TrainStep:
         for d in ds:
             d.requires_grad_(False)
         try:
-            if self.bands is not None:
-                total, losses, fake, orient = self.bands.generator_loss(m, batch,
-                                                                        extra_dilate_steps)
-            else:
-                total, losses, fake, orient = m.generator_loss(batch, extra_dilate_steps,
-                                                               self.eps)
+            total, losses, fake, orient = m.generator_loss(batch, extra_dilate_steps, self.eps,
+                                                           bands=self.bands)
         finally:
             for d in ds:
                 d.requires_grad_(True)
@@ -150,12 +146,8 @@ class TrainStep:
             self.eps = eps
         elif self.opt.use_vae and self.eps is None:
             self.new_eps(batch["image_ref"].shape[0])
-        if self.bands is not None:
-            total, losses = self.bands.discriminator_loss(self.model, batch, extra_dilate_steps,
-                                                          orient)
-        else:
-            total, losses = self.model.discriminator_loss(batch, extra_dilate_steps, orient,
-                                                          self.eps, fake_image=fake)
+        total, losses = self.model.discriminator_loss(batch, extra_dilate_steps, orient,
+                                                      self.eps, fake_image=fake, bands=self.bands)
         stage2 = self.model.stage() == 2
         optim = self.optimizers["D2" if stage2 else "D"]
         optim.zero_grad(set_to_none=True)

@@ -166,8 +166,9 @@ def vgg_case(bands, gen):
 
 
 def orient_case(bands, gen):
-    """The band orientation loss (bank with its halo, its backward, the
-    halo's adjoint) against losses.orient.orient_loss on an image dark
+    """losses.orient.orient_loss on a band (``Bands`` as its reductions: the
+    bank with its halo, its backward, the halo's adjoint) against the same
+    function on the whole plane, on an image dark
     enough that the Gabor confidence is not saturated, so that its gradient
     is live: {'values': (band sums, whole), 'err': input gradient, 'scale'}."""
     from michigan_tpu_torch.config import Options
@@ -183,7 +184,7 @@ def orient_case(bands, gen):
     l1_w, conf_w = orient_loss(fake, orient, tag, opt)
     (g_w,) = torch.autograd.grad(l1_w + conf_w, fake)
     fb = fake.detach()[:, :, a:b].clone().requires_grad_(True)
-    l1_b, conf_b = bands.orient_loss(fb, orient[:, :, a:b], tag[:, :, a:b])
+    l1_b, conf_b = orient_loss(fb, orient[:, :, a:b], tag[:, :, a:b], opt, bands)
     (g_b,) = torch.autograd.grad(l1_b + conf_b, fb)
     sums = [bands.total(t).item() for t in (l1_b, conf_b)]
     return {"values": (sums, [l1_w.item(), conf_w.item()]),
